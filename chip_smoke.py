@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               the ``ptxas -v`` registers and spills
   3. kernels  each kernel against its plain torch version on the card, exact
               equality, over word widths, sizes, sentinels, hot indices and
-              an out-of-range index that must raise at ``result()``
+              an out-of-range index that must raise at ``result()``:
+              gather_total, gather_segment_totals (buckets 1 .. 1<<14, G 1 /
+              3 / 32, all-sentinel tail segments), total and items
   4. main     ``repro_torch.core.tcim_count`` on ``com-youtube`` at full size
               (the paper's Table II graph, generated from its config and
               seed), held against the port's CPU path and the exact oracle,
@@ -19,6 +21,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               ``ego-facebook`` and ``email-enron`` at slice_bits 32/64/128
   5. timing   CUDA-event times of the kernel and its plain version at the
               main path's shapes, the bound, per-stage times and peak memory
+  6. serve    ``repro_torch.launch.tc_serve.TCServer`` on the card over 544
+              small tenants (rmat at slice_bits 32 / 64 / 128, fused) and
+              ego-facebook, email-enron and com-dblp at full size (solo),
+              held against the exact oracle and a CPU server; a cached
+              re-serve with no upload; the solos in the modes
+              gather_then_kernel and pallas_items; a tight budget; an
+              injected failure
+  7. serve timing  segment kernel vs plain on a full fused batch, total and
+              items vs plain at com-youtube's chunk shape, fused serving vs
+              the per-graph pool loop in graphs per second, serve stages
+              and peak memory
+
+Each path's kernel launch counts are set to 0 just before the path runs and
+read just after it.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Imports ``torch``, ``numpy`` and the port
@@ -43,7 +59,14 @@ JAX_PACKAGE_COUNT = 3_090_378  # the JAX package's count of the same graph, for 
 SMALL_GRAPHS = ("ego-facebook", "email-enron")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry)
-KERNEL_SOURCES = ("tc_gather_popcount",)
+KERNEL_SOURCES = ("tc_gather_popcount", "slice_and_popcount")
+MIX_N = (64, 96, 128, 192, 256, 384, 512, 768)  # benchmarks/bench_serve.py's mix
+EDGE_FACTOR = 6
+NUM_TENANTS = 512  # at slice_bits 64
+NUM_TENANTS_SIDE = 16  # at slice_bits 32 and at 128 each
+SOLO_GRAPHS = ("ego-facebook", "email-enron", "com-dblp")
+SEGMENT_BUCKETS = (1, 2, 16, 32, 64, 1024, 1 << 14)
+NO_POPCOUNT_OP = "torch has no popcount op"
 
 
 def log(msg: str) -> None:
@@ -212,9 +235,10 @@ def _time_ms(fn, calls: list, rounds: int) -> float:
     return start.elapsed_time(stop) / (rounds * len(calls))
 
 
-def phase_timing(main: dict) -> tuple[dict, int]:
+def phase_timing(main: dict) -> tuple:
     """Kernel vs plain at the main path's shapes (W=2, P=1<<20 chunks over
-    the com-youtube stores); returns the kernel's JSON row and max |err|."""
+    the com-youtube stores); returns the kernel's JSON row, max |err|, and
+    the chunks and resident stores for the serve timing phase."""
     from repro_torch.core import Executor, build_sbf, build_worklist
     from repro_torch.core.plan import pow2_ceil
     from repro_torch.kernels.tc_gather_popcount import (
@@ -280,7 +304,426 @@ def phase_timing(main: dict) -> tuple[dict, int]:
         "bound_by": "bytes",
         "library_ms": None,
     }
-    return row_json, max_err
+    return row_json, max_err, chunks, row, col
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels.slice_and_popcount import items_cuda, total_cuda
+    from repro_torch.kernels.tc_gather_popcount import (
+        gather_segment_totals_cuda,
+        gather_total_cuda,
+    )
+
+    for fn in (gather_total_cuda, gather_segment_totals_cuda, total_cuda, items_cuda):
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    from repro_torch.kernels.slice_and_popcount import items_cuda, total_cuda
+    from repro_torch.kernels.tc_gather_popcount import (
+        gather_segment_totals_cuda,
+        gather_total_cuda,
+    )
+
+    return {
+        "gather_total": gather_total_cuda.launches,
+        "gather_segment_totals": gather_segment_totals_cuda.launches,
+        "total": total_cuda.launches,
+        "items": items_cuda.launches,
+    }
+
+
+def phase_segment_cases() -> int:
+    """gather_segment_totals: kernel == plain version on the card."""
+    from repro_torch.core.executor import MultiCountFuture
+    from repro_torch.core.plan import pow2_ceil
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tc_gather_popcount import (
+        gather_segment_totals_cuda,
+        gather_segment_totals_reference,
+    )
+
+    rng = np.random.default_rng(1)
+    max_err = 0
+    for w in (1, 2, 4):
+        rows_real, cols_real = 20_000, 12_345
+        # Stacked stores are pow2-row-padded with zero rows, as the executor
+        # uploads them; indices may name the padding (in range, counts 0).
+        row = torch.cat([_words(rng, rows_real, w),
+                         torch.zeros(pow2_ceil(rows_real) - rows_real, w, dtype=torch.int32, device="cuda")])
+        col = torch.cat([_words(rng, cols_real, w),
+                         torch.zeros(pow2_ceil(cols_real) - cols_real, w, dtype=torch.int32, device="cuda")])
+        for bucket in SEGMENT_BUCKETS:
+            for g in (1, 3, 32):
+                p = g * bucket
+                r = rng.integers(0, row.shape[0], size=p).astype(np.int32)
+                c = rng.integers(0, col.shape[0], size=p).astype(np.int32)
+                r[rng.random(p) < 0.1] = -1
+                c[rng.random(p) < 0.1] = -1
+                hot = rng.random(p) < 0.2
+                r[hot], c[hot] = 3, 5
+                if g > 1:  # all-sentinel trailing segments (padded_graphs)
+                    tail = g // 4 * bucket if g > 3 else bucket
+                    r[p - tail:], c[p - tail:] = -1, -1
+                ridx, cidx = torch.from_numpy(r).cuda(), torch.from_numpy(c).cuda()
+                got = gather_segment_totals_cuda(
+                    row, col, ridx, cidx,
+                    torch.zeros(g, 2, dtype=torch.int32, device="cuda"), bucket=bucket,
+                )
+                want = gather_segment_totals_reference(row, col, ridx, cidx, bucket=bucket)
+                torch.cuda.synchronize()
+                got, want = got.cpu(), want.cpu()
+                max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+                check(torch.equal(got, want),
+                      f"segments W={w} bucket={bucket} G={g}: kernel != plain")
+                if g > 1:
+                    check(int(got[-1].abs().sum()) == 0, "all-sentinel tail segment not 0")
+        log(f"[kernels] gather_segment_totals W={w}: buckets {list(SEGMENT_BUCKETS)} x "
+            f"G {{1, 3, 32}} == plain")
+    # An out-of-range row index in segment 1 of 3: counted there, never
+    # read, and raised at MultiCountFuture.result().
+    row, col = _words(rng, 1024, 2), _words(rng, 512, 2)
+    bucket = 64
+    r = rng.integers(0, 1024, size=3 * bucket).astype(np.int32)
+    c = rng.integers(0, 512, size=3 * bucket).astype(np.int32)
+    r[bucket + 7] = 1024 + 9
+    ridx, cidx = torch.from_numpy(r).cuda(), torch.from_numpy(c).cuda()
+    out = ops.popcount_and_gather_segment_totals(row, col, ridx, cidx, bucket=bucket)
+    want = gather_segment_totals_reference(row, col, ridx, cidx, bucket=bucket)
+    check(torch.equal(out.cpu(), want.cpu()) and out[:, 1].tolist() == [0, 1, 0],
+          f"out-of-range segment: {out.tolist()} vs {want.tolist()}")
+    try:
+        MultiCountFuture(out, 3).result()
+    except ValueError as e:
+        log(f"[kernels] out-of-range fused index raised at MultiCountFuture.result(): {e}")
+    else:
+        raise RuntimeError("out-of-range fused index did not raise at result()")
+    return max_err
+
+
+def phase_unfused_cases() -> int:
+    """total and items: kernel == plain version on the card, up to the
+    executor's chunk (1<<20 pairs), with an unaligned operand for total."""
+    from repro_torch.kernels.slice_and_popcount import (
+        items_cuda,
+        items_reference,
+        total_cuda,
+        total_reference,
+    )
+
+    rng = np.random.default_rng(2)
+    max_err = 0
+    for w in (1, 2, 4):
+        for p in (1, 3, 1001, 1 << 16, 1 << 20):
+            rows, cols = _words(rng, p, w), _words(rng, p, w)
+            rows[: p // 3] = 0  # masked (sentinel) pairs gather zeros
+            tot = total_cuda(rows, cols, torch.zeros(1, dtype=torch.int32, device="cuda"))
+            items = items_cuda(rows, cols, torch.empty(p, dtype=torch.int32, device="cuda"))
+            want_tot, want_items = total_reference(rows, cols), items_reference(rows, cols)
+            torch.cuda.synchronize()
+            err = max(abs(int(tot) - int(want_tot)),
+                      int((items.long() - want_items.long()).abs().max()))
+            max_err = max(max_err, err)
+            check(int(tot) == int(want_tot), f"total W={w} P={p}: {int(tot)} != {int(want_tot)}")
+            check(torch.equal(items.cpu(), want_items.cpu()), f"items W={w} P={p}: kernel != plain")
+        log(f"[kernels] total and items W={w}: P 1 .. 1<<20 == plain")
+    flat = _words(rng, 4097, 1)  # a one-word offset: the kernel's scalar path
+    a, b = flat[1:], _words(rng, 4096, 1)
+    got = total_cuda(a, b, torch.zeros(1, dtype=torch.int32, device="cuda"))
+    check(int(got) == int(total_reference(a, b)), "total on an unaligned operand")
+    log("[kernels] total on a 4-byte-aligned (not 16-byte) operand == plain")
+    return max_err
+
+
+def _fleet() -> tuple[list, list]:
+    """The serve phase's jobs: 512 + 16 + 16 small rmat tenants, then the
+    three full-size solo graphs. Returns (jobs, exact oracle counts)."""
+    from repro_torch.configs import GRAPHS
+    from repro_torch.core import build_sbf, build_worklist
+    from repro_torch.graphs import build_graph, rmat, triangles_intersection
+
+    specs = [(i, 64) for i in range(NUM_TENANTS)]
+    specs += [(NUM_TENANTS + i, 32) for i in range(NUM_TENANTS_SIDE)]
+    specs += [(NUM_TENANTS + NUM_TENANTS_SIDE + i, 128) for i in range(NUM_TENANTS_SIDE)]
+    jobs, exact = [], []
+    for seed, bits in specs:
+        n = MIX_N[seed % len(MIX_N)]
+        g = build_graph(rmat(n, EDGE_FACTOR * n, seed=seed))
+        sb = build_sbf(g, bits)
+        jobs.append((sb, build_worklist(g, sb)))
+        exact.append(triangles_intersection(g))
+    for name in SOLO_GRAPHS:
+        g = build_graph(_edges(GRAPHS[name]), reorder=True)
+        sb = build_sbf(g, MAIN_SLICE_BITS)
+        jobs.append((sb, build_worklist(g, sb)))
+        exact.append(triangles_intersection(g))
+    return jobs, exact
+
+
+def _by_id(results) -> list:
+    return sorted(results, key=lambda r: r.request_id)
+
+
+def _check_serve(results, want, label: str) -> None:
+    check(len(results) == len(want), f"{label}: {len(results)} results for {len(want)} jobs")
+    for r, c in zip(results, want):
+        check(r.status == "ok" and r.count == c,
+              f"{label}: request {r.request_id} {r.status} {r.count} != {c} ({r.detail})")
+
+
+def phase_serve() -> dict:
+    """TCServer on the card over the fleet, held against the exact oracle
+    and the port's CPU server; cache, modes, budget and fault runs."""
+    from repro_torch.core.plan import clamp_chunk_pairs
+    from repro_torch.launch.tc_serve import ServeConfig, TCServer
+    from repro_torch.runtime.fault import FailureInjector
+
+    t0 = time.perf_counter()
+    jobs, exact = _fleet()
+    build_s = time.perf_counter() - t0
+    solos = len(SOLO_GRAPHS)
+    log(f"[serve] fleet: {len(jobs) - solos} tenants + {solos} full-size graphs, host build "
+        f"and exact oracle {build_s:.3f} s; pairs "
+        f"{min(wl.num_pairs for _, wl in jobs[:-solos])}..{max(wl.num_pairs for _, wl in jobs[:-solos])} "
+        f"(tenants), {[wl.num_pairs for _, wl in jobs[-solos:]]} (solos)")
+    # ServeConfig's defaults, with room in the batch cache for every batch
+    # of the fleet (the default keeps 8), so the re-serve can hit them all.
+    cfg = ServeConfig(fused_max_batches=64)
+
+    srv = TCServer(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = _by_id(srv.serve(jobs))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    stats = srv.server_stats()
+    log(f"[serve] card, cold: {len(results)} results in {cold_s:.6f} s; launches {launches}")
+    log(f"[serve] server_stats: {json.dumps(stats)}")
+    log(f"[serve] max_memory_allocated: {peak} bytes")
+    _check_serve(results, exact, "card serve")
+    check(launches["gather_segment_totals"] == stats["fused_batches"] > 0,
+          f"segment launches {launches['gather_segment_totals']} != fused batches {stats['fused_batches']}")
+    solo_chunks = sum(
+        math.ceil(wl.num_pairs / clamp_chunk_pairs(cfg.chunk_pairs, sb.words_per_slice))
+        for sb, wl in jobs if wl.num_pairs > cfg.max_fused_pairs
+    )
+    check(launches["gather_total"] == solo_chunks > 0,
+          f"gather_total launches {launches['gather_total']} != solo chunks {solo_chunks}")
+    for r, (_, wl) in zip(results, jobs):
+        want = "fused" if wl.num_pairs <= cfg.max_fused_pairs else "replicated"
+        check(r.placement == want, f"request {r.request_id}: {r.placement}, expected {want}")
+    log(f"[serve] every count == exact oracle; {stats['fused_batches']} fused batches "
+        f"({stats['fused_graphs']} graphs), {stats.get('solo_replicated', 0)} solos")
+
+    t0 = time.perf_counter()
+    cpu = _by_id(TCServer(ServeConfig(device="cpu", fused_max_batches=64)).serve(jobs))
+    cpu_s = time.perf_counter() - t0
+    check([r.count for r in cpu] == [r.count for r in results], "CPU server counts differ")
+    log(f"[serve] port CPU server: same {len(cpu)} counts in {cpu_s:.3f} s")
+
+    uploads = srv.multi.upload_bytes
+    before = srv.server_stats()["fused"]
+    _reset_launches()
+    t0 = time.perf_counter()
+    again = _by_id(srv.serve(jobs))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    after = srv.server_stats()["fused"]
+    batches = srv.stats["fused_batches"] - stats["fused_batches"]
+    _check_serve(again, exact, "cached re-serve")
+    check(after["hits"] - before["hits"] == batches and after["misses"] == before["misses"],
+          f"re-serve: {after} after {before} for {batches} batches")
+    check(srv.multi.upload_bytes == uploads, "re-serve uploaded to the device")
+    log(f"[serve] cached re-serve: {batches} batch-cache hits, 0 new upload bytes, "
+        f"{warm_s:.6f} s; launches {_launches()}")
+
+    solo = [i for i, (_, wl) in enumerate(jobs) if wl.num_pairs > cfg.max_fused_pairs]
+    solo_jobs, solo_exact = [jobs[i] for i in solo], [exact[i] for i in solo]
+    mode_launches = {}
+    for mode, kernel in (("gather_then_kernel", "total"), ("pallas_items", "items")):
+        _reset_launches()
+        res = _by_id(TCServer(ServeConfig(mode=mode)).serve(solo_jobs))
+        torch.cuda.synchronize()
+        got = _launches()
+        _check_serve(res, solo_exact, f"mode {mode}")
+        check(got[kernel] == solo_chunks and got["gather_total"] == 0,
+              f"mode {mode}: launches {got} for {solo_chunks} chunks")
+        mode_launches[kernel] = got[kernel]
+        log(f"[serve] mode {mode} on the solos: counts == oracle; launches {got}")
+
+    foot = sorted(_footprint(sb, wl, cfg.chunk_pairs) for sb, wl in jobs)
+    budget = foot[-2]  # the largest request can never fit
+    tight = TCServer(ServeConfig(memory_budget_bytes=budget, fused_max_batches=64))
+    res = _by_id(tight.serve(jobs))
+    rejected = [r for r in res if r.status == "rejected"]
+    check(len(res) == len(jobs) and len(rejected) >= 1, "tight budget rejected nothing")
+    check(all("exceeds budget" in r.detail for r in rejected), "rejection detail")
+    for r, c in zip(res, exact):
+        check(r.status == "rejected" or (r.status == "ok" and r.count == c),
+              f"tight budget: request {r.request_id} {r.status} {r.count} != {c}")
+    log(f"[serve] budget {budget} B: {len(rejected)} rejected and reported, the other "
+        f"{len(res) - len(rejected)} exact, {tight.stats['waves']} waves")
+
+    victim = 37
+    inj = TCServer(ServeConfig(injector=FailureInjector(fail_at_steps=(victim,)),
+                               fused_max_batches=64))
+    res = _by_id(inj.serve(jobs))
+    _check_serve(res, exact, "injected failure")
+    check(res[victim].retries >= 1 and "recovered" in res[victim].detail,
+          f"request {victim}: {res[victim]}")
+    log(f"[serve] injected failure on request {victim}: {res[victim].detail}, "
+        f"{inj.stats['wave_failures']} wave failure(s), every count exact")
+    return {
+        "jobs": jobs, "server": srv, "launches": launches, "mode_launches": mode_launches,
+        "build_s": build_s, "cold_s": cold_s, "warm_s": warm_s, "cpu_s": cpu_s, "peak": peak,
+    }
+
+
+def _footprint(sb, wl, chunk_pairs: int) -> int:
+    from repro_torch.launch.tc_serve import ServeRequest
+
+    return ServeRequest(0, sb, wl, 0.0).footprint_bytes(chunk_pairs)
+
+
+def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _row(name, source, replaces, launches, ms, plain_ms, bound) -> dict:
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+    }
+
+
+def phase_serve_timing(serve: dict, chunks, row, col) -> tuple[list, int]:
+    """Kernel vs plain for the segment, total and items kernels at the
+    paths' shapes; fused serving vs the per-graph loop; returns the JSON
+    rows and the max |err|."""
+    from repro_torch.core.executor import ExecutorPool, _gather_chunk
+    from repro_torch.kernels.slice_and_popcount import (
+        items_cuda,
+        items_reference,
+        total_cuda,
+        total_reference,
+    )
+    from repro_torch.kernels.tc_gather_popcount import (
+        gather_segment_totals_cuda,
+        gather_segment_totals_reference,
+    )
+
+    srv = serve["server"]
+    full = [b for b in srv.multi._batches.values()
+            if b.plan.bucket == 1 << 14 and b.plan.padded_graphs == 32 and b.plan.words_per_slice == 2]
+    check(bool(full), "no full G=32, bucket=16384, W=2 batch in the fleet")
+    b = full[0]
+    bucket, g = b.plan.bucket, b.plan.padded_graphs
+    out = torch.zeros(g, 2, dtype=torch.int32, device="cuda")
+    got = gather_segment_totals_cuda(b.row_data, b.col_data, b.ridx, b.cidx, out, bucket=bucket)
+    want = gather_segment_totals_reference(b.row_data, b.col_data, b.ridx, b.cidx, bucket=bucket)
+    torch.cuda.synchronize()
+    max_err = int((got.cpu().long() - want.cpu().long()).abs().max())
+    check(max_err == 0, "full batch: segment kernel != plain")
+    seg_args = [(b.row_data, b.col_data, b.ridx, b.cidx, out)]
+    seg = lambda *a: gather_segment_totals_cuda(*a, bucket=bucket)  # noqa: E731
+    _time_ms(seg, seg_args, 3)
+    seg_ms = _time_ms(seg, seg_args, 50)
+    plain = lambda *a: gather_segment_totals_reference(*a[:4], bucket=bucket)  # noqa: E731
+    _time_ms(plain, seg_args, 1)
+    seg_plain_ms = _time_ms(plain, seg_args, 10)
+    valid = (b.ridx >= 0) & (b.cidx >= 0)
+    w = b.row_data.shape[1]
+    rows_read = torch.unique(b.ridx[valid]).numel()
+    cols_read = torch.unique(b.cidx[valid]).numel()
+    p = b.ridx.numel()
+    seg_bound = _bound_ms(8 * p + 4 * w * (rows_read + cols_read) + 8 * g,
+                          3 * w * int(valid.sum()))
+    log(f"[timing] gather_segment_totals: {seg_ms:.6f} ms/launch (G={g}, bucket={bucket}, "
+        f"W={w}, {int(valid.sum())} real pairs, stores {tuple(b.row_data.shape)} / "
+        f"{tuple(b.col_data.shape)}); bound {seg_bound[0]:.6f} ms ({seg_bound[1]}), "
+        f"{100 * seg_bound[0] / seg_ms:.2f}% of bound; plain version {seg_plain_ms:.6f} ms; "
+        f"library_ms null ({NO_POPCOUNT_OP})")
+
+    # total and items at the executor's chunk shape for com-youtube.
+    ridx, cidx = chunks[0]
+    acc = torch.zeros(2, dtype=torch.int32, device="cuda")
+    rows, cols = _gather_chunk(row, col, ridx, cidx, acc)
+    p, w = rows.shape
+    rows_json = []
+    for name, kernel, plain_fn, out_t, out_bytes, replaces in (
+        ("total", total_cuda, total_reference, torch.zeros(1, dtype=torch.int32, device="cuda"),
+         4, "src/repro/kernels/slice_and_popcount.py:90"),
+        ("items", items_cuda, items_reference, torch.empty(p, dtype=torch.int32, device="cuda"),
+         4 * p, "src/repro/kernels/slice_and_popcount.py:41"),
+    ):
+        if name == "total":
+            out_t.zero_()
+        got = kernel(rows, cols, out_t)
+        want = plain_fn(rows, cols)
+        torch.cuda.synchronize()
+        err = int((got.cpu().long().reshape(-1) - want.cpu().long().reshape(-1)).abs().max())
+        check(err == 0, f"{name} at the chunk shape: kernel != plain")
+        max_err = max(max_err, err)
+        _time_ms(kernel, [(rows, cols, out_t)], 3)
+        ms = _time_ms(kernel, [(rows, cols, out_t)], 50)
+        _time_ms(plain_fn, [(rows, cols)], 1)
+        plain_ms = _time_ms(plain_fn, [(rows, cols)], 10)
+        bound = _bound_ms(2 * p * w * 4 + out_bytes, 3 * p * w)
+        log(f"[timing] {name}: {ms:.6f} ms/launch (P={p}, W={w}, com-youtube chunk 0); bound "
+            f"{bound[0]:.6f} ms ({bound[1]}), {100 * bound[0] / ms:.2f}% of bound; plain "
+            f"version {plain_ms:.6f} ms; library_ms null ({NO_POPCOUNT_OP})")
+        rows_json.append(_row(name, "src/repro_torch/kernels/csrc/slice_and_popcount.cu",
+                              replaces, serve["mode_launches"][name], ms, plain_ms, bound))
+
+    # Steady state: fused serve() vs the per-graph pool loop, same tenants.
+    tenants = serve["jobs"][:NUM_TENANTS]
+    pool = ExecutorPool(max_graphs=2 * NUM_TENANTS)
+
+    def loop_round():
+        futs = [pool.count_async(sb, wl) for sb, wl in tenants]
+        return [f.result() for f in futs]
+
+    def fused_round():
+        return [r.count for r in _by_id(srv.serve(tenants))]
+
+    check(loop_round() == fused_round(), "pool loop and fused serve differ")
+    rounds = 5
+    gps = {"fused": [], "loop": []}
+    for kind in ("fused", "loop", "loop", "fused"):
+        fn = fused_round if kind == "fused" else loop_round
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            fn()
+        torch.cuda.synchronize()
+        gps[kind].append(rounds * len(tenants) / (time.perf_counter() - t0))
+    fused_gps, loop_gps = sum(gps["fused"]) / 2, sum(gps["loop"]) / 2
+    log(f"[timing] steady state over {len(tenants)} tenants x {rounds} rounds, in turns "
+        f"fused, loop, loop, fused: serve() {gps['fused']} graphs/s, pool loop {gps['loop']} "
+        f"graphs/s; means {fused_gps:.3f} vs {loop_gps:.3f} ({fused_gps / loop_gps:.3f}x)")
+
+    # Where a serve wave's time goes: the device time of every cached batch.
+    batches = list(srv.multi._batches.values())
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for fb in batches:
+        fb.count_async()
+    stop.record()
+    torch.cuda.synchronize()
+    log(f"[timing] serve stages: fleet host build + oracle {serve['build_s']:.3f} s; cold "
+        f"serve {serve['cold_s']:.6f} s; cached re-serve {serve['warm_s']:.6f} s; "
+        f"{len(batches)} cached batches re-launched back to back {start.elapsed_time(stop):.6f} ms "
+        f"of device time; CPU server {serve['cpu_s']:.3f} s; peak memory {serve['peak']} bytes")
+    seg_row = _row("gather_segment_totals", "src/repro_torch/kernels/csrc/tc_gather_popcount.cu",
+                   "src/repro/kernels/tc_gather_popcount.py:239",
+                   serve["launches"]["gather_segment_totals"], seg_ms, seg_plain_ms, seg_bound)
+    return [seg_row, *rows_json], max_err
 
 
 def main() -> int:
@@ -293,12 +736,19 @@ def main() -> int:
     name = phase_device()
     phase_build()
     err = phase_kernel_cases()
+    err_seg = phase_segment_cases()
+    err_unfused = phase_unfused_cases()
     main_run = phase_main()
-    row, err_main = phase_timing(main_run)
+    row, err_main, chunks, store_row, store_col = phase_timing(main_run)
     row["max_abs_err"] = max(err, err_main)
+    serve = phase_serve()
+    rows, err_serve = phase_serve_timing(serve, chunks, store_row, store_col)
+    rows[0]["max_abs_err"] = max(err_seg, err_serve)
+    for r in rows[1:]:
+        r["max_abs_err"] = max(err_unfused, err_serve)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [row, *rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -7,6 +7,8 @@ Public API:
     build_sbf / build_worklist      sparsity-aware compression + scheduling
     plan_execution / ExecutionPlan  placement (replicated) + work stripes
     Executor / ExecutorPool         device-resident fused execute stage
+    plan_fusion / MultiGraphExecutor  cross-graph fused serving (one launch
+                                    for a batch of small graphs)
 """
 from repro_torch.core.bitmat import bitpack_matrix, bitunpack_matrix, popcount_u32
 from repro_torch.core.executor import (
@@ -14,6 +16,8 @@ from repro_torch.core.executor import (
     CountFuture,
     Executor,
     ExecutorPool,
+    MultiCountFuture,
+    MultiGraphExecutor,
     sbf_content_key,
     staged_uploads,
 )
@@ -22,9 +26,11 @@ from repro_torch.core.plan import (
     SCHEDULES,
     DeviceTopology,
     ExecutionPlan,
+    FusionPlan,
     WorkStripe,
     clamp_chunk_pairs,
     plan_execution,
+    plan_fusion,
     pow2_ceil,
 )
 from repro_torch.core.sbf import (
@@ -55,15 +61,19 @@ __all__ = [
     "CountFuture",
     "Executor",
     "ExecutorPool",
+    "MultiCountFuture",
+    "MultiGraphExecutor",
     "sbf_content_key",
     "staged_uploads",
     "PLACEMENTS",
     "SCHEDULES",
     "DeviceTopology",
     "ExecutionPlan",
+    "FusionPlan",
     "WorkStripe",
     "clamp_chunk_pairs",
     "plan_execution",
+    "plan_fusion",
     "pow2_ceil",
     "SlicedBitmap",
     "Worklist",

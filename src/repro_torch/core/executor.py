@@ -1,10 +1,9 @@
 """Executor — the schedulable execute-stage unit of the TCIM engine.
 
 Port of ``src/repro/core/executor.py`` (``CountFuture``, ``staged_uploads``,
-``Executor`` in modes ``fused`` and ``jnp``, ``sbf_content_key``,
-``ExecutorPool``). ``MultiGraphExecutor`` (cross-graph serving) and
-``update_stores`` (streaming) wait for later slices, as do the modes
-``gather_then_kernel`` and ``pallas_items``.
+``Executor`` in every mode, ``sbf_content_key``, ``ExecutorPool``, and the
+cross-graph ``MultiCountFuture``/``MultiGraphExecutor``). ``update_stores``
+(streaming) waits for a later slice.
 
   * **Fused execute.** Chunks run through ``ops.popcount_and_gather_total``:
     the slice stores are uploaded once and stay resident on the device; only
@@ -31,35 +30,45 @@ Port of ``src/repro/core/executor.py`` (``CountFuture``, ``staged_uploads``,
 Execution modes (the engine maps user-facing backends onto these):
 
     'fused'               gather inside the kernel (default; TCIM semantics)
-    'gather_then_kernel'  not ported yet (ROADMAP.md queue 1, item 6)
-    'pallas_items'        not ported yet (ROADMAP.md queue 1, item 6)
+    'gather_then_kernel'  torch gather + the total kernel (the unfused baseline)
+    'pallas_items'        torch gather + the per-pair items kernel, summed
     'jnp'                 torch gather + the byte-table oracle of kernels/ref.py
+
+The three unfused modes gather with ``index_select`` outside any kernel, as
+the reference gathers with ``jnp.take``, and count out-of-range indices in
+the accumulator's second word like the fused kernel.
+
+``MultiGraphExecutor`` retires a batch of small graphs with ONE launch of
+the segment-totals kernel, over stacked stores and a ``[G, bucket]`` index
+block planned by ``core.plan.plan_fusion``.
 """
 from __future__ import annotations
 
 import collections
 import hashlib
+import weakref
 
 import numpy as np
 import torch
 
 from repro_torch.core import sbf as sbf_mod
-from repro_torch.core.plan import clamp_chunk_pairs, pow2_ceil
+from repro_torch.core.plan import clamp_chunk_pairs, plan_fusion, pow2_ceil
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.tc_gather_popcount import modeled_hbm_bytes
 
 __all__ = [
     "CountFuture",
+    "MultiCountFuture",
     "Executor",
     "ExecutorPool",
+    "MultiGraphExecutor",
     "EXECUTOR_MODES",
     "sbf_content_key",
     "staged_uploads",
 ]
 
 EXECUTOR_MODES = ("fused", "gather_then_kernel", "pallas_items", "jnp")
-_PORTED_MODES = ("fused", "jnp")
 
 _INT32_MAX = 2**31 - 1
 
@@ -74,11 +83,18 @@ class CountFuture:
     store row past the end of its store (the kernel never reads those).
     """
 
-    __slots__ = ("_totals", "_value")
+    __slots__ = ("_totals", "_value", "__weakref__")
 
     def __init__(self, totals):
         self._totals = list(totals)
         self._value: int | None = None
+
+    @property
+    def resolved(self) -> bool:
+        """True once no device tensors are still held — either ``result()``
+        ran or the dispatch held nothing (empty worklist). Pools use this to
+        tell in-flight work from evictable executors."""
+        return not self._totals
 
     def result(self) -> int:
         if self._totals is not None:
@@ -131,18 +147,18 @@ def _pad_rows_pow2(a: np.ndarray) -> np.ndarray:
     )
 
 
-def _jnp_chunk_total(row_data, col_data, ridx, cidx, acc) -> None:
-    """The 'jnp' mode: torch gather + byte-table oracle, same contract as
-    the kernel (negative indices no-ops, out-of-range indices counted)."""
+def _gather_chunk(row_data, col_data, ridx, cidx, acc):
+    """The unfused modes' gather: ``[P, W]`` operands with the fused
+    kernel's contract — negative indices gather zeros (no-ops), and
+    out-of-range indices are never read but counted into ``acc[1]``."""
     num_rows, num_cols = row_data.shape[0], col_data.shape[0]
     bad = (ridx >= num_rows) | (cidx >= num_cols)
     valid = (ridx >= 0) & (cidx >= 0) & ~bad
     rows = row_data.index_select(0, ridx.clamp(0, num_rows - 1))
     cols = col_data.index_select(0, cidx.clamp(0, num_cols - 1))
-    # Zeroing one side of the AND suffices: x & 0 == 0.
-    rows = torch.where(valid[:, None], rows, 0)
-    acc[0] += ref.ref_popcount_and_total(rows, cols).to(torch.int32)
     acc[1] += bad.sum().to(torch.int32)
+    # Zeroing one side of the AND suffices: x & 0 == 0.
+    return torch.where(valid[:, None], rows, 0), cols
 
 
 class Executor:
@@ -164,11 +180,6 @@ class Executor:
     ):
         if mode not in EXECUTOR_MODES:
             raise ValueError(f"mode {mode!r} not in {EXECUTOR_MODES}")
-        if mode not in _PORTED_MODES:
-            raise NotImplementedError(
-                f"executor mode {mode!r} is not ported yet: ROADMAP.md "
-                "queue 1, item 6 (other execute backends)"
-            )
         self.mode = mode
         self.device = resolve_device(device)
         self.words_per_slice = int(sb.row_slice_data.shape[1])
@@ -180,6 +191,30 @@ class Executor:
         self.chunk_pairs = clamp_chunk_pairs(chunk_pairs, self.words_per_slice)
         self.row_data = self._upload_store(sb.row_slice_data)
         self.col_data = self._upload_store(sb.col_slice_data)
+        # Weakrefs to unresolved CountFutures. While any is alive the
+        # executor's stores back in-flight dispatches, so pools must not free
+        # them (``busy``); resolved or collected futures prune lazily.
+        self._pending: list = []
+
+    def _track(self, fut: CountFuture) -> CountFuture:
+        self._prune()
+        if not fut.resolved:
+            self._pending.append(weakref.ref(fut))
+        return fut
+
+    def _prune(self) -> None:
+        self._pending = [
+            r for r in self._pending if (f := r()) is not None and not f.resolved
+        ]
+
+    @property
+    def busy(self) -> bool:
+        """True while a dispatched ``CountFuture`` still awaits ``result()``.
+
+        ``ExecutorPool`` never evicts a busy executor: its stores back the
+        pending readback."""
+        self._prune()
+        return bool(self._pending)
 
     def _upload_store(self, store: np.ndarray) -> torch.Tensor:
         """uint32 words -> a resident, pow2-row-padded int32 view of the
@@ -229,7 +264,13 @@ class Executor:
             return ops.popcount_and_gather_total(
                 self.row_data, self.col_data, ridx, cidx, out=acc
             )
-        _jnp_chunk_total(self.row_data, self.col_data, ridx, cidx, acc)
+        rows, cols = _gather_chunk(self.row_data, self.col_data, ridx, cidx, acc)
+        if self.mode == "gather_then_kernel":
+            ops.popcount_and_total(rows, cols, out=acc[:1])
+        elif self.mode == "pallas_items":
+            acc[0] += ops.popcount_and_items(rows, cols).sum(dtype=torch.int32)
+        else:  # 'jnp': the byte-table oracle
+            acc[0] += ref.ref_popcount_and_total(rows, cols).to(torch.int32)
         return acc
 
     def _new_acc(self) -> torch.Tensor:
@@ -263,7 +304,7 @@ class Executor:
         p = len(row_idx)
         if p == 0:
             return CountFuture([])
-        return self._accumulate(self._device_chunks(row_idx, col_idx), p)
+        return self._track(self._accumulate(self._device_chunks(row_idx, col_idx), p))
 
     def execute_indices(self, row_idx, col_idx) -> int:
         """Count over explicit work-list index arrays. One host sync total."""
@@ -307,24 +348,39 @@ def sbf_content_key(sb: sbf_mod.SlicedBitmap) -> str:
 
 
 class ExecutorPool:
-    """Executors for a fleet serving many graphs, LRU-bounded.
+    """Executors for a fleet serving many graphs, LRU-bounded, grouped by
+    trace key.
 
     The pool caches one Executor per (graph content, mode, chunk, device,
-    options); an evicted graph's device stores are freed. Entries are keyed
-    by store *content* (``sbf_content_key``), so repeated counts of the same
-    graph hit even when the caller rebuilds the SBF object each time — the
-    case the one-shot ``tcim_count*`` API produces. PyTorch's caching
-    allocator orders frees on the stream, so evicting an executor whose
-    count is still in flight is safe (the reference defers such evictions).
+    options); an evicted graph's device stores are freed, but never while
+    its executor is ``busy`` (a dispatched ``CountFuture`` still pending).
+    Entries are keyed by store *content* (``sbf_content_key``), so repeated
+    counts of the same graph hit even when the caller rebuilds the SBF
+    object each time — the case the one-shot ``tcim_count*`` API produces.
+    ``stats()`` groups entries by the reference's trace key ``(words, chunk
+    bucket, mode, pow2 store rows, pow2 store cols)``: PyTorch traces
+    nothing, but equal keys are equal launch shapes.
     """
 
     def __init__(self, *, max_graphs: int = 16):
         if max_graphs < 1:
             raise ValueError(f"max_graphs must be >= 1, got {max_graphs}")
         self.max_graphs = max_graphs
-        self._entries: collections.OrderedDict[tuple, Executor] = collections.OrderedDict()
+        # content key -> (trace_key, Executor); ordered for LRU.
+        self._entries: collections.OrderedDict[tuple, tuple] = collections.OrderedDict()
         self.hits = 0
         self.misses = 0
+
+    @staticmethod
+    def trace_key(
+        sb: sbf_mod.SlicedBitmap, *, mode: str = "fused", chunk_pairs: int = 1 << 20
+    ) -> tuple:
+        """The ``(words_per_slice, chunk bucket, mode, store buckets)`` of an
+        Executor for ``sb``: equal keys launch equal shapes."""
+        wps = int(sb.words_per_slice)
+        rows = pow2_ceil(max(int(sb.row_slice_data.shape[0]), 1))
+        cols = pow2_ceil(max(int(sb.col_slice_data.shape[0]), 1))
+        return (wps, clamp_chunk_pairs(chunk_pairs, wps), mode, rows, cols)
 
     def get(
         self,
@@ -344,17 +400,28 @@ class ExecutorPool:
             str(dev),
             tuple(sorted(executor_kwargs.items())),  # config never aliases
         )
-        ex = self._entries.get(key)
-        if ex is not None:
+        entry = self._entries.get(key)
+        if entry is not None:
             self.hits += 1
             self._entries.move_to_end(key)
-            return ex
+            return entry[1]
         self.misses += 1
         ex = Executor(sb, mode=mode, chunk_pairs=chunk_pairs, device=dev, **executor_kwargs)
-        self._entries[key] = ex
-        while len(self._entries) > self.max_graphs:
-            self._entries.popitem(last=False)
+        self._entries[key] = (self.trace_key(sb, mode=mode, chunk_pairs=chunk_pairs), ex)
+        self._evict()
         return ex
+
+    def _evict(self) -> None:
+        """Drop LRU graphs above ``max_graphs`` — never the MRU entry, and
+        never one whose executor is ``busy``. Busy executors are skipped (the
+        pool may briefly hold more than ``max_graphs``) and reaped on a later
+        ``get`` once their futures resolve."""
+        while len(self._entries) > self.max_graphs:
+            keys = list(self._entries)[:-1]
+            victim = next((k for k in keys if not self._entries[k][1].busy), None)
+            if victim is None:
+                return  # everything in flight; retry on a later get()
+            del self._entries[victim]
 
     def count_async(
         self,
@@ -377,4 +444,198 @@ class ExecutorPool:
         self._entries.clear()
 
     def stats(self) -> dict:
-        return {"graphs": len(self._entries), "hits": self.hits, "misses": self.misses}
+        """Hit rate and launch-shape sharing across the cached graphs."""
+        groups = collections.Counter(tkey for tkey, _ in self._entries.values())
+        return {
+            "graphs": len(self._entries),
+            "hits": self.hits,
+            "misses": self.misses,
+            "trace_groups": len(groups),
+            "max_group": max(groups.values(), default=0),
+        }
+
+
+class MultiCountFuture:
+    """A fused multi-graph dispatch whose host readback is deferred.
+
+    Holds the int32 ``[padded_graphs, 2]`` device tensor of per-graph
+    ``[subtotal, out_of_range]`` rows; ``result()`` is ONE device->host
+    transfer returning the real graphs' counts as a tuple of Python ints
+    (idempotent, cached). It raises ``ValueError`` if any segment named a
+    store row past the end of the stacked stores, as ``CountFuture`` does.
+    """
+
+    __slots__ = ("_totals", "_num", "_value")
+
+    def __init__(self, totals: torch.Tensor, num_graphs: int):
+        self._totals = totals
+        self._num = int(num_graphs)
+        self._value: tuple[int, ...] | None = None
+
+    @property
+    def resolved(self) -> bool:
+        return self._totals is None
+
+    def result(self) -> tuple[int, ...]:
+        if self._totals is not None:
+            host = self._totals.cpu()  # the one transfer
+            out_of_range = int(host[:, 1].sum())
+            if out_of_range:
+                raise ValueError(
+                    f"{out_of_range} fused work-list pairs index past the end "
+                    "of their stacked slice store; the counts are invalid"
+                )
+            self._value = tuple(host[: self._num, 0].tolist())
+            self._totals = None
+        return self._value
+
+
+def _worklist_key(wl: sbf_mod.Worklist) -> str:
+    """Digest of a worklist's pair positions (fused-batch cache keying).
+
+    Store content alone is not enough — a caller may count a partial
+    worklist against the same stores — so batch keys pair each graph's
+    ``sbf_content_key`` with this digest. Memoized on the frozen worklist.
+    """
+    cached = getattr(wl, "_pairs_digest", None)
+    if cached is not None:
+        return cached
+    h = hashlib.blake2b(digest_size=16)
+    rp = np.ascontiguousarray(np.asarray(wl.pair_row_pos, dtype=np.int64))
+    cp = np.ascontiguousarray(np.asarray(wl.pair_col_pos, dtype=np.int64))
+    h.update(np.int64(len(rp)).tobytes())
+    h.update(rp.tobytes())
+    h.update(cp.tobytes())
+    digest = h.hexdigest()
+    object.__setattr__(wl, "_pairs_digest", digest)
+    return digest
+
+
+class _FusedBatch:
+    """Device-resident state of one fused batch: stacked stores and index
+    block. Re-dispatching is one launch, with nothing uploaded."""
+
+    __slots__ = ("plan", "row_data", "col_data", "ridx", "cidx")
+
+    def __init__(self, plan, row_data, col_data, ridx, cidx):
+        self.plan = plan
+        self.row_data = row_data
+        self.col_data = col_data
+        self.ridx = ridx
+        self.cidx = cidx
+
+    def count_async(self) -> MultiCountFuture:
+        totals = ops.popcount_and_gather_segment_totals(
+            self.row_data, self.col_data, self.ridx, self.cidx, bucket=self.plan.bucket
+        )
+        return MultiCountFuture(totals, self.plan.num_graphs)
+
+
+class MultiGraphExecutor:
+    """Fused execute stage for MANY small graphs per dispatch.
+
+    Stacks a batch of small graphs' stores and pow2-bucketed worklists
+    (``core.plan.plan_fusion``) and retires the whole batch with ONE launch
+    of the segment-totals kernel, which returns per-graph subtotals. Big
+    graphs do not come here: ``max_fused_pairs`` bounds the per-graph
+    segment, and ``launch.tc_serve`` routes anything larger solo.
+
+    Batches are cached LRU by content (store digests + worklist digests), so
+    a recurring tenant mix re-counts with no upload: one launch, one
+    readback, whatever the batch size. ``upload_bytes`` counts the bytes
+    staged to the device over the executor's life.
+
+    The reference's ``trace_count`` (jit cache sizes) has no counterpart in
+    eager PyTorch; ``dispatches`` counts fused dispatches in its place —
+    each is one launch of the segment kernel on the card (on the CPU, one
+    call of its plain version). ``device`` defaults to the card.
+    """
+
+    def __init__(
+        self,
+        *,
+        max_batches: int = 8,
+        max_fused_pairs: int = 1 << 16,
+        device: str | torch.device | None = None,
+    ):
+        if max_batches < 1:
+            raise ValueError(f"max_batches must be >= 1, got {max_batches}")
+        self.max_batches = max_batches
+        self.max_fused_pairs = int(max_fused_pairs)
+        self.device = resolve_device(device)
+        self._batches: collections.OrderedDict[tuple, _FusedBatch] = collections.OrderedDict()
+        self._buckets: set[int] = set()
+        self.hits = 0
+        self.misses = 0
+        self.dispatches = 0
+        self.upload_bytes = 0
+
+    def plan(self, jobs):
+        """The ``FusionPlan`` this executor would run ``jobs`` under —
+        exposed so admission control can cost a batch before committing."""
+        # max_fused_pairs bounds each graph's worklist; the shared bucket is
+        # its pow2 ceiling.
+        return plan_fusion(jobs, max_bucket=pow2_ceil(max(self.max_fused_pairs, 1)))
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        a = np.ascontiguousarray(a)
+        self.upload_bytes += a.nbytes
+        return torch.from_numpy(a.view(np.int32)).to(self.device)
+
+    def _stack(self, stores, rows: int, wps: int) -> torch.Tensor:
+        """Stack host stores row-wise, pow2-pad the rows, upload once."""
+        host = (
+            np.concatenate([np.asarray(s, dtype=np.uint32) for s in stores])
+            if rows else np.zeros((0, wps), np.uint32)
+        )
+        return self._upload(_pad_rows_pow2(host))
+
+    def count_fused_async(self, jobs) -> MultiCountFuture:
+        """Dispatch one fused count over ``jobs`` (list of host
+        ``(SlicedBitmap, Worklist)``); defer the single host readback.
+
+        Raises ``ValueError`` (via ``plan_fusion``) when a job exceeds the
+        fused segment bound or mixes word widths — admission control filters
+        those out before calling. A cached batch dispatches again against
+        its resident tensors with nothing uploaded.
+        """
+        key = tuple((sbf_content_key(sb), _worklist_key(wl)) for sb, wl in jobs)
+        batch = self._batches.get(key)
+        if batch is not None:
+            self.hits += 1
+            self._batches.move_to_end(key)
+        else:
+            self.misses += 1
+            plan = self.plan(jobs)
+            wps = plan.words_per_slice
+            batch = _FusedBatch(
+                plan,
+                self._stack([sb.row_slice_data for sb, _ in jobs], plan.row_rows, wps),
+                self._stack([sb.col_slice_data for sb, _ in jobs], plan.col_rows, wps),
+                self._upload(plan.row_idx),
+                self._upload(plan.col_idx),
+            )
+            self._buckets.add(plan.bucket)
+            self._batches[key] = batch
+            while len(self._batches) > self.max_batches:
+                self._batches.popitem(last=False)
+        self.dispatches += 1
+        return batch.count_async()
+
+    def count_fused(self, jobs) -> tuple[int, ...]:
+        """Blocking convenience over ``count_fused_async``."""
+        return self.count_fused_async(jobs).result()
+
+    def __len__(self) -> int:
+        return len(self._batches)
+
+    def clear(self) -> None:
+        self._batches.clear()
+
+    def stats(self) -> dict:
+        return {
+            "batches": len(self._batches),
+            "hits": self.hits,
+            "misses": self.misses,
+            "buckets": sorted(self._buckets),
+        }

@@ -2,10 +2,11 @@
 
 Port of ``src/repro/core/plan.py`` for the ``replicated`` placement:
 ``pow2_ceil``, ``clamp_chunk_pairs``, ``DeviceTopology`` (detected through
-torch), ``WorkStripe``, ``ExecutionPlan`` and ``plan_execution``. The sharded
+torch), ``WorkStripe``, ``ExecutionPlan``, ``plan_execution``, and the
+cross-graph ``FusionPlan``/``plan_fusion`` of the serving path. The sharded
 placements (``sharded_cols``, ``sharded_2d``), their range splits and stripe
-schedules, and ``plan_fusion`` wait for later slices: asking for a sharded
-placement raises ``NotImplementedError`` naming the ROADMAP item.
+schedules wait for later slices: asking for a sharded placement raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,9 +21,11 @@ __all__ = [
     "PLACEMENTS",
     "SCHEDULES",
     "DeviceTopology",
+    "FusionPlan",
     "WorkStripe",
     "ExecutionPlan",
     "plan_execution",
+    "plan_fusion",
     "clamp_chunk_pairs",
     "pow2_ceil",
 ]
@@ -65,6 +68,129 @@ def clamp_chunk_pairs(chunk_pairs: int, words_per_slice: int) -> int:
         )
     safe_pow2 = 1 << (safe.bit_length() - 1)  # largest pow2 <= safe
     return min(1 << (chunk_pairs.bit_length() - 1), safe_pow2)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionPlan:
+    """Cross-graph fusion: many small graphs' worklists as ONE index block.
+
+    ``G`` graphs' pow2-bucketed worklists are stacked into a shared
+    ``[G, bucket]`` index block — each graph owns one ``bucket``-wide
+    segment, sentinel-padded — and their slice stores are stacked row-wise
+    with per-graph offsets baked into the indices. One
+    ``popcount_and_gather_segment_totals`` dispatch then returns every
+    graph's subtotal. ``G`` is padded to a power of two with all-sentinel
+    segments (``padded_graphs``), and the executor pads the stacked store
+    rows to powers of two, so launch shapes and memory stay in buckets.
+    """
+
+    num_graphs: int  # real graphs fused (leading segments)
+    padded_graphs: int  # pow2 >= num_graphs; tail segments all-sentinel
+    bucket: int  # pow2 pair width of every graph's segment
+    words_per_slice: int
+    row_offsets: tuple[int, ...]  # graph g's base row in the stacked row store
+    col_offsets: tuple[int, ...]
+    row_rows: int  # stacked row-store rows (before the executor's pow2 pad)
+    col_rows: int
+    row_idx: np.ndarray  # [padded_graphs * bucket] int32, store-global
+    col_idx: np.ndarray
+    real_pairs: tuple[int, ...]  # per-graph non-sentinel pair counts
+    stats: dict
+
+    @property
+    def index_lanes(self) -> int:
+        return self.padded_graphs * self.bucket
+
+    @property
+    def staged_index_bytes(self) -> int:
+        """Host->device bytes of the index block (row + col int32 lanes)."""
+        return self.index_lanes * 8
+
+    @property
+    def store_bytes(self) -> int:
+        """Device bytes of the stacked stores after the executor's pow2 row
+        pad — with ``staged_index_bytes``, the admission-control footprint."""
+        w = self.words_per_slice * 4
+        return (pow2_ceil(max(self.row_rows, 1))
+                + pow2_ceil(max(self.col_rows, 1))) * w
+
+
+def plan_fusion(
+    jobs,
+    *,
+    max_bucket: int | None = None,
+    pad_graphs_pow2: bool = True,
+) -> FusionPlan:
+    """Stack ``jobs`` — a sequence of host ``(SlicedBitmap, Worklist)`` —
+    into a :class:`FusionPlan` for one shared dispatch.
+
+    Every job must share ``words_per_slice`` (the stores stack row-wise into
+    one ``[R, W]`` array). ``bucket`` is the pow2 ceiling of the largest
+    worklist; it must satisfy the per-segment int32 bound ``bucket *
+    words_per_slice <= INT32_SAFE_WORDS`` and, if given, ``max_bucket``.
+    Each violation raises ``ValueError``; callers route such graphs solo.
+    """
+    jobs = list(jobs)
+    if not jobs:
+        raise ValueError("plan_fusion needs at least one (sbf, worklist) job")
+    wps = int(jobs[0][0].words_per_slice)
+    for i, (sb, _) in enumerate(jobs):
+        if int(sb.words_per_slice) != wps:
+            raise ValueError(
+                f"job {i} has words_per_slice={int(sb.words_per_slice)}, "
+                f"fusion group requires {wps}; group jobs by word width"
+            )
+    pairs = [int(wl.num_pairs) for _, wl in jobs]
+    bucket = pow2_ceil(max(max(pairs), 1))
+    safe = INT32_SAFE_WORDS // max(wps, 1)
+    if bucket > safe:
+        raise ValueError(
+            f"fused bucket {bucket} x {wps} words busts the per-segment "
+            f"int32 bound (max safe pairs: {safe}); count the largest "
+            "graph solo"
+        )
+    if max_bucket is not None and bucket > max_bucket:
+        raise ValueError(
+            f"fused bucket {bucket} exceeds max_bucket={max_bucket}; "
+            "route the largest graph solo"
+        )
+    g = len(jobs)
+    g_pad = pow2_ceil(g) if pad_graphs_pow2 else g
+    row_idx = np.full((g_pad, bucket), -1, dtype=np.int32)
+    col_idx = np.full((g_pad, bucket), -1, dtype=np.int32)
+    row_offsets, col_offsets = [], []
+    row_base = col_base = 0
+    for i, (sb, wl) in enumerate(jobs):
+        row_offsets.append(row_base)
+        col_offsets.append(col_base)
+        n = pairs[i]
+        if n:
+            row_idx[i, :n] = np.asarray(wl.pair_row_pos[:n], dtype=np.int64) + row_base
+            col_idx[i, :n] = np.asarray(wl.pair_col_pos[:n], dtype=np.int64) + col_base
+        row_base += int(sb.row_slice_data.shape[0])
+        col_base += int(sb.col_slice_data.shape[0])
+    return FusionPlan(
+        num_graphs=g,
+        padded_graphs=g_pad,
+        bucket=bucket,
+        words_per_slice=wps,
+        row_offsets=tuple(row_offsets),
+        col_offsets=tuple(col_offsets),
+        row_rows=row_base,
+        col_rows=col_base,
+        row_idx=row_idx.reshape(-1),
+        col_idx=col_idx.reshape(-1),
+        real_pairs=tuple(pairs),
+        stats={
+            "num_graphs": g,
+            "padded_graphs": g_pad,
+            "bucket": bucket,
+            "real_pairs": sum(pairs),
+            "sentinel_lanes": g_pad * bucket - sum(pairs),
+            "reason": f"{g} graphs fused into one [{g_pad}, {bucket}] "
+            "segment block; one dispatch, per-graph subtotals",
+        },
+    )
 
 
 @dataclasses.dataclass(frozen=True)

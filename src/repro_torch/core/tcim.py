@@ -67,7 +67,12 @@ BACKENDS = ("pallas_total", "pallas_unfused", "pallas_items", "jnp", "bitgemm", 
 BUILDS = ("auto", "host", "device")
 
 # User-facing backend -> Executor mode for the ported work-list backends.
-_EXECUTOR_MODE = {"pallas_total": "fused", "jnp": "jnp"}
+_EXECUTOR_MODE = {
+    "pallas_total": "fused",
+    "pallas_unfused": "gather_then_kernel",
+    "pallas_items": "pallas_items",
+    "jnp": "jnp",
+}
 
 _TODO_BACKENDS = "ROADMAP.md queue 1, item 6 (other execute backends)"
 _TODO_BUILD = "ROADMAP.md queue 1, item 5 (device build)"
@@ -200,8 +205,10 @@ def tcim_count_graph(
     """Count triangles of a prebuilt (oriented) Graph.
 
     ``backend`` picks the execute stage: ``'pallas_total'`` (the fused
-    gather–AND–popcount kernel; default) or ``'jnp'`` (torch gather + the
-    byte-table oracle). ``build`` ``'auto'`` resolves to ``'host'`` in this
+    gather–AND–popcount kernel; default), ``'pallas_unfused'`` (torch gather
+    + the total kernel), ``'pallas_items'`` (torch gather + the per-pair
+    items kernel) or ``'jnp'`` (torch gather + the byte-table oracle);
+    ``'bitgemm'`` and ``'mxu'`` are not ported yet. ``build`` ``'auto'`` resolves to ``'host'`` in this
     slice (``stats['build']`` says so). ``placement`` ``'auto'`` and
     ``'replicated'`` run one device; ``schedule`` is validated and only
     matters to the sharded placements. ``pool`` overrides the module-level

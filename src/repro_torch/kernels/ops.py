@@ -1,25 +1,91 @@
 """Public wrappers for the port's TCIM kernels.
 
 Port of ``src/repro/kernels/ops.py`` (``INT32_SAFE_WORDS``,
-``popcount_and_gather_total``). The other wrappers there come with their
-kernels in later slices. A wrapper picks its path from where its tensors
-lie: CPU tensors take the plain torch version, CUDA tensors launch the
-hand-written kernel or raise. There is no fallback between the two.
+``popcount_and_items``, ``popcount_and_total``, ``popcount_and_gather_total``,
+``popcount_and_gather_segment_totals``). ``bitgemm`` and ``dense_mxu_tc``
+come with their kernels in later slices. A wrapper picks its path from where
+its tensors lie: CPU tensors take the plain torch version, CUDA tensors
+launch the hand-written kernel or raise. There is no fallback between the
+two.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.slice_and_popcount import (
+    items_cuda,
+    items_reference,
+    total_cuda,
+    total_reference,
+)
 from repro_torch.kernels.tc_gather_popcount import (
+    gather_segment_totals_cuda,
+    gather_segment_totals_reference,
     gather_total_cuda,
     gather_total_reference,
 )
 
-__all__ = ["INT32_SAFE_WORDS", "popcount_and_gather_total"]
+__all__ = [
+    "INT32_SAFE_WORDS",
+    "popcount_and_gather_segment_totals",
+    "popcount_and_gather_total",
+    "popcount_and_items",
+    "popcount_and_total",
+]
 
 # Largest number of uint32 words whose AND-popcount total provably fits the
 # kernels' int32 accumulator: each word contributes at most 32 to the sum.
 INT32_SAFE_WORDS = (2**31 - 1) // 32
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def popcount_and_items(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Per-pair popcount(rows & cols): ``[P, W]`` x ``[P, W]`` -> ``[P]`` int32.
+
+    Operands are int32 views of gathered uint32 slice words.
+    """
+    if rows.shape != cols.shape:
+        raise ValueError(f"operand shapes {tuple(rows.shape)} and {tuple(cols.shape)} differ")
+    if _on_cpu(rows, cols):
+        return items_reference(rows, cols)
+    out = torch.empty(rows.shape[0], dtype=torch.int32, device=rows.device)
+    return items_cuda(rows, cols, out)
+
+
+def popcount_and_total(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    *,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Total popcount(rows & cols) over ``[P, W]`` gathered words -> int32.
+
+    Returns a 0-d int32 total; with ``out`` (one int32 element) given, adds
+    into it in place and returns it — the executor passes the first word of
+    its carried accumulator. One call is safe only while the worst case
+    ``total_words * 32`` fits int32: larger streams raise ``ValueError``,
+    and callers chunk them.
+    """
+    if rows.shape != cols.shape:
+        raise ValueError(f"operand shapes {tuple(rows.shape)} and {tuple(cols.shape)} differ")
+    total_words = rows.numel()
+    if total_words > INT32_SAFE_WORDS:
+        raise ValueError(
+            f"{total_words} words could overflow the int32 accumulator "
+            f"(max safe: {INT32_SAFE_WORDS} = (2**31-1)//32); "
+            "chunk the stream and accumulate per-chunk totals"
+        )
+    if out is None:
+        out = torch.zeros((), dtype=torch.int32, device=rows.device)
+    if total_words == 0:
+        return out
+    if _on_cpu(rows, cols, out):
+        out += total_reference(rows, cols)
+        return out
+    return total_cuda(rows, cols, out)
 
 
 def popcount_and_gather_total(
@@ -55,8 +121,48 @@ def popcount_and_gather_total(
             f"accumulator (max safe words: {INT32_SAFE_WORDS}); "
             "reduce chunk_pairs"
         )
-    tensors = (row_data, col_data, row_idx, col_idx, out)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _on_cpu(row_data, col_data, row_idx, col_idx, out):
         out += gather_total_reference(row_data, col_data, row_idx, col_idx)
         return out
     return gather_total_cuda(row_data, col_data, row_idx, col_idx, out)
+
+
+def popcount_and_gather_segment_totals(
+    row_data: torch.Tensor,
+    col_data: torch.Tensor,
+    row_idx: torch.Tensor,
+    col_idx: torch.Tensor,
+    *,
+    bucket: int,
+) -> torch.Tensor:
+    """Per-graph totals over a fused multi-graph index block -> int32 ``[G, 2]``.
+
+    ``row_idx``/``col_idx`` are ``G`` back-to-back ``bucket``-wide work-list
+    segments (one per fused graph, sentinel-padded, shifted into the stacked
+    stores). Row ``g`` of the result is ``[subtotal, out_of_range]`` of
+    segment ``g``, as ``popcount_and_gather_total`` gives for one chunk.
+    Each segment accumulates alone, so the int32 bound is per segment:
+    ``bucket * words_per_slice * 32`` must fit int32.
+    """
+    if row_idx.shape != col_idx.shape:
+        raise ValueError(f"index shapes {row_idx.shape} and {col_idx.shape} differ")
+    p = row_idx.shape[0]
+    w = row_data.shape[1]
+    if bucket < 1 or p % bucket:
+        raise ValueError(
+            f"{p} fused pairs do not tile into bucket={bucket} segments"
+        )
+    if bucket * w > INT32_SAFE_WORDS:
+        raise ValueError(
+            f"fused segment of {bucket} pairs x {w} words could overflow "
+            f"the int32 accumulator (max safe words: {INT32_SAFE_WORDS}); "
+            "route the graph solo with a smaller chunk_pairs"
+        )
+    if _on_cpu(row_data, col_data, row_idx, col_idx):
+        return gather_segment_totals_reference(
+            row_data, col_data, row_idx, col_idx, bucket=bucket
+        )
+    out = torch.zeros(p // bucket, 2, dtype=torch.int32, device=row_data.device)
+    return gather_segment_totals_cuda(
+        row_data, col_data, row_idx, col_idx, out, bucket=bucket
+    )

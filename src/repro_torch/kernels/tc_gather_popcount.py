@@ -1,9 +1,9 @@
 """Fused gather–AND–popcount: the TCIM execute stage in one pass.
 
 Port of ``src/repro/kernels/tc_gather_popcount.py`` (``gather_total_pallas``,
-``gather_total_reference``, ``modeled_hbm_bytes``). The slice stores stay
-resident on the card; only the work-list index arrays travel, and the gather
-happens inside the kernel.
+``gather_segment_totals_pallas``, their references, ``modeled_hbm_bytes``).
+The slice stores stay resident on the card; only the work-list index arrays
+travel, and the gather happens inside the kernel.
 
   * ``gather_total_cuda`` — the wrapper of the hand-written CUDA kernel
     ``csrc/tc_gather_popcount.cu`` (its header gives the design and bound).
@@ -16,6 +16,10 @@ happens inside the kernel.
     not read). It runs on any device and is the CPU path. It uses the SWAR
     popcount of ``kernels/common.py``, so the byte-table oracle in
     ``kernels/ref.py`` stays an independent check.
+  * ``gather_segment_totals_cuda`` / ``gather_segment_totals_reference`` —
+    the same per segment of ``bucket`` pairs (one fused graph each), into a
+    caller-owned int32 ``out[G, 2]`` of ``[subtotal, out_of_range]`` rows:
+    the cross-graph serving twin that ``MultiGraphExecutor`` dispatches.
 
 The reference's ``jnp.take`` hands back an all-ones fill row for a positive
 index past the end of the store; the port counts such indices instead, and
@@ -30,6 +34,8 @@ import torch
 from repro_torch.kernels.common import swar_popcount_u32
 
 __all__ = [
+    "gather_segment_totals_cuda",
+    "gather_segment_totals_reference",
     "gather_total_cuda",
     "gather_total_reference",
     "modeled_hbm_bytes",
@@ -64,7 +70,41 @@ def gather_total_reference(
     return out
 
 
-def _check(row_data, col_data, row_idx, col_idx, out) -> int:
+def gather_segment_totals_reference(
+    row_data: torch.Tensor,  # [R, W] int32 view — stacked row stores
+    col_data: torch.Tensor,  # [C, W] int32 view — stacked col stores
+    row_idx: torch.Tensor,  # [G * bucket] store-global positions (< 0 = no-op)
+    col_idx: torch.Tensor,  # [G * bucket]
+    *,
+    bucket: int,
+) -> torch.Tensor:
+    """Plain version of the segment kernel -> int32 ``[G, 2]``.
+
+    Row ``g`` is ``[subtotal, out_of_range]`` over pairs
+    ``g * bucket .. (g + 1) * bucket - 1``, with ``gather_total_reference``'s
+    contract per pair.
+    """
+    p = row_idx.shape[0]
+    if bucket < 1 or p % bucket:
+        raise ValueError(f"{p} pairs do not tile into bucket={bucket} segments")
+    g = p // bucket
+    num_rows, num_cols = row_data.shape[0], col_data.shape[0]
+    bad = (row_idx >= num_rows) | (col_idx >= num_cols)
+    out = torch.zeros(g, 2, dtype=torch.int32, device=row_data.device)
+    if g == 0:
+        return out
+    out[:, 1] = bad.reshape(g, bucket).sum(dim=1)
+    if num_rows == 0 or num_cols == 0:
+        return out
+    valid = (row_idx >= 0) & (col_idx >= 0) & ~bad
+    rows = row_data.index_select(0, row_idx.clamp(0, num_rows - 1))
+    cols = col_data.index_select(0, col_idx.clamp(0, num_cols - 1))
+    pc = torch.where(valid, swar_popcount_u32(rows & cols).sum(dim=1), 0)
+    out[:, 0] = pc.reshape(g, bucket).sum(dim=1)
+    return out
+
+
+def _check(row_data, col_data, row_idx, col_idx, out, out_shape) -> int:
     """Validate the kernel's operands; returns W."""
     tensors = {
         "row_data": row_data, "col_data": col_data,
@@ -89,8 +129,8 @@ def _check(row_data, col_data, row_idx, col_idx, out) -> int:
         )
     if row_idx.dim() != 1 or row_idx.shape != col_idx.shape:
         raise ValueError(f"index shapes {row_idx.shape} and {col_idx.shape} differ")
-    if out.shape != (2,):
-        raise ValueError(f"out must have shape (2,), got {tuple(out.shape)}")
+    if tuple(out.shape) != out_shape:
+        raise ValueError(f"out must have shape {out_shape}, got {tuple(out.shape)}")
     for name in ("row_data", "col_data"):
         if tensors[name].data_ptr() % (4 * w):
             raise ValueError(f"{name} is not aligned to its {4 * w}-byte rows")
@@ -99,17 +139,14 @@ def _check(row_data, col_data, row_idx, col_idx, out) -> int:
     return w
 
 
-def _kernel():
+def _kernel(name: str = "tc_gather_total"):
     from repro_torch.kernels._build import load_library
 
-    lib = load_library("tc_gather_popcount")
-    fn = lib.tc_gather_total
+    fn = getattr(load_library("tc_gather_popcount"), name)
     if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [
-            vp, ctypes.c_int, vp, ctypes.c_int, ctypes.c_int,
-            vp, vp, ctypes.c_longlong, vp, vp,
-        ]
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        extra = [i64] if name == "tc_gather_segment_totals" else []  # bucket
+        fn.argtypes = [vp, i32, vp, i32, i32, vp, vp, i64, *extra, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -126,7 +163,7 @@ def gather_total_cuda(
     All operands are contiguous int32 CUDA tensors on one device; raises on
     anything else, and if the launch is refused. Returns ``out``.
     """
-    w = _check(row_data, col_data, row_idx, col_idx, out)
+    w = _check(row_data, col_data, row_idx, col_idx, out, (2,))
     p = row_idx.shape[0]
     if p == 0:
         return out
@@ -146,6 +183,48 @@ def gather_total_cuda(
 
 
 gather_total_cuda.launches = 0
+
+
+def gather_segment_totals_cuda(
+    row_data: torch.Tensor,
+    col_data: torch.Tensor,
+    row_idx: torch.Tensor,
+    col_idx: torch.Tensor,
+    out: torch.Tensor,
+    *,
+    bucket: int,
+) -> torch.Tensor:
+    """Launch the segment kernel: ``out[g] += [subtotal, out_of_range]``.
+
+    ``out`` is the caller's zeroed int32 ``[G, 2]`` with
+    ``G = len(row_idx) // bucket``; ``bucket`` is a power of two. All
+    operands are contiguous int32 CUDA tensors on one device; raises on
+    anything else, and if the launch is refused. Returns ``out``.
+    """
+    p = row_idx.shape[0]
+    if bucket < 1 or bucket & (bucket - 1) or p % bucket:
+        raise ValueError(
+            f"{p} pairs do not tile into power-of-two bucket={bucket} segments"
+        )
+    w = _check(row_data, col_data, row_idx, col_idx, out, (p // bucket, 2))
+    if p == 0:
+        return out
+    fn = _kernel("tc_gather_segment_totals")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(
+            row_data.data_ptr(), row_data.shape[0],
+            col_data.data_ptr(), col_data.shape[0], w,
+            row_idx.data_ptr(), col_idx.data_ptr(), p, bucket,
+            out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"tc_gather_segment_totals launch failed: CUDA error {err}")
+    gather_segment_totals_cuda.launches += 1
+    return out
+
+
+gather_segment_totals_cuda.launches = 0
 
 
 def modeled_hbm_bytes(num_pairs: int, words_per_slice: int, *, fused: bool) -> int:

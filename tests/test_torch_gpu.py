@@ -1,5 +1,5 @@
-"""Card-only tests of the port: the CUDA kernel against its plain version on
-CUDA tensors, and the main path on the card.
+"""Card-only tests of the port: the CUDA kernels against their plain
+versions on CUDA tensors, the main path and the server on the card.
 
 Every test here carries the ``gpu`` marker and skips without a card (the
 check runs inside the ``cuda`` fixture, never at import time, so every
@@ -17,7 +17,15 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import CountFuture, Executor, build_sbf, build_worklist, tcim_count  # noqa: E402
 from repro_torch.graphs import build_graph, rmat, triangles_intersection  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.slice_and_popcount import (  # noqa: E402
+    items_cuda,
+    items_reference,
+    total_cuda,
+    total_reference,
+)
 from repro_torch.kernels.tc_gather_popcount import (  # noqa: E402
+    gather_segment_totals_cuda,
+    gather_segment_totals_reference,
     gather_total_cuda,
     gather_total_reference,
 )
@@ -102,3 +110,80 @@ def test_executor_escape_on_card(cuda, monkeypatch):
     want = Executor(sb, device="cpu").count(wl)
     monkeypatch.setattr(executor, "_INT32_MAX", 1000)
     assert Executor(sb, chunk_pairs=1024).count(wl) == want
+
+
+@pytest.mark.parametrize("g", [1, 3, 32])
+@pytest.mark.parametrize("bucket", [1, 2, 16, 32, 64, 128, 1024])
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_segment_kernel_equals_plain_on_card(cuda, w, bucket, g):
+    rng = np.random.default_rng(100 * w + bucket + g)
+    row, col = _words(rng, 4096, w, cuda), _words(rng, 2048, w, cuda)
+    p = g * bucket
+    r = rng.integers(0, 4096, size=p).astype(np.int32)
+    c = rng.integers(0, 2048, size=p).astype(np.int32)
+    r[rng.random(p) < 0.1] = -1
+    c[rng.random(p) < 0.1] = -1
+    if g > 1:
+        r[-bucket:] = -1  # an all-sentinel trailing segment
+    r[rng.random(p) < 0.02] = 4096 + 3  # out of range: counted, never read
+    ridx, cidx = torch.from_numpy(r).to(cuda), torch.from_numpy(c).to(cuda)
+    before = gather_segment_totals_cuda.launches
+    got = gather_segment_totals_cuda(
+        row, col, ridx, cidx, torch.zeros(g, 2, dtype=torch.int32, device=cuda), bucket=bucket
+    )
+    want = gather_segment_totals_reference(row, col, ridx, cidx, bucket=bucket)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    assert gather_segment_totals_cuda.launches == before + 1
+    if g > 1:
+        assert int(got[-1, 0]) == 0
+
+
+@pytest.mark.parametrize("p", [1, 3, 1001, 1 << 16])
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_unfused_kernels_equal_plain_on_card(cuda, w, p):
+    rng = np.random.default_rng(w * 11 + p)
+    rows, cols = _words(rng, p, w, cuda), _words(rng, p, w, cuda)
+    rows[: p // 3] = 0
+    before = (total_cuda.launches, items_cuda.launches)
+    tot = total_cuda(rows, cols, torch.zeros(1, dtype=torch.int32, device=cuda))
+    items = items_cuda(rows, cols, torch.empty(p, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert int(tot) == int(total_reference(rows, cols))
+    assert torch.equal(items.cpu(), items_reference(rows, cols).cpu())
+    assert (total_cuda.launches, items_cuda.launches) == (before[0] + 1, before[1] + 1)
+    flat = _words(rng, p * w + 1, 1, cuda).reshape(-1)[1:].reshape(p, w)  # not 16-B aligned
+    assert int(total_cuda(flat, cols, torch.zeros(1, dtype=torch.int32, device=cuda))) == int(
+        total_reference(flat, cols)
+    )
+
+
+def test_server_on_card_matches_cpu_and_oracle(cuda):
+    from repro_torch.launch import ServeConfig, TCServer
+
+    jobs, want = [], []
+    for i in range(40):
+        n = (64, 128, 256, 512)[i % 4]
+        g = build_graph(rmat(n, 6 * n, seed=i))
+        sb = build_sbf(g, (32, 64, 128)[i % 3])
+        jobs.append((sb, build_worklist(g, sb)))
+        want.append(triangles_intersection(g))
+    g = build_graph(rmat(20000, 150000, seed=9), reorder=True)
+    sb = build_sbf(g, 64)
+    jobs.append((sb, build_worklist(g, sb)))
+    want.append(triangles_intersection(g))
+    for mode in ("fused", "gather_then_kernel", "pallas_items", "jnp"):
+        seg = gather_segment_totals_cuda.launches
+        # Room in the batch cache for every batch (the default keeps 8), so
+        # the re-serve below must hit them all and upload nothing.
+        srv = TCServer(ServeConfig(mode=mode, max_fused_pairs=1 << 12, fused_max_batches=64))
+        res = sorted(srv.serve(jobs), key=lambda r: r.request_id)
+        assert [r.count for r in res] == want
+        assert gather_segment_totals_cuda.launches - seg == srv.stats["fused_batches"] > 0
+        assert {r.placement for r in res} == {"fused", "replicated"}
+        uploads = srv.multi.upload_bytes
+        again = sorted(srv.serve(jobs), key=lambda r: r.request_id)
+        assert [r.count for r in again] == want and srv.multi.upload_bytes == uploads
+        assert srv.multi.stats()["hits"] == srv.multi.stats()["misses"] == len(srv.multi)
+    cpu = TCServer(ServeConfig(device="cpu", max_fused_pairs=1 << 12)).serve(jobs)
+    assert sorted(r.count for r in cpu) == sorted(want)

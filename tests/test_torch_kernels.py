@@ -1,12 +1,16 @@
-"""Port vs reference: the kernel layer of the main path.
+"""Port vs reference: the kernel layer.
 
 The port's plain ``gather_total_reference`` and its byte-table oracle
 (``kernels/ref.py``) are held against the JAX package's Pallas kernel
 ``gather_total_pallas`` in interpret mode (block_pairs=1, as
 tests/test_executor.py:122 runs it), its jnp mirror and its
-``lax.population_count`` oracle, on the same numpy inputs. Counts are
-exact integers, so every comparison is equality. The CUDA kernel itself
-runs only on a card (tests/test_torch_gpu.py and chip_smoke.py).
+``lax.population_count`` oracle, on the same numpy inputs; likewise the
+serving kernel's plain ``gather_segment_totals_reference`` against
+``gather_segment_totals_pallas`` in interpret mode and its jnp mirror, and
+the unfused kernels' plain versions against ``total_pallas``/``items_pallas``
+in interpret mode and the oracles. Counts are exact integers, so every
+comparison is equality. The CUDA kernels themselves run only on a card
+(tests/test_torch_gpu.py and chip_smoke.py).
 
 The reference's batched body (block_pairs > 1) does not run on JAX 0.9:
 it names ``pltpu.TPUMemorySpace``, which JAX 0.9 no longer has, and
@@ -24,9 +28,11 @@ import numpy as np  # noqa: E402
 import repro.core.bitmat as jx_bitmat  # noqa: E402
 import repro.kernels.ops as jx_ops  # noqa: E402
 import repro.kernels.ref as jx_ref  # noqa: E402
+import repro.kernels.slice_and_popcount as jx_sap  # noqa: E402
 import repro.kernels.tc_gather_popcount as jx_tgp  # noqa: E402
-from repro_torch.core.executor import CountFuture  # noqa: E402
+from repro_torch.core.executor import CountFuture, MultiCountFuture  # noqa: E402
 from repro_torch.kernels import common, ops, ref  # noqa: E402
+from repro_torch.kernels import slice_and_popcount as pt_sap  # noqa: E402
 from repro_torch.kernels import tc_gather_popcount as pt_tgp  # noqa: E402
 
 
@@ -153,3 +159,162 @@ def test_modeled_bytes_match(fused):
         assert pt_tgp.modeled_hbm_bytes(p, w, fused=fused) == jx_tgp.modeled_hbm_bytes(
             p, w, fused=fused
         )
+
+
+def _segment_case(rng, w, bucket, g, rows=97, cols=61):
+    """G segments of ``bucket`` pairs: in-range indices and -1 only, a hot
+    row, and (for G > 1) an all-sentinel trailing segment."""
+    row, col, ridx, cidx = _case(rng, w, g * bucket, rows, cols)
+    if g > 1:
+        ridx[-bucket:] = -1
+        cidx[-bucket:] = -1
+    return row, col, ridx, cidx
+
+
+@pytest.mark.parametrize("g", [1, 3, 8])
+@pytest.mark.parametrize("bucket", [1, 4, 64, 1024])
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_segment_plain_matches_pallas_kernel(w, bucket, g):
+    """Port plain segment totals == Pallas kernel (interpret) == jnp mirror,
+    segment by segment."""
+    rng = np.random.default_rng(1000 * w + 10 * bucket + g)
+    row, col, ridx, cidx = _segment_case(rng, w, bucket, g)
+    got = pt_tgp.gather_segment_totals_reference(
+        _as_torch(row), _as_torch(col), torch.from_numpy(ridx), torch.from_numpy(cidx),
+        bucket=bucket,
+    )
+    assert got.dtype == torch.int32 and got.shape == (g, 2)
+    assert got[:, 1].tolist() == [0] * g
+    args = (jnp.asarray(row), jnp.asarray(col), jnp.asarray(ridx), jnp.asarray(cidx))
+    kernel = np.asarray(jx_tgp.gather_segment_totals_pallas(*args, bucket=bucket, interpret=True))
+    mirror = np.asarray(jx_tgp.gather_segment_totals_reference(*args, bucket=bucket))
+    assert np.array_equal(got[:, 0].numpy(), kernel)
+    assert np.array_equal(kernel, mirror)
+    if g > 1:
+        assert int(got[-1, 0]) == 0
+    wrapped = ops.popcount_and_gather_segment_totals(
+        _as_torch(row), _as_torch(col), torch.from_numpy(ridx), torch.from_numpy(cidx),
+        bucket=bucket,
+    )
+    assert torch.equal(wrapped, got)
+
+
+def test_segment_out_of_range_raises_at_multi_result(rng):
+    """The port never reads past a stacked store: the index is counted in its
+    segment's second column and MultiCountFuture.result() raises."""
+    row, col, ridx, cidx = _segment_case(rng, 2, 16, 3)
+    ridx[16 + 5] = row.shape[0]
+    out = ops.popcount_and_gather_segment_totals(
+        _as_torch(row), _as_torch(col), torch.from_numpy(ridx), torch.from_numpy(cidx),
+        bucket=16,
+    )
+    assert out[:, 1].tolist() == [0, 1, 0]
+    with pytest.raises(ValueError, match="past the end"):
+        MultiCountFuture(out, 3).result()
+    ok = ops.popcount_and_gather_segment_totals(
+        _as_torch(row), _as_torch(col), torch.from_numpy(np.where(ridx >= row.shape[0], -1, ridx)),
+        torch.from_numpy(cidx), bucket=16,
+    )
+    fut = MultiCountFuture(ok, 2)
+    assert fut.result() == tuple(ok[:2, 0].tolist()) and fut.resolved
+
+
+def test_segment_guards_raise_in_both_packages():
+    """Pairs that do not tile into segments, and a segment whose worst case
+    busts int32, raise ValueError in both packages."""
+    store = np.zeros((8, 2), np.uint32)
+    idx = np.zeros(12, np.int32)
+    with pytest.raises(ValueError, match="tile"):
+        jx_ops.popcount_and_gather_segment_totals(
+            jnp.asarray(store), jnp.asarray(store), jnp.asarray(idx), jnp.asarray(idx), bucket=8
+        )
+    with pytest.raises(ValueError, match="tile"):
+        ops.popcount_and_gather_segment_totals(
+            _as_torch(store), _as_torch(store), torch.from_numpy(idx), torch.from_numpy(idx),
+            bucket=8,
+        )
+    for w in (1, 2, 4):
+        bucket = 1 << (ops.INT32_SAFE_WORDS // w).bit_length()
+        big = torch.empty(bucket, dtype=torch.int32, device="meta")
+        s = torch.empty(8, w, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="overflow"):
+            ops.popcount_and_gather_segment_totals(s, s, big, big, bucket=bucket)
+        with pytest.raises(ValueError, match="overflow"):
+            jx_ops.popcount_and_gather_segment_totals(
+                jax.ShapeDtypeStruct((8, w), jnp.uint32),
+                jax.ShapeDtypeStruct((8, w), jnp.uint32),
+                jax.ShapeDtypeStruct((bucket,), jnp.int32),
+                jax.ShapeDtypeStruct((bucket,), jnp.int32),
+                bucket=bucket,
+            )
+
+
+@pytest.mark.parametrize("p", [1, 37, 512, 3000])
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_unfused_plain_matches_pallas_kernels(w, p):
+    """Port plain total/items == total_pallas/items_pallas (interpret, on the
+    reference's own padded layouts) == both packages' oracles."""
+    rng = np.random.default_rng(7 * w + p)
+    rows, cols = _words(rng, p, w), _words(rng, p, w)
+    rows[: p // 5] = 0  # masked pairs gather zero words
+    pt_rows, pt_cols = _as_torch(rows), _as_torch(cols)
+    total = pt_sap.total_reference(pt_rows, pt_cols)
+    items = pt_sap.items_reference(pt_rows, pt_cols)
+    assert total.dtype == torch.int32 and total.shape == ()
+    assert items.dtype == torch.int32 and items.shape == (p,)
+    jr, jc = jnp.asarray(rows), jnp.asarray(cols)
+    want_items = np.asarray(jx_ops.popcount_and_items(jr, jc, interpret=True))
+    want_total = int(jx_ops.popcount_and_total(jr, jc, interpret=True))
+    assert np.array_equal(items.numpy(), want_items)
+    assert int(total) == want_total == int(jx_ref.ref_popcount_and_total(jr, jc))
+    assert np.array_equal(want_items, np.asarray(jx_ref.ref_popcount_and_items(jr, jc)))
+    assert int(ref.ref_popcount_and_total(pt_rows, pt_cols)) == want_total
+    # The Pallas kernels called directly, on the layouts ops.py builds.
+    pad = (-p) % 512
+    kernel_items = jx_sap.items_pallas(
+        jnp.pad(jr, ((0, pad), (0, 0))), jnp.pad(jc, ((0, pad), (0, 0))), interpret=True
+    )
+    assert np.array_equal(np.asarray(kernel_items)[:p], want_items)
+    flat = (-(p * w)) % (256 * 1024)
+    kernel_total = jx_sap.total_pallas(
+        jnp.pad(jr.reshape(-1), (0, flat)).reshape(-1, 1024),
+        jnp.pad(jc.reshape(-1), (0, flat)).reshape(-1, 1024),
+        interpret=True,
+    )
+    assert int(kernel_total) == want_total
+    # The ops wrappers' CPU path, with and without the carried accumulator.
+    assert torch.equal(ops.popcount_and_items(pt_rows, pt_cols), items)
+    acc = torch.tensor([5, 0], dtype=torch.int32)
+    out = ops.popcount_and_total(pt_rows, pt_cols, out=acc[:1])
+    assert acc.tolist() == [5 + want_total, 0] and int(out) == 5 + want_total
+    assert int(ops.popcount_and_total(pt_rows, pt_cols)) == want_total
+
+
+def test_unfused_guards_and_no_fallback(rng):
+    """popcount_and_total keeps the reference's INT32_SAFE_WORDS guard; the
+    CUDA wrappers refuse host tensors and count no launch."""
+    for w in (1, 2, 4):
+        p = ops.INT32_SAFE_WORDS // w + 1
+        big = torch.empty(p, w, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="overflow"):
+            ops.popcount_and_total(big, big)
+        with pytest.raises(ValueError, match="overflow"):
+            jx_ops.popcount_and_total(
+                jax.ShapeDtypeStruct((p, w), jnp.uint32), jax.ShapeDtypeStruct((p, w), jnp.uint32)
+            )
+    rows = _as_torch(_words(rng, 10, 2))
+    before = (pt_sap.total_cuda.launches, pt_sap.items_cuda.launches,
+              pt_tgp.gather_segment_totals_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pt_sap.total_cuda(rows, rows, torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pt_sap.items_cuda(rows, rows, torch.zeros(10, dtype=torch.int32))
+    idx = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pt_tgp.gather_segment_totals_cuda(
+            rows, rows, idx, idx, torch.zeros(2, 2, dtype=torch.int32), bucket=2
+        )
+    assert before == (pt_sap.total_cuda.launches, pt_sap.items_cuda.launches,
+                      pt_tgp.gather_segment_totals_cuda.launches)
+    with pytest.raises(ValueError, match="differ"):
+        ops.popcount_and_items(rows, rows[:5])

@@ -90,6 +90,8 @@ def test_tcim_count_reorder_both_ways(reorder):
         (256, "fused", True),  # many chunks + a ragged pow2 tail
         (1000, "fused", False),  # rounded down to 512, serial staging
         (256, "jnp", True),  # the byte-table oracle mode
+        (256, "gather_then_kernel", True),  # torch gather + the total kernel
+        (256, "pallas_items", True),  # torch gather + the items kernel
     ],
 )
 @pytest.mark.parametrize("slice_bits", [32, 128])
@@ -128,9 +130,9 @@ def test_executor_empty_and_mode_validation():
         ex.execute_indices(np.zeros(3, np.int64), np.zeros(2, np.int64))
     with pytest.raises(ValueError):
         pt_core.Executor(sbf_from_arrays(sb), mode="nope", device="cpu")
-    for mode in ("gather_then_kernel", "pallas_items"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt_core.Executor(sbf_from_arrays(sb), mode=mode, device="cpu")
+    for mode in pt_core.EXECUTOR_MODES:  # every mode is ported; empty counts 0
+        unfused = pt_core.Executor(sbf_from_arrays(sb), mode=mode, device="cpu")
+        assert unfused.execute_indices(np.zeros(0, np.int64), np.zeros(0, np.int64)) == 0
     assert pt_core.EXECUTOR_MODES == jx_core.EXECUTOR_MODES
     assert ex.modeled_hbm_bytes(wl.num_pairs) == jx_core.Executor(sb).modeled_hbm_bytes(
         wl.num_pairs
@@ -144,7 +146,9 @@ def test_executor_pool_hits_by_content_and_evicts():
     carried = worklist_from_arrays(wl)
     assert pool.count(a, carried, device="cpu") == want
     assert pool.count(b, carried, device="cpu") == want
-    assert pool.stats() == {"graphs": 1, "hits": 1, "misses": 1}
+    assert pool.stats() == {
+        "graphs": 1, "hits": 1, "misses": 1, "trace_groups": 1, "max_group": 1,
+    }
     assert pool.get(a, device="cpu") is pool.get(b, device="cpu")
     for bits in (32, 128):
         pool.get(sbf_from_arrays(_jax_state(bits)[0]), device="cpu")
@@ -205,7 +209,7 @@ def test_async_and_graph_entry_points():
 def test_unported_options_raise_naming_the_roadmap():
     edges = _edges("ego-facebook")
     assert pt_core.BACKENDS == jx_core.BACKENDS
-    for backend in ("pallas_unfused", "pallas_items", "bitgemm", "mxu"):
+    for backend in ("bitgemm", "mxu"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pt_core.tcim_count(edges, backend=backend, device="cpu")
     for kwargs in ({"build": "device"}, {"mesh": object()}, {"resilience": object()}):
@@ -233,6 +237,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.data, repro_torch.configs\n"
+        "import repro_torch.launch.tc_serve, repro_torch.runtime.fault\n"
+        "import repro_torch.kernels.slice_and_popcount\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
