@@ -32,6 +32,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               items vs plain at com-youtube's chunk shape, fused serving vs
               the per-graph pool loop in graphs per second, serve stages
               and peak memory
+  8. dense kernels  bitgemm (I, J in 1 .. 4039, W 1 / 3 / 5 / 127; random,
+              zero and all-ones words) and dense_mxu_tc (N 1 .. 4039,
+              densities 0.02 / 0.3 / 1.0 upper-triangular, and full {0,1}
+              matrices) against their plain versions, exact; a launch
+              refused for shared memory must raise
+  9. dense    ``tcim_count(edges, backend="bitgemm" | "mxu")`` on
+              ego-facebook and email-enron at full size against the exact
+              oracle (and the port's CPU path on ego-facebook), with launch
+              counts, stage split and peak memory; ``metrics.edge_support``
+              (the items kernel) and ``baselines.matmul_tc`` on ego-facebook
+ 10. dense timing  bitgemm at an email-enron chunk, dense_mxu_tc at
+              ego-facebook's and email-enron's N, each beside its plain
+              version, its bound and (for the MMA) ``torch._int_mm``
 
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
@@ -59,13 +72,22 @@ JAX_PACKAGE_COUNT = 3_090_378  # the JAX package's count of the same graph, for 
 SMALL_GRAPHS = ("ego-facebook", "email-enron")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry)
-KERNEL_SOURCES = ("tc_gather_popcount", "slice_and_popcount")
+INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
+POPC_PER_CLOCK_PER_SM = 16  # __popc issue rate, compute capability 9.0 (CUDA C++ Programming Guide)
+KERNEL_SOURCES = ("tc_gather_popcount", "slice_and_popcount", "tc_bitgemm", "tc_dense_mxu")
 MIX_N = (64, 96, 128, 192, 256, 384, 512, 768)  # benchmarks/bench_serve.py's mix
 EDGE_FACTOR = 6
 NUM_TENANTS = 512  # at slice_bits 64
 NUM_TENANTS_SIDE = 16  # at slice_bits 32 and at 128 each
 SOLO_GRAPHS = ("ego-facebook", "email-enron", "com-dblp")
 SEGMENT_BUCKETS = (1, 2, 16, 32, 64, 1024, 1 << 14)
+DENSE_GRAPHS = ("ego-facebook", "email-enron")
+DENSE_BACKENDS = ("bitgemm", "mxu")
+BITGEMM_SIZES = (1, 31, 64, 129, 4039)
+BITGEMM_WORDS = (1, 3, 5, 127)
+MXU_SIZES = (1, 33, 255, 256, 257, 4039)
+MXU_DENSITIES = (0.02, 0.3, 1.0)
+BITGEMM_CHUNK_ROWS = 2048  # tcim's bitgemm backend
 NO_POPCOUNT_OP = "torch has no popcount op"
 
 
@@ -86,11 +108,21 @@ def nvidia_smi_line() -> str:
     return out.splitlines()[0]
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    return 1e6 * float(out.splitlines()[0])
+
+
 def phase_device() -> str:
     name = torch.cuda.get_device_name(0)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.device_count()} card(s); card 0: {name}")
-    log(f"[device] nvidia-smi: {nvidia_smi_line()}")
+    log(f"[device] nvidia-smi: {nvidia_smi_line()}; max SM clock {sm_clock_hz() / 1e6:.0f} MHz; "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     return name
 
 
@@ -307,30 +339,32 @@ def phase_timing(main: dict) -> tuple:
     return row_json, max_err, chunks, row, col
 
 
-def _reset_launches() -> None:
+def _wrappers() -> dict:
     from repro_torch.kernels.slice_and_popcount import items_cuda, total_cuda
-    from repro_torch.kernels.tc_gather_popcount import (
-        gather_segment_totals_cuda,
-        gather_total_cuda,
-    )
-
-    for fn in (gather_total_cuda, gather_segment_totals_cuda, total_cuda, items_cuda):
-        fn.launches = 0
-
-
-def _launches() -> dict:
-    from repro_torch.kernels.slice_and_popcount import items_cuda, total_cuda
+    from repro_torch.kernels.tc_bitgemm import bitgemm_cuda
+    from repro_torch.kernels.tc_dense_mxu import dense_mxu_tc_cuda
     from repro_torch.kernels.tc_gather_popcount import (
         gather_segment_totals_cuda,
         gather_total_cuda,
     )
 
     return {
-        "gather_total": gather_total_cuda.launches,
-        "gather_segment_totals": gather_segment_totals_cuda.launches,
-        "total": total_cuda.launches,
-        "items": items_cuda.launches,
+        "gather_total": gather_total_cuda,
+        "gather_segment_totals": gather_segment_totals_cuda,
+        "total": total_cuda,
+        "items": items_cuda,
+        "bitgemm": bitgemm_cuda,
+        "dense_mxu_tc": dense_mxu_tc_cuda,
     }
+
+
+def _reset_launches() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase_segment_cases() -> int:
@@ -589,16 +623,16 @@ def _footprint(sb, wl, chunk_pairs: int) -> int:
     return ServeRequest(0, sb, wl, 0.0).footprint_bytes(chunk_pairs)
 
 
-def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+def _bound_ms(nbytes: float, ops: float, ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _row(name, source, replaces, launches, ms, plain_ms, bound) -> dict:
+def _row(name, source, replaces, launches, ms, plain_ms, bound, library_ms=None) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
     }
 
 
@@ -726,6 +760,225 @@ def phase_serve_timing(serve: dict, chunks, row, col) -> tuple[list, int]:
     return [seg_row, *rows_json], max_err
 
 
+def _upper(n: int, density: float, seed: int, *, full: bool = False) -> torch.Tensor:
+    """An [n, n] {0,1} bool matrix on the card: strictly upper-triangular,
+    or (``full``) dense everywhere."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand(n, n, generator=gen, device="cuda") < density
+    return a if full else torch.triu(a, 1)
+
+
+def phase_dense_cases() -> tuple[int, int]:
+    """bitgemm and dense_mxu_tc: kernel == plain version on the card.
+    Returns the max |err| of each."""
+    from repro_torch.kernels.tc_bitgemm import bitgemm_cuda, bitgemm_reference
+    from repro_torch.kernels.tc_dense_mxu import dense_mxu_tc_cuda, dense_mxu_tc_reference
+
+    rng = np.random.default_rng(3)
+    err_bitgemm = 0
+    for w in BITGEMM_WORDS:
+        for i in BITGEMM_SIZES:
+            for j in BITGEMM_SIZES:
+                for pattern in ("random", "zeros", "ones"):
+                    if pattern == "ones":
+                        x = torch.full((i, w), -1, dtype=torch.int32, device="cuda")
+                        y = torch.full((j, w), -1, dtype=torch.int32, device="cuda")
+                    else:
+                        x, y = _words(rng, i, w), _words(rng, j, w)
+                        if pattern == "zeros":
+                            x.zero_()
+                    got = bitgemm_cuda(x, y, torch.empty(i, j, dtype=torch.int32, device="cuda"))
+                    want = bitgemm_reference(x, y)
+                    torch.cuda.synchronize()
+                    err = int((got.long() - want.long()).abs().max())
+                    err_bitgemm = max(err_bitgemm, err)
+                    check(err == 0, f"bitgemm I={i} J={j} W={w} {pattern}: kernel != plain")
+                    if pattern == "ones":
+                        check(bool((got == 32 * w).all()), f"bitgemm all-ones I={i} J={j} W={w}")
+        log(f"[dense] bitgemm W={w}: I, J in {list(BITGEMM_SIZES)} x random/zero/all-ones == plain")
+    x, y = _words(rng, 129, 5), _words(rng, 64, 5)
+    try:
+        bitgemm_cuda(x, y, torch.empty(129, 64, dtype=torch.int32, device="cuda"), block_w=4096)
+    except RuntimeError as e:
+        log(f"[dense] bitgemm with 2 MB of shared memory refused at launch and raised: {e}")
+    else:
+        raise RuntimeError("a bitgemm launch asking for 2 MB of shared memory did not raise")
+
+    err_mxu = 0
+    cases = [(n, d, False) for n in MXU_SIZES for d in MXU_DENSITIES]
+    cases += [(257, 0.5, True), (4039, 0.5, True)]
+    for k, (n, density, full) in enumerate(cases):
+        a = _upper(n, density, seed=k, full=full)
+        got = dense_mxu_tc_cuda(a.to(torch.int8), torch.zeros(1, dtype=torch.int64, device="cuda"))
+        want = dense_mxu_tc_reference(a)
+        torch.cuda.synchronize()
+        err = abs(int(got) - int(want))
+        err_mxu = max(err_mxu, err)
+        check(err == 0, f"dense_mxu_tc N={n} density={density} full={full}: "
+                        f"kernel {int(got)} != plain {int(want)}")
+    log(f"[dense] dense_mxu_tc: N in {list(MXU_SIZES)} x densities {list(MXU_DENSITIES)} "
+        f"(upper-triangular) and full {{0,1}} N 257 / 4039 == plain")
+    return err_bitgemm, err_mxu
+
+
+def _dense_operands(g, backend: str) -> float:
+    """Seconds to build one dense backend's operands on the card with
+    tcim's own builders (packing on the host and an upload for bitgemm, a
+    scatter on the card for mxu), up to the first kernel."""
+    from repro_torch.core.tcim import _bitgemm_operands, _dense_upper
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_bitgemm_operands if backend == "bitgemm" else _dense_upper)(g, torch.device("cuda"))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_dense() -> dict:
+    """The dense backends on the card at full size, held against the exact
+    oracle (and, on ego-facebook, the port's CPU path); the analytics."""
+    from repro_torch.configs import GRAPHS
+    from repro_torch.core import baselines, metrics, tcim_count
+    from repro_torch.graphs import build_graph, triangles_intersection
+
+    out = {}
+    for name in DENSE_GRAPHS:
+        edges = _edges(GRAPHS[name])
+        g = build_graph(edges, reorder=True)
+        t0 = time.perf_counter()
+        exact = triangles_intersection(g)
+        log(f"[dense] {name}: |V|={g.n} |E|={g.m}; exact oracle {exact} in "
+            f"{time.perf_counter() - t0:.3f} s")
+        chunks = sum(
+            int(g.indptr[min(s + BITGEMM_CHUNK_ROWS, g.n)] > g.indptr[s])
+            for s in range(0, g.n, BITGEMM_CHUNK_ROWS)
+        )
+        for backend in DENSE_BACKENDS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()  # what earlier phases still hold
+            _reset_launches()
+            t0 = time.perf_counter()
+            res = tcim_count(edges, backend=backend)
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            peak = torch.cuda.max_memory_allocated() - base
+            kernel = "bitgemm" if backend == "bitgemm" else "dense_mxu_tc"
+            want = chunks if backend == "bitgemm" else 1
+            others = {k: v for k, v in launches.items() if k != kernel and v}
+            check(launches[kernel] == want and not others,
+                  f"{name} {backend}: launches {launches}, expected {want} of {kernel}")
+            check(res.triangles == exact, f"{name} {backend}: card {res.triangles} != oracle {exact}")
+            build_s = _dense_operands(g, backend)
+            log(f"[dense] {name} {backend}: card {res.triangles} == oracle; {launches[kernel]} "
+                f"{kernel} launches; {wall:.6f} s wall; timings_s {json.dumps(res.timings_s)}; "
+                f"operand build alone {build_s:.6f} s; max_memory_allocated {peak} bytes above "
+                f"the {base} bytes held before")
+            if name == "ego-facebook":
+                t0 = time.perf_counter()
+                cpu = tcim_count(edges, backend=backend, device="cpu")
+                check(cpu.triangles == exact, f"{name} {backend}: CPU {cpu.triangles} != {exact}")
+                log(f"[dense] {name} {backend}: port CPU path {cpu.triangles} == card, "
+                    f"{time.perf_counter() - t0:.3f} s")
+            else:
+                work = ("a float64 A @ A of about 10^14 operations" if backend == "mxu"
+                        else f"{g.n * g.n * -(-g.n // 32):.3e} SWAR popcounts")
+                log(f"[dense] {name} {backend}: the port's CPU path is left out at this size "
+                    f"({work} on the host)")
+            out[(name, backend)] = {"launches": launches[kernel], "result": res, "peak": peak,
+                                    "build_s": build_s, "wall": wall}
+        out[name] = g
+
+    g = out["ego-facebook"]
+    _reset_launches()
+    support = metrics.edge_support(g)
+    launches = _launches()
+    check(launches["items"] == 1, f"edge_support launches {launches}")
+    check(np.array_equal(support, metrics.edge_support(g, device="cpu")), "edge_support card != CPU")
+    check(int(support.sum()) == out[("ego-facebook", "mxu")]["result"].triangles,
+          "edge support does not sum to the count")
+    log(f"[dense] ego-facebook edge_support: 1 items launch; == CPU path; sums to the count")
+    mm = baselines.matmul_tc(g)
+    check(mm == out[("ego-facebook", "mxu")]["result"].triangles, f"matmul_tc {mm}")
+    log(f"[dense] ego-facebook baselines.matmul_tc on the card: {mm} == oracle")
+    return out
+
+
+def _int_mm_ms(a8: torch.Tensor) -> float | None:
+    """torch._int_mm (the product alone) of the int8 operand padded to a
+    multiple of 8, as the library needs; None if the library refuses."""
+    n = a8.shape[0]
+    m = -(-n // 8) * 8
+    pad = torch.zeros(m, m, dtype=torch.int8, device="cuda")
+    pad[:n, :n] = a8
+    try:
+        torch._int_mm(pad, pad)
+    except RuntimeError as e:
+        log(f"[dense timing] torch._int_mm refused N={m}: {e}")
+        return None
+    _time_ms(torch._int_mm, [(pad, pad)], 1)
+    return _time_ms(torch._int_mm, [(pad, pad)], 3)
+
+
+def phase_dense_timing(dense: dict) -> list:
+    """Kernel vs plain at the dense paths' shapes; returns the JSON rows."""
+    from repro_torch.core.tcim import _bitgemm_operands, _dense_upper
+    from repro_torch.kernels.tc_bitgemm import bitgemm_cuda, bitgemm_reference
+    from repro_torch.kernels.tc_dense_mxu import dense_mxu_tc_cuda, dense_mxu_tc_reference
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    popc_per_s = POPC_PER_CLOCK_PER_SM * sms * sm_clock_hz()
+    cuda = torch.device("cuda")
+    x, y = _bitgemm_operands(dense["email-enron"], cuda)
+    xc = x[:BITGEMM_CHUNK_ROWS]
+    i, w = xc.shape
+    j = y.shape[0]
+    out = torch.empty(i, j, dtype=torch.int32, device="cuda")
+    _time_ms(bitgemm_cuda, [(xc, y, out)], 1)
+    ms = _time_ms(bitgemm_cuda, [(xc, y, out)], 10)
+    t0 = time.perf_counter()
+    want = bitgemm_reference(xc, y)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    check(torch.equal(out, want), "bitgemm at the email-enron chunk: kernel != plain")
+    bound = _bound_ms(4 * (i + j) * w + 4 * i * j, i * j * w, popc_per_s)
+    log(f"[dense timing] bitgemm: {ms:.6f} ms/launch at email-enron chunk 0 (I={i}, J={j}, "
+        f"W={w}; {i * j * w} popcounts); bound {bound[0]:.6f} ms ({bound[1]}: popc at "
+        f"{popc_per_s:.4e}/s), {100 * bound[0] / ms:.2f}% of bound; plain version {plain_ms:.3f} "
+        f"ms (one call, same shape); library_ms null ({NO_POPCOUNT_OP})")
+    rows = [_row("bitgemm", "src/repro_torch/kernels/csrc/tc_bitgemm.cu",
+                 "src/repro/kernels/tc_bitgemm.py:47",
+                 dense[("email-enron", "bitgemm")]["launches"], ms, plain_ms, bound)]
+    del x, y, xc, out, want
+
+    for name in ("email-enron", "ego-facebook"):
+        g = dense[name]
+        label = "dense_mxu_tc" if name == "email-enron" else f"dense_mxu_tc[n={g.n}]"
+        a = _dense_upper(g, cuda)
+        acc = torch.zeros(1, dtype=torch.int64, device="cuda")
+        _time_ms(dense_mxu_tc_cuda, [(a, acc)], 1)
+        rounds = 3
+        ms = _time_ms(dense_mxu_tc_cuda, [(a, acc)], rounds)
+        want = dense_mxu_tc_reference(a)
+        torch.cuda.synchronize()
+        check(int(acc) == (rounds + 1) * int(want), f"{name} mxu timing: kernel sum != plain")
+        _time_ms(dense_mxu_tc_reference, [(a,)], 1)
+        plain_ms = _time_ms(dense_mxu_tc_reference, [(a,)], 1)
+        library_ms = _int_mm_ms(a)
+        n = g.n
+        bound = _bound_ms(n * n + 8, 2 * n**3, INT8_TENSOR_OPS_PER_S)
+        log(f"[dense timing] {label}: {ms:.6f} ms/launch at {name} (N={n}, the wrapper's "
+            f"transpose included); bound {bound[0]:.6f} ms ({bound[1]}: 2 N^3 int8 ops at "
+            f"1,979 TOP/s), {100 * bound[0] / ms:.2f}% of bound; plain version {plain_ms:.6f} ms; "
+            f"torch._int_mm (product alone, N padded to 8) "
+            f"{'refused' if library_ms is None else f'{library_ms:.6f} ms'}")
+        rows.append(_row(label, "src/repro_torch/kernels/csrc/tc_dense_mxu.cu",
+                         "src/repro/kernels/tc_dense_mxu.py:60",
+                         dense[(name, "mxu")]["launches"], ms, plain_ms, bound, library_ms))
+        del a, acc
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -746,9 +999,15 @@ def main() -> int:
     rows[0]["max_abs_err"] = max(err_seg, err_serve)
     for r in rows[1:]:
         r["max_abs_err"] = max(err_unfused, err_serve)
+    err_bitgemm, err_mxu = phase_dense_cases()
+    dense = phase_dense()
+    dense_rows = phase_dense_timing(dense)
+    dense_rows[0]["max_abs_err"] = err_bitgemm
+    for r in dense_rows[1:]:
+        r["max_abs_err"] = err_mxu
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
-    print(json.dumps({"kernels": [row, *rows]}))
+    print(json.dumps({"kernels": [row, *rows, *dense_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,6 +1,6 @@
 """TCIM core of the port — the paper's contribution in PyTorch.
 
-Port of ``src/repro/core/__init__.py`` for the main-path slice.
+Port of ``src/repro/core/__init__.py`` for the ported slices.
 
 Public API:
     tcim_count / tcim_count_graph   end-to-end bitwise triangle counting
@@ -9,8 +9,15 @@ Public API:
     Executor / ExecutorPool         device-resident fused execute stage
     plan_fusion / MultiGraphExecutor  cross-graph fused serving (one launch
                                     for a batch of small graphs)
+    simulate_lru                    data reuse/exchange behavioral model
+    tcim_latency_energy             MRAM latency/energy analytical model
+    baselines / metrics             matmul and intersection baselines;
+                                    edge support, clustering, k-truss
 """
+from repro_torch.core import baselines
 from repro_torch.core.bitmat import bitpack_matrix, bitunpack_matrix, popcount_u32
+from repro_torch.core.cachesim import CacheStats, simulate_lru
+from repro_torch.core.energymodel import PAPER_TABLE5, MramConstants, tcim_latency_energy
 from repro_torch.core.executor import (
     EXECUTOR_MODES,
     CountFuture,
@@ -90,4 +97,10 @@ __all__ = [
     "default_executor_pool",
     "tcim_count",
     "tcim_count_graph",
+    "CacheStats",
+    "simulate_lru",
+    "MramConstants",
+    "PAPER_TABLE5",
+    "tcim_latency_energy",
+    "baselines",
 ]

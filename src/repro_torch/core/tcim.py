@@ -2,9 +2,9 @@
 
     TC(G) = sum_{A[i][j]=1} BitCount(AND(R_i, C_j))        [upper-triangular A]
 
-Port of ``src/repro/core/tcim.py`` for the default path: ``tcim_count``,
-``tcim_count_graph``, ``TCResult``, ``TCFuture`` and ``BACKENDS``, with the
-host build front end and the ``replicated`` placement on one device.
+Port of ``src/repro/core/tcim.py``: ``tcim_count``, ``tcim_count_graph``,
+``TCResult``, ``TCFuture`` and ``BACKENDS``, with the host build front end
+and the ``replicated`` placement on one device.
 
 Pipeline stages:
     orient      edges -> upper-triangular CSR (optional degree relabelling)
@@ -19,10 +19,15 @@ The first three stages run on the host (NumPy). Per-stage wall-clock lands
 in ``TCResult.timings_s`` (``orient``/``compress``/``schedule``/``plan``/
 ``execute``, plus ``close`` for async counts).
 
+The dense backends skip compress, schedule and plan: ``'bitgemm'`` runs the
+popcount-GEMM kernel over the bit-packed rows and columns of the oriented
+adjacency, ``'mxu'`` the masked int8 A @ A tensor-core kernel over its
+dense form. Both close eagerly (``timings_s`` has ``orient``/``execute``).
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
-without a card, the default raises ``RuntimeError``. Backends and options
-that belong to later slices raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+without a card, the default raises ``RuntimeError``. Options that belong to
+later slices raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them.
 """
 from __future__ import annotations
 
@@ -33,9 +38,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import sbf as sbf_mod
+from repro_torch.core.bitmat import words_for_bits
 from repro_torch.core.executor import CountFuture, ExecutorPool
 from repro_torch.core.plan import SCHEDULES, DeviceTopology, plan_execution
 from repro_torch.graphs.csr import Graph, build_graph
+from repro_torch.kernels import ops
 from repro_torch.kernels.common import resolve_device
 
 __all__ = [
@@ -74,7 +81,8 @@ _EXECUTOR_MODE = {
     "jnp": "jnp",
 }
 
-_TODO_BACKENDS = "ROADMAP.md queue 1, item 6 (other execute backends)"
+_DENSE_BACKENDS = ("bitgemm", "mxu")
+
 _TODO_BUILD = "ROADMAP.md queue 1, item 5 (device build)"
 _TODO_MESH = "ROADMAP.md queue 1, item 9 (distributed)"
 
@@ -123,16 +131,90 @@ def _validate(backend: str, schedule: str, build: str, mesh, resilience) -> None
         raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
     if build not in BUILDS:
         raise ValueError(f"build {build!r} not in {BUILDS}")
-    if backend not in _EXECUTOR_MODE:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet: {_TODO_BACKENDS}"
-        )
-    if build == "device":
+    # Dense backends have nothing to build on device: like the reference
+    # (tcim.py::_resolve_build) they take the host path whatever `build` says.
+    if build == "device" and backend not in _DENSE_BACKENDS:
         raise NotImplementedError(f"build='device' is not ported yet: {_TODO_BUILD}")
     if mesh is not None or resilience is not None:
         raise NotImplementedError(
             f"mesh= and resilience= are not ported yet: {_TODO_MESH}"
         )
+
+
+def _pack_words(rows: np.ndarray, cols: np.ndarray, n: int) -> np.ndarray:
+    """``[n, ceil(n/32)]`` uint32 words with bit ``(r, c)`` set for every
+    pair: ``bitmat.bitpack_matrix`` of the ``n x n`` matrix, packed straight
+    from the pairs. They are distinct, so the bincount's sum of bits is
+    their OR (exact in float64: at most 2^32 - 1 a word)."""
+    w = words_for_bits(n)
+    flat = rows * w + (cols >> 5)
+    bits = np.left_shift(1, cols & 31).astype(np.float64)
+    packed = np.bincount(flat, weights=bits, minlength=n * w)
+    return packed.astype(np.uint32).reshape(n, w)
+
+
+def _bitgemm_operands(g: Graph, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bitgemm backend's int32-viewed words on ``device``: ``x[i]``
+    packs row i of the oriented adjacency, ``y[j]`` column j."""
+    src, dst = g.edges[:, 0], g.edges[:, 1]
+    x, y = (
+        torch.from_numpy(_pack_words(r, c, g.n).view(np.int32)).to(device)
+        for r, c in ((src, dst), (dst, src))
+    )
+    return x, y
+
+
+def _dense_upper(g: Graph, device: torch.device) -> torch.Tensor:
+    """The oriented adjacency as a dense ``[n, n]`` int8 {0,1} matrix,
+    scattered from the edges on ``device``."""
+    a = torch.zeros(g.n, g.n, dtype=torch.int8, device=device)
+    if g.m:
+        e = torch.from_numpy(g.edges).to(device)
+        a[e[:, 0], e[:, 1]] = 1
+    return a
+
+
+def _execute_bitgemm(g: Graph, device: torch.device, chunk_rows: int = 2048) -> torch.Tensor:
+    """Whole-matrix popcount-GEMM path (dense bit-packed operands) -> 0-d
+    int64 count on ``device``.
+
+    Chunk ``[start, stop)`` computes the ``[rows, n]`` product and sums it
+    at the chunk's edges, which CSR order puts at
+    ``indptr[start]:indptr[stop]``, on the device: the count is read back
+    once, not the products. A chunk with no edges reads nothing of its
+    product and is not computed.
+    """
+    x, y = _bitgemm_operands(g, device)
+    edges = torch.from_numpy(g.edges).to(device)
+    total = torch.zeros((), dtype=torch.int64, device=device)
+    for start in range(0, g.n, chunk_rows):
+        stop = min(start + chunk_rows, g.n)
+        lo, hi = int(g.indptr[start]), int(g.indptr[stop])
+        if lo == hi:
+            continue
+        b = ops.bitgemm(x[start:stop], y)
+        e = edges[lo:hi]
+        total += torch.take(b, (e[:, 0] - start) * g.n + e[:, 1]).sum(dtype=torch.int64)
+    return total
+
+
+def _count_dense(
+    g: Graph, *, backend: str, device: torch.device, async_: bool, timings: dict
+) -> TCResult | TCFuture:
+    """The dense backends: one kernel path and one readback, closed eagerly."""
+    t0 = time.perf_counter()
+    if backend == "mxu":
+        count = ops.dense_mxu_tc(_dense_upper(g, device))
+    else:
+        count = _execute_bitgemm(g, device)
+    triangles = int(count)
+    timings["execute"] = time.perf_counter() - t0
+    res = TCResult(triangles, backend, {"n": g.n, "m": g.m}, timings)
+    if async_:  # dense paths close eagerly; hand back a resolved future
+        fut = TCFuture(CountFuture([]), backend, res.stats, timings)
+        fut._result = res
+        return fut
+    return res
 
 
 def _count_graph(
@@ -207,9 +289,13 @@ def tcim_count_graph(
     ``backend`` picks the execute stage: ``'pallas_total'`` (the fused
     gather–AND–popcount kernel; default), ``'pallas_unfused'`` (torch gather
     + the total kernel), ``'pallas_items'`` (torch gather + the per-pair
-    items kernel) or ``'jnp'`` (torch gather + the byte-table oracle);
-    ``'bitgemm'`` and ``'mxu'`` are not ported yet. ``build`` ``'auto'`` resolves to ``'host'`` in this
-    slice (``stats['build']`` says so). ``placement`` ``'auto'`` and
+    items kernel), ``'jnp'`` (torch gather + the byte-table oracle), or the
+    dense ``'bitgemm'`` (popcount-GEMM over bit-packed rows and columns, in
+    chunks of 2048 rows) and ``'mxu'`` (masked int8 A @ A on the tensor
+    cores), which return ``stats`` ``{"n", "m"}`` and close eagerly.
+    ``build`` ``'auto'`` resolves to ``'host'`` in this slice
+    (``stats['build']`` says so); dense backends accept ``'device'`` and
+    build on the host, as in the reference. ``placement`` ``'auto'`` and
     ``'replicated'`` run one device; ``schedule`` is validated and only
     matters to the sharded placements. ``pool`` overrides the module-level
     ExecutorPool. ``async_=True`` returns a ``TCFuture`` with every kernel
@@ -218,6 +304,8 @@ def tcim_count_graph(
     """
     _validate(backend, schedule, build, mesh, resilience)
     dev = resolve_device(device)
+    if backend in _DENSE_BACKENDS:
+        return _count_dense(g, backend=backend, device=dev, async_=async_, timings={})
     return _count_graph(
         g, slice_bits=slice_bits, backend=backend, chunk_pairs=chunk_pairs,
         collect_stats=collect_stats, placement=placement, pool=pool,
@@ -254,6 +342,8 @@ def tcim_count(
     t0 = time.perf_counter()
     g = build_graph(edges, n=n, reorder=reorder)
     timings["orient"] = time.perf_counter() - t0
+    if backend in _DENSE_BACKENDS:
+        return _count_dense(g, backend=backend, device=dev, async_=async_, timings=timings)
     return _count_graph(
         g, slice_bits=slice_bits, backend=backend, chunk_pairs=chunk_pairs,
         collect_stats=collect_stats, placement=placement, pool=pool,

@@ -2,8 +2,8 @@
 
 Port of ``src/repro/kernels/ops.py`` (``INT32_SAFE_WORDS``,
 ``popcount_and_items``, ``popcount_and_total``, ``popcount_and_gather_total``,
-``popcount_and_gather_segment_totals``). ``bitgemm`` and ``dense_mxu_tc``
-come with their kernels in later slices. A wrapper picks its path from where
+``popcount_and_gather_segment_totals``, ``bitgemm``, ``dense_mxu_tc``). A
+wrapper picks its path from where
 its tensors lie: CPU tensors take the plain torch version, CUDA tensors
 launch the hand-written kernel or raise. There is no fallback between the
 two.
@@ -18,6 +18,8 @@ from repro_torch.kernels.slice_and_popcount import (
     total_cuda,
     total_reference,
 )
+from repro_torch.kernels.tc_bitgemm import bitgemm_cuda, bitgemm_reference
+from repro_torch.kernels.tc_dense_mxu import dense_mxu_tc_cuda, dense_mxu_tc_reference
 from repro_torch.kernels.tc_gather_popcount import (
     gather_segment_totals_cuda,
     gather_segment_totals_reference,
@@ -27,6 +29,8 @@ from repro_torch.kernels.tc_gather_popcount import (
 
 __all__ = [
     "INT32_SAFE_WORDS",
+    "bitgemm",
+    "dense_mxu_tc",
     "popcount_and_gather_segment_totals",
     "popcount_and_gather_total",
     "popcount_and_items",
@@ -166,3 +170,41 @@ def popcount_and_gather_segment_totals(
     return gather_segment_totals_cuda(
         row_data, col_data, row_idx, col_idx, out, bucket=bucket
     )
+
+
+def bitgemm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Popcount-GEMM: ``[I, W]`` x ``[J, W]`` int32-viewed words -> ``[I, J]`` int32.
+
+    ``out[i, j] = sum_w popcount(x[i, w] & y[j, w])``. Each entry is at most
+    ``32 * W``, so wider operands than ``INT32_SAFE_WORDS`` raise. An empty
+    ``I`` or ``J`` gives an empty result and ``W = 0`` gives zeros: the
+    reference sizes its blocks for them (``src/repro/kernels/ops.py:233-235``)
+    but its Pallas call then rejects them with a ``TypeError``.
+    """
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"operand shapes {tuple(x.shape)} and {tuple(y.shape)} do not match")
+    if x.shape[1] > INT32_SAFE_WORDS:
+        raise ValueError(
+            f"{x.shape[1]} words could overflow the int32 entries "
+            f"(max safe: {INT32_SAFE_WORDS})"
+        )
+    if _on_cpu(x, y):
+        return bitgemm_reference(x, y)
+    out = torch.empty(x.shape[0], y.shape[0], dtype=torch.int32, device=x.device)
+    return bitgemm_cuda(x, y, out)
+
+
+def dense_mxu_tc(a: torch.Tensor) -> torch.Tensor:
+    """Masked A @ A triangle count: ``[N, N]`` {0,1} (any int or bool dtype)
+    -> 0-d int64 ``sum(A * (A @ A))``, exact.
+
+    On the card the operand is cast to int8 ({0,1} is exact there) and the
+    tensor-core kernel runs with no padding; the reference casts to bf16,
+    pads to its block and sums in f32.
+    """
+    if a.dim() != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError(f"a must be square, got {tuple(a.shape)}")
+    if _on_cpu(a):
+        return dense_mxu_tc_reference(a)
+    out = torch.zeros(1, dtype=torch.int64, device=a.device)
+    return dense_mxu_tc_cuda(a.to(torch.int8).contiguous(), out)[0]

@@ -1,0 +1,319 @@
+"""Port vs reference: the dense backends and the analytics on the counts.
+
+The port's ``ops.bitgemm`` and ``ops.dense_mxu_tc`` (their plain versions
+here on the CPU) are held against the JAX package's Pallas kernels
+``bitgemm_pallas`` and ``dense_mxu_tc_pallas`` in interpret mode, and
+against both packages' oracles, on the same numpy inputs;
+``repro_torch.core.tcim_count(..., backend="bitgemm" | "mxu", device="cpu")``
+against ``repro.core.tcim_count`` and the exact oracle on every
+``configs/tcim_graphs.py`` config cut to at most 512 vertices (the JAX
+interpreter's dense kernels stay fast there); ``metrics``, ``baselines``,
+``cachesim`` and ``energymodel`` against the reference's on the same
+graphs. Counts and popcounts are integers, so those comparisons are exact
+equality; the clustering floats and the latency/energy model agree within
+1e-12 relative, as NumPy computes them the same way in both. The CUDA
+kernels themselves run only on a card (tests/test_torch_gpu.py and
+chip_smoke.py).
+"""
+import functools
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+import repro.core as jx_core  # noqa: E402
+import repro.core.baselines as jx_baselines  # noqa: E402
+import repro.core.metrics as jx_metrics  # noqa: E402
+import repro.kernels.ops as jx_ops  # noqa: E402
+import repro.kernels.ref as jx_ref  # noqa: E402
+from repro.configs.tcim_graphs import GRAPHS  # noqa: E402
+from repro.core.bitmat import bitpack_matrix  # noqa: E402
+from repro.graphs import GRAPH_GENERATORS  # noqa: E402
+from repro.graphs import build_graph as jx_build_graph  # noqa: E402
+from repro.graphs.exact import triangles_intersection  # noqa: E402
+
+import repro_torch.core as pt_core  # noqa: E402
+from repro_torch.core import baselines as pt_baselines  # noqa: E402
+from repro_torch.core import metrics as pt_metrics  # noqa: E402
+from repro_torch.core.tcim import _pack_words  # noqa: E402
+from repro_torch.graphs import build_graph as pt_build_graph  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import tc_bitgemm as pt_bitgemm  # noqa: E402
+from repro_torch.kernels import tc_dense_mxu as pt_dense  # noqa: E402
+
+DENSE = ("bitgemm", "mxu")
+MAX_N = 480  # every config cut to at most 512 vertices (grid_road rounds up to 484)
+
+
+def _words(rng, rows, w):
+    return rng.integers(0, 2**32, size=(rows, w), dtype=np.uint64).astype(np.uint32)
+
+
+def _as_torch(a: np.ndarray) -> torch.Tensor:
+    """uint32 words -> the port's int32 view of the same bits."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _edges(name: str) -> np.ndarray:
+    cfg = GRAPHS[name].scaled(MAX_N / GRAPHS[name].n)
+    gen = GRAPH_GENERATORS[cfg.generator]
+    if cfg.generator == "grid_road":
+        return gen(cfg.n, seed=cfg.seed)
+    return gen(cfg.n, cfg.m, seed=cfg.seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _graphs(name: str):
+    """(reference Graph, port Graph) of the reordered config graph."""
+    edges = _edges(name)
+    return jx_build_graph(edges, reorder=True), pt_build_graph(edges, reorder=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _exact(name: str) -> int:
+    return triangles_intersection(_graphs(name)[0])
+
+
+@pytest.mark.parametrize(
+    "pattern", ["random", "zeros", "ones"],
+)
+@pytest.mark.parametrize("i,j,w", [(8, 8, 1), (100, 70, 5), (128, 128, 8), (257, 65, 3)])
+def test_bitgemm_matches_pallas_kernel(i, j, w, pattern):
+    """Port plain == Pallas kernel (interpret) == lax.population_count
+    oracle == port byte-table oracle."""
+    rng = np.random.default_rng(i * 1000 + j * 10 + w)
+    if pattern == "random":
+        x, y = _words(rng, i, w), _words(rng, j, w)
+    else:
+        fill = 0 if pattern == "zeros" else 0xFFFFFFFF
+        x = np.full((i, w), fill, np.uint32)
+        y = _words(rng, j, w) if pattern == "zeros" else np.full((j, w), fill, np.uint32)
+    got = ops.bitgemm(_as_torch(x), _as_torch(y))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (i, j)
+    want = np.asarray(jx_ops.bitgemm(jnp.asarray(x), jnp.asarray(y), block_i=64, block_j=64, block_w=2))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(np.asarray(jx_ref.ref_bitgemm(jnp.asarray(x), jnp.asarray(y))), want)
+    assert np.array_equal(ref.ref_bitgemm(_as_torch(x), _as_torch(y)).numpy(), want)
+    if pattern == "ones":
+        assert (want == 32 * w).all()
+
+
+def test_bitgemm_plain_chunks_and_empty_dims(monkeypatch):
+    """The plain version's row and word chunks add up to the one-shot
+    product; empty I or J gives an empty result, W = 0 zeros. The
+    reference's Pallas call rejects empty dims (TypeError), so those cases
+    are held against the definition, not against it."""
+    rng = np.random.default_rng(7)
+    x, y = _as_torch(_words(rng, 45, 9)), _as_torch(_words(rng, 33, 9))
+    whole = ref.ref_bitgemm(x, y)
+    monkeypatch.setattr(pt_bitgemm, "_PLAIN_BUDGET", 33 * 4)  # 1-row, 4-word chunks
+    assert torch.equal(pt_bitgemm.bitgemm_reference(x, y), whole)
+    assert tuple(ops.bitgemm(x[:0], y).shape) == (0, 33)
+    assert tuple(ops.bitgemm(x, y[:0]).shape) == (45, 0)
+    zeros = ops.bitgemm(torch.zeros(4, 0, dtype=torch.int32), torch.zeros(5, 0, dtype=torch.int32))
+    assert torch.equal(zeros, torch.zeros(4, 5, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        jx_ops.bitgemm(jnp.zeros((0, 3), jnp.uint32), jnp.zeros((5, 3), jnp.uint32))
+
+
+@pytest.mark.parametrize("density", [0.02, 0.3])
+@pytest.mark.parametrize("n,block", [(64, 32), (128, 64), (96, 32), (256, 128)])
+def test_dense_mxu_tc_matches_pallas_kernel(n, block, density):
+    """Port plain == Pallas kernel (interpret, bf16/f32) == both oracles,
+    for every integer and bool input dtype."""
+    rng = np.random.default_rng(n * 10 + block + int(100 * density))
+    a = np.triu(rng.random((n, n)) < density, 1)
+    want = int(jx_ops.dense_mxu_tc(jnp.asarray(a.astype(np.float32)), block=block))
+    assert want == int(jx_ref.ref_dense_tc(jnp.asarray(a.astype(np.float32))))
+    for dtype in (torch.bool, torch.int8, torch.int32, torch.int64):
+        got = ops.dense_mxu_tc(torch.from_numpy(a).to(dtype))
+        assert got.dtype == torch.int64 and got.dim() == 0
+        assert int(got) == want
+    assert int(ref.ref_dense_tc(torch.from_numpy(a))) == want
+
+
+def test_dense_mxu_tc_full_matrix_and_guards():
+    """A full {0,1} matrix (not triangular) computes the same function as
+    the reference; empty gives 0 (the reference divides by zero there);
+    non-square operands raise."""
+    rng = np.random.default_rng(11)
+    a = (rng.random((100, 100)) < 0.5).astype(np.float32)
+    want = int(jx_ops.dense_mxu_tc(jnp.asarray(a), block=50))
+    assert int(ops.dense_mxu_tc(torch.from_numpy(a))) == want
+    assert int(ref.ref_dense_tc(torch.from_numpy(a))) == want
+    assert int(ops.dense_mxu_tc(torch.zeros(0, 0, dtype=torch.int8))) == 0
+    with pytest.raises(ZeroDivisionError):
+        jx_ops.dense_mxu_tc(jnp.zeros((0, 0), jnp.float32))
+    with pytest.raises(ValueError, match="square"):
+        ops.dense_mxu_tc(torch.zeros(3, 4, dtype=torch.int8))
+
+
+def test_dense_guards_and_no_fallback():
+    """The width guard of bitgemm; the CUDA wrappers refuse host tensors
+    and count no launch; a tensor that is neither on the CPU nor on a card
+    reaches the CUDA wrapper and raises, never the plain version."""
+    wide = torch.empty(2, ops.INT32_SAFE_WORDS + 1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="overflow"):
+        ops.bitgemm(wide, wide)
+    with pytest.raises(ValueError, match="do not match"):
+        ops.bitgemm(torch.zeros(2, 3, dtype=torch.int32), torch.zeros(2, 4, dtype=torch.int32))
+    before = (pt_bitgemm.bitgemm_cuda.launches, pt_dense.dense_mxu_tc_cuda.launches)
+    x = torch.zeros(4, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pt_bitgemm.bitgemm_cuda(x, x, torch.zeros(4, 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pt_dense.dense_mxu_tc_cuda(torch.zeros(4, 4, dtype=torch.int8), torch.zeros(1, dtype=torch.int64))
+    meta = torch.empty(4, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.bitgemm(meta, meta)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.dense_mxu_tc(torch.empty(4, 4, dtype=torch.int8, device="meta"))
+    assert before == (pt_bitgemm.bitgemm_cuda.launches, pt_dense.dense_mxu_tc_cuda.launches)
+
+
+@pytest.mark.parametrize("backend", DENSE)
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_dense_backends_match_reference_and_oracle(name, backend):
+    edges = _edges(name)
+    got = pt_core.tcim_count(edges, backend=backend, device="cpu")
+    want = jx_core.tcim_count(edges, backend=backend)
+    assert got.triangles == want.triangles == _exact(name)
+    assert got.backend == backend and got.stats == want.stats
+    assert set(got.timings_s) == set(want.timings_s) == {"orient", "execute"}
+    g = _graphs(name)[1]
+    graph_res = pt_core.tcim_count_graph(g, backend=backend, device="cpu")
+    assert graph_res.triangles == _exact(name) and set(graph_res.timings_s) == {"execute"}
+
+
+@pytest.mark.parametrize("backend", DENSE)
+def test_dense_async_gives_resolved_future(backend):
+    edges = _edges("ego-facebook")
+    fut = pt_core.tcim_count(edges, backend=backend, device="cpu", async_=True)
+    assert isinstance(fut, pt_core.TCFuture)
+    want = jx_core.tcim_count(edges, backend=backend, async_=True).result()
+    res = fut.result()
+    assert res.triangles == want.triangles == _exact("ego-facebook")
+    assert fut.result() is res and "close" not in res.timings_s
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_packed_operands_byte_equal(name):
+    """The bitgemm operands packed from the edge list equal the reference's
+    bitpack_matrix of dense_upper() and of its transpose, byte for byte."""
+    jg, pg = _graphs(name)
+    dense = jg.dense_upper()
+    rows = _pack_words(pg.edges[:, 0], pg.edges[:, 1], pg.n)
+    cols = _pack_words(pg.edges[:, 1], pg.edges[:, 0], pg.n)
+    assert rows.dtype == cols.dtype == np.uint32
+    assert rows.tobytes() == bitpack_matrix(dense).tobytes()
+    assert cols.tobytes() == bitpack_matrix(dense.T).tobytes()
+
+
+def test_dense_backends_bitgemm_chunks(monkeypatch):
+    """Many row chunks (and chunks with no edge, which are skipped) give the
+    same count as one."""
+    import repro_torch.core.tcim as pt_tcim
+
+    g = _graphs("com-livejournal")[1]
+    want = _exact("com-livejournal")
+    for chunk_rows in (1, 7, 64, 4096):
+        got = pt_tcim._execute_bitgemm(g, torch.device("cpu"), chunk_rows=chunk_rows)
+        assert got.dtype == torch.int64 and int(got) == want
+
+
+@pytest.mark.parametrize("backend", DENSE)
+def test_dense_backends_accept_device_build(backend):
+    """Dense backends have nothing to build on device and take the host
+    path whatever `build` says, as the reference does
+    (tests/test_build.py::test_build_argument_validation)."""
+    edges = np.array([[0, 1], [0, 2], [1, 2]], dtype=np.int64)
+    for build in ("device", "auto", "host"):
+        got = pt_core.tcim_count(edges, backend=backend, build=build, device="cpu")
+        want = jx_core.tcim_count(edges, backend=backend, build=build)
+        assert got.triangles == want.triangles == 1
+    with pytest.raises(ValueError, match="build"):
+        pt_core.tcim_count(edges, backend=backend, build="gpu", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt_core.tcim_count(edges, backend=backend, mesh=object(), device="cpu")
+    assert pt_core.tcim_count(np.zeros((0, 2), np.int64), backend=backend, device="cpu").triangles == 0
+
+
+@pytest.mark.parametrize("slice_bits", [32, 64, 128])
+@pytest.mark.parametrize("name", ["ego-facebook", "com-dblp", "roadnet-pa"])
+def test_edge_support_matches_reference(name, slice_bits):
+    jg, pg = _graphs(name)
+    want = jx_metrics.edge_support(jg, slice_bits)
+    assert want.sum() == _exact(name)
+    for backend in ("pallas_items", "jnp"):
+        got = pt_metrics.edge_support(pg, slice_bits, backend, device="cpu")
+        assert got.dtype == np.int64 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["ego-facebook", "email-enron", "roadnet-ca", "com-livejournal"])
+def test_clustering_and_truss_match_reference(name):
+    jg, pg = _graphs(name)
+    local_got, trans_got = pt_metrics.clustering_coefficients(pg)
+    local_want, trans_want = jx_metrics.clustering_coefficients(jg)
+    np.testing.assert_allclose(local_got, local_want, rtol=1e-12, atol=0)
+    assert trans_got == pytest.approx(trans_want, rel=1e-12)
+    for k in (2, 3, 4, 5):
+        assert np.array_equal(pt_metrics.ktruss(pg, k), jx_metrics.ktruss(jg, k))
+    assert pt_metrics.max_truss(pg) == jx_metrics.max_truss(jg)
+
+
+def test_edge_support_and_truss_small_graphs():
+    """The reference's own small cases: a triangle, and two triangles with a
+    pendant edge."""
+    tri = pt_build_graph(np.array([[0, 1], [0, 2], [1, 2]], dtype=np.int64))
+    assert pt_metrics.edge_support(tri, device="cpu").tolist() == [0, 1, 0]
+    edges = np.array([[0, 1], [0, 2], [1, 2], [1, 3], [2, 3], [3, 4]], dtype=np.int64)
+    g = pt_build_graph(edges)
+    assert pt_metrics.ktruss(g, 3).sum() == 5 and not pt_metrics.ktruss(g, 4).any()
+    assert np.array_equal(pt_metrics.ktruss(g, 3), jx_metrics.ktruss(jx_build_graph(edges), 3))
+    empty = pt_build_graph(np.zeros((0, 2), np.int64), n=4)
+    assert pt_metrics.edge_support(empty, device="cpu").shape == (0,)
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_baselines_match_reference(name):
+    jg, pg = _graphs(name)
+    got = pt_baselines.matmul_tc(pg, device="cpu")
+    assert got == jx_baselines.matmul_tc(jg) == _exact(name)
+    assert pt_baselines.matmul_tc(pg, block=64, device="cpu") == got
+    assert pt_baselines.intersection_tc(pg) == jx_baselines.intersection_tc(jg)
+    out, secs = pt_baselines.timed(pt_baselines.intersection_tc, pg)
+    assert out == _exact(name) and secs >= 0.0
+
+
+@pytest.mark.parametrize("array_bytes", [1 << 10, 1 << 14, 16 * 1024 * 1024])
+@pytest.mark.parametrize("name", ["ego-facebook", "com-dblp", "roadnet-tx"])
+def test_cachesim_and_energy_match_reference(name, array_bytes):
+    jg, pg = _graphs(name)
+    jsb = jx_core.build_sbf(jg, 64)
+    jwl = jx_core.build_worklist(jg, jsb)
+    psb = pt_core.build_sbf(pg, 64)
+    pwl = pt_core.build_worklist(pg, psb)
+    got = pt_core.simulate_lru(psb, pwl, array_bytes=array_bytes)
+    want = jx_core.simulate_lru(jsb, jwl, array_bytes=array_bytes)
+    fields = ("capacity_slices", "loads", "hits", "misses", "exchanges", "row_writes")
+    assert [getattr(got, f) for f in fields] == [getattr(want, f) for f in fields]
+    for pct in ("hit_pct", "miss_pct", "exchange_pct", "write_savings_pct"):
+        assert getattr(got, pct) == pytest.approx(getattr(want, pct), rel=1e-12)
+    consts = pt_core.MramConstants(t_write=20e-9, e_ctrl=1e-8)
+    jconsts = jx_core.MramConstants(t_write=20e-9, e_ctrl=1e-8)
+    for c_got, c_want in ((None, None), (consts, jconsts)):
+        kw_got = {} if c_got is None else {"constants": c_got}
+        kw_want = {} if c_want is None else {"constants": c_want}
+        lat, en = pt_core.tcim_latency_energy(pwl.num_pairs, got.misses, pg.m, **kw_got)
+        lat_w, en_w = jx_core.tcim_latency_energy(jwl.num_pairs, want.misses, jg.m, **kw_want)
+        assert lat == pytest.approx(lat_w, rel=1e-12) and en == pytest.approx(en_w, rel=1e-12)
+        assert lat > 0 and en > 0
+    assert pt_core.PAPER_TABLE5 == jx_core.PAPER_TABLE5
+    from repro.core.energymodel import FPGA_POWER_W
+    from repro_torch.core.energymodel import FPGA_POWER_W as PT_FPGA_POWER_W
+
+    assert PT_FPGA_POWER_W == FPGA_POWER_W

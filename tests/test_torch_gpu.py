@@ -17,11 +17,17 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import CountFuture, Executor, build_sbf, build_worklist, tcim_count  # noqa: E402
 from repro_torch.graphs import build_graph, rmat, triangles_intersection  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.ref import ref_dense_tc  # noqa: E402
 from repro_torch.kernels.slice_and_popcount import (  # noqa: E402
     items_cuda,
     items_reference,
     total_cuda,
     total_reference,
+)
+from repro_torch.kernels.tc_bitgemm import bitgemm_cuda, bitgemm_reference  # noqa: E402
+from repro_torch.kernels.tc_dense_mxu import (  # noqa: E402
+    dense_mxu_tc_cuda,
+    dense_mxu_tc_reference,
 )
 from repro_torch.kernels.tc_gather_popcount import (  # noqa: E402
     gather_segment_totals_cuda,
@@ -187,3 +193,88 @@ def test_server_on_card_matches_cpu_and_oracle(cuda):
         assert srv.multi.stats()["hits"] == srv.multi.stats()["misses"] == len(srv.multi)
     cpu = TCServer(ServeConfig(device="cpu", max_fused_pairs=1 << 12)).serve(jobs)
     assert sorted(r.count for r in cpu) == sorted(want)
+
+
+@pytest.mark.parametrize("w", [0, 1, 3, 31, 33, 127])
+@pytest.mark.parametrize("i,j", [(1, 1), (31, 65), (64, 64), (129, 200), (1000, 77)])
+def test_bitgemm_kernel_equals_plain_on_card(cuda, i, j, w):
+    rng = np.random.default_rng(i * 1000 + j + w)
+    x, y = _words(rng, i, w, cuda), _words(rng, j, w, cuda)
+    before = bitgemm_cuda.launches
+    got = ops.bitgemm(x, y)
+    want = bitgemm_reference(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    assert bitgemm_cuda.launches == before + 1
+    out = torch.empty(i, j, dtype=torch.int32, device=cuda)
+    bitgemm_cuda(x, y, out, block_w=1)  # one word a stage
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want.cpu())
+
+
+def test_bitgemm_rejects_and_refuses(cuda):
+    rng = np.random.default_rng(5)
+    x = _words(rng, 70, 4, cuda)
+    out = torch.empty(70, 70, dtype=torch.int32, device=cuda)
+    before = bitgemm_cuda.launches
+    with pytest.raises(ValueError):
+        ops.bitgemm(x, x.cpu())  # a CPU/CUDA mix
+    with pytest.raises(TypeError):
+        bitgemm_cuda(x.long(), x.long(), out)
+    with pytest.raises(ValueError):
+        bitgemm_cuda(x.t(), x.t(), out)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bitgemm_cuda(x, x, out, block_w=4096)  # 2 MB of shared memory: refused
+    assert bitgemm_cuda.launches == before
+    assert torch.equal(ops.bitgemm(x, x).cpu(), bitgemm_reference(x, x).cpu())
+
+
+@pytest.mark.parametrize("density", [0.02, 0.3, 1.0])
+@pytest.mark.parametrize("n", [1, 2, 17, 33, 64, 127, 128, 129, 255, 256, 257, 300, 515])
+def test_dense_mxu_kernel_equals_plain_on_card(cuda, n, density):
+    rng = np.random.default_rng(n + int(1000 * density))
+    a = torch.from_numpy(np.triu(rng.random((n, n)) < density, 1)).to(cuda)
+    before = dense_mxu_tc_cuda.launches
+    got = ops.dense_mxu_tc(a)
+    want = dense_mxu_tc_reference(a)
+    torch.cuda.synchronize()
+    assert int(got) == int(want) == int(ref_dense_tc(a))
+    assert dense_mxu_tc_cuda.launches == before + 1
+    full = torch.from_numpy(rng.random((n, n)) < density).to(cuda)  # not triangular
+    assert int(ops.dense_mxu_tc(full)) == int(dense_mxu_tc_reference(full))
+
+
+def test_dense_mxu_unaligned_and_mix(cuda):
+    """A view one byte into its storage takes the kernel's 1-byte loads."""
+    rng = np.random.default_rng(8)
+    n = 96
+    flat = torch.from_numpy((rng.random(n * n + 1) < 0.4).astype(np.int8)).to(cuda)
+    a = flat[1:].view(n, n)
+    out = torch.zeros(1, dtype=torch.int64, device=cuda)
+    assert int(dense_mxu_tc_cuda(a, out)) == int(dense_mxu_tc_reference(a))
+    with pytest.raises(ValueError):
+        dense_mxu_tc_cuda(a, torch.zeros(1, dtype=torch.int64))  # CPU out
+    with pytest.raises(TypeError):
+        dense_mxu_tc_cuda(a.int(), out)
+
+
+def test_dense_backends_on_card_match_oracle(cuda):
+    from repro_torch.core import baselines, metrics
+
+    edges = rmat(3000, 24000, seed=4)
+    g = build_graph(edges, reorder=True)
+    want = triangles_intersection(g)
+    before = (bitgemm_cuda.launches, dense_mxu_tc_cuda.launches)
+    for backend in ("bitgemm", "mxu"):
+        res = tcim_count(edges, backend=backend)
+        assert res.triangles == want
+        assert tcim_count(edges, backend=backend, device="cpu").triangles == want
+        assert tcim_count(edges, backend=backend, async_=True).result().triangles == want
+    assert bitgemm_cuda.launches - before[0] == 2 * 2  # two chunks of 2048 rows, twice
+    assert dense_mxu_tc_cuda.launches - before[1] == 2
+    items = items_cuda.launches
+    support = metrics.edge_support(g)
+    assert items_cuda.launches == items + 1
+    assert np.array_equal(support, metrics.edge_support(g, device="cpu"))
+    assert support.sum() == want
+    assert baselines.matmul_tc(g, block=1000) == want

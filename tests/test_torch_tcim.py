@@ -209,15 +209,22 @@ def test_async_and_graph_entry_points():
 def test_unported_options_raise_naming_the_roadmap():
     edges = _edges("ego-facebook")
     assert pt_core.BACKENDS == jx_core.BACKENDS
-    for backend in ("bitgemm", "mxu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt_core.tcim_count(edges, backend=backend, device="cpu")
     for kwargs in ({"build": "device"}, {"mesh": object()}, {"resilience": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pt_core.tcim_count(edges, device="cpu", **kwargs)
     for kwargs in ({"backend": "x"}, {"schedule": "x"}, {"build": "x"}, {"placement": "x"}):
         with pytest.raises(ValueError):
             pt_core.tcim_count(edges, device="cpu", **kwargs)
+
+
+def test_dense_backend_with_device_build_matches_reference():
+    """A dense backend takes the host path under build='device', as the
+    reference does (tests/test_build.py::test_build_argument_validation)."""
+    edges = np.array([[0, 1], [0, 2], [1, 2]], dtype=np.int64)
+    got = pt_core.tcim_count(edges, backend="mxu", build="device", device="cpu")
+    want = jx_core.tcim_count(edges, backend="mxu", build="device")
+    assert got.triangles == want.triangles == 1
+    assert got.stats == want.stats
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
@@ -239,6 +246,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.data, repro_torch.configs\n"
         "import repro_torch.launch.tc_serve, repro_torch.runtime.fault\n"
         "import repro_torch.kernels.slice_and_popcount\n"
+        "import repro_torch.kernels.tc_bitgemm, repro_torch.kernels.tc_dense_mxu\n"
+        "import repro_torch.kernels.ref, repro_torch.core.metrics\n"
+        "import repro_torch.core.baselines, repro_torch.core.cachesim\n"
+        "import repro_torch.core.energymodel\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
