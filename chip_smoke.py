@@ -45,6 +45,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  10. dense timing  bitgemm at an email-enron chunk, dense_mxu_tc at
               ego-facebook's and email-enron's N, each beside its plain
               version, its bound and (for the MMA) ``torch._int_mm``
+ 11. flash cases  flash_attention against its plain version, BH 1 / 3 / 72,
+              (Sq, Sk) from (1, 1) to (2048, 2048) with ragged and offset
+              (Sq < Sk) queries, causal or not, hd 16 / 32 / 64 / 128, bf16
+              (2e-2 elementwise, 1.2e-2 in relative norm per query row) and
+              f32 (2e-5, 2e-5); an unsupported hd must raise
+ 12. LM serve  ``repro_torch.launch.serve.ServeSession`` with smollm-135m at
+              full width (30 layers, random weights from seed 0): 8 prompts of
+              4096 tokens and 32 generated, with 30 flash launches in prefill
+              and none in decode; held against ``attention_impl="xla"`` on
+              the same weights (prefill logits, every layer's KV cache, the
+              logits at every position of two prompts and teacher-forced
+              decode logits within 3e-2 in relative norm, layer 0's cache
+              equal, both beside a float32 run of the same weights; a kernel
+              planted to drop one KV tile must exceed the bound); a float32
+              run (equal tokens, 1e-3 elementwise); one prefill_32k sequence
+              (32,768 tokens) against xla too
+ 13. flash timing  the kernel at the two prefill shapes (BH 72 x 4096 and
+              BH 9 x 32,768, hd 64, causal), held to its plain version row by
+              row (a planted dropped KV tile must fail that check), beside its
+              bound, its plain version and ``scaled_dot_product_attention``
 
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
@@ -74,7 +94,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry)
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 POPC_PER_CLOCK_PER_SM = 16  # __popc issue rate, compute capability 9.0 (CUDA C++ Programming Guide)
-KERNEL_SOURCES = ("tc_gather_popcount", "slice_and_popcount", "tc_bitgemm", "tc_dense_mxu")
+KERNEL_SOURCES = ("tc_gather_popcount", "slice_and_popcount", "tc_bitgemm", "tc_dense_mxu",
+                  "flash_attention")
 MIX_N = (64, 96, 128, 192, 256, 384, 512, 768)  # benchmarks/bench_serve.py's mix
 EDGE_FACTOR = 6
 NUM_TENANTS = 512  # at slice_bits 64
@@ -89,6 +110,23 @@ MXU_SIZES = (1, 33, 255, 256, 257, 4039)
 MXU_DENSITIES = (0.02, 0.3, 1.0)
 BITGEMM_CHUNK_ROWS = 2048  # tcim's bitgemm backend
 NO_POPCOUNT_OP = "torch has no popcount op"
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+FLASH_BH = (1, 3, 72)
+FLASH_SHAPES = ((1, 1), (64, 64), (100, 100), (128, 128), (256, 128), (64, 256), (517, 1030),
+                (2048, 2048))
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # tests/test_flash_and_cost.py's own
+# Largest per-row ||got - want|| / ||want|| over query rows, ``want`` being
+# the plain version's output before its last rounding. Outputs shrink as
+# rows see more keys (about 0.01 at S 32,768), so an elementwise 2e-2 cannot
+# see a wrong late row. The kernel's bf16 output rounding alone is up to
+# 2^-8 of each element (3.9e-3 of a row); its weights are rounded at another
+# scale than the plain version's. Read on an H100: at most 8.1e-3 (hd 16),
+# 4.8e-3 at the prefill shapes; one KV tile dropped: at least 1.4e-2.
+FLASH_ROW_TOL = {"bfloat16": 1.2e-2, "float32": 2e-5}
+LM_ARCH = "smollm-135m"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 4096, 32
+LM_LONG = 32768  # one prefill_32k sequence (configs/shapes.py)
+LM_TOL = 3e-2  # the reference's flash-vs-xla bound (tests/test_flash_and_cost.py), here in relative norm
 
 
 def log(msg: str) -> None:
@@ -341,6 +379,7 @@ def phase_timing(main: dict) -> tuple:
 
 def _wrappers() -> dict:
     from repro_torch.kernels.slice_and_popcount import items_cuda, total_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.tc_bitgemm import bitgemm_cuda
     from repro_torch.kernels.tc_dense_mxu import dense_mxu_tc_cuda
     from repro_torch.kernels.tc_gather_popcount import (
@@ -355,6 +394,7 @@ def _wrappers() -> dict:
         "items": items_cuda,
         "bitgemm": bitgemm_cuda,
         "dense_mxu_tc": dense_mxu_tc_cuda,
+        "flash_attention": flash_attention_cuda,
     }
 
 
@@ -979,6 +1019,358 @@ def phase_dense_timing(dense: dict) -> list:
     return rows
 
 
+def _flash_inputs(bh: int, sq: int, sk: int, hd: int, dtype, seed: int) -> tuple:
+    """Normal q, k, v on the card and arange positions, the queries at the
+    end of the keys when Sq < Sk (chunked prefill)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(bh, n, hd, generator=gen, device="cuda").to(dtype) for n in (sq, sk, sk))
+    start = sk - sq if sq < sk else 0
+    qp = torch.arange(start, start + sq, dtype=torch.int32, device="cuda").expand(bh, sq)
+    kp = torch.arange(sk, dtype=torch.int32, device="cuda").expand(bh, sk)
+    return q, k, v, qp.contiguous(), kp.contiguous()
+
+
+def _err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _close(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
+    return torch.allclose(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| over the whole tensor."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _flash_plain_f32(plain, ops: tuple) -> torch.Tensor:
+    """The plain version with q in float32: the same scores and the same
+    weights rounded to v's type, its output left unrounded. Rounded to q's
+    type it is the plain version's output."""
+    return plain(ops[0].float(), *ops[1:])
+
+
+def _row_rel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """||a - b|| / ||b|| of each row (last axis) of [..., d] tensors."""
+    a, b = a.float(), b.float()
+    return (a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)
+
+
+def phase_flash_cases() -> tuple[dict, dict]:
+    """flash_attention: kernel == plain version on the card within the
+    reference's elementwise tolerances and, row by row, within
+    FLASH_ROW_TOL. Returns the max |err| and the max row error by type."""
+    from repro_torch.kernels.flash_attention import (
+        FLASH_HEAD_DIMS,
+        flash_attention_cuda,
+        flash_attention_reference,
+    )
+
+    errs, row_errs = {}, {}
+    seed = 0
+    for dtype_name, tol in FLASH_TOL.items():
+        dtype = getattr(torch, dtype_name)
+        row_tol = FLASH_ROW_TOL[dtype_name]
+        errs[dtype_name], row_errs[dtype_name] = 0.0, 0.0
+        for hd in FLASH_HEAD_DIMS:
+            hd_row = 0.0
+            for bh in FLASH_BH:
+                for sq, sk in FLASH_SHAPES:
+                    for causal in (True, False):
+                        seed += 1
+                        ops = _flash_inputs(bh, sq, sk, hd, dtype, seed)
+                        got = flash_attention_cuda(*ops, causal=causal)
+                        exact = _flash_plain_f32(
+                            lambda *a: flash_attention_reference(*a, causal=causal), ops)
+                        want = exact.to(dtype)
+                        torch.cuda.synchronize()
+                        err = _err(got, want)
+                        row = float(_row_rel(got, exact).max())
+                        errs[dtype_name] = max(errs[dtype_name], err)
+                        hd_row = max(hd_row, row)
+                        check(got.dtype == dtype and _close(got, want, tol) and row <= row_tol,
+                              f"flash {dtype_name} hd={hd} BH={bh} Sq={sq} Sk={sk} "
+                              f"causal={causal}: max |err| {err}, max row error {row}")
+            row_errs[dtype_name] = max(row_errs[dtype_name], hd_row)
+            log(f"[flash] {dtype_name} hd={hd}: BH {list(FLASH_BH)} x (Sq, Sk) "
+                f"{list(FLASH_SHAPES)} x causal / not == plain within {tol} and rows within "
+                f"{row_tol}; max row error at this hd {hd_row:.3e}; max |err| so far "
+                f"{errs[dtype_name]:.3e}")
+    for hd in (48, 256):
+        try:
+            flash_attention_cuda(*_flash_inputs(2, 64, 64, hd, torch.bfloat16, 0))
+        except ValueError as e:
+            log(f"[flash] hd={hd} raised: {e}")
+        else:
+            raise RuntimeError(f"flash_attention_cuda took the unsupported head dim {hd}")
+    return errs, row_errs
+
+
+def phase_lm_serve() -> dict:
+    """smollm-135m served at full width on the card through the flash
+    kernel, held against the plain attention path on the same weights."""
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models import layers
+    from repro_torch.models.model import count_params_analytical, forward_train
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    log("[lm] float32 matmuls in full float32 (allow_tf32 False for cuBLAS and cuDNN)")
+    max_seq = LM_PROMPT + LM_GEN + 1
+    t0 = time.perf_counter()
+    sess = ServeSession(LM_ARCH, batch=LM_BATCH, max_seq=max_seq, attention_impl="flash")
+    cfg = sess.cfg
+    n_params = sum(t.numel() for t in tree_leaves(sess.params))
+    check(n_params == count_params_analytical(cfg) == 134_515_008, f"{n_params} parameters")
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} KV heads, head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, tied embeddings; {n_params} parameters in {cfg.dtype}, random from seed 0, "
+        f"in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+    sess.generate(prompts[:, :64], 2)  # warm-up: library handles, kernel load
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_launches()
+    tokens, stats = sess.generate(prompts, LM_GEN, keep_logits=True)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    gen = tokens[:, LM_PROMPT:]
+    others = {k: v for k, v in launches.items() if k != "flash_attention" and v}
+    check(launches["flash_attention"] == cfg.n_layers and not others,
+          f"serve launches {launches}, expected {cfg.n_layers} flash_attention")
+    check(tokens.shape == (LM_BATCH, LM_PROMPT + LM_GEN) and np.isfinite(stats["logits"]).all()
+          and 0 <= gen.min() and gen.max() < cfg.vocab, "generated tokens or logits malformed")
+    step_ms = 1e3 * stats["decode_s"] / (LM_GEN - 1)
+    log(f"[lm] flash serve: {LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_GEN} generated; "
+        f"launches {launches}; prefill_s {stats['prefill_s']:.6f} "
+        f"({LM_BATCH * LM_PROMPT / stats['prefill_s']:.1f} prompt tokens/s); decode_s "
+        f"{stats['decode_s']:.6f} over {LM_GEN - 1} steps ({step_ms:.3f} ms a step, "
+        f"{stats['decode_tok_per_s']:.1f} tokens/s); max_memory_allocated {peak} bytes "
+        f"({peak - base} above the {base} held before)")
+
+    logits_f, cache_f = sess.prefill(prompts)
+    xla = ServeSession(LM_ARCH, batch=LM_BATCH, max_seq=max_seq, attention_impl="xla",
+                       params=sess.params)
+    _reset_launches()
+    logits_x, cache_x = xla.prefill(prompts)
+    check(_launches()["flash_attention"] == 0, "the xla path launched the flash kernel")
+    # The same weights in float32 (xla path): where each bf16 path's rounding
+    # takes it, layer by layer.
+    ref = ServeSession(LM_ARCH, batch=LM_BATCH, max_seq=max_seq, attention_impl="xla",
+                       dtype="float32", params=tree_map(lambda t: t.float(), sess.params))
+    logits_t, cache_t = ref.prefill(prompts)
+    del ref
+    # In bf16 both paths round at every layer, so over 30 layers they agree
+    # to bf16's noise elementwise; each is held to the other in relative norm,
+    # and each one's distance from the float32 run is logged beside it.
+    errs = {"prefill logits": _rel(logits_f, logits_x)}
+    log(f"[lm] prefill logits: max |err| flash-xla {_err(logits_f, logits_x):.6f}, flash-f32 "
+        f"{_err(logits_f, logits_t):.6f}, xla-f32 {_err(logits_x, logits_t):.6f}; relative norm "
+        f"flash-xla {errs['prefill logits']:.6f}, flash-f32 {_rel(logits_f, logits_t):.6f}, "
+        f"xla-f32 {_rel(logits_x, logits_t):.6f}")
+    for name in ("k", "v"):
+        f, x, t = cache_f[name], cache_x[name], cache_t[name]
+        worst = {pair: max(_err(a[i], b[i]) for i in range(cfg.n_layers))
+                 for pair, a, b in (("flash-xla", f, x), ("flash-f32", f, t), ("xla-f32", x, t))}
+        rms = {pair: float((a.float() - b.float()).pow(2).mean().sqrt())
+               for pair, a, b in (("flash-xla", f, x), ("flash-f32", f, t), ("xla-f32", x, t))}
+        rel = [_rel(f[i], x[i]) for i in range(cfg.n_layers)]
+        errs[f"cache {name}"] = max(rel)
+        log(f"[lm] cache {name}: max |err| {json.dumps(worst)}; rms {json.dumps(rms)}; flash-xla "
+            f"relative norm by layer {json.dumps([round(r, 6) for r in rel])}; max |value| "
+            f"{float(t.float().abs().max()):.4f}")
+        # Layer 0's K/V precede any attention: the two paths must agree exactly.
+        check(torch.equal(f[0], x[0]), f"layer-0 cache {name} differs")
+    del cache_t
+    # Logits at every prompt position (forward_train), on two of the prompts.
+    toks = torch.from_numpy(prompts[:2].copy()).cuda()
+    with torch.inference_mode():
+        every_f = forward_train(sess.params, {"tokens": toks}, cfg)[0][..., : cfg.vocab]
+        every_x = forward_train(sess.params, {"tokens": toks}, xla.cfg)[0][..., : cfg.vocab]
+    by_pos = _row_rel(every_f, every_x)
+    errs["logits at every position"] = _rel(every_f, every_x)
+    log(f"[lm] logits at all {2 * LM_PROMPT} positions of 2 prompts (forward_train): flash-xla "
+        f"relative norm {errs['logits at every position']:.6f}; by position max "
+        f"{float(by_pos.max()):.6f}, median {float(by_pos.median()):.6f}")
+    del every_f, every_x, by_pos
+    # A planted fault the bound must see: a kernel that loses keys 64..127
+    # (one KV tile) in every layer.
+    real = layers.flash_attention
+
+    def drop_tile(q, k, v, q_pos, k_pos, *, causal):
+        keep = torch.ones(k.shape[1], dtype=torch.bool, device=k.device)
+        keep[64:128] = False
+        return real(q, k[:, keep], v[:, keep], q_pos, k_pos[:, keep].contiguous(), causal=causal)
+
+    layers.flash_attention = drop_tile
+    try:
+        logits_b, cache_b = sess.prefill(prompts)
+    finally:
+        layers.flash_attention = real
+    bad = {"prefill logits": _rel(logits_b, logits_x),
+           **{f"cache {n}": max(_rel(cache_b[n][i], cache_x[n][i]) for i in range(cfg.n_layers))
+              for n in ("k", "v")}}
+    check(max(bad.values()) > LM_TOL, f"a dropped KV tile passes the {LM_TOL} bound: {bad}")
+    log(f"[lm] planted fault (keys 64..127 dropped in every layer's attention): flash-xla "
+        f"relative norm {json.dumps(bad)}, {max(bad.values()) / LM_TOL:.1f} x the {LM_TOL} bound")
+    del logits_b, cache_b
+    _reset_launches()
+    dec, dec_max = 0.0, 0.0
+    for i in range(LM_GEN - 1):  # both paths teacher-forced on the flash session's tokens
+        tok = torch.from_numpy(gen[:, i : i + 1].copy()).cuda()
+        lf, cache_f = sess.decode(cache_f, tok, LM_PROMPT + i)
+        lx, cache_x = xla.decode(cache_x, tok, LM_PROMPT + i)
+        dec, dec_max = max(dec, _rel(lf, lx)), max(dec_max, _err(lf, lx))
+    errs["decode logits"] = dec
+    decode_launches = _launches()
+    check(not any(decode_launches.values()), f"decode launched {decode_launches}")
+    check(max(errs.values()) <= LM_TOL, f"flash vs xla relative norms {errs} > {LM_TOL}")
+    log(f"[lm] flash vs xla on the same weights: relative norm {json.dumps(errs)} (bound "
+        f"{LM_TOL}); decode logits max |err| {dec_max:.6f}; decode launches {decode_launches}")
+    del cache_f, cache_x
+    xtokens, xstats = xla.generate(prompts, LM_GEN)
+    share = float((xtokens[:, LM_PROMPT:] == gen).mean())
+    log(f"[lm] xla serve (plain attention, chunked above {cfg.long_context_threshold}): "
+        f"prefill_s {xstats['prefill_s']:.6f}, decode_s {xstats['decode_s']:.6f} "
+        f"({xstats['decode_tok_per_s']:.1f} tokens/s); greedy tokens equal to the flash "
+        f"session's: {share:.4f} ({int((xtokens[:, LM_PROMPT:] == gen).sum())} of {gen.size}; "
+        f"distinct tokens generated {len(np.unique(gen))})")
+    del xla
+
+    f32 = ServeSession(LM_ARCH, batch=2, max_seq=128 + 8 + 1, attention_impl="flash",
+                       dtype="float32")
+    f32x = ServeSession(LM_ARCH, batch=2, max_seq=128 + 8 + 1, attention_impl="xla",
+                        dtype="float32", params=f32.params)
+    _reset_launches()
+    t32, s32 = f32.generate(prompts[:2, :128], 8, keep_logits=True)
+    l32 = _launches()["flash_attention"]
+    tx32, sx32 = f32x.generate(prompts[:2, :128], 8, keep_logits=True)
+    err32 = float(np.abs(s32["logits"] - sx32["logits"]).max())
+    check(l32 == cfg.n_layers, f"float32 run: {l32} flash launches")
+    check(np.array_equal(t32, tx32) and np.allclose(s32["logits"], sx32["logits"], rtol=1e-3,
+                                                    atol=1e-3),
+          f"float32 flash vs xla: tokens equal {np.array_equal(t32, tx32)}, max |err| {err32}")
+    log(f"[lm] float32 (batch 2, prompt 128, 8 generated): {l32} flash launches (the f32 "
+        f"kernel); tokens equal to xla's; max |err| of logits {err32:.3e} (bound 1e-3)")
+    del f32, f32x
+
+    long = ServeSession(LM_ARCH, batch=1, max_seq=LM_LONG + 1, attention_impl="flash",
+                        params=sess.params)
+    long_prompt = rng.integers(0, cfg.vocab, (1, LM_LONG), dtype=np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_long = torch.cuda.memory_allocated()
+    _reset_launches()
+    _, lstats = long.generate(long_prompt, 1, keep_logits=True)
+    long_launches = _launches()["flash_attention"]
+    long_peak = torch.cuda.max_memory_allocated()
+    longx = ServeSession(LM_ARCH, batch=1, max_seq=LM_LONG + 1, attention_impl="xla",
+                         params=sess.params)
+    _, lxstats = longx.generate(long_prompt, 1, keep_logits=True)
+    lerr = float(np.abs(lstats["logits"] - lxstats["logits"]).max())
+    lrel = _rel(torch.from_numpy(lstats["logits"]), torch.from_numpy(lxstats["logits"]))
+    check(long_launches == cfg.n_layers, f"prefill_32k: {long_launches} flash launches")
+    check(np.isfinite(lstats["logits"]).all() and lrel <= LM_TOL,
+          f"prefill_32k flash vs xla logits: relative norm {lrel}, max |err| {lerr}")
+    log(f"[lm] prefill_32k, one sequence of {LM_LONG} tokens: {long_launches} flash launches; "
+        f"prefill_s {lstats['prefill_s']:.6f} (xla path {lxstats['prefill_s']:.6f}); last "
+        f"logits vs xla: relative norm {lrel:.6f}, max |err| {lerr:.6f}; max_memory_allocated {long_peak} bytes "
+        f"({long_peak - base_long} above the {base_long} held before)")
+    return {"launches": launches["flash_attention"], "long_launches": long_launches,
+            "stats": stats, "xstats": xstats, "long_s": lstats["prefill_s"],
+            "long_xla_s": lxstats["prefill_s"], "heads": cfg.n_heads}
+
+
+def _flash_bound(qp: torch.Tensor, kp: torch.Tensor, hd: int) -> tuple[tuple[float, str], int]:
+    """Least time for the kernel's work on these inputs: 4 hd flops for each
+    visible (query, key) pair at the bf16 tensor rate, against Q, K, V and
+    the positions read once and O written once. Returns (bound, pairs)."""
+    from repro_torch.kernels.flash_attention import flash_io_bytes
+
+    bh, sq = qp.shape
+    sk = kp.shape[1]
+    ks, _ = torch.sort(kp, dim=1)
+    pairs = int(torch.searchsorted(ks, qp, right=True).sum())
+    nbytes = flash_io_bytes(bh, 1, sq, sk, hd, dtype_bytes=2, train=False) + 4 * bh * (sq + sk)
+    return _bound_ms(nbytes, 4 * hd * pairs, BF16_TENSOR_FLOPS), pairs
+
+
+def phase_flash_timing(lm: dict) -> list:
+    """The kernel at the LM prefill's two shapes beside its bound, its plain
+    version and scaled_dot_product_attention; returns the JSON rows."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_reference
+
+    kernel = lambda *a: flash_attention_cuda(*a, causal=True)  # noqa: E731
+    plain = lambda *a: flash_attention_reference(*a, causal=True)  # noqa: E731
+    rows = []
+    cells = (("flash_attention", LM_BATCH, LM_PROMPT, lm["launches"], lm["stats"]["prefill_s"]),
+             (f"flash_attention[s={LM_LONG}]", 1, LM_LONG, lm["long_launches"], lm["long_s"]))
+    for label, batch, s, launches, prefill_s in cells:
+        h, hd = lm["heads"], 64
+        ops = _flash_inputs(batch * h, s, s, hd, torch.bfloat16, seed=s)
+        got, exact = kernel(*ops), _flash_plain_f32(plain, ops)
+        want = exact.to(torch.bfloat16)
+        check(torch.equal(want, plain(*ops)), f"{label}: the plain version's output differs")
+        q4, k4, v4 = (t.view(batch, h, s, hd) for t in ops[:3])
+        lib = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        torch.cuda.synchronize()
+        err, row_tol = _err(got, want), FLASH_ROW_TOL["bfloat16"]
+        rows_rel = _row_rel(got, exact)
+        row_err = float(rows_rel.max())
+        check(_close(got, want, FLASH_TOL["bfloat16"]) and row_err <= row_tol,
+              f"{label}: kernel vs plain max |err| {err}, max row error {row_err}")
+        check(_close(lib.reshape(got.shape), want, FLASH_TOL["bfloat16"]),
+              f"{label}: scaled_dot_product_attention is not the same function here")
+        # A planted fault the row check must see: the second half of the rows
+        # computed without keys 64..127 (one dropped KV tile).
+        half, keep = s // 2, torch.ones(s, dtype=torch.bool, device="cuda")
+        keep[64:128] = False
+        bad = exact.clone()
+        bad[:, half:] = _flash_plain_f32(plain, (ops[0][:, half:], ops[1][:, keep], ops[2][:, keep],
+                                                 ops[3][:, half:], ops[4][:, keep].contiguous()))
+        bad_rows = _row_rel(bad[:, half:], exact[:, half:])
+        bad = bad.to(torch.bfloat16)
+        check(float(bad_rows.min()) > row_tol,
+              f"{label}: a dropped KV tile passes the row check ({float(bad_rows.min())})")
+        log(f"[flash timing] {label}: kernel vs plain max |err| {err:.3e} (elementwise bound "
+            f"{FLASH_TOL['bfloat16']}), row error max {row_err:.3e} / median "
+            f"{float(rows_rel.median()):.3e} (bound {row_tol}); |out| median "
+            f"{float(want.float().abs().median()):.3e}. Planted fault (rows {half}.. without keys "
+            f"64..127): elementwise check {'passes' if _close(bad, want, FLASH_TOL['bfloat16']) else 'fails'}"
+            f" it, its row errors min {float(bad_rows.min()):.3e} / median "
+            f"{float(bad_rows.median()):.3e}, so the row check fails every faulty row")
+        del got, want, exact, lib, bad, bad_rows, rows_rel
+        _time_ms(kernel, [ops], 2)
+        ms = _time_ms(kernel, [ops], 10 if s == LM_PROMPT else 3)
+        _time_ms(plain, [ops], 1)
+        plain_ms = _time_ms(plain, [ops], 2 if s == LM_PROMPT else 1)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, is_causal=True)
+        _time_ms(sdpa, [()], 2)
+        library_ms = _time_ms(sdpa, [()], 10 if s == LM_PROMPT else 3)
+        bound, pairs = _flash_bound(ops[3], ops[4], hd)
+        log(f"[flash timing] {label}: {ms:.6f} ms/launch (BH={batch * h} = {batch} x {h} heads, "
+            f"Sq=Sk={s}, hd={hd}, bf16, causal; {pairs} visible pairs); bound {bound[0]:.6f} ms "
+            f"({bound[1]}: {4 * hd * pairs:.4e} flops at 989 TFLOP/s vs bytes at 3.35 TB/s), "
+            f"{100 * bound[0] / ms:.2f}% of bound; plain version {plain_ms:.6f} ms (score blocks "
+            f"of at most 2^28 f32); scaled_dot_product_attention {library_ms:.6f} ms "
+            f"({ms / library_ms:.2f}x this kernel's time against it); max |err| vs plain {err:.3e}; "
+            f"{launches} launches x {ms:.6f} ms = {launches * ms:.3f} ms of the {1e3 * prefill_s:.3f} "
+            f"ms prefill ({100 * launches * ms / (1e3 * prefill_s):.1f} %)")
+        row = _row(label, "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:71", launches, ms, plain_ms, bound,
+                   library_ms)
+        row["max_abs_err"] = err
+        row["max_row_rel_err"] = row_err
+        rows.append(row)
+        del ops, q4, k4, v4
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -1005,9 +1397,15 @@ def main() -> int:
     dense_rows[0]["max_abs_err"] = err_bitgemm
     for r in dense_rows[1:]:
         r["max_abs_err"] = err_mxu
+    err_flash, row_err_flash = phase_flash_cases()
+    lm = phase_lm_serve()
+    flash_rows = phase_flash_timing(lm)
+    for r in flash_rows:
+        r["max_abs_err"] = max(r["max_abs_err"], *err_flash.values())
+        r["max_row_rel_err"] = max(r["max_row_rel_err"], *row_err_flash.values())
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
-    print(json.dumps({"kernels": [row, *rows, *dense_rows]}))
+    print(json.dumps({"kernels": [row, *rows, *dense_rows, *flash_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,159 @@
+"""Batched LM serving driver: prefill a prompt batch, decode N tokens.
+
+Port of ``src/repro/launch/serve.py`` for the dense family, on one device:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --attention-impl flash --batch 8 --prompt-len 4096 --gen 32
+
+With ``attention_impl="flash"`` the prefill runs the CUDA flash-attention
+kernel (one launch a layer); decode is plain torch, as the reference's
+decode never calls its kernel. ``--device cpu`` runs the plain versions.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models.model import check_supported, init_cache, init_model
+from repro_torch.models.params import tree_map
+
+__all__ = ["ServeSession", "main"]
+
+
+class ServeSession:
+    """Greedy (or seeded temperature) generation for one batch shape.
+
+    ``device`` takes the reference's ``mesh``: the card unless ``"cpu"`` is
+    asked. ``attention_impl`` and ``dtype``, when set, replace the config's
+    fields (the reference keeps the config's, ``"xla"`` and bf16).
+    ``params`` (the port's parameter tree, e.g. from ``params_from_numpy``)
+    replaces the session's own init from seed 0, which the reference also
+    uses whatever ``seed`` is; ``seed`` seeds temperature sampling.
+
+    ``generate`` is the serving entry point. ``prefill`` and ``decode`` are
+    its two steps, exposed so that checks can hold each step's logits and
+    cache against another session's; ``dtype``, ``params`` and
+    ``generate(keep_logits=)`` exist for those checks too.
+    """
+
+    def __init__(self, arch: str, *, smoke=False, batch=4, max_seq=128, mesh=None,
+                 temperature: float = 0.0, seed: int = 0, device=None,
+                 attention_impl: str | None = None, dtype: str | None = None, params=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a mesh is not ported yet: the port serves on one device "
+                "(ROADMAP.md, queue 1, item 12)")
+        cfg = get_smoke_config(arch) if smoke else get_config(arch)
+        if cfg.family == "audio":
+            raise ValueError("encoder-only arch has no decode step")
+        overrides = {"attention_impl": attention_impl, "dtype": dtype}
+        cfg = cfg.scaled(**{k: v for k, v in overrides.items() if v is not None})
+        if cfg.attention_impl not in ("xla", "flash"):
+            raise ValueError(f"attention_impl must be 'xla' or 'flash', got {cfg.attention_impl!r}")
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.batch = batch
+        self.max_seq = max_seq
+        self.temperature = temperature
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        if params is None:
+            self.params = init_model(0, cfg, self.device)
+        else:
+            self.params = tree_map(lambda t: t.to(self.device), params)
+        self._prefill = make_prefill_step(cfg)
+        self._decode = make_serve_step(cfg)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def prefill(self, prompts):
+        """prompts: [B, P] ints. Returns (last logits [B, V] f32, cache)."""
+        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(self.device)
+        if tokens.dim() != 2 or tokens.shape[0] != self.batch:
+            raise ValueError(f"prompts must be [{self.batch}, P], got {tuple(tokens.shape)}")
+        cache = init_cache(self.cfg, self.batch, self.max_seq, self.device)
+        return self._prefill(self.params, cache, {"tokens": tokens})
+
+    def decode(self, cache, token: torch.Tensor, pos: int):
+        """One step: token [B, 1] at position ``pos``. Returns (logits, cache)."""
+        return self._decode(self.params, cache, token, pos)
+
+    def generate(self, prompts: np.ndarray, gen_tokens: int, keep_logits: bool = False):
+        """prompts: [B, P] int32. Returns (tokens [B, P+gen], stats).
+
+        ``stats`` has the reference's ``prefill_s``, ``decode_s`` and
+        ``decode_tok_per_s``; with ``keep_logits`` also ``logits``, the
+        [gen, B, V] f32 logits each sampled token was drawn from.
+        """
+        b, plen = prompts.shape
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = self.prefill(prompts)
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+        kept = [logits] if keep_logits else []
+        out = [self._sample(logits)]
+        t0 = time.perf_counter()
+        for i in range(gen_tokens - 1):
+            logits, cache = self.decode(cache, out[-1], plen + i)
+            if keep_logits:
+                kept.append(logits)
+            out.append(self._sample(logits))
+        self._sync()
+        t_decode = time.perf_counter() - t0
+        gen = torch.cat(out, dim=1).cpu().numpy()
+        stats = {
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "decode_tok_per_s": b * max(gen_tokens - 1, 1) / max(t_decode, 1e-9),
+        }
+        if keep_logits:
+            stats["logits"] = torch.stack(kept).cpu().numpy()
+        return np.concatenate([prompts, gen.astype(prompts.dtype)], axis=1), stats
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        probs = torch.softmax(logits / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self.gen).to(torch.int32)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument("--attention-impl", choices=("xla", "flash"), default=None,
+                    help="replaces the config's attention_impl (xla)")
+    args = ap.parse_args(argv)
+    sess = ServeSession(
+        args.arch,
+        smoke=args.smoke,
+        batch=args.batch,
+        max_seq=args.prompt_len + args.gen + 1,
+        temperature=args.temperature,
+        device=args.device,
+        attention_impl=args.attention_impl,
+    )
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, sess.cfg.vocab, (args.batch, args.prompt_len), dtype=np.int32)
+    tokens, stats = sess.generate(prompts, args.gen)
+    print(f"generated shape={tokens.shape} prefill={stats['prefill_s']:.3f}s "
+          f"decode={stats['decode_s']:.3f}s ({stats['decode_tok_per_s']:.1f} tok/s)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,208 @@
+"""The dense decoder: schema, init, train forward (logits), prefill, decode.
+
+Port of the dense-family branches of ``src/repro/models/model.py``. The
+parameters are the reference's tree of plain tensors, with every layer's
+leaves stacked on a leading ``[L, ...]`` dim (so ``params_from_numpy`` is a
+leaf-by-leaf copy); the reference's ``scan`` over layers is a Python loop
+over views of that stack. Caches are stacked the same way and updated in
+place.
+
+Families ``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``audio`` and
+``attention="mla"`` raise ``NotImplementedError`` (ROADMAP.md, queue 1,
+item 12). ``loss_fn`` and the backward wait for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.flash_attention import NEG_INF
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import ParamDef, init_params, stack_schema, tree_leaves, tree_map
+
+__all__ = [
+    "model_schema",
+    "init_model",
+    "forward_train",
+    "forward_prefill",
+    "decode_step",
+    "init_cache",
+    "count_params_analytical",
+    "check_supported",
+]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port runs the dense "
+            "family (ROADMAP.md, queue 1, item 12)")
+    if cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: attention {cfg.attention!r} is not ported yet; the port runs GQA "
+            "(ROADMAP.md, queue 1, item 12)")
+
+
+# ------------------------------------------------------------------- schema
+
+
+def _layer_schema(cfg: ModelConfig) -> dict:
+    """One stackable decoder layer."""
+    return {
+        "ln1": L.norm_schema(cfg.d_model),
+        "attn": L.attn_schema(cfg),
+        "ln2": L.norm_schema(cfg.d_model),
+        "mlp": L.mlp_schema(cfg),
+    }
+
+
+def model_schema(cfg: ModelConfig) -> dict:
+    check_supported(cfg)
+    d, v = cfg.d_model, cfg.padded_vocab
+    s: dict[str, Any] = {
+        "tok_embed": ParamDef((v, d), "embed", ("vocab", "fsdp")),
+        "layers": stack_schema(_layer_schema(cfg), cfg.n_layers),
+        "final_norm": L.norm_schema(d),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ParamDef((d, v), "normal", ("fsdp", "vocab"))
+    return s
+
+
+def init_model(gen: torch.Generator | int, cfg: ModelConfig, device=None):
+    """Random parameters in ``cfg.dtype`` from ``gen`` (a seed or a
+    ``torch.Generator``), on ``device`` (default: the card)."""
+    if isinstance(gen, int):
+        gen = torch.Generator().manual_seed(gen)
+    return init_params(gen, model_schema(cfg), getattr(torch, cfg.dtype),
+                       resolve_device(device))
+
+
+def count_params_analytical(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of the schema, never materialised (dense: all active)."""
+    del active_only
+    return sum(int(np.prod(d.shape)) for d in tree_leaves(model_schema(cfg)))
+
+
+# ----------------------------------------------------------- layer execution
+
+
+def _layer(params: dict, i: int) -> dict:
+    return tree_map(lambda t: t[i], params["layers"])
+
+
+def _post_mlp(lp, x, cfg: ModelConfig):
+    return L.mlp_forward(lp["mlp"], L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+
+
+def _dense_layer(lp, x, positions, cfg: ModelConfig):
+    """One layer on the full sequence; returns (x, (k, v))."""
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    a, kv = L.attn_forward(lp["attn"], h, positions, cfg)
+    x = x + a
+    return x + _post_mlp(lp, x, cfg), kv
+
+
+def _mask_pad_logits(logits, cfg: ModelConfig):
+    """padded_vocab > vocab: pad columns get -1e30 (softmax/argmax-neutral)."""
+    if cfg.padded_vocab == cfg.vocab:
+        return logits
+    idx = torch.arange(cfg.padded_vocab, device=logits.device)
+    return logits.masked_fill(idx >= cfg.vocab, NEG_INF)
+
+
+def _logits(params, x, cfg: ModelConfig):
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, params["tok_embed"])
+    else:
+        logits = x @ params["lm_head"]
+    return _mask_pad_logits(logits.float(), cfg)
+
+
+def _embed_tokens(params, tokens):
+    flat = tokens.reshape(-1)
+    return params["tok_embed"].index_select(0, flat).reshape(*tokens.shape, -1)
+
+
+def _positions(bsz: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(bsz, s)
+
+
+# ------------------------------------------------------------- train forward
+
+
+def forward_train(params, batch: dict, cfg: ModelConfig):
+    """Full forward of the dense decoder: (logits [B, S, V] f32, aux {})."""
+    check_supported(cfg)
+    x = _embed_tokens(params, batch["tokens"])
+    positions = _positions(*x.shape[:2], x.device)
+    for i in range(cfg.n_layers):
+        x, _ = _dense_layer(_layer(params, i), x, positions, cfg)
+    return _logits(params, x, cfg), {}
+
+
+# -------------------------------------------------------------- KV cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
+    """Stacked decode cache for the whole model, bf16 whatever ``cfg.dtype``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+        "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+    }
+
+
+# ------------------------------------------------------------------- decode
+
+
+def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ModelConfig):
+    """One decode step. token: [B, 1] int; pos: the int position.
+
+    Returns (logits [B, vocab] f32, cache); the cache is updated in place.
+    """
+    check_supported(cfg)
+    x = _embed_tokens(params, token)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        a, _, _ = L.attn_decode(lp["attn"], h, pos, cache["k"][i], cache["v"][i], cfg)
+        x = x + a
+        x = x + _post_mlp(lp, x, cfg)
+    return _logits(params, x, cfg)[:, 0], cache
+
+
+# ------------------------------------------------------------------ prefill
+
+
+def forward_prefill(params, batch: dict, cache: dict, cfg: ModelConfig):
+    """Prefill: the full forward that also fills the decode cache.
+
+    Returns (last-position logits [B, vocab] f32, cache); positions past the
+    prompt are zeroed, as the reference's padded cache is.
+    """
+    check_supported(cfg)
+    x = _fill_attention_cache(params, batch, cache, cfg)
+    return _logits(params, x[:, -1:], cfg)[:, 0], cache
+
+
+def _fill_attention_cache(params, batch, cache, cfg: ModelConfig):
+    """Run the layers once over the prompt, writing each layer's K/V (bf16)
+    into the cache in place; returns the final residual stream."""
+    x = _embed_tokens(params, batch["tokens"])
+    s = x.shape[1]
+    positions = _positions(*x.shape[:2], x.device)
+    for i in range(cfg.n_layers):
+        x, (k, v) = _dense_layer(_layer(params, i), x, positions, cfg)
+        for name, new in (("k", k), ("v", v)):
+            cache[name][i, :, :s] = new
+            cache[name][i, :, s:] = 0
+    return x

@@ -278,3 +278,76 @@ def test_dense_backends_on_card_match_oracle(cuda):
     assert np.array_equal(support, metrics.edge_support(g, device="cpu"))
     assert support.sum() == want
     assert baselines.matmul_tc(g, block=1000) == want
+
+
+def _flash_operands(seed, bh, sq, sk, hd, dtype, device):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, s, hd)).astype(np.float32)).to(device, dtype)
+               for s in (sq, sk, sk))
+    start = sk - sq if sq < sk else 0
+    qp = torch.arange(start, start + sq, dtype=torch.int32, device=device).expand(bh, sq)
+    kp = torch.arange(sk, dtype=torch.int32, device=device).expand(bh, sk)
+    return q, k, v, qp.contiguous(), kp.contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (64, 64), (100, 100), (256, 128), (64, 256), (517, 1030)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_equals_plain_on_card(cuda, dtype, hd, sq, sk, causal):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_cuda,
+        flash_attention_reference,
+    )
+
+    dt = getattr(torch, dtype)
+    ops_ = _flash_operands(sq + sk + hd, 3, sq, sk, hd, dt, cuda)
+    before = flash_attention_cuda.launches
+    got = flash_attention(*ops_, causal=causal)
+    want = flash_attention_reference(*ops_, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (3, sq, hd)
+    assert flash_attention_cuda.launches == before + 1
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_wrapper_rejects_bad_operands_on_card(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v, qp, kp = _flash_operands(1, 2, 64, 64, 64, torch.bfloat16, cuda)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(*_flash_operands(1, 2, 64, 64, 48, torch.bfloat16, cuda))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q, k.cpu(), v, qp, kp)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.half(), k.half(), v.half(), qp, kp)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, k, v, qp.long(), kp)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q, k.transpose(0, 1).contiguous().transpose(0, 1), v, qp, kp)
+    flat = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_cuda(flat[1:].view(2, 64, 64), k, v, qp, kp)
+    assert flash_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("impl", ["flash", "xla"])
+def test_lm_serving_on_card_matches_cpu(cuda, impl):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.serve import ServeSession
+
+    prompts = np.random.default_rng(0).integers(0, 256, (2, 40), dtype=np.int32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sess = ServeSession("qwen1.5-110b", smoke=True, batch=2, max_seq=50, device=dev,
+                            attention_impl=impl, dtype="float32")
+        before = flash_attention_cuda.launches
+        runs[dev] = sess.generate(prompts, 6, keep_logits=True)
+        if dev == "cuda":
+            assert flash_attention_cuda.launches - before == (2 if impl == "flash" else 0)
+    np.testing.assert_array_equal(runs["cuda"][0], runs["cpu"][0])
+    np.testing.assert_allclose(runs["cuda"][1]["logits"], runs["cpu"][1]["logits"],
+                               rtol=1e-4, atol=1e-4)
