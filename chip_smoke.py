@@ -34,22 +34,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               and peak memory
   8. dense kernels  bitgemm (I, J in 1 .. 4039, W 1 / 3 / 5 / 127; random,
               zero and all-ones words) and dense_mxu_tc (N 1 .. 4039,
-              densities 0.02 / 0.3 / 1.0 upper-triangular, and full {0,1}
-              matrices) against their plain versions, exact; a launch
-              refused for shared memory must raise
+              densities 0.02 / 0.3 / 1.0 upper-triangular, lower-triangular,
+              full and block-sparse {0,1} matrices) against their plain
+              versions, exact, with dense_mxu_tc's k steps computed equal to
+              its occupancy plan's; a launch refused for shared memory must
+              raise
   9. dense    ``tcim_count(edges, backend="bitgemm" | "mxu")`` on
               ego-facebook and email-enron at full size against the exact
               oracle (and the port's CPU path on ego-facebook), with launch
-              counts, stage split and peak memory; ``metrics.edge_support``
+              counts, stage split and peak memory (the mxu count's: A and
+              its transpose); ``metrics.edge_support``
               (the items kernel) and ``baselines.matmul_tc`` on ego-facebook
  10. dense timing  bitgemm at an email-enron chunk, dense_mxu_tc at
-              ego-facebook's and email-enron's N, each beside its plain
-              version, its bound and (for the MMA) ``torch._int_mm``
- 11. flash cases  flash_attention against its plain version, BH 1 / 3 / 72,
-              (Sq, Sk) from (1, 1) to (2048, 2048) with ragged and offset
-              (Sq < Sk) queries, causal or not, hd 16 / 32 / 64 / 128, bf16
-              (2e-2 elementwise, 1.2e-2 in relative norm per query row) and
-              f32 (2e-5, 2e-5); an unsupported hd must raise
+              ego-facebook's and email-enron's N (strictly upper-triangular,
+              asserted; k steps == the plan's), each beside its plain
+              version, its bound (for the MMA the triangular N(N-1)(N-2)/3,
+              the dense 2 N^3 beside it) and ``torch._int_mm``
+ 11. flash cases  flash_attention against its plain version through both
+              entries, bf16 (2e-2 elementwise, 1.2e-2 in relative norm per
+              query row) and f32 (2e-5, 2e-5), hd 16 / 32 / 64 / 128, causal
+              or not: [BH, S, hd] with BH 1 / 3 / 72 and (Sq, Sk) from (1, 1)
+              to (2048, 2048), ragged and offset (Sq < Sk); [B, S, H, hd] with
+              B 1 / 3, (H, KH) (9, 3) / (4, 1), ragged and offset; reversed,
+              permuted and keys-after-queries positions (rows with no visible
+              key equal the mean of V); the kernel's count of scored KV tiles
+              equal to the skip rule's in every case; an unsupported hd must
+              raise
  12. LM serve  ``repro_torch.launch.serve.ServeSession`` with smollm-135m at
               full width (30 layers, random weights from seed 0): 8 prompts of
               4096 tokens and 32 generated, with 30 flash launches in prefill
@@ -58,13 +68,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               logits at every position of two prompts and teacher-forced
               decode logits within 3e-2 in relative norm, layer 0's cache
               equal, both beside a float32 run of the same weights; a kernel
-              planted to drop one KV tile must exceed the bound); a float32
+              planted to drop one KV tile must exceed the bound; prefill_s
+              here, its flash share in phase 13); a float32
               run (equal tokens, 1e-3 elementwise); one prefill_32k sequence
               (32,768 tokens) against xla too
- 13. flash timing  the kernel at the two prefill shapes (BH 72 x 4096 and
-              BH 9 x 32,768, hd 64, causal), held to its plain version row by
-              row (a planted dropped KV tile must fail that check), beside its
-              bound, its plain version and ``scaled_dot_product_attention``
+ 13. flash timing  the kernel at the two prefill shapes (8 x 4096 and
+              1 x 32,768, H 9, KH 3, hd 64, causal) through the [B, S, H, hd]
+              entry, held to its plain version row by row (a planted dropped
+              KV tile must fail that check) and its scored tiles to the skip
+              rule, beside its bound, its plain version and
+              ``scaled_dot_product_attention`` (enable_gqa) on the same
+              operands
 
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
@@ -114,6 +128,10 @@ BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 FLASH_BH = (1, 3, 72)
 FLASH_SHAPES = ((1, 1), (64, 64), (100, 100), (128, 128), (256, 128), (64, 256), (517, 1030),
                 (2048, 2048))
+FLASH_GQA_B = (1, 3)
+FLASH_GQA_HEADS = ((9, 3), (4, 1))  # (H, KH)
+FLASH_GQA_SHAPES = ((1, 1), (128, 128), (100, 300), (517, 1030))  # ragged, offset queries
+FLASH_POSITIONS = ("reversed", "permuted", "keys after queries")
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # tests/test_flash_and_cost.py's own
 # Largest per-row ||got - want|| / ||want|| over query rows, ``want`` being
 # the plain version's output before its last rounding. Outputs shrink as
@@ -800,12 +818,30 @@ def phase_serve_timing(serve: dict, chunks, row, col) -> tuple[list, int]:
     return [seg_row, *rows_json], max_err
 
 
-def _upper(n: int, density: float, seed: int, *, full: bool = False) -> torch.Tensor:
-    """An [n, n] {0,1} bool matrix on the card: strictly upper-triangular,
-    or (``full``) dense everywhere."""
+def _dense_case(n: int, density: float, seed: int, kind: str) -> torch.Tensor:
+    """An [n, n] {0,1} bool matrix on the card: strictly upper- or
+    lower-triangular, full, or block-sparse (full {0,1} with random 128-row
+    tile rows and columns zeroed: an occupancy plan that is not the
+    triangle)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a = torch.rand(n, n, generator=gen, device="cuda") < density
-    return a if full else torch.triu(a, 1)
+    if kind == "upper":
+        return torch.triu(a, 1)
+    if kind == "lower":
+        return torch.tril(a, -1)
+    if kind == "block-sparse":
+        nt = -(-n // 128)
+        rows = (torch.rand(nt, generator=gen, device="cuda") < 0.6).repeat_interleave(128)[:n]
+        cols = (torch.rand(nt, generator=gen, device="cuda") < 0.6).repeat_interleave(128)[:n]
+        return a & rows[:, None] & cols[None, :]
+    return a
+
+
+def _planned_steps(a: torch.Tensor) -> int:
+    """The k steps the occupancy plan keeps (the plain plan helper)."""
+    from repro_torch.kernels.tc_dense_mxu import dense_mxu_occupancy_reference, dense_mxu_plan
+
+    return int(dense_mxu_plan(dense_mxu_occupancy_reference(a))[1].sum())
 
 
 def phase_dense_cases() -> tuple[int, int]:
@@ -845,19 +881,31 @@ def phase_dense_cases() -> tuple[int, int]:
         raise RuntimeError("a bitgemm launch asking for 2 MB of shared memory did not raise")
 
     err_mxu = 0
-    cases = [(n, d, False) for n in MXU_SIZES for d in MXU_DENSITIES]
-    cases += [(257, 0.5, True), (4039, 0.5, True)]
-    for k, (n, density, full) in enumerate(cases):
-        a = _upper(n, density, seed=k, full=full)
-        got = dense_mxu_tc_cuda(a.to(torch.int8), torch.zeros(1, dtype=torch.int64, device="cuda"))
+    cases = [(n, d, "upper") for n in MXU_SIZES for d in MXU_DENSITIES]
+    cases += [(n, d, "lower") for n in MXU_SIZES for d in (0.02, 0.3)]
+    cases += [(n, 0.5, kind) for n in (255, 257, 1000, 4039) for kind in ("full", "block-sparse")]
+    skipped = {}
+    for k, (n, density, kind) in enumerate(cases):
+        a = _dense_case(n, density, seed=k, kind=kind)
+        steps = torch.zeros(1, dtype=torch.int64, device="cuda")
+        got = dense_mxu_tc_cuda(a.to(torch.int8), torch.zeros(1, dtype=torch.int64, device="cuda"),
+                                steps)
         want = dense_mxu_tc_reference(a)
         torch.cuda.synchronize()
         err = abs(int(got) - int(want))
         err_mxu = max(err_mxu, err)
-        check(err == 0, f"dense_mxu_tc N={n} density={density} full={full}: "
+        planned = _planned_steps(a)
+        check(err == 0, f"dense_mxu_tc N={n} density={density} {kind}: "
                         f"kernel {int(got)} != plain {int(want)}")
+        check(int(steps) == planned, f"dense_mxu_tc N={n} {kind}: {int(steps)} k steps computed, "
+                                     f"the plan keeps {planned}")
+        if n == 4039:
+            nt = -(-n // 128)
+            skipped[kind] = f"{planned} of {nt ** 3} k steps"
     log(f"[dense] dense_mxu_tc: N in {list(MXU_SIZES)} x densities {list(MXU_DENSITIES)} "
-        f"(upper-triangular) and full {{0,1}} N 257 / 4039 == plain")
+        f"(upper-triangular), lower-triangular, full and block-sparse {{0,1}} N 255 / 257 / "
+        f"1000 / 4039 == plain; k steps computed == the plan's in every case; at N 4039: "
+        f"{json.dumps(skipped)}")
     return err_bitgemm, err_mxu
 
 
@@ -995,8 +1043,13 @@ def phase_dense_timing(dense: dict) -> list:
         g = dense[name]
         label = "dense_mxu_tc" if name == "email-enron" else f"dense_mxu_tc[n={g.n}]"
         a = _dense_upper(g, cuda)
+        n = g.n
+        check(not bool(torch.tril(a).any()), f"{name}: the timing input is not strictly upper-triangular")
         acc = torch.zeros(1, dtype=torch.int64, device="cuda")
-        _time_ms(dense_mxu_tc_cuda, [(a, acc)], 1)
+        steps = torch.zeros(1, dtype=torch.int64, device="cuda")
+        dense_mxu_tc_cuda(a, acc, steps)
+        planned = _planned_steps(a)
+        check(int(steps) == planned, f"{name}: {int(steps)} k steps computed, the plan keeps {planned}")
         rounds = 3
         ms = _time_ms(dense_mxu_tc_cuda, [(a, acc)], rounds)
         want = dense_mxu_tc_reference(a)
@@ -1005,16 +1058,26 @@ def phase_dense_timing(dense: dict) -> list:
         _time_ms(dense_mxu_tc_reference, [(a,)], 1)
         plain_ms = _time_ms(dense_mxu_tc_reference, [(a,)], 1)
         library_ms = _int_mm_ms(a)
-        n = g.n
-        bound = _bound_ms(n * n + 8, 2 * n**3, INT8_TENSOR_OPS_PER_S)
-        log(f"[dense timing] {label}: {ms:.6f} ms/launch at {name} (N={n}, the wrapper's "
-            f"transpose included); bound {bound[0]:.6f} ms ({bound[1]}: 2 N^3 int8 ops at "
-            f"1,979 TOP/s), {100 * bound[0] / ms:.2f}% of bound; plain version {plain_ms:.6f} ms; "
-            f"torch._int_mm (product alone, N padded to 8) "
+        # The function's work on a strictly upper-triangular A: the products
+        # with i < k < j, N (N - 1) (N - 2) / 3 int8 operations, a sixth of the
+        # dense 2 N^3 (also logged, as the earlier kernel computed all of it).
+        bound = _bound_ms(n * n + 8, n * (n - 1) * (n - 2) / 3, INT8_TENSOR_OPS_PER_S)
+        dense_bound = _bound_ms(n * n + 8, 2 * n**3, INT8_TENSOR_OPS_PER_S)
+        nt = -(-n // 128)
+        log(f"[dense timing] {label}: {ms:.6f} ms/launch at {name} (N={n}; occupancy pass, plan, "
+            f"the wrapper's transpose and the kernel); {planned} of {nt ** 3} k steps of 128^3 "
+            f"(== the plan); triangular bound {bound[0]:.6f} ms ({bound[1]}: N(N-1)(N-2)/3 int8 "
+            f"ops at 1,979 TOP/s), {100 * bound[0] / ms:.2f}% of it; the dense 2 N^3 would "
+            f"take at least {dense_bound[0]:.6f} ms ({ms / dense_bound[0]:.4f} x this kernel's "
+            f"time: the blocks it skips are part of that count); plain "
+            f"version {plain_ms:.6f} ms; torch._int_mm (product alone, N padded to 8) "
             f"{'refused' if library_ms is None else f'{library_ms:.6f} ms'}")
-        rows.append(_row(label, "src/repro_torch/kernels/csrc/tc_dense_mxu.cu",
-                         "src/repro/kernels/tc_dense_mxu.py:60",
-                         dense[(name, "mxu")]["launches"], ms, plain_ms, bound, library_ms))
+        check(bound[0] <= ms, f"{name}: the kernel reads above its bound")
+        row = _row(label, "src/repro_torch/kernels/csrc/tc_dense_mxu.cu",
+                   "src/repro/kernels/tc_dense_mxu.py:60", dense[(name, "mxu")]["launches"], ms,
+                   plain_ms, bound, library_ms)
+        row["k_steps"] = planned
+        rows.append(row)
         del a, acc
     return rows
 
@@ -1056,21 +1119,67 @@ def _row_rel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)
 
 
+def _gqa_inputs(b: int, sq: int, sk: int, h: int, kh: int, hd: int, dtype, seed: int,
+                positions: str = "arange") -> tuple:
+    """Normal q [B, Sq, H, hd], k and v [B, Sk, KH, hd] on the card and int32
+    positions [B, Sq] / [B, Sk]: arange (queries at the end of the keys when
+    Sq < Sk), reversed, a random permutation of each, or every key after
+    every query (rows with no visible key)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, sq, h, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, sk, kh, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    start = sk - sq if sq < sk else 0
+    qp = torch.arange(start, start + sq, dtype=torch.int32, device="cuda").repeat(b, 1)
+    kp = torch.arange(sk, dtype=torch.int32, device="cuda").repeat(b, 1)
+    if positions == "reversed":
+        qp, kp = qp.flip(1).contiguous(), kp.flip(1).contiguous()
+    elif positions == "permuted":
+        qp = torch.stack([r[torch.randperm(sq, generator=gen, device="cuda")] for r in qp])
+        kp = torch.stack([r[torch.randperm(sk, generator=gen, device="cuda")] for r in kp])
+    elif positions == "keys after queries":
+        kp = kp + start + sq
+    return q, k, v, qp, kp
+
+
+def _flash_case(kernel, plain, ops: tuple, causal: bool, heads: int, label: str) -> tuple:
+    """One kernel call held to the plain version (elementwise and by row) and
+    its scored-tile count to the skip rule's. Returns (max |err|, max row
+    error, tiles scored)."""
+    from repro_torch.kernels.flash_attention import FLASH_TILES, flash_tiles_scored
+
+    dtype = ops[0].dtype
+    tiles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    got = kernel(*ops, causal=causal, tiles=tiles)
+    exact = _flash_plain_f32(lambda *a: plain(*a, causal=causal), ops)
+    want = exact.to(dtype)
+    torch.cuda.synchronize()
+    err, row = _err(got, want), float(_row_rel(got, exact).max()) if got.numel() else 0.0
+    name = str(dtype).split(".")[-1]
+    check(got.dtype == dtype and _close(got, want, FLASH_TOL[name]) and row <= FLASH_ROW_TOL[name],
+          f"flash {label}: max |err| {err}, max row error {row}")
+    predicted = flash_tiles_scored(ops[3], ops[4], heads, *FLASH_TILES[dtype], causal=causal)
+    check(int(tiles) == predicted, f"flash {label}: {int(tiles)} tiles scored, the rule says "
+                                   f"{predicted}")
+    return err, row, int(tiles)
+
+
 def phase_flash_cases() -> tuple[dict, dict]:
     """flash_attention: kernel == plain version on the card within the
     reference's elementwise tolerances and, row by row, within
-    FLASH_ROW_TOL. Returns the max |err| and the max row error by type."""
+    FLASH_ROW_TOL, through both entries; tiles scored == the skip rule's.
+    Returns the max |err| and the max row error by type."""
     from repro_torch.kernels.flash_attention import (
         FLASH_HEAD_DIMS,
+        flash_attention_bshd_cuda,
+        flash_attention_bshd_reference,
         flash_attention_cuda,
         flash_attention_reference,
     )
 
     errs, row_errs = {}, {}
     seed = 0
-    for dtype_name, tol in FLASH_TOL.items():
+    for dtype_name in FLASH_TOL:
         dtype = getattr(torch, dtype_name)
-        row_tol = FLASH_ROW_TOL[dtype_name]
         errs[dtype_name], row_errs[dtype_name] = 0.0, 0.0
         for hd in FLASH_HEAD_DIMS:
             hd_row = 0.0
@@ -1078,23 +1187,50 @@ def phase_flash_cases() -> tuple[dict, dict]:
                 for sq, sk in FLASH_SHAPES:
                     for causal in (True, False):
                         seed += 1
-                        ops = _flash_inputs(bh, sq, sk, hd, dtype, seed)
-                        got = flash_attention_cuda(*ops, causal=causal)
-                        exact = _flash_plain_f32(
-                            lambda *a: flash_attention_reference(*a, causal=causal), ops)
-                        want = exact.to(dtype)
-                        torch.cuda.synchronize()
-                        err = _err(got, want)
-                        row = float(_row_rel(got, exact).max())
+                        err, row, _ = _flash_case(
+                            flash_attention_cuda, flash_attention_reference,
+                            _flash_inputs(bh, sq, sk, hd, dtype, seed), causal, 1,
+                            f"{dtype_name} hd={hd} BH={bh} Sq={sq} Sk={sk} causal={causal}")
                         errs[dtype_name] = max(errs[dtype_name], err)
                         hd_row = max(hd_row, row)
-                        check(got.dtype == dtype and _close(got, want, tol) and row <= row_tol,
-                              f"flash {dtype_name} hd={hd} BH={bh} Sq={sq} Sk={sk} "
-                              f"causal={causal}: max |err| {err}, max row error {row}")
+            log(f"[flash] {dtype_name} hd={hd}: [BH, S, hd] entry, BH {list(FLASH_BH)} x (Sq, Sk) "
+                f"{list(FLASH_SHAPES)} x causal / not == plain within {FLASH_TOL[dtype_name]} and "
+                f"rows within {FLASH_ROW_TOL[dtype_name]}; tiles scored == the skip rule's; max "
+                f"row error {hd_row:.3e}")
+            for b in FLASH_GQA_B:
+                for h, kh in FLASH_GQA_HEADS:
+                    for sq, sk in FLASH_GQA_SHAPES:
+                        for causal in (True, False):
+                            seed += 1
+                            err, row, _ = _flash_case(
+                                flash_attention_bshd_cuda, flash_attention_bshd_reference,
+                                _gqa_inputs(b, sq, sk, h, kh, hd, dtype, seed), causal, h,
+                                f"{dtype_name} hd={hd} B={b} H={h} KH={kh} Sq={sq} Sk={sk} "
+                                f"causal={causal}")
+                            errs[dtype_name] = max(errs[dtype_name], err)
+                            hd_row = max(hd_row, row)
+            scored = {}
+            for positions in FLASH_POSITIONS:
+                seed += 1
+                ops = _gqa_inputs(2, 300, 260, 9, 3, hd, dtype, seed, positions)
+                err, row, scored[positions] = _flash_case(
+                    flash_attention_bshd_cuda, flash_attention_bshd_reference, ops, True, 9,
+                    f"{dtype_name} hd={hd} positions {positions}")
+                errs[dtype_name] = max(errs[dtype_name], err)
+                hd_row = max(hd_row, row)
+                if positions == "keys after queries":  # no row sees a key: the mean of V
+                    got = flash_attention_bshd_cuda(*ops)
+                    mean = ops[2].float().mean(dim=1).repeat_interleave(3, dim=1)  # [B, H, hd]
+                    tol = FLASH_TOL[dtype_name]
+                    check(_close(got, mean[:, None].expand_as(got), tol),
+                          f"flash {dtype_name} hd={hd}: rows with no visible key are not the "
+                          f"mean of V ({_err(got, mean[:, None].expand_as(got))})")
             row_errs[dtype_name] = max(row_errs[dtype_name], hd_row)
-            log(f"[flash] {dtype_name} hd={hd}: BH {list(FLASH_BH)} x (Sq, Sk) "
-                f"{list(FLASH_SHAPES)} x causal / not == plain within {tol} and rows within "
-                f"{row_tol}; max row error at this hd {hd_row:.3e}; max |err| so far "
+            log(f"[flash] {dtype_name} hd={hd}: [B, S, H, hd] entry, B {list(FLASH_GQA_B)} x (H, KH) "
+                f"{list(FLASH_GQA_HEADS)} x (Sq, Sk) {list(FLASH_GQA_SHAPES)} x causal / not, and "
+                f"positions {list(FLASH_POSITIONS)} == plain; rows with no visible key == the mean "
+                f"of V; tiles scored == the skip rule's ({json.dumps(scored)} at B 2, H 9, Sq 300, "
+                f"Sk 260); max row error at this hd {hd_row:.3e}; max |err| so far "
                 f"{errs[dtype_name]:.3e}")
     for hd in (48, 256):
         try:
@@ -1199,18 +1335,18 @@ def phase_lm_serve() -> dict:
     del every_f, every_x, by_pos
     # A planted fault the bound must see: a kernel that loses keys 64..127
     # (one KV tile) in every layer.
-    real = layers.flash_attention
+    real = layers.flash_attention_bshd
 
     def drop_tile(q, k, v, q_pos, k_pos, *, causal):
         keep = torch.ones(k.shape[1], dtype=torch.bool, device=k.device)
         keep[64:128] = False
-        return real(q, k[:, keep], v[:, keep], q_pos, k_pos[:, keep].contiguous(), causal=causal)
+        return real(q, k[:, keep], v[:, keep], q_pos, k_pos[:, keep], causal=causal)
 
-    layers.flash_attention = drop_tile
+    layers.flash_attention_bshd = drop_tile
     try:
         logits_b, cache_b = sess.prefill(prompts)
     finally:
-        layers.flash_attention = real
+        layers.flash_attention_bshd = real
     bad = {"prefill logits": _rel(logits_b, logits_x),
            **{f"cache {n}": max(_rel(cache_b[n][i], cache_x[n][i]) for i in range(cfg.n_layers))
               for n in ("k", "v")}}
@@ -1282,56 +1418,71 @@ def phase_lm_serve() -> dict:
         f"({long_peak - base_long} above the {base_long} held before)")
     return {"launches": launches["flash_attention"], "long_launches": long_launches,
             "stats": stats, "xstats": xstats, "long_s": lstats["prefill_s"],
-            "long_xla_s": lxstats["prefill_s"], "heads": cfg.n_heads}
+            "long_xla_s": lxstats["prefill_s"], "heads": cfg.n_heads,
+            "kv_heads": cfg.n_kv_heads}
 
 
-def _flash_bound(qp: torch.Tensor, kp: torch.Tensor, hd: int) -> tuple[tuple[float, str], int]:
+def _flash_bound(qp: torch.Tensor, kp: torch.Tensor, hd: int, heads: int,
+                 kv_heads: int) -> tuple[tuple[float, str], int]:
     """Least time for the kernel's work on these inputs: 4 hd flops for each
-    visible (query, key) pair at the bf16 tensor rate, against Q, K, V and
-    the positions read once and O written once. Returns (bound, pairs)."""
-    from repro_torch.kernels.flash_attention import flash_io_bytes
-
-    bh, sq = qp.shape
+    visible (query, key) pair of each head at the bf16 tensor rate, against
+    Q and O (``heads``), K and V (``kv_heads``) and the positions read or
+    written once. Returns (bound, visible pairs over all heads)."""
+    b, sq = qp.shape
     sk = kp.shape[1]
     ks, _ = torch.sort(kp, dim=1)
-    pairs = int(torch.searchsorted(ks, qp, right=True).sum())
-    nbytes = flash_io_bytes(bh, 1, sq, sk, hd, dtype_bytes=2, train=False) + 4 * bh * (sq + sk)
+    pairs = heads * int(torch.searchsorted(ks, qp, right=True).sum())
+    nbytes = 2 * b * hd * (2 * sq * heads + 2 * sk * kv_heads) + 4 * b * (sq + sk)
     return _bound_ms(nbytes, 4 * hd * pairs, BF16_TENSOR_FLOPS), pairs
 
 
 def phase_flash_timing(lm: dict) -> list:
-    """The kernel at the LM prefill's two shapes beside its bound, its plain
-    version and scaled_dot_product_attention; returns the JSON rows."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_reference
+    """The kernel at the LM prefill's two shapes, through the model's
+    [B, S, H, hd] entry with the GQA heads as they are, beside its bound, its
+    plain version and scaled_dot_product_attention on the same operands;
+    returns the JSON rows."""
+    from repro_torch.kernels.flash_attention import (
+        FLASH_TILES,
+        flash_attention_bshd_cuda,
+        flash_attention_bshd_reference,
+        flash_tiles_scored,
+    )
 
-    kernel = lambda *a: flash_attention_cuda(*a, causal=True)  # noqa: E731
-    plain = lambda *a: flash_attention_reference(*a, causal=True)  # noqa: E731
+    kernel = lambda *a: flash_attention_bshd_cuda(*a, causal=True)  # noqa: E731
+    plain = lambda *a: flash_attention_bshd_reference(*a, causal=True)  # noqa: E731
     rows = []
     cells = (("flash_attention", LM_BATCH, LM_PROMPT, lm["launches"], lm["stats"]["prefill_s"]),
              (f"flash_attention[s={LM_LONG}]", 1, LM_LONG, lm["long_launches"], lm["long_s"]))
     for label, batch, s, launches, prefill_s in cells:
-        h, hd = lm["heads"], 64
-        ops = _flash_inputs(batch * h, s, s, hd, torch.bfloat16, seed=s)
-        got, exact = kernel(*ops), _flash_plain_f32(plain, ops)
+        h, kh, hd = lm["heads"], lm["kv_heads"], 64
+        ops = _gqa_inputs(batch, s, s, h, kh, hd, torch.bfloat16, seed=s)
+        tiles = torch.zeros(1, dtype=torch.int64, device="cuda")
+        got = flash_attention_bshd_cuda(*ops, causal=True, tiles=tiles)
+        exact = _flash_plain_f32(plain, ops)
         want = exact.to(torch.bfloat16)
         check(torch.equal(want, plain(*ops)), f"{label}: the plain version's output differs")
-        q4, k4, v4 = (t.view(batch, h, s, hd) for t in ops[:3])
-        lib = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        q4, k4, v4 = (t.transpose(1, 2) for t in ops[:3])  # [B, heads, S, hd] views
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, is_causal=True, enable_gqa=True)
+        lib = sdpa().transpose(1, 2)
         torch.cuda.synchronize()
         err, row_tol = _err(got, want), FLASH_ROW_TOL["bfloat16"]
         rows_rel = _row_rel(got, exact)
         row_err = float(rows_rel.max())
         check(_close(got, want, FLASH_TOL["bfloat16"]) and row_err <= row_tol,
               f"{label}: kernel vs plain max |err| {err}, max row error {row_err}")
-        check(_close(lib.reshape(got.shape), want, FLASH_TOL["bfloat16"]),
+        check(_close(lib, want, FLASH_TOL["bfloat16"]),
               f"{label}: scaled_dot_product_attention is not the same function here")
+        nq, nk = -(-s // FLASH_TILES[torch.bfloat16][0]), -(-s // FLASH_TILES[torch.bfloat16][1])
+        predicted = flash_tiles_scored(ops[3], ops[4], h, *FLASH_TILES[torch.bfloat16])
+        check(int(tiles) == predicted, f"{label}: {int(tiles)} tiles scored, the rule says {predicted}")
         # A planted fault the row check must see: the second half of the rows
         # computed without keys 64..127 (one dropped KV tile).
         half, keep = s // 2, torch.ones(s, dtype=torch.bool, device="cuda")
         keep[64:128] = False
         bad = exact.clone()
         bad[:, half:] = _flash_plain_f32(plain, (ops[0][:, half:], ops[1][:, keep], ops[2][:, keep],
-                                                 ops[3][:, half:], ops[4][:, keep].contiguous()))
+                                                 ops[3][:, half:], ops[4][:, keep]))
         bad_rows = _row_rel(bad[:, half:], exact[:, half:])
         bad = bad.to(torch.bfloat16)
         check(float(bad_rows.min()) > row_tol,
@@ -1339,7 +1490,8 @@ def phase_flash_timing(lm: dict) -> list:
         log(f"[flash timing] {label}: kernel vs plain max |err| {err:.3e} (elementwise bound "
             f"{FLASH_TOL['bfloat16']}), row error max {row_err:.3e} / median "
             f"{float(rows_rel.median()):.3e} (bound {row_tol}); |out| median "
-            f"{float(want.float().abs().median()):.3e}. Planted fault (rows {half}.. without keys "
+            f"{float(want.float().abs().median()):.3e}; {int(tiles)} of {batch * h * nq * nk} KV "
+            f"tiles scored (== the skip rule). Planted fault (rows {half}.. without keys "
             f"64..127): elementwise check {'passes' if _close(bad, want, FLASH_TOL['bfloat16']) else 'fails'}"
             f" it, its row errors min {float(bad_rows.min()):.3e} / median "
             f"{float(bad_rows.median()):.3e}, so the row check fails every faulty row")
@@ -1348,16 +1500,14 @@ def phase_flash_timing(lm: dict) -> list:
         ms = _time_ms(kernel, [ops], 10 if s == LM_PROMPT else 3)
         _time_ms(plain, [ops], 1)
         plain_ms = _time_ms(plain, [ops], 2 if s == LM_PROMPT else 1)
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            q4, k4, v4, is_causal=True)
         _time_ms(sdpa, [()], 2)
         library_ms = _time_ms(sdpa, [()], 10 if s == LM_PROMPT else 3)
-        bound, pairs = _flash_bound(ops[3], ops[4], hd)
-        log(f"[flash timing] {label}: {ms:.6f} ms/launch (BH={batch * h} = {batch} x {h} heads, "
-            f"Sq=Sk={s}, hd={hd}, bf16, causal; {pairs} visible pairs); bound {bound[0]:.6f} ms "
+        bound, pairs = _flash_bound(ops[3], ops[4], hd, h, kh)
+        log(f"[flash timing] {label}: {ms:.6f} ms/launch (B={batch}, H={h}, KH={kh}, Sq=Sk={s}, "
+            f"hd={hd}, bf16, causal; {pairs} visible pairs); bound {bound[0]:.6f} ms "
             f"({bound[1]}: {4 * hd * pairs:.4e} flops at 989 TFLOP/s vs bytes at 3.35 TB/s), "
             f"{100 * bound[0] / ms:.2f}% of bound; plain version {plain_ms:.6f} ms (score blocks "
-            f"of at most 2^28 f32); scaled_dot_product_attention {library_ms:.6f} ms "
+            f"of at most 2^28 f32); scaled_dot_product_attention (enable_gqa) {library_ms:.6f} ms "
             f"({ms / library_ms:.2f}x this kernel's time against it); max |err| vs plain {err:.3e}; "
             f"{launches} launches x {ms:.6f} ms = {launches * ms:.3f} ms of the {1e3 * prefill_s:.3f} "
             f"ms prefill ({100 * launches * ms / (1e3 * prefill_s):.1f} %)")
@@ -1366,6 +1516,7 @@ def phase_flash_timing(lm: dict) -> list:
                    library_ms)
         row["max_abs_err"] = err
         row["max_row_rel_err"] = row_err
+        row["tiles_scored"] = int(tiles)
         rows.append(row)
         del ops, q4, k4, v4
     return rows

@@ -44,6 +44,7 @@ from repro_torch.core.plan import SCHEDULES, DeviceTopology, plan_execution
 from repro_torch.graphs.csr import Graph, build_graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.tc_dense_mxu import dense_mxu_operand
 
 __all__ = [
     "TCResult",
@@ -167,7 +168,7 @@ def _bitgemm_operands(g: Graph, device: torch.device) -> tuple[torch.Tensor, tor
 def _dense_upper(g: Graph, device: torch.device) -> torch.Tensor:
     """The oriented adjacency as a dense ``[n, n]`` int8 {0,1} matrix,
     scattered from the edges on ``device``."""
-    a = torch.zeros(g.n, g.n, dtype=torch.int8, device=device)
+    a = dense_mxu_operand(g.n, device)  # row stride padded for the kernel's TMA
     if g.m:
         e = torch.from_numpy(g.edges).to(device)
         a[e[:, 0], e[:, 1]] = 1

@@ -2,9 +2,9 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, which ``ctypes`` loads. Libraries land in
-``build/kernels/`` at the repository root, named by a digest of the source
-and the flags, so an edited source rebuilds and an unchanged one loads at
-once. ``-Xptxas -v`` is always on; its report (registers, shared memory,
+``build/kernels/`` at the repository root, named by a digest of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+rebuilds and an unchanged one loads at once. ``-Xptxas -v`` is always on; its report (registers, shared memory,
 spills per kernel) is kept beside the library as ``<name>-<digest>.log``.
 
 Nothing here runs at import time: the package imports on machines with no
@@ -47,7 +47,8 @@ def _nvcc() -> str:
 
 def _paths(name: str) -> tuple[Path, Path, Path]:
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = BUILD_DIR / f"{name}-{digest}"
     return src, stem.with_suffix(".so"), stem.with_suffix(".log")
 

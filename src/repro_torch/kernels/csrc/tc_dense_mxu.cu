@@ -10,209 +10,309 @@
 // the `mxu` backend of tcim_count, the paper's matrix-multiplication
 // comparison point.
 //
-// Design. The TPU kernel walks an (i, j, k) grid with k innermost, carries
-// the (i, j) tile of A @ A in VMEM scratch, and on the last k step folds the
-// masked tile sum into one f32 scalar, which it rounds. Here one block owns
-// one 128 x 128 output tile for its whole K loop, so A @ A never reaches
-// device memory: 8 warps, each a 64 x 32 sub-tile of 4 x 4 `mma.sync
-// m16n8k32` int8 products with int32 accumulators in registers. Each step
-// stages A[i0:i0+128, k0:k0+64] and At[j0:j0+128, k0:k0+64] (At = A^T, made
-// by the wrapper, so both operands are K-contiguous as the MMA's row.col
-// layout wants) in shared memory, with rows padded to 80 bytes so the
-// fragment loads (8 rows x 4 words a warp) hit 32 distinct banks. Global
-// loads are 16, 4 or 1 bytes wide, whichever N and the operands' alignment
-// allow; ragged rows and K stage as 0. In the epilogue each thread
-// multiplies its accumulators by the mask A[i][j] (outside [N, N] it reads
-// nothing), sums in int64, the block reduces by warp shuffle and shared
-// memory, and one atomicAdd on an unsigned long long adds the tile. Integer
-// adds commute, so the result does not depend on the order of the blocks.
+// Design. The TPU kernel walks every (i, j, k) block of a grid with k
+// innermost and carries the (i, j) tile of A @ A in VMEM. Here the work is
+// cut to the blocks that can be non-zero, for any {0,1} input:
 //
-// Exactness. Each (A @ A)[i][j] is at most N in int32; a tile's masked sum
-// can pass 2^31 (128 * 128 * N), so it is reduced in int64. The TPU
-// kernel's f32 sum is exact only below 2^24.
+//   1. `dense_occupancy_kernel` reads A once and writes occ[ti][tk], whether
+//      the 128 x 128 block A[ti-tile, tk-tile] holds a non-zero.
+//   2. The wrapper (plain torch on the card, a few small ops) ranks the
+//      output tiles: tile (i, j) is live when occ[i][j] and some k has
+//      occ[i][k] and occ[k][j]; its work is the number of such k. Live tiles
+//      are listed heaviest first.
+//   3. `dense_mxu_kernel` is persistent: one block a SM takes the next live
+//      tile from an atomic counter, so the triangle of tiles balances. Its
+//      producer warp reads occ row i and column j, and keeps TMA loads of
+//      A[i-tile, k-tile] and At[j-tile, k-tile] (At = A^T, so both operands
+//      are K-major as int8 `wgmma` wants) in flight for the k with both
+//      blocks non-zero, through a ring of 4 stages with full/empty
+//      mbarriers, 128B-swizzled; it hands its registers to the consumers
+//      with setmaxnreg. Two consumer warpgroups each own 64 rows of the
+//      128 x 128 tile and run `wgmma.m64n128k32` s8 x s8 -> s32 with both
+//      operands in shared memory, one group in flight. The epilogue
+//      multiplies each accumulator by the mask A[i][j] (outside [N, N] it
+//      reads nothing) and adds it to the thread's int64 total; at the end
+//      each warp adds its total with one atomic. Integer adds commute, so
+//      the result does not depend on the order of the tiles.
 //
-// Bound. Operations: 2 N^3 int8 operations (N^3 multiply-adds) against the
-// H100's 1,979 dense int8 TOP/s, about 50 ms at N = 36,692 (email-enron).
-// The bytes are N^2 + 8 (A read once, the count written once), about
-// 0.4 ms at 3.35 TB/s; the wrapper's transpose adds 2 N^2 more. This
-// simple kernel stages with plain loads and one buffer; cp.async or TMA
-// pipelining and `wgmma` are later work. It computes the function for any
-// {0,1} input: it does not skip the all-zero tiles below the diagonal of an
-// upper-triangular A.
+// For an upper-triangular A only the blocks with i <= k <= j survive, about
+// a sixth of the dense N^3; a full {0,1} matrix still computes every block.
+// An optional counter adds up the k steps computed, one atomic a block.
+//
+// Exactness. Each (A @ A)[i][j] is at most N in int32; sums are int64. The
+// TPU kernel's f32 sum is exact only below 2^24.
+//
+// Bound. Operations: the products the function needs, 2 * #{(i, k, j):
+// A[i][k] A[k][j] != 0} int8 operations at most; for a strictly
+// upper-triangular A of full density that is N (N - 1) (N - 2) / 3, against
+// the H100's 1,979 dense int8 TOP/s: 8.3 ms at N = 36,692. The bytes are N^2
+// + 8 (A read once, the count written once), about 0.4 ms at 3.35 TB/s. A
+// tile is computed whole, so the kernel does more operations than that
+// count: 2 * 128^3 for every (i, k, j) block it keeps.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kTileM = 128;          // output rows of a block
-constexpr int kTileN = 128;          // output columns of a block
-constexpr int kBK = 64;              // K bytes staged a step (two k32 MMAs)
-constexpr int kLd = kBK + 16;        // padded smem row, bytes
-constexpr int kThreads = 256;        // 8 warps: 2 along M x 4 along N
-constexpr int kWarpM = 64;
-constexpr int kWarpN = 32;
-constexpr int kMi = kWarpM / 16;     // m16 tiles a warp
-constexpr int kNi = kWarpN / 8;      // n8 tiles a warp
+using namespace hopper;
 
-template <int VEC> struct Vec;
-template <> struct Vec<16> { using T = uint4; };
-template <> struct Vec<4> { using T = uint32_t; };
-template <> struct Vec<1> { using T = uint8_t; };
+constexpr int kTile = 128;           // output rows, output columns and K bytes of a block
+constexpr int kStages = 4;
+constexpr int kThreads = 384;        // producer warpgroup + 2 consumer warpgroups
+constexpr int kEmptyArrivals = 8;    // one a consumer warp
+constexpr int kOperandBytes = kTile * kTile;
+constexpr int kEndTile = -1;         // stage meta: the tile's k steps are done
+constexpr int kEndWork = -2;         // stage meta: no tile left
+constexpr unsigned kFull = 0xffffffffu;
 
-// Copy rows [r0, r0 + 128) x bytes [k0, k0 + 64) of the [n, n] int8 `src`
-// into `dst`, zero outside the matrix. VEC divides n and the pointer's
-// alignment, so a vector starting inside a row lies wholly inside it.
-template <int VEC>
-__device__ __forceinline__ void stage(const int8_t* __restrict__ src, int n, int r0,
-                                      int k0, uint8_t (*dst)[kLd]) {
-  using T = typename Vec<VEC>::T;
-  constexpr int kPerRow = kBK / VEC;
-  constexpr int kCount = kTileM * kPerRow / kThreads;
+// Shared memory: the A and At stages, the stage metas (k or an end mark,
+// and the tile's i and j), the barriers.
+constexpr int kSmemA = 0;
+constexpr int kSmemB = kSmemA + kStages * kOperandBytes;
+constexpr int kSmemMeta = kSmemB + kStages * kOperandBytes;
+constexpr int kSmemBars = kSmemMeta + kStages * 16;
+constexpr int kSmemBytes = kSmemBars + 2 * kStages * 8 + 1024;  // + slack to align to 1024
+
+// occ[ti * nt + tk] = any(A[ti-tile, tk-tile] != 0); 16-byte loads (the
+// wrapper hands over a 16-byte-aligned A with a row stride `lda` a multiple
+// of 16); bytes past column n are not read as data.
+__global__ void __launch_bounds__(256)
+dense_occupancy_kernel(const int8_t* __restrict__ a, long long lda, int n, int nt,
+                       uint8_t* __restrict__ occ) {
+  const int ti = blockIdx.y;
+  const int tk = blockIdx.x;
+  const int r = threadIdx.x >> 1;
+  const int row = ti * kTile + r;
+  const int c0 = tk * kTile + (threadIdx.x & 1) * 64;
+  bool any = false;
+  if (row < n) {
+    const int8_t* p = a + row * lda + c0;
 #pragma unroll
-  for (int t = 0; t < kCount; ++t) {
-    const int e = threadIdx.x + t * kThreads;
-    const int r = e / kPerRow;
-    const int c = (e % kPerRow) * VEC;
-    const int row = r0 + r;
-    const int k = k0 + c;
-    T v = T();
-    if (row < n && k < n) {
-      v = *reinterpret_cast<const T*>(src + static_cast<long long>(row) * n + k);
+    for (int v = 0; v < 4; ++v) {
+      const int c = c0 + 16 * v;
+      if (c >= n) break;
+      uint4 x = *reinterpret_cast<const uint4*>(p + 16 * v);
+      if (c + 16 > n) {  // keep the first n - c bytes
+        const int keep = n - c;
+        uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int bytes = keep - 4 * i;
+          w[i] = bytes >= 4 ? w[i] : (bytes <= 0 ? 0u : w[i] & ((1u << (8 * bytes)) - 1u));
+        }
+        x = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      any |= (x.x | x.y | x.z | x.w) != 0;
     }
-    *reinterpret_cast<T*>(&dst[r][c]) = v;
   }
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  any = __syncthreads_or(any);
+  if (threadIdx.x == 0) occ[ti * nt + tk] = any;
 }
 
 __device__ __forceinline__ long long warp_sum(long long v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
   return v;
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(kThreads)
-dense_mxu_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ at, int n,
-                 unsigned long long* __restrict__ out) {
-  __shared__ __align__(16) uint8_t a_tile[kTileM][kLd];
-  __shared__ __align__(16) uint8_t b_tile[kTileN][kLd];
-  __shared__ long long warp_sums[kThreads / 32];
+__global__ void __launch_bounds__(kThreads, 1)
+dense_mxu_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap atmap,
+                 const int8_t* __restrict__ a, long long lda, int n, int nt,
+                 const uint8_t* __restrict__ occ, const int* __restrict__ order,
+                 const int* __restrict__ live, int* __restrict__ next,
+                 unsigned long long* __restrict__ out, unsigned long long* __restrict__ steps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  unsigned char* s_a = smem + kSmemA;
+  unsigned char* s_b = smem + kSmemB;
+  int4* s_meta = reinterpret_cast<int4*>(smem + kSmemMeta);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kSmemBars);
+  uint64_t* empty = full + kStages;
 
-  const int i0 = blockIdx.y * kTileM;
-  const int j0 = blockIdx.x * kTileN;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // the MMA fragments' groupID
-  const int tig = lane & 3;  // and threadID_in_group
-  const int wm = (warp >> 2) * kWarpM;
-  const int wn = (warp & 3) * kWarpN;
-
-  int acc[kMi][kNi][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < kNi; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0;
-
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    stage<VEC>(a, n, i0, k0, a_tile);
-    stage<VEC>(at, n, j0, k0, b_tile);
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t af[kMi][4];
-      uint32_t bf[kNi][2];
-#pragma unroll
-      for (int mi = 0; mi < kMi; ++mi) {
-        const int r = wm + mi * 16 + g;
-        af[mi][0] = ld32(&a_tile[r][ks + tig * 4]);
-        af[mi][1] = ld32(&a_tile[r + 8][ks + tig * 4]);
-        af[mi][2] = ld32(&a_tile[r][ks + 16 + tig * 4]);
-        af[mi][3] = ld32(&a_tile[r + 8][ks + 16 + tig * 4]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < kNi; ++ni) {
-        const int c = wn + ni * 8 + g;
-        bf[ni][0] = ld32(&b_tile[c][ks + tig * 4]);
-        bf[ni][1] = ld32(&b_tile[c][ks + 16 + tig * 4]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < kMi; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < kNi; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kEmptyArrivals);
     }
-    __syncthreads();
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  // Accumulator q of tile (mi, ni) sits at row g (+8 for q >= 2) and column
-  // 2 * tig + (q & 1) of that 16 x 8 tile.
-  long long sum = 0;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x >= 32) return;
+    if (lane == 0) {
+      prefetch_tensor_map(&amap);
+      prefetch_tensor_map(&atmap);
+    }
+    const int n_live = *live;
+    const int chunks = (nt + 31) / 32;
+    int stage = 0;
+    uint32_t phase = 0;
+    unsigned long long done = 0;
+    auto push = [&](int k, int i, int j) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      if (lane == 0) {
+        s_meta[stage] = make_int4(k, i, j, 0);
+        if (k >= 0) {
+          mbar_arrive_expect_tx(&full[stage], 2 * kOperandBytes);
+          tma_load_2d(s_a + stage * kOperandBytes, &amap, &full[stage], k * kTile, i * kTile);
+          tma_load_2d(s_b + stage * kOperandBytes, &atmap, &full[stage], k * kTile, j * kTile);
+        } else {
+          mbar_arrive(&full[stage]);
+        }
+      }
+      __syncwarp();
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    while (true) {
+      int t = 0;
+      if (lane == 0) t = atomicAdd(next, 1);
+      t = __shfl_sync(kFull, t, 0);
+      if (t >= n_live) break;
+      const int tile = order[t];
+      const int i = tile / nt;
+      const int j = tile % nt;
+      // Bit c of `both`: k = 32 c + lane has A[i-tile, k-tile] and
+      // A[k-tile, j-tile] non-zero (nt <= 1024, so c < 32: N <= 131,072).
+      uint32_t both = 0;
+#pragma unroll 4
+      for (int c = 0; c < chunks; ++c) {
+        const int k = 32 * c + lane;
+        if (k < nt && (occ[i * nt + k] & occ[k * nt + j])) both |= 1u << c;
+      }
+      for (int c = 0; c < chunks; ++c) {
+        uint32_t mask = __ballot_sync(kFull, (both >> c) & 1u);
+        while (mask) {
+          const int k = 32 * c + __ffs(mask) - 1;
+          mask &= mask - 1;
+          push(k, i, j);
+          ++done;
+        }
+      }
+      push(kEndTile, i, j);
+    }
+    push(kEndWork, 0, 0);
+    if (lane == 0 && steps != nullptr) atomicAdd(steps, done);
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) & 3;
+    const int r_lo = wg * 64 + warp * 16 + (lane >> 2);  // rows r_lo and r_lo + 8 of the tile
+    const int c_lo = 2 * (lane & 3);                     // columns 8 j + c_lo, + 1
+    constexpr int kSbo = 8 * kTile;                      // bytes between 8-row groups
+    int stage = 0;
+    uint32_t phase = 0;
+    long long total = 0;
+    int acc[kTile / 2];
+    while (true) {
+      int prev = -1;
+      int4 meta;
+      while (true) {
+        mbar_wait(&full[stage], phase);
+        meta = s_meta[stage];
+        if (meta.x < 0) break;
+        const unsigned char* ta = s_a + stage * kOperandBytes + wg * 64 * kTile;
+        const unsigned char* tb = s_b + stage * kOperandBytes;
+        wgmma_fence();
 #pragma unroll
-  for (int mi = 0; mi < kMi; ++mi) {
+        for (int kk = 0; kk < kTile / 32; ++kk) {
+          wgmma_ss_s8_n128(acc, make_desc(ta + 32 * kk, 128, kSbo),
+                           make_desc(tb + 32 * kk, 128, kSbo), prev >= 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
 #pragma unroll
-    for (int ni = 0; ni < kNi; ++ni) {
+      for (int i = 0; i < kTile / 2; ++i) fence_reg(acc[i]);
+      if (lane == 0) {
+        if (prev >= 0) mbar_arrive(&empty[prev]);
+        mbar_arrive(&empty[stage]);  // the end mark's stage
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      if (meta.x == kEndWork) break;
+      if (prev < 0) continue;  // a tile with no k step (not listed by the wrapper)
+      const int row0 = meta.y * kTile + r_lo;
+      const int col0 = meta.z * kTile + c_lo;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = i0 + wm + mi * 16 + g + ((q >> 1) << 3);
-        const int col = j0 + wn + ni * 8 + tig * 2 + (q & 1);
-        if (row < n && col < n) {
-          sum += static_cast<long long>(acc[mi][ni][q]) *
-                 a[static_cast<long long>(row) * n + col];
+      for (int jj = 0; jj < kTile / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + ((e >> 1) << 3);
+          const int col = col0 + 8 * jj + (e & 1);
+          if (row < n && col < n && a[row * lda + col]) total += acc[4 * jj + e];
         }
       }
     }
-  }
-  sum = warp_sum(sum);
-  if (lane == 0) warp_sums[warp] = sum;
-  __syncthreads();
-  if (warp == 0) {
-    sum = warp_sum(lane < kThreads / 32 ? warp_sums[lane] : 0);
-    if (lane == 0 && sum != 0) atomicAdd(out, static_cast<unsigned long long>(sum));
+    total = warp_sum(total);
+    if (lane == 0 && total != 0) atomicAdd(out, static_cast<unsigned long long>(total));
   }
 }
 
-template <int VEC>
-void launch(const void* a, const void* at, int n, void* out, cudaStream_t stream) {
-  const int tiles = (n + kTileM - 1) / kTileM;
-  dense_mxu_kernel<VEC><<<dim3(tiles, tiles), kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(at), n,
-      static_cast<unsigned long long*>(out));
-}
-
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+int operand_map(CUtensorMap* map, const void* base, int n, long long ld) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(n), static_cast<uint64_t>(n)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(ld)};
+  const uint32_t box[2] = {kTile, kTile};
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace
 
-// out[0] += sum_{i,j} a[i][j] * (a @ a)[i][j] for a [n, n] int8 and at its
-// transpose, both contiguous; out one int64, on `stream`. Returns
-// cudaGetLastError() (0 on success). The caller validates shapes, types and
-// devices.
-extern "C" int tc_dense_mxu(const void* a, const void* at, int n, void* out,
-                            void* stream) {
+// occ[ti * nt + tk] = any non-zero in the 128 x 128 block (ti, tk) of the
+// [n, n] int8 `a` (row stride lda, a multiple of 16; 16-byte aligned),
+// nt = ceil(n / 128). Returns cudaGetLastError().
+extern "C" int tc_dense_occupancy(const void* a, long long lda, int n, void* occ, void* stream) {
   if (n <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (n % 16 == 0 && aligned(a, 16) && aligned(at, 16)) {
-    launch<16>(a, at, n, out, s);
-  } else if (n % 4 == 0 && aligned(a, 4) && aligned(at, 4)) {
-    launch<4>(a, at, n, out, s);
-  } else {
-    launch<1>(a, at, n, out, s);
-  }
+  const int nt = (n + kTile - 1) / kTile;
+  dense_occupancy_kernel<<<dim3(nt, nt), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(a), lda, n, nt, static_cast<uint8_t*>(occ));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[0] += sum_{i,j} a[i][j] * (a @ a)[i][j] over the live tiles:
+// `order[0 .. *live)` lists tiles i * nt + j, `occ` is the occupancy of
+// tc_dense_occupancy, `next` one zeroed int. a and at (its transpose) are
+// [n, n] int8 with row stride lda (a multiple of 16, 16-byte aligned); out
+// one int64; `steps`, if not null, gains the k steps computed. `blocks`
+// persistent blocks. Returns 0, a CUDA error, or minus a driver error if a
+// tensor map was refused.
+extern "C" int tc_dense_mxu(const void* a, const void* at, long long lda, int n, const void* occ,
+                            const void* order, const void* live, void* next, void* out,
+                            void* steps, int blocks, void* stream) {
+  if (n <= 0) return 0;
+  CUtensorMap amap, atmap;
+  int bad = operand_map(&amap, a, n, lda);
+  if (!bad) bad = operand_map(&atmap, at, n, lda);
+  if (bad) return -bad;
+  cudaError_t err = cudaFuncSetAttribute(dense_mxu_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nt = (n + kTile - 1) / kTile;
+  dense_mxu_kernel<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      amap, atmap, static_cast<const int8_t*>(a), lda, n, nt, static_cast<const uint8_t*>(occ),
+      static_cast<const int*>(order), static_cast<const int*>(live), static_cast<int*>(next),
+      static_cast<unsigned long long*>(out), static_cast<unsigned long long*>(steps));
   return static_cast<int>(cudaGetLastError());
 }

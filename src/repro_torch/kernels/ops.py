@@ -199,12 +199,16 @@ def dense_mxu_tc(a: torch.Tensor) -> torch.Tensor:
     -> 0-d int64 ``sum(A * (A @ A))``, exact.
 
     On the card the operand is cast to int8 ({0,1} is exact there) and the
-    tensor-core kernel runs with no padding; the reference casts to bf16,
-    pads to its block and sums in f32.
+    tensor-core kernel runs on it as it lies when its row stride is a
+    multiple of 16 bytes (``dense_mxu_operand``); the reference casts to
+    bf16, pads to its block and sums in f32.
     """
     if a.dim() != 2 or a.shape[0] != a.shape[1]:
         raise ValueError(f"a must be square, got {tuple(a.shape)}")
     if _on_cpu(a):
         return dense_mxu_tc_reference(a)
     out = torch.zeros(1, dtype=torch.int64, device=a.device)
-    return dense_mxu_tc_cuda(a.to(torch.int8).contiguous(), out)[0]
+    a = a.to(torch.int8)
+    if a.stride(-1) != 1:
+        a = a.contiguous()
+    return dense_mxu_tc_cuda(a, out)[0]

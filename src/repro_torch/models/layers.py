@@ -9,7 +9,7 @@ models/params.py). Attention supports:
     memory-efficient path for long prefill (peak scores = [*, chunk, S])
   * ``impl="flash"``: the CUDA flash-attention kernel on the card, its
     plain version on the CPU, for any shape (the kernel masks ragged tails,
-    so there is no fallback to the plain path)
+    so there is no fallback to the plain path), on the GQA heads as they are
   * decode with an externally managed KV cache (positions passed in),
     updated in place
 
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_bshd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
@@ -109,28 +109,17 @@ def attention_op(q, k, v, q_pos, k_pos, causal, chunk_threshold=8192, chunk=1024
 
 
 def _flash(q, k, v, q_pos, k_pos, causal):
-    """The flash-attention path for any Sq, Sk (GQA heads repeated first).
+    """The flash-attention path for any Sq, Sk: ``[B, S, H, hd]`` queries
+    against ``[B, S, KH, hd]`` keys and values and ``[B, S]`` positions, as
+    the projections and RoPE hand them over (no repeated KV heads, no
+    transposes or copies); returns ``[B, Sq, H, hd]``.
 
     The reference returns None when the shapes do not tile by its blocks and
     its caller falls back to XLA attention; the kernel masks ragged tails,
     so this never falls back.
     """
-    b, sq, h, hd = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    if kh != h or v.shape[-1] != hd:
-        rep = h // kh
-        k = torch.repeat_interleave(k, rep, dim=2)
-        v = torch.repeat_interleave(v, rep, dim=2)
-    qf = q.transpose(1, 2).reshape(b * h, sq, hd)
-    kf = k.transpose(1, 2).reshape(b * h, sk, hd)
-    vf = v.transpose(1, 2).reshape(b * h, sk, v.shape[-1])
-    qp = q_pos.to(torch.int32)[:, None, :].expand(b, h, sq).reshape(b * h, sq)
-    kp = k_pos.to(torch.int32)[:, None, :].expand(b, h, sk).reshape(b * h, sk)
-    # The kernel takes dense rows; reshape may hand back strided views
-    # (broadcast positions, single rows).
-    qf, kf, vf, qp, kp = (t.contiguous() for t in (qf, kf, vf, qp, kp))
-    out = flash_attention(qf, kf, vf, qp, kp, causal=causal)
-    return out.reshape(b, h, sq, -1).transpose(1, 2)
+    return flash_attention_bshd(q, k, v, q_pos.to(torch.int32), k_pos.to(torch.int32),
+                                causal=causal)
 
 
 def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:

@@ -152,6 +152,97 @@ def test_dense_mxu_tc_full_matrix_and_guards():
         ops.dense_mxu_tc(torch.zeros(3, 4, dtype=torch.int8))
 
 
+def _plan_case(kind: str, n: int, rng) -> np.ndarray:
+    a = rng.random((n, n)) < 0.3
+    if kind == "upper":
+        return np.triu(a, 1)
+    if kind == "lower":
+        return np.tril(a, -1)
+    if kind == "block-sparse":  # random all-zero tile rows and columns of 16
+        rows = np.repeat(rng.random(-(-n // 16)) < 0.5, 16)[:n]
+        cols = np.repeat(rng.random(-(-n // 16)) < 0.5, 16)[:n]
+        return a & rows[:, None] & cols[None, :]
+    if kind == "empty":
+        return np.zeros((n, n), bool)
+    return a
+
+
+@pytest.mark.parametrize("tile", [16, 32, 128])
+@pytest.mark.parametrize("kind", ["upper", "lower", "full", "block-sparse", "empty"])
+def test_dense_plan_sums_to_the_count(kind, tile):
+    """The count summed over the occupancy plan's (i, k, j) blocks alone
+    equals the plain version and the JAX package's Pallas kernel
+    (interpret): every block the kernel skips is a product with a zero
+    block. The plan keeps a sixth-ish of the blocks of a triangle, all of a
+    full matrix, none of an empty one."""
+    rng = np.random.default_rng(len(kind) * 7 + tile)
+    n = 200
+    a = _plan_case(kind, n, rng)
+    at = torch.from_numpy(a)
+    total, steps = pt_dense.dense_mxu_planned_sum(at, tile)
+    want = int(jx_ops.dense_mxu_tc(jnp.asarray(a.astype(np.float32)), block=40))
+    assert total == int(pt_dense.dense_mxu_tc_reference(at)) == want
+    nt = -(-n // tile)
+    occ = pt_dense.dense_mxu_occupancy_reference(at, tile)
+    order, work, live = pt_dense.dense_mxu_plan(occ)
+    assert steps == int(work.sum())
+    assert sorted(order.tolist()) == list(range(nt * nt))
+    assert int(live) == int((work > 0).sum()) and not bool((work[: int(live)] == 0).any())
+    # Live tiles in groups of PLAN_GROUP^2, the group with the most work
+    # first, the heaviest tile first inside a group.
+    g = pt_dense.PLAN_GROUP
+    ng = -(-nt // g)
+    groups = [(t // nt // g) * ng + (t % nt) // g for t in order[: int(live)].tolist()]
+    runs = [k for i, k in enumerate(groups) if i == 0 or groups[i - 1] != k]
+    assert len(runs) == len(set(runs))
+    gw = {k: sum(int(w) for k2, w in zip(groups, work.tolist()) if k2 == k) for k in runs}
+    assert [gw[k] for k in runs] == sorted(gw.values(), reverse=True)
+    for k in runs:
+        ws = [int(w) for k2, w in zip(groups, work.tolist()) if k2 == k]
+        assert ws == sorted(ws, reverse=True)
+    # Groups of one tile: heaviest first, ties in row-major order.
+    order1, work1, live1 = pt_dense.dense_mxu_plan(occ, 1)
+    assert int(live1) == int(live) and int(work1.sum()) == steps
+    assert bool((work1[:-1] >= work1[1:]).all())
+    pairs = list(zip((-work1).tolist(), order1.tolist()))
+    assert pairs == sorted(pairs)
+    if kind == "full":
+        assert steps == nt**3
+    elif kind == "empty":
+        assert steps == 0 and int(live) == 0
+    elif kind in ("upper", "lower") and tile == 16:
+        assert steps == nt * (nt + 1) * (nt + 2) // 6  # the blocks with i <= k <= j
+
+
+def test_dense_occupancy_and_plan_by_brute_force():
+    """occupancy == any non-zero in each block; the plan's work of tile
+    (i, j) == #k with blocks (i, k) and (k, j) non-zero, zero unless block
+    (i, j) is non-zero; live tiles first."""
+    rng = np.random.default_rng(5)
+    n, tile = 70, 16
+    a = (rng.random((n, n)) < 0.01)
+    occ = pt_dense.dense_mxu_occupancy_reference(torch.from_numpy(a), tile).numpy()
+    nt = occ.shape[0]
+    for i in range(nt):
+        for k in range(nt):
+            assert occ[i, k] == a[i * tile:(i + 1) * tile, k * tile:(k + 1) * tile].any()
+    order, work, live = pt_dense.dense_mxu_plan(torch.from_numpy(occ))
+    want = {i * nt + j: int(occ[i, j]) * int((occ[i] & occ[:, j]).sum())
+            for i in range(nt) for j in range(nt)}
+    assert dict(zip(order.tolist(), work.tolist())) == want
+    assert int(live) == sum(w > 0 for w in want.values())
+
+
+def test_dense_operand_padded_rows():
+    """``dense_mxu_operand`` pads the row stride to 16 bytes; the plain path
+    and ``ops.dense_mxu_tc`` take the padded view as any matrix."""
+    a = pt_dense.dense_mxu_operand(37, "cpu")
+    assert tuple(a.shape) == (37, 37) and a.stride() == (48, 1) and not bool(a.any())
+    rng = np.random.default_rng(2)
+    a.copy_(torch.from_numpy(np.triu(rng.random((37, 37)) < 0.4, 1)))
+    assert int(ops.dense_mxu_tc(a)) == int(ref.ref_dense_tc(a.contiguous()))
+
+
 def test_dense_guards_and_no_fallback():
     """The width guard of bitgemm; the CUDA wrappers refuse host tensors
     and count no launch; a tensor that is neither on the CPU nor on a card

@@ -154,20 +154,111 @@ def test_port_xla_paths_match_reference_chunked_and_whole(dtype):
 
 def test_flash_path_never_falls_back(monkeypatch):
     """Shapes the reference's blocks do not tile (it returns None and runs
-    XLA attention) still go through the flash entry point in the port."""
+    XLA attention) still go through the flash entry point in the port: one
+    call of the [B, S, H, hd] entry, on the GQA heads as they are."""
     calls = []
-    real = fa.flash_attention_reference
+    real = fa.flash_attention_bshd_reference
 
     def spy(*args, **kwargs):
-        calls.append(args[0].shape)
+        calls.append((tuple(args[0].shape), tuple(args[1].shape)))
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(fa, "flash_attention_reference", spy)
-    b, h, hd = 1, 2, 16
+    monkeypatch.setattr(fa, "flash_attention_bshd_reference", spy)
+    b, h, kh, hd = 1, 4, 2, 16
     q = torch.from_numpy(_bshd(0, b, 517, h, hd))
+    kv = torch.from_numpy(_bshd(1, b, 517, kh, hd))
     pos = torch.arange(517, dtype=torch.int32)[None]
-    pt_layers.attention_op(q, q, q, pos, pos, True, impl="flash")
-    assert calls == [(b * h, 517, hd)]
+    pt_layers.attention_op(q, kv, kv, pos, pos, True, impl="flash")
+    assert calls == [((b, 517, h, hd), (b, 517, kh, hd))]
+
+
+@pytest.mark.parametrize("h,kh", [(9, 3), (4, 1), (2, 2)])
+@pytest.mark.parametrize("sq,sk", [(64, 64), (37, 91), (1, 1), (100, 60)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bshd_plain_version_matches_reference_xla_and_bh(h, kh, sq, sk, dtype):
+    """The GQA layout's plain version against the reference's XLA attention
+    on the same numbers, and head by head against the [BH, S, hd] plain
+    version with each query head's KV head."""
+    b, hd = 2, 16
+    q = _bshd(sq * 3 + h, b, sq, h, hd)
+    k, v = _bshd(sk + kh, b, sk, kh, hd), _bshd(sk + 7, b, sk, kh, hd)
+    q, k, v = (np.asarray(jnp.asarray(a, JX[dtype]), np.float32) for a in (q, k, v))
+    start = sk - sq if sq < sk else 0
+    qp = np.broadcast_to(np.arange(start, start + sq, dtype=np.int32), (b, sq)).copy()
+    kp = np.broadcast_to(np.arange(sk, dtype=np.int32), (b, sk)).copy()
+    for causal in (True, False):
+        want = jx_layers.attention_op(
+            *(jnp.asarray(a, JX[dtype]) for a in (q, k, v)), jnp.asarray(qp), jnp.asarray(kp),
+            causal, impl="xla")
+        ops = (*(_to_torch(a, dtype) for a in (q, k, v)), torch.from_numpy(qp),
+               torch.from_numpy(kp))
+        got = fa.flash_attention_bshd(*ops, causal=causal)
+        assert tuple(got.shape) == (b, sq, h, hd) and got.dtype == PT[dtype]
+        _close(got.float().numpy(), want, dtype)
+        for head in range(h):
+            g = head // (h // kh)
+            bh = fa.flash_attention(
+                ops[0][:, :, head].contiguous(), ops[1][:, :, g].contiguous(),
+                ops[2][:, :, g].contiguous(), ops[3], ops[4], causal=causal)
+            assert torch.equal(got[:, :, head], bh)
+
+
+def _brute_visible(qp, kp, bq, bk):
+    """Whether any (query, key) pair of each tile pair is visible, by brute
+    force over the pairs."""
+    b, sq = qp.shape
+    sk = kp.shape[1]
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    out = np.zeros((b, nq, nk), bool)
+    for bi in range(b):
+        vis = qp[bi][:, None] >= kp[bi][None, :]
+        for i in range(nq):
+            for j in range(nk):
+                out[bi, i, j] = vis[i * bq:(i + 1) * bq, j * bk:(j + 1) * bk].any()
+    return out
+
+
+@pytest.mark.parametrize("kind", ["arange", "offset", "reversed", "permuted", "after", "random"])
+@pytest.mark.parametrize("bq,bk", [(128, 128), (64, 64), (16, 32)])
+def test_skip_rule_skips_only_wholly_masked_tiles(kind, bq, bk):
+    """``flash_tile_visible`` (the kernel's rule: min k_pos of the tile >
+    max q_pos of the q tile) marks a tile skipped exactly when every pair
+    in it is masked; ``flash_tiles_scored`` adds the rescans of q tiles
+    holding a row that sees no key."""
+    rng = np.random.default_rng(len(kind) * 100 + bq + bk)
+    b, sq, sk = 2, 300, 260
+    qp = np.broadcast_to(np.arange(sq, dtype=np.int32), (b, sq)).copy()
+    kp = np.broadcast_to(np.arange(sk, dtype=np.int32), (b, sk)).copy()
+    if kind == "offset":
+        qp = qp[:, :100] + sk - 100
+    elif kind == "reversed":
+        qp, kp = qp[:, ::-1].copy(), kp[:, ::-1].copy()
+    elif kind == "permuted":
+        qp, kp = rng.permuted(qp, axis=1), rng.permuted(kp, axis=1)
+    elif kind == "after":
+        kp = kp + sq
+    elif kind == "random":
+        qp = rng.integers(-50, 400, qp.shape).astype(np.int32)
+        kp = rng.integers(0, 300, kp.shape).astype(np.int32)
+    got = fa.flash_tile_visible(torch.from_numpy(qp), torch.from_numpy(kp), bq, bk).numpy()
+    assert np.array_equal(got, _brute_visible(qp, kp, bq, bk))
+    blind = (qp < kp.min(axis=1, keepdims=True))  # rows that see no key
+    nq, nk = got.shape[1:]
+    pad = np.zeros((b, nq * bq), bool)
+    pad[:, : qp.shape[1]] = blind
+    want = 3 * int(got.sum() + nk * pad.reshape(b, nq, bq).any(axis=2).sum())
+    assert fa.flash_tiles_scored(torch.from_numpy(qp), torch.from_numpy(kp), 3, bq, bk) == want
+    assert fa.flash_tiles_scored(torch.from_numpy(qp), torch.from_numpy(kp), 3, bq, bk,
+                                 causal=False) == 3 * b * nq * nk
+    if kind == "arange":  # causal square: the lower triangle of tiles and the diagonal
+        assert got.sum() == b * sum(min(nk, -(-((i + 1) * bq) // bk)) for i in range(nq))
+
+
+def test_skip_rule_counts_about_half_at_the_prefill_shape():
+    """8 x 4096 causal, 128-row / 128-key tiles: 32 * 33 / 2 of 32^2 tiles a
+    head, 51.6 %."""
+    pos = torch.arange(4096, dtype=torch.int32)[None].expand(8, 4096)
+    assert fa.flash_tiles_scored(pos, pos, 9, 128, 128) == 8 * 9 * 528
 
 
 def test_flash_io_bytes_matches_reference():
@@ -208,3 +299,35 @@ def test_kernel_wrapper_rejects_bad_operands():
     # Everything else in order, a CPU tensor is refused: no plain fallback.
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention_cuda(q, k, v, qp, kp)
+
+
+def _good_bshd(hd=32, dtype=torch.bfloat16, b=2, sq=8, sk=8, h=4, kh=2):
+    q = torch.zeros(b, sq, h, hd, dtype=dtype)
+    k = torch.zeros(b, sk, kh, hd, dtype=dtype)
+    pos = (torch.zeros(b, n, dtype=torch.int32) for n in (sq, sk))
+    return q, k, k.clone(), *pos
+
+
+def test_bshd_wrapper_rejects_bad_operands():
+    q, k, v, qp, kp = _good_bshd()
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bshd_cuda(*_good_bshd(hd=48))
+    with pytest.raises(ValueError, match="multiple of the KV heads"):
+        fa.flash_attention_bshd_cuda(*_good_bshd(h=3, kh=2))
+    with pytest.raises(ValueError, match="k and v"):
+        fa.flash_attention_bshd_cuda(q, k, v[:, :4], qp, kp)
+    with pytest.raises(ValueError, match="positions"):
+        fa.flash_attention_bshd_cuda(q, k, v, qp[:, :3], kp)
+    with pytest.raises(TypeError, match="int32"):
+        fa.flash_attention_bshd_cuda(q, k, v, qp, kp.long())
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        fa.flash_attention_bshd_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, qp, kp)
+    with pytest.raises(ValueError, match="aligned"):  # a row stride of 12 bf16 values
+        fa.flash_attention_bshd_cuda(
+            torch.zeros(256, dtype=torch.bfloat16).as_strided((2, 8, 1, 16), (96, 12, 16, 1)),
+            *_good_bshd(hd=16, h=1, kh=1)[1:])
+    with pytest.raises(ValueError, match="65535"):
+        fa.flash_attention_bshd_cuda(*_good_bshd(h=65536, kh=1, sq=1, sk=1, hd=16, b=1))
+    # Everything else in order, a CPU tensor is refused: no plain fallback.
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_bshd_cuda(q, k, v, qp, kp)

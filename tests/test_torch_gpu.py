@@ -245,7 +245,8 @@ def test_dense_mxu_kernel_equals_plain_on_card(cuda, n, density):
 
 
 def test_dense_mxu_unaligned_and_mix(cuda):
-    """A view one byte into its storage takes the kernel's 1-byte loads."""
+    """A view one byte into its storage is copied to a padded operand (TMA
+    needs 16-byte rows); the count is unchanged."""
     rng = np.random.default_rng(8)
     n = 96
     flat = torch.from_numpy((rng.random(n * n + 1) < 0.4).astype(np.int8)).to(cuda)
@@ -256,6 +257,29 @@ def test_dense_mxu_unaligned_and_mix(cuda):
         dense_mxu_tc_cuda(a, torch.zeros(1, dtype=torch.int64))  # CPU out
     with pytest.raises(TypeError):
         dense_mxu_tc_cuda(a.int(), out)
+
+
+@pytest.mark.parametrize("kind", ["upper", "lower", "full", "block-sparse"])
+def test_dense_mxu_skips_by_occupancy_on_card(cuda, kind):
+    """The kernel's k steps equal the occupancy plan's, and the count the
+    plain version's, on plans that are and are not the triangle."""
+    from repro_torch.kernels.tc_dense_mxu import dense_mxu_occupancy_reference, dense_mxu_plan
+
+    rng = np.random.default_rng(len(kind))
+    n = 700
+    a = rng.random((n, n)) < 0.2
+    if kind == "upper":
+        a = np.triu(a, 1)
+    elif kind == "lower":
+        a = np.tril(a, -1)
+    elif kind == "block-sparse":
+        keep = np.repeat(rng.random(6) < 0.5, 128)[:n]
+        a = a & keep[:, None] & keep[None, :]
+    a = torch.from_numpy(a).to(cuda)
+    steps = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = dense_mxu_tc_cuda(a.to(torch.int8), torch.zeros(1, dtype=torch.int64, device=cuda), steps)
+    assert int(got) == int(dense_mxu_tc_reference(a))
+    assert int(steps) == int(dense_mxu_plan(dense_mxu_occupancy_reference(a))[1].sum())
 
 
 def test_dense_backends_on_card_match_oracle(cuda):
@@ -311,6 +335,43 @@ def test_flash_kernel_equals_plain_on_card(cuda, dtype, hd, sq, sk, causal):
     assert flash_attention_cuda.launches == before + 1
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,kh", [(9, 3), (4, 1)])
+@pytest.mark.parametrize("positions", ["arange", "reversed", "keys after queries"])
+def test_flash_bshd_kernel_equals_plain_on_card(cuda, dtype, hd, h, kh, positions):
+    """The [B, S, H, hd] entry on the GQA heads as they are: equal to the
+    plain version, scored tiles equal to the skip rule's."""
+    from repro_torch.kernels.flash_attention import (
+        FLASH_TILES,
+        flash_attention_bshd,
+        flash_attention_bshd_cuda,
+        flash_attention_bshd_reference,
+        flash_tiles_scored,
+    )
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(hd + h)
+    b, sq, sk = 2, 300, 260
+    q = torch.from_numpy(rng.normal(size=(b, sq, h, hd)).astype(np.float32)).to(cuda, dt)
+    k, v = (torch.from_numpy(rng.normal(size=(b, sk, kh, hd)).astype(np.float32)).to(cuda, dt)
+            for _ in range(2))
+    qp = torch.arange(sq, dtype=torch.int32, device=cuda)[None].expand(b, sq)
+    kp = torch.arange(sk, dtype=torch.int32, device=cuda)[None].expand(b, sk)
+    if positions == "reversed":
+        qp, kp = qp.flip(1), kp.flip(1)
+    elif positions == "keys after queries":
+        kp = kp + sq
+    tiles = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = flash_attention_bshd_cuda(q, k, v, qp, kp, tiles=tiles)
+    want = flash_attention_bshd_reference(q, k, v, qp, kp)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert int(tiles) == flash_tiles_scored(qp, kp, h, *FLASH_TILES[dt])
+    torch.testing.assert_close(flash_attention_bshd(q, k, v, qp, kp), got, rtol=0, atol=0)
 
 
 def test_flash_wrapper_rejects_bad_operands_on_card(cuda):
