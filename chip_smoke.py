@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. device   require a card; print its name and power limit
   2. build    compile every CUDA kernel of the path from ``src/repro_torch/
               kernels/csrc`` (one ``nvcc`` per source, all at once) and print
-              the ``ptxas -v`` registers and spills
+              the ``ptxas -v`` registers and spills and the tensor-core MMA
+              opcodes of each library's SASS (bitgemm's must AND-popcount)
   3. kernels  each kernel against its plain torch version on the card, exact
               equality, over word widths, sizes, sentinels, hot indices and
               an out-of-range index that must raise at ``result()``:
@@ -20,7 +21,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               with the kernel's launch count equal to the chunk count; then
               ``ego-facebook`` and ``email-enron`` at slice_bits 32/64/128
   5. timing   CUDA-event times of the kernel and its plain version at the
-              main path's shapes, the bound, per-stage times and peak memory
+              main path's shapes, the bound, per-stage times and peak memory;
+              the kernel's device time alone from a replayed CUDA graph of 50
+              launches (its sum held to the plain version's)
   6. serve    ``repro_torch.launch.tc_serve.TCServer`` on the card over 544
               small tenants (rmat at slice_bits 32 / 64 / 128, fused) and
               ego-facebook, email-enron and com-dblp at full size (solo),
@@ -28,28 +31,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               re-serve with no upload; the solos in the modes
               gather_then_kernel and pallas_items; a tight budget; an
               injected failure
-  7. serve timing  segment kernel vs plain on a full fused batch, total and
-              items vs plain at com-youtube's chunk shape, fused serving vs
-              the per-graph pool loop in graphs per second, serve stages
-              and peak memory
-  8. dense kernels  bitgemm (I, J in 1 .. 4039, W 1 / 3 / 5 / 127; random,
-              zero and all-ones words) and dense_mxu_tc (N 1 .. 4039,
-              densities 0.02 / 0.3 / 1.0 upper-triangular, lower-triangular,
-              full and block-sparse {0,1} matrices) against their plain
-              versions, exact, with dense_mxu_tc's k steps computed equal to
-              its occupancy plan's; a launch refused for shared memory must
-              raise
+  7. serve timing  segment kernel vs plain over a serve wave's cached
+              batches, total and items vs plain over com-youtube's chunks
+              (each also as device time alone, as in phase 5; distinct
+              operands in turns, so that L2 does not hold them), fused serving vs the per-graph pool
+              loop in graphs per second, serve stages and peak memory
+  8. dense kernels  bitgemm (I, J in 1 .. 4039, W 1 / 3 / 8 / 9 / 127 / 255 /
+              256 / 1147; random, zero and all-ones words; contiguous
+              operands, copied to padded scratch when W is not a multiple of
+              4, and row-padded views, read as they lie) and dense_mxu_tc (N
+              1 .. 4039, densities 0.02 / 0.3 / 1.0 upper-triangular,
+              lower-triangular, full and block-sparse {0,1} matrices) against
+              their plain versions, exact, with dense_mxu_tc's k steps
+              computed equal to its occupancy plan's; bitgemm must refuse a
+              transposed, an int64 and a host operand
   9. dense    ``tcim_count(edges, backend="bitgemm" | "mxu")`` on
               ego-facebook and email-enron at full size against the exact
               oracle (and the port's CPU path on ego-facebook), with launch
-              counts, stage split and peak memory (the mxu count's: A and
-              its transpose); ``metrics.edge_support``
+              counts (no bitgemm operand copied), stage split and peak memory
+              (the mxu count's: A and its transpose); ``metrics.edge_support``
               (the items kernel) and ``baselines.matmul_tc`` on ego-facebook
- 10. dense timing  bitgemm at an email-enron chunk, dense_mxu_tc at
+ 10. dense timing  bitgemm at an email-enron chunk beside its bound at the b1
+              tensor-core rate (the int8 rate and the popcount unit logged
+              beside it), its plain version and ``torch._int_mm`` on the bits
+              as {0,1} int8 (checked equal to the kernel); dense_mxu_tc at
               ego-facebook's and email-enron's N (strictly upper-triangular,
-              asserted; k steps == the plan's), each beside its plain
-              version, its bound (for the MMA the triangular N(N-1)(N-2)/3,
-              the dense 2 N^3 beside it) and ``torch._int_mm``
+              asserted; k steps == the plan's), beside its plain version, its
+              bound (the triangular N(N-1)(N-2)/3, the dense 2 N^3 beside it)
+              and ``torch._int_mm``
  11. flash cases  flash_attention against its plain version through both
               entries, bf16 (2e-2 elementwise, 1.2e-2 in relative norm per
               query row) and f32 (2e-5, 2e-5), hd 16 / 32 / 64 / 128, causal
@@ -108,6 +117,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry)
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 POPC_PER_CLOCK_PER_SM = 16  # __popc issue rate, compute capability 9.0 (CUDA C++ Programming Guide)
+# The b1 MMA's k step is 256 one-bit products in the 32 bytes a row that
+# carry 32 int8 products at the int8 rate, so its rate in bit products is 8
+# times int8's; tools/kernel_levers.py's probe measures 7.98 x on an H100.
+B1_TENSOR_OPS_PER_S = 8 * INT8_TENSOR_OPS_PER_S
 KERNEL_SOURCES = ("tc_gather_popcount", "slice_and_popcount", "tc_bitgemm", "tc_dense_mxu",
                   "flash_attention")
 MIX_N = (64, 96, 128, 192, 256, 384, 512, 768)  # benchmarks/bench_serve.py's mix
@@ -119,11 +132,12 @@ SEGMENT_BUCKETS = (1, 2, 16, 32, 64, 1024, 1 << 14)
 DENSE_GRAPHS = ("ego-facebook", "email-enron")
 DENSE_BACKENDS = ("bitgemm", "mxu")
 BITGEMM_SIZES = (1, 31, 64, 129, 4039)
-BITGEMM_WORDS = (1, 3, 5, 127)
+BITGEMM_WORDS = (1, 3, 8, 9, 127, 255, 256, 1147)
 MXU_SIZES = (1, 33, 255, 256, 257, 4039)
 MXU_DENSITIES = (0.02, 0.3, 1.0)
 BITGEMM_CHUNK_ROWS = 2048  # tcim's bitgemm backend
 NO_POPCOUNT_OP = "torch has no popcount op"
+GRAPH_LAUNCHES = 50  # kernel launches in one CUDA graph: device time without the wrapper's
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 FLASH_BH = (1, 3, 72)
 FLASH_SHAPES = ((1, 1), (64, 64), (100, 100), (128, 128), (256, 128), (64, 256), (517, 1030),
@@ -191,6 +205,9 @@ def phase_build() -> None:
     for name in KERNEL_SOURCES:
         for line in _build.ptxas_report(name):
             log(f"[build] {name}: {line}")
+        log(f"[build] {name}: SASS MMA opcodes {_build.sass_mma_opcodes(name)}")
+    bitgemm_mma = [op for op in _build.sass_mma_opcodes("tc_bitgemm") if "POPC" in op]
+    check(bool(bitgemm_mma), "tc_bitgemm's SASS holds no AND-popcount tensor-core MMA")
 
 
 def _words(rng, rows: int, w: int) -> torch.Tensor:
@@ -323,6 +340,38 @@ def _time_ms(fn, calls: list, rounds: int) -> float:
     return start.elapsed_time(stop) / (rounds * len(calls))
 
 
+def _graph(fn, calls: list, launches: int = GRAPH_LAUNCHES) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of ``launches`` launches of ``fn(*args)``, cycling
+    through ``calls``: replayed, the kernels run back to back with none of
+    the wrapper's host work between them. The wrapper's launch count grows
+    by ``launches`` at capture and not at a replay."""
+    fn(*calls[0])  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(launches):
+            fn(*calls[k % len(calls)])
+    return graph
+
+
+def _graph_uses(k: int, n: int, launches: int = GRAPH_LAUNCHES) -> int:
+    """Launches of the ``k``-th of ``n`` calls in a graph from ``_graph``."""
+    return len(range(k, launches, n))
+
+
+def _replay_ms(graph: torch.cuda.CUDAGraph, launches: int = GRAPH_LAUNCHES,
+               replays: int = 10) -> float:
+    """Device ms a launch: mean over ``replays`` replays of the graph."""
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * launches)
+
+
 def phase_timing(main: dict) -> tuple:
     """Kernel vs plain at the main path's shapes (W=2, P=1<<20 chunks over
     the com-youtube stores); returns the kernel's JSON row, max |err|, and
@@ -344,13 +393,13 @@ def phase_timing(main: dict) -> tuple:
     check(all(len(r) == pow2_ceil(len(r)) for r, _ in chunks), "chunks are pow2 buckets")
 
     max_err = 0
-    total = 0
+    totals = []
     bound_s = 0.0
     for ridx, cidx in chunks:
         got, want = _compare(row, col, ridx, cidx)
         max_err = max(max_err, int((got.long() - want.long()).abs().max()))
         check(torch.equal(got, want), f"main-path chunk: kernel {got.tolist()} != plain {want.tolist()}")
-        total += int(got[0])
+        totals.append(int(want[0]))
         # Least bytes: both index arrays, each distinct store row named once, out.
         w = row.shape[1]
         rows_read = torch.unique(ridx[(ridx >= 0) & (cidx >= 0)]).numel()
@@ -358,7 +407,7 @@ def phase_timing(main: dict) -> tuple:
         nbytes = 8 * len(ridx) + 4 * w * (rows_read + cols_read) + 8
         ops = 3 * w * len(ridx)  # AND, popc, add per word
         bound_s += max(nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S)
-    check(total == main["result"].triangles, f"chunk totals {total} != count")
+    check(sum(totals) == main["result"].triangles, f"chunk totals {sum(totals)} != count")
     bound_ms = 1e3 * bound_s / len(chunks)
 
     out = torch.zeros(2, dtype=torch.int32, device="cuda")
@@ -366,6 +415,13 @@ def phase_timing(main: dict) -> tuple:
     _time_ms(gather_total_cuda, kernel_calls, 1)  # warm-up
     rounds = max(2, math.ceil(20 / len(chunks)))
     ms = _time_ms(gather_total_cuda, kernel_calls, rounds)
+    graph = _graph(gather_total_cuda, kernel_calls)
+    out.zero_()
+    graph.replay()
+    want = sum(totals[k % len(chunks)] for k in range(GRAPH_LAUNCHES))
+    check(out.tolist() == [want, 0], f"graph replay: {out.tolist()} != plain [{want}, 0]")
+    device_ms = _replay_ms(graph)
+    del graph
     plain_calls = [(row, col, r, c) for r, c in chunks]
     _time_ms(gather_total_reference, plain_calls[:2], 1)
     plain_ms = _time_ms(gather_total_reference, plain_calls, 1)
@@ -373,7 +429,10 @@ def phase_timing(main: dict) -> tuple:
     whole = (stores + 8 * wl.num_pairs) / HBM_BYTES_PER_S * 1e3
     log(f"[timing] gather_total: {ms:.6f} ms/chunk over {rounds * len(chunks)} launches "
         f"(P={len(chunks[0][0])}, W={row.shape[1]}); bound {bound_ms:.6f} ms/chunk "
-        f"(bytes), {100 * bound_ms / ms:.2f}% of bound; plain version {plain_ms:.6f} ms/chunk; "
+        f"(bytes), {100 * bound_ms / ms:.2f}% of bound; device time alone {device_ms:.6f} "
+        f"ms/chunk ({100 * bound_ms / device_ms:.2f}% of bound; a CUDA graph of "
+        f"{GRAPH_LAUNCHES} launches over the chunks, replayed; its sum == plain), so the wrapper "
+        f"costs {ms - device_ms:.6f} ms a call; plain version {plain_ms:.6f} ms/chunk; "
         f"library_ms null (torch has no popcount op)")
     log(f"[timing] whole count: {len(chunks)} chunks x {ms:.6f} ms = {len(chunks) * ms:.6f} ms "
         f"kernel time vs {whole:.6f} ms for stores ({stores} B) + indices read once")
@@ -391,6 +450,7 @@ def phase_timing(main: dict) -> tuple:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "device_ms": device_ms,
     }
     return row_json, max_err, chunks, row, col
 
@@ -710,68 +770,115 @@ def phase_serve_timing(serve: dict, chunks, row, col) -> tuple[list, int]:
         gather_segment_totals_reference,
     )
 
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
     srv = serve["server"]
-    full = [b for b in srv.multi._batches.values()
-            if b.plan.bucket == 1 << 14 and b.plan.padded_graphs == 32 and b.plan.words_per_slice == 2]
-    check(bool(full), "no full G=32, bucket=16384, W=2 batch in the fleet")
-    b = full[0]
-    bucket, g = b.plan.bucket, b.plan.padded_graphs
-    out = torch.zeros(g, 2, dtype=torch.int32, device="cuda")
-    got = gather_segment_totals_cuda(b.row_data, b.col_data, b.ridx, b.cidx, out, bucket=bucket)
-    want = gather_segment_totals_reference(b.row_data, b.col_data, b.ridx, b.cidx, bucket=bucket)
-    torch.cuda.synchronize()
-    max_err = int((got.cpu().long() - want.cpu().long()).abs().max())
-    check(max_err == 0, "full batch: segment kernel != plain")
-    seg_args = [(b.row_data, b.col_data, b.ridx, b.cidx, out)]
-    seg = lambda *a: gather_segment_totals_cuda(*a, bucket=bucket)  # noqa: E731
-    _time_ms(seg, seg_args, 3)
-    seg_ms = _time_ms(seg, seg_args, 50)
-    plain = lambda *a: gather_segment_totals_reference(*a[:4], bucket=bucket)  # noqa: E731
-    _time_ms(plain, seg_args, 1)
-    seg_plain_ms = _time_ms(plain, seg_args, 10)
-    valid = (b.ridx >= 0) & (b.cidx >= 0)
-    w = b.row_data.shape[1]
-    rows_read = torch.unique(b.ridx[valid]).numel()
-    cols_read = torch.unique(b.cidx[valid]).numel()
-    p = b.ridx.numel()
-    seg_bound = _bound_ms(8 * p + 4 * w * (rows_read + cols_read) + 8 * g,
-                          3 * w * int(valid.sum()))
-    log(f"[timing] gather_segment_totals: {seg_ms:.6f} ms/launch (G={g}, bucket={bucket}, "
-        f"W={w}, {int(valid.sum())} real pairs, stores {tuple(b.row_data.shape)} / "
-        f"{tuple(b.col_data.shape)}); bound {seg_bound[0]:.6f} ms ({seg_bound[1]}), "
-        f"{100 * seg_bound[0] / seg_ms:.2f}% of bound; plain version {seg_plain_ms:.6f} ms; "
-        f"library_ms null ({NO_POPCOUNT_OP})")
-
-    # total and items at the executor's chunk shape for com-youtube.
-    ridx, cidx = chunks[0]
-    acc = torch.zeros(2, dtype=torch.int32, device="cuda")
-    rows, cols = _gather_chunk(row, col, ridx, cidx, acc)
-    p, w = rows.shape
-    rows_json = []
-    for name, kernel, plain_fn, out_t, out_bytes, replaces in (
-        ("total", total_cuda, total_reference, torch.zeros(1, dtype=torch.int32, device="cuda"),
-         4, "src/repro/kernels/slice_and_popcount.py:90"),
-        ("items", items_cuda, items_reference, torch.empty(p, dtype=torch.int32, device="cuda"),
-         4 * p, "src/repro/kernels/slice_and_popcount.py:41"),
-    ):
-        if name == "total":
-            out_t.zero_()
-        got = kernel(rows, cols, out_t)
-        want = plain_fn(rows, cols)
+    # Every cached batch of the fleet, each with its own bucket and out, in
+    # turns: a serve wave's launches, reading distinct operands as a wave
+    # does. The row's times and bound are means a launch over the wave.
+    batches = list(srv.multi._batches.values())
+    seg_args = [(b.row_data, b.col_data, b.ridx, b.cidx,
+                 torch.zeros(b.plan.padded_graphs, 2, dtype=torch.int32, device="cuda"),
+                 b.plan.bucket) for b in batches]
+    seg = lambda *a: gather_segment_totals_cuda(*a[:5], bucket=a[5])  # noqa: E731
+    plain = lambda *a: gather_segment_totals_reference(*a[:4], bucket=a[5])  # noqa: E731
+    wants = [plain(*a) for a in seg_args]
+    max_err = 0
+    for a, want in zip(seg_args, wants):
+        got = seg(*a)
         torch.cuda.synchronize()
-        err = int((got.cpu().long().reshape(-1) - want.cpu().long().reshape(-1)).abs().max())
+        max_err = max(max_err, int((got.cpu().long() - want.cpu().long()).abs().max()))
+    check(max_err == 0, "fleet batches: segment kernel != plain")
+    _time_ms(seg, seg_args, 1)
+    seg_ms = _time_ms(seg, seg_args, 3)
+    # Whole waves, so that every batch weighs the same in the mean.
+    launches = len(seg_args) * math.ceil(GRAPH_LAUNCHES / len(seg_args))
+    graph = _graph(seg, seg_args, launches)
+    for a in seg_args:
+        a[4].zero_()
+    graph.replay()
+    check(all(torch.equal(a[4].long(), _graph_uses(k, len(seg_args), launches) * want.long())
+              for k, (a, want) in enumerate(zip(seg_args, wants))),
+          "fleet batches: segment kernel's graph replay != plain")
+    seg_device_ms = _replay_ms(graph, launches)
+    del graph
+    _time_ms(plain, seg_args[:1], 1)
+    seg_plain_ms = _time_ms(plain, seg_args, 1)
+    seg_s = []
+    for b in batches:
+        valid = (b.ridx >= 0) & (b.cidx >= 0)
+        w = b.row_data.shape[1]
+        rows_read = torch.unique(b.ridx[valid]).numel()
+        cols_read = torch.unique(b.cidx[valid]).numel()
+        seg_s.append(_bound_ms(8 * b.ridx.numel() + 4 * w * (rows_read + cols_read)
+                               + 8 * b.plan.padded_graphs, 3 * w * int(valid.sum())))
+    seg_bound = (sum(t for t, _ in seg_s) / len(seg_s), seg_s[0][1])
+    seg_bytes = sum(8 * b.ridx.numel() + 4 * (b.row_data.numel() + b.col_data.numel())
+                    for b in batches)
+    shapes = sorted({(b.plan.padded_graphs, b.plan.bucket, b.plan.words_per_slice) for b in batches})
+    log(f"[timing] gather_segment_totals: {seg_ms:.6f} ms/launch, the mean over the fleet's "
+        f"{len(batches)} cached batches in turns (a serve wave's launches; (G, bucket, W) in "
+        f"{shapes}; {seg_bytes} B of indices and stores in all, L2 {l2} B); bound "
+        f"{seg_bound[0]:.6f} ms a launch ({seg_bound[1]}), {100 * seg_bound[0] / seg_ms:.2f}% of "
+        f"bound; device time alone {seg_device_ms:.6f} ms ({100 * seg_bound[0] / seg_device_ms:.2f}% "
+        f"of bound; a CUDA graph of {launches} launches, whole waves, replayed; its sums "
+        f"== plain), so the wrapper costs {seg_ms - seg_device_ms:.6f} ms a call; plain version "
+        f"{seg_plain_ms:.6f} ms; library_ms null ({NO_POPCOUNT_OP})")
+
+    # total and items at the executor's chunk shape for com-youtube, over
+    # every chunk in turns: their gathered words are larger than L2, so each
+    # launch reads its operands from device memory, as on the path.
+    acc = torch.zeros(2, dtype=torch.int32, device="cuda")
+    gathered = [_gather_chunk(row, col, ridx, cidx, acc) for ridx, cidx in chunks]
+    words_bytes = sum(2 * r.numel() * 4 for r, _ in gathered)
+    p, w = gathered[0][0].shape
+    rows_json = []
+    for name, kernel, plain_fn, replaces in (
+        ("total", total_cuda, total_reference, "src/repro/kernels/slice_and_popcount.py:90"),
+        ("items", items_cuda, items_reference, "src/repro/kernels/slice_and_popcount.py:41"),
+    ):
+        calls = [(rows, cols, torch.zeros(1 if name == "total" else rows.shape[0],
+                                          dtype=torch.int32, device="cuda"))
+                 for rows, cols in gathered]
+        wants = [plain_fn(rows, cols).long().reshape(-1) for rows, cols in gathered]
+        err = 0
+        for args, want in zip(calls, wants):
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            err = max(err, int((got.long().reshape(-1) - want).abs().max()))
         check(err == 0, f"{name} at the chunk shape: kernel != plain")
         max_err = max(max_err, err)
-        _time_ms(kernel, [(rows, cols, out_t)], 3)
-        ms = _time_ms(kernel, [(rows, cols, out_t)], 50)
-        _time_ms(plain_fn, [(rows, cols)], 1)
-        plain_ms = _time_ms(plain_fn, [(rows, cols)], 10)
-        bound = _bound_ms(2 * p * w * 4 + out_bytes, 3 * p * w)
-        log(f"[timing] {name}: {ms:.6f} ms/launch (P={p}, W={w}, com-youtube chunk 0); bound "
-            f"{bound[0]:.6f} ms ({bound[1]}), {100 * bound[0] / ms:.2f}% of bound; plain "
-            f"version {plain_ms:.6f} ms; library_ms null ({NO_POPCOUNT_OP})")
-        rows_json.append(_row(name, "src/repro_torch/kernels/csrc/slice_and_popcount.cu",
-                              replaces, serve["mode_launches"][name], ms, plain_ms, bound))
+        rounds = math.ceil(50 / len(calls))
+        _time_ms(kernel, calls, 1)
+        ms = _time_ms(kernel, calls, rounds)
+        graph = _graph(kernel, calls)
+        for args in calls:
+            args[2].zero_()
+        graph.replay()
+        # total adds into out; items overwrites it
+        check(all(torch.equal(args[2].long().reshape(-1),
+                              (_graph_uses(k, len(calls)) if name == "total" else 1) * want)
+                  for k, (args, want) in enumerate(zip(calls, wants))),
+              f"{name}: the graph replay != plain")
+        device_ms = _replay_ms(graph)
+        del graph
+        plain_calls = [(rows, cols) for rows, cols in gathered]
+        _time_ms(plain_fn, plain_calls[:1], 1)
+        plain_ms = _time_ms(plain_fn, plain_calls, 1)
+        each = [_bound_ms(2 * r.numel() * 4 + (4 if name == "total" else 4 * r.shape[0]),
+                          3 * r.numel()) for r, _ in gathered]
+        bound = (sum(t for t, _ in each) / len(each), each[0][1])
+        log(f"[timing] {name}: {ms:.6f} ms/launch over the {len(calls)} com-youtube chunks in "
+            f"turns (P={p}, W={w}; {words_bytes} B of gathered words in all, L2 {l2} B); "
+            f"bound {bound[0]:.6f} ms a chunk ({bound[1]}), {100 * bound[0] / ms:.2f}% of bound; "
+            f"device time alone {device_ms:.6f} ms ({100 * bound[0] / device_ms:.2f}% of bound; a "
+            f"CUDA graph of {GRAPH_LAUNCHES} launches over the chunks, replayed; == plain), so the "
+            f"wrapper costs {ms - device_ms:.6f} ms a call; plain version {plain_ms:.6f} ms; "
+            f"library_ms null ({NO_POPCOUNT_OP})")
+        r = _row(name, "src/repro_torch/kernels/csrc/slice_and_popcount.cu",
+                 replaces, serve["mode_launches"][name], ms, plain_ms, bound)
+        r["device_ms"] = device_ms
+        rows_json.append(r)
+    del gathered
 
     # Steady state: fused serve() vs the per-graph pool loop, same tenants.
     tenants = serve["jobs"][:NUM_TENANTS]
@@ -815,6 +922,7 @@ def phase_serve_timing(serve: dict, chunks, row, col) -> tuple[list, int]:
     seg_row = _row("gather_segment_totals", "src/repro_torch/kernels/csrc/tc_gather_popcount.cu",
                    "src/repro/kernels/tc_gather_popcount.py:239",
                    serve["launches"]["gather_segment_totals"], seg_ms, seg_plain_ms, seg_bound)
+    seg_row["device_ms"] = seg_device_ms
     return [seg_row, *rows_json], max_err
 
 
@@ -847,11 +955,12 @@ def _planned_steps(a: torch.Tensor) -> int:
 def phase_dense_cases() -> tuple[int, int]:
     """bitgemm and dense_mxu_tc: kernel == plain version on the card.
     Returns the max |err| of each."""
-    from repro_torch.kernels.tc_bitgemm import bitgemm_cuda, bitgemm_reference
+    from repro_torch.kernels.tc_bitgemm import bitgemm_cuda, bitgemm_reference, padded_view
     from repro_torch.kernels.tc_dense_mxu import dense_mxu_tc_cuda, dense_mxu_tc_reference
 
     rng = np.random.default_rng(3)
     err_bitgemm = 0
+    copies = 0
     for w in BITGEMM_WORDS:
         for i in BITGEMM_SIZES:
             for j in BITGEMM_SIZES:
@@ -863,22 +972,41 @@ def phase_dense_cases() -> tuple[int, int]:
                         x, y = _words(rng, i, w), _words(rng, j, w)
                         if pattern == "zeros":
                             x.zero_()
-                    got = bitgemm_cuda(x, y, torch.empty(i, j, dtype=torch.int32, device="cuda"))
                     want = bitgemm_reference(x, y)
-                    torch.cuda.synchronize()
-                    err = int((got.long() - want.long()).abs().max())
-                    err_bitgemm = max(err_bitgemm, err)
-                    check(err == 0, f"bitgemm I={i} J={j} W={w} {pattern}: kernel != plain")
-                    if pattern == "ones":
-                        check(bool((got == 32 * w).all()), f"bitgemm all-ones I={i} J={j} W={w}")
-        log(f"[dense] bitgemm W={w}: I, J in {list(BITGEMM_SIZES)} x random/zero/all-ones == plain")
-    x, y = _words(rng, 129, 5), _words(rng, 64, 5)
-    try:
-        bitgemm_cuda(x, y, torch.empty(129, 64, dtype=torch.int32, device="cuda"), block_w=4096)
-    except RuntimeError as e:
-        log(f"[dense] bitgemm with 2 MB of shared memory refused at launch and raised: {e}")
-    else:
-        raise RuntimeError("a bitgemm launch asking for 2 MB of shared memory did not raise")
+                    # Contiguous operands: a row stride of W words, copied to
+                    # padded scratch unless W is a multiple of 4; then the
+                    # row-padded views tcim hands over, read as they lie.
+                    for layout in ("contiguous", "padded"):
+                        if layout == "padded":
+                            x, y = padded_view(x, fill=-1), padded_view(y, fill=-1)
+                        before = bitgemm_cuda.padded_copies
+                        got = bitgemm_cuda(x, y, torch.empty(i, j, dtype=torch.int32, device="cuda"))
+                        torch.cuda.synchronize()
+                        made = bitgemm_cuda.padded_copies - before
+                        copies += made
+                        expect = 2 if layout == "contiguous" and w % 4 else 0
+                        check(made == expect, f"bitgemm I={i} J={j} W={w} {layout}: {made} padded "
+                                              f"copies, expected {expect}")
+                        err = int((got.long() - want.long()).abs().max())
+                        err_bitgemm = max(err_bitgemm, err)
+                        check(err == 0, f"bitgemm I={i} J={j} W={w} {pattern} {layout}: kernel != plain")
+                        if pattern == "ones":
+                            check(bool((got == 32 * w).all()), f"bitgemm all-ones I={i} J={j} W={w}")
+        log(f"[dense] bitgemm W={w}: I, J in {list(BITGEMM_SIZES)} x random/zero/all-ones x "
+            f"contiguous/row-padded == plain")
+    log(f"[dense] bitgemm: {copies} operands copied to padded scratch, the contiguous ones whose "
+        f"W is not a multiple of 4; none of the row-padded views")
+    x = _words(rng, 129, 5)
+    for label, args in (("a transposed operand (words not consecutive)", (x.t(), x.t())),
+                        ("an int64 operand", (x.long(), x.long())),
+                        ("a host operand", (x, x.cpu()))):
+        n_out = args[0].shape[0]
+        try:
+            bitgemm_cuda(*args, torch.empty(n_out, n_out, dtype=torch.int32, device="cuda"))
+        except (ValueError, TypeError) as e:
+            log(f"[dense] bitgemm refused {label}: {e}")
+        else:
+            raise RuntimeError(f"bitgemm took {label}")
 
     err_mxu = 0
     cases = [(n, d, "upper") for n in MXU_SIZES for d in MXU_DENSITIES]
@@ -928,6 +1056,7 @@ def phase_dense() -> dict:
     from repro_torch.configs import GRAPHS
     from repro_torch.core import baselines, metrics, tcim_count
     from repro_torch.graphs import build_graph, triangles_intersection
+    from repro_torch.kernels.tc_bitgemm import bitgemm_cuda
 
     out = {}
     for name in DENSE_GRAPHS:
@@ -945,6 +1074,7 @@ def phase_dense() -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()  # what earlier phases still hold
+            copies = bitgemm_cuda.padded_copies
             _reset_launches()
             t0 = time.perf_counter()
             res = tcim_count(edges, backend=backend)
@@ -956,6 +1086,8 @@ def phase_dense() -> dict:
             others = {k: v for k, v in launches.items() if k != kernel and v}
             check(launches[kernel] == want and not others,
                   f"{name} {backend}: launches {launches}, expected {want} of {kernel}")
+            check(bitgemm_cuda.padded_copies == copies,
+                  f"{name} {backend}: tcim's row-padded operands were copied")
             check(res.triangles == exact, f"{name} {backend}: card {res.triangles} != oracle {exact}")
             build_s = _dense_operands(g, backend)
             log(f"[dense] {name} {backend}: card {res.triangles} == oracle; {launches[kernel]} "
@@ -1008,6 +1140,45 @@ def _int_mm_ms(a8: torch.Tensor) -> float | None:
     return _time_ms(torch._int_mm, [(pad, pad)], 3)
 
 
+def _bits_int8(words: torch.Tensor, rows: int, chunk: int = 4096) -> torch.Tensor:
+    """``[R, W]`` int32 words -> ``[rows, 32 W]`` int8 {0,1}, bit b of word w
+    at column 32 w + b, unpacked ``chunk`` rows at a time; rows past R are
+    zero."""
+    r, w = words.shape
+    out = torch.zeros(rows, 32 * w, dtype=torch.int8, device=words.device)
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    for s in range(0, r, chunk):
+        blk = words[s : s + chunk]
+        out[s : s + blk.shape[0]] = ((blk[:, :, None] >> shifts) & 1).to(torch.int8).reshape(
+            blk.shape[0], 32 * w)
+    return out
+
+
+def _int_mm_bits_ms(x: torch.Tensor, y: torch.Tensor, kernel_out: torch.Tensor
+                    ) -> tuple[float | None, float]:
+    """torch._int_mm (the product alone) of x's bits by y's bits transposed,
+    as {0,1} int8 (J padded to a multiple of 8, as the library needs),
+    checked equal to the kernel's ``kernel_out``; None if the library
+    refuses. Also the seconds the unpacking took."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xb = _bits_int8(x, x.shape[0])
+    yb = _bits_int8(y, -(-y.shape[0] // 8) * 8)
+    torch.cuda.synchronize()
+    unpack_s = time.perf_counter() - t0
+    try:
+        prod = torch._int_mm(xb, yb.t())
+    except RuntimeError as e:
+        log(f"[dense timing] torch._int_mm refused [{xb.shape[0]}, {xb.shape[1]}] x "
+            f"[{yb.shape[1]}, {yb.shape[0]}]: {e}")
+        return None, unpack_s
+    check(torch.equal(prod[:, : y.shape[0]], kernel_out),
+          "torch._int_mm on the bits != the bitgemm kernel")
+    del prod
+    _time_ms(torch._int_mm, [(xb, yb.t())], 1)
+    return _time_ms(torch._int_mm, [(xb, yb.t())], 3), unpack_s
+
+
 def phase_dense_timing(dense: dict) -> list:
     """Kernel vs plain at the dense paths' shapes; returns the JSON rows."""
     from repro_torch.core.tcim import _bitgemm_operands, _dense_upper
@@ -1022,22 +1193,41 @@ def phase_dense_timing(dense: dict) -> list:
     i, w = xc.shape
     j = y.shape[0]
     out = torch.empty(i, j, dtype=torch.int32, device="cuda")
+    copies = bitgemm_cuda.padded_copies
     _time_ms(bitgemm_cuda, [(xc, y, out)], 1)
     ms = _time_ms(bitgemm_cuda, [(xc, y, out)], 10)
+    check(bitgemm_cuda.padded_copies == copies, "tcim's bitgemm operands were copied")
     t0 = time.perf_counter()
     want = bitgemm_reference(xc, y)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     check(torch.equal(out, want), "bitgemm at the email-enron chunk: kernel != plain")
-    bound = _bound_ms(4 * (i + j) * w + 4 * i * j, i * j * w, popc_per_s)
-    log(f"[dense timing] bitgemm: {ms:.6f} ms/launch at email-enron chunk 0 (I={i}, J={j}, "
-        f"W={w}; {i * j * w} popcounts); bound {bound[0]:.6f} ms ({bound[1]}: popc at "
-        f"{popc_per_s:.4e}/s), {100 * bound[0] / ms:.2f}% of bound; plain version {plain_ms:.3f} "
-        f"ms (one call, same shape); library_ms null ({NO_POPCOUNT_OP})")
-    rows = [_row("bitgemm", "src/repro_torch/kernels/csrc/tc_bitgemm.cu",
-                 "src/repro/kernels/tc_bitgemm.py:47",
-                 dense[("email-enron", "bitgemm")]["launches"], ms, plain_ms, bound)]
-    del x, y, xc, out, want
+    del want
+    library_ms, unpack_s = _int_mm_bits_ms(xc, y, out)
+    # Bound: X and Y read once, C written once; I J 32W one-bit products, two
+    # operations each, at the b1 MMA's rate (8 x int8's). The int8 rate and
+    # the popcount unit (the earlier CUDA-core kernel's) are logged beside.
+    nbytes = 4 * (i + j) * w + 4 * i * j
+    ops = 2 * i * j * 32 * w
+    bound = _bound_ms(nbytes, ops, B1_TENSOR_OPS_PER_S)
+    int8_bound = _bound_ms(nbytes, ops, INT8_TENSOR_OPS_PER_S)
+    popc_bound = _bound_ms(nbytes, i * j * w, popc_per_s)
+    log(f"[dense timing] bitgemm: {ms:.6f} ms/launch at email-enron chunk 0 (I={i}, J={j}, W={w}; "
+        f"{ops:.4e} ops: {i * j * 32 * w} one-bit products); bound {bound[0]:.6f} ms ({bound[1]}: "
+        f"b1 tensor-core rate {B1_TENSOR_OPS_PER_S:.4e} ops/s, 8 x int8's), "
+        f"{100 * bound[0] / ms:.2f}% of it; at the int8 tensor-core rate over the bit products "
+        f"{int8_bound[0]:.6f} ms ({int8_bound[1]}; {100 * int8_bound[0] / ms:.2f}%); at the "
+        f"popcount unit (16 a clock a SM, {popc_per_s:.4e}/s) {popc_bound[0]:.6f} ms "
+        f"({100 * popc_bound[0] / ms:.2f}%); plain version {plain_ms:.3f} ms (one call, same "
+        f"shape); torch._int_mm on the bits as {{0,1}} int8 (product alone, J padded to 8) "
+        f"{'refused' if library_ms is None else f'{library_ms:.6f} ms, == the kernel'}; "
+        f"unpacking the bits took {unpack_s:.3f} s, outside that time")
+    check(bound[0] <= ms, "bitgemm reads above its bound")
+    row = _row("bitgemm", "src/repro_torch/kernels/csrc/tc_bitgemm.cu",
+               "src/repro/kernels/tc_bitgemm.py:47",
+               dense[("email-enron", "bitgemm")]["launches"], ms, plain_ms, bound, library_ms)
+    rows = [row]
+    del x, y, xc, out
 
     for name in ("email-enron", "ego-facebook"):
         g = dense[name]

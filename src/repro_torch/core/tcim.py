@@ -44,6 +44,7 @@ from repro_torch.core.plan import SCHEDULES, DeviceTopology, plan_execution
 from repro_torch.graphs.csr import Graph, build_graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.tc_bitgemm import padded_words
 from repro_torch.kernels.tc_dense_mxu import dense_mxu_operand
 
 __all__ = [
@@ -143,23 +144,27 @@ def _validate(backend: str, schedule: str, build: str, mesh, resilience) -> None
 
 
 def _pack_words(rows: np.ndarray, cols: np.ndarray, n: int) -> np.ndarray:
-    """``[n, ceil(n/32)]`` uint32 words with bit ``(r, c)`` set for every
-    pair: ``bitmat.bitpack_matrix`` of the ``n x n`` matrix, packed straight
-    from the pairs. They are distinct, so the bincount's sum of bits is
-    their OR (exact in float64: at most 2^32 - 1 a word)."""
-    w = words_for_bits(n)
-    flat = rows * w + (cols >> 5)
+    """``[n, padded_words(W)]`` uint32 words, ``W = ceil(n/32)``: the first
+    W columns have bit ``(r, c)`` set for every pair (``bitmat.bitpack_matrix``
+    of the ``n x n`` matrix, packed straight from the pairs), the rest are
+    zero, so each row starts on a stride the bitgemm kernel's TMA reads as
+    it lies. The pairs are distinct, so the bincount's sum of bits is their
+    OR (exact in float64: at most 2^32 - 1 a word)."""
+    stride = padded_words(words_for_bits(n))
+    flat = rows * stride + (cols >> 5)
     bits = np.left_shift(1, cols & 31).astype(np.float64)
-    packed = np.bincount(flat, weights=bits, minlength=n * w)
-    return packed.astype(np.uint32).reshape(n, w)
+    packed = np.bincount(flat, weights=bits, minlength=n * stride)
+    return packed.astype(np.uint32).reshape(n, stride)
 
 
 def _bitgemm_operands(g: Graph, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The bitgemm backend's int32-viewed words on ``device``: ``x[i]``
-    packs row i of the oriented adjacency, ``y[j]`` column j."""
+    packs row i of the oriented adjacency, ``y[j]`` column j, as ``[:, :W]``
+    views of ``_pack_words``' zero-padded rows."""
     src, dst = g.edges[:, 0], g.edges[:, 1]
+    w = words_for_bits(g.n)
     x, y = (
-        torch.from_numpy(_pack_words(r, c, g.n).view(np.int32)).to(device)
+        torch.from_numpy(_pack_words(r, c, g.n).view(np.int32)).to(device)[:, :w]
         for r, c in ((src, dst), (dst, src))
     )
     return x, y

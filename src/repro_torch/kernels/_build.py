@@ -16,12 +16,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "compile_sources", "load_library", "ptxas_report"]
+__all__ = [
+    "BUILD_DIR", "NVCC_FLAGS", "compile_sources", "load_library", "ptxas_report",
+    "sass_mma_opcodes",
+]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -107,3 +111,16 @@ def ptxas_report(name: str) -> list[str]:
         for line in log.read_text().splitlines()
         if "registers" in line or "spill" in line or "Compiling entry" in line
     ]
+
+
+def sass_mma_opcodes(library: str | Path) -> list[str]:
+    """The distinct tensor-core MMA opcodes (``HGMMA``, ``IMMA``, ``BMMA``,
+    ...) in the SASS of a built library: ``csrc/<name>.cu``'s when given a
+    source name, else the library at that path. Read with the toolkit's
+    ``cuobjdump -sass``."""
+    path = Path(library) if "/" in str(library) else _paths(str(library))[1]
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    # An instruction line: /*0190*/ [@P0] OPCODE.MODIFIERS operands ;
+    return sorted(set(re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]*MMA[\w.]*)", text)))

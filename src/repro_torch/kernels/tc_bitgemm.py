@@ -6,16 +6,24 @@ blocked generalisation of the paper's per-edge AND+BitCount, a whole tile of
 ``bitgemm`` backend of ``tcim_count``.
 
   * ``bitgemm_cuda`` — the wrapper of the hand-written CUDA kernel
-    ``csrc/tc_bitgemm.cu`` (its header gives the design and bound). It writes
-    a caller-owned int32 ``out[I, J]``, launches on the current stream,
-    allocates nothing, and counts its launches in ``bitgemm_cuda.launches``.
+    ``csrc/tc_bitgemm.cu``: single-bit AND-popcount ``wgmma`` on the tensor
+    cores, fed by a TMA ring, persistent (its header gives the design and
+    the bound: 2 I J 32W operations at the b1 MMA's rate, 8 times the
+    int8 tensor-core rate). It writes a caller-owned int32 ``out[I, J]``,
+    launches on the current stream and counts its launches in
+    ``bitgemm_cuda.launches``. TMA reads each operand
+    with its own row stride, which must be a multiple of 4 words (16 bytes):
+    ``padded_words`` gives such a stride, and tcim's operands have it. An
+    operand without it is copied once into a padded scratch the wrapper
+    allocates, counted in ``bitgemm_cuda.padded_copies``.
   * ``bitgemm_reference`` — the plain torch version with the same contract:
     a broadcast AND over ``[rows, J, W]`` and the SWAR popcount of
     ``kernels/common.py``, chunked over rows (and words) so the broadcast
     stays bounded. It runs on any device and is the CPU path.
 
 Operands are int32 views of the uint32 words. The reference pads its
-operands to whole blocks; the kernel masks its ragged edges itself.
+operands to whole blocks; the kernel reads ragged I, J and W as they are
+(TMA fills past the edges with zeros).
 """
 from __future__ import annotations
 
@@ -25,15 +33,33 @@ import torch
 
 from repro_torch.kernels.common import swar_popcount_u32
 
-__all__ = ["bitgemm_cuda", "bitgemm_reference"]
+__all__ = ["ROW_ALIGN_WORDS", "bitgemm_cuda", "bitgemm_reference", "padded_view", "padded_words"]
 
-# Largest number of X rows one launch takes: 65535 row tiles of 64 (the
-# grid's y limit). Callers chunk the rows, as tcim's bitgemm backend does.
-_MAX_ROWS = 65535 * 64
+# Row strides the kernel takes as they are: TMA reads rows 16 bytes apart.
+ROW_ALIGN_WORDS = 4
 
 # Elements of the broadcast ``[rows, J, W]`` that the plain version holds at
 # once (each becomes a few int64 temporaries in the SWAR popcount).
 _PLAIN_BUDGET = 1 << 22
+
+
+def padded_words(words: int) -> int:
+    """A row stride of at least ``words`` (and 1) words, a multiple of 8:
+    whole 32-byte sectors, and a multiple of ROW_ALIGN_WORDS."""
+    return -(-max(words, 1) // 8) * 8
+
+
+def padded_view(t: torch.Tensor, fill: int | None = None) -> torch.Tensor:
+    """``t`` copied into the ``[:, :W]`` view of rows ``padded_words(W)``
+    words apart; the padding words hold ``fill`` (left unset if None)."""
+    shape = (t.shape[0], padded_words(t.shape[1]))
+    if fill is None:
+        store = torch.empty(shape, dtype=t.dtype, device=t.device)
+    else:
+        store = torch.full(shape, fill, dtype=t.dtype, device=t.device)
+    view = store[:, : t.shape[1]]
+    view.copy_(t)
+    return view
 
 
 def bitgemm_reference(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -59,21 +85,34 @@ def _kernel():
 
     fn = load_library("tc_bitgemm").tc_bitgemm
     if fn.argtypes is None:
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, i32, i32, i32, i32, vp, vp]
-        fn.restype = ctypes.c_int
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [vp, ll, vp, ll, ci, ci, ci, vp, vp]
+        fn.restype = ci
     return fn
 
 
-def bitgemm_cuda(
-    x: torch.Tensor, y: torch.Tensor, out: torch.Tensor, *, block_w: int = 32
-) -> torch.Tensor:
+def _taken(t: torch.Tensor) -> bool:
+    """Whether the kernel reads ``t`` as it lies: rows of consecutive words,
+    ROW_ALIGN_WORDS apart at least a row long, from a 16-byte address."""
+    return (t.shape[1] == 0
+            or (t.stride(0) % ROW_ALIGN_WORDS == 0 and t.stride(0) >= t.shape[1]
+                and t.data_ptr() % 16 == 0))
+
+
+def _padded_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a scratch whose row stride the kernel takes."""
+    bitgemm_cuda.padded_copies += 1
+    return padded_view(t)
+
+
+def bitgemm_cuda(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: ``out[i, j] = sum_w popc(x[i, w] & y[j, w])``.
 
-    ``x`` ``[I, W]`` and ``y`` ``[J, W]`` int32 words, ``out`` int32
-    ``[I, J]``, all contiguous on one card. ``block_w`` words are staged in
-    shared memory a step; a value the card cannot hold is refused at launch
-    and raises ``RuntimeError``. Returns ``out``.
+    ``x`` ``[I, W]`` and ``y`` ``[J, W]`` int32 words whose words are
+    consecutive in each row (column stride 1), ``out`` contiguous int32
+    ``[I, J]``, all on one card. An operand whose row stride is not a
+    multiple of ROW_ALIGN_WORDS words is copied once into padded scratch;
+    anything else the kernel cannot take raises. Returns ``out``.
     """
     for name, t in {"x": x, "y": y, "out": out}.items():
         if not t.is_cuda:
@@ -82,29 +121,33 @@ def bitgemm_cuda(
             raise ValueError(f"{name} is on {t.device}, out on {out.device}")
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
+    for name, t in {"x": x, "y": y}.items():
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError(f"{name}'s words must be consecutive in each row (column stride 1), "
+                             f"got strides {t.stride()}")
     rows_i, words = x.shape
     rows_j = y.shape[0]
     if y.shape[1] != words:
         raise ValueError(f"operand widths {words} and {y.shape[1]} differ")
-    if tuple(out.shape) != (rows_i, rows_j):
-        raise ValueError(f"out must have shape ({rows_i}, {rows_j}), got {tuple(out.shape)}")
-    if rows_i > _MAX_ROWS:
-        raise ValueError(f"{rows_i} rows exceed one launch's {_MAX_ROWS}; chunk the rows")
-    if block_w < 1:
-        raise ValueError(f"block_w must be >= 1, got {block_w}")
+    if tuple(out.shape) != (rows_i, rows_j) or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous ({rows_i}, {rows_j}), got {tuple(out.shape)} "
+                         f"with strides {out.stride()}")
     if rows_i == 0 or rows_j == 0:
         return out
+    x, y = (t if _taken(t) else _padded_copy(t) for t in (x, y))
     fn = _kernel()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), rows_i, rows_j, words, block_w,
+        err = fn(x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0), rows_i, rows_j, words,
                  out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"tc_bitgemm launch failed: CUDA error {err}")
+        what = f"driver error {-err} (a TMA tensor map)" if err < 0 else f"CUDA error {err}"
+        raise RuntimeError(f"tc_bitgemm launch failed: {what}")
     bitgemm_cuda.launches += 1
     return out
 
 
 bitgemm_cuda.launches = 0
+bitgemm_cuda.padded_copies = 0

@@ -78,13 +78,9 @@ def _exact(name: str) -> int:
     return triangles_intersection(_graphs(name)[0])
 
 
-@pytest.mark.parametrize(
-    "pattern", ["random", "zeros", "ones"],
-)
-@pytest.mark.parametrize("i,j,w", [(8, 8, 1), (100, 70, 5), (128, 128, 8), (257, 65, 3)])
-def test_bitgemm_matches_pallas_kernel(i, j, w, pattern):
-    """Port plain == Pallas kernel (interpret) == lax.population_count
-    oracle == port byte-table oracle."""
+@functools.lru_cache(maxsize=None)
+def _pallas_bitgemm(i, j, w, pattern):
+    """Operands of a case and the Pallas kernel's product in interpret mode."""
     rng = np.random.default_rng(i * 1000 + j * 10 + w)
     if pattern == "random":
         x, y = _words(rng, i, w), _words(rng, j, w)
@@ -92,14 +88,55 @@ def test_bitgemm_matches_pallas_kernel(i, j, w, pattern):
         fill = 0 if pattern == "zeros" else 0xFFFFFFFF
         x = np.full((i, w), fill, np.uint32)
         y = _words(rng, j, w) if pattern == "zeros" else np.full((j, w), fill, np.uint32)
-    got = ops.bitgemm(_as_torch(x), _as_torch(y))
-    assert got.dtype == torch.int32 and tuple(got.shape) == (i, j)
     want = np.asarray(jx_ops.bitgemm(jnp.asarray(x), jnp.asarray(y), block_i=64, block_j=64, block_w=2))
+    return x, y, want
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "padded"])
+@pytest.mark.parametrize(
+    "pattern", ["random", "zeros", "ones"],
+)
+@pytest.mark.parametrize(
+    "i,j,w", [(8, 8, 1), (100, 70, 5), (128, 128, 8), (257, 65, 3), (40, 33, 9), (65, 20, 127)]
+)
+def test_bitgemm_matches_pallas_kernel(i, j, w, pattern, layout):
+    """Port plain == Pallas kernel (interpret) == lax.population_count
+    oracle == port byte-table oracle, on contiguous operands and on the
+    row-padded views the kernel takes as they lie (a padding of all-ones
+    words, which must not be read)."""
+    x, y, want = _pallas_bitgemm(i, j, w, pattern)
+    xt, yt = _as_torch(x), _as_torch(y)
+    if layout == "padded":
+        xt, yt = pt_bitgemm.padded_view(xt, fill=-1), pt_bitgemm.padded_view(yt, fill=-1)
+        assert xt.stride(0) == pt_bitgemm.padded_words(w)
+    got = ops.bitgemm(xt, yt)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (i, j)
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(np.asarray(jx_ref.ref_bitgemm(jnp.asarray(x), jnp.asarray(y))), want)
-    assert np.array_equal(ref.ref_bitgemm(_as_torch(x), _as_torch(y)).numpy(), want)
+    assert np.array_equal(ref.ref_bitgemm(xt, yt).numpy(), want)
     if pattern == "ones":
         assert (want == 32 * w).all()
+
+
+@pytest.mark.parametrize("w", [0, 1, 3, 8, 9, 127])
+def test_bitgemm_operand_strides(w):
+    """What the wrapper reads as it lies (rows of consecutive words, a row
+    stride of whole 16-byte units at least a row long, from a 16-byte
+    address) and what it copies once into padded scratch, with the same
+    words."""
+    rng = np.random.default_rng(w)
+    x = _as_torch(_words(rng, 37, w))
+    padded = pt_bitgemm.padded_view(x, fill=-1)
+    assert padded.stride(0) == pt_bitgemm.padded_words(w) and padded.stride(0) % 8 == 0
+    assert pt_bitgemm._taken(padded)
+    assert pt_bitgemm._taken(x) == (w % pt_bitgemm.ROW_ALIGN_WORDS == 0)
+    before = pt_bitgemm.bitgemm_cuda.padded_copies
+    copy = pt_bitgemm._padded_copy(x)
+    assert pt_bitgemm.bitgemm_cuda.padded_copies == before + 1
+    assert pt_bitgemm._taken(copy) and torch.equal(copy, x)
+    assert copy.stride(0) == pt_bitgemm.padded_words(w)
+    if w > 1:
+        assert not pt_bitgemm._taken(padded[:, 1:])  # starts 4 bytes into its row
 
 
 def test_bitgemm_plain_chunks_and_empty_dims(monkeypatch):
@@ -294,14 +331,27 @@ def test_dense_async_gives_resolved_future(backend):
 @pytest.mark.parametrize("name", list(GRAPHS))
 def test_packed_operands_byte_equal(name):
     """The bitgemm operands packed from the edge list equal the reference's
-    bitpack_matrix of dense_upper() and of its transpose, byte for byte."""
+    bitpack_matrix of dense_upper() and of its transpose, byte for byte;
+    ``_bitgemm_operands`` hands them over as ``[:, :W]`` views of rows
+    padded with zero words to a multiple of 8 words."""
+    import repro_torch.core.tcim as pt_tcim
+
     jg, pg = _graphs(name)
     dense = jg.dense_upper()
     rows = _pack_words(pg.edges[:, 0], pg.edges[:, 1], pg.n)
     cols = _pack_words(pg.edges[:, 1], pg.edges[:, 0], pg.n)
+    w = bitpack_matrix(dense).shape[1]
     assert rows.dtype == cols.dtype == np.uint32
-    assert rows.tobytes() == bitpack_matrix(dense).tobytes()
-    assert cols.tobytes() == bitpack_matrix(dense.T).tobytes()
+    assert rows.shape[1] % 8 == 0 and rows.shape[1] >= w and not rows[:, w:].any()
+    assert np.ascontiguousarray(rows[:, :w]).tobytes() == bitpack_matrix(dense).tobytes()
+    assert np.ascontiguousarray(cols[:, :w]).tobytes() == bitpack_matrix(dense.T).tobytes()
+    x, y = pt_tcim._bitgemm_operands(pg, torch.device("cpu"))
+    for got, want in ((x, rows), (y, cols)):
+        assert got.dtype == torch.int32 and tuple(got.shape) == (pg.n, w)
+        assert got.stride(1) == 1 and got.stride(0) % 8 == 0 and got.stride(0) >= w
+        assert np.array_equal(got.numpy().view(np.uint32), want[:, :w])
+        store = torch.as_strided(got, (pg.n, got.stride(0)), (got.stride(0), 1))
+        assert not bool(store[:, w:].any())  # the padding words are zero
 
 
 def test_dense_backends_bitgemm_chunks(monkeypatch):

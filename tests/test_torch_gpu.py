@@ -24,7 +24,12 @@ from repro_torch.kernels.slice_and_popcount import (  # noqa: E402
     total_cuda,
     total_reference,
 )
-from repro_torch.kernels.tc_bitgemm import bitgemm_cuda, bitgemm_reference  # noqa: E402
+from repro_torch.kernels.tc_bitgemm import (  # noqa: E402
+    ROW_ALIGN_WORDS,
+    bitgemm_cuda,
+    bitgemm_reference,
+    padded_view,
+)
 from repro_torch.kernels.tc_dense_mxu import (  # noqa: E402
     dense_mxu_tc_cuda,
     dense_mxu_tc_reference,
@@ -195,36 +200,72 @@ def test_server_on_card_matches_cpu_and_oracle(cuda):
     assert sorted(r.count for r in cpu) == sorted(want)
 
 
-@pytest.mark.parametrize("w", [0, 1, 3, 31, 33, 127])
-@pytest.mark.parametrize("i,j", [(1, 1), (31, 65), (64, 64), (129, 200), (1000, 77)])
-def test_bitgemm_kernel_equals_plain_on_card(cuda, i, j, w):
+@pytest.mark.parametrize("layout", ["contiguous", "padded"])
+@pytest.mark.parametrize("w", [0, 1, 3, 8, 9, 31, 33, 127, 255, 256, 1147])
+@pytest.mark.parametrize("i,j", [(1, 1), (31, 65), (64, 64), (129, 200), (1000, 77), (130, 300)])
+def test_bitgemm_kernel_equals_plain_on_card(cuda, i, j, w, layout):
+    """The tensor-core kernel equals its plain version for ragged I, J and W
+    (not multiples of its 128 x 256 tile or its 32-word stage): contiguous
+    operands are copied once to padded scratch unless W is a multiple of 4;
+    row-padded views are read as they lie."""
     rng = np.random.default_rng(i * 1000 + j + w)
     x, y = _words(rng, i, w, cuda), _words(rng, j, w, cuda)
-    before = bitgemm_cuda.launches
-    got = ops.bitgemm(x, y)
     want = bitgemm_reference(x, y)
+    if layout == "padded":
+        x, y = padded_view(x, fill=-1), padded_view(y, fill=-1)
+    before, copies = bitgemm_cuda.launches, bitgemm_cuda.padded_copies
+    got = ops.bitgemm(x, y)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want.cpu())
     assert bitgemm_cuda.launches == before + 1
-    out = torch.empty(i, j, dtype=torch.int32, device=cuda)
-    bitgemm_cuda(x, y, out, block_w=1)  # one word a stage
+    expect = 2 if layout == "contiguous" and w % ROW_ALIGN_WORDS else 0
+    assert bitgemm_cuda.padded_copies == copies + expect
+
+
+@pytest.mark.parametrize("i,j", [(1, 1), (129, 300), (300, 513)])
+def test_bitgemm_all_ones_on_card(cuda, i, j):
+    """All-ones words at W = 1,147 (the email-enron width): every entry is
+    32 W = 36,704, summed exactly in int32."""
+    x = torch.full((i, 1147), -1, dtype=torch.int32, device=cuda)
+    y = torch.full((j, 1147), -1, dtype=torch.int32, device=cuda)
+    got = ops.bitgemm(x, padded_view(y, fill=-1))
     torch.cuda.synchronize()
-    assert torch.equal(out.cpu(), want.cpu())
+    assert bool((got == 32 * 1147).all())
+
+
+@pytest.mark.parametrize("j", [300, 77])
+def test_bitgemm_unaligned_out_on_card(cuda, j):
+    """An out one int32 into its storage (not 16-byte aligned) and an odd J
+    take the epilogue's 4-byte stores; the result is the same."""
+    rng = np.random.default_rng(j)
+    x, y = _words(rng, 300, 40, cuda), _words(rng, j, 40, cuda)
+    flat = torch.full((300 * j + 1,), -7, dtype=torch.int32, device=cuda)
+    out = flat[1:].view(300, j)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    bitgemm_cuda(x, y, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), bitgemm_reference(x, y).cpu()) and int(flat[0]) == -7
 
 
 def test_bitgemm_rejects_and_refuses(cuda):
+    """Refused with an error, never sent to the plain version: host tensors,
+    a wrong dtype, a row whose words are not consecutive, a wrong out."""
     rng = np.random.default_rng(5)
     x = _words(rng, 70, 4, cuda)
     out = torch.empty(70, 70, dtype=torch.int32, device=cuda)
     before = bitgemm_cuda.launches
     with pytest.raises(ValueError):
         ops.bitgemm(x, x.cpu())  # a CPU/CUDA mix
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bitgemm_cuda(x.cpu(), x.cpu(), out)
     with pytest.raises(TypeError):
         bitgemm_cuda(x.long(), x.long(), out)
-    with pytest.raises(ValueError):
-        bitgemm_cuda(x.t(), x.t(), out)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        bitgemm_cuda(x, x, out, block_w=4096)  # 2 MB of shared memory: refused
+    with pytest.raises(ValueError, match="consecutive"):
+        bitgemm_cuda(x.t(), x.t(), torch.empty(4, 4, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="consecutive"):
+        bitgemm_cuda(x[:, ::2], x[:, ::2], out)
+    with pytest.raises(ValueError, match="contiguous"):
+        bitgemm_cuda(x, x, torch.empty(70, 140, dtype=torch.int32, device=cuda)[:, ::2])
     assert bitgemm_cuda.launches == before
     assert torch.equal(ops.bitgemm(x, x).cpu(), bitgemm_reference(x, x).cpu())
 

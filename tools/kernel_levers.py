@@ -1,15 +1,39 @@
 #!/usr/bin/env python3
-"""Time what each design choice of the two Hopper-redesigned kernels gives.
+"""Time what each design choice of the Hopper-redesigned kernels gives.
 
-    PYTHONPATH=src python3 tools/kernel_levers.py
+    PYTHONPATH=src python3 tools/kernel_levers.py [probe] [bitgemm] [flash] [dense]
 
-Needs one NVIDIA Hopper card and ``nvcc``; exits non-zero without them.
+Runs the named sections (all four when none is named). Needs one NVIDIA
+Hopper card and ``nvcc``; exits non-zero without them.
 
-``flash_attention``: builds variants of ``kernels/csrc/flash_attention.cu``,
-each with one lever undone by a text substitution of the source (checked
-to apply), and times each through ``flash_attention_bshd_cuda`` at the LM
+``probe``: the register-only rate of each tensor-core MMA a popcount-GEMM
+can use, in bit products a second on every SM (operands that never
+change, no load from device memory): ``wgmma`` m64n256k256 b1 AND-popcount
+and m64n256k32 s8 from shared memory, ``mma.sync`` m16n8k256 b1 and
+m16n8k32 s8 from registers; with ``ptxas -v`` and the SASS MMA opcodes.
+
+``bitgemm``: builds variants of ``kernels/csrc/tc_bitgemm.cu`` by text
+substitution of the source (checked to apply) and times each through
+``bitgemm_cuda`` at the email-enron chunk (I 2,048, J 36,692, W 1,147), in
+the order variants then variants reversed, each held to the final
+kernel's output exactly:
+
+  * ``(b) mma.sync b1``: m16n8k256 b1 AND-popcount on fragments loaded
+    with ``ldmatrix`` from the same stages, instead of ``wgmma``;
+  * ``(c) s8 wgmma, bits expanded``: the bits expanded to {0,1} bytes in
+    shared memory, one word at a time, and m64n256k32 s8 ``wgmma`` on them;
+  * ``no grouping``: the output tiles walked row tile by row tile, so
+    every row tile streams all of Y (168 MB, above L2) again;
+  * ``no multicast (clusters of 1)``: every CTA loads its whole Y stage
+    itself, so L2 serves each Y stage twice as often;
+  * ``clusters of 4``: four row tiles share each Y stage, a quarter each;
+  * ``4-byte epilogue stores``: each output int32 stored alone, not four
+    adjacent ones as one 16-byte vector.
+
+``flash``: variants of ``kernels/csrc/flash_attention.cu``, each with one
+lever undone, timed through ``flash_attention_bshd_cuda`` at the LM
 serving prefill's shapes (8 x 4096 and 1 x 32,768, 9 heads, 3 KV heads,
-hd 64, bf16, causal), in the order variants then variants reversed, beside
+hd 64, bf16, causal), in the same turns, beside
 ``scaled_dot_product_attention``. Every variant computes the same function
 and is held to the kernel's output (bf16 rounding apart):
 
@@ -21,7 +45,7 @@ and is held to the kernel's output (bf16 rounding apart):
   * ``natural_exp``: ``expf`` on natural-log scores instead of ``ex2`` on
     scores with log2(e) folded into the scale.
 
-``dense_mxu_tc``: the tile order of its plan at ego-facebook's and
+``dense``: the tile order of ``dense_mxu_tc``'s plan at ego-facebook's and
 email-enron's N (the config graphs, oriented as ``tcim_count`` does):
 heaviest first, and in 12 x 12 groups, against the wrapper's choice.
 
@@ -176,15 +200,418 @@ def dense_levers() -> dict:
     return readings
 
 
+# --------------------------------------------------------------- MMA probe
+
+PROBE_SOURCE = r"""
+// Register-only throughput of the tensor-core MMAs a popcount-GEMM can use:
+// each kernel issues one MMA after another on operands that never change
+// (shared memory filled once with random bits, or register fragments), so
+// no load from device memory bounds it.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "hopper.cuh"
+
+using namespace hopper;
+
+namespace {
+
+// wgmma_ss_s8_n256
+
+constexpr int kProbeSmem = 16384 + 32768;  // two 64-row A tiles, one 256-row B tile
+
+__device__ __forceinline__ uint32_t mix(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ unsigned char* random_tiles(unsigned char* raw) {
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t{1023});
+  uint32_t* w = reinterpret_cast<uint32_t*>(smem);
+  for (int i = threadIdx.x; i < kProbeSmem / 4; i += blockDim.x) {
+    w[i] = mix(i * 2654435761u + blockIdx.x);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  return smem;
+}
+
+// Two warpgroups, each 8 MMAs m64n256 a commit group, one group in flight.
+template <bool kB1>
+__global__ void __launch_bounds__(256, 1) probe_wgmma(int iters, int* sink) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = random_tiles(raw);
+  const int wg = threadIdx.x / 128;
+  const uint64_t da = make_desc(smem + wg * 8192, 128, 1024);
+  const uint64_t db = make_desc(smem + 16384, 128, 1024);
+  int acc[128];
+#pragma unroll
+  for (int e = 0; e < 128; ++e) acc[e] = 0;
+  for (int it = 0; it < iters; ++it) {
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const uint64_t step = 2 * (u & 3);  // + 32 bytes: the next k step of the 128-byte rows
+      if constexpr (kB1) {
+        wgmma_ss_b1_n256(acc, da + step, db + step, 1);
+      } else {
+        wgmma_ss_s8_n256(acc, da + step, db + step, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  int s = 0;
+#pragma unroll
+  for (int e = 0; e < 128; ++e) {
+    fence_reg(acc[e]);
+    s += acc[e];
+  }
+  if (s == 0x7fffffff) sink[0] = s;
+}
+
+// Every warp: 8 independent m16n8 accumulators, fragments in registers.
+template <bool kB1>
+__global__ void __launch_bounds__(256) probe_mma(int iters, int* sink) {
+  uint32_t a[4], b[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = mix(threadIdx.x * 8 + i + blockIdx.x * 4096);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) b[i] = mix(threadIdx.x * 8 + 4 + i + blockIdx.x * 4096);
+  int acc[8][4];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[u][e] = 0;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if constexpr (kB1) {
+        asm volatile(
+            "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+            : "+r"(acc[u][0]), "+r"(acc[u][1]), "+r"(acc[u][2]), "+r"(acc[u][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      } else {
+        asm volatile(
+            "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+            : "+r"(acc[u][0]), "+r"(acc[u][1]), "+r"(acc[u][2]), "+r"(acc[u][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      }
+    }
+  }
+  int s = 0;
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s += acc[u][e];
+  if (s == 0x7fffffff) sink[0] = s;
+}
+
+}  // namespace
+
+// which: 0 wgmma b1, 1 wgmma s8, 2 mma.sync b1, 3 mma.sync s8.
+extern "C" int probe_run(int which, int blocks, int iters, void* sink, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* out = static_cast<int*>(sink);
+  const int smem = kProbeSmem + 1024;
+  if (which == 0) {
+    cudaFuncSetAttribute(probe_wgmma<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    probe_wgmma<true><<<blocks, 256, smem, st>>>(iters, out);
+  } else if (which == 1) {
+    cudaFuncSetAttribute(probe_wgmma<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    probe_wgmma<false><<<blocks, 256, smem, st>>>(iters, out);
+  } else if (which == 2) {
+    probe_mma<true><<<blocks, 256, 0, st>>>(iters, out);
+  } else {
+    probe_mma<false><<<blocks, 256, 0, st>>>(iters, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+# name, which, blocks a SM, bit products an MMA, MMAs a block and iteration
+PROBES = (
+    ("wgmma m64n256k256 b1 and.popc", 0, 1, 64 * 256 * 256, 2 * 8),
+    ("wgmma m64n256k32 s8", 1, 1, 64 * 256 * 32, 2 * 8),
+    ("mma.sync m16n8k256 b1 and.popc", 2, 4, 16 * 8 * 256, 8 * 8),
+    ("mma.sync m16n8k32 s8", 3, 4, 16 * 8 * 32, 8 * 8),
+)
+
+
+def s8_wrapper() -> str:
+    """``wgmma_ss_s8_n256``, written from hopper.cuh's b1 wrapper: the same
+    registers, the s8 instruction of the same N (k32, the same 32 bytes)."""
+    text = (CSRC / "hopper.cuh").read_text()
+    start = text.index("__device__ __forceinline__ void wgmma_ss_b1_n256")
+    body = text[start:text.index("\n}\n", start) + 3]
+    old = "m64n256k256.s32.b1.b1.and.popc"
+    if body.count(old) != 1:
+        raise RuntimeError("hopper.cuh's b1 wrapper no longer holds its instruction once")
+    return body.replace("wgmma_ss_b1_n256", "wgmma_ss_s8_n256").replace(old, "m64n256k32.s32.s8.s8")
+
+
+def compile_one(name: str, source: str):
+    """Write ``source`` as build/levers/<name>.cu and start nvcc on it."""
+    from repro_torch.kernels import _build
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    src = OUT / f"{name}.cu"
+    src.write_text(source)
+    lib = OUT / f"{name}.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{CSRC}", "-o", str(lib), str(src)]
+    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish(name: str, lib: Path, proc) -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{text}")
+    for line in text.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[levers] {name} ptxas: {line.strip()}")
+    log(f"[levers] {name} SASS MMA opcodes: {_build.sass_mma_opcodes(lib)}")
+    return ctypes.CDLL(str(lib))
+
+
+def mma_probe() -> dict:
+    """Bit products a second of each MMA, register-only, on every SM."""
+    source = PROBE_SOURCE.replace("// wgmma_ss_s8_n256\n", s8_wrapper())
+    fn = finish("probe", *compile_one("probe", source)).probe_run
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ci, ci, ci, vp, vp]
+    fn.restype = ci
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    readings = {}
+    for name, which, per_sm, products, mmas in PROBES:
+        blocks = per_sm * sms
+
+        def run(iters):
+            err = fn(which, blocks, iters, sink.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"probe {name}: CUDA error {err}")
+
+        ms = time_ms(lambda: run(256), 3)
+        iters = max(256, int(256 * 50 / max(ms, 1e-3)))  # about 50 ms a launch
+        ms = time_ms(lambda: run(iters), 3)
+        rate = blocks * iters * mmas * products / (ms * 1e-3)
+        readings[name] = {"bit_products_per_s": rate, "ms": ms, "iters": iters, "blocks": blocks}
+        log(f"[levers] probe {name}: {rate:.4e} products/s ({2 * rate:.4e} ops/s), "
+            f"{ms:.6f} ms for {iters} iterations on {blocks} blocks")
+    return readings
+
+
+# --------------------------------------------------------- bitgemm levers
+
+BITGEMM_STAGE_START = "__device__ __forceinline__ void stage_products("
+BITGEMM_STAGE_END = "  wgmma_commit();\n}\n"
+
+# (b) mma.sync m16n8k256 b1 on register fragments loaded with ldmatrix from
+# the same swizzled stages: each warp owns 16 X rows by the 256 Y rows, the
+# m16n8 accumulators in the same registers as the wgmma layout.
+MMA_SYNC_STAGE = r"""__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const unsigned char* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_b1(int* d, const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void stage_products(int (&acc)[kRowsY / 2], const unsigned char* tx,
+                                               const unsigned char* ty, bool accumulate) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int m = lane >> 3;  // the 8 x 16-byte matrix whose row address this thread gives
+  const int r = lane & 7;
+  if (!accumulate) {
+#pragma unroll
+    for (int e = 0; e < kRowsY / 2; ++e) acc[e] = 0;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    {
+      const int row = warp * 16 + (m & 1) * 8 + r;
+      const int chunk = 2 * kk + (m >> 1);
+      ldsm_x4(a, tx + row * 128 + ((chunk ^ (row & 7)) << 4));
+    }
+#pragma unroll
+    for (int nb = 0; nb < kRowsY / 16; ++nb) {
+      const int row = nb * 16 + (m >> 1) * 8 + r;
+      const int chunk = 2 * kk + (m & 1);
+      uint32_t b[4];
+      ldsm_x4(b, ty + row * 128 + ((chunk ^ (row & 7)) << 4));
+      mma_b1(acc + 8 * nb, a, b[0], b[1]);
+      mma_b1(acc + 8 * nb + 4, a, b[2], b[3]);
+    }
+  }
+}
+"""
+
+# (c) s8 wgmma on the bits expanded to {0,1} bytes: each consumer warpgroup
+# expands one word of its 64 X rows and of the 256 Y rows at a time (32
+# bytes a row, 32-byte swizzle) into its own two buffers, and runs
+# m64n256k32 on them while it expands the next word. The ring drops to 3
+# stages to make room.
+S8_EXPANDED_STAGE = r"""__device__ __forceinline__ void stage_products(int (&acc)[kRowsY / 2], const unsigned char* tx,
+                                               const unsigned char* ty, bool accumulate) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  const int wg = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x & 127;
+  unsigned char* bufs = base + kSmemExp + wg * 2 * kExpBytes;
+#pragma unroll 1
+  for (int kw = 0; kw < kStageWords; ++kw) {
+    unsigned char* buf = bufs + (kw & 1) * kExpBytes;
+    bar_or(1 + wg, 128, false);  // the MMA that last read buf is done in every warp
+    for (int e = tid; e < (64 + kRowsY) * 8; e += 128) {
+      const int row = e >> 3;
+      const int q = e & 7;
+      const bool is_x = row < 64;
+      const int r = is_x ? row : row - 64;
+      const unsigned char* src = is_x ? tx : ty;
+      const int chunk = kw >> 2;
+      const uint32_t word = *reinterpret_cast<const uint32_t*>(
+          src + r * 128 + ((chunk ^ (r & 7)) << 4) + (kw & 3) * 4);
+      const uint32_t bytes = (((word >> (4 * q)) & 0xFu) * 0x00204081u) & 0x01010101u;
+      unsigned char* dst = buf + (is_x ? 0 : 2048) + (r >> 3) * 256 + (r & 7) * 32 +
+                           (((q >> 2) ^ ((r >> 2) & 1)) << 4) + (q & 3) * 4;
+      *reinterpret_cast<uint32_t*>(dst) = bytes;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_or(1 + wg, 128, false);
+    wgmma_fence();
+    wgmma_ss_s8_n256(acc, make_desc(buf, 32, 256), make_desc(buf + 2048, 32, 256),
+                     accumulate || kw > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+}
+"""
+
+BITGEMM_LEVERS = {
+    "final (a) wgmma b1": [],
+    "(b) mma.sync b1": [("STAGE", MMA_SYNC_STAGE)],
+    "(c) s8 wgmma, bits expanded": [
+        ("constexpr int kStages = 4;", "constexpr int kStages = 3;"),
+        ("constexpr int kSmemBytes = kSmemBars + 2 * kStages * 8 + 1024;",
+         "constexpr int kSmemExp = (kSmemBars + 2 * kStages * 8 + 1023) / 1024 * 1024;\n"
+         "constexpr int kExpBytes = 64 * 32 + kRowsY * 32;\n"
+         "constexpr int kSmemBytes = kSmemExp + 4 * kExpBytes + 1024;"),
+        ("STAGE", "S8_WRAPPER" + S8_EXPANDED_STAGE),
+    ],
+    "no grouping": [(
+        "  const long long per_group = static_cast<long long>(kGroupUnits) * tiles_j;\n",
+        "  return {static_cast<int>(t / tiles_j), static_cast<int>(t % tiles_j)};\n"
+        "  const long long per_group = static_cast<long long>(kGroupUnits) * tiles_j;\n")],
+    "no multicast (clusters of 1)": [("constexpr int kCluster = 2;", "constexpr int kCluster = 1;")],
+    "clusters of 4": [("constexpr int kCluster = 2;", "constexpr int kCluster = 4;")],
+    "4-byte epilogue stores": [(
+        "        if (vec && col + 3 < rows_j) {\n"
+        "          *reinterpret_cast<int4*>(dst + col) = v;\n"
+        "        } else {\n",
+        "        {\n")],
+}
+
+
+def bitgemm_variant(subs: list) -> str:
+    text = (CSRC / "tc_bitgemm.cu").read_text()
+    for old, new in subs:
+        if old == "STAGE":
+            start = text.index(BITGEMM_STAGE_START)
+            end = text.index(BITGEMM_STAGE_END, start) + len(BITGEMM_STAGE_END)
+            text = text[:start] + new.replace("S8_WRAPPER", s8_wrapper() + "\n") + text[end:]
+            continue
+        if text.count(old) != 1:
+            raise RuntimeError(f"the source no longer holds {old!r} once")
+        text = text.replace(old, new)
+    return text
+
+
+def bitgemm_levers() -> dict:
+    """Each variant at the email-enron chunk (I 2,048, J 36,692, W 1,147),
+    in turns, held to the final kernel's output exactly."""
+    from repro_torch.configs import GRAPHS
+    from repro_torch.core.tcim import _bitgemm_operands
+    from repro_torch.graphs import GRAPH_GENERATORS, build_graph
+    from repro_torch.kernels import tc_bitgemm as tb
+
+    started = {}
+    for k, (name, subs) in enumerate(BITGEMM_LEVERS.items()):
+        started[name] = compile_one(f"bitgemm_{k}", bitgemm_variant(subs))
+    fns = {}
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name, (lib, proc) in started.items():
+        fn = finish(name, lib, proc).tc_bitgemm
+        fn.argtypes = [vp, ll, vp, ll, ci, ci, ci, vp, vp]
+        fn.restype = ci
+        fns[name] = fn
+    cfg = GRAPHS["email-enron"]
+    g = build_graph(GRAPH_GENERATORS[cfg.generator](cfg.n, cfg.m, seed=cfg.seed), reorder=True)
+    x, y = _bitgemm_operands(g, torch.device("cuda"))
+    x = x[:2048]
+    out = torch.empty(x.shape[0], y.shape[0], dtype=torch.int32, device="cuda")
+    kernel = tb._kernel
+    times = {name: [] for name in fns}
+    want = None
+    for name in [*fns, *reversed(list(fns))]:
+        tb._kernel = lambda fn=fns[name]: fn
+        out.fill_(-1)
+        tb.bitgemm_cuda(x, y, out)
+        want = out.clone() if want is None else want
+        if not torch.equal(out, want):
+            raise RuntimeError(f"bitgemm lever {name}: output != the final kernel's")
+        times[name].append(time_ms(lambda: tb.bitgemm_cuda(x, y, out), 10))
+    tb._kernel = kernel
+    for name, ts in times.items():
+        log(f"[levers] bitgemm email-enron chunk {name}: {', '.join(f'{t:.6f}' for t in ts)} ms")
+    return times
+
+
+SECTIONS = ("probe", "bitgemm", "flash", "dense")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_levers: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
         return 1
+    sections = sys.argv[1:] or list(SECTIONS)
+    unknown = set(sections) - set(SECTIONS)
+    if unknown:
+        print(f"kernel_levers: unknown sections {sorted(unknown)}; choose from {SECTIONS}",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT / "src"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    readings = {"flash_attention": flash_levers(build_variants()), "dense_mxu_tc": dense_levers()}
+    readings = {}
+    if "probe" in sections:
+        readings["mma_probe"] = mma_probe()
+    if "bitgemm" in sections:
+        readings["bitgemm"] = bitgemm_levers()
+    if "flash" in sections:
+        readings["flash_attention"] = flash_levers(build_variants())
+    if "dense" in sections:
+        readings["dense_mxu_tc"] = dense_levers()
     print(smi.splitlines()[0])
     print(json.dumps({"device": torch.cuda.get_device_name(0), "readings": readings}))
     return 0
