@@ -13,29 +13,40 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. kernels  each kernel against its plain torch version on the card, exact
               equality, over word widths, sizes, sentinels, hot indices and
               an out-of-range index that must raise at ``result()``:
-              gather_total, gather_segment_totals (buckets 1 .. 1<<14, G 1 /
-              3 / 32, all-sentinel tail segments), total and items
+              gather_total (P 0, 1, 2, 3, 5, 1000 and 1<<20, index views at
+              odd and unequal offsets), gather_segment_totals (buckets 1 ..
+              1<<14, G 1 / 3 / 32, all-sentinel tail segments; grouped waves
+              of 1, 3, 34 and GROUP_CAP + 1 batches of mixed W, bucket and G,
+              one launch for every GROUP_CAP; an out-of-range index in one
+              batch of a wave raising at that batch's result() alone), total
+              and items
   4. main     ``repro_torch.core.tcim_count`` on ``com-youtube`` at full size
               (the paper's Table II graph, generated from its config and
               seed), held against the port's CPU path and the exact oracle,
               with the kernel's launch count equal to the chunk count; then
               ``ego-facebook`` and ``email-enron`` at slice_bits 32/64/128
-  5. timing   CUDA-event times of the kernel and its plain version at the
-              main path's shapes, the bound, per-stage times and peak memory;
-              the kernel's device time alone from a replayed CUDA graph of 50
-              launches (its sum held to the plain version's)
+  5. timing   CUDA-event times of the kernel (through the executor's bound
+              launcher and through gather_total_cuda) and its plain version
+              at the main path's shapes, the bound, per-stage times and peak
+              memory; the kernel's device time alone from a replayed CUDA
+              graph of 50 launches (its sum held to the plain version's)
   6. serve    ``repro_torch.launch.tc_serve.TCServer`` on the card over 544
               small tenants (rmat at slice_bits 32 / 64 / 128, fused) and
               ego-facebook, email-enron and com-dblp at full size (solo),
-              held against the exact oracle and a CPU server; a cached
-              re-serve with no upload; the solos in the modes
+              held against the exact oracle and a CPU server, the wave's 34
+              fused batches in one launch of the segment kernel; a cached
+              re-serve with no upload, in one launch; the solos in the modes
               gather_then_kernel and pallas_items; a tight budget; an
-              injected failure
-  7. serve timing  segment kernel vs plain over a serve wave's cached
-              batches, total and items vs plain over com-youtube's chunks
-              (each also as device time alone, as in phase 5; distinct
-              operands in turns, so that L2 does not hold them), fused serving vs the per-graph pool
-              loop in graphs per second, serve stages and peak memory
+              injected failure, its batch out of the wave's one launch
+  7. serve timing  the segment kernel over a serve wave's cached batches in
+              one grouped launch, per call, through the executor's dispatch
+              and as device time alone (a CUDA graph of whole-wave
+              launches), beside the wave's bound, one launch a batch (no
+              grouping) and the plain version; total and items vs plain over
+              com-youtube's chunks (each also as device time alone, as in
+              phase 5; distinct operands in turns, so that L2 does not hold
+              them), fused serving vs the per-graph pool loop in graphs per
+              second, serve stages and peak memory
   8. dense kernels  bitgemm (I, J in 1 .. 4039, W 1 / 3 / 8 / 9 / 127 / 255 /
               256 / 1147; random, zero and all-ones words; contiguous
               operands, copied to padded scratch when W is not a multiple of
@@ -129,6 +140,9 @@ NUM_TENANTS = 512  # at slice_bits 64
 NUM_TENANTS_SIDE = 16  # at slice_bits 32 and at 128 each
 SOLO_GRAPHS = ("ego-facebook", "email-enron", "com-dblp")
 SEGMENT_BUCKETS = (1, 2, 16, 32, 64, 1024, 1 << 14)
+GATHER_PAIRS = (0, 1, 2, 3, 5, 1000, 1 << 20)
+GATHER_OFFSETS = ((0, 0), (1, 1), (3, 3), (1, 2), (0, 3))  # index views' (row, col) element offsets
+GROUP_WAVES = (1, 3, 34)  # batches in a grouped segment wave, and GROUP_CAP + 1
 DENSE_GRAPHS = ("ego-facebook", "email-enron")
 DENSE_BACKENDS = ("bitgemm", "mxu")
 BITGEMM_SIZES = (1, 31, 64, 129, 4039)
@@ -138,6 +152,7 @@ MXU_DENSITIES = (0.02, 0.3, 1.0)
 BITGEMM_CHUNK_ROWS = 2048  # tcim's bitgemm backend
 NO_POPCOUNT_OP = "torch has no popcount op"
 GRAPH_LAUNCHES = 50  # kernel launches in one CUDA graph: device time without the wrapper's
+WAVE_GRAPH_LAUNCHES = 20  # whole-wave segment launches in one CUDA graph
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 FLASH_BH = (1, 3, 72)
 FLASH_SHAPES = ((1, 1), (64, 64), (100, 100), (128, 128), (256, 128), (64, 256), (517, 1030),
@@ -237,18 +252,25 @@ def phase_kernel_cases() -> int:
     num_rows, num_cols = 50_000, 30_011
     for w in (1, 2, 4):
         row, col = _words(rng, num_rows, w), _words(rng, num_cols, w)
-        for p in (0, 1, 1000, 1 << 20):
-            r = rng.integers(0, num_rows, size=p).astype(np.int32)
-            c = rng.integers(0, num_cols, size=p).astype(np.int32)
-            r[rng.random(p) < 0.1] = -1  # sentinels on either side
-            c[rng.random(p) < 0.1] = -1
-            hot = rng.random(p) < 0.25  # repeated hot indices
+        for p in GATHER_PAIRS:
+            r = rng.integers(0, num_rows, size=p + 3).astype(np.int32)
+            c = rng.integers(0, num_cols, size=p + 3).astype(np.int32)
+            r[rng.random(p + 3) < 0.1] = -1  # sentinels on either side
+            c[rng.random(p + 3) < 0.1] = -1
+            hot = rng.random(p + 3) < 0.25  # repeated hot indices
             r[hot], c[hot] = 7, 11
-            got, want = _compare(row, col, torch.from_numpy(r).cuda(), torch.from_numpy(c).cuda())
-            err = int((got.long() - want.long()).abs().max())
-            max_err = max(max_err, err)
-            check(torch.equal(got, want), f"W={w} P={p}: kernel {got.tolist()} != plain {want.tolist()}")
-            log(f"[kernels] gather_total W={w} P={p}: {got.tolist()} == plain")
+            r_all, c_all = torch.from_numpy(r).cuda(), torch.from_numpy(c).cuda()
+            # Index views at offsets 0, odd and even-not-16-byte, the same on
+            # both sides (the int4 path after a scalar head) or not (the
+            # scalar path); the arrays hold 3 more pairs, never to be read.
+            for ro, co in GATHER_OFFSETS:
+                got, want = _compare(row, col, r_all[ro : ro + p], c_all[co : co + p])
+                err = int((got.long() - want.long()).abs().max())
+                max_err = max(max_err, err)
+                check(torch.equal(got, want),
+                      f"W={w} P={p} offsets {ro, co}: kernel {got.tolist()} != plain {want.tolist()}")
+            log(f"[kernels] gather_total W={w} P={p}: {got.tolist()} == plain at index offsets "
+                f"{list(GATHER_OFFSETS)}")
     # One out-of-range index per side: counted, never read, raised at result().
     row, col = _words(rng, num_rows, 2), _words(rng, num_cols, 2)
     for side in ("row", "col"):
@@ -414,7 +436,12 @@ def phase_timing(main: dict) -> tuple:
     kernel_calls = [(row, col, r, c, out) for r, c in chunks]
     _time_ms(gather_total_cuda, kernel_calls, 1)  # warm-up
     rounds = max(2, math.ceil(20 / len(chunks)))
-    ms = _time_ms(gather_total_cuda, kernel_calls, rounds)
+    wrapper_ms = _time_ms(gather_total_cuda, kernel_calls, rounds)
+    # The main path's call: the executor's launcher, bound once a count.
+    with torch.cuda.device(out.device):
+        launch = ex._launcher.bind(out)
+        _time_ms(launch, chunks, 1)
+        ms = _time_ms(launch, chunks, rounds)
     graph = _graph(gather_total_cuda, kernel_calls)
     out.zero_()
     graph.replay()
@@ -428,11 +455,13 @@ def phase_timing(main: dict) -> tuple:
     stores = sb.row_slice_data.nbytes + sb.col_slice_data.nbytes
     whole = (stores + 8 * wl.num_pairs) / HBM_BYTES_PER_S * 1e3
     log(f"[timing] gather_total: {ms:.6f} ms/chunk over {rounds * len(chunks)} launches "
-        f"(P={len(chunks[0][0])}, W={row.shape[1]}); bound {bound_ms:.6f} ms/chunk "
-        f"(bytes), {100 * bound_ms / ms:.2f}% of bound; device time alone {device_ms:.6f} "
-        f"ms/chunk ({100 * bound_ms / device_ms:.2f}% of bound; a CUDA graph of "
-        f"{GRAPH_LAUNCHES} launches over the chunks, replayed; its sum == plain), so the wrapper "
-        f"costs {ms - device_ms:.6f} ms a call; plain version {plain_ms:.6f} ms/chunk; "
+        f"through the executor's bound launcher (P={len(chunks[0][0])}, W={row.shape[1]}); "
+        f"{wrapper_ms:.6f} ms/chunk through gather_total_cuda (every check a call); bound "
+        f"{bound_ms:.6f} ms/chunk (bytes), {100 * bound_ms / ms:.2f}% of bound; device time "
+        f"alone {device_ms:.6f} ms/chunk ({100 * bound_ms / device_ms:.2f}% of bound; a CUDA "
+        f"graph of {GRAPH_LAUNCHES} launches over the chunks, replayed; its sum == plain), so "
+        f"the launcher costs {ms - device_ms:.6f} ms a call and gather_total_cuda "
+        f"{wrapper_ms - device_ms:.6f}; plain version {plain_ms:.6f} ms/chunk; "
         f"library_ms null (torch has no popcount op)")
     log(f"[timing] whole count: {len(chunks)} chunks x {ms:.6f} ms = {len(chunks) * ms:.6f} ms "
         f"kernel time vs {whole:.6f} ms for stores ({stores} B) + indices read once")
@@ -451,6 +480,7 @@ def phase_timing(main: dict) -> tuple:
         "bound_by": "bytes",
         "library_ms": None,
         "device_ms": device_ms,
+        "wrapper_ms": wrapper_ms,
     }
     return row_json, max_err, chunks, row, col
 
@@ -550,7 +580,101 @@ def phase_segment_cases() -> int:
         log(f"[kernels] out-of-range fused index raised at MultiCountFuture.result(): {e}")
     else:
         raise RuntimeError("out-of-range fused index did not raise at result()")
+    return max(max_err, _group_cases(rng), _wave_out_of_range(rng))
+
+
+def _segment_batch(rng, w: int, bucket: int, g: int) -> tuple:
+    """One fused batch on the card: pow2-padded stores, G segments of
+    ``bucket`` pairs with sentinels, a hot pair and (G > 1) all-sentinel
+    trailing segments."""
+    from repro_torch.core.plan import pow2_ceil
+
+    rows_real, cols_real = int(rng.integers(100, 3000)), int(rng.integers(100, 3000))
+    row = torch.cat([_words(rng, rows_real, w), torch.zeros(pow2_ceil(rows_real) - rows_real, w,
+                                                            dtype=torch.int32, device="cuda")])
+    col = torch.cat([_words(rng, cols_real, w), torch.zeros(pow2_ceil(cols_real) - cols_real, w,
+                                                            dtype=torch.int32, device="cuda")])
+    p = g * bucket
+    r = rng.integers(0, row.shape[0], size=p).astype(np.int32)
+    c = rng.integers(0, col.shape[0], size=p).astype(np.int32)
+    r[rng.random(p) < 0.1] = -1
+    c[rng.random(p) < 0.1] = -1
+    hot = rng.random(p) < 0.2
+    r[hot], c[hot] = 3, 5
+    if g > 1:
+        tail = g // 4 * bucket if g > 3 else bucket
+        r[p - tail:], c[p - tail:] = -1, -1
+    return row, col, torch.from_numpy(r).cuda(), torch.from_numpy(c).cuda(), bucket
+
+
+def _group_cases(rng) -> int:
+    """The grouped segment kernel == its plain version over waves of 1, 3,
+    34 and GROUP_CAP + 1 batches of mixed W, bucket and G, each wave in one
+    launch for every GROUP_CAP batches; returns max |err|."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tc_gather_popcount import (
+        GROUP_CAP,
+        gather_segment_groups_reference,
+        gather_segment_totals_cuda,
+    )
+
+    max_err = 0
+    for n in (*GROUP_WAVES, GROUP_CAP + 1):
+        batches = [_segment_batch(rng, (1, 2, 4)[k % 3], SEGMENT_BUCKETS[k % len(SEGMENT_BUCKETS)],
+                                  (1, 3, 32)[k % 3]) for k in range(n)]
+        before = gather_segment_totals_cuda.launches
+        got = ops.popcount_and_gather_segment_groups(batches)
+        launches = gather_segment_totals_cuda.launches - before
+        want = gather_segment_groups_reference(batches)
+        torch.cuda.synchronize()
+        got, want = got.cpu(), want.cpu()
+        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want), f"grouped wave of {n} batches: kernel != plain")
+        check(launches == math.ceil(n / GROUP_CAP), f"wave of {n} batches took {launches} launches")
+        log(f"[kernels] grouped segments: a wave of {n} batches (W 1/2/4, buckets "
+            f"{sorted({b[4] for b in batches})}, G 1/3/32, all-sentinel tails) == plain in "
+            f"{launches} launch(es)")
     return max_err
+
+
+def _wave_out_of_range(rng) -> int:
+    """An out-of-range index in one batch of a fused wave: counted in that
+    batch's rows, raised at its future's result() and at no other's."""
+    from repro_torch.core import MultiGraphExecutor, build_sbf, build_worklist
+    from repro_torch.graphs import build_graph, rmat, triangles_intersection
+    from repro_torch.kernels.tc_gather_popcount import gather_segment_totals_cuda
+
+    multi = MultiGraphExecutor()
+    job_lists, want = [], []
+    for k in range(5):
+        jobs, counts = [], []
+        for i in range(1 + 3 * k):
+            g = build_graph(rmat(64 << (k % 3), 6 * (64 << (k % 3)), seed=1000 * k + i))
+            sb = build_sbf(g, (32, 64, 128)[k % 3])
+            jobs.append((sb, build_worklist(g, sb)))
+            counts.append(triangles_intersection(g))
+        job_lists.append(jobs)
+        want.append(tuple(counts))
+    batches = [multi.prepare(jobs) for jobs in job_lists]
+    victim = 2
+    ridx = batches[victim].ridx
+    first_real = int(torch.nonzero(ridx >= 0)[0])
+    ridx[first_real] = batches[victim].row_data.shape[0] + 7
+    before = gather_segment_totals_cuda.launches
+    futures = multi.dispatch(batches)
+    check(gather_segment_totals_cuda.launches - before == 1, "the wave was not one launch")
+    for k, fut in enumerate(futures):
+        if k == victim:
+            try:
+                fut.result()
+            except ValueError as e:
+                log(f"[kernels] out-of-range index in batch {k} of a wave of {len(futures)} "
+                    f"raised at its result() only: {e}")
+            else:
+                raise RuntimeError("out-of-range index in a wave did not raise at its result()")
+        else:
+            check(fut.result() == want[k], f"wave batch {k}: {fut.result()} != {want[k]}")
+    return 0
 
 
 def phase_unfused_cases() -> int:
@@ -627,6 +751,7 @@ def phase_serve() -> dict:
     """TCServer on the card over the fleet, held against the exact oracle
     and the port's CPU server; cache, modes, budget and fault runs."""
     from repro_torch.core.plan import clamp_chunk_pairs
+    from repro_torch.kernels.tc_gather_popcount import GROUP_CAP
     from repro_torch.launch.tc_serve import ServeConfig, TCServer
     from repro_torch.runtime.fault import FailureInjector
 
@@ -657,8 +782,13 @@ def phase_serve() -> dict:
     log(f"[serve] server_stats: {json.dumps(stats)}")
     log(f"[serve] max_memory_allocated: {peak} bytes")
     _check_serve(results, exact, "card serve")
-    check(launches["gather_segment_totals"] == stats["fused_batches"] > 0,
-          f"segment launches {launches['gather_segment_totals']} != fused batches {stats['fused_batches']}")
+    # One wave (the default budget admits the fleet), whose fused batches of
+    # every word width share one launch for every GROUP_CAP of them.
+    wave_launches = math.ceil(stats["fused_batches"] / GROUP_CAP)
+    check(stats["waves"] == 1 and stats["fused_batches"] > 0, f"serve stats {stats}")
+    check(launches["gather_segment_totals"] == wave_launches,
+          f"segment launches {launches['gather_segment_totals']} != {wave_launches} for a wave "
+          f"of {stats['fused_batches']} fused batches")
     solo_chunks = sum(
         math.ceil(wl.num_pairs / clamp_chunk_pairs(cfg.chunk_pairs, sb.words_per_slice))
         for sb, wl in jobs if wl.num_pairs > cfg.max_fused_pairs
@@ -686,12 +816,15 @@ def phase_serve() -> dict:
     warm_s = time.perf_counter() - t0
     after = srv.server_stats()["fused"]
     batches = srv.stats["fused_batches"] - stats["fused_batches"]
+    again_launches = _launches()
     _check_serve(again, exact, "cached re-serve")
     check(after["hits"] - before["hits"] == batches and after["misses"] == before["misses"],
           f"re-serve: {after} after {before} for {batches} batches")
     check(srv.multi.upload_bytes == uploads, "re-serve uploaded to the device")
+    check(again_launches["gather_segment_totals"] == math.ceil(batches / GROUP_CAP),
+          f"re-serve: segment launches {again_launches} for {batches} batches")
     log(f"[serve] cached re-serve: {batches} batch-cache hits, 0 new upload bytes, "
-        f"{warm_s:.6f} s; launches {_launches()}")
+        f"{warm_s:.6f} s; launches {again_launches}")
 
     solo = [i for i, (_, wl) in enumerate(jobs) if wl.num_pairs > cfg.max_fused_pairs]
     solo_jobs, solo_exact = [jobs[i] for i in solo], [exact[i] for i in solo]
@@ -723,12 +856,19 @@ def phase_serve() -> dict:
     victim = 37
     inj = TCServer(ServeConfig(injector=FailureInjector(fail_at_steps=(victim,)),
                                fused_max_batches=64))
+    _reset_launches()
     res = _by_id(inj.serve(jobs))
+    inj_launches = _launches()
     _check_serve(res, exact, "injected failure")
     check(res[victim].retries >= 1 and "recovered" in res[victim].detail,
           f"request {victim}: {res[victim]}")
+    # The failed batch stays out of the wave's launch; the others share it.
+    check(inj.stats["fused_batches"] == stats["fused_batches"] - 1
+          and inj_launches["gather_segment_totals"] == wave_launches,
+          f"injected failure: {inj.stats} and launches {inj_launches}")
     log(f"[serve] injected failure on request {victim}: {res[victim].detail}, "
-        f"{inj.stats['wave_failures']} wave failure(s), every count exact")
+        f"{inj.stats['wave_failures']} wave failure(s), the other "
+        f"{inj.stats['fused_batches']} batches in {wave_launches} launch(es), every count exact")
     return {
         "jobs": jobs, "server": srv, "launches": launches, "mode_launches": mode_launches,
         "build_s": build_s, "cold_s": cold_s, "warm_s": warm_s, "cpu_s": cpu_s, "peak": peak,
@@ -766,63 +906,85 @@ def phase_serve_timing(serve: dict, chunks, row, col) -> tuple[list, int]:
         total_reference,
     )
     from repro_torch.kernels.tc_gather_popcount import (
+        gather_segment_groups_cuda,
+        gather_segment_groups_reference,
         gather_segment_totals_cuda,
-        gather_segment_totals_reference,
     )
 
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
     srv = serve["server"]
-    # Every cached batch of the fleet, each with its own bucket and out, in
-    # turns: a serve wave's launches, reading distinct operands as a wave
-    # does. The row's times and bound are means a launch over the wave.
+    # The fleet's wave: every cached batch, in one grouped launch (the
+    # executor's cached table) into one zeroed output; beside it the same
+    # batches as one-entry launches in turns ("no grouping").
     batches = list(srv.multi._batches.values())
-    seg_args = [(b.row_data, b.col_data, b.ridx, b.cidx,
-                 torch.zeros(b.plan.padded_graphs, 2, dtype=torch.int32, device="cuda"),
-                 b.plan.bucket) for b in batches]
-    seg = lambda *a: gather_segment_totals_cuda(*a[:5], bucket=a[5])  # noqa: E731
-    plain = lambda *a: gather_segment_totals_reference(*a[:4], bucket=a[5])  # noqa: E731
-    wants = [plain(*a) for a in seg_args]
-    max_err = 0
-    for a, want in zip(seg_args, wants):
-        got = seg(*a)
-        torch.cuda.synchronize()
-        max_err = max(max_err, int((got.cpu().long() - want.cpu().long()).abs().max()))
-    check(max_err == 0, "fleet batches: segment kernel != plain")
-    _time_ms(seg, seg_args, 1)
-    seg_ms = _time_ms(seg, seg_args, 3)
-    # Whole waves, so that every batch weighs the same in the mean.
-    launches = len(seg_args) * math.ceil(GRAPH_LAUNCHES / len(seg_args))
-    graph = _graph(seg, seg_args, launches)
-    for a in seg_args:
-        a[4].zero_()
+    table = srv.multi._table(batches)
+    segs = [b.segments for b in batches]
+    wave_out = torch.zeros(table.rows, 2, dtype=torch.int32, device="cuda")
+    wave = lambda out: [gather_segment_groups_cuda(table, out, k)  # noqa: E731
+                        for k in range(len(table.groups))]
+    want = gather_segment_groups_reference(segs)
+    wave(wave_out)
+    torch.cuda.synchronize()
+    max_err = int((wave_out.cpu().long() - want.cpu().long()).abs().max())
+    check(max_err == 0, "fleet wave: grouped segment kernel != plain")
+    _time_ms(wave, [(wave_out,)], 1)
+    seg_ms = _time_ms(wave, [(wave_out,)], 20)
+    # The executor's whole wave dispatch: zeroed output, the launch, the futures.
+    _time_ms(srv.multi.dispatch, [(batches,)], 1)
+    dispatch_ms = _time_ms(srv.multi.dispatch, [(batches,)], 20)
+    launches = WAVE_GRAPH_LAUNCHES
+    graph = _graph(wave, [(wave_out,)], launches)
+    wave_out.zero_()
     graph.replay()
-    check(all(torch.equal(a[4].long(), _graph_uses(k, len(seg_args), launches) * want.long())
-              for k, (a, want) in enumerate(zip(seg_args, wants))),
-          "fleet batches: segment kernel's graph replay != plain")
+    check(torch.equal(wave_out.long(), launches * want.long()),
+          "fleet wave: the grouped kernel's graph replay != plain")
     seg_device_ms = _replay_ms(graph, launches)
     del graph
-    _time_ms(plain, seg_args[:1], 1)
-    seg_plain_ms = _time_ms(plain, seg_args, 1)
-    seg_s = []
+    single = [(*seg[:4], torch.zeros(b.plan.padded_graphs, 2, dtype=torch.int32, device="cuda"),
+               seg[4]) for seg, b in zip(segs, batches)]
+    one = lambda *a: gather_segment_totals_cuda(*a[:5], bucket=a[5])  # noqa: E731
+    _time_ms(one, single, 1)
+    one_ms = _time_ms(one, single, 3) * len(single)
+    each = len(single) * math.ceil(GRAPH_LAUNCHES / len(single))
+    graph = _graph(one, single, each)
+    for a in single:
+        a[4].zero_()
+    graph.replay()
+    check(torch.cat([a[4] for a in single]).long().equal(
+        (each // len(single)) * want.long()), "fleet batches one by one: graph replay != plain")
+    one_device_ms = _replay_ms(graph, each) * len(single)
+    del graph
+    plain = gather_segment_groups_reference
+    _time_ms(plain, [(segs,)], 1)
+    seg_plain_ms = _time_ms(plain, [(segs,)], 3)
+    seg_ms_bound, seg_by = 0.0, "bytes"
     for b in batches:
         valid = (b.ridx >= 0) & (b.cidx >= 0)
         w = b.row_data.shape[1]
         rows_read = torch.unique(b.ridx[valid]).numel()
         cols_read = torch.unique(b.cidx[valid]).numel()
-        seg_s.append(_bound_ms(8 * b.ridx.numel() + 4 * w * (rows_read + cols_read)
-                               + 8 * b.plan.padded_graphs, 3 * w * int(valid.sum())))
-    seg_bound = (sum(t for t, _ in seg_s) / len(seg_s), seg_s[0][1])
+        t, seg_by = _bound_ms(8 * b.ridx.numel() + 4 * w * (rows_read + cols_read)
+                              + 8 * b.plan.padded_graphs, 3 * w * int(valid.sum()))
+        seg_ms_bound += t
+    seg_bound = (seg_ms_bound, seg_by)
     seg_bytes = sum(8 * b.ridx.numel() + 4 * (b.row_data.numel() + b.col_data.numel())
                     for b in batches)
     shapes = sorted({(b.plan.padded_graphs, b.plan.bucket, b.plan.words_per_slice) for b in batches})
-    log(f"[timing] gather_segment_totals: {seg_ms:.6f} ms/launch, the mean over the fleet's "
-        f"{len(batches)} cached batches in turns (a serve wave's launches; (G, bucket, W) in "
-        f"{shapes}; {seg_bytes} B of indices and stores in all, L2 {l2} B); bound "
-        f"{seg_bound[0]:.6f} ms a launch ({seg_bound[1]}), {100 * seg_bound[0] / seg_ms:.2f}% of "
-        f"bound; device time alone {seg_device_ms:.6f} ms ({100 * seg_bound[0] / seg_device_ms:.2f}% "
-        f"of bound; a CUDA graph of {launches} launches, whole waves, replayed; its sums "
-        f"== plain), so the wrapper costs {seg_ms - seg_device_ms:.6f} ms a call; plain version "
-        f"{seg_plain_ms:.6f} ms; library_ms null ({NO_POPCOUNT_OP})")
+    lanes = sum(b.ridx.numel() for b in batches)
+    log(f"[timing] gather_segment_totals: a serve wave of the fleet's {len(batches)} cached "
+        f"batches ((G, bucket, W) in {shapes}; {lanes} index lanes, {table.groups[-1].first_block[-1]} "
+        f"blocks; {seg_bytes} B of indices and stores in all, L2 "
+        f"{l2} B) in {len(table.groups)} grouped launch(es): {seg_ms:.6f} ms a wave per call "
+        f"(gather_segment_groups_cuda on the cached table into one zeroed output), "
+        f"{dispatch_ms:.6f} ms a wave through MultiGraphExecutor.dispatch (zeroing, launch, "
+        f"futures); bound {seg_bound[0]:.6f} ms a wave ({seg_bound[1]}), "
+        f"{100 * seg_bound[0] / seg_ms:.2f}% of bound per call; device time alone "
+        f"{seg_device_ms:.6f} ms a wave ({100 * seg_bound[0] / seg_device_ms:.2f}% of bound; a "
+        f"CUDA graph of {launches} whole-wave launches, replayed; its sums == plain), so the "
+        f"wrapper costs {seg_ms - seg_device_ms:.6f} ms a call; no grouping (one launch a "
+        f"batch, in turns): {one_ms:.6f} ms a wave per call, {one_device_ms:.6f} ms of device "
+        f"time alone ({one_device_ms / len(single):.6f} ms a batch); plain version "
+        f"{seg_plain_ms:.6f} ms a wave; library_ms null ({NO_POPCOUNT_OP})")
 
     # total and items at the executor's chunk shape for com-youtube, over
     # every chunk in turns: their gathered words are larger than L2, so each
@@ -907,22 +1069,27 @@ def phase_serve_timing(serve: dict, chunks, row, col) -> tuple[list, int]:
         f"fused, loop, loop, fused: serve() {gps['fused']} graphs/s, pool loop {gps['loop']} "
         f"graphs/s; means {fused_gps:.3f} vs {loop_gps:.3f} ({fused_gps / loop_gps:.3f}x)")
 
-    # Where a serve wave's time goes: the device time of every cached batch.
-    batches = list(srv.multi._batches.values())
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for fb in batches:
-        fb.count_async()
-    stop.record()
+    # Where a serve wave's time goes: its dispatch and its one readback.
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futures = srv.multi.dispatch(batches)
+    t1 = time.perf_counter()
+    counts = [f.result() for f in futures]
+    t2 = time.perf_counter()
+    check(all(len(c) == b.plan.num_graphs for c, b in zip(counts, batches)), "wave readback")
     log(f"[timing] serve stages: fleet host build + oracle {serve['build_s']:.3f} s; cold "
-        f"serve {serve['cold_s']:.6f} s; cached re-serve {serve['warm_s']:.6f} s; "
-        f"{len(batches)} cached batches re-launched back to back {start.elapsed_time(stop):.6f} ms "
-        f"of device time; CPU server {serve['cpu_s']:.3f} s; peak memory {serve['peak']} bytes")
+        f"serve {serve['cold_s']:.6f} s; cached re-serve {serve['warm_s']:.6f} s; the "
+        f"{len(batches)} cached batches' wave dispatched in {1e3 * (t1 - t0):.6f} ms and read back "
+        f"in {1e3 * (t2 - t1):.6f} ms (host clock); CPU server {serve['cpu_s']:.3f} s; peak "
+        f"memory {serve['peak']} bytes")
     seg_row = _row("gather_segment_totals", "src/repro_torch/kernels/csrc/tc_gather_popcount.cu",
                    "src/repro/kernels/tc_gather_popcount.py:239",
                    serve["launches"]["gather_segment_totals"], seg_ms, seg_plain_ms, seg_bound)
     seg_row["device_ms"] = seg_device_ms
+    seg_row["per"] = "serve wave"
+    seg_row["batches"] = len(batches)
+    seg_row["no_grouping_ms"] = one_ms
+    seg_row["no_grouping_device_ms"] = one_device_ms
     return [seg_row, *rows_json], max_err
 
 

@@ -38,14 +38,23 @@ The three unfused modes gather with ``index_select`` outside any kernel, as
 the reference gathers with ``jnp.take``, and count out-of-range indices in
 the accumulator's second word like the fused kernel.
 
-``MultiGraphExecutor`` retires a batch of small graphs with ONE launch of
-the segment-totals kernel, over stacked stores and a ``[G, bucket]`` index
-block planned by ``core.plan.plan_fusion``.
+``MultiGraphExecutor`` retires a batch of small graphs over stacked stores
+and a ``[G, bucket]`` index block planned by ``core.plan.plan_fusion``, and
+a serve wave's batches together: one zeroed totals tensor, one launch of
+the segment-totals kernel for every ``GROUP_CAP`` batches, one readback.
+
+On the card the fused mode's ``Executor`` validates its resident stores
+once, at upload, into a ``GatherTotalLauncher``; a count binds it to its
+accumulator and the current stream once, inside the device's context, and
+each chunk's launch checks only its index tensors.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import hashlib
+import itertools
 import weakref
 
 import numpy as np
@@ -55,7 +64,12 @@ from repro_torch.core import sbf as sbf_mod
 from repro_torch.core.plan import clamp_chunk_pairs, plan_fusion, pow2_ceil
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.tc_gather_popcount import modeled_hbm_bytes
+from repro_torch.kernels.tc_gather_popcount import (
+    GatherTotalLauncher,
+    SegmentTable,
+    gather_segment_groups_cuda,
+    modeled_hbm_bytes,
+)
 
 __all__ = [
     "CountFuture",
@@ -191,6 +205,11 @@ class Executor:
         self.chunk_pairs = clamp_chunk_pairs(chunk_pairs, self.words_per_slice)
         self.row_data = self._upload_store(sb.row_slice_data)
         self.col_data = self._upload_store(sb.col_slice_data)
+        # On the card the fused kernel's launcher, its stores validated once.
+        self._launcher = (
+            GatherTotalLauncher(self.row_data, self.col_data)
+            if mode == "fused" and self.device.type == "cuda" else None
+        )
         # Weakrefs to unresolved CountFutures. While any is alive the
         # executor's stores back in-flight dispatches, so pools must not free
         # them (``busy``); resolved or collected futures prune lazily.
@@ -276,19 +295,32 @@ class Executor:
     def _new_acc(self) -> torch.Tensor:
         return torch.zeros(2, dtype=torch.int32, device=self.device)
 
+    def _stepper(self, acc: torch.Tensor):
+        """One chunk's step into ``acc``: on the card the bound launcher
+        (``acc`` checked and the stream resolved once), else ``_step``."""
+        if self._launcher is not None:
+            return self._launcher.bind(acc)
+        return functools.partial(self._step, acc=acc)
+
     def _accumulate(self, device_chunks, worst_pairs: int) -> CountFuture:
         """Dispatch every chunk step; defer the host sync to the future."""
-        # Worst case: every bit of every referenced slice set.
-        if worst_pairs * self.slice_bits <= _INT32_MAX:
-            acc = self._new_acc()
+        context = (torch.cuda.device(self.device) if self._launcher is not None
+                   else contextlib.nullcontext())
+        with context:
+            # Worst case: every bit of every referenced slice set.
+            if worst_pairs * self.slice_bits <= _INT32_MAX:
+                acc = self._new_acc()
+                step = self._stepper(acc)
+                for ridx, cidx in device_chunks:
+                    step(ridx, cidx)
+                return CountFuture([acc])
+            # Huge work lists: the int32 carry could overflow across chunks;
+            # keep per-chunk totals on the device, exact host sum at close.
+            accs = []
             for ridx, cidx in device_chunks:
-                self._step(ridx, cidx, acc)
-            return CountFuture([acc])
-        # Huge work lists: the int32 carry could overflow across chunks;
-        # keep per-chunk totals on the device, exact host sum at close.
-        return CountFuture(
-            [self._step(ridx, cidx, self._new_acc()) for ridx, cidx in device_chunks]
-        )
+                accs.append(self._new_acc())
+                self._stepper(accs[-1])(ridx, cidx)
+            return CountFuture(accs)
 
     def execute_indices_async(self, row_idx, col_idx) -> CountFuture:
         """Dispatch a count over host index arrays; defer the host sync.
@@ -455,30 +487,66 @@ class ExecutorPool:
         }
 
 
+class _WaveReadback:
+    """The int32 ``[rows, 2]`` device totals of one fused dispatch, copied to
+    the host once, by the first of its futures to ask."""
+
+    __slots__ = ("_totals", "_host")
+
+    def __init__(self, totals: torch.Tensor):
+        self._totals = totals
+        self._host: torch.Tensor | None = None
+
+    def host(self) -> torch.Tensor:
+        if self._host is None:
+            self._host = self._totals.cpu()  # the one transfer of the wave
+            self._totals = None
+        return self._host
+
+
 class MultiCountFuture:
     """A fused multi-graph dispatch whose host readback is deferred.
 
-    Holds the int32 ``[padded_graphs, 2]`` device tensor of per-graph
-    ``[subtotal, out_of_range]`` rows; ``result()`` is ONE device->host
-    transfer returning the real graphs' counts as a tuple of Python ints
-    (idempotent, cached). It raises ``ValueError`` if any segment named a
-    store row past the end of the stacked stores, as ``CountFuture`` does.
+    Holds its batch's rows ``start .. start + rows - 1`` of a dispatch's
+    int32 per-graph ``[subtotal, out_of_range]`` totals (``totals``: the
+    batch's own ``[padded_graphs, 2]`` tensor, or a wave's readback shared
+    by its batches). ``result()`` returns the real graphs' counts as a tuple
+    of Python ints (idempotent, cached); the first future of a wave to ask
+    does the wave's one device->host transfer and the others read that
+    copy. It raises ``ValueError`` if this batch's segments named a store
+    row past the end of the stacked stores, as ``CountFuture`` does, and
+    ``error`` when the dispatch parked one here (``failed``): the batch's
+    planning raised, or its launch was refused.
     """
 
-    __slots__ = ("_totals", "_num", "_value")
+    __slots__ = ("_wave", "_start", "_rows", "_num", "_error", "_value")
 
-    def __init__(self, totals: torch.Tensor, num_graphs: int):
-        self._totals = totals
+    def __init__(self, totals, num_graphs: int, *, start: int = 0, rows: int | None = None,
+                 error: BaseException | None = None):
+        if isinstance(totals, torch.Tensor):
+            rows = totals.shape[0] if rows is None else rows
+            totals = _WaveReadback(totals)
+        self._wave = totals
+        self._start = int(start)
+        self._rows = rows
         self._num = int(num_graphs)
+        self._error = error
         self._value: tuple[int, ...] | None = None
 
     @property
     def resolved(self) -> bool:
-        return self._totals is None
+        """True once no device totals are still held."""
+        return self._wave is None
+
+    @property
+    def failed(self) -> bool:
+        return self._error is not None
 
     def result(self) -> tuple[int, ...]:
-        if self._totals is not None:
-            host = self._totals.cpu()  # the one transfer
+        if self._error is not None:
+            raise self._error
+        if self._wave is not None:
+            host = self._wave.host()[self._start : self._start + self._rows]
             out_of_range = int(host[:, 1].sum())
             if out_of_range:
                 raise ValueError(
@@ -486,7 +554,7 @@ class MultiCountFuture:
                     "of their stacked slice store; the counts are invalid"
                 )
             self._value = tuple(host[: self._num, 0].tolist())
-            self._totals = None
+            self._wave = None
         return self._value
 
 
@@ -513,9 +581,9 @@ def _worklist_key(wl: sbf_mod.Worklist) -> str:
 
 class _FusedBatch:
     """Device-resident state of one fused batch: stacked stores and index
-    block. Re-dispatching is one launch, with nothing uploaded."""
+    block. Re-dispatching it uploads nothing."""
 
-    __slots__ = ("plan", "row_data", "col_data", "ridx", "cidx")
+    __slots__ = ("plan", "row_data", "col_data", "ridx", "cidx", "__weakref__")
 
     def __init__(self, plan, row_data, col_data, ridx, cidx):
         self.plan = plan
@@ -524,31 +592,34 @@ class _FusedBatch:
         self.ridx = ridx
         self.cidx = cidx
 
-    def count_async(self) -> MultiCountFuture:
-        totals = ops.popcount_and_gather_segment_totals(
-            self.row_data, self.col_data, self.ridx, self.cidx, bucket=self.plan.bucket
-        )
-        return MultiCountFuture(totals, self.plan.num_graphs)
+    @property
+    def segments(self) -> tuple:
+        """``(row_data, col_data, row_idx, col_idx, bucket)``: the batch as
+        the segment kernel's entries take it."""
+        return (self.row_data, self.col_data, self.ridx, self.cidx, self.plan.bucket)
 
 
 class MultiGraphExecutor:
     """Fused execute stage for MANY small graphs per dispatch.
 
     Stacks a batch of small graphs' stores and pow2-bucketed worklists
-    (``core.plan.plan_fusion``) and retires the whole batch with ONE launch
-    of the segment-totals kernel, which returns per-graph subtotals. Big
-    graphs do not come here: ``max_fused_pairs`` bounds the per-graph
+    (``core.plan.plan_fusion``); the segment-totals kernel returns their
+    per-graph subtotals. ``count_fused_wave_async`` dispatches a serve
+    wave's batches at once: one zeroed totals tensor, one launch for every
+    ``GROUP_CAP`` batches (their table, packed once a cached wave, is the
+    kernel's parameter) and one readback shared by the batches' futures.
+    Big graphs do not come here: ``max_fused_pairs`` bounds the per-graph
     segment, and ``launch.tc_serve`` routes anything larger solo.
 
     Batches are cached LRU by content (store digests + worklist digests), so
-    a recurring tenant mix re-counts with no upload: one launch, one
-    readback, whatever the batch size. ``upload_bytes`` counts the bytes
-    staged to the device over the executor's life.
+    a recurring tenant mix re-counts with no upload. ``upload_bytes`` counts
+    the bytes staged to the device over the executor's life.
 
     The reference's ``trace_count`` (jit cache sizes) has no counterpart in
-    eager PyTorch; ``dispatches`` counts fused dispatches in its place —
-    each is one launch of the segment kernel on the card (on the CPU, one
-    call of its plain version). ``device`` defaults to the card.
+    eager PyTorch; ``dispatches`` counts the batches dispatched in its place
+    (a wave of them shares launches of the segment kernel on the card; on
+    the CPU each is one call of its plain version). ``device`` defaults to
+    the card.
     """
 
     def __init__(
@@ -564,6 +635,9 @@ class MultiGraphExecutor:
         self.max_fused_pairs = int(max_fused_pairs)
         self.device = resolve_device(device)
         self._batches: collections.OrderedDict[tuple, _FusedBatch] = collections.OrderedDict()
+        # Packed segment tables of recent waves, keyed by their batches'
+        # identities (weakly held: a table is stale once a batch is gone).
+        self._tables: collections.OrderedDict[tuple, tuple] = collections.OrderedDict()
         self._buckets: set[int] = set()
         self.hits = 0
         self.misses = 0
@@ -590,37 +664,105 @@ class MultiGraphExecutor:
         )
         return self._upload(_pad_rows_pow2(host))
 
-    def count_fused_async(self, jobs) -> MultiCountFuture:
-        """Dispatch one fused count over ``jobs`` (list of host
-        ``(SlicedBitmap, Worklist)``); defer the single host readback.
+    def prepare(self, jobs) -> _FusedBatch:
+        """The resident batch for ``jobs`` (list of host ``(SlicedBitmap,
+        Worklist)``): the cached one, else planned, stacked and uploaded.
 
         Raises ``ValueError`` (via ``plan_fusion``) when a job exceeds the
         fused segment bound or mixes word widths — admission control filters
-        those out before calling. A cached batch dispatches again against
-        its resident tensors with nothing uploaded.
+        those out before calling.
         """
         key = tuple((sbf_content_key(sb), _worklist_key(wl)) for sb, wl in jobs)
         batch = self._batches.get(key)
         if batch is not None:
             self.hits += 1
             self._batches.move_to_end(key)
+            return batch
+        self.misses += 1
+        plan = self.plan(jobs)
+        wps = plan.words_per_slice
+        batch = _FusedBatch(
+            plan,
+            self._stack([sb.row_slice_data for sb, _ in jobs], plan.row_rows, wps),
+            self._stack([sb.col_slice_data for sb, _ in jobs], plan.col_rows, wps),
+            self._upload(plan.row_idx),
+            self._upload(plan.col_idx),
+        )
+        self._buckets.add(plan.bucket)
+        self._batches[key] = batch
+        while len(self._batches) > self.max_batches:
+            self._batches.popitem(last=False)
+        return batch
+
+    def _table(self, batches: list) -> SegmentTable:
+        """The packed segment table of ``batches``, cached by identity."""
+        key = tuple(map(id, batches))
+        hit = self._tables.get(key)
+        if hit is not None and all(ref() is b for ref, b in zip(hit[0], batches)):
+            self._tables.move_to_end(key)
+            return hit[1]
+        table = SegmentTable([b.segments for b in batches])
+        self._tables[key] = (tuple(weakref.ref(b) for b in batches), table)
+        while len(self._tables) > self.max_batches:
+            self._tables.popitem(last=False)
+        return table
+
+    def dispatch(self, batches) -> list[MultiCountFuture]:
+        """Count prepared batches in one dispatch; one future a batch.
+
+        On the card: one zeroed ``[sum of padded G, 2]`` tensor, one launch
+        of the segment kernel for every ``GROUP_CAP`` batches, and one
+        readback that the futures share. A refused launch parks its error
+        in the futures of its batches. On the CPU: the plain version.
+        """
+        batches = list(batches)
+        if not batches:
+            return []
+        self.dispatches += len(batches)
+        errors = [None] * len(batches)
+        if self.device.type == "cpu":
+            totals = ops.popcount_and_gather_segment_groups([b.segments for b in batches])
+            offsets = itertools.accumulate((b.plan.padded_graphs for b in batches), initial=0)
         else:
-            self.misses += 1
-            plan = self.plan(jobs)
-            wps = plan.words_per_slice
-            batch = _FusedBatch(
-                plan,
-                self._stack([sb.row_slice_data for sb, _ in jobs], plan.row_rows, wps),
-                self._stack([sb.col_slice_data for sb, _ in jobs], plan.col_rows, wps),
-                self._upload(plan.row_idx),
-                self._upload(plan.col_idx),
-            )
-            self._buckets.add(plan.bucket)
-            self._batches[key] = batch
-            while len(self._batches) > self.max_batches:
-                self._batches.popitem(last=False)
-        self.dispatches += 1
-        return batch.count_async()
+            table = self._table(batches)
+            totals = torch.zeros(table.rows, 2, dtype=torch.int32, device=self.device)
+            for k, group in enumerate(table.groups):
+                try:
+                    gather_segment_groups_cuda(table, totals, k)
+                except RuntimeError as e:
+                    errors[group.start : group.stop] = [e] * (group.stop - group.start)
+            offsets = table.offsets
+        wave = _WaveReadback(totals)
+        return [
+            MultiCountFuture(wave, b.plan.num_graphs, start=start, rows=b.plan.padded_graphs,
+                             error=err)
+            for b, start, err in zip(batches, offsets, errors)
+        ]
+
+    def count_fused_async(self, jobs) -> MultiCountFuture:
+        """Dispatch one fused count over ``jobs`` (list of host
+        ``(SlicedBitmap, Worklist)``); defer the single host readback.
+
+        Raises ``ValueError`` as ``prepare`` does. A cached batch dispatches
+        again against its resident tensors with nothing uploaded.
+        """
+        return self.dispatch([self.prepare(jobs)])[0]
+
+    def count_fused_wave_async(self, job_lists) -> list[MultiCountFuture]:
+        """Dispatch one fused count per job list, all at once: one future a
+        batch, sharing the wave's launches and its one readback. A batch
+        whose planning raises gets a future holding that error and stays
+        out of the launch."""
+        futures: list = []
+        batches = []
+        for jobs in job_lists:
+            try:
+                batches.append(self.prepare(jobs))
+                futures.append(None)
+            except Exception as e:  # isolated to this batch, as at readback
+                futures.append(MultiCountFuture(None, 0, error=e))
+        launched = iter(self.dispatch(batches))
+        return [f if f is not None else next(launched) for f in futures]
 
     def count_fused(self, jobs) -> tuple[int, ...]:
         """Blocking convenience over ``count_fused_async``."""
@@ -631,6 +773,7 @@ class MultiGraphExecutor:
 
     def clear(self) -> None:
         self._batches.clear()
+        self._tables.clear()
 
     def stats(self) -> dict:
         return {

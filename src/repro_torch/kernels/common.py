@@ -10,7 +10,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["swar_popcount_u32", "resolve_device"]
+__all__ = ["INT32_SAFE_WORDS", "swar_popcount_u32", "resolve_device"]
+
+# Largest number of uint32 words whose AND-popcount total provably fits the
+# kernels' int32 accumulator: each word contributes at most 32 to the sum.
+INT32_SAFE_WORDS = (2**31 - 1) // 32
 
 
 def swar_popcount_u32(x: torch.Tensor) -> torch.Tensor:

@@ -2,16 +2,17 @@
 
 Port of ``src/repro/kernels/ops.py`` (``INT32_SAFE_WORDS``,
 ``popcount_and_items``, ``popcount_and_total``, ``popcount_and_gather_total``,
-``popcount_and_gather_segment_totals``, ``bitgemm``, ``dense_mxu_tc``). A
-wrapper picks its path from where
-its tensors lie: CPU tensors take the plain torch version, CUDA tensors
-launch the hand-written kernel or raise. There is no fallback between the
-two.
+``popcount_and_gather_segment_totals``, ``bitgemm``, ``dense_mxu_tc``), and
+``popcount_and_gather_segment_groups``, a serve wave's batches at once. A
+wrapper picks its path from where its tensors lie: CPU tensors take the
+plain torch version, CUDA tensors launch the hand-written kernel or raise.
+There is no fallback between the two.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import INT32_SAFE_WORDS
 from repro_torch.kernels.slice_and_popcount import (
     items_cuda,
     items_reference,
@@ -21,6 +22,9 @@ from repro_torch.kernels.slice_and_popcount import (
 from repro_torch.kernels.tc_bitgemm import bitgemm_cuda, bitgemm_reference
 from repro_torch.kernels.tc_dense_mxu import dense_mxu_tc_cuda, dense_mxu_tc_reference
 from repro_torch.kernels.tc_gather_popcount import (
+    SegmentTable,
+    gather_segment_groups_cuda,
+    gather_segment_groups_reference,
     gather_segment_totals_cuda,
     gather_segment_totals_reference,
     gather_total_cuda,
@@ -31,15 +35,12 @@ __all__ = [
     "INT32_SAFE_WORDS",
     "bitgemm",
     "dense_mxu_tc",
+    "popcount_and_gather_segment_groups",
     "popcount_and_gather_segment_totals",
     "popcount_and_gather_total",
     "popcount_and_items",
     "popcount_and_total",
 ]
-
-# Largest number of uint32 words whose AND-popcount total provably fits the
-# kernels' int32 accumulator: each word contributes at most 32 to the sum.
-INT32_SAFE_WORDS = (2**31 - 1) // 32
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -131,6 +132,26 @@ def popcount_and_gather_total(
     return gather_total_cuda(row_data, col_data, row_idx, col_idx, out)
 
 
+def _segment_guard(row_data, row_idx, col_idx, bucket: int) -> None:
+    """The checks both segment entries make before any path: equal index
+    shapes, segments that tile the pairs, and a segment's worst case within
+    int32."""
+    if row_idx.shape != col_idx.shape:
+        raise ValueError(f"index shapes {row_idx.shape} and {col_idx.shape} differ")
+    p = row_idx.shape[0]
+    w = row_data.shape[1]
+    if bucket < 1 or p % bucket:
+        raise ValueError(
+            f"{p} fused pairs do not tile into bucket={bucket} segments"
+        )
+    if bucket * w > INT32_SAFE_WORDS:
+        raise ValueError(
+            f"fused segment of {bucket} pairs x {w} words could overflow "
+            f"the int32 accumulator (max safe words: {INT32_SAFE_WORDS}); "
+            "route the graph solo with a smaller chunk_pairs"
+        )
+
+
 def popcount_and_gather_segment_totals(
     row_data: torch.Tensor,
     col_data: torch.Tensor,
@@ -148,28 +169,38 @@ def popcount_and_gather_segment_totals(
     Each segment accumulates alone, so the int32 bound is per segment:
     ``bucket * words_per_slice * 32`` must fit int32.
     """
-    if row_idx.shape != col_idx.shape:
-        raise ValueError(f"index shapes {row_idx.shape} and {col_idx.shape} differ")
-    p = row_idx.shape[0]
-    w = row_data.shape[1]
-    if bucket < 1 or p % bucket:
-        raise ValueError(
-            f"{p} fused pairs do not tile into bucket={bucket} segments"
-        )
-    if bucket * w > INT32_SAFE_WORDS:
-        raise ValueError(
-            f"fused segment of {bucket} pairs x {w} words could overflow "
-            f"the int32 accumulator (max safe words: {INT32_SAFE_WORDS}); "
-            "route the graph solo with a smaller chunk_pairs"
-        )
+    _segment_guard(row_data, row_idx, col_idx, bucket)
     if _on_cpu(row_data, col_data, row_idx, col_idx):
         return gather_segment_totals_reference(
             row_data, col_data, row_idx, col_idx, bucket=bucket
         )
-    out = torch.zeros(p // bucket, 2, dtype=torch.int32, device=row_data.device)
+    out = torch.zeros(row_idx.shape[0] // bucket, 2, dtype=torch.int32, device=row_data.device)
     return gather_segment_totals_cuda(
         row_data, col_data, row_idx, col_idx, out, bucket=bucket
     )
+
+
+def popcount_and_gather_segment_groups(batches) -> torch.Tensor:
+    """Per-graph totals of several fused batches at once -> int32 ``[sum of G, 2]``.
+
+    ``batches`` are ``(row_data, col_data, row_idx, col_idx, bucket)``, each
+    as ``popcount_and_gather_segment_totals`` takes it; the result holds
+    each batch's ``[G, 2]`` rows in order. On the card that is one zeroed
+    tensor and one launch of the segment kernel for every ``GROUP_CAP``
+    batches.
+    """
+    batches = list(batches)
+    if not batches:
+        raise ValueError("popcount_and_gather_segment_groups needs at least one batch")
+    for row_data, _, row_idx, col_idx, bucket in batches:
+        _segment_guard(row_data, row_idx, col_idx, bucket)
+    if _on_cpu(*(t for b in batches for t in b[:4])):
+        return gather_segment_groups_reference(batches)
+    table = SegmentTable(batches)
+    out = torch.zeros(table.rows, 2, dtype=torch.int32, device=table.device)
+    for group in range(len(table.groups)):
+        gather_segment_groups_cuda(table, out, group)
+    return out
 
 
 def bitgemm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,10 @@
 Port of ``src/repro/launch/tc_serve.py`` for one-shot requests on one
 device. A fleet of small graphs drains through fused dispatches of
 ``core.executor.MultiGraphExecutor`` — stacked stores and a shared
-``[G, bucket]`` segment index block, one launch of the segment-totals kernel
-returning every graph's count — while graphs too large to fuse go solo
-through the pooled replicated ``Executor``.
+``[G, bucket]`` segment index block a batch, and every batch of a wave in
+one dispatch of the segment-totals kernel returning every graph's count —
+while graphs too large to fuse go solo through the pooled replicated
+``Executor``.
 
 Pipeline per ``drain()`` wave:
 
@@ -18,8 +19,11 @@ Pipeline per ``drain()`` wave:
      ``max_fused_pairs``, the per-segment int32 bound) are grouped by word
      width and batched by pow2 pair bucket; everything else is planned solo
      by ``plan_execution`` (replicated).
-  3. **Dispatch** — every batch and solo is dispatched before any result is
-     read back, so closes overlap the next dispatches.
+  3. **Dispatch** — the wave's fused batches, of every word width, go out
+     in one ``count_fused_wave_async`` (one launch of the segment kernel on
+     the card for up to ``GROUP_CAP`` batches, one readback), then the
+     solos; nothing is read back before everything is dispatched, so closes
+     overlap the next dispatches.
 
 **Failure isolation** — a raised future poisons only its own batch: its
 requests are retried solo with bounded backoff (``max_retries``/
@@ -151,6 +155,8 @@ class ServeResult:
 class _FailedFuture:
     """A future poisoned at dispatch: raises its exception at readback so
     dispatch-time and readback-time failures share one isolation path."""
+
+    failed = True
 
     def __init__(self, err: BaseException):
         self._err = err
@@ -288,38 +294,53 @@ class TCServer:
 
     # ----------------------------------------------------------- dispatch
 
-    def _dispatch_fused(self, group: list[ServeRequest]) -> list:
-        """Batch one word-width group and dispatch each batch fused.
+    def _dispatch_fused(self, groups: list[list[ServeRequest]]) -> list:
+        """Batch each word-width group and dispatch every batch at once.
 
         Batches are packed by each graph's pow2 pair bucket: a batch's
         shared bucket is the max inside it, so mixing a 256-pair tenant into
         a 16384-bucket batch would sentinel-pad it 64x. Grouping by equal
-        bucket keeps staged/computed lanes at each graph's own pow2 cost
-        while still amortizing one launch across the whole batch, at most
-        ``max_fused_graphs`` graphs each.
+        bucket keeps staged/computed lanes at each graph's own pow2 cost,
+        at most ``max_fused_graphs`` graphs a batch; the batches of every
+        group then share one ``count_fused_wave_async``.
 
-        A dispatch that raises poisons only its own batch: the failure is
-        parked in a ``_FailedFuture`` and handled per request at readback.
+        A batch that fails injection or planning poisons only itself: the
+        failure is parked in its future (and the batch stays out of the
+        launch) and handled per request at readback, as is a refused launch.
         """
-        by_bucket: dict[int, list[ServeRequest]] = collections.defaultdict(list)
-        for r in group:
-            by_bucket[pow2_ceil(max(r.num_pairs, 1))].append(r)
         cap = max(int(self.config.max_fused_graphs), 1)
         batches = []
-        for bucket in sorted(by_bucket, reverse=True):
-            same = by_bucket[bucket]
-            batches.extend(same[i : i + cap] for i in range(0, len(same), cap))
-        dispatched = []
+        for group in groups:
+            by_bucket: dict[int, list[ServeRequest]] = collections.defaultdict(list)
+            for r in group:
+                by_bucket[pow2_ceil(max(r.num_pairs, 1))].append(r)
+            for bucket in sorted(by_bucket, reverse=True):
+                same = by_bucket[bucket]
+                batches.extend(same[i : i + cap] for i in range(0, len(same), cap))
+        dispatched, ready = [], []
         for batch in batches:
             try:
                 for r in batch:
                     self._maybe_inject(r.request_id)
-                fut = self.multi.count_fused_async([(r.sbf, r.wl) for r in batch])
+            except Exception as e:
+                dispatched.append(("fused", batch, _FailedFuture(e)))
+                continue
+            ready.append(len(dispatched))
+            dispatched.append(("fused", batch, None))
+        if not ready:
+            return dispatched
+        try:
+            futures = self.multi.count_fused_wave_async(
+                [[(r.sbf, r.wl) for r in dispatched[i][1]] for i in ready]
+            )
+        except Exception as e:
+            futures = [_FailedFuture(e)] * len(ready)
+        for i, fut in zip(ready, futures):
+            batch = dispatched[i][1]
+            dispatched[i] = ("fused", batch, fut)
+            if not fut.failed:
                 self.stats["fused_batches"] += 1
                 self.stats["fused_graphs"] += len(batch)
-            except Exception as e:
-                fut = _FailedFuture(e)
-            dispatched.append(("fused", batch, fut))
         return dispatched
 
     def _dispatch_solo(self, req: ServeRequest):
@@ -400,9 +421,7 @@ class TCServer:
                     by_wps[int(req.sbf.words_per_slice)].append(req)
                 else:
                     solos.append(req)
-            dispatched = []
-            for group in by_wps.values():
-                dispatched.extend(self._dispatch_fused(group))
+            dispatched = self._dispatch_fused(list(by_wps.values()))
             for req in solos:
                 dispatched.append(self._dispatch_solo(req))
             for placement, batch, fut in dispatched:

@@ -35,6 +35,9 @@ from repro_torch.kernels.tc_dense_mxu import (  # noqa: E402
     dense_mxu_tc_reference,
 )
 from repro_torch.kernels.tc_gather_popcount import (  # noqa: E402
+    GROUP_CAP,
+    GatherTotalLauncher,
+    gather_segment_groups_reference,
     gather_segment_totals_cuda,
     gather_segment_totals_reference,
     gather_total_cuda,
@@ -190,7 +193,9 @@ def test_server_on_card_matches_cpu_and_oracle(cuda):
         srv = TCServer(ServeConfig(mode=mode, max_fused_pairs=1 << 12, fused_max_batches=64))
         res = sorted(srv.serve(jobs), key=lambda r: r.request_id)
         assert [r.count for r in res] == want
-        assert gather_segment_totals_cuda.launches - seg == srv.stats["fused_batches"] > 0
+        # One wave: its fused batches share one launch for every GROUP_CAP.
+        assert srv.stats["waves"] == 1 and srv.stats["fused_batches"] > 1
+        assert gather_segment_totals_cuda.launches - seg == -(-srv.stats["fused_batches"] // GROUP_CAP)
         assert {r.placement for r in res} == {"fused", "replicated"}
         uploads = srv.multi.upload_bytes
         again = sorted(srv.serve(jobs), key=lambda r: r.request_id)
@@ -453,3 +458,99 @@ def test_lm_serving_on_card_matches_cpu(cuda, impl):
     np.testing.assert_array_equal(runs["cuda"][0], runs["cpu"][0])
     np.testing.assert_allclose(runs["cuda"][1]["logits"], runs["cpu"][1]["logits"],
                                rtol=1e-4, atol=1e-4)
+
+
+def _segment_batch(rng, w, bucket, g, device):
+    rows, cols = int(rng.integers(100, 3000)), int(rng.integers(100, 3000))
+    row, col = _words(rng, rows, w, device), _words(rng, cols, w, device)
+    p = g * bucket
+    r = rng.integers(0, rows, size=p).astype(np.int32)
+    c = rng.integers(0, cols, size=p).astype(np.int32)
+    r[rng.random(p) < 0.1] = -1
+    c[rng.random(p) < 0.1] = -1
+    if g > 1:
+        r[-bucket:], c[-bucket:] = -1, -1  # an all-sentinel trailing segment
+    return row, col, torch.from_numpy(r).to(device), torch.from_numpy(c).to(device), bucket
+
+
+@pytest.mark.parametrize("n", [1, 3, 34, "cap + 1"])
+def test_grouped_segment_kernel_equals_plain_on_card(cuda, n):
+    """A wave of mixed W, bucket and G: one launch for every GROUP_CAP
+    batches, each batch's rows equal to its plain version's."""
+    n = GROUP_CAP + 1 if n == "cap + 1" else n
+    rng = np.random.default_rng(7 + n)
+    batches = [_segment_batch(rng, (1, 2, 4)[k % 3], (1, 2, 16, 32, 64, 1024, 1 << 14)[k % 7],
+                              (1, 3, 32)[k % 3], cuda) for k in range(n)]
+    before = gather_segment_totals_cuda.launches
+    got = ops.popcount_and_gather_segment_groups(batches)
+    want = gather_segment_groups_reference(batches)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    assert gather_segment_totals_cuda.launches - before == -(-n // GROUP_CAP)
+
+
+def test_wave_out_of_range_raises_at_its_batch_only_on_card(cuda):
+    from repro_torch.core import MultiGraphExecutor
+
+    job_lists = []
+    for k in range(4):
+        jobs = []
+        for i in range(1 + 2 * k):
+            g = build_graph(rmat(64 << (k % 2), 6 * (64 << (k % 2)), seed=100 * k + i))
+            sb = build_sbf(g, (32, 64, 128)[k % 3])
+            jobs.append((sb, build_worklist(g, sb)))
+        job_lists.append(jobs)
+    multi = MultiGraphExecutor()
+    want = [MultiGraphExecutor(device="cpu").count_fused(jobs) for jobs in job_lists]
+    batches = [multi.prepare(jobs) for jobs in job_lists]
+    ridx = batches[1].ridx
+    ridx[int(torch.nonzero(ridx >= 0)[0])] = batches[1].row_data.shape[0] + 3
+    before = gather_segment_totals_cuda.launches
+    futures = multi.dispatch(batches)
+    assert gather_segment_totals_cuda.launches - before == 1
+    with pytest.raises(ValueError, match="past the end"):
+        futures[1].result()
+    assert [futures[k].result() for k in (0, 2, 3)] == [want[0], want[2], want[3]]
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 5, 1 << 20])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 2), (0, 1)])
+def test_gather_total_at_index_offsets_on_card(cuda, p, offsets):
+    """Index views at any element offset, the two sides alike or not, and P
+    that is no multiple of four: equal to the plain version, nothing read
+    past P (the arrays hold three more pairs)."""
+    rng = np.random.default_rng(p + 10 * offsets[0] + offsets[1])
+    row, col = _words(rng, 5000, 2, cuda), _words(rng, 3001, 2, cuda)
+    r = torch.from_numpy(rng.integers(-1, 5000, size=p + 3).astype(np.int32)).to(cuda)
+    c = torch.from_numpy(rng.integers(-1, 3001, size=p + 3).astype(np.int32)).to(cuda)
+    ridx, cidx = r[offsets[0] : offsets[0] + p], c[offsets[1] : offsets[1] + p]
+    got = gather_total_cuda(row, col, ridx, cidx, torch.zeros(2, dtype=torch.int32, device=cuda))
+    want = gather_total_reference(row, col, ridx, cidx)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+def test_bound_launcher_on_card(cuda):
+    """The executor's launcher: bound once, it adds each chunk into out,
+    counts each launch, and refuses index tensors the kernel cannot take."""
+    rng = np.random.default_rng(5)
+    row, col = _words(rng, 5000, 4, cuda), _words(rng, 3001, 4, cuda)
+    out = torch.zeros(2, dtype=torch.int32, device=cuda)
+    want = torch.zeros(2, dtype=torch.int32)
+    before = gather_total_cuda.launches
+    with torch.cuda.device(cuda):
+        launch = GatherTotalLauncher(row, col).bind(out)
+        for p in (1000, 0, 1 << 16):
+            r = torch.from_numpy(rng.integers(-1, 5000, size=p).astype(np.int32)).to(cuda)
+            c = torch.from_numpy(rng.integers(-1, 3001, size=p).astype(np.int32)).to(cuda)
+            launch(r, c)
+            want += gather_total_reference(row, col, r, c).cpu()
+        with pytest.raises(TypeError):
+            launch(r.long(), c.long())
+        with pytest.raises(ValueError):
+            launch(r.cpu(), c.cpu())
+        with pytest.raises(ValueError):
+            launch(r[::2], c[::2])
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+    assert gather_total_cuda.launches - before == 2

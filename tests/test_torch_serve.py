@@ -398,3 +398,74 @@ def test_unfused_modes_count_out_of_range(mode):
     ridx[3] = ex.row_data.shape[0]
     with pytest.raises(ValueError, match="past the end"):
         ex.execute_indices(ridx, pwl.pair_col_pos)
+
+
+# ---------------------------------------------------------------------------
+# A serve wave's fused batches in one dispatch
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _wave_jobs():
+    """Twelve small graphs at slice_bits 32, 64 and 128 (word widths 1, 2
+    and 4), so that a wave holds several batches of each width."""
+    jobs, want = [], []
+    for i in range(12):
+        g, sbf, wl = _job(48 + 24 * (i % 4), 6 * (48 + 24 * (i % 4)), seed=60 + i,
+                          slice_bits=(32, 64, 128)[i % 3])
+        jobs.append((sbf, wl))
+        want.append(triangles_intersection(g))
+    return jobs, want
+
+
+def test_server_wave_of_mixed_widths_matches_reference():
+    """Batches of every word width go out in one dispatch: the results and
+    server_stats() equal the reference server's, whose batches go one by
+    one."""
+    jobs, want = _wave_jobs()
+    jx, pt, jx_res, pt_res = _serve_both(jobs, max_fused_graphs=2)
+    assert [r.count for r in pt_res] == want
+    assert pt.stats["fused_batches"] >= 6 and pt.stats["waves"] == 1
+    assert pt.multi.dispatches == pt.stats["fused_batches"]
+    _assert_same_serving(jx, pt, jx_res, pt_res)
+
+
+@pytest.mark.parametrize("victim", [0, 5, 11])
+def test_server_wave_injected_failure_leaves_others_exact(victim):
+    """An injected failure keeps its batch out of the wave's dispatch; the
+    batch's requests recover solo, every other count is exact, and results
+    and counters equal the reference's."""
+    jobs, want = _wave_jobs()
+    inj = jx_fault.FailureInjector(fail_at_steps=(victim,))
+    jx, pt, jx_res, pt_res = _serve_both(jobs, injector=inj, max_fused_graphs=2)
+    assert [r.count for r in pt_res] == want
+    assert pt_res[victim].retries >= 1 and "recovered" in pt_res[victim].detail
+    assert pt.stats["wave_failures"] == 1
+    _assert_same_serving(jx, pt, jx_res, pt_res)
+
+
+def test_wave_dispatch_isolates_planning_and_range_faults():
+    """count_fused_wave_async: a batch whose planning raises gets a future
+    holding the error and stays out of the dispatch; an index past the
+    stacked store raises at its own batch's result() only; the others share
+    the wave's one readback and equal count_fused."""
+    jobs, _ = _wave_jobs()
+    port = _carry(jobs)
+    lists = [port[0:3:3], port[1:5:3], [port[0], port[1]], port[2:9:3], port[6:12:3]]
+    multi = pt_executor.MultiGraphExecutor(device="cpu")
+    want = [pt_executor.MultiGraphExecutor(device="cpu").count_fused(js)
+            for js in (lists[0], lists[1], lists[3], lists[4])]
+    futs = multi.count_fused_wave_async(lists)
+    assert multi.dispatches == 4 and futs[2].failed and futs[2].resolved
+    with pytest.raises(ValueError, match="words_per_slice"):
+        futs[2].result()
+    assert [f.result() for k, f in enumerate(futs) if k != 2] == want
+    batches = [multi.prepare(js) for k, js in enumerate(lists) if k != 2]
+    batches[1].ridx[int(torch.nonzero(batches[1].ridx >= 0)[0])] = batches[1].row_data.shape[0]
+    futs = multi.dispatch(batches)
+    assert multi.hits == 4 and multi.dispatches == 8
+    with pytest.raises(ValueError, match="past the end"):
+        futs[1].result()
+    assert [futs[k].result() for k in (0, 2, 3)] == [want[0], want[2], want[3]]
+    assert all(f.resolved for k, f in enumerate(futs) if k != 1)
+    assert multi.dispatch([]) == []

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time what each design choice of the Hopper-redesigned kernels gives.
 
-    PYTHONPATH=src python3 tools/kernel_levers.py [probe] [bitgemm] [flash] [dense]
+    PYTHONPATH=src python3 tools/kernel_levers.py [probe] [bitgemm] [flash] [dense] [gather]
 
-Runs the named sections (all four when none is named). Needs one NVIDIA
+Runs the named sections (all five when none is named). Needs one NVIDIA
 Hopper card and ``nvcc``; exits non-zero without them.
 
 ``probe``: the register-only rate of each tensor-core MMA a popcount-GEMM
@@ -48,6 +48,26 @@ and is held to the kernel's output (bf16 rounding apart):
 ``dense``: the tile order of ``dense_mxu_tc``'s plan at ego-facebook's and
 email-enron's N (the config graphs, oriented as ``tcim_count`` does):
 heaviest first, and in 12 x 12 groups, against the wrapper's choice.
+
+``gather``: the two sparse kernels of ``kernels/csrc/tc_gather_popcount.cu``.
+``gather_total`` at com-youtube's chunks (P 1<<20, W 2, the main path's 15
+chunks in turns) as device time alone (a CUDA graph of 50 launches,
+replayed), in the order variants then variants reversed, each held to the
+final kernel's sums exactly:
+
+  * ``no_evict_first``: index loads through ``__ldg`` instead of ``__ldcs``;
+  * ``not_pipelined``: the next round's index loads issued after this
+    round's gathers are used, not before;
+  * ``int4_consecutive``: four consecutive pairs a thread, their indices in
+    one 16-byte load a side where aligned, instead of lane-adjacent pairs;
+  * ``one_pair_a_thread``: the kernel it replaced, one pair a thread in a
+    grid-stride loop of at most eight blocks an SM, its SM count queried
+    every launch.
+
+The segment kernel over the serving fleet's wave (its 34 cached batches,
+the fleet of ``chip_smoke.py``'s serve phase without its solos): one grouped
+launch against ``no_grouping``, the same kernel launched once a batch, each
+per call and as device time alone, both held to the plain version.
 
 Prints one line per reading, the card's name and power limit, and a JSON
 object of every reading last.
@@ -586,7 +606,275 @@ def bitgemm_levers() -> dict:
     return times
 
 
-SECTIONS = ("probe", "bitgemm", "flash", "dense")
+ONE_PAIR_GATHER_TOTAL = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 8;
+
+template <int W> struct Row;
+template <> struct Row<1> { using T = uint32_t; };
+template <> struct Row<2> { using T = uint2; };
+template <> struct Row<4> { using T = uint4; };
+
+__device__ __forceinline__ int and_popc(uint32_t a, uint32_t b) { return __popc(a & b); }
+__device__ __forceinline__ int and_popc(uint2 a, uint2 b) {
+  return __popc(a.x & b.x) + __popc(a.y & b.y);
+}
+__device__ __forceinline__ int and_popc(uint4 a, uint4 b) {
+  return __popc(a.x & b.x) + __popc(a.y & b.y) + __popc(a.z & b.z) + __popc(a.w & b.w);
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+gather_total_kernel(const typename Row<W>::T* __restrict__ row, int num_rows,
+                    const typename Row<W>::T* __restrict__ col, int num_cols,
+                    const int32_t* __restrict__ ridx, const int32_t* __restrict__ cidx,
+                    long long num_pairs, int32_t* __restrict__ out) {
+  int total = 0;
+  int bad = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x; p < num_pairs;
+       p += stride) {
+    const int r = __ldg(ridx + p);
+    const int c = __ldg(cidx + p);
+    const bool out_of_range = (r >= num_rows) | (c >= num_cols);
+    bad += out_of_range;
+    if (r >= 0 && c >= 0 && !out_of_range) total += and_popc(__ldg(row + r), __ldg(col + c));
+  }
+  total = warp_sum(total);
+  bad = warp_sum(bad);
+  __shared__ int s_total[kThreads / 32];
+  __shared__ int s_bad[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_total[warp] = total;
+    s_bad[warp] = bad;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    total = lane < kThreads / 32 ? s_total[lane] : 0;
+    bad = lane < kThreads / 32 ? s_bad[lane] : 0;
+    total = warp_sum(total);
+    bad = warp_sum(bad);
+    if (lane == 0) {
+      if (total) atomicAdd(out, total);
+      if (bad) atomicAdd(out + 1, bad);
+    }
+  }
+}
+
+template <int W>
+void launch(const void* row, int num_rows, const void* col, int num_cols, const int32_t* ridx,
+            const int32_t* cidx, long long num_pairs, int32_t* out, int blocks,
+            cudaStream_t stream) {
+  using T = typename Row<W>::T;
+  gather_total_kernel<W><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(row), num_rows, static_cast<const T*>(col), num_cols, ridx, cidx,
+      num_pairs, out);
+}
+
+}  // namespace
+
+// The same arguments as the final kernel's entry; `device` is not read.
+extern "C" int tc_gather_total(const void* row, int num_rows, const void* col, int num_cols,
+                               int words, const void* ridx, const void* cidx,
+                               long long num_pairs, void* out, int device, void* stream) {
+  if (num_pairs <= 0) return 0;
+  int dev = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long needed = (num_pairs + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sms) * kBlocksPerSm;
+  const int blocks = static_cast<int>(needed < cap ? needed : cap);
+  const auto* ri = static_cast<const int32_t*>(ridx);
+  const auto* ci = static_cast<const int32_t*>(cidx);
+  auto* o = static_cast<int32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (words) {
+    case 1: launch<1>(row, num_rows, col, num_cols, ri, ci, num_pairs, o, blocks, s); break;
+    case 2: launch<2>(row, num_rows, col, num_cols, ri, ci, num_pairs, o, blocks, s); break;
+    case 4: launch<4>(row, num_rows, col, num_cols, ri, ci, num_pairs, o, blocks, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+GATHER_LOAD_ROUND = """#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long q = base + tid + k * threads;
+    r[k] = q < num_pairs ? load_index(ridx + q) : -1;
+    c[k] = q < num_pairs ? load_index(cidx + q) : -1;
+  }"""
+GATHER_INT4_ROUND = """  const long long q0 = base + 4 * tid;
+  if (q0 + 3 < num_pairs && ((reinterpret_cast<uintptr_t>(ridx + q0) |
+                              reinterpret_cast<uintptr_t>(cidx + q0)) & 15) == 0) {
+    const int4 a = load_index(reinterpret_cast<const int4*>(ridx + q0));
+    const int4 b = load_index(reinterpret_cast<const int4*>(cidx + q0));
+    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+    c[0] = b.x; c[1] = b.y; c[2] = b.z; c[3] = b.w;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long q = q0 + k;
+    r[k] = q < num_pairs ? load_index(ridx + q) : -1;
+    c[k] = q < num_pairs ? load_index(cidx + q) : -1;
+  }"""
+GATHER_LEVERS = {
+    "no_evict_first": [("constexpr bool kStreamingIndices = true;",
+                        "constexpr bool kStreamingIndices = false;")],
+    "not_pipelined": [("constexpr bool kPipelined = true;", "constexpr bool kPipelined = false;")],
+    "int4_consecutive": [(GATHER_LOAD_ROUND, GATHER_INT4_ROUND)],
+}
+GRAPH_LAUNCHES = 50
+
+
+def graph_ms(fn, calls: list, launches: int = GRAPH_LAUNCHES, replays: int = 10) -> float:
+    """Device ms a launch of ``fn(*args)``, cycling ``calls``, from a
+    replayed CUDA graph of ``launches`` launches."""
+    fn(*calls[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(launches):
+            fn(*calls[k % len(calls)])
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * launches)
+
+
+def gather_total_levers() -> dict:
+    """Each variant of gather_total at com-youtube's chunks, device time
+    alone, in turns, held to the final kernel's sums exactly."""
+    from repro_torch.configs import GRAPHS
+    from repro_torch.core import Executor, build_sbf, build_worklist
+    from repro_torch.graphs import GRAPH_GENERATORS, build_graph
+    from repro_torch.kernels import tc_gather_popcount as tgp
+
+    source = (CSRC / "tc_gather_popcount.cu").read_text()
+    started = {}
+    for k, (name, subs) in enumerate(GATHER_LEVERS.items()):
+        text = source
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"gather lever {name}: the source no longer holds {old!r} once")
+            text = text.replace(old, new)
+        started[name] = compile_one(f"gather_{k}", text)
+    started["one_pair_a_thread"] = compile_one("gather_one_pair", ONE_PAIR_GATHER_TOTAL)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fns = {"final": tgp._kernel()}
+    for name, (lib, proc) in started.items():
+        fn = finish(name, lib, proc).tc_gather_total
+        fn.argtypes = [vp, i32, vp, i32, i32, vp, vp, i64, vp, i32, vp]
+        fn.restype = i32
+        fns[name] = fn
+    cfg = GRAPHS["com-youtube"]
+    g = build_graph(GRAPH_GENERATORS[cfg.generator](cfg.n, cfg.m, seed=cfg.seed), reorder=True)
+    sb = build_sbf(g, 64)
+    wl = build_worklist(g, sb)
+    ex = Executor(sb)
+    chunks = [(torch.from_numpy(r).cuda(), torch.from_numpy(c).cuda())
+              for r, c in ex._chunks(wl.pair_row_pos, wl.pair_col_pos)]
+    out = torch.zeros(2, dtype=torch.int32, device="cuda")
+    calls = [(ex.row_data, ex.col_data, r, c, out) for r, c in chunks]
+    kernel = tgp._kernel
+    times = {name: [] for name in fns}
+    want = None
+    for name in [*fns, *reversed(list(fns))]:
+        tgp._kernel = lambda fn=fns[name], name="tc_gather_total": fn
+        sums = []
+        for args in calls:
+            out.zero_()
+            tgp.gather_total_cuda(*args)
+            sums.append(out.tolist())
+        want = sums if want is None else want
+        if sums != want:
+            raise RuntimeError(f"gather_total lever {name}: sums != the final kernel's")
+        times[name].append(graph_ms(tgp.gather_total_cuda, calls))
+    tgp._kernel = kernel
+    for name, ts in times.items():
+        log(f"[levers] gather_total com-youtube chunks ({len(chunks)}, P {len(chunks[0][0])}, W "
+            f"{ex.row_data.shape[1]}) {name}: device {', '.join(f'{t:.6f}' for t in ts)} ms a chunk")
+    return times
+
+
+def segment_levers() -> dict:
+    """The fleet's wave in one grouped launch against one launch a batch,
+    per call and device alone, in turns, each held to the plain version."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as smoke
+    from repro_torch.core import build_sbf, build_worklist
+    from repro_torch.graphs import build_graph, rmat
+    from repro_torch.kernels import tc_gather_popcount as tgp
+    from repro_torch.launch import ServeConfig, TCServer
+
+    specs = [(i, 64) for i in range(smoke.NUM_TENANTS)]
+    specs += [(smoke.NUM_TENANTS + i, 32) for i in range(smoke.NUM_TENANTS_SIDE)]
+    specs += [(smoke.NUM_TENANTS + smoke.NUM_TENANTS_SIDE + i, 128)
+              for i in range(smoke.NUM_TENANTS_SIDE)]
+    jobs = []
+    for seed, bits in specs:
+        n = smoke.MIX_N[seed % len(smoke.MIX_N)]
+        gr = build_graph(rmat(n, smoke.EDGE_FACTOR * n, seed=seed))
+        sb = build_sbf(gr, bits)
+        jobs.append((sb, build_worklist(gr, sb)))
+    srv = TCServer(ServeConfig(fused_max_batches=64))
+    srv.serve(jobs)
+    batches = list(srv.multi._batches.values())
+    table = srv.multi._table(batches)
+    segs = [b.segments for b in batches]
+    want = tgp.gather_segment_groups_reference(segs)
+    wave_out = torch.zeros(table.rows, 2, dtype=torch.int32, device="cuda")
+    outs = [torch.zeros(b.plan.padded_graphs, 2, dtype=torch.int32, device="cuda") for b in batches]
+
+    def grouped():
+        for k in range(len(table.groups)):
+            tgp.gather_segment_groups_cuda(table, wave_out, k)
+
+    def one_by_one():
+        for seg, o in zip(segs, outs):
+            tgp.gather_segment_totals_cuda(*seg[:4], o, bucket=seg[4])
+
+    readings = {"grouped": [], "no_grouping": []}
+    for name in ("grouped", "no_grouping", "no_grouping", "grouped"):
+        fn = grouped if name == "grouped" else one_by_one
+        wave_out.zero_()
+        for o in outs:
+            o.zero_()
+        fn()
+        got = wave_out if name == "grouped" else torch.cat(outs)
+        if not torch.equal(got.cpu(), want.cpu()):
+            raise RuntimeError(f"segment lever {name}: output != the plain version")
+        per_call = time_ms(fn, 20)
+        device = graph_ms(fn, [()], launches=10)
+        readings[name].append((per_call, device))
+    for name, rs in readings.items():
+        log(f"[levers] segments, the fleet's wave of {len(batches)} batches, {name}: per call "
+            f"{', '.join(f'{p:.6f}' for p, _ in rs)} ms; device alone "
+            f"{', '.join(f'{d:.6f}' for _, d in rs)} ms a wave")
+    return readings
+
+
+SECTIONS = ("probe", "bitgemm", "flash", "dense", "gather")
 
 
 def main() -> int:
@@ -612,6 +900,9 @@ def main() -> int:
         readings["flash_attention"] = flash_levers(build_variants())
     if "dense" in sections:
         readings["dense_mxu_tc"] = dense_levers()
+    if "gather" in sections:
+        readings["gather_total"] = gather_total_levers()
+        readings["gather_segment_totals"] = segment_levers()
     print(smi.splitlines()[0])
     print(json.dumps({"device": torch.cuda.get_device_name(0), "readings": readings}))
     return 0
