@@ -22,14 +22,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               and items
   4. main     ``repro_torch.core.tcim_count`` on ``com-youtube`` at full size
               (the paper's Table II graph, generated from its config and
-              seed), held against the port's CPU path and the exact oracle,
-              with the kernel's launch count equal to the chunk count; then
-              ``ego-facebook`` and ``email-enron`` at slice_bits 32/64/128
+              seed), a cold and a warm count, each through ``build="auto"``,
+              which must take the device build; held against the port's CPU
+              path (the host build, whose stage split is logged beside the
+              device's) and the exact oracle, with the kernel's launch count
+              equal to the device work list's windows (its pow2 bucket over
+              the chunk); then ``ego-facebook`` and ``email-enron`` at
+              slice_bits 32/64/128, device-built
+  4b. build   the device build (``core.build``) bit-identical to the host
+              build on the card (graph, SBF stores with their zero rows, work
+              list with its ``-1`` padding): ego-facebook and email-enron at
+              32/64/128, com-youtube at 64; its stages synchronised one by
+              one and its peak memory; ``device_build_async`` under
+              ``torch.cuda.set_sync_debug_mode("error")``; the delta work list
+              over random edge subsets against the host's; ego-facebook's
+              device-built counts under ``pallas_unfused`` and
+              ``pallas_items`` (the total and items kernels, a launch a
+              window)
   5. timing   CUDA-event times of the kernel (through the executor's bound
               launcher and through gather_total_cuda) and its plain version
-              at the main path's shapes, the bound, per-stage times and peak
-              memory; the kernel's device time alone from a replayed CUDA
-              graph of 50 launches (its sum held to the plain version's)
+              at the host build's chunks of com-youtube, the bound, per-stage
+              times and peak memory; the kernel's device time alone from a
+              replayed CUDA graph of 50 launches (its sum held to the plain
+              version's)
   6. serve    ``repro_torch.launch.tc_serve.TCServer`` on the card over 544
               small tenants (rmat at slice_bits 32 / 64 / 128, fused) and
               ego-facebook, email-enron and com-dblp at full size (solo),
@@ -301,10 +316,12 @@ def _edges(cfg) -> np.ndarray:
 
 
 def phase_main() -> dict:
-    """The main path on the card, held against the CPU path and the oracle."""
+    """The main path on the card (``build="auto"``: the device build), a
+    cold and a warm count, held against the CPU path (the host build, whose
+    stage split is logged beside the device's) and the oracle."""
     from repro_torch.configs import GRAPHS
     from repro_torch.core import tcim_count
-    from repro_torch.core.plan import clamp_chunk_pairs
+    from repro_torch.core.plan import clamp_chunk_pairs, pow2_ceil
     from repro_torch.graphs import build_graph, triangles_intersection
     from repro_torch.kernels.tc_gather_popcount import gather_total_cuda
 
@@ -313,41 +330,255 @@ def phase_main() -> dict:
     edges = _edges(cfg)
     log(f"[main] {cfg.name}: generated |V|={cfg.n} |E|={len(edges)} in {time.perf_counter() - t0:.2f} s")
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    gather_total_cuda.launches = 0
-    t0 = time.perf_counter()
-    res = tcim_count(edges, slice_bits=MAIN_SLICE_BITS)
-    wall = time.perf_counter() - t0
-    launches = gather_total_cuda.launches
-    peak = torch.cuda.max_memory_allocated()
     chunk = clamp_chunk_pairs(1 << 20, MAIN_SLICE_BITS // 32)
-    chunks = math.ceil(res.stats["num_pairs"] / chunk)
-    log(f"[main] card: {res.triangles} triangles, {res.stats['num_pairs']} slice pairs, "
-        f"{chunks} chunks, {launches} kernel launches, {wall:.3f} s wall")
-    log(f"[main] timings_s: {json.dumps(res.timings_s)}")
-    log(f"[main] max_memory_allocated: {peak} bytes")
-    check(res.stats["device"].startswith("cuda"), f"main path ran on {res.stats['device']}")
-    check(launches == chunks, f"kernel launched {launches} times for {chunks} chunks")
+    runs = {}
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gather_total_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = tcim_count(edges, slice_bits=MAIN_SLICE_BITS)
+        wall = time.perf_counter() - t0
+        launches = gather_total_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        # The device work list is -1-padded to its pow2 bucket; the executor
+        # runs it in windows of `chunk` pairs, one launch a window.
+        windows = math.ceil(pow2_ceil(res.stats["num_pairs"]) / chunk)
+        log(f"[main] card, {label} count: {res.triangles} triangles, build "
+            f"{res.stats['build']!r}, {res.stats['num_pairs']} slice pairs, {windows} windows, "
+            f"{launches} kernel launches, {wall:.6f} s wall; max_memory_allocated {peak} bytes")
+        log(f"[main] card, {label} count, timings_s: {json.dumps(res.timings_s)}")
+        check(res.stats["device"].startswith("cuda"), f"main path ran on {res.stats['device']}")
+        check(res.stats["build"] == "device", f"build='auto' on the card took {res.stats['build']!r}")
+        check(launches == windows, f"kernel launched {launches} times for {windows} windows")
+        runs[label] = {"result": res, "wall": wall, "launches": launches, "peak": peak}
 
+    t0 = time.perf_counter()
     cpu = tcim_count(edges, slice_bits=MAIN_SLICE_BITS, device="cpu")
-    log(f"[main] port CPU path: {cpu.triangles} triangles")
+    log(f"[main] port CPU path: {cpu.triangles} triangles, build {cpu.stats['build']!r}, "
+        f"{time.perf_counter() - t0:.6f} s wall")
+    log(f"[main] host build split (the CPU path's timings_s; its orient, compress and schedule "
+        f"are the host front end): {json.dumps(cpu.timings_s)}")
+    check(cpu.stats["build"] == "host", f"the CPU path took build {cpu.stats['build']!r}")
     t0 = time.perf_counter()
     g = build_graph(edges, reorder=True)
     exact = triangles_intersection(g)
     log(f"[main] exact oracle (triangles_intersection): {exact} in {time.perf_counter() - t0:.2f} s")
     log(f"[main] JAX package's count of this graph, for reference: {JAX_PACKAGE_COUNT}")
-    check(res.triangles == cpu.triangles == exact,
-          f"card {res.triangles}, CPU {cpu.triangles}, oracle {exact}")
+    for label, run in runs.items():
+        got = run["result"]
+        check(got.triangles == cpu.triangles == exact,
+              f"card ({label}) {got.triangles}, CPU {cpu.triangles}, oracle {exact}")
+        check(got.stats["num_pairs"] == cpu.stats["num_pairs"] and got.stats["nvs"] == cpu.stats["nvs"],
+              f"card ({label}) stats {got.stats} != CPU path's {cpu.stats}")
 
     for name in SMALL_GRAPHS:
         small = _edges(GRAPHS[name])
         want = triangles_intersection(build_graph(small, reorder=True))
         for bits in (32, 64, 128):
-            got = tcim_count(small, slice_bits=bits).triangles
-            check(got == want, f"{name} slice_bits={bits}: card {got} != oracle {want}")
-            log(f"[main] {name} slice_bits={bits}: {got} == oracle")
-    return {"graph": g, "launches": launches, "result": res, "peak": peak}
+            res = tcim_count(small, slice_bits=bits)
+            check(res.triangles == want and res.stats["build"] == "device",
+                  f"{name} slice_bits={bits}: card {res.triangles} ({res.stats['build']}) != oracle {want}")
+            log(f"[main] {name} slice_bits={bits}: {res.triangles} == oracle (device build)")
+    cold = runs["cold"]
+    return {"graph": g, "edges": edges, "launches": cold["launches"], "result": cold["result"],
+            "peak": cold["peak"], "warm": runs["warm"], "host_timings": cpu.timings_s}
+
+
+def _check_build_identical(db, g, sb, wl, label: str) -> None:
+    """A device build == the host build of the same graph, array for array
+    (dtypes too), with the stores' zero rows and the pairs' -1 padding."""
+    from repro_torch.core.plan import pow2_ceil
+
+    gh = db.graph.to_host()
+    for f in ("edges", "indptr", "indices"):
+        check(np.array_equal(getattr(gh, f), getattr(g, f)), f"{label}: graph {f} differs")
+    dsb, dwl = db.to_host()
+    for f in ("row_ptr", "row_slice_idx", "row_slice_data", "col_ptr", "col_slice_idx",
+              "col_slice_data"):
+        a, b = getattr(dsb, f), getattr(sb, f)
+        check(a.dtype == b.dtype and np.array_equal(a, b), f"{label}: sbf {f} differs")
+    for f in ("pair_edge", "pair_row_pos", "pair_col_pos"):
+        check(np.array_equal(getattr(dwl, f), getattr(wl, f)), f"{label}: worklist {f} differs")
+    p = wl.num_pairs
+    for f in ("pair_edge", "pair_row_pos", "pair_col_pos"):
+        pad = getattr(db.worklist, f)
+        check(len(pad) == pow2_ceil(max(p, 1)) and bool((pad[p:] == -1).all()),
+              f"{label}: {f} is not -1-padded to its pow2 bucket")
+    for side, valid in (("row", db.sbf.row_valid), ("col", db.sbf.col_valid)):
+        store = getattr(db.sbf, f"{side}_slice_data")
+        check(store.shape[0] == pow2_ceil(max(valid, 1)) and not bool(store[valid:].any()),
+              f"{label}: {side} store is not zero-padded to its pow2 rows")
+
+
+def _device_intervals(events) -> list[tuple[float, float]]:
+    """Merged [start, end) microsecond intervals of the profiled device
+    activity (kernels and copies)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    merged: list[list[float]] = []
+    for start, end in spans:
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    return [tuple(m) for m in merged]
+
+
+def _profile_count(edges: np.ndarray) -> None:
+    """One warm device-built count under ``torch.profiler``: the device's
+    busy share of the count's wall, and its device time by torch op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import tcim_count
+
+    tcim_count(edges, slice_bits=MAIN_SLICE_BITS)  # warm: pool entry, lazy modules
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = tcim_count(edges, slice_bits=MAIN_SLICE_BITS)
+        wall = time.perf_counter() - t0
+    check(res.triangles == JAX_PACKAGE_COUNT, f"profiled count {res.triangles}")
+    busy = sum(end - start for start, end in _device_intervals(prof.events()))
+    if busy == 0:
+        log("[device build] profiled count: the profiler recorded no device activity; the "
+            "device's busy share is not measured")
+        return
+    # Each op's own kernels (its children's are theirs): a partition of the
+    # device time by torch op.
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::") and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    log(f"[device build] profiled warm count (torch.profiler, CPU + CUDA): {wall:.6f} s wall "
+        f"under the profiler, device busy {busy / 1e6:.6f} s = {100 * busy / (1e6 * wall):.2f} % "
+        f"of it; timings_s {json.dumps(res.timings_s)}")
+    for e in ops[:10]:
+        log(f"[device build]   {e.key}: {e.self_device_time_total / 1e3:.3f} ms on the device, "
+            f"{e.count} calls")
+
+
+def phase_device_build(main: dict) -> None:
+    """The device build on the card: bit-identical to the host build, its
+    synchronised stage split and peak, no host sync inside
+    ``device_build_async``, the delta work list, and the unfused backends
+    over a device build. Leaves com-youtube's host SBF and work list in
+    ``main`` for the timing phase."""
+    from repro_torch.configs import GRAPHS
+    from repro_torch.core import (
+        build_sbf,
+        build_worklist,
+        build_worklist_pairs,
+        device_build,
+        device_build_async,
+        device_build_sbf,
+        device_build_worklist,
+        device_delta_worklist,
+        tcim_count,
+    )
+    from repro_torch.core.plan import clamp_chunk_pairs, pow2_ceil
+    from repro_torch.graphs import build_graph, csr, device_orient, triangles_intersection
+
+    cases = [(name, bits) for name in SMALL_GRAPHS for bits in (32, 64, 128)]
+    for name, bits in cases + [(MAIN_GRAPH, MAIN_SLICE_BITS)]:
+        if name == MAIN_GRAPH:
+            edges, g = main["edges"], main["graph"]
+        else:
+            edges = _edges(GRAPHS[name])
+            g = build_graph(edges, reorder=True)
+        t0 = time.perf_counter()
+        sb = build_sbf(g, bits)
+        wl = build_worklist(g, sb)
+        host_s = time.perf_counter() - t0
+        db = device_build(edges, slice_bits=bits)
+        _check_build_identical(db, g, sb, wl, f"{name} slice_bits={bits}")
+        log(f"[device build] {name} slice_bits={bits}: graph, SBF ({db.sbf.row_valid} + "
+            f"{db.sbf.col_valid} records) and work list ({wl.num_pairs} pairs) identical to the "
+            f"host build ({host_s:.3f} s of host compress + schedule)")
+        if name == MAIN_GRAPH:
+            main["sbf"], main["worklist"] = sb, wl
+    del db
+
+    # The stages one by one, each synchronised, and the build's peak memory.
+    edges = main["edges"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dg = device_orient(edges)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dsb = device_build_sbf(dg, MAIN_SLICE_BITS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dwl = device_build_worklist(dg, dsb)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - base
+    padded = np.full((pow2_ceil(len(edges)), 2), main["graph"].n, dtype=np.int32)
+    padded[: len(edges)] = edges
+    t_hash = time.perf_counter()
+    csr.content_key(padded, len(edges), main["graph"].n, True)
+    t_hash = time.perf_counter() - t_hash
+    check(dwl.num_pairs == main["worklist"].num_pairs, "granular stages' pair count")
+    log(f"[device build] {MAIN_GRAPH}, stages synchronised one by one: orient {t1 - t0:.6f} s "
+        f"(of it the host's blake2b content key over the {4 * padded[: len(edges)].size}-byte "
+        f"int32 edge list, timed alone: {t_hash:.6f} s), compress {t2 - t1:.6f} s (with the [row_nvs, col_nvs] readback), "
+        f"schedule {t3 - t2:.6f} s (with the candidate and pair readbacks), "
+        f"{dwl.num_candidates} candidates in a bucket of {pow2_ceil(dwl.num_candidates)} lanes, "
+        f"{dwl.num_pairs} pairs in {len(dwl.pair_row_pos)}; peak above the held memory "
+        f"{peak} bytes (max_memory_allocated)")
+    del dg, dsb, dwl
+
+    # No host sync between the upload and result(): any raises here.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fut = device_build_async(edges, slice_bits=MAIN_SLICE_BITS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    db = fut.result()
+    check(db.worklist.num_pairs == main["worklist"].num_pairs, "async build's pair count")
+    log(f"[device build] device_build_async ran under torch.cuda.set_sync_debug_mode('error') "
+        f"with no host sync; its result() has {db.worklist.num_pairs} pairs, as the host build")
+    _profile_count(edges)
+
+    # Delta work lists over random edge subsets, against the host's pairs.
+    rng = np.random.default_rng(0)
+    for name, frac in (("ego-facebook", 0.2), (MAIN_GRAPH, 0.1)):
+        if name == MAIN_GRAPH:
+            g, sb, dsb = main["graph"], main["sbf"], db.sbf
+        else:
+            g = build_graph(_edges(GRAPHS[name]), reorder=True)
+            sb = build_sbf(g, MAIN_SLICE_BITS)
+            dsb = device_build(_edges(GRAPHS[name]), slice_bits=MAIN_SLICE_BITS).sbf
+        pick = np.sort(rng.choice(g.m, size=int(frac * g.m), replace=False))
+        src, dst = g.edges[pick, 0], g.edges[pick, 1]
+        want = build_worklist_pairs(src, dst, sb)
+        for over, kind in ((sb, "host"), (dsb, "device")):
+            dw = device_delta_worklist(src, dst, over).to_host()
+            got = (dw.pair_edge, dw.pair_row_pos, dw.pair_col_pos)
+            check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                  f"{name}: delta work list over the {kind} SBF differs from the host's")
+        log(f"[device build] {name}: delta work list of {len(src)} edges ({len(want[0])} pairs) "
+            f"over the host and the device SBF == host build_worklist_pairs")
+    del db
+
+    # Kernels 3 and 4 over a device build (the unfused backends).
+    edges = _edges(GRAPHS["ego-facebook"])
+    want = triangles_intersection(build_graph(edges, reorder=True))
+    wrappers = _wrappers()
+    for backend, kernel in (("pallas_unfused", "total"), ("pallas_items", "items")):
+        _reset_launches()
+        res = tcim_count(edges, backend=backend)
+        launches = _launches()
+        windows = math.ceil(pow2_ceil(res.stats["num_pairs"])
+                            / clamp_chunk_pairs(1 << 20, MAIN_SLICE_BITS // 32))
+        check(res.triangles == want and res.stats["build"] == "device",
+              f"ego-facebook {backend}: {res.triangles} ({res.stats['build']}) != oracle {want}")
+        check(launches[kernel] == windows and wrappers[kernel].launches == windows,
+              f"ego-facebook {backend}: {launches} for {windows} windows")
+        log(f"[device build] ego-facebook {backend}: {res.triangles} == oracle over the device "
+            f"build, {kernel} launched {launches[kernel]} times ({windows} windows)")
 
 
 def _time_ms(fn, calls: list, rounds: int) -> float:
@@ -398,15 +629,14 @@ def phase_timing(main: dict) -> tuple:
     """Kernel vs plain at the main path's shapes (W=2, P=1<<20 chunks over
     the com-youtube stores); returns the kernel's JSON row, max |err|, and
     the chunks and resident stores for the serve timing phase."""
-    from repro_torch.core import Executor, build_sbf, build_worklist
+    from repro_torch.core import Executor
     from repro_torch.core.plan import pow2_ceil
     from repro_torch.kernels.tc_gather_popcount import (
         gather_total_cuda,
         gather_total_reference,
     )
 
-    sb = build_sbf(main["graph"], MAIN_SLICE_BITS)
-    wl = build_worklist(main["graph"], sb)
+    sb, wl = main["sbf"], main["worklist"]  # the host build of phase 4b
     ex = Executor(sb)  # the resident, pow2-padded stores the main path uses
     row, col = ex.row_data, ex.col_data
     chunks = []
@@ -1892,6 +2122,7 @@ def main() -> int:
     err_seg = phase_segment_cases()
     err_unfused = phase_unfused_cases()
     main_run = phase_main()
+    phase_device_build(main_run)
     row, err_main, chunks, store_row, store_col = phase_timing(main_run)
     row["max_abs_err"] = max(err, err_main)
     serve = phase_serve()

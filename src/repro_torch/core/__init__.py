@@ -5,6 +5,8 @@ Port of ``src/repro/core/__init__.py`` for the ported slices.
 Public API:
     tcim_count / tcim_count_graph   end-to-end bitwise triangle counting
     build_sbf / build_worklist      sparsity-aware compression + scheduling
+    device_build*                   the same front end as torch work on the
+                                    device (orient -> SBF -> work list)
     plan_execution / ExecutionPlan  placement (replicated) + work stripes
     Executor / ExecutorPool         device-resident fused execute stage
     plan_fusion / MultiGraphExecutor  cross-graph fused serving (one launch
@@ -16,6 +18,17 @@ Public API:
 """
 from repro_torch.core import baselines
 from repro_torch.core.bitmat import bitpack_matrix, bitunpack_matrix, popcount_u32
+from repro_torch.core.build import (
+    DeviceBuild,
+    DeviceBuildFuture,
+    DeviceWorklist,
+    device_build,
+    device_build_async,
+    device_build_graph,
+    device_build_sbf,
+    device_build_worklist,
+    device_delta_worklist,
+)
 from repro_torch.core.cachesim import CacheStats, simulate_lru
 from repro_torch.core.energymodel import PAPER_TABLE5, MramConstants, tcim_latency_energy
 from repro_torch.core.executor import (
@@ -90,6 +103,15 @@ __all__ = [
     "sbf_from_arrays",
     "sbf_stats",
     "worklist_from_arrays",
+    "DeviceBuild",
+    "DeviceBuildFuture",
+    "DeviceWorklist",
+    "device_build",
+    "device_build_async",
+    "device_build_graph",
+    "device_build_sbf",
+    "device_build_worklist",
+    "device_delta_worklist",
     "BACKENDS",
     "BUILDS",
     "TCFuture",

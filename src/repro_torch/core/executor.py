@@ -8,6 +8,9 @@ cross-graph ``MultiCountFuture``/``MultiGraphExecutor``). ``update_stores``
   * **Fused execute.** Chunks run through ``ops.popcount_and_gather_total``:
     the slice stores are uploaded once and stay resident on the device; only
     index arrays travel per chunk, and the gather happens inside the kernel.
+    A device build's stores (``core.build``) are adopted as they lie, and
+    its resident ``-1``-padded index arrays run in pow2 windows of views,
+    so nothing travels.
   * **Power-of-two buckets.** Stores are zero-row-padded to the next power
     of two (zero slices are exact no-ops: nothing indexes them, and
     ``popcount(0 & x) == 0``); chunks are a power-of-two number of pairs,
@@ -235,9 +238,24 @@ class Executor:
         self._prune()
         return bool(self._pending)
 
-    def _upload_store(self, store: np.ndarray) -> torch.Tensor:
-        """uint32 words -> a resident, pow2-row-padded int32 view of the
-        same bits."""
+    def _upload_store(self, store) -> torch.Tensor:
+        """A resident, pow2-row-padded int32 view of the store's uint32 words.
+
+        Host words are padded and uploaded; an int32 tensor (a device
+        build's store) is adopted as it lies, moved only if it is on another
+        device and padded only if its rows are not a power of two."""
+        if isinstance(store, torch.Tensor):
+            if store.dtype != torch.int32 or store.dim() != 2:
+                raise ValueError(
+                    f"a device store must be a 2-D int32 view of the uint32 "
+                    f"words, got {store.dtype} of shape {tuple(store.shape)}"
+                )
+            store = store.to(self.device)
+            rows = store.shape[0]
+            bucket = pow2_ceil(max(rows, 1))
+            if bucket != rows:
+                store = torch.cat([store, store.new_zeros(bucket - rows, store.shape[1])])
+            return store
         store = _pad_rows_pow2(np.ascontiguousarray(store, dtype=np.uint32))
         return torch.from_numpy(store.view(np.int32)).to(self.device)
 
@@ -276,6 +294,19 @@ class Executor:
             self._put,
             double_buffer=self.double_buffer,
         )
+
+    def _resident_chunks(self, row_idx: torch.Tensor, col_idx: torch.Tensor):
+        """Pow2 windows of resident int32 index tensors: views (no staging);
+        only a ragged tail is copied, padded with the ``-1`` sentinel."""
+        p = row_idx.shape[0]
+        c = self.chunk_pairs
+        for start in range(0, p, c):
+            r, cc = row_idx[start : start + c], col_idx[start : start + c]
+            bucket = pow2_ceil(r.shape[0])
+            if bucket != r.shape[0]:
+                pad = r.new_full((bucket - r.shape[0],), -1)
+                r, cc = torch.cat([r, pad]), torch.cat([cc, pad])
+            yield r, cc
 
     def _step(self, ridx, cidx, acc: torch.Tensor) -> torch.Tensor:
         """Add one chunk into ``acc`` (int32 ``[total, out_of_range]``)."""
@@ -322,31 +353,45 @@ class Executor:
                 self._stepper(accs[-1])(ridx, cidx)
             return CountFuture(accs)
 
-    def execute_indices_async(self, row_idx, col_idx) -> CountFuture:
-        """Dispatch a count over host index arrays; defer the host sync.
+    def execute_indices_async(self, row_idx, col_idx, *, num_real: int | None = None
+                              ) -> CountFuture:
+        """Dispatch a count over explicit index arrays; defer the host sync.
 
         Every chunk step is enqueued before this returns; the returned
         future's ``result()`` is the one host transfer. Empty work lists
-        dispatch nothing.
+        dispatch nothing. The arrays may be host arrays (staged to the
+        device chunk by chunk) or int32 tensors resident on the executor's
+        device (``core.build``'s work lists: windows of views, nothing
+        staged). ``num_real`` tightens the int32-overflow bound for padded
+        arrays whose real (non-sentinel) pair count is known.
         """
         if len(row_idx) != len(col_idx):
             raise ValueError(
                 f"index arrays differ in length: {len(row_idx)} vs {len(col_idx)}"
             )
         p = len(row_idx)
-        if p == 0:
+        if p == 0 or num_real == 0:
             return CountFuture([])
-        return self._track(self._accumulate(self._device_chunks(row_idx, col_idx), p))
+        worst = num_real if num_real is not None else p
+        if isinstance(row_idx, torch.Tensor):
+            return self._track(self._accumulate(self._resident_chunks(row_idx, col_idx), worst))
+        return self._track(self._accumulate(self._device_chunks(row_idx, col_idx), worst))
 
-    def execute_indices(self, row_idx, col_idx) -> int:
+    def execute_indices(self, row_idx, col_idx, *, num_real: int | None = None) -> int:
         """Count over explicit work-list index arrays. One host sync total."""
-        return self.execute_indices_async(row_idx, col_idx).result()
+        return self.execute_indices_async(row_idx, col_idx, num_real=num_real).result()
 
-    def count_async(self, wl: sbf_mod.Worklist) -> CountFuture:
-        """``count`` with the final host readback deferred to ``result()``."""
-        return self.execute_indices_async(wl.pair_row_pos, wl.pair_col_pos)
+    def count_async(self, wl) -> CountFuture:
+        """``count`` with the final host readback deferred to ``result()``.
 
-    def count(self, wl: sbf_mod.Worklist) -> int:
+        ``wl`` is a host ``Worklist`` or a ``core.build.DeviceWorklist``,
+        whose padded pair tensors run without touching the host.
+        """
+        return self.execute_indices_async(
+            wl.pair_row_pos, wl.pair_col_pos, num_real=wl.num_pairs
+        )
+
+    def count(self, wl) -> int:
         """Triangle contribution of a work list (Eq. 5 execute+reduce)."""
         return self.count_async(wl).result()
 
@@ -363,8 +408,12 @@ def sbf_content_key(sb: sbf_mod.SlicedBitmap) -> str:
     Pools key entries by *content*, not object identity, so one-shot API
     calls that rebuild the SBF for the same graph still hit the cached
     executor. blake2b over the raw store bytes, memoized on the (frozen)
-    SBF so re-keying the same object pays the hash once.
+    SBF so re-keying the same object pays the hash once. Device-built SBFs
+    carry a ``content_key`` (a digest of the input edge list, taken before
+    the upload), so keying them never reads the stores back.
     """
+    if sb.content_key is not None:
+        return sb.content_key
     cached = getattr(sb, "_store_digest", None)
     if cached is not None:
         return cached

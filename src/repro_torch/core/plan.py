@@ -40,7 +40,7 @@ SCHEDULES = ("packed", "lockstep")
 # Store size above which "auto" prefers sharding on a multi-device topology.
 DEFAULT_SHARD_ABOVE_BYTES = 256 << 20
 
-_TODO_SHARDED = "ROADMAP.md queue 1, item 9 (distributed)"
+_TODO_SHARDED = "ROADMAP.md queue 1, item 4 (distributed)"
 
 
 def pow2_ceil(x: int) -> int:
@@ -250,23 +250,31 @@ class ExecutionPlan:
         return max(sizes) / mean if mean else 1.0
 
 
-def _resolve_placement(
+def resolve_placement(
     placement: str,
     sb: sbf_mod.SlicedBitmap,
     topo: DeviceTopology,
 ) -> str:
+    """The concrete placement of ``placement`` for ``sb`` on ``topo``:
+    ``ValueError`` for an unknown one, ``NotImplementedError`` for the
+    sharded placements, which are not ported yet."""
     if placement not in PLACEMENTS:
         raise ValueError(f"placement {placement!r} not in {PLACEMENTS}")
-    if placement != "auto":
-        return placement
-    if topo.num_devices <= 1:
-        return "replicated"
-    # Shard when the store crowds one device: above the static threshold, or
-    # above half the known per-device memory.
-    threshold = DEFAULT_SHARD_ABOVE_BYTES
-    if topo.memory_bytes:
-        threshold = min(threshold, topo.memory_bytes // 2)
-    return "replicated" if sb.data_bytes <= threshold else "sharded_cols"
+    resolved = placement
+    if placement == "auto" and topo.num_devices <= 1:
+        resolved = "replicated"
+    elif placement == "auto":
+        # Shard when the store crowds one device: above the static
+        # threshold, or above half the known per-device memory.
+        threshold = DEFAULT_SHARD_ABOVE_BYTES
+        if topo.memory_bytes:
+            threshold = min(threshold, topo.memory_bytes // 2)
+        resolved = "replicated" if sb.data_bytes <= threshold else "sharded_cols"
+    if resolved != "replicated":
+        raise NotImplementedError(
+            f"placement {resolved!r} is not ported yet: {_TODO_SHARDED}"
+        )
+    return resolved
 
 
 def plan_execution(
@@ -285,11 +293,7 @@ def plan_execution(
     topo = topo or DeviceTopology.detect()
     wps = int(sb.words_per_slice)
     chunk = clamp_chunk_pairs(chunk_pairs, wps)
-    resolved = _resolve_placement(placement, sb, topo)
-    if resolved != "replicated":
-        raise NotImplementedError(
-            f"placement {resolved!r} is not ported yet: {_TODO_SHARDED}"
-        )
+    resolved = resolve_placement(placement, sb, topo)
     stripes = (
         WorkStripe(
             shard=0,

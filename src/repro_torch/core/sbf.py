@@ -4,6 +4,7 @@ Port of ``src/repro/core/sbf.py`` (``SlicedBitmap``, ``Worklist``,
 ``build_sbf``, ``build_worklist``, ``build_worklist_pairs``, ``sbf_stats``)
 as host NumPy, plus ``sbf_from_arrays``/``worklist_from_arrays``, which carry
 state built elsewhere (e.g. by the JAX package) into the port's objects.
+A ``SlicedBitmap`` may also hold torch tensors on the device (``core.build``).
 ``update_sbf``/``UpdateLanes`` wait for the streaming slice.
 
 A row (column) of the oriented adjacency matrix is partitioned into slices of
@@ -27,6 +28,7 @@ import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.bitmat import WORD_BITS
 from repro_torch.graphs.csr import Graph
@@ -45,7 +47,16 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class SlicedBitmap:
-    """The SBF arrays, host NumPy, exact length (no padding)."""
+    """The SBF arrays — host NumPy (the host build) or device torch.
+
+    ``core.build`` produces device-resident instances: int32 pointers and
+    slice indices, and stores of int32 views of the uint32 words,
+    zero-padded to pow2 row buckets (the executor's layout). There
+    ``row_valid``/``col_valid`` carry the real valid-slice counts and
+    ``content_key`` lets executor pools key the stores without reading them
+    back. Host-built instances keep exact-length arrays and leave the
+    optional fields ``None``. ``to_host()`` gives the host form.
+    """
 
     slice_bits: int
     n: int
@@ -58,6 +69,38 @@ class SlicedBitmap:
     col_ptr: np.ndarray
     col_slice_idx: np.ndarray
     col_slice_data: np.ndarray
+    # Device builds only: real record counts of the pow2-padded stores.
+    row_valid: int | None = None
+    col_valid: int | None = None
+    content_key: str | None = None
+
+    @property
+    def is_device(self) -> bool:
+        return isinstance(self.row_slice_data, torch.Tensor)
+
+    def to_host(self) -> "SlicedBitmap":
+        """Exact host copy — uint32 words, int32 indices, int64 pointers,
+        trimmed to the valid counts (identity for host-built instances)."""
+        if not self.is_device:
+            return self
+        row_n = self.row_valid if self.row_valid is not None else len(self.row_slice_idx)
+        col_n = self.col_valid if self.col_valid is not None else len(self.col_slice_idx)
+
+        def host(t, rows=None, dtype=None):
+            a = (t if rows is None else t[:rows]).cpu().numpy()
+            return a.view(np.uint32) if dtype is None else a.astype(dtype)
+
+        return SlicedBitmap(
+            slice_bits=self.slice_bits,
+            n=self.n,
+            n_slices=self.n_slices,
+            row_ptr=host(self.row_ptr, dtype=np.int64),
+            row_slice_idx=host(self.row_slice_idx, row_n, np.int32),
+            row_slice_data=host(self.row_slice_data, row_n),
+            col_ptr=host(self.col_ptr, dtype=np.int64),
+            col_slice_idx=host(self.col_slice_idx, col_n, np.int32),
+            col_slice_data=host(self.col_slice_data, col_n),
+        )
 
     @property
     def words_per_slice(self) -> int:
@@ -65,7 +108,13 @@ class SlicedBitmap:
 
     @property
     def nvs(self) -> int:
-        """Total number of valid slices stored (row side + column side)."""
+        """Total number of valid slices stored (row side + column side).
+
+        Device builds pad their stores to pow2 buckets, so the real counts
+        come from ``row_valid``/``col_valid`` there.
+        """
+        if self.row_valid is not None:
+            return int(self.row_valid) + int(self.col_valid)
         return int(len(self.row_slice_idx) + len(self.col_slice_idx))
 
     @property

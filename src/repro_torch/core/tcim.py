@@ -3,8 +3,8 @@
     TC(G) = sum_{A[i][j]=1} BitCount(AND(R_i, C_j))        [upper-triangular A]
 
 Port of ``src/repro/core/tcim.py``: ``tcim_count``, ``tcim_count_graph``,
-``TCResult``, ``TCFuture`` and ``BACKENDS``, with the host build front end
-and the ``replicated`` placement on one device.
+``TCResult``, ``TCFuture`` and ``BACKENDS``, with the host and the device
+build front ends and the ``replicated`` placement on one device.
 
 Pipeline stages:
     orient      edges -> upper-triangular CSR (optional degree relabelling)
@@ -15,9 +15,16 @@ Pipeline stages:
                 gather–AND–popcount kernel on the card
     reduce      a single exact host readback (``CountFuture.result``)
 
-The first three stages run on the host (NumPy). Per-stage wall-clock lands
-in ``TCResult.timings_s`` (``orient``/``compress``/``schedule``/``plan``/
-``execute``, plus ``close`` for async counts).
+``build`` picks where the first three stages run: ``'host'`` (NumPy) or
+``'device'`` (``core.build``: torch work on the device, bit-identical, one
+upload of the edge list; the stores and ``-1``-padded index arrays feed
+the executor without a host bounce). ``'auto'`` takes the device when the
+count runs on a CUDA device, the host otherwise, and falls back to the host
+only when the device build refuses the graph with ``ValueError`` (the
+int32 index space). Per-stage wall-clock lands in ``TCResult.timings_s``
+(``orient``/``compress``/``schedule``/``plan``/``execute``, plus ``close``
+for async counts); on the device the first two are enqueue times, and the
+schedule stage's sizing readbacks wait for their work.
 
 The dense backends skip compress, schedule and plan: ``'bitgemm'`` runs the
 popcount-GEMM kernel over the bit-packed rows and columns of the oriented
@@ -37,10 +44,11 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import build as build_mod
 from repro_torch.core import sbf as sbf_mod
 from repro_torch.core.bitmat import words_for_bits
 from repro_torch.core.executor import CountFuture, ExecutorPool
-from repro_torch.core.plan import SCHEDULES, DeviceTopology, plan_execution
+from repro_torch.core.plan import SCHEDULES, DeviceTopology, plan_execution, resolve_placement
 from repro_torch.graphs.csr import Graph, build_graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import resolve_device
@@ -85,8 +93,7 @@ _EXECUTOR_MODE = {
 
 _DENSE_BACKENDS = ("bitgemm", "mxu")
 
-_TODO_BUILD = "ROADMAP.md queue 1, item 5 (device build)"
-_TODO_MESH = "ROADMAP.md queue 1, item 9 (distributed)"
+_TODO_MESH = "ROADMAP.md queue 1, item 4 (distributed)"
 
 
 @dataclasses.dataclass
@@ -133,14 +140,38 @@ def _validate(backend: str, schedule: str, build: str, mesh, resilience) -> None
         raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
     if build not in BUILDS:
         raise ValueError(f"build {build!r} not in {BUILDS}")
-    # Dense backends have nothing to build on device: like the reference
-    # (tcim.py::_resolve_build) they take the host path whatever `build` says.
-    if build == "device" and backend not in _DENSE_BACKENDS:
-        raise NotImplementedError(f"build='device' is not ported yet: {_TODO_BUILD}")
     if mesh is not None or resilience is not None:
         raise NotImplementedError(
             f"mesh= and resilience= are not ported yet: {_TODO_MESH}"
         )
+
+
+def _resolve_build(build: str, backend: str, m: int, device: torch.device) -> str:
+    """Pick the build front end (see ``BUILDS``).
+
+    Dense backends and empty graphs have nothing to build on the device;
+    they always take the host path whatever the request. ``'auto'`` is the
+    device on a CUDA device (no mesh reaches here: ``_validate`` refuses
+    one), the host otherwise.
+    """
+    if backend in _DENSE_BACKENDS or m == 0:
+        return "host"
+    if build == "auto":
+        return "device" if device.type == "cuda" else "host"
+    return build
+
+
+def _try_device_build(make_build, build: str):
+    """Run a device build; under ``build='auto'`` fall back to the host
+    front end (``None``) when the device build refuses the graph with its
+    documented ``ValueError`` (int32 index space). An explicit
+    ``build='device'`` raises."""
+    try:
+        return make_build()
+    except ValueError:
+        if build != "auto":
+            raise
+        return None
 
 
 def _pack_words(rows: np.ndarray, cols: np.ndarray, n: int) -> np.ndarray:
@@ -223,6 +254,18 @@ def _count_dense(
     return res
 
 
+def _close(fut: CountFuture, backend: str, stats: dict, timings: dict, dispatch_s: float,
+           async_: bool) -> TCResult | TCFuture:
+    """Hand back the future, or read the count (``execute`` includes both)."""
+    if async_:
+        timings["execute"] = dispatch_s
+        return TCFuture(fut, backend, stats, timings)
+    t0 = time.perf_counter()
+    triangles = fut.result()
+    timings["execute"] = dispatch_s + time.perf_counter() - t0
+    return TCResult(triangles, backend, stats, timings)
+
+
 def _count_graph(
     g: Graph,
     *,
@@ -236,7 +279,7 @@ def _count_graph(
     async_: bool,
     timings: dict,
 ) -> TCResult | TCFuture:
-    """compress -> schedule -> plan -> execute on a validated request."""
+    """compress -> schedule (host) -> plan -> execute on a validated request."""
     t0 = time.perf_counter()
     sb = sbf_mod.build_sbf(g, slice_bits)
     timings["compress"] = time.perf_counter() - t0
@@ -265,13 +308,38 @@ def _count_graph(
     stats["placement"] = plan.placement
     stats["build"] = "host"
     stats["device"] = str(device)
-    if async_:
-        timings["execute"] = dispatch_s
-        return TCFuture(fut, backend, stats, timings)
+    return _close(fut, backend, stats, timings, dispatch_s, async_)
+
+
+def _finish_device(
+    db: build_mod.DeviceBuild,
+    *,
+    backend: str,
+    chunk_pairs: int,
+    collect_stats: bool,
+    placement: str,
+    pool: ExecutorPool | None,
+    device: torch.device,
+    async_: bool,
+) -> TCResult | TCFuture:
+    """Execute a device build, fully resident: the replicated placement is
+    one stripe with nothing to owner-group, so the plan stage is trivial,
+    and skipping the planner keeps the work list on the device."""
+    timings = dict(db.timings_s)
+    resolve_placement(placement, db.sbf, DeviceTopology(num_devices=1, platform=device.type))
+    timings["plan"] = 0.0
     t0 = time.perf_counter()
-    triangles = fut.result()
-    timings["execute"] = dispatch_s + time.perf_counter() - t0
-    return TCResult(triangles, backend, stats, timings)
+    ex = (pool if pool is not None else _DEFAULT_POOL).get(
+        db.sbf, mode=_EXECUTOR_MODE[backend], chunk_pairs=chunk_pairs, device=device
+    )
+    fut = ex.count_async(db.worklist)
+    dispatch_s = time.perf_counter() - t0
+    g = db.graph
+    stats = sbf_mod.sbf_stats(g, db.sbf, db.worklist) if collect_stats else {"n": g.n, "m": g.m}
+    stats["placement"] = "replicated"
+    stats["build"] = "device"
+    stats["device"] = str(device)
+    return _close(fut, backend, stats, timings, dispatch_s, async_)
 
 
 def tcim_count_graph(
@@ -299,9 +367,12 @@ def tcim_count_graph(
     dense ``'bitgemm'`` (popcount-GEMM over bit-packed rows and columns, in
     chunks of 2048 rows) and ``'mxu'`` (masked int8 A @ A on the tensor
     cores), which return ``stats`` ``{"n", "m"}`` and close eagerly.
-    ``build`` ``'auto'`` resolves to ``'host'`` in this slice
-    (``stats['build']`` says so); dense backends accept ``'device'`` and
-    build on the host, as in the reference. ``placement`` ``'auto'`` and
+    ``build`` picks the front end (module docstring; ``stats['build']``
+    says which ran): ``'device'`` uploads ``g.edges`` once and builds the
+    SBF and work list on the device (``core.build.device_build_graph``),
+    ``'auto'`` does so on a CUDA device; dense backends accept
+    ``'device'`` and build on the host, as in the reference. ``placement``
+    ``'auto'`` and
     ``'replicated'`` run one device; ``schedule`` is validated and only
     matters to the sharded placements. ``pool`` overrides the module-level
     ExecutorPool. ``async_=True`` returns a ``TCFuture`` with every kernel
@@ -312,11 +383,15 @@ def tcim_count_graph(
     dev = resolve_device(device)
     if backend in _DENSE_BACKENDS:
         return _count_dense(g, backend=backend, device=dev, async_=async_, timings={})
-    return _count_graph(
-        g, slice_bits=slice_bits, backend=backend, chunk_pairs=chunk_pairs,
-        collect_stats=collect_stats, placement=placement, pool=pool,
-        device=dev, async_=async_, timings={},
-    )
+    finish = dict(backend=backend, chunk_pairs=chunk_pairs, collect_stats=collect_stats,
+                  placement=placement, pool=pool, device=dev, async_=async_)
+    if _resolve_build(build, backend, g.m, dev) == "device":
+        db = _try_device_build(
+            lambda: build_mod.device_build_graph(g, slice_bits, device=dev), build
+        )
+        if db is not None:
+            return _finish_device(db, **finish)
+    return _count_graph(g, slice_bits=slice_bits, timings={}, **finish)
 
 
 def tcim_count(
@@ -339,19 +414,33 @@ def tcim_count(
 ) -> TCResult | TCFuture:
     """End-to-end triangle count from a canonical undirected edge list.
 
-    Orients (with the degree relabel when ``reorder``), then runs
-    ``tcim_count_graph``; see there for the remaining parameters.
+    Orients (with the degree relabel when ``reorder``), then runs the
+    rest of the pipeline; see ``tcim_count_graph`` for the remaining
+    parameters. With the device build (``build='device'``, or ``'auto'``
+    on a CUDA device) the edge list is the one host->device transfer:
+    orient, compress and schedule run on the device
+    (``core.build.device_build``) and the executor adopts their arrays
+    where they lie.
     """
     _validate(backend, schedule, build, mesh, resilience)
     dev = resolve_device(device)
+    finish = dict(backend=backend, chunk_pairs=chunk_pairs, collect_stats=collect_stats,
+                  placement=placement, pool=pool, device=dev, async_=async_)
+    if _resolve_build(build, backend, len(edges), dev) == "device":
+        db = _try_device_build(
+            lambda: build_mod.device_build(
+                edges, n=n, slice_bits=slice_bits, reorder=reorder, device=dev
+            ),
+            build,
+        )
+        if db is not None:
+            return _finish_device(db, **finish)
+    # The host build; under "auto" also the device build's fallback, whose
+    # stage timings restart here.
     timings: dict[str, float] = {}
     t0 = time.perf_counter()
     g = build_graph(edges, n=n, reorder=reorder)
     timings["orient"] = time.perf_counter() - t0
     if backend in _DENSE_BACKENDS:
         return _count_dense(g, backend=backend, device=dev, async_=async_, timings=timings)
-    return _count_graph(
-        g, slice_bits=slice_bits, backend=backend, chunk_pairs=chunk_pairs,
-        collect_stats=collect_stats, placement=placement, pool=pool,
-        device=dev, async_=async_, timings=timings,
-    )
+    return _count_graph(g, slice_bits=slice_bits, timings=timings, **finish)

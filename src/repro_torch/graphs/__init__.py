@@ -1,13 +1,16 @@
 """Graph substrate: generators, CSR structures, orientations, exact references.
 
-Port of ``src/repro/graphs/__init__.py``. Everything here is host NumPy; the
-compute path that consumes these structures lives in ``repro_torch.core`` /
+Port of ``src/repro/graphs/__init__.py``. Everything here is host NumPy
+except ``device_orient``/``DeviceGraph`` (torch on the device); the compute
+path that consumes these structures lives in ``repro_torch.core`` /
 ``repro_torch.kernels``.
 """
 from repro_torch.graphs.csr import (
+    DeviceGraph,
     Graph,
     build_graph,
     degree_order,
+    device_orient,
     upper_triangular_edges,
 )
 from repro_torch.graphs.exact import (
@@ -34,8 +37,10 @@ __all__ = [
     "triangle_free_bipartite",
     "GRAPH_GENERATORS",
     "Graph",
+    "DeviceGraph",
     "build_graph",
     "degree_order",
+    "device_orient",
     "upper_triangular_edges",
     "triangles_dense_trace",
     "triangles_intersection",

@@ -3,7 +3,7 @@
 Port of ``src/repro/launch/__init__.py`` for ``TCServer`` (one-shot
 requests). LM serving of the dense family is ``launch/serve.py``
 (``ServeSession``) over ``launch/steps.py``; the LM trainer, the dry run and
-the mesh wait (ROADMAP.md queue 1, item 12).
+the mesh wait (ROADMAP.md queue 1, item 5).
 """
 from repro_torch.launch.tc_serve import ServeConfig, ServeRequest, ServeResult, TCServer
 

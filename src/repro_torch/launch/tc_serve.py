@@ -34,8 +34,8 @@ threads (``wait_result`` blocks a producer on its request id).
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP.md
 item: hosted streams (``create_stream``, ``submit_delta``, ``close_stream``,
 ``stream_count``) and their eviction and compaction, the write-ahead log
-(``wal_dir``), ``checkpoint``/``restore`` (queue 1, items 7-8), and the
-sharded and resilient solos (``mesh``, ``resilience``; queue 1, item 9).
+(``wal_dir``), ``checkpoint``/``restore`` (queue 1, item 3), and the
+sharded and resilient solos (``mesh``, ``resilience``; queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -63,8 +63,8 @@ _SERVE_BACKENDS = {
     "jnp": "jnp",
 }
 
-_TODO_STREAMS = "ROADMAP.md queue 1, items 7-8 (streaming and durable serving)"
-_TODO_MESH = "ROADMAP.md queue 1, item 9 (distributed)"
+_TODO_STREAMS = "ROADMAP.md queue 1, item 3 (streaming and durable serving)"
+_TODO_MESH = "ROADMAP.md queue 1, item 4 (distributed)"
 
 
 @dataclasses.dataclass

@@ -9,7 +9,7 @@ place.
 
 Families ``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``audio`` and
 ``attention="mla"`` raise ``NotImplementedError`` (ROADMAP.md, queue 1,
-item 12). ``loss_fn`` and the backward wait for the training slice.
+item 5). ``loss_fn`` and the backward wait for the training slice.
 """
 from __future__ import annotations
 
@@ -41,11 +41,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port runs the dense "
-            "family (ROADMAP.md, queue 1, item 12)")
+            "family (ROADMAP.md, queue 1, item 5)")
     if cfg.attention != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} is not ported yet; the port runs GQA "
-            "(ROADMAP.md, queue 1, item 12)")
+            "(ROADMAP.md, queue 1, item 5)")
 
 
 # ------------------------------------------------------------------- schema

@@ -14,7 +14,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import CountFuture, Executor, build_sbf, build_worklist, tcim_count  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    CountFuture,
+    Executor,
+    build_sbf,
+    build_worklist,
+    build_worklist_pairs,
+    device_build,
+    device_build_async,
+    device_delta_worklist,
+    pow2_ceil,
+    tcim_count,
+)
 from repro_torch.graphs import build_graph, rmat, triangles_intersection  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import ref_dense_tc  # noqa: E402
@@ -107,12 +118,59 @@ def test_tcim_count_on_card_matches_cpu_and_oracle(cuda):
     g = build_graph(edges, reorder=True)
     want = triangles_intersection(g)
     for bits in (32, 64, 128):
-        before = gather_total_cuda.launches
-        res = tcim_count(edges, slice_bits=bits, chunk_pairs=1 << 14)
-        chunks = -(-res.stats["num_pairs"] // (1 << 14))
-        assert gather_total_cuda.launches - before == chunks
-        assert res.stats["device"].startswith("cuda")
-        assert res.triangles == want == tcim_count(edges, slice_bits=bits, device="cpu").triangles
+        for build in ("auto", "host"):
+            before = gather_total_cuda.launches
+            res = tcim_count(edges, slice_bits=bits, chunk_pairs=1 << 14, build=build)
+            pairs = res.stats["num_pairs"]
+            if build == "auto":
+                # The card's default is the device build, whose work list is
+                # -1-padded to its pow2 bucket and runs in windows.
+                assert res.stats["build"] == "device"
+                pairs = pow2_ceil(pairs)
+            assert gather_total_cuda.launches - before == -(-pairs // (1 << 14))
+            assert res.stats["device"].startswith("cuda")
+            assert res.triangles == want
+        assert want == tcim_count(edges, slice_bits=bits, device="cpu").triangles
+
+
+@pytest.mark.parametrize("bits", [32, 64, 128])
+@pytest.mark.parametrize("seed", [3, 4])
+def test_device_build_on_card_matches_host_build(cuda, seed, bits):
+    edges = rmat(30000, 200000, seed=seed)
+    g = build_graph(edges, reorder=True)
+    sb = build_sbf(g, bits)
+    wl = build_worklist(g, sb)
+    db = device_build(edges, slice_bits=bits)
+    assert db.sbf.row_slice_data.device.type == "cuda" and db.worklist.pair_row_pos.is_cuda
+    dsb, dwl = db.to_host()
+    for f in ("row_ptr", "row_slice_idx", "row_slice_data", "col_ptr", "col_slice_idx",
+              "col_slice_data"):
+        assert getattr(dsb, f).dtype == getattr(sb, f).dtype
+        assert np.array_equal(getattr(dsb, f), getattr(sb, f)), f
+    for f in ("pair_edge", "pair_row_pos", "pair_col_pos"):
+        assert np.array_equal(getattr(dwl, f), getattr(wl, f)), f
+    pick = np.random.default_rng(seed).random(g.m) < 0.25
+    src, dst = g.edges[pick, 0], g.edges[pick, 1]
+    want = build_worklist_pairs(src, dst, sb)
+    for over in (sb, db.sbf):
+        dw = device_delta_worklist(src, dst, over).to_host()
+        for got, w in zip((dw.pair_edge, dw.pair_row_pos, dw.pair_col_pos), want):
+            assert np.array_equal(got, w)
+
+
+def test_device_build_async_does_not_sync(cuda):
+    edges = rmat(30000, 200000, seed=5)
+    want = device_build(edges)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fut = device_build_async(edges)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    db = fut.result()
+    for f in ("pair_edge", "pair_row_pos", "pair_col_pos"):
+        assert torch.equal(getattr(db.worklist, f), getattr(want.worklist, f))
+    assert torch.equal(db.sbf.col_slice_data, want.sbf.col_slice_data)
 
 
 def test_executor_escape_on_card(cuda, monkeypatch):

@@ -209,7 +209,7 @@ def test_async_and_graph_entry_points():
 def test_unported_options_raise_naming_the_roadmap():
     edges = _edges("ego-facebook")
     assert pt_core.BACKENDS == jx_core.BACKENDS
-    for kwargs in ({"build": "device"}, {"mesh": object()}, {"resilience": object()}):
+    for kwargs in ({"mesh": object()}, {"resilience": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pt_core.tcim_count(edges, device="cpu", **kwargs)
     for kwargs in ({"backend": "x"}, {"schedule": "x"}, {"build": "x"}, {"placement": "x"}):
