@@ -115,6 +115,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               ``scaled_dot_product_attention`` (enable_gqa) on the same
               operands
 
+ 14. stream   ``repro_torch.core.StreamingTCState`` / ``tcim_count_delta`` on
+              the card (``build="auto"``: device delta work lists, the fused
+              kernel through the stream's private executor, in-place store
+              edits), benchmarks/bench_streaming.py's protocol at full size:
+              roadnet-pa and email-enron at batch fractions 0.1 / 1 / 5 % of
+              |E|, ego-facebook at 1 %; a held-out batch, one warm add/remove
+              cycle, 3 measured rounds. Every batch's running count equal to
+              ``verify()`` (a device-build recount), each fraction's end to
+              the exact oracle and both recounts (warm device-build
+              ``tcim_count``; host build + a fresh Executor, the bench's);
+              launches equal to the delta work lists' windows; steady batches
+              adopt nothing, upload no store bytes and build no library; no
+              "auto" fallback. On email-enron at 1 % a before-count held in
+              the stream's queue by ``torch.cuda._sleep`` while the stores
+              are edited in place, and while they are re-adopted after
+              growth (launcher rebuilt), both equal to the CPU path's. On
+              roadnet-pa a remove-heavy run to a zero-record ratio above 0.5,
+              ``compact()``, then ``spill()`` and a re-admitting batch. Logs
+              ms a batch, the ``timings_s`` split, pairs, edges/s, launches,
+              the store edit's device time, bytes uploaded, recount times,
+              seed time and peak memory
+ 15. stream serve  ``TCServer`` with a WAL root: roadnet-pa (95 % of its
+              edges) and email-enron (99 %) under a budget that holds one, so
+              streams spill and re-admit; 12 deltas drained, 8 left pending,
+              the server abandoned; ``TCServer.restore`` on the card and on
+              the CPU replay and drain to the counts of a never-killed
+              server (and the oracle), the restored servers' ``server_stats``
+              equal; a root written by ``checkpoint()`` restored too
+
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
 
@@ -189,6 +218,19 @@ LM_ARCH = "smollm-135m"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 4096, 32
 LM_LONG = 32768  # one prefill_32k sequence (configs/shapes.py)
 LM_TOL = 3e-2  # the reference's flash-vs-xla bound (tests/test_flash_and_cost.py), here in relative norm
+# The stream phases: benchmarks/bench_streaming.py's batch fractions and
+# rounds at full size; roadnet-pa (no hubs, so a raw-id stream is cheap to
+# seed), email-enron (the bench's gated fixture) and ego-facebook at 1 %.
+STREAM_GRAPHS = (("roadnet-pa", (0.001, 0.01, 0.05)), ("email-enron", (0.001, 0.01, 0.05)),
+                 ("ego-facebook", (0.01,)))
+STREAM_SLICE_BITS = 64
+STREAM_ROUNDS = 3  # measured add/remove cycles per fraction, after one warm cycle
+STREAM_CHECK_FRACTION = 0.01  # email-enron's: the before-count checks stand in for its warm cycle
+STREAM_COMPACT_GRAPH = "roadnet-pa"
+STREAM_STALL_CYCLES = 1_000_000_000  # torch.cuda._sleep ahead of a checked before-count (~0.5 s)
+SERVE_STREAMS = (("roadnet-pa", 0.95), ("email-enron", 0.99))  # (graph, share of edges seeded)
+SERVE_DELTAS = 20  # the held-out edges in 20 deltas, alternating between the streams
+SERVE_DRAINED = 12  # drained before the kill; the other 8 stay pending
 
 
 def log(msg: str) -> None:
@@ -2109,6 +2151,375 @@ def phase_flash_timing(lm: dict) -> list:
     return rows
 
 
+def _stream_graph(name: str):
+    """A config's edges as the stream phases take them: generated from its
+    seed and oriented by ``build_graph`` (degree relabel, as
+    ``data/graph_pipeline.load_graph`` and ``benchmarks/bench_streaming.py``
+    take them), with ``n`` from the graph, not the config."""
+    from repro_torch.configs import GRAPHS
+    from repro_torch.graphs import build_graph
+
+    return build_graph(_edges(GRAPHS[name]), reorder=True)
+
+
+def _windows(pairs: int, chunk: int) -> int:
+    """Kernel launches of one count over a device work list of ``pairs``
+    pairs: its pow2 bucket in windows of ``chunk`` (none when empty)."""
+    from repro_torch.core.plan import pow2_ceil
+
+    return math.ceil(pow2_ceil(pairs) / chunk) if pairs else 0
+
+
+class _BatchProbe:
+    """Watches one ``apply_batch`` through its executor's bound methods, so
+    the stream's own entry point runs unchanged: the before and after
+    count futures, whether the before-count was still in flight on the card
+    when the stores were edited (a CUDA event recorded behind it), and the
+    launcher the count ran through. ``stall`` cycles of
+    ``torch.cuda._sleep`` go ahead of the before-count, so that it is still
+    queued when the host reaches the edit."""
+
+    def __init__(self, ex, stall: int = 0):
+        self.ex, self.futures, self.pending_at_edit = ex, [], None
+        self.launcher = ex._launcher
+        count, update, adopt = ex.count_async, ex.update_stores, ex.adopt_stores
+        event = []
+
+        def count_async(wl):
+            if stall and not self.futures:
+                torch.cuda._sleep(stall)
+            self.futures.append(count(wl))
+            if ex.device.type == "cuda" and len(self.futures) == 1:
+                event.append(torch.cuda.Event())
+                event[0].record()
+            return self.futures[-1]
+
+        def edit(fn):
+            def run(*args):
+                if event:
+                    self.pending_at_edit = not event[0].query()
+                return fn(*args)
+            return run
+
+        ex.count_async, ex.update_stores, ex.adopt_stores = count_async, edit(update), edit(adopt)
+
+    def close(self) -> list[int]:
+        for name in ("count_async", "update_stores", "adopt_stores"):
+            del self.ex.__dict__[name]
+        return [f.result() for f in self.futures]
+
+
+def _check_before_count(state, label: str, **batch) -> None:
+    """One batch on the card with its before-count held in the stream's
+    queue by a stall, against the same batch on the port's CPU path (a twin
+    from the stream's snapshot): both counts equal, and unequal to each
+    other, the edit enqueued while the before-count was in flight, and the
+    launcher kept (in place) or rebuilt over the new stores (growth)."""
+    from repro_torch.core import StreamingTCState
+
+    twin = StreamingTCState.from_snapshot(*state.snapshot_tree(), device="cpu")
+    card_probe = _BatchProbe(state.executor, STREAM_STALL_CYCLES)
+    cpu_probe = _BatchProbe(twin.executor)
+    res = state.apply_batch(**batch)
+    want = twin.apply_batch(**batch)
+    got, plain = card_probe.close(), cpu_probe.close()
+    ex = state.executor
+    check(got == plain and got[0] != got[1],
+          f"{label}: before/after counts on the card {got} != CPU path's {plain}, or equal")
+    check(card_probe.pending_at_edit is True,
+          f"{label}: the before-count had finished before the store edit")
+    check(res.triangles == want.triangles == state.verify(), f"{label}: count after the batch")
+    if res.grew:
+        check(ex._launcher is not card_probe.launcher and ex.adopts > 0
+              and ex._launcher._prefix[0] == ex.row_data.data_ptr()
+              and ex._launcher._prefix[2] == ex.col_data.data_ptr(),
+              f"{label}: growth did not rebuild the launcher over the new stores")
+    else:
+        check(ex._launcher is card_probe.launcher, f"{label}: an in-place edit replaced the launcher")
+    log(f"[stream] {label}: {'growth (stores re-adopted, launcher rebuilt)' if res.grew else 'in-place edit (launcher kept)'}"
+        f" behind a before-count held {STREAM_STALL_CYCLES} cycles: before {got[0]}, after "
+        f"{got[1]} == the CPU path's {plain}; the edit was enqueued while the before-count was "
+        f"in flight")
+
+
+def _edit_device_ms(state, hold) -> tuple[float, int]:
+    """Device ms of one steady batch's store edit (both sides' gather and
+    indexed write, lanes already on the card) from a replayed CUDA graph of
+    edits on copies of the stores; and the batch's lane count."""
+    from repro_torch.core import update_sbf
+
+    oriented = np.sort(hold, axis=1)
+    upd = update_sbf(state._sbf, oriented, None)
+    check(not upd.grew, "the timed edit is a steady batch")
+    ex = state.executor
+    calls = []
+    lanes_total = 0
+    for lanes, store in ((upd.row_lanes, ex.row_data), (upd.col_lanes, ex.col_data)):
+        if not lanes.num_lanes:
+            continue
+        lanes_total += lanes.num_lanes
+        flat = lanes.pos.astype(np.int64) * store.shape[1] + lanes.word
+        idx = torch.from_numpy(flat).cuda()
+        set_mask = torch.from_numpy(lanes.set_mask.view(np.int32)).cuda()
+        clear_mask = torch.from_numpy(lanes.clear_mask.view(np.int32)).cuda()
+        calls.append((store.clone().view(-1), idx, set_mask, clear_mask))
+
+    def edit(words, idx, set_mask, clear_mask):
+        words.index_copy_(0, idx, (words.index_select(0, idx) | set_mask) & ~clear_mask)
+
+    if not calls:
+        return 0.0, 0
+    graph = _graph(edit, calls, launches=20 * len(calls))
+    ms = _replay_ms(graph, launches=20)  # 20 whole edits (both sides) a replay
+    del graph, calls
+    return ms, lanes_total
+
+
+def phase_stream() -> dict:
+    """Streaming counts on the card through ``StreamingTCState`` /
+    ``tcim_count_delta`` (``build="auto"``: device delta work lists, the
+    fused kernel), benchmarks/bench_streaming.py's protocol at full size;
+    every batch held to ``verify()``, each fraction's end to the exact
+    oracle; the before-count against in-place edits and growth; compaction
+    and spill on roadnet-pa. Returns the launches per batch for the
+    kernels line."""
+    from repro_torch.core import Executor, StreamingTCState, build_sbf, build_worklist, tcim_count
+    from repro_torch.core import tcim_count_delta
+    from repro_torch.core.plan import clamp_chunk_pairs
+    from repro_torch.graphs import build_graph, triangles_intersection
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.tc_gather_popcount import gather_total_cuda
+
+    smi = nvidia_smi_line()
+    chunk = clamp_chunk_pairs(1 << 20, STREAM_SLICE_BITS // 32)
+    launches_per_batch = {}
+    rng = np.random.default_rng(42)  # benchmarks/bench_streaming.py's seed
+    for name, fractions in STREAM_GRAPHS:
+        t0 = time.perf_counter()
+        g = _stream_graph(name)
+        order = rng.permutation(g.m)
+        log(f"[stream] {name}: |V|={g.n} |E|={g.m} generated and oriented in "
+            f"{time.perf_counter() - t0:.3f} s; card {smi}")
+        for frac in fractions:
+            b = max(int(g.m * frac), 1)
+            hold, base = g.edges[order[:b]], g.edges[order[b:]]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = StreamingTCState(base, n=g.n, slice_bits=STREAM_SLICE_BITS, build="auto")
+            seed_s = time.perf_counter() - t0
+            check(state.device.type == "cuda" and state._use_device_build,
+                  f"{name}: the stream runs on {state.device} (device build {state._use_device_build})")
+            check(state.triangles == state.verify(), f"{name}: seed count")
+            if name == "email-enron" and frac == STREAM_CHECK_FRACTION:
+                _check_before_count(state, f"{name} {frac:g} growth", added=hold)
+                _check_before_count(state, f"{name} {frac:g} in place", removed=hold)
+            else:  # the bench's warm cycle: growth, then records kept as zeros
+                for kw in ({"added": hold}, {"removed": hold}):
+                    res = tcim_count_delta(state, kw.get("added"), kw.get("removed"))
+                    check(res.triangles == state.verify(), f"{name}: warm batch")
+            ex = state.executor
+            stores, adopts, libs = ex.store_upload_bytes, ex.adopts, len(_build._LIBS)
+            times, splits, pairs, launches, uploads = [], [], [], [], []
+            _reset_launches()
+            for _ in range(STREAM_ROUNDS):
+                for kw in ({"added": hold}, {"removed": hold}):
+                    before = (gather_total_cuda.launches, state.index_upload_bytes,
+                              ex.lane_upload_bytes, ex.store_upload_bytes)
+                    t0 = time.perf_counter()
+                    res = state.apply_batch(**kw)
+                    times.append(time.perf_counter() - t0)
+                    after = (gather_total_cuda.launches, state.index_upload_bytes,
+                             ex.lane_upload_bytes, ex.store_upload_bytes)
+                    launches.append(after[0] - before[0])
+                    uploads.append(tuple(a - c for a, c in zip(after[1:], before[1:])))
+                    splits.append(res.timings_s)
+                    pairs.append((res.pairs_before, res.pairs_after))
+                    want = _windows(res.pairs_before, chunk) + _windows(res.pairs_after, chunk)
+                    check(launches[-1] == want,
+                          f"{name} {frac:g}: {launches[-1]} launches for {want} windows")
+                    check(not res.grew, f"{name} {frac:g}: a steady batch grew")
+                    check(res.triangles == state.verify(), f"{name} {frac:g}: batch count")
+            check(state.executor is ex and ex.adopts == adopts and ex.store_upload_bytes == stores
+                  and len(_build._LIBS) == libs,
+                  f"{name} {frac:g}: steady batches re-adopted, uploaded stores or built a library")
+            check(state.fallbacks == 0, f"{name} {frac:g}: the 'auto' host fallback fired")
+            peak = torch.cuda.max_memory_allocated()
+            edit_ms, lanes = _edit_device_ms(state, hold)
+            # The two recounts of the final edge set: the warm device-build
+            # tcim_count, and the bench's (host build + a fresh Executor).
+            edges_now = state.current_edges()
+            tcim_count(edges_now, n=g.n, slice_bits=STREAM_SLICE_BITS)
+            t0 = time.perf_counter()
+            recount = tcim_count(edges_now, n=g.n, slice_bits=STREAM_SLICE_BITS).triangles
+            device_recount_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gh = build_graph(edges_now, n=g.n, reorder=False)
+            sb = build_sbf(gh, STREAM_SLICE_BITS)
+            bench = Executor(sb).count(build_worklist(gh, sb))
+            bench_recount_s = time.perf_counter() - t0
+            exact = triangles_intersection(gh)
+            check(state.triangles == recount == bench == exact,
+                  f"{name} {frac:g}: running {state.triangles}, recounts {recount} / {bench}, "
+                  f"oracle {exact}")
+            ms = sorted(1e3 * t for t in times)
+            per_batch = sum(launches) / len(launches)
+            launches_per_batch[f"{name}@{frac:g}"] = per_batch
+            split = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
+            up = [sum(u) / len(uploads) for u in zip(*uploads)]
+            log(f"[stream] {name} {frac:g} (batch {b} edges, {STREAM_ROUNDS} add/remove rounds "
+                f"after the warm cycle; {smi}): {float(np.median(ms)):.3f} ms/batch median, "
+                f"{ms[0]:.3f} min (host clock, apply_batch ends in the counts' readback), "
+                f"{b / (ms[0] / 1e3):.0f} edges/s at the min; pairs before/after "
+                f"{sorted(set(pairs))}; gather_total {per_batch:g} launches/batch; running "
+                f"count {state.triangles} == verify() after every batch == oracle")
+            log(f"[stream] {name} {frac:g} timings_s medians (dispatch_* and scatter are enqueue "
+                f"times on the card; close waits for both counts): {json.dumps(split)}")
+            log(f"[stream] {name} {frac:g}: store edit {edit_ms:.6f} ms device time for {lanes} "
+                f"lanes (CUDA events over a replayed CUDA graph of edits); uploaded per batch "
+                f"{up[0]:.0f} B delta-work-list indices + {up[1]:.0f} B lanes + {up[2]:.0f} B "
+                f"stores; recount of the final edge set: warm device-build tcim_count "
+                f"{device_recount_s:.6f} s, host build + fresh Executor {bench_recount_s:.6f} s "
+                f"(delta min / device recount {ms[0] / 1e3 / device_recount_s:.3f}); seed "
+                f"{seed_s:.3f} s; max_memory_allocated {peak} B")
+            if name == STREAM_COMPACT_GRAPH and frac == fractions[-1]:
+                _stream_compact_and_spill(state, rng)
+            del state, ex
+    return {"launches_per_batch": launches_per_batch}
+
+
+def _stream_compact_and_spill(state, rng) -> None:
+    """A remove-heavy run until the zero-record ratio passes 0.5, then
+    ``compact()`` (count kept, records shrink, launcher rebuilt); then
+    ``spill()`` and a batch that re-admits the stream."""
+    t0 = time.perf_counter()
+    removed = []
+    while state.zero_record_ratio() <= 0.5:
+        cur = state.current_edges()
+        rm = cur[rng.choice(len(cur), len(cur) // 4, replace=False)]
+        res = state.apply_batch(removed=rm)
+        check(res.triangles == state.verify(), "remove-heavy batch count")
+        removed.append(rm)
+    ratio = state.zero_record_ratio()
+    launcher, count = state.executor._launcher, state.triangles
+    stats = state.compact()
+    check(state.triangles == count == state.verify() and stats["records_after"] < stats["records_before"]
+          and state.zero_record_ratio() == 0.0, f"compaction: {stats}, count {state.triangles}")
+    check(state.executor._launcher is not launcher, "compaction kept the old launcher")
+    res = state.apply_batch(added=removed[0][: len(removed[0]) // 2])
+    check(res.triangles == state.verify(), "batch after compaction")
+    log(f"[stream] {STREAM_COMPACT_GRAPH}: {len(removed)} remove batches of a quarter of the "
+        f"edges each, zero-record ratio {ratio:.4f}; compact() {stats}, count kept "
+        f"({count}), launcher rebuilt; a batch after it == verify(); {time.perf_counter() - t0:.3f} s")
+    old = state.executor
+    state.spill()
+    check(not state.resident, "spill kept the executor")
+    res = state.apply_batch(added=removed[0][len(removed[0]) // 2:])
+    check(state.resident and state.executor is not old and state.executor._launcher is not None
+          and res.triangles == state.verify(), "spill -> batch re-admission")
+    log(f"[stream] {STREAM_COMPACT_GRAPH}: spill() then a batch re-admitted the stream (new "
+        f"executor and launcher), count {res.triangles} == verify()")
+
+
+def phase_stream_serve() -> None:
+    """Durable stream serving on the card: two streams under a budget that
+    holds one, deltas drained and left pending, the server abandoned;
+    ``TCServer.restore`` on the card and on the CPU against a server that
+    was never killed and the exact oracle; a root written by
+    ``checkpoint()`` restored too."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import build_sbf
+    from repro_torch.graphs import build_graph, triangles_intersection
+    from repro_torch.launch.tc_serve import ServeConfig, TCServer
+
+    smi = nvidia_smi_line()
+    rng = np.random.default_rng(7)
+    streams, footprints = [], []
+    for name, keep in SERVE_STREAMS:
+        g = _stream_graph(name)
+        order = rng.permutation(g.m)
+        cut = int(g.m * keep)
+        base = g.edges[order[:cut]]
+        chunks = np.array_split(g.edges[order[cut:]], SERVE_DELTAS // len(SERVE_STREAMS))
+        streams.append((name, g, base, chunks))
+        footprints.append(TCServer._stream_footprint(
+            build_sbf(build_graph(base, n=g.n, reorder=False), STREAM_SLICE_BITS)))
+    budget = max(footprints) + min(footprints) // 2
+    check(max(footprints) < budget < sum(footprints), f"budget {budget} for {footprints}")
+    cfg = dict(checkpoint_every=8, memory_budget_bytes=budget)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_wal_"))
+    try:
+        srv = TCServer(ServeConfig(wal_dir=str(work / "wal"), **cfg))
+        twin = TCServer(ServeConfig(**cfg))
+        t0 = time.perf_counter()
+        sids = [srv.create_stream(base, n=g.n) for _, g, base, _ in streams]
+        create_s = time.perf_counter() - t0
+        tsids = [twin.create_stream(base, n=g.n) for _, g, base, _ in streams]
+        deltas = [(k % len(streams), streams[k % len(streams)][3][k // len(streams)])
+                  for k in range(SERVE_DELTAS)]
+        t0 = time.perf_counter()
+        for i, (k, d) in enumerate(deltas):
+            srv.submit_delta(sids[k], added=d)
+            twin.submit_delta(tsids[k], added=d)
+            if i == SERVE_DRAINED - 1:
+                out = srv.drain()
+                check(len(out) == SERVE_DRAINED and all(r.status == "ok" for r in out),
+                      "durable server drain")
+        drain_s = time.perf_counter() - t0
+        check(all(r.status == "ok" for r in twin.drain()), "uninterrupted server drain")
+        live = [srv.stream_count(s) for s in sids]
+        live_stats = srv.server_stats()
+        for entry in srv._streams.values():
+            entry.wal.snaps.wait()
+        del srv  # abandoned: no close_stream, no checkpoint()
+        want = {s: twin.stream_count(t) for s, t in zip(sids, tsids)}
+        exact = {s: triangles_intersection(g) for s, (_, g, _, _) in zip(sids, streams)}
+        check(want == exact, f"uninterrupted server {want} != oracle {exact}")
+        restored = {}
+        for device in ("cuda", "cpu"):
+            shutil.copytree(work / "wal", work / device)
+            t0 = time.perf_counter()
+            srv = TCServer.restore(work / device, device=device)
+            restore_s = time.perf_counter() - t0
+            check([srv.stream_count(s) for s in sids] == live, f"restore on {device}: live counts")
+            check(srv.pending == SERVE_DELTAS - SERVE_DRAINED, f"restore on {device}: pending")
+            info = srv.restore_info
+            out = srv.drain()
+            check(all(r.status == "ok" for r in out), f"restored drain on {device}")
+            restored[device] = ({s: srv.stream_count(s) for s in sids}, srv.server_stats())
+            log(f"[stream serve] restore on {device}: {restore_s:.3f} s, {json.dumps(info)}; "
+                f"drained the {len(out)} pending deltas")
+            if device == "cuda":
+                for s in sids:
+                    check(srv._streams[s].state.verify() == want[s], "restored stream verify()")
+            del srv
+        card, cpu = restored["cuda"], restored["cpu"]
+        check(card == cpu, f"restored on the card {card} != on the CPU {cpu}")
+        stream_keys = ("streams", "streams_resident", "streams_spilled", "stream_bytes")
+        tstats = twin.server_stats()
+        check(card[0] == want and all(card[1][k] == tstats[k] for k in stream_keys),
+              f"restored {card} != uninterrupted {want}, {tstats}")
+        t0 = time.perf_counter()
+        twin.checkpoint(work / "ckpt")
+        ckpt_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = TCServer.restore(work / "ckpt")
+        again_s = time.perf_counter() - t0
+        check({s: again.stream_count(t) for s, t in zip(sids, tsids)} == want and again.pending == 0,
+              "restore of the checkpoint() root")
+        log(f"[stream serve] two streams ({', '.join(f'{n} at {k:.0%}' for n, k in SERVE_STREAMS)}), "
+            f"footprints {footprints} B, budget {budget} B; created in {create_s:.3f} s; "
+            f"{SERVE_DELTAS} deltas, {SERVE_DRAINED} drained in {drain_s:.3f} s (with the twin's "
+            f"submits), {SERVE_DELTAS - SERVE_DRAINED} left pending at the kill; live stats "
+            f"{json.dumps({k: live_stats[k] for k in live_stats if k not in ('pool', 'fused')})}; "
+            f"restored on the card == on the CPU == never-killed server {want} == oracle; "
+            f"checkpoint() {ckpt_s:.3f} s and its restore {again_s:.3f} s; {smi}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -2142,6 +2553,9 @@ def main() -> int:
     for r in flash_rows:
         r["max_abs_err"] = max(r["max_abs_err"], *err_flash.values())
         r["max_row_rel_err"] = max(r["max_row_rel_err"], *row_err_flash.values())
+    stream = phase_stream()
+    row["stream_launches_per_batch"] = stream["launches_per_batch"]
+    phase_stream_serve()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [row, *rows, *dense_rows, *flash_rows]}))

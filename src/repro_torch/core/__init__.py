@@ -11,6 +11,8 @@ Public API:
     Executor / ExecutorPool         device-resident fused execute stage
     plan_fusion / MultiGraphExecutor  cross-graph fused serving (one launch
                                     for a batch of small graphs)
+    StreamingTCState / tcim_count_delta  streaming counts over an edge
+                                    stream (in-place store edits)
     simulate_lru                    data reuse/exchange behavioral model
     tcim_latency_energy             MRAM latency/energy analytical model
     baselines / metrics             matmul and intersection baselines;
@@ -38,6 +40,7 @@ from repro_torch.core.executor import (
     ExecutorPool,
     MultiCountFuture,
     MultiGraphExecutor,
+    apply_store_lanes,
     sbf_content_key,
     staged_uploads,
 )
@@ -54,14 +57,23 @@ from repro_torch.core.plan import (
     pow2_ceil,
 )
 from repro_torch.core.sbf import (
+    SBFUpdate,
     SlicedBitmap,
+    UpdateLanes,
     Worklist,
     build_sbf,
     build_worklist,
     build_worklist_pairs,
     sbf_from_arrays,
     sbf_stats,
+    update_sbf,
     worklist_from_arrays,
+)
+from repro_torch.core.streaming import (
+    STREAM_BACKENDS,
+    DeltaResult,
+    StreamingTCState,
+    tcim_count_delta,
 )
 from repro_torch.core.tcim import (
     BACKENDS,
@@ -83,6 +95,7 @@ __all__ = [
     "ExecutorPool",
     "MultiCountFuture",
     "MultiGraphExecutor",
+    "apply_store_lanes",
     "sbf_content_key",
     "staged_uploads",
     "PLACEMENTS",
@@ -95,13 +108,16 @@ __all__ = [
     "plan_execution",
     "plan_fusion",
     "pow2_ceil",
+    "SBFUpdate",
     "SlicedBitmap",
+    "UpdateLanes",
     "Worklist",
     "build_sbf",
     "build_worklist",
     "build_worklist_pairs",
     "sbf_from_arrays",
     "sbf_stats",
+    "update_sbf",
     "worklist_from_arrays",
     "DeviceBuild",
     "DeviceBuildFuture",
@@ -112,6 +128,10 @@ __all__ = [
     "device_build_sbf",
     "device_build_worklist",
     "device_delta_worklist",
+    "STREAM_BACKENDS",
+    "DeltaResult",
+    "StreamingTCState",
+    "tcim_count_delta",
     "BACKENDS",
     "BUILDS",
     "TCFuture",

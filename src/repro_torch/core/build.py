@@ -174,7 +174,8 @@ class DeviceWorklist:
     The executor consumes the padded arrays directly (negative indices are
     exact no-ops), so the pairs never bounce through the host.
     ``num_pairs`` is the real (non-sentinel) pair count, read back while
-    sizing the pair bucket.
+    sizing the pair bucket. ``upload_bytes`` is what a delta work list's
+    build copied host->device (its edges, and a host SBF's index arrays).
     """
 
     pair_edge: torch.Tensor  # int32 [PB]
@@ -184,6 +185,7 @@ class DeviceWorklist:
     num_candidates: int
     m_edges: int
     n_slices: int
+    upload_bytes: int = 0
 
     def compute_reduction(self) -> float:
         naive = self.m_edges * self.n_slices
@@ -403,25 +405,24 @@ def device_build_worklist(dg: DeviceGraph, sb: sbf_mod.SlicedBitmap) -> DeviceWo
 
 
 def _delta_index_arrays(sb: sbf_mod.SlicedBitmap, device: torch.device):
-    """Device int32 ``(row_ptr, row_idx, col_ptr, col_idx)`` for the delta step.
+    """Device int32 ``(row_ptr, row_idx, col_ptr, col_idx)`` for the delta
+    step, and the bytes uploaded for them.
 
     Device-built SBFs pass through as they are; host-built ones upload
     their CSR index arrays, the slice indices zero-padded to pow2 row
     buckets as the executor pads its stores. The *stores* never travel.
     """
     if sb.is_device:
-        return sb.row_ptr, sb.row_slice_idx, sb.col_ptr, sb.col_slice_idx
+        return (sb.row_ptr, sb.row_slice_idx, sb.col_ptr, sb.col_slice_idx), 0
 
     def idx(a):
         a = np.asarray(a, dtype=np.int32)
         bucket = pow2_ceil(max(len(a), 1))
         return np.concatenate([a, np.zeros(bucket - len(a), np.int32)])
 
-    return tuple(
-        upload_pinned(a, device)
-        for a in (np.asarray(sb.row_ptr, dtype=np.int32), idx(sb.row_slice_idx),
-                  np.asarray(sb.col_ptr, dtype=np.int32), idx(sb.col_slice_idx))
-    )
+    host = (np.asarray(sb.row_ptr, dtype=np.int32), idx(sb.row_slice_idx),
+            np.asarray(sb.col_ptr, dtype=np.int32), idx(sb.col_slice_idx))
+    return tuple(upload_pinned(a, device) for a in host), sum(a.nbytes for a in host)
 
 
 def device_delta_worklist(
@@ -437,7 +438,9 @@ def device_delta_worklist(
     step over just the given edges. Pair positions come back in the SBF's
     global record coordinates and ``pair_edge`` indexes the given arrays,
     bit-identical to the host ``sbf.build_worklist_pairs`` on the same
-    subset. Edges pad to a pow2 bucket. ``device`` defaults to the card.
+    subset. Edges pad to a pow2 bucket. A host SBF's index arrays upload on
+    every call (``upload_bytes`` counts them), as in the reference.
+    ``device`` defaults to the card.
     """
     dev = resolve_device(device)
     m = len(src)
@@ -445,9 +448,10 @@ def device_delta_worklist(
     ends = np.zeros((2, bucket), dtype=np.int32)
     ends[0, :m], ends[1, :m] = src, dst
     ends_d = upload_pinned(ends, dev)
-    index_arrays = _delta_index_arrays(sb, dev)
+    index_arrays, index_bytes = _delta_index_arrays(sb, dev)
     cand = int(_candidates(ends_d[0], m, index_arrays[0]).sum(dtype=torch.int64))
-    return _worklist(
+    wl = _worklist(
         ends_d[0], ends_d[1], m, index_arrays, sb.n_slices, cand, m,
         "split the batch or build on the host",
     )
+    return dataclasses.replace(wl, upload_bytes=ends.nbytes + index_bytes)

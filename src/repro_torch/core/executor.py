@@ -1,9 +1,10 @@
 """Executor — the schedulable execute-stage unit of the TCIM engine.
 
 Port of ``src/repro/core/executor.py`` (``CountFuture``, ``staged_uploads``,
-``Executor`` in every mode, ``sbf_content_key``, ``ExecutorPool``, and the
-cross-graph ``MultiCountFuture``/``MultiGraphExecutor``). ``update_stores``
-(streaming) waits for a later slice.
+``Executor`` in every mode with the streaming store edits ``update_stores``/
+``adopt_stores`` and ``apply_store_lanes``, ``sbf_content_key``,
+``ExecutorPool``, and the cross-graph ``MultiCountFuture``/
+``MultiGraphExecutor``).
 
   * **Fused execute.** Chunks run through ``ops.popcount_and_gather_total``:
     the slice stores are uploaded once and stay resident on the device; only
@@ -65,6 +66,7 @@ import torch
 
 from repro_torch.core import sbf as sbf_mod
 from repro_torch.core.plan import clamp_chunk_pairs, plan_fusion, pow2_ceil
+from repro_torch.graphs.csr import upload_pinned
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.tc_gather_popcount import (
@@ -81,6 +83,7 @@ __all__ = [
     "ExecutorPool",
     "MultiGraphExecutor",
     "EXECUTOR_MODES",
+    "apply_store_lanes",
     "sbf_content_key",
     "staged_uploads",
 ]
@@ -88,6 +91,10 @@ __all__ = [
 EXECUTOR_MODES = ("fused", "gather_then_kernel", "pallas_items", "jnp")
 
 _INT32_MAX = 2**31 - 1
+
+# Bytes one store-edit lane uploads: its flat word index and both masks,
+# packed as one int64 [3, L] array.
+LANE_BYTES = 24
 
 
 class CountFuture:
@@ -178,12 +185,44 @@ def _gather_chunk(row_data, col_data, ridx, cidx, acc):
     return torch.where(valid[:, None], rows, 0), cols
 
 
+def apply_store_lanes(store: torch.Tensor, lanes) -> torch.Tensor:
+    """Edit one side's :class:`~repro_torch.core.sbf.UpdateLanes` into a
+    resident store IN PLACE and return it.
+
+    Each lane's word becomes ``(old | set_mask) & ~clear_mask``; the store
+    holds int32 views of the uint32 words, so the masks travel as int32
+    views and ``~`` stays bitwise (bit 31 is the sign bit). Lanes are
+    deduplicated by ``update_sbf``, one per ``(pos, word)`` cell, so the
+    indexed write has no duplicate index. Nothing is padded (eager torch has
+    no traces to key), so no sentinel lane exists to drop. One upload of
+    ``LANE_BYTES`` a lane, then a gather and an indexed copy on the current
+    stream, ordered after every count already launched on it.
+    """
+    if lanes is None or lanes.num_lanes == 0:
+        return store
+    if not store.is_contiguous():
+        raise ValueError("apply_store_lanes needs a contiguous store")
+    flat = lanes.pos.astype(np.int64) * store.shape[1] + lanes.word
+    host = np.stack([flat, lanes.set_mask.view(np.int32), lanes.clear_mask.view(np.int32)])
+    dev = upload_pinned(host, store.device)
+    idx, set_mask, clear_mask = dev[0], dev[1].to(torch.int32), dev[2].to(torch.int32)
+    words = store.view(-1)
+    words.index_copy_(0, idx, (words.index_select(0, idx) | set_mask) & ~clear_mask)
+    return store
+
+
 class Executor:
     """Device-resident execute stage for one pair of SBF slice stores.
 
     Upload the stores once, then ``count(worklist)`` (or the lower-level
     ``execute_indices``) any number of times. ``device`` defaults to the
     card; without one, only ``device="cpu"`` runs.
+
+    A streaming state edits the stores batch by batch (``update_stores``,
+    ``adopt_stores``). ``store_upload_bytes``, ``lane_upload_bytes`` and
+    ``adopts`` count what those edits cost: the reference's retrace
+    counters have no counterpart in eager torch, so a steady streaming
+    batch is held to uploading no store bytes and adopting nothing instead.
     """
 
     def __init__(
@@ -206,17 +245,23 @@ class Executor:
         # memory bound), then clamp so one chunk's worst case provably fits
         # the int32 accumulator: chunk_pairs * words_per_slice * 32 <= 2**31-1.
         self.chunk_pairs = clamp_chunk_pairs(chunk_pairs, self.words_per_slice)
+        self.store_upload_bytes = 0
+        self.lane_upload_bytes = 0
+        self.adopts = 0
         self.row_data = self._upload_store(sb.row_slice_data)
         self.col_data = self._upload_store(sb.col_slice_data)
-        # On the card the fused kernel's launcher, its stores validated once.
-        self._launcher = (
-            GatherTotalLauncher(self.row_data, self.col_data)
-            if mode == "fused" and self.device.type == "cuda" else None
-        )
+        self._launcher = self._make_launcher()
         # Weakrefs to unresolved CountFutures. While any is alive the
         # executor's stores back in-flight dispatches, so pools must not free
         # them (``busy``); resolved or collected futures prune lazily.
         self._pending: list = []
+
+    def _make_launcher(self) -> GatherTotalLauncher | None:
+        """On the card, the fused kernel's launcher over the current stores
+        (validated once; it holds their pointers)."""
+        if self.mode == "fused" and self.device.type == "cuda":
+            return GatherTotalLauncher(self.row_data, self.col_data)
+        return None
 
     def _track(self, fut: CountFuture) -> CountFuture:
         self._prune()
@@ -241,23 +286,30 @@ class Executor:
     def _upload_store(self, store) -> torch.Tensor:
         """A resident, pow2-row-padded int32 view of the store's uint32 words.
 
-        Host words are padded and uploaded; an int32 tensor (a device
-        build's store) is adopted as it lies, moved only if it is on another
-        device and padded only if its rows are not a power of two."""
+        Host words are padded and copied to the device (on the CPU as well);
+        an int32 tensor (a device build's store) is adopted as it lies,
+        moved only if it is on another device and padded only if its rows
+        are not a power of two — so ``update_stores`` on such an executor
+        edits that build's tensors too."""
         if isinstance(store, torch.Tensor):
             if store.dtype != torch.int32 or store.dim() != 2:
                 raise ValueError(
                     f"a device store must be a 2-D int32 view of the uint32 "
                     f"words, got {store.dtype} of shape {tuple(store.shape)}"
                 )
-            store = store.to(self.device)
+            if store.device != self.device:
+                self.store_upload_bytes += store.numel() * store.element_size()
+                store = store.to(self.device)
             rows = store.shape[0]
             bucket = pow2_ceil(max(rows, 1))
             if bucket != rows:
                 store = torch.cat([store, store.new_zeros(bucket - rows, store.shape[1])])
             return store
         store = _pad_rows_pow2(np.ascontiguousarray(store, dtype=np.uint32))
-        return torch.from_numpy(store.view(np.int32)).to(self.device)
+        self.store_upload_bytes += store.nbytes
+        # A copy on the CPU too: ``update_stores`` edits the executor's
+        # stores in place, and must never edit the caller's host arrays.
+        return torch.from_numpy(store.view(np.int32)).to(self.device, copy=True)
 
     # ---------------------------------------------------------------- public
 
@@ -394,6 +446,54 @@ class Executor:
     def count(self, wl) -> int:
         """Triangle contribution of a work list (Eq. 5 execute+reduce)."""
         return self.count_async(wl).result()
+
+    def update_stores(self, row_lanes, col_lanes) -> None:
+        """Edit word-level updates (``sbf.UpdateLanes``) into the resident
+        stores: the streaming steady state, in place of a re-upload.
+
+        The reference's scatter returns NEW arrays so that a before-count
+        still in flight keeps its buffers. Here the edit is IN PLACE
+        (``apply_store_lanes``): on the card it is enqueued on the current
+        stream, after the before-count's kernels, so they read the
+        pre-update words; on the CPU the before-count has already run. In
+        place keeps the store pointers that ``GatherTotalLauncher`` bound at
+        construction valid, so the launcher needs no rebuild and a steady
+        batch copies no store. Positions must be in-bounds for the resident
+        (pow2-padded) stores; a grown SBF goes through :meth:`adopt_stores`.
+        """
+        for lanes, store in ((row_lanes, self.row_data), (col_lanes, self.col_data)):
+            if lanes is not None and lanes.num_lanes and int(lanes.pos.max()) >= int(
+                store.shape[0]
+            ):
+                raise ValueError(
+                    "update lane position beyond the resident store bucket "
+                    "— the SBF grew; re-adopt the stores (adopt_stores)"
+                )
+        for lanes, store in ((row_lanes, self.row_data), (col_lanes, self.col_data)):
+            if lanes is not None and lanes.num_lanes:
+                apply_store_lanes(store, lanes)
+                self.lane_upload_bytes += LANE_BYTES * lanes.num_lanes
+
+    def adopt_stores(self, sb: sbf_mod.SlicedBitmap) -> None:
+        """Replace the resident stores with a (grown or compacted) SBF's —
+        one upload — and rebuild the launcher over them.
+
+        Merge-inserted records shift positions, so edits are impossible and
+        the stores re-adopt wholesale. Host stores upload with a blocking
+        copy, which waits for the stream, so a count already launched has
+        finished before the new stores are written; the old stores go back
+        to the caching allocator. The launcher must be rebuilt: the old one
+        holds the old stores' pointers.
+        """
+        if int(sb.row_slice_data.shape[1]) != self.words_per_slice:
+            raise ValueError(
+                f"adopt_stores: words_per_slice {sb.row_slice_data.shape[1]} "
+                f"!= executor's {self.words_per_slice}"
+            )
+        self.row_data = self._upload_store(sb.row_slice_data)
+        self.col_data = self._upload_store(sb.col_slice_data)
+        self._launcher = self._make_launcher()
+        self.adopts += 1
 
     def modeled_hbm_bytes(self, num_pairs: int, *, fused: bool | None = None) -> int:
         """Modeled execute-stage memory traffic for this store's word width."""

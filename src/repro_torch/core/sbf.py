@@ -1,11 +1,11 @@
 """SBF — Sliced Bitmap Format (paper §IV-B) + work-list construction.
 
 Port of ``src/repro/core/sbf.py`` (``SlicedBitmap``, ``Worklist``,
-``build_sbf``, ``build_worklist``, ``build_worklist_pairs``, ``sbf_stats``)
+``build_sbf``, ``build_worklist``, ``build_worklist_pairs``, the streaming
+update ``update_sbf`` with ``UpdateLanes``/``SBFUpdate``, and ``sbf_stats``)
 as host NumPy, plus ``sbf_from_arrays``/``worklist_from_arrays``, which carry
 state built elsewhere (e.g. by the JAX package) into the port's objects.
 A ``SlicedBitmap`` may also hold torch tensors on the device (``core.build``).
-``update_sbf``/``UpdateLanes`` wait for the streaming slice.
 
 A row (column) of the oriented adjacency matrix is partitioned into slices of
 ``slice_bits`` (|S|, paper default 64). A slice is *valid* iff it contains at
@@ -34,7 +34,9 @@ from repro_torch.core.bitmat import WORD_BITS
 from repro_torch.graphs.csr import Graph
 
 __all__ = [
+    "SBFUpdate",
     "SlicedBitmap",
+    "UpdateLanes",
     "Worklist",
     "build_sbf",
     "build_worklist",
@@ -42,6 +44,7 @@ __all__ = [
     "sbf_from_arrays",
     "worklist_from_arrays",
     "sbf_stats",
+    "update_sbf",
 ]
 
 
@@ -291,6 +294,207 @@ def build_worklist(g: Graph, sbf: SlicedBitmap, block_edges: int = 1 << 18) -> W
         pair_col_pos=pair_col,
         m_edges=g.m,
         n_slices=sbf.n_slices,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateLanes:
+    """Deduplicated word-level store edits for one SBF side.
+
+    One lane per touched ``(record, word)`` cell: the new word value is
+    ``(old | set_mask) & ~clear_mask``. Lanes are the unit the executor
+    scatters into its resident device stores (``Executor.update_stores``);
+    set and clear masks never share a bit (an edge cannot be both added and
+    removed in one batch), so the order of OR and AND-NOT is immaterial.
+    """
+
+    pos: np.ndarray  # int32 [L] record positions (post-update coordinates)
+    word: np.ndarray  # int32 [L] word index within the record
+    set_mask: np.ndarray  # uint32 [L]
+    clear_mask: np.ndarray  # uint32 [L]
+
+    @property
+    def num_lanes(self) -> int:
+        return int(len(self.pos))
+
+
+@dataclasses.dataclass(frozen=True)
+class SBFUpdate:
+    """Result of :func:`update_sbf` — the post-update SBF plus device lanes.
+
+    ``grew`` is False when every changed bit landed in an existing
+    ``(vertex, slice)`` record: record positions are unchanged, and
+    ``row_lanes``/``col_lanes`` scatter the resident device stores in place
+    (the steady-state streaming path — no store re-upload).
+    When new records had to be merge-inserted (``grew`` True) every record
+    may have shifted, so consumers re-adopt ``sbf``'s stores wholesale; the
+    lanes still describe the post-update layout but are redundant then.
+    """
+
+    sbf: SlicedBitmap
+    row_lanes: UpdateLanes
+    col_lanes: UpdateLanes
+    grew: bool
+
+
+def _combine_lanes(
+    pos: np.ndarray,
+    word: np.ndarray,
+    mask: np.ndarray,
+    set_bit: np.ndarray,
+    wps: int,
+) -> UpdateLanes:
+    """Group per-bit edits by (record, word) cell; OR masks within a group.
+
+    Deduplication is load-bearing for the device path: two scatter lanes
+    hitting the same cell would race (an indexed write with duplicate
+    indices is order-unspecified), so each cell gets exactly one lane.
+    """
+    key = pos.astype(np.int64) * wps + word
+    uniq, grp = np.unique(key, return_inverse=True)
+    set_mask = np.zeros(len(uniq), dtype=np.uint32)
+    clear_mask = np.zeros(len(uniq), dtype=np.uint32)
+    np.bitwise_or.at(set_mask, grp[set_bit], mask[set_bit])
+    np.bitwise_or.at(clear_mask, grp[~set_bit], mask[~set_bit])
+    return UpdateLanes(
+        pos=(uniq // wps).astype(np.int32),
+        word=(uniq % wps).astype(np.int32),
+        set_mask=set_mask,
+        clear_mask=clear_mask,
+    )
+
+
+def _locate_records(
+    ptr: np.ndarray, slice_idx: np.ndarray, owner: np.ndarray, k: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """(record position, found) of slice ``k`` within each owner's window."""
+    lo = ptr[owner]
+    hi = ptr[owner + 1]
+    pos = _window_searchsorted(slice_idx.astype(np.int64), lo, hi, k)
+    if len(slice_idx) == 0:
+        return pos, np.zeros(len(pos), dtype=bool)
+    safe = np.minimum(pos, len(slice_idx) - 1)
+    return pos, (pos < hi) & (slice_idx[safe].astype(np.int64) == k)
+
+
+def _update_side(
+    ptr: np.ndarray,
+    slice_idx: np.ndarray,
+    data: np.ndarray,
+    owner: np.ndarray,
+    bitpos: np.ndarray,
+    set_bit: np.ndarray,
+    slice_bits: int,
+    n: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, UpdateLanes, bool]:
+    """Apply per-bit set/clear edits to one SBF side (host arrays).
+
+    Streaming layout invariant: records are never deleted — a slice whose
+    last bit is cleared stays as an all-zero record, so removals never
+    shift positions (``popcount(0 & x) == 0`` keeps counts exact, and the
+    executor's resident stores can be edited by pure scatter). New
+    ``(owner, slice)`` records are merge-inserted in sorted order, which
+    shifts positions and is reported as growth.
+    """
+    n_slices = (n + slice_bits - 1) // slice_bits
+    wps = slice_bits // WORD_BITS
+    k = bitpos // slice_bits
+    word = (bitpos % slice_bits) // WORD_BITS
+    mask = np.uint32(1) << (bitpos % WORD_BITS).astype(np.uint32)
+    pos, hit = _locate_records(ptr, slice_idx, owner, k)
+    if not np.all(hit | set_bit):
+        raise ValueError(
+            "removing a bit whose (vertex, slice) record does not exist — "
+            "the edge was never present in this SBF"
+        )
+    miss = ~hit
+    grew = bool(miss.any())
+    if grew:
+        new_key = np.unique(owner[miss] * np.int64(n_slices) + k[miss])
+        rec_owner = np.repeat(np.arange(n, dtype=np.int64), np.diff(ptr))
+        old_key = rec_owner * np.int64(n_slices) + slice_idx.astype(np.int64)
+        nvs, nnew = len(old_key), len(new_key)
+        # Stable two-way merge by key: each side's final position is its own
+        # rank plus the count of the other side's keys ahead of it (keys are
+        # disjoint — a miss means the key is absent from old_key).
+        pos_old = np.arange(nvs, dtype=np.int64) + np.searchsorted(
+            new_key, old_key
+        )
+        pos_new = np.searchsorted(old_key, new_key) + np.arange(
+            nnew, dtype=np.int64
+        )
+        slice_idx2 = np.zeros(nvs + nnew, dtype=np.int32)
+        data2 = np.zeros((nvs + nnew, wps), dtype=np.uint32)
+        slice_idx2[pos_old] = slice_idx
+        data2[pos_old] = data
+        slice_idx2[pos_new] = (new_key % n_slices).astype(np.int32)
+        counts = np.bincount(rec_owner, minlength=n) + np.bincount(
+            new_key // n_slices, minlength=n
+        )
+        ptr2 = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts, out=ptr2[1:])
+        ptr, slice_idx, data = ptr2, slice_idx2, data2
+        pos, hit = _locate_records(ptr, slice_idx, owner, k)
+        assert hit.all(), "merged record lookup must hit every edit"
+    else:
+        data = data.copy()
+    lanes = _combine_lanes(pos, word, mask, set_bit, wps)
+    np.bitwise_or.at(data, (lanes.pos, lanes.word), lanes.set_mask)
+    data[lanes.pos, lanes.word] &= ~lanes.clear_mask
+    return ptr, slice_idx, data, lanes, grew
+
+
+def update_sbf(
+    sbf: SlicedBitmap, added: np.ndarray, removed: np.ndarray
+) -> SBFUpdate:
+    """Incrementally apply an oriented edge batch to a host-built SBF.
+
+    ``added``/``removed`` are ``[b, 2]`` int64 oriented edges (``src <
+    dst``); the caller guarantees set semantics (adds absent, removes
+    present, no overlap — ``core.streaming.StreamingTCState`` validates).
+    Returns the post-update SBF plus the word-level :class:`UpdateLanes`
+    per side. Cleared-out slices persist as all-zero records (see
+    :func:`_update_side`), so a streamed SBF's *record set* can be a
+    superset of the from-scratch build's — counts are unaffected, since a
+    pair against a zero record contributes ``popcount(0 & x) == 0``.
+    """
+    if sbf.is_device:
+        raise ValueError("update_sbf needs a host-built SlicedBitmap")
+    empty = np.zeros((0, 2), dtype=np.int64)
+    added = empty if added is None else (
+        np.asarray(added, dtype=np.int64).reshape(-1, 2))
+    removed = empty if removed is None else (
+        np.asarray(removed, dtype=np.int64).reshape(-1, 2))
+    owner_r = np.concatenate([added[:, 0], removed[:, 0]])
+    bit_r = np.concatenate([added[:, 1], removed[:, 1]])
+    owner_c = np.concatenate([added[:, 1], removed[:, 1]])
+    bit_c = np.concatenate([added[:, 0], removed[:, 0]])
+    set_bit = np.concatenate(
+        [np.ones(len(added), dtype=bool), np.zeros(len(removed), dtype=bool)]
+    )
+    row_ptr, row_idx, row_data, row_lanes, row_grew = _update_side(
+        sbf.row_ptr, sbf.row_slice_idx, sbf.row_slice_data,
+        owner_r, bit_r, set_bit, sbf.slice_bits, sbf.n,
+    )
+    col_ptr, col_idx, col_data, col_lanes, col_grew = _update_side(
+        sbf.col_ptr, sbf.col_slice_idx, sbf.col_slice_data,
+        owner_c, bit_c, set_bit, sbf.slice_bits, sbf.n,
+    )
+    return SBFUpdate(
+        sbf=SlicedBitmap(
+            slice_bits=sbf.slice_bits,
+            n=sbf.n,
+            n_slices=sbf.n_slices,
+            row_ptr=row_ptr,
+            row_slice_idx=row_idx,
+            row_slice_data=row_data,
+            col_ptr=col_ptr,
+            col_slice_idx=col_idx,
+            col_slice_data=col_data,
+        ),
+        row_lanes=row_lanes,
+        col_lanes=col_lanes,
+        grew=row_grew or col_grew,
     )
 
 

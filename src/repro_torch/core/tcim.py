@@ -4,7 +4,9 @@
 
 Port of ``src/repro/core/tcim.py``: ``tcim_count``, ``tcim_count_graph``,
 ``TCResult``, ``TCFuture`` and ``BACKENDS``, with the host and the device
-build front ends and the ``replicated`` placement on one device.
+build front ends and the ``replicated`` placement on one device; it
+re-exports the streaming API (``StreamingTCState``, ``tcim_count_delta``,
+``DeltaResult``) as the reference does.
 
 Pipeline stages:
     orient      edges -> upper-triangular CSR (optional degree relabelling)
@@ -49,6 +51,11 @@ from repro_torch.core import sbf as sbf_mod
 from repro_torch.core.bitmat import words_for_bits
 from repro_torch.core.executor import CountFuture, ExecutorPool
 from repro_torch.core.plan import SCHEDULES, DeviceTopology, plan_execution, resolve_placement
+from repro_torch.core.streaming import (  # noqa: F401  (re-exported: streaming API)
+    DeltaResult,
+    StreamingTCState,
+    tcim_count_delta,
+)
 from repro_torch.graphs.csr import Graph, build_graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import resolve_device
@@ -60,6 +67,9 @@ __all__ = [
     "TCFuture",
     "tcim_count",
     "tcim_count_graph",
+    "tcim_count_delta",
+    "StreamingTCState",
+    "DeltaResult",
     "default_executor_pool",
     "BACKENDS",
     "BUILDS",

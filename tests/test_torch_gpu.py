@@ -612,3 +612,171 @@ def test_bound_launcher_on_card(cuda):
     torch.cuda.synchronize()
     assert torch.equal(out.cpu(), want)
     assert gather_total_cuda.launches - before == 2
+
+
+# ---------------------------------------------------------------------------
+# Streaming on the card: in-place store edits behind an unresolved count
+# ---------------------------------------------------------------------------
+
+
+def _stall(cycles: int = 1_000_000_000) -> None:
+    """Hold the current stream for ``cycles`` clocks (a few hundred ms), so
+    that what is enqueued next waits behind it."""
+    torch.cuda._sleep(cycles)
+
+
+def test_update_stores_behind_unresolved_before_count_on_card(cuda):
+    """The in-place edit is ordered after a before-count still in flight:
+    that count reads the pre-update words, the next one the post-update
+    words (both equal to the CPU path's), the launcher is the one bound at
+    construction, and no store byte travels."""
+    from repro_torch.core import update_sbf
+
+    g = build_graph(rmat(20000, 150000, seed=11), reorder=True)
+    sb = build_sbf(g, 64)
+    wl = build_worklist(g, sb)
+    rm = g.edges[np.random.default_rng(0).choice(g.m, 3000, replace=False)]
+    upd = update_sbf(sb, None, rm)
+    assert not upd.grew
+    ex, cpu = Executor(sb), Executor(sb, device="cpu")
+    launcher, stores = ex._launcher, ex.store_upload_bytes
+    want_before = cpu.count(wl)
+    cpu.update_stores(upd.row_lanes, upd.col_lanes)
+    want_after = cpu.count(wl)
+    assert want_before != want_after
+    # Warm: the kernel's library loads (and may build) on its first launch,
+    # which must not happen while the stall below holds the stream.
+    assert ex.count(wl) == want_before
+    with torch.cuda.device(cuda):
+        _stall()
+        fut_before = ex.count_async(wl)
+        done = torch.cuda.Event()
+        done.record()
+        ex.update_stores(upd.row_lanes, upd.col_lanes)
+        pending_at_edit = not done.query()
+        fut_after = ex.count_async(wl)
+    assert pending_at_edit  # the edit was enqueued behind the unresolved count
+    assert fut_before.result() == want_before and fut_after.result() == want_after
+    assert ex._launcher is launcher and ex.adopts == 0 and ex.store_upload_bytes == stores
+
+
+def test_adopt_stores_rebuilds_launcher_on_card(cuda):
+    """A growth batch re-adopts the stores behind an unresolved count: the
+    old count still reads the old stores, the launcher is rebuilt over the
+    new ones, and the count after equals the CPU path's and the oracle's."""
+    from repro_torch.core import update_sbf
+
+    g = build_graph(rmat(20000, 150000, seed=12), reorder=True)
+    order = np.random.default_rng(1).permutation(g.m)
+    base, hold = g.edges[np.sort(order[2000:])], g.edges[np.sort(order[:2000])]
+    gb = build_graph(base, n=g.n, reorder=False)
+    sb = build_sbf(gb, 64)
+    upd = update_sbf(sb, hold, None)
+    assert upd.grew
+    wl_old = build_worklist(gb, sb)
+    wl_new = build_worklist(g, upd.sbf)
+    ex = Executor(sb)
+    old = ex._launcher
+    assert ex.count(wl_old) == triangles_intersection(gb)  # warm, as above
+    with torch.cuda.device(cuda):
+        _stall()
+        fut_old = ex.count_async(wl_old)
+        done = torch.cuda.Event()
+        done.record()
+        pending_at_adopt = not done.query()
+        # The stores' upload is a blocking copy: it waits for the stream,
+        # so the old count has finished before the new stores are written.
+        ex.adopt_stores(upd.sbf)
+        fut_new = ex.count_async(wl_new)
+    assert pending_at_adopt  # adopt_stores was called while the old count was queued
+    assert ex._launcher is not old and ex.adopts == 1
+    assert ex._launcher._prefix[0] == ex.row_data.data_ptr()
+    assert ex._launcher._prefix[2] == ex.col_data.data_ptr()
+    assert fut_old.result() == triangles_intersection(gb)
+    assert fut_new.result() == triangles_intersection(g) == Executor(
+        upd.sbf, device="cpu").count(wl_new)
+
+
+def test_streaming_on_card_matches_cpu_path(cuda):
+    """20 mixed add/remove batches on the card (device delta work lists, the
+    fused kernel) and on the CPU path: every DeltaResult field but the clock
+    equal, counts equal to the oracle, no 'auto' fallback, and steady
+    batches build no kernel library and upload no store bytes."""
+    import dataclasses
+
+    from repro_torch.core import StreamingTCState
+    from repro_torch.kernels import _build
+
+    g = build_graph(rmat(20000, 150000, seed=13), reorder=True)
+    rng = np.random.default_rng(2)
+    order = rng.permutation(g.m)
+    cut = int(0.9 * g.m)
+    card = StreamingTCState(g.edges[order[:cut]], n=g.n)
+    cpu = StreamingTCState(g.edges[order[:cut]], n=g.n, device="cpu")
+    assert card._use_device_build and card.triangles == cpu.triangles
+    fields = [f.name for f in dataclasses.fields(card.apply_batch()) if f.name != "timings_s"]
+    absent = {tuple(e) for e in g.edges[order[cut:]].tolist()}
+    libs = None
+    for i in range(20):
+        cur = card.current_edges()
+        rm = cur[rng.choice(len(cur), 300, replace=False)]
+        pool = np.array(sorted(absent), dtype=np.int64)
+        ad = pool[rng.choice(len(pool), 300, replace=False)]
+        absent.difference_update(map(tuple, ad.tolist()))
+        absent.update(map(tuple, rm.tolist()))
+        before = gather_total_cuda.launches
+        stores = card.executor.store_upload_bytes
+        rc = card.apply_batch(added=ad, removed=rm)
+        rp = cpu.apply_batch(added=ad, removed=rm)
+        assert [getattr(rc, f) for f in fields] == [getattr(rp, f) for f in fields], i
+        assert gather_total_cuda.launches > before
+        if not rc.grew:
+            assert card.executor.store_upload_bytes == stores
+        if i == 0:
+            libs = len(_build._LIBS)
+        assert len(_build._LIBS) == libs
+    assert card.fallbacks == 0 and card.index_upload_bytes > 0
+    assert card.triangles == triangles_intersection(
+        build_graph(card.current_edges(), n=g.n, reorder=False)) == card.verify()
+
+
+def test_server_restore_on_card(tmp_path, cuda):
+    """A durable server on the card, abandoned with pending deltas, restores
+    on the card and on the CPU to the same counts and counters, and draining
+    reaches the counts of a server that was never killed."""
+    import itertools
+    import shutil
+
+    from repro_torch.launch import ServeConfig, TCServer
+
+    n = 60
+    pool = np.array(list(itertools.combinations(range(n), 2)), dtype=np.int64)
+    np.random.default_rng(3).shuffle(pool)
+    deltas = [pool[400 + 40 * i: 440 + 40 * i] for i in range(10)]
+
+    def fresh(root=None):
+        srv = TCServer(ServeConfig(wal_dir=root, checkpoint_every=3))
+        return srv, [srv.create_stream(pool[:400], n=n), srv.create_stream(pool[800:1200], n=n)]
+
+    srv, sids = fresh(str(tmp_path / "root"))
+    for i, d in enumerate(deltas):
+        srv.submit_delta(sids[i % 2], added=d)
+        if i == 5:
+            srv.drain()
+    for entry in srv._streams.values():
+        entry.wal.snaps.wait()
+    del srv
+    twin, tsids = fresh()
+    for i, d in enumerate(deltas):
+        twin.submit_delta(tsids[i % 2], added=d)
+    twin.drain()
+    got = {}
+    for device in ("cuda", "cpu"):
+        root = tmp_path / device
+        shutil.copytree(tmp_path / "root", root)
+        srv = TCServer.restore(root, device=device)
+        assert srv.pending == 4
+        assert all(r.status == "ok" for r in srv.drain())
+        got[device] = ({s: srv.stream_count(s) for s in sids}, srv.server_stats())
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][0] == {s: twin.stream_count(t) for s, t in zip(sids, tsids)}

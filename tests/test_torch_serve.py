@@ -274,8 +274,10 @@ def test_server_modes_match_reference(mixed_jobs, backend):
 
 
 def test_server_daemon_and_unported_options(mixed_jobs):
-    """serve_forever publishes every result to wait_result; the reference's
-    stream, durability and mesh options raise naming their ROADMAP item."""
+    """serve_forever publishes every result to wait_result; the stream and
+    durability entry points are ported (an unknown stream id raises
+    ValueError, as in the reference), and only the mesh and resilience
+    options raise naming their ROADMAP item."""
     jobs, want = mixed_jobs
     srv = pt_serve.TCServer(pt_serve.ServeConfig(device="cpu"))
     loop = threading.Thread(target=srv.serve_forever, kwargs={"poll_s": 0.001})
@@ -290,12 +292,12 @@ def test_server_daemon_and_unported_options(mixed_jobs):
     assert got == want
     with pytest.raises(TimeoutError):
         srv.wait_result(999, timeout=0.01)
-    for method in ("create_stream", "submit_delta", "close_stream", "stream_count", "checkpoint"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for method in ("submit_delta", "close_stream", "stream_count"):
+        with pytest.raises(ValueError, match="unknown stream id 0"):
             getattr(srv, method)(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_serve.TCServer.restore("x")
-    for kwargs in ({"mesh": object()}, {"resilience": object()}, {"wal_dir": "x"}):
+    with pytest.raises(ValueError, match="no checkpoint directory"):
+        srv.checkpoint()
+    for kwargs in ({"mesh": object()}, {"resilience": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pt_serve.TCServer(pt_serve.ServeConfig(device="cpu", **kwargs))
 
