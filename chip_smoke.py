@@ -143,6 +143,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               the CPU replay and drain to the counts of a never-killed
               server (and the oracle), the restored servers' ``server_stats``
               equal; a root written by ``checkpoint()`` restored too
+ 16. sharded  ``repro_torch.distributed`` on meshes of logical shards on
+              one card (4 x ``cuda:0``), over phase 4b's host build of
+              com-youtube at full size: ``distributed_tc_count`` under
+              ``replicated`` and ``sharded_cols`` on a 4-shard mesh and
+              ``sharded_2d`` on 2 x 2 under ``packed`` and ``lockstep``,
+              each equal to the oracle and the single-device count, with
+              launches equal to the schedule's (steps x non-empty shard
+              rows); ``count_plan_async`` under
+              ``torch.cuda.set_sync_debug_mode("error")``; every step's
+              per-shard partials of one sharded_2d count held to
+              ``gather_total_reference`` on the same blocks and indices;
+              ``resilient_tc_count`` on 2 x 2 losing a device at the middle
+              step (the grid ``tc_remesh_plan((2, 2), 3)``'s, at most
+              ``checkpoint_every`` steps replayed, exact), then
+              ``resume_tc_count`` of its root onto a fresh mesh; end to end
+              ``tcim_count(mesh=, placement="sharded_2d")`` on email-enron,
+              a ``TCServer`` with ``mesh`` and ``resilience`` serving
+              email-enron and com-dblp as resilient sharded solos, and a
+              ``mesh=`` stream of email-enron in 1 % batches, each equal to
+              ``verify()``. Logs wall ms a count per placement beside the
+              replicated ``Executor``'s warm count, the planning /
+              staging + dispatch / close split, steps, launches, index
+              bytes, peak memory. Logical shards on one card measure the
+              host's planning and staging and the launch count, not any
+              scaling across cards
 
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
@@ -231,6 +256,11 @@ STREAM_STALL_CYCLES = 1_000_000_000  # torch.cuda._sleep ahead of a checked befo
 SERVE_STREAMS = (("roadnet-pa", 0.95), ("email-enron", 0.99))  # (graph, share of edges seeded)
 SERVE_DELTAS = 20  # the held-out edges in 20 deltas, alternating between the streams
 SERVE_DRAINED = 12  # drained before the kill; the other 8 stay pending
+SHARD_DEVICE = "cuda:0"  # every logical shard of phase 16's meshes
+SHARD_CHECKPOINT_EVERY = 4
+SHARD_E2E_GRAPH = "email-enron"
+SHARD_SERVE_GRAPHS = ("email-enron", "com-dblp")
+SHARD_STREAM_FRACTION = 0.01
 
 
 def log(msg: str) -> None:
@@ -424,7 +454,8 @@ def phase_main() -> dict:
             log(f"[main] {name} slice_bits={bits}: {res.triangles} == oracle (device build)")
     cold = runs["cold"]
     return {"graph": g, "edges": edges, "launches": cold["launches"], "result": cold["result"],
-            "peak": cold["peak"], "warm": runs["warm"], "host_timings": cpu.timings_s}
+            "peak": cold["peak"], "warm": runs["warm"], "host_timings": cpu.timings_s,
+            "exact": exact}
 
 
 def _check_build_identical(db, g, sb, wl, label: str) -> None:
@@ -2520,6 +2551,274 @@ def phase_stream_serve() -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _replicated_launches(pairs: int, step_pairs: int, shards: int) -> int:
+    """Launches of a replicated mesh count: each step's pairs dealt across
+    the shards (``shard_worklist``), one launch per shard with real pairs."""
+    launches = 0
+    for start in range(0, pairs, step_pairs):
+        p = min(step_pairs, pairs - start)
+        per = -(-p // shards)
+        launches += sum(1 for s in range(shards) if p - s * per > 0)
+    return launches
+
+
+def _shard_partials(ex, plan) -> int:
+    """Every step's per-shard partial of ``ex`` over ``plan``: the kernel
+    (``gather_total_cuda``) against ``gather_total_reference`` on the same
+    block and indices, exact; returns their sum."""
+    from repro_torch.kernels.tc_gather_popcount import gather_total_cuda, gather_total_reference
+
+    sched = ex.stripe_schedule(plan)
+    total = 0
+    for step, (_, rows, cols) in zip(sched.steps, sched.emit_compact(plan.stripes)):
+        for s, n in enumerate(step.lens):
+            if not n:
+                continue
+            row, col = ex.shard_stores(s)
+            ridx = torch.from_numpy(rows[s]).to(row.device)
+            cidx = torch.from_numpy(cols[s]).to(row.device)
+            got = gather_total_cuda(row, col, ridx, cidx, torch.zeros(2, dtype=torch.int32,
+                                                                      device=row.device))
+            want = gather_total_reference(row, col, ridx, cidx)
+            check(torch.equal(got, want) and int(got[1]) == 0,
+                  f"shard {s} partial {got.tolist()} != plain {want.tolist()}")
+            total += int(got[0])
+    return total
+
+
+def phase_sharded(main: dict) -> dict:
+    """Sharded and resilient counts on meshes of logical shards on the card
+    (see the module docstring, phase 16). Returns the launches of each
+    placement's count for the kernels line."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import GRAPHS
+    from repro_torch.core import (
+        DeviceTopology,
+        Executor,
+        StreamingTCState,
+        build_sbf,
+        build_worklist,
+        plan_execution,
+        tcim_count,
+    )
+    from repro_torch.core.plan import clamp_chunk_pairs
+    from repro_torch.distributed import (
+        ResilienceConfig,
+        clear_sharded_executor_cache,
+        distributed_tc_count,
+        make_mesh,
+        pooled_sharded_2d_executor,
+        pooled_sharded_executor,
+        resilient_tc_count,
+        resume_tc_count,
+    )
+    from repro_torch.distributed.tc import step_launches
+    from repro_torch.graphs import build_graph, triangles_intersection
+    from repro_torch.kernels.ops import INT32_SAFE_WORDS
+    from repro_torch.kernels.tc_gather_popcount import gather_total_cuda
+    from repro_torch.launch.tc_serve import ServeConfig, TCServer
+    from repro_torch.runtime import FailureInjector, tc_remesh_plan
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    sb, wl, single = main["sbf"], main["worklist"], main["result"].triangles
+    exact = main["exact"]
+    check(single == exact, f"single-device count {single} != oracle {exact}")
+    chunk = clamp_chunk_pairs(1 << 20, sb.words_per_slice)
+    shards = [torch.device(SHARD_DEVICE)] * 4
+    mesh4 = make_mesh((4,), ("d",), devices=shards)
+    mesh22 = make_mesh((2, 2), ("rows", "cols"), devices=shards)
+    log(f"[sharded] {MAIN_GRAPH}: {wl.num_pairs} pairs, W={sb.words_per_slice}, step budget "
+        f"{chunk} pairs; meshes of logical shards on {SHARD_DEVICE}: {mesh4}, {mesh22}; {smi}")
+
+    ex = Executor(sb)
+    ex.count(wl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(ex.count(wl) == exact, "replicated Executor count")
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    del ex
+    log(f"[sharded] replicated Executor, warm count of the same host work list: {warm_ms:.3f} ms "
+        f"wall (staging, launches and readback)")
+
+    cases = (("replicated", mesh4, "packed"), ("sharded_cols", mesh4, "packed"),
+             ("sharded_2d", mesh22, "packed"), ("sharded_2d", mesh22, "lockstep"))
+    launches_by_case, plans = {}, {}
+    for placement, mesh, schedule in cases:
+        label = f"{placement}/{schedule}"
+        clear_sharded_executor_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gather_total_cuda.launches = 0
+        t0 = time.perf_counter()
+        got = distributed_tc_count(sb, wl, mesh, placement=placement, max_step_pairs=chunk,
+                                   schedule=schedule)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        launches = gather_total_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        check(got == exact == single, f"{label}: {got} != oracle {exact} / single {single}")
+        if placement == "replicated":
+            step_pairs = min(INT32_SAFE_WORDS // sb.words_per_slice, chunk)
+            want = _replicated_launches(wl.num_pairs, step_pairs, mesh.size)
+            check(launches == want, f"{label}: {launches} launches for {want}")
+            launches_by_case[label] = launches
+            log(f"[sharded] {label} on {mesh.shape}: {got} == oracle == single-device; "
+                f"{wall_ms:.3f} ms wall a count (stores placed, pairs dealt, launched, read "
+                f"back); {math.ceil(wl.num_pairs / step_pairs)} steps, {launches} launches "
+                f"== the dealt rows'; max_memory_allocated {peak} B; {smi}")
+            continue
+        # The pooled executor the entry point built, and its plan again.
+        t0 = time.perf_counter()
+        if placement == "sharded_cols":
+            ex = pooled_sharded_executor(sb, mesh, chunk_pairs=chunk, schedule=schedule)
+            plan = ex._plan(wl)
+        else:
+            plan = plan_execution(sb, wl, DeviceTopology(num_devices=4, platform="cuda"),
+                                  placement="sharded_2d", grid=(2, 2), chunk_pairs=chunk)
+            ex = pooled_sharded_2d_executor(sb, mesh, plan, chunk_pairs=chunk, schedule=schedule)
+        plan_s = time.perf_counter() - t0
+        sched = ex.stripe_schedule(plan)
+        check(launches == step_launches(sched),
+              f"{label}: {launches} launches for the schedule's {step_launches(sched)}")
+        # The split, under the no-host-sync check: any sync raises.
+        ex.launches = ex.index_upload_bytes = 0
+        torch.cuda.synchronize()
+        gather_total_cuda.launches = 0
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fut = ex.count_plan_async(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        dispatch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = fut.result()
+        close_s = time.perf_counter() - t0
+        check(again == exact and gather_total_cuda.launches == ex.launches == step_launches(sched),
+              f"{label}: split count {again}, launches {gather_total_cuda.launches} / "
+              f"{ex.launches} / {step_launches(sched)}")
+        launches_by_case[label] = launches
+        plans[label] = (ex, plan)
+        log(f"[sharded] {label} on {mesh.shape} ({plan.split} split, imbalance "
+            f"{plan.imbalance:.4f}): {got} == oracle == single-device; {wall_ms:.3f} ms wall a "
+            f"count through distributed_tc_count (vs the replicated Executor's {warm_ms:.3f}); "
+            f"{sched.num_steps} steps, {launches} launches == steps x non-empty shard rows; "
+            f"max_memory_allocated {peak} B; {smi}")
+        log(f"[sharded] {label} split: planning {1e3 * plan_s:.3f} ms (plan_execution and the "
+            f"pooled executor), staging + dispatch {1e3 * dispatch_s:.3f} ms "
+            f"(count_plan_async, no host sync under set_sync_debug_mode('error')), close "
+            f"{1e3 * close_s:.3f} ms (result()); index bytes uploaded {ex.index_upload_bytes} "
+            f"(staged lanes {sched.staged_lanes} of {sched.total_lanes}); store blocks placed "
+            f"{ex.store_upload_bytes} B")
+
+    ex, plan = plans["sharded_2d/packed"]
+    partial_sum = _shard_partials(ex, plan)
+    check(partial_sum == exact, f"per-shard partials sum {partial_sum} != {exact}")
+    log(f"[sharded] sharded_2d/packed: every step's per-shard partial (kernel) == "
+        f"gather_total_reference on the same block and indices; their sum {partial_sum} == oracle")
+    steps = ex.stripe_schedule(plan).num_steps
+    clear_sharded_executor_cache()
+    plans.clear()
+    del ex, plan
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_resilient_"))
+    try:
+        fail_at = steps // 2
+        want_grid = list(tc_remesh_plan((2, 2), 3).new_shape)
+        cfg = ResilienceConfig(checkpoint_dir=work / "count", checkpoint_every=SHARD_CHECKPOINT_EVERY,
+                               injector=FailureInjector(fail_at_steps=(fail_at,)), lose_devices=1)
+        gather_total_cuda.launches = 0
+        t0 = time.perf_counter()
+        total, info = resilient_tc_count(sb, wl, mesh22, cfg, chunk_pairs=chunk)
+        res_s = time.perf_counter() - t0
+        check(total == exact and info["grid"] == want_grid and info["failures"] == 1
+              and info["steps_replayed"] <= SHARD_CHECKPOINT_EVERY
+              and gather_total_cuda.launches > 0,
+              f"resilient count {total}, info {info}, launches {gather_total_cuda.launches}")
+        log(f"[sharded] resilient_tc_count on 2 x 2, failure injected at step {fail_at} of "
+            f"{steps}, one device lost: {total} == oracle in {res_s:.3f} s; grid {info['grid']} "
+            f"== tc_remesh_plan((2, 2), 3); {info['steps_replayed']} step(s) replayed (<= "
+            f"{SHARD_CHECKPOINT_EVERY}); {info['checkpoints']} commits; recovery "
+            f"{info['recovery_s']:.3f} s; {gather_total_cuda.launches} launches; remeshes "
+            f"{json.dumps(info['remeshes'])}")
+        fresh = make_mesh((2, 2), ("rows", "cols"), devices=shards)
+        t0 = time.perf_counter()
+        total, rinfo = resume_tc_count(work / "count", fresh)
+        check(total == exact, f"resume_tc_count {total} != {exact}")
+        log(f"[sharded] resume_tc_count of that root onto a fresh 2 x 2 mesh: {total} == oracle "
+            f"in {time.perf_counter() - t0:.3f} s, {json.dumps(rinfo)}")
+
+        edges = _edges(GRAPHS[SHARD_E2E_GRAPH])
+        g = build_graph(edges, reorder=True)
+        want = triangles_intersection(g)
+        gather_total_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = tcim_count(edges, mesh=mesh22, placement="sharded_2d")
+        e2e_s = time.perf_counter() - t0
+        check(res.triangles == want and res.stats["placement"] == "sharded_2d"
+              and res.stats["build"] == "host" and gather_total_cuda.launches > 0,
+              f"{SHARD_E2E_GRAPH} tcim_count(mesh=): {res.triangles} != {want} or {res.stats}")
+        log(f"[sharded] tcim_count({SHARD_E2E_GRAPH}, mesh=2 x 2, placement='sharded_2d'): "
+            f"{res.triangles} == oracle in {e2e_s:.3f} s ({gather_total_cuda.launches} launches), "
+            f"timings_s {json.dumps(res.timings_s)}")
+
+        jobs, wants = [], []
+        for name in SHARD_SERVE_GRAPHS:
+            gs = build_graph(_edges(GRAPHS[name]), reorder=True)
+            sbs = build_sbf(gs, MAIN_SLICE_BITS)
+            jobs.append((sbs, build_worklist(gs, sbs)))
+            wants.append(triangles_intersection(gs))
+        srv = TCServer(ServeConfig(fuse=False, mesh=mesh22, shard_above_bytes=1,
+                                   resilience=ResilienceConfig(work / "serve")))
+        gather_total_cuda.launches = 0
+        t0 = time.perf_counter()
+        results = _by_id(srv.serve(jobs))
+        serve_s = time.perf_counter() - t0
+        check([r.count for r in results] == wants
+              and all(r.status == "ok" and r.placement == "sharded_2d" for r in results)
+              and srv.stats["resilient_solos"] == len(jobs) and gather_total_cuda.launches > 0,
+              f"sharded serve {[(r.status, r.count, r.placement) for r in results]} != {wants}, "
+              f"stats {dict(srv.stats)}")
+        log(f"[sharded] TCServer(mesh=2 x 2, resilience=...) served {', '.join(SHARD_SERVE_GRAPHS)} "
+            f"as resilient sharded_2d solos: {wants} == oracle in {serve_s:.3f} s "
+            f"({gather_total_cuda.launches} launches)")
+        del srv
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    g = _stream_graph(SHARD_E2E_GRAPH)
+    rng = np.random.default_rng(11)
+    order = rng.permutation(g.m)
+    b = max(int(g.m * SHARD_STREAM_FRACTION), 1)
+    hold, base = g.edges[order[:b]], g.edges[order[b:]]
+    t0 = time.perf_counter()
+    state = StreamingTCState(base, n=g.n, slice_bits=STREAM_SLICE_BITS, mesh=mesh22)
+    check(state.triangles == state.verify(), "sharded stream seed count")
+    seed_s = time.perf_counter() - t0
+    batch_ms, grew = [], []
+    gather_total_cuda.launches = 0
+    for kw in ({"added": hold}, {"removed": hold}, {"added": hold[: b // 2]},
+               {"removed": hold[: b // 4], "added": hold[b // 2:]}):
+        t0 = time.perf_counter()
+        res = state.apply_batch(**kw)
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+        grew.append(res.grew)
+        check(res.triangles == state.verify(), f"sharded stream batch {kw.keys()}")
+    check(gather_total_cuda.launches > 0, "the sharded stream launched no kernel")
+    log(f"[sharded] mesh= stream of {SHARD_E2E_GRAPH} ({b}-edge batches, "
+        f"{SHARD_STREAM_FRACTION:.0%}): seed {seed_s:.3f} s, batches {[f'{t:.3f}' for t in batch_ms]} "
+        f"ms (grew {grew}), each == verify(); {gather_total_cuda.launches} launches; "
+        f"final {state.triangles}")
+    del state
+    clear_sharded_executor_cache()
+    log(f"[sharded] phase 16 took {time.perf_counter() - t_phase:.3f} s; logical shards on one "
+        f"card measure the host's planning and staging and the launch count, not scaling "
+        f"across cards")
+    return launches_by_case
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -2556,6 +2855,7 @@ def main() -> int:
     stream = phase_stream()
     row["stream_launches_per_batch"] = stream["launches_per_batch"]
     phase_stream_serve()
+    row["sharded_launches"] = phase_sharded(main_run)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [row, *rows, *dense_rows, *flash_rows]}))

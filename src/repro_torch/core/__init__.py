@@ -7,7 +7,9 @@ Public API:
     build_sbf / build_worklist      sparsity-aware compression + scheduling
     device_build*                   the same front end as torch work on the
                                     device (orient -> SBF -> work list)
-    plan_execution / ExecutionPlan  placement (replicated) + work stripes
+    plan_execution / ExecutionPlan  placement (replicated, sharded_cols,
+                                    sharded_2d) + owner-grouped stripes,
+                                    stripe schedules, resume cursors
     Executor / ExecutorPool         device-resident fused execute stage
     plan_fusion / MultiGraphExecutor  cross-graph fused serving (one launch
                                     for a batch of small graphs)
@@ -47,14 +49,25 @@ from repro_torch.core.executor import (
 from repro_torch.core.plan import (
     PLACEMENTS,
     SCHEDULES,
+    SPLITS,
     DeviceTopology,
     ExecutionPlan,
     FusionPlan,
+    StripeSchedule,
+    StripeStep,
     WorkStripe,
+    balance_grid_bounds,
+    bottleneck_range_bounds,
+    build_stripe_schedule,
     clamp_chunk_pairs,
+    even_range_bounds,
     plan_execution,
     plan_fusion,
     pow2_ceil,
+    range_owners,
+    remaining_worklist,
+    replan_fixed,
+    weighted_range_bounds,
 )
 from repro_torch.core.sbf import (
     SBFUpdate,
@@ -100,14 +113,25 @@ __all__ = [
     "staged_uploads",
     "PLACEMENTS",
     "SCHEDULES",
+    "SPLITS",
     "DeviceTopology",
     "ExecutionPlan",
     "FusionPlan",
+    "StripeSchedule",
+    "StripeStep",
     "WorkStripe",
+    "balance_grid_bounds",
+    "bottleneck_range_bounds",
+    "build_stripe_schedule",
     "clamp_chunk_pairs",
+    "even_range_bounds",
     "plan_execution",
     "plan_fusion",
     "pow2_ceil",
+    "range_owners",
+    "remaining_worklist",
+    "replan_fixed",
+    "weighted_range_bounds",
     "SBFUpdate",
     "SlicedBitmap",
     "UpdateLanes",

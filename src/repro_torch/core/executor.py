@@ -100,11 +100,13 @@ LANE_BYTES = 24
 class CountFuture:
     """A dispatched count whose host readback is deferred.
 
-    Holds the int32 ``[total, out_of_range]`` device tensors of a count
-    whose kernels are all enqueued; ``result()`` performs the one host
-    transfer (a single stacked copy), sums the totals exactly in Python
-    ints and caches the value. It raises ``ValueError`` if any pair named a
-    store row past the end of its store (the kernel never reads those).
+    Holds the int32 ``[..., 2]`` device tensors of ``[total, out_of_range]``
+    rows of a count whose kernels are all enqueued (one row a chunk, or a
+    sharded count's ``[steps, 2]`` accumulator on each device of its mesh);
+    ``result()`` performs the host transfer — one copy per device — sums
+    every row's total exactly in Python ints and caches the value. It raises
+    ``ValueError`` if any pair named a store row past the end of its store
+    (the kernel never reads those).
     """
 
     __slots__ = ("_totals", "_value", "__weakref__")
@@ -122,11 +124,11 @@ class CountFuture:
 
     def result(self) -> int:
         if self._totals is not None:
-            if self._totals:
-                # The one host sync of a count: one stacked transfer.
-                host = torch.stack(self._totals).cpu().tolist()
-            else:
-                host = []
+            # The one host sync of a count: one transfer per device.
+            by_device: dict = {}
+            for t in self._totals:
+                by_device.setdefault(t.device, []).append(t.reshape(-1, 2))
+            host = [row for rows in by_device.values() for row in torch.cat(rows).cpu().tolist()]
             out_of_range = sum(bad for _, bad in host)
             if out_of_range:
                 raise ValueError(

@@ -1,9 +1,9 @@
 """Streaming incremental triangle counting — TCIM over an edge stream.
 
 Port of ``src/repro/core/streaming.py`` (``STREAM_BACKENDS``,
-``DeltaResult``, ``StreamingTCState`` and ``tcim_count_delta``) on one
-device. A :class:`StreamingTCState` holds the current oriented edge set, the
-host ``SlicedBitmap`` mirror, and a private device-resident executor whose
+``DeltaResult``, ``StreamingTCState`` and ``tcim_count_delta``). A
+:class:`StreamingTCState` holds the current oriented edge set, the host
+``SlicedBitmap`` mirror, and a private device-resident executor whose
 stores are edited in place batch after batch. Each ``apply_batch(added,
 removed)`` costs O(touched pairs), not O(all pairs):
 
@@ -43,8 +43,14 @@ never by degree, so a batch can never relabel the graph. Triangle counts
 are orientation-invariant, so parity against the (degree-reordered)
 one-shot ``tcim_count`` still holds.
 
-``mesh=`` (the reference's sharded stream over a ``Sharded2DExecutor``)
-raises ``NotImplementedError``: ROADMAP.md queue 1, item 4.
+With a 2-axis ``mesh`` the state runs a resident
+:class:`~repro_torch.distributed.tc.Sharded2DExecutor` instead: per batch,
+the delta work list is re-planned against the resident block bounds
+(``core.plan.replan_fixed``), the update lanes are remapped to
+``(owner block, local row)`` and edited in place into every copy of their
+block (``Sharded2DExecutor.update_stores``); growth and compaction rebuild
+the executor. Sharded streams plan host work lists, so ``build='device'``
+with a mesh raises ``ValueError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -79,8 +85,6 @@ _STREAM_MODE = {
 }
 
 _STREAM_BUILDS = ("auto", "host", "device")
-
-_TODO_MESH = "ROADMAP.md queue 1, item 4 (distributed)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,7 +168,10 @@ class StreamingTCState:
     ``ValueError`` (its int32 index space) falls back to the host work list,
     as in the reference; ``fallbacks`` counts those batches' work lists.
     Either way the counts run on ``device``, which defaults to the card.
-    ``index_upload_bytes`` counts what the delta work lists uploaded.
+    ``index_upload_bytes`` counts what the delta work lists uploaded. A
+    2-axis ``mesh`` (``repro_torch.distributed.Mesh``) streams against a
+    resident ``Sharded2DExecutor`` on the mesh's devices under ``schedule``
+    (host build only — the planner needs host arrays).
 
     The executor is the stream's own, never a pool's: its stores are
     edited in place, and a pooled executor may serve another graph of equal
@@ -202,7 +209,7 @@ class StreamingTCState:
         build: str = "auto",
         device: str | torch.device | None = None,
     ):
-        self._configure(backend, build, chunk_pairs, mesh, device)
+        self._configure(backend, build, chunk_pairs, mesh, schedule, device)
         e = _as_edge_array(edges)
         if n is None:
             n = int(e.max()) + 1 if len(e) else 0
@@ -221,22 +228,31 @@ class StreamingTCState:
         self.triangles = int(self.executor.count(sbf_mod.build_worklist(g, self._sbf)))
         self.batches = 0
 
-    def _configure(self, backend, build, chunk_pairs, mesh, device) -> None:
+    def _configure(self, backend, build, chunk_pairs, mesh, schedule, device) -> None:
         """Validate and store the options ``__init__`` and ``from_snapshot``
-        share (``schedule`` matters only to the sharded streams of ``mesh=``,
-        so it is accepted and unused)."""
+        share (``schedule`` matters only to the sharded streams of
+        ``mesh=``)."""
         if backend not in _STREAM_MODE:
             raise ValueError(f"backend {backend!r} not in {STREAM_BACKENDS}")
         if build not in _STREAM_BUILDS:
             raise ValueError(f"build {build!r} not in {_STREAM_BUILDS}")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh= streaming is not ported yet: {_TODO_MESH}")
+        if mesh is not None and build == "device":
+            raise ValueError(
+                "build='device' is single-device only — the sharded path "
+                "plans delta worklists on the host"
+            )
         self.backend = backend
         self._build = build
         self._chunk_pairs = chunk_pairs
+        self._mesh = mesh
+        self._schedule = schedule
+        if mesh is not None:
+            from repro_torch.distributed.mesh import mesh_device  # distributed imports core
+
+            device = mesh_device(mesh, device)
         self.device = resolve_device(device)
         self._use_device_build = build == "device" or (
-            build == "auto" and self.device.type == "cuda"
+            build == "auto" and mesh is None and self.device.type == "cuda"
         )
         self.fallbacks = 0
         self.index_upload_bytes = 0
@@ -248,7 +264,13 @@ class StreamingTCState:
             return keys.copy()
         return (keys % self.n) * np.int64(self.n) + keys // self.n
 
-    def _make_executor(self, sb: sbf_mod.SlicedBitmap) -> Executor:
+    def _make_executor(self, sb: sbf_mod.SlicedBitmap):
+        if self._mesh is not None:
+            from repro_torch.distributed.tc import Sharded2DExecutor  # distributed imports core
+
+            return Sharded2DExecutor(
+                sb, self._mesh, chunk_pairs=self._chunk_pairs, schedule=self._schedule,
+            )
         return Executor(
             sb, mode=_STREAM_MODE[self.backend], chunk_pairs=self._chunk_pairs,
             device=self.device,
@@ -373,7 +395,10 @@ class StreamingTCState:
         self._sbf = sbf_mod.build_sbf(g, self.slice_bits)
         after = int(len(self._sbf.row_slice_idx)) + int(len(self._sbf.col_slice_idx))
         if self.executor is not None:
-            self.executor.adopt_stores(self._sbf)
+            if self._mesh is not None:
+                self.executor = self._make_executor(self._sbf)
+            else:
+                self.executor.adopt_stores(self._sbf)
         return {"records_before": before, "records_after": after}
 
     # ---------------------------------------------------------- durability
@@ -423,7 +448,7 @@ class StreamingTCState:
         """Rebuild a stream from ``snapshot_tree()`` output — no recount."""
         self = cls.__new__(cls)
         backend = backend or extra.get("backend", "pallas_total")
-        self._configure(backend, build, chunk_pairs, mesh, device)
+        self._configure(backend, build, chunk_pairs, mesh, schedule, device)
         self.n = int(extra["n"])
         self.slice_bits = int(extra["slice_bits"])
         self._keys = np.asarray(tree["keys"], dtype=np.int64)
@@ -486,12 +511,18 @@ class StreamingTCState:
 
         # Update the host mirror and edit/adopt the resident stores. The
         # in-place edit is ordered after the before-count on the stream;
-        # growth re-adopts the stores (and rebuilds the launcher).
+        # growth re-adopts the stores (and rebuilds the launcher), or on a
+        # mesh rebuilds the sharded executor.
         t0 = time.perf_counter()
         upd = sbf_mod.update_sbf(self._sbf, a, r)
         timings["update"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        if upd.grew:
+        if self._mesh is not None:
+            if upd.grew:
+                self.executor = self._make_executor(upd.sbf)
+            else:
+                self.executor.update_stores(upd.sbf, upd.row_lanes, upd.col_lanes)
+        elif upd.grew:
             self.executor.adopt_stores(upd.sbf)
         else:
             self.executor.update_stores(upd.row_lanes, upd.col_lanes)

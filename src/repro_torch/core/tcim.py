@@ -4,7 +4,8 @@
 
 Port of ``src/repro/core/tcim.py``: ``tcim_count``, ``tcim_count_graph``,
 ``TCResult``, ``TCFuture`` and ``BACKENDS``, with the host and the device
-build front ends and the ``replicated`` placement on one device; it
+build front ends, every placement (one device, or a ``mesh=`` of
+``distributed.mesh.Mesh``) and the resilient path (``resilience=``); it
 re-exports the streaming API (``StreamingTCState``, ``tcim_count_delta``,
 ``DeltaResult``) as the reference does.
 
@@ -12,18 +13,26 @@ Pipeline stages:
     orient      edges -> upper-triangular CSR (optional degree relabelling)
     compress    SBF: valid slices only (paper §IV-B)
     schedule    work list of valid slice pairs
-    plan        core.plan.plan_execution — the replicated single stripe
-    execute     core.executor.Executor (pooled, staged uploads), the CUDA
-                gather–AND–popcount kernel on the card
+    plan        core.plan.plan_execution — placement (replicated /
+                sharded_cols / sharded_2d), range splits, owner-grouped
+                stripes, pow2 chunk buckets
+    execute     core.executor.Executor (replicated on one device; pooled,
+                staged uploads), or distributed.tc over a mesh
+                (ShardedColsExecutor, Sharded2DExecutor, or the replicated
+                stores with the work list dealt across the shards); the
+                CUDA gather–AND–popcount kernel on the card
     reduce      a single exact host readback (``CountFuture.result``)
 
 ``build`` picks where the first three stages run: ``'host'`` (NumPy) or
 ``'device'`` (``core.build``: torch work on the device, bit-identical, one
 upload of the edge list; the stores and ``-1``-padded index arrays feed
 the executor without a host bounce). ``'auto'`` takes the device when the
-count runs on a CUDA device, the host otherwise, and falls back to the host
-only when the device build refuses the graph with ``ValueError`` (the
-int32 index space). Per-stage wall-clock lands in ``TCResult.timings_s``
+count runs on a CUDA device without a mesh, the host otherwise, and falls
+back to the host only when the device build refuses the graph with
+``ValueError`` (the int32 index space). A device build that feeds a mesh
+or the resilient path is materialized to the host first (the planner
+routes host arrays; ``timings_s['materialize']``). Per-stage wall-clock
+lands in ``TCResult.timings_s``
 (``orient``/``compress``/``schedule``/``plan``/``execute``, plus ``close``
 for async counts); on the device the first two are enqueue times, and the
 schedule stage's sizing readbacks wait for their work.
@@ -34,9 +43,9 @@ adjacency, ``'mxu'`` the masked int8 A @ A tensor-core kernel over its
 dense form. Both close eagerly (``timings_s`` has ``orient``/``execute``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
-without a card, the default raises ``RuntimeError``. Options that belong to
-later slices raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
+without a card, the default raises ``RuntimeError``. With a ``mesh`` the
+count runs on the mesh's devices (``device`` may be omitted; if given, it
+must be of the mesh's kind).
 """
 from __future__ import annotations
 
@@ -50,7 +59,7 @@ from repro_torch.core import build as build_mod
 from repro_torch.core import sbf as sbf_mod
 from repro_torch.core.bitmat import words_for_bits
 from repro_torch.core.executor import CountFuture, ExecutorPool
-from repro_torch.core.plan import SCHEDULES, DeviceTopology, plan_execution, resolve_placement
+from repro_torch.core.plan import PLACEMENTS, SCHEDULES, DeviceTopology, plan_execution
 from repro_torch.core.streaming import (  # noqa: F401  (re-exported: streaming API)
     DeltaResult,
     StreamingTCState,
@@ -103,8 +112,6 @@ _EXECUTOR_MODE = {
 
 _DENSE_BACKENDS = ("bitgemm", "mxu")
 
-_TODO_MESH = "ROADMAP.md queue 1, item 4 (distributed)"
-
 
 @dataclasses.dataclass
 class TCResult:
@@ -142,33 +149,47 @@ class TCFuture:
         return self._result
 
 
-def _validate(backend: str, schedule: str, build: str, mesh, resilience) -> None:
-    """Reject what is invalid (ValueError) or not ported (NotImplementedError)."""
+def _validate(backend: str, schedule: str, build: str, placement: str) -> None:
+    """Reject an invalid request (ValueError) before any work."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule {schedule!r} not in {SCHEDULES}")
     if build not in BUILDS:
         raise ValueError(f"build {build!r} not in {BUILDS}")
-    if mesh is not None or resilience is not None:
-        raise NotImplementedError(
-            f"mesh= and resilience= are not ported yet: {_TODO_MESH}"
-        )
+    if placement not in PLACEMENTS:
+        raise ValueError(f"placement {placement!r} not in {PLACEMENTS}")
+
+
+def _count_device(device, mesh) -> torch.device:
+    """The device a count runs on: ``device`` (the card by default), or
+    with a mesh its devices' kind, which ``device`` must then match."""
+    if mesh is None:
+        return resolve_device(device)
+    from repro_torch.distributed.mesh import mesh_device  # deferred: distributed imports core
+
+    return resolve_device(mesh_device(mesh, device))
 
 
 def _resolve_build(build: str, backend: str, m: int, device: torch.device) -> str:
-    """Pick the build front end (see ``BUILDS``).
+    """Pick the build front end (see ``BUILDS``) of a count without a mesh.
 
     Dense backends and empty graphs have nothing to build on the device;
     they always take the host path whatever the request. ``'auto'`` is the
-    device on a CUDA device (no mesh reaches here: ``_validate`` refuses
-    one), the host otherwise.
+    device on a CUDA device, the host otherwise. With a mesh, ``'auto'`` is
+    the host (``_wants_device_build``): the mesh paths plan host arrays.
     """
     if backend in _DENSE_BACKENDS or m == 0:
         return "host"
     if build == "auto":
         return "device" if device.type == "cuda" else "host"
     return build
+
+
+def _wants_device_build(build: str, backend: str, m: int, device: torch.device, mesh) -> bool:
+    if mesh is not None and build == "auto":
+        return False
+    return _resolve_build(build, backend, m, device) == "device"
 
 
 def _try_device_build(make_build, build: str):
@@ -276,80 +297,180 @@ def _close(fut: CountFuture, backend: str, stats: dict, timings: dict, dispatch_
     return TCResult(triangles, backend, stats, timings)
 
 
-def _count_graph(
-    g: Graph,
+def _stats(g, sb, wl, collect_stats: bool, placement: str, build: str,
+           device: torch.device) -> dict:
+    stats = sbf_mod.sbf_stats(g, sb, wl) if collect_stats else {"n": g.n, "m": g.m}
+    stats["placement"] = placement
+    stats["build"] = build
+    stats["device"] = str(device)
+    return stats
+
+
+def _execute_worklist_async(
+    sb: sbf_mod.SlicedBitmap,
+    wl: sbf_mod.Worklist,
     *,
-    slice_bits: int,
     backend: str,
     chunk_pairs: int,
-    collect_stats: bool,
     placement: str,
+    mesh,
     pool: ExecutorPool | None,
+    schedule: str,
     device: torch.device,
-    async_: bool,
-    timings: dict,
-) -> TCResult | TCFuture:
-    """compress -> schedule (host) -> plan -> execute on a validated request."""
-    t0 = time.perf_counter()
-    sb = sbf_mod.build_sbf(g, slice_bits)
-    timings["compress"] = time.perf_counter() - t0
+) -> tuple[CountFuture, str, float]:
+    """Plan and dispatch the execute stage; defer the host readback.
 
-    t0 = time.perf_counter()
-    wl = sbf_mod.build_worklist(g, sb)
-    timings["schedule"] = time.perf_counter() - t0
-
-    # One device, no mesh: "auto" resolves to replicated.
+    Resolves ``placement`` against the device topology (the mesh's, when
+    given), then dispatches on a pooled replicated Executor, the
+    column-sharded path, the 2-D owner-grid path, or the replicated stores
+    with the work list dealt across a mesh of more than one device — every
+    branch returns with its steps launched and the close deferred to the
+    future. Returns (future, resolved placement, planning seconds).
+    """
+    grid = None
+    if mesh is not None:
+        topo = DeviceTopology(num_devices=mesh.size, platform=mesh.platform)
+        if mesh.devices.ndim == 2:
+            grid = tuple(int(x) for x in mesh.devices.shape)
+    else:
+        # Without a mesh there is nothing to shard over, so "auto" resolves
+        # to replicated — only an *explicit* sharded request errors below.
+        topo = DeviceTopology(num_devices=1, platform=device.type)
+    if placement == "sharded_2d" and grid is None:
+        raise ValueError(
+            "placement 'sharded_2d' needs a 2-axis mesh= "
+            "(e.g. make_mesh((2, 2), ('r', 'c'))) to place the "
+            "(row_shard, col_shard) owner grid on"
+        )
     t0 = time.perf_counter()
     plan = plan_execution(
-        sb, wl, DeviceTopology(num_devices=1, platform=device.type),
-        placement=placement, chunk_pairs=chunk_pairs,
+        sb, wl, topo, placement=placement, chunk_pairs=chunk_pairs, grid=grid
     )
-    timings["plan"] = time.perf_counter() - t0
+    plan_s = time.perf_counter() - t0
+    if plan.placement == "sharded_2d":
+        # Imported here: core stays importable without the distributed layer.
+        from repro_torch.distributed.tc import pooled_sharded_2d_executor
 
-    t0 = time.perf_counter()
+        ex = pooled_sharded_2d_executor(
+            sb, mesh, plan, chunk_pairs=chunk_pairs, schedule=schedule
+        )
+        # count(wl, plan) falls back to the pooled executor's resident
+        # bounds when the fresh plan's ranges differ — no store re-upload.
+        return ex.count_async(wl, plan), plan.placement, plan_s
+    if plan.placement == "sharded_cols":
+        if mesh is None:
+            raise ValueError(
+                "placement 'sharded_cols' needs a mesh= "
+                "(repro_torch.distributed.Mesh) to shard the column store over"
+            )
+        from repro_torch.distributed.tc import pooled_sharded_executor
+
+        ex = pooled_sharded_executor(
+            sb, mesh, chunk_pairs=chunk_pairs, schedule=schedule
+        )
+        return ex.count_plan_async(plan), plan.placement, plan_s
+    if mesh is not None and topo.num_devices > 1:
+        # Replicated over a mesh: stores on every device, work-list stripes
+        # dealt across it, the fused kernel on each shard, so `backend` does
+        # not apply here.
+        from repro_torch.distributed.tc import distributed_tc_count_async
+
+        fut = distributed_tc_count_async(sb, wl, mesh, max_step_pairs=plan.chunk_pairs)
+        return fut, plan.placement, plan_s
     # NOT `pool or ...`: an empty ExecutorPool is falsy (it has __len__).
     ex = (pool if pool is not None else _DEFAULT_POOL).get(
         sb, mode=_EXECUTOR_MODE[backend], chunk_pairs=chunk_pairs, device=device
     )
     (stripe,) = plan.stripes
-    fut = ex.execute_indices_async(stripe.row_pos, stripe.col_pos)
-    dispatch_s = time.perf_counter() - t0
-    stats = sbf_mod.sbf_stats(g, sb, wl) if collect_stats else {"n": g.n, "m": g.m}
-    stats["placement"] = plan.placement
-    stats["build"] = "host"
-    stats["device"] = str(device)
-    return _close(fut, backend, stats, timings, dispatch_s, async_)
+    return ex.execute_indices_async(stripe.row_pos, stripe.col_pos), plan.placement, plan_s
 
 
-def _finish_device(
-    db: build_mod.DeviceBuild,
+def _finish_host(
+    g,
+    sb: sbf_mod.SlicedBitmap,
+    wl: sbf_mod.Worklist,
     *,
     backend: str,
     chunk_pairs: int,
     collect_stats: bool,
     placement: str,
+    mesh,
     pool: ExecutorPool | None,
+    schedule: str,
     device: torch.device,
     async_: bool,
+    resilience,
+    timings: dict,
+    build_label: str,
 ) -> TCResult | TCFuture:
-    """Execute a device build, fully resident: the replicated placement is
-    one stripe with nothing to owner-group, so the plan stage is trivial,
-    and skipping the planner keeps the work list on the device."""
-    timings = dict(db.timings_s)
-    resolve_placement(placement, db.sbf, DeviceTopology(num_devices=1, platform=device.type))
-    timings["plan"] = 0.0
+    """Plan + execute a host-array (sbf, worklist) pair; close per async_."""
+    if resilience is not None:
+        # Checkpointed, elastic execution (distributed.resilient): commits
+        # are synchronous readbacks, so the count closes eagerly and
+        # async_=True hands back an already-resolved future.
+        if mesh is None or mesh.devices.ndim != 2:
+            raise ValueError(
+                "resilience= runs the sharded_2d placement and needs a "
+                "2-axis mesh= (e.g. make_mesh((2, 2), ('r', 'c')))"
+            )
+        if placement not in ("auto", "sharded_2d"):
+            raise ValueError(
+                f"resilience= implies placement 'sharded_2d', got "
+                f"{placement!r}"
+            )
+        from repro_torch.distributed.resilient import resilient_tc_count
+
+        t0 = time.perf_counter()
+        triangles, rinfo = resilient_tc_count(
+            sb, wl, mesh, resilience, chunk_pairs=chunk_pairs, schedule=schedule,
+        )
+        timings["execute"] = time.perf_counter() - t0
+        if "step_ewma_s" in rinfo:
+            timings["step_ewma_s"] = rinfo["step_ewma_s"]
+        stats = _stats(g, sb, wl, collect_stats, "sharded_2d", build_label, device)
+        stats["recovery"] = rinfo
+        res = TCResult(triangles, backend, stats, timings)
+        if async_:
+            fut = TCFuture(CountFuture([]), backend, stats, timings)
+            fut._result = res
+            return fut
+        return res
     t0 = time.perf_counter()
-    ex = (pool if pool is not None else _DEFAULT_POOL).get(
-        db.sbf, mode=_EXECUTOR_MODE[backend], chunk_pairs=chunk_pairs, device=device
+    fut, resolved, plan_s = _execute_worklist_async(
+        sb, wl, backend=backend, chunk_pairs=chunk_pairs, placement=placement, mesh=mesh,
+        pool=pool, schedule=schedule, device=device,
     )
-    fut = ex.count_async(db.worklist)
-    dispatch_s = time.perf_counter() - t0
-    g = db.graph
-    stats = sbf_mod.sbf_stats(g, db.sbf, db.worklist) if collect_stats else {"n": g.n, "m": g.m}
-    stats["placement"] = "replicated"
-    stats["build"] = "device"
-    stats["device"] = str(device)
+    dispatch_s = time.perf_counter() - t0 - plan_s
+    timings["plan"] = plan_s
+    stats = _stats(g, sb, wl, collect_stats, resolved, build_label, device)
     return _close(fut, backend, stats, timings, dispatch_s, async_)
+
+
+def _finish_device(db: build_mod.DeviceBuild, *, timings: dict, **finish) -> TCResult | TCFuture:
+    """Execute a device build: fully resident when replicated on one
+    device, else materialized to the host for the mesh and resilient paths
+    (the planner owner-groups host arrays)."""
+    timings.update(db.timings_s)
+    if (finish["resilience"] is None and finish["mesh"] is None
+            and finish["placement"] in ("auto", "replicated")):
+        # One stripe with nothing to owner-group: the plan stage is trivial,
+        # and skipping the planner keeps the work list on the device.
+        timings["plan"] = 0.0
+        t0 = time.perf_counter()
+        pool, device = finish["pool"], finish["device"]
+        ex = (pool if pool is not None else _DEFAULT_POOL).get(
+            db.sbf, mode=_EXECUTOR_MODE[finish["backend"]], chunk_pairs=finish["chunk_pairs"],
+            device=device,
+        )
+        fut = ex.count_async(db.worklist)
+        dispatch_s = time.perf_counter() - t0
+        stats = _stats(db.graph, db.sbf, db.worklist, finish["collect_stats"], "replicated",
+                       "device", device)
+        return _close(fut, finish["backend"], stats, timings, dispatch_s, finish["async_"])
+    t0 = time.perf_counter()
+    sb, wl = db.to_host()
+    timings["materialize"] = time.perf_counter() - t0
+    return _finish_host(db.graph, sb, wl, timings=timings, build_label="device", **finish)
 
 
 def tcim_count_graph(
@@ -380,28 +501,61 @@ def tcim_count_graph(
     ``build`` picks the front end (module docstring; ``stats['build']``
     says which ran): ``'device'`` uploads ``g.edges`` once and builds the
     SBF and work list on the device (``core.build.device_build_graph``),
-    ``'auto'`` does so on a CUDA device; dense backends accept
-    ``'device'`` and build on the host, as in the reference. ``placement``
-    ``'auto'`` and
-    ``'replicated'`` run one device; ``schedule`` is validated and only
-    matters to the sharded placements. ``pool`` overrides the module-level
-    ExecutorPool. ``async_=True`` returns a ``TCFuture`` with every kernel
-    enqueued and the host readback deferred to ``result()``. ``device``
-    defaults to the card.
+    ``'auto'`` does so on a CUDA device without a mesh; dense backends
+    accept ``'device'`` and build on the host, as in the reference.
+
+    ``placement`` routes the execute stage through ``core.plan``:
+    ``'replicated'`` (pooled Executor on one device; over a ``mesh`` of more
+    than one device, the stores on each device and the work list dealt
+    across the shards), ``'sharded_cols'`` (column store split over
+    ``mesh``; requires ``mesh``), ``'sharded_2d'`` (BOTH stores split over a
+    2-axis ``mesh`` with pair-count-weighted ranges), or ``'auto'`` (the
+    planner decides from store size and topology; one device stays
+    replicated, 2-axis meshes prefer 2-D). ``mesh`` is a
+    ``repro_torch.distributed.Mesh`` (``make_mesh``). Every mesh path runs
+    the fused kernel on each shard, so ``backend`` selects the Executor mode
+    only for the single-device path (dense backends ignore ``mesh`` and run
+    on its first device); ``chunk_pairs`` bounds per-step work everywhere.
+    ``schedule`` picks the sharded paths' stripe policy (``'packed'``
+    default, ``'lockstep'`` baseline); counts are equal under both.
+
+    ``resilience`` (a ``repro_torch.distributed.ResilienceConfig``) routes
+    the execute stage through ``distributed.resilient.resilient_tc_count``:
+    a cursor committed every ``checkpoint_every`` steps and a remesh onto
+    the surviving devices on failure. It needs a 2-axis ``mesh`` (the
+    sharded_2d placement); ``stats['recovery']`` reports attempts, failures
+    and replays. ``pool`` overrides the module-level ExecutorPool
+    (``repro_torch.distributed.clear_sharded_executor_cache`` is the sharded
+    analogue). ``async_=True`` returns a ``TCFuture`` with every kernel
+    launched and the host readback deferred to ``result()`` (the resilient
+    path closes eagerly). ``device`` defaults to the card.
     """
-    _validate(backend, schedule, build, mesh, resilience)
-    dev = resolve_device(device)
+    _validate(backend, schedule, build, placement)
+    dev = _count_device(device, mesh)
     if backend in _DENSE_BACKENDS:
         return _count_dense(g, backend=backend, device=dev, async_=async_, timings={})
     finish = dict(backend=backend, chunk_pairs=chunk_pairs, collect_stats=collect_stats,
-                  placement=placement, pool=pool, device=dev, async_=async_)
-    if _resolve_build(build, backend, g.m, dev) == "device":
+                  placement=placement, mesh=mesh, pool=pool, schedule=schedule, device=dev,
+                  async_=async_, resilience=resilience)
+    if _wants_device_build(build, backend, g.m, dev, mesh):
         db = _try_device_build(
             lambda: build_mod.device_build_graph(g, slice_bits, device=dev), build
         )
         if db is not None:
-            return _finish_device(db, **finish)
-    return _count_graph(g, slice_bits=slice_bits, timings={}, **finish)
+            return _finish_device(db, timings={}, **finish)
+    return _count_graph(g, slice_bits=slice_bits, timings={}, finish=finish)
+
+
+def _count_graph(g: Graph, *, slice_bits: int, timings: dict, finish: dict
+                 ) -> TCResult | TCFuture:
+    """compress -> schedule (host) -> plan -> execute on a validated request."""
+    t0 = time.perf_counter()
+    sb = sbf_mod.build_sbf(g, slice_bits)
+    timings["compress"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wl = sbf_mod.build_worklist(g, sb)
+    timings["schedule"] = time.perf_counter() - t0
+    return _finish_host(g, sb, wl, timings=timings, build_label="host", **finish)
 
 
 def tcim_count(
@@ -432,11 +586,12 @@ def tcim_count(
     (``core.build.device_build``) and the executor adopts their arrays
     where they lie.
     """
-    _validate(backend, schedule, build, mesh, resilience)
-    dev = resolve_device(device)
+    _validate(backend, schedule, build, placement)
+    dev = _count_device(device, mesh)
     finish = dict(backend=backend, chunk_pairs=chunk_pairs, collect_stats=collect_stats,
-                  placement=placement, pool=pool, device=dev, async_=async_)
-    if _resolve_build(build, backend, len(edges), dev) == "device":
+                  placement=placement, mesh=mesh, pool=pool, schedule=schedule, device=dev,
+                  async_=async_, resilience=resilience)
+    if _wants_device_build(build, backend, len(edges), dev, mesh):
         db = _try_device_build(
             lambda: build_mod.device_build(
                 edges, n=n, slice_bits=slice_bits, reorder=reorder, device=dev
@@ -444,7 +599,7 @@ def tcim_count(
             build,
         )
         if db is not None:
-            return _finish_device(db, **finish)
+            return _finish_device(db, timings={}, **finish)
     # The host build; under "auto" also the device build's fallback, whose
     # stage timings restart here.
     timings: dict[str, float] = {}
@@ -453,4 +608,4 @@ def tcim_count(
     timings["orient"] = time.perf_counter() - t0
     if backend in _DENSE_BACKENDS:
         return _count_dense(g, backend=backend, device=dev, async_=async_, timings=timings)
-    return _count_graph(g, slice_bits=slice_bits, timings=timings, **finish)
+    return _count_graph(g, slice_bits=slice_bits, timings=timings, finish=finish)

@@ -1,7 +1,8 @@
 """Triangle-count-as-a-service: a durable multi-tenant batch front end.
 
-Port of ``src/repro/launch/tc_serve.py`` on one device: one-shot requests,
-hosted streams, the write-ahead log, checkpoint and restore. A fleet of small graphs drains through fused dispatches of
+Port of ``src/repro/launch/tc_serve.py``: one-shot requests, hosted
+streams, the write-ahead log, checkpoint and restore, and the sharded and
+resilient solos of ``mesh``/``resilience``. A fleet of small graphs drains through fused dispatches of
 ``core.executor.MultiGraphExecutor`` — stacked stores and a shared
 ``[G, bucket]`` segment index block a batch, and every batch of a wave in
 one dispatch of the segment-totals kernel returning every graph's count —
@@ -18,7 +19,11 @@ Pipeline per ``drain()`` wave:
   2. **Placement** — admitted requests small enough for fusion (pairs within
      ``max_fused_pairs``, the per-segment int32 bound) are grouped by word
      width and batched by pow2 pair bucket; everything else is planned solo
-     by ``plan_execution`` (replicated).
+     by ``plan_execution`` — replicated on the pooled executor, or, with a
+     ``mesh``, sharded through ``distributed_tc_count_async`` when the
+     planner shards it (and, with ``resilience`` set, ``sharded_2d`` solos
+     through ``distributed.resilient.resilient_tc_count``, so that a device
+     loss mid-count remeshes instead of failing the request).
   3. **Dispatch** — the wave's fused batches, of every word width, go out
      in one ``count_fused_wave_async`` (one launch of the segment kernel on
      the card for up to ``GROUP_CAP`` batches, one readback), then the
@@ -58,9 +63,6 @@ Robustness layers:
 * **Daemon mode** — ``submit``/``submit_delta``/``create_stream`` are
   lock-protected and ``serve_forever()`` runs the drain loop for producer
   threads (``wait_result`` blocks a producer on its request id).
-
-The sharded and resilient solos (``mesh``, ``resilience``) are not ported
-yet and raise ``NotImplementedError`` naming ROADMAP.md queue 1, item 4.
 """
 from __future__ import annotations
 
@@ -87,6 +89,7 @@ from repro_torch.core.plan import (
     pow2_ceil,
 )
 from repro_torch.core.streaming import StreamingTCState
+from repro_torch.distributed.mesh import mesh_device
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.ops import INT32_SAFE_WORDS
 
@@ -100,8 +103,6 @@ _SERVE_BACKENDS = {
     "pallas_items": "pallas_items",
     "jnp": "jnp",
 }
-
-_TODO_MESH = "ROADMAP.md queue 1, item 4 (distributed)"
 
 # ServeConfig fields persisted in the WAL root's server.json (everything
 # JSON-serializable; mesh/injector/resilience and the port's device are
@@ -160,10 +161,14 @@ class ServeConfig:
     zero-record fraction that triggers store compaction on a stream (<= 0
     disables).
 
-    ``mesh`` and ``resilience`` are the reference's sharded and resilient
-    options; the server raises ``NotImplementedError`` when one is set.
-    ``shard_above_bytes`` is the reference's auto-placement threshold,
-    persisted with the other knobs; on one device every solo is replicated.
+    ``mesh`` (a ``repro_torch.distributed.Mesh`` of the server's device
+    kind) enables sharded solo placements: a solo whose store exceeds
+    ``shard_above_bytes`` is planned onto the mesh (``sharded_2d`` on a
+    2-axis mesh, else ``sharded_cols``). ``resilience`` (a
+    ``distributed.resilient.ResilienceConfig``) reroutes sharded_2d solos
+    through the remesh-on-device-loss driver, each request under its own
+    ``req_<id>`` checkpoint subdirectory; ``stats["resilient_solos"]``
+    counts them. Without a mesh every solo is replicated.
     """
 
     memory_budget_bytes: int = 1 << 30
@@ -183,7 +188,7 @@ class ServeConfig:
     retry_backoff_s: float = 0.005
     compact_ratio: float = 0.5
     injector: object | None = None  # runtime.fault.FailureInjector
-    resilience: object | None = None
+    resilience: object | None = None  # distributed.resilient.ResilienceConfig
     device: str | torch.device | None = None
 
 
@@ -222,7 +227,8 @@ class ServeResult:
     request kept failing after ``max_retries`` isolated retries — typed
     ``detail``, every other request in the wave unaffected). ``placement``
     records how an ok request ran: ``"fused"`` (cross-graph batch, with
-    ``batch_size`` graphs sharing the dispatch), ``"replicated"`` (solo) or
+    ``batch_size`` graphs sharing the dispatch), ``"replicated"``,
+    ``"sharded_cols"`` or ``"sharded_2d"`` (solo) or
     ``"streaming"`` (a delta). ``latency_s`` is submit-to-result;
     ``retries`` counts recovery attempts that were needed.
     """
@@ -248,6 +254,25 @@ class _FailedFuture:
 
     def result(self):
         raise self._err
+
+
+class _DeferredFuture:
+    """A blocking callable behind the ``CountFuture.result()`` shape.
+
+    The resilient driver is synchronous (its retry loop must own the mesh),
+    so the wave defers it to readback time — everything else in the wave
+    was already dispatched, preserving the async-close overlap."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._done = False
+        self._val = None
+
+    def result(self):
+        if not self._done:
+            self._val = self._fn()
+            self._done = True
+        return self._val
 
 
 class StreamWAL:
@@ -383,11 +408,9 @@ class TCServer:
 
     def __init__(self, config: ServeConfig | None = None):
         self.config = config or ServeConfig()
-        if self.config.mesh is not None or self.config.resilience is not None:
-            raise NotImplementedError(
-                f"ServeConfig.mesh and .resilience are not ported yet: {_TODO_MESH}"
-            )
         self.device = resolve_device(self.config.device)
+        if self.config.mesh is not None:
+            mesh_device(self.config.mesh, self.device)  # a Mesh of the server's kind
         self.pool = ExecutorPool(max_graphs=self.config.pool_max_graphs)
         self.multi = MultiGraphExecutor(
             max_batches=self.config.fused_max_batches,
@@ -1121,20 +1144,53 @@ class TCServer:
             return ("solo", [req], _FailedFuture(e))
 
     def _plan_and_dispatch(self, req: ServeRequest):
-        """Plan one device (replicated) and dispatch on the pooled executor."""
+        """Placement-aware single-graph dispatch (``plan_execution``): the
+        pooled executor when replicated, else the mesh's sharded path, or
+        the resilient driver for a sharded_2d solo under ``resilience``."""
+        mesh = self.config.mesh
+        if mesh is not None:
+            grid = tuple(int(x) for x in mesh.devices.shape)
+            topo = DeviceTopology(num_devices=mesh.size, platform=mesh.platform)
+        else:
+            grid = None
+            topo = DeviceTopology(num_devices=1, platform=self.device.type)
         plan = plan_execution(
-            req.sbf, req.wl, DeviceTopology(num_devices=1, platform=self.device.type),
-            chunk_pairs=self.config.chunk_pairs,
-        )
-        fut = self.pool.count_async(
             req.sbf,
             req.wl,
-            mode=self.config.mode,
+            topo,
             chunk_pairs=self.config.chunk_pairs,
-            device=self.device,
+            shard_above_bytes=self.config.shard_above_bytes,
+            grid=grid if grid is not None and len(grid) == 2 else None,
         )
-        self.stats[f"solo_{plan.placement}"] += 1
-        return (plan.placement, [req], fut)
+        if plan.placement == "replicated" or mesh is None:
+            fut = self.pool.count_async(
+                req.sbf,
+                req.wl,
+                mode=self.config.mode,
+                chunk_pairs=self.config.chunk_pairs,
+                device=self.device,
+            )
+            placement = "replicated"
+        elif self.config.resilience is not None and plan.placement == "sharded_2d":
+            from repro_torch.distributed.resilient import resilient_tc_count
+
+            cfg = self.config.resilience.for_request(req.request_id)
+            fut = _DeferredFuture(
+                lambda: resilient_tc_count(
+                    req.sbf, req.wl, mesh, cfg, chunk_pairs=self.config.chunk_pairs,
+                )[0]
+            )
+            placement = plan.placement
+            self.stats["resilient_solos"] += 1
+        else:
+            from repro_torch.distributed.tc import distributed_tc_count_async
+
+            fut = distributed_tc_count_async(
+                req.sbf, req.wl, mesh, placement=plan.placement
+            )
+            placement = plan.placement
+        self.stats[f"solo_{placement}"] += 1
+        return (placement, [req], fut)
 
     def _retry_solo(self, req: ServeRequest, err: Exception) -> ServeResult:
         """Bounded retry-with-backoff after an isolated request failure."""

@@ -1,10 +1,25 @@
 """Fault-tolerance runtime of the port.
 
-Port of ``src/repro/runtime/__init__.py`` for the serving slice: only the
-failure injection that ``TCServer``'s retry path needs. ``CountInterrupted``,
-``StragglerMonitor``, the elastic remesh plans and the contracts come with
-the distributed slice (ROADMAP.md queue 1, item 4).
+Port of ``src/repro/runtime/__init__.py``: failure injection, interrupted
+counts, straggler detection and the elastic remesh plans. The reference's
+``contracts`` (``no_host_sync`` and the retrace/transfer guards) are not
+ported; the sharded count's no-sync promise is checked on the card with
+``torch.cuda.set_sync_debug_mode("error")``.
 """
-from repro_torch.runtime.fault import FailureInjector, SimulatedFailure
+from repro_torch.runtime.elastic import RemeshPlan, elastic_remesh_plan, tc_remesh_plan
+from repro_torch.runtime.fault import (
+    CountInterrupted,
+    FailureInjector,
+    SimulatedFailure,
+    StragglerMonitor,
+)
 
-__all__ = ["FailureInjector", "SimulatedFailure"]
+__all__ = [
+    "CountInterrupted",
+    "FailureInjector",
+    "SimulatedFailure",
+    "StragglerMonitor",
+    "RemeshPlan",
+    "elastic_remesh_plan",
+    "tc_remesh_plan",
+]

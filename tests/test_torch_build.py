@@ -335,10 +335,15 @@ def test_candidate_guard_and_auto_fallback(monkeypatch):
 
 
 def test_device_build_refuses_unported_placements():
-    """The device build runs the replicated placement; the planner's
-    refusals hold for it as for the host build."""
+    """The device build runs the replicated placement on one device; the
+    planner's refusals hold for it as for the host build: an unknown
+    placement, and a sharded one without a mesh to shard over (the
+    reference's ValueErrors)."""
     edges = rmat(300, 1800, seed=3)
     with pytest.raises(ValueError, match="placement"):
         pt_core.tcim_count(edges, build="device", placement="x", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
-        pt_core.tcim_count(edges, build="device", placement="sharded_cols", device="cpu")
+    for placement in ("sharded_cols", "sharded_2d"):
+        with pytest.raises(ValueError, match="mesh"):
+            pt_core.tcim_count(edges, build="device", placement=placement, device="cpu")
+        with pytest.raises(ValueError, match="mesh"):
+            jx_core.tcim_count(edges, build="host", placement=placement)

@@ -378,7 +378,14 @@ def test_dense_backends_accept_device_build(backend):
         assert got.triangles == want.triangles == 1
     with pytest.raises(ValueError, match="build"):
         pt_core.tcim_count(edges, backend=backend, build="gpu", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A mesh does not apply to the dense backends; the reference ignores it
+    # and so does the port (it runs on the mesh's device). A mesh must be
+    # the port's Mesh.
+    from repro_torch.distributed import make_mesh
+
+    mesh = make_mesh((2,), ("d",), devices=["cpu"] * 2)
+    assert pt_core.tcim_count(edges, backend=backend, mesh=mesh).triangles == 1
+    with pytest.raises(TypeError, match="Mesh"):
         pt_core.tcim_count(edges, backend=backend, mesh=object(), device="cpu")
     assert pt_core.tcim_count(np.zeros((0, 2), np.int64), backend=backend, device="cpu").triangles == 0
 

@@ -507,9 +507,17 @@ def test_checkpoint_and_restore_cross_package_with_pending_work(tmp_path):
 
 
 def test_server_refuses_only_mesh_and_resilience():
-    for kwargs in ({"mesh": object()}, {"resilience": object()}):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            pt_serve.TCServer(pt_serve.ServeConfig(device="cpu", **kwargs))
+    """mesh and resilience are process-local (never in server.json); a mesh
+    must be a port Mesh of the server's device kind."""
+    from repro_torch.distributed import ResilienceConfig, make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
+        pt_serve.TCServer(pt_serve.ServeConfig(device="cpu", mesh=object()))
+    mesh = make_mesh((2, 2), ("r", "c"), devices=["cpu"] * 4)
+    cfg = ResilienceConfig("unused")
+    srv = pt_serve.TCServer(pt_serve.ServeConfig(device="cpu", mesh=mesh, resilience=cfg))
+    assert srv.config.mesh is mesh and srv.config.resilience is cfg
+    assert not {"mesh", "resilience", "injector", "device"} & set(pt_serve._MANIFEST_CONFIG_KEYS)
     with pytest.raises(ValueError, match="no checkpoint directory"):
         _server(pt_serve).checkpoint()
     assert {f for f in pt_serve._MANIFEST_CONFIG_KEYS} <= set(pt_serve.ServeConfig.__dataclass_fields__)

@@ -780,3 +780,77 @@ def test_server_restore_on_card(tmp_path, cuda):
         got[device] = ({s: srv.stream_count(s) for s in sids}, srv.server_stats())
     assert got["cuda"] == got["cpu"]
     assert got["cuda"][0] == {s: twin.stream_count(t) for s, t in zip(sids, tsids)}
+
+
+@pytest.mark.parametrize("placement", ["replicated", "sharded_cols", "sharded_2d"])
+def test_sharded_counts_on_card(cuda, placement):
+    """Every placement on a mesh of logical shards on the card (4 x
+    cuda:0), multi-step: exact, the sharded executors launching the kernel
+    once per shard with real pairs a step, with no host sync before
+    result()."""
+    from repro_torch.core import DeviceTopology, plan_execution
+    from repro_torch.distributed import (
+        Sharded2DExecutor,
+        ShardedColsExecutor,
+        clear_sharded_executor_cache,
+        distributed_tc_count,
+        make_mesh,
+    )
+    from repro_torch.distributed.tc import step_launches
+
+    g = build_graph(rmat(3000, 18000, seed=5), reorder=True)
+    sb = build_sbf(g, 64)
+    wl = build_worklist(g, sb)
+    want = triangles_intersection(g)
+    dev = [torch.device("cuda", 0)] * 4
+    mesh = make_mesh((2, 2), ("r", "c"), devices=dev) if placement == "sharded_2d" else \
+        make_mesh((4,), ("d",), devices=dev)
+    for schedule in ("packed", "lockstep"):
+        assert distributed_tc_count(sb, wl, mesh, placement=placement, max_step_pairs=4096,
+                                    schedule=schedule) == want
+    clear_sharded_executor_cache()
+    if placement == "replicated":
+        return
+    if placement == "sharded_cols":
+        ex = ShardedColsExecutor(sb, mesh, chunk_pairs=4096)
+        plan = ex._plan(wl)
+    else:
+        plan = plan_execution(sb, wl, DeviceTopology(num_devices=4), placement="sharded_2d",
+                              grid=(2, 2), chunk_pairs=4096)
+        ex = Sharded2DExecutor(sb, mesh, plan, chunk_pairs=4096)
+    sched = ex.stripe_schedule(plan)
+    assert sched.num_steps > 1
+    before = gather_total_cuda.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fut = ex.count_plan_async(plan)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fut.result() == want
+    assert gather_total_cuda.launches - before == ex.launches == step_launches(sched)
+
+
+def test_resilient_and_stream_on_card(tmp_path, cuda):
+    """A resilient count on a 2 x 2 mesh of logical shards on the card
+    losing a device, its resume, and a mesh= stream: exact."""
+    from repro_torch.core import StreamingTCState
+    from repro_torch.distributed import ResilienceConfig, make_mesh, resilient_tc_count, resume_tc_count
+    from repro_torch.runtime import FailureInjector
+
+    g = build_graph(rmat(3000, 18000, seed=5), reorder=True)
+    sb = build_sbf(g, 64)
+    wl = build_worklist(g, sb)
+    want = triangles_intersection(g)
+    mesh = make_mesh((2, 2), ("r", "c"), devices=[torch.device("cuda", 0)] * 4)
+    cfg = ResilienceConfig(checkpoint_dir=tmp_path, checkpoint_every=2,
+                           injector=FailureInjector(fail_at_steps=(3,)), lose_devices=1)
+    total, info = resilient_tc_count(sb, wl, mesh, cfg, chunk_pairs=1024)
+    assert total == want and info["grid"] == [3, 1] and info["steps_replayed"] <= 2
+    assert resume_tc_count(tmp_path, mesh)[0] == want
+    order = np.random.default_rng(0).permutation(g.m)
+    base, hold = g.edges[order[200:]], g.edges[order[:200]]
+    state = StreamingTCState(base, n=g.n, mesh=mesh)
+    assert state.device.type == "cuda"
+    for kw in ({"added": hold}, {"removed": hold[:100]}):
+        assert state.apply_batch(**kw).triangles == state.verify()

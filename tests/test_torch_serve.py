@@ -297,9 +297,14 @@ def test_server_daemon_and_unported_options(mixed_jobs):
             getattr(srv, method)(0)
     with pytest.raises(ValueError, match="no checkpoint directory"):
         srv.checkpoint()
-    for kwargs in ({"mesh": object()}, {"resilience": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt_serve.TCServer(pt_serve.ServeConfig(device="cpu", **kwargs))
+    # A mesh must be the port's Mesh, of the server's device kind.
+    from repro_torch.distributed import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
+        pt_serve.TCServer(pt_serve.ServeConfig(device="cpu", mesh=object()))
+    with pytest.raises(ValueError, match="kind"):
+        pt_serve.TCServer(pt_serve.ServeConfig(
+            device="cpu", mesh=make_mesh((2,), ("d",), devices=["cuda:0"] * 2)))
 
 
 def test_server_default_device_has_no_cpu_fallback(monkeypatch):

@@ -335,9 +335,18 @@ def test_auto_fallback_counts_and_device_raises(monkeypatch):
 
 
 def test_options_validated_and_mesh_not_ported(monkeypatch):
+    """Option checks; a mesh stream needs the host build and a 2-axis mesh
+    (its counts are held to recounts in tests/test_torch_distributed.py)."""
+    from repro_torch.distributed import make_mesh
+
     edges = rmat(64, 200, seed=1)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        pt_core.StreamingTCState(edges, mesh=object(), device="cpu")
+    mesh = make_mesh((2, 2), ("r", "c"), devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="single-device"):
+        pt_core.StreamingTCState(edges, mesh=mesh, build="device")
+    with pytest.raises(ValueError, match="2-axis"):
+        pt_core.StreamingTCState(edges, mesh=make_mesh((4,), ("d",), devices=["cpu"] * 4))
+    with pytest.raises(ValueError, match="kind"):
+        pt_core.StreamingTCState(edges, mesh=mesh, device="cuda")
     with pytest.raises(ValueError, match="backend"):
         pt_core.StreamingTCState(edges, backend="bitgemm", device="cpu")
     with pytest.raises(ValueError, match="build"):

@@ -171,11 +171,18 @@ def test_plan_matches_reference_for_replicated():
     assert np.array_equal(s_got.row_pos, s_want.row_pos)
     assert np.array_equal(s_got.col_pos, s_want.col_pos)
     assert got.total_pairs == wl.num_pairs and got.imbalance == 1.0
-    for placement in ("sharded_cols", "sharded_2d"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt_plan.plan_execution(
-                sbf_from_arrays(sb), worklist_from_arrays(wl), placement=placement
-            )
+    # The sharded placements plan too (their parity: tests/test_torch_plan.py);
+    # sharded_2d needs a grid, as in the reference.
+    one = pt_plan.DeviceTopology(num_devices=1)
+    cols = pt_plan.plan_execution(
+        sbf_from_arrays(sb), worklist_from_arrays(wl), one, placement="sharded_cols"
+    )
+    assert cols.placement == "sharded_cols" and cols.total_pairs == wl.num_pairs
+    for mod, sbf_, wl_ in ((pt_plan, sbf_from_arrays(sb), worklist_from_arrays(wl)),
+                           (jx_plan, sb, wl)):
+        with pytest.raises(ValueError, match="grid"):
+            mod.plan_execution(sbf_, wl_, mod.DeviceTopology(num_devices=1),
+                               placement="sharded_2d")
     with pytest.raises(ValueError):
         pt_plan.plan_execution(sbf_from_arrays(sb), worklist_from_arrays(wl), placement="x")
     assert pt_plan.DeviceTopology.detect().num_devices >= 1
@@ -209,9 +216,12 @@ def test_async_and_graph_entry_points():
 def test_unported_options_raise_naming_the_roadmap():
     edges = _edges("ego-facebook")
     assert pt_core.BACKENDS == jx_core.BACKENDS
-    for kwargs in ({"mesh": object()}, {"resilience": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt_core.tcim_count(edges, device="cpu", **kwargs)
+    # mesh= and resilience= are ported: a mesh must be the port's Mesh, and
+    # resilience needs a 2-axis one (the reference's ValueError).
+    with pytest.raises(TypeError, match="Mesh"):
+        pt_core.tcim_count(edges, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="2-axis mesh"):
+        pt_core.tcim_count(edges, device="cpu", resilience=object())
     for kwargs in ({"backend": "x"}, {"schedule": "x"}, {"build": "x"}, {"placement": "x"}):
         with pytest.raises(ValueError):
             pt_core.tcim_count(edges, device="cpu", **kwargs)
