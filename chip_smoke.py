@@ -168,6 +168,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               bytes, peak memory. Logical shards on one card measure the
               host's planning and staging and the launch count, not any
               scaling across cards
+ 17. contracts  ``repro_torch.runtime.contracts`` armed (``TCIM_CONTRACTS=1``
+              for this phase only, so the earlier phases' times stay
+              comparable): com-youtube's ``device_build_async`` (one staging
+              call), the main count's dispatch (a warm re-dispatch under
+              ``max_retrace(0)``) and ``tcim_count`` end to end (== the JAX
+              package's 3,090,378), a fused wave of the serve phase's
+              tenants and its cached re-serve at zero staging calls,
+              ``TCServer`` over the serve fleet cold and cached, a steady
+              email-enron stream round (every count and edit under
+              ``max_retrace(0)``) and a 2 x 2 ``count_plan_async`` on four
+              logical shards, each dispatch also under
+              ``torch.cuda.set_sync_debug_mode("error")``; one planted
+              violation a contract on CUDA tensors (a readback inside
+              ``execute_indices_async``, an extra upload in the device
+              build, a re-adopt on a steady stream signature), each raising
+              ``ContractViolation``; host ms a call of
+              ``execute_indices_async`` over the main count's resident
+              windows and the warm main count's wall time, off and armed in
+              alternating turns
 
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
@@ -178,8 +197,10 @@ only: no JAX, nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -261,6 +282,11 @@ SHARD_CHECKPOINT_EVERY = 4
 SHARD_E2E_GRAPH = "email-enron"
 SHARD_SERVE_GRAPHS = ("email-enron", "com-dblp")
 SHARD_STREAM_FRACTION = 0.01
+CONTRACT_CALLS = 20  # execute_indices_async calls a timed turn (16 launches each)
+CONTRACT_TURNS = 4  # turns of off, armed, armed, off
+CONTRACT_COUNTS = 3  # warm main counts a mode, in the same turns
+CONTRACT_STREAM = "email-enron"
+CONTRACT_TENANTS = 16  # small tenants a fused batch of the contracts phase's wave
 
 
 def log(msg: str) -> None:
@@ -1175,6 +1201,7 @@ def phase_serve() -> dict:
     return {
         "jobs": jobs, "server": srv, "launches": launches, "mode_launches": mode_launches,
         "build_s": build_s, "cold_s": cold_s, "warm_s": warm_s, "cpu_s": cpu_s, "peak": peak,
+        "exact": exact,
     }
 
 
@@ -2819,6 +2846,252 @@ def phase_sharded(main: dict) -> dict:
     return launches_by_case
 
 
+def _sync_debug(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    a synchronizing CUDA call inside raises (a second net beside the
+    contracts, process-global, so single-threaded checks only)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@contextlib.contextmanager
+def _contracts(value: str):
+    """``TCIM_CONTRACTS`` set to ``value`` inside, the prior value after."""
+    prior = os.environ.get("TCIM_CONTRACTS")
+    os.environ["TCIM_CONTRACTS"] = value
+    try:
+        yield
+    finally:
+        if prior is None:
+            os.environ.pop("TCIM_CONTRACTS", None)
+        else:
+            os.environ["TCIM_CONTRACTS"] = prior
+
+
+def _must_trip(contract: str, fn) -> str:
+    """Run a planted violation: it must raise ``ContractViolation`` naming
+    ``contract``; anything else propagates."""
+    from repro_torch.runtime import ContractViolation
+
+    try:
+        fn()
+    except ContractViolation as e:
+        check(contract in str(e), f"planted {contract}: raised {e}")
+        return str(e)
+    raise AssertionError(f"planted {contract} violation did not raise")
+
+
+def _dispatch_ms(ex, dwl, exact: int) -> float:
+    """Host ms a call of ``execute_indices_async`` over a device work
+    list's resident windows: ``CONTRACT_CALLS`` calls back to back, their
+    results read after the clock stops."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [ex.execute_indices_async(dwl.pair_row_pos, dwl.pair_col_pos, num_real=dwl.num_pairs)
+            for _ in range(CONTRACT_CALLS)]
+    ms = 1e3 * (time.perf_counter() - t0) / CONTRACT_CALLS
+    check(all(f.result() == exact for f in futs), "timed dispatches' counts")
+    return ms
+
+
+def phase_contracts(main: dict, serve: dict) -> None:
+    """The runtime contracts armed (``TCIM_CONTRACTS=1`` for this phase
+    only) on the card's count paths, each also under
+    ``set_sync_debug_mode("error")``; their cost off and armed; one planted
+    violation a contract on CUDA tensors (module docstring, phase 17)."""
+    from repro_torch.core import (
+        DeviceTopology,
+        Executor,
+        MultiGraphExecutor,
+        StreamingTCState,
+        device_build_async,
+        plan_execution,
+        tcim_count,
+    )
+    from repro_torch.core import build as build_mod
+    from repro_torch.core.plan import clamp_chunk_pairs
+    from repro_torch.distributed import Sharded2DExecutor, make_mesh
+    from repro_torch.graphs import triangles_intersection
+    from repro_torch.kernels.tc_gather_popcount import gather_total_cuda
+    from repro_torch.runtime import contracts_enabled, max_retrace, max_transfers
+    from repro_torch.runtime.staging import stage
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    edges, exact = main["edges"], main["exact"]
+    check(exact == JAX_PACKAGE_COUNT, f"oracle {exact} != the JAX package's {JAX_PACKAGE_COUNT}")
+    with _contracts("1"):
+        check(contracts_enabled(), "TCIM_CONTRACTS=1 did not arm the contracts")
+        # The device build: max_transfers(1) and no_host_sync, with an outer
+        # budget to read its one staging call.
+        with max_transfers(1) as ct:
+            fut = _sync_debug(device_build_async, edges, slice_bits=MAIN_SLICE_BITS)
+        db = fut.result()
+        check(ct.count == 1 and db.worklist.num_pairs == main["worklist"].num_pairs,
+              f"armed device build: {ct.count} staging calls, {db.worklist.num_pairs} pairs")
+        log(f"[contracts] {MAIN_GRAPH} device_build_async armed (max_transfers(1), "
+            f"no_host_sync) and under set_sync_debug_mode('error'): {ct.count} staging call, "
+            f"{db.worklist.num_pairs} pairs as the host build")
+
+        # The main count: its dispatch armed and under the debug mode, warm
+        # re-dispatches bind and build nothing, and tcim_count end to end.
+        ex, dwl = Executor(db.sbf), db.worklist
+        gather_total_cuda.launches = 0
+        fut = _sync_debug(ex.count_async, dwl)
+        check(fut.result() == exact == JAX_PACKAGE_COUNT, "armed main dispatch")
+        with max_retrace(0):
+            fut = _sync_debug(ex.count_async, dwl)
+        check(fut.result() == exact, "armed warm re-dispatch")
+        res = tcim_count(edges, slice_bits=MAIN_SLICE_BITS)
+        check(res.triangles == JAX_PACKAGE_COUNT and res.stats["build"] == "device",
+              f"armed tcim_count: {res.triangles} ({res.stats['build']})")
+        log(f"[contracts] {MAIN_GRAPH} armed: execute_indices_async under no_host_sync and "
+            f"set_sync_debug_mode('error'), a warm re-dispatch under max_retrace(0), and "
+            f"tcim_count end to end: {res.triangles} == {JAX_PACKAGE_COUNT} "
+            f"({gather_total_cuda.launches} launches in the two dispatches)")
+
+        # A fused serve wave and its cached re-serve, on the serve phase's
+        # small tenants: the wave's dispatch under the debug mode, the
+        # re-serve at zero staging calls; then TCServer on the whole fleet.
+        tenants = range(NUM_TENANTS)  # _fleet's small tenants at MAIN_SLICE_BITS
+        lists = [[serve["jobs"][i] for i in tenants[k : k + CONTRACT_TENANTS]]
+                 for k in range(0, len(tenants), CONTRACT_TENANTS)]
+        want = [tuple(serve["exact"][i] for i in tenants[k : k + CONTRACT_TENANTS])
+                for k in range(0, len(tenants), CONTRACT_TENANTS)]
+        multi = MultiGraphExecutor(max_batches=len(lists))
+        futs = _sync_debug(multi.count_fused_wave_async, lists)
+        check([f.result() for f in futs] == want, "armed fused wave")
+        with max_transfers(0) as ct:
+            futs = _sync_debug(multi.count_fused_wave_async, lists)
+            one = _sync_debug(multi.count_fused_async, lists[0])
+        check([f.result() for f in futs] == want and one.result() == want[0]
+              and ct.count == 0 and multi.hits == len(lists) + 1 and multi.misses == len(lists),
+              f"armed cached re-serve: {ct.count} staging calls, stats {multi.stats()}")
+        from repro_torch.launch.tc_serve import ServeConfig, TCServer
+
+        srv = TCServer(ServeConfig(fused_max_batches=64))
+        for label in ("cold", "cached re-serve"):
+            _check_serve(_by_id(srv.serve(serve["jobs"])), serve["exact"], f"armed {label}")
+        log(f"[contracts] fused wave of {len(lists)} batches x {CONTRACT_TENANTS} tenants armed "
+            f"(no_host_sync) under set_sync_debug_mode('error'), == oracle; its cached re-serve "
+            f"and count_fused_async's hit at 0 staging calls (max_transfers(0)); TCServer "
+            f"armed over the {len(serve['jobs'])} requests, cold and cached, == oracle")
+        del srv, multi
+
+        # A steady stream round: the add/remove signatures seen before, so
+        # the counts and the store edit run under max_retrace(0); the
+        # executor's dispatches and edits also under the debug mode.
+        g = _stream_graph(CONTRACT_STREAM)
+        rng = np.random.default_rng(21)
+        b = max(int(g.m * STREAM_CHECK_FRACTION), 1)
+        order = rng.permutation(g.m)
+        hold, base = g.edges[order[:b]], g.edges[order[b:]]
+        state = StreamingTCState(base, n=g.n, slice_bits=STREAM_SLICE_BITS)
+        for _ in range(2):
+            state.apply_batch(added=hold)
+            state.apply_batch(removed=hold)
+        sigs = set(state._steady_sigs)
+        sx = state.executor
+        count, edit = sx.count_async, sx.update_stores
+        sx.count_async = lambda wl: _sync_debug(count, wl)
+        sx.update_stores = lambda *lanes: _sync_debug(edit, *lanes)
+        gather_total_cuda.launches = 0
+        r_add = state.apply_batch(added=hold)
+        r_rem = state.apply_batch(removed=hold)
+        del sx.__dict__["count_async"], sx.__dict__["update_stores"]
+        check(not r_add.grew and not r_rem.grew and state._steady_sigs == sigs
+              and r_rem.triangles == state.verify() and gather_total_cuda.launches > 0,
+              f"armed steady stream round: grew {r_add.grew}/{r_rem.grew}, "
+              f"{len(state._steady_sigs) - len(sigs)} new signatures")
+        log(f"[contracts] {CONTRACT_STREAM} stream, a steady round of {b}-edge batches armed "
+            f"(every count and the edit under max_retrace(0), no signature new) with its "
+            f"dispatches and edits under set_sync_debug_mode('error'): {r_add.triangles} then "
+            f"{r_rem.triangles} == verify(); {gather_total_cuda.launches} launches")
+
+        # A 2 x 2 count_plan_async on four logical shards, armed.
+        sb, wl = main["sbf"], main["worklist"]
+        chunk = clamp_chunk_pairs(1 << 20, sb.words_per_slice)
+        mesh22 = make_mesh((2, 2), ("rows", "cols"), devices=[torch.device(SHARD_DEVICE)] * 4)
+        plan = plan_execution(sb, wl, DeviceTopology(num_devices=4, platform="cuda"),
+                              placement="sharded_2d", grid=(2, 2), chunk_pairs=chunk)
+        sharded = Sharded2DExecutor(sb, mesh22, plan, chunk_pairs=chunk)
+        check(_sync_debug(sharded.count_plan_async, plan).result() == exact, "armed 2 x 2 count")
+        with max_retrace(0):
+            check(_sync_debug(sharded.count_plan_async, plan).result() == exact,
+                  "armed warm 2 x 2 count")
+        log(f"[contracts] 2 x 2 count_plan_async on four logical shards armed (no_host_sync) "
+            f"under set_sync_debug_mode('error'), warm under max_retrace(0): == oracle")
+        del sharded
+
+        # One planted violation a contract, on CUDA tensors, at wired sites.
+        def read_in_dispatch():
+            stepper = ex._stepper
+            ex._stepper = lambda acc: (lambda r, c: (stepper(acc)(r, c), acc.tolist()))
+            try:
+                ex.count_async(dwl)
+            finally:
+                del ex.__dict__["_stepper"]
+
+        orient = build_mod.device_orient
+
+        def upload_twice():
+            def orient_and_upload(edges, n=None, *, reorder=True, device=None):
+                stage(np.zeros(4, np.int32), ex.device)  # one staging call too many
+                return orient(edges, n, reorder=reorder, device=device)
+
+            build_mod.device_orient = orient_and_upload
+            try:
+                device_build_async(edges, slice_bits=MAIN_SLICE_BITS)
+            finally:
+                build_mod.device_orient = orient
+
+        def adopt_on_steady_signature():
+            sx.update_stores = lambda *lanes: sx.adopt_stores(state._sbf)
+            state.apply_batch(added=hold)
+
+        planted = [_must_trip("no_host_sync", read_in_dispatch),
+                   _must_trip("max_transfers(1)", upload_twice),
+                   _must_trip("max_retrace(0)", adopt_on_steady_signature)]
+        for msg in planted:
+            log(f"[contracts] planted violation raised ContractViolation: {msg}")
+        del state, sx
+
+    # The cost: host ms a dispatch of the main count's resident windows and
+    # the warm main count's wall time, off and armed in alternating turns.
+    windows = _windows(dwl.num_pairs, ex.chunk_pairs)
+    calls = {"off": [], "armed": []}
+    walls = {"off": [], "armed": []}
+    for _ in range(CONTRACT_TURNS):
+        for mode in ("off", "armed", "armed", "off"):
+            with _contracts("1" if mode == "armed" else "0"):
+                calls[mode].append(_dispatch_ms(ex, dwl, exact))
+    for _ in range(CONTRACT_COUNTS):
+        for mode in ("off", "armed", "armed", "off"):
+            with _contracts("1" if mode == "armed" else "0"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = tcim_count(edges, slice_bits=MAIN_SLICE_BITS).triangles
+                walls[mode].append(1e3 * (time.perf_counter() - t0))
+                check(got == exact, f"{mode} timed count")
+    med = {k: float(np.median(v)) for k, v in calls.items()}
+    wmed = {k: float(np.median(v)) for k, v in walls.items()}
+    log(f"[contracts] execute_indices_async over {MAIN_GRAPH}'s {windows} resident windows, host "
+        f"ms a call (median of {len(calls['off'])} turns of {CONTRACT_CALLS} calls): off "
+        f"{med['off']:.6f} ({med['off'] / windows:.6f} a window), armed {med['armed']:.6f} "
+        f"({med['armed'] / windows:.6f} a window); armed / off {med['armed'] / med['off']:.4f}; "
+        f"turns off {[round(x, 6) for x in calls['off']]}, armed "
+        f"{[round(x, 6) for x in calls['armed']]}; {smi}")
+    log(f"[contracts] warm tcim_count({MAIN_GRAPH}) wall ms (median of {len(walls['off'])}): off "
+        f"{wmed['off']:.6f}, armed {wmed['armed']:.6f}; armed / off "
+        f"{wmed['armed'] / wmed['off']:.4f}; off {[round(x, 6) for x in walls['off']]}, armed "
+        f"{[round(x, 6) for x in walls['armed']]}; {smi}")
+    log(f"[contracts] phase 17 took {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -2856,6 +3129,7 @@ def main() -> int:
     row["stream_launches_per_batch"] = stream["launches_per_batch"]
     phase_stream_serve()
     row["sharded_launches"] = phase_sharded(main_run)
+    phase_contracts(main_run, serve)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [row, *rows, *dense_rows, *flash_rows]}))

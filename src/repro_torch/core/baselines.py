@@ -18,6 +18,7 @@ import torch
 from repro_torch.graphs.csr import Graph
 from repro_torch.graphs.exact import triangles_intersection
 from repro_torch.kernels.common import resolve_device
+from repro_torch.runtime.staging import stage
 
 __all__ = ["matmul_tc", "intersection_tc", "timed"]
 
@@ -35,7 +36,7 @@ def matmul_tc(g: Graph, block: int = 4096, *, device: str | torch.device | None 
     n = g.n
     a = torch.zeros(n, n, dtype=torch.float32, device=dev)
     if g.m:
-        e = torch.from_numpy(g.edges).to(dev)
+        e = stage(g.edges, dev, non_blocking=False)
         a[e[:, 0], e[:, 1]] = 1.0
         a[e[:, 1], e[:, 0]] = 1.0
     total = torch.zeros((), dtype=torch.float64, device=dev)

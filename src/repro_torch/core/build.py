@@ -46,8 +46,10 @@ import torch
 
 from repro_torch.core import sbf as sbf_mod
 from repro_torch.core.plan import pow2_ceil
-from repro_torch.graphs.csr import DeviceGraph, Graph, device_orient, upload_pinned
+from repro_torch.graphs.csr import DeviceGraph, Graph, device_orient
 from repro_torch.kernels.common import resolve_device
+from repro_torch.runtime.contracts import max_transfers, no_host_sync
+from repro_torch.runtime.staging import stage
 
 __all__ = [
     "DeviceBuild",
@@ -304,6 +306,7 @@ class DeviceBuildFuture:
             t0 = time.perf_counter()
             raw = self._raw
             (*_, row_nvs), (*_, col_nvs), cand = raw
+            # tclint: sync-ok(the device build's sizing readback, deferred to result())
             sizes = torch.stack([row_nvs.long(), col_nvs.long(), cand]).cpu().tolist()
             sb = _finalize_sbf(self._dg, self._slice_bits, raw, sizes[0], sizes[1])
             self._raw = raw = None
@@ -325,6 +328,8 @@ def _dispatch_sbf(dg: DeviceGraph, slice_bits: int, timings: dict) -> DeviceBuil
     return DeviceBuildFuture(dg, slice_bits, raw, timings)
 
 
+@max_transfers(1)
+@no_host_sync()
 def device_build_async(
     edges: np.ndarray,
     n: int | None = None,
@@ -337,7 +342,8 @@ def device_build_async(
 
     One host->device transfer (the padded edge list) and no host sync: the
     sizing readback happens in ``DeviceBuildFuture.result()``. ``device``
-    defaults to the card.
+    defaults to the card. Contract (``TCIM_CONTRACTS=1``):
+    ``max_transfers(1)`` and ``no_host_sync``.
     """
     _check_slice_bits(slice_bits)
     timings: dict = {}
@@ -361,6 +367,8 @@ def device_build(
     ).result()
 
 
+@max_transfers(1)
+@no_host_sync()
 def device_build_graph_async(
     g: Graph, slice_bits: int = 64, *, device: str | torch.device | None = None
 ) -> DeviceBuildFuture:
@@ -368,7 +376,8 @@ def device_build_graph_async(
 
     Uploads ``g.edges`` once; the device sort of the already sorted list is
     an identity, so results match ``device_build(g.edges, reorder=False)``
-    and the host ``build_sbf``/``build_worklist`` bit for bit.
+    and the host ``build_sbf``/``build_worklist`` bit for bit. The same
+    contracts as ``device_build_async``.
     """
     _check_slice_bits(slice_bits)
     timings: dict = {}
@@ -394,6 +403,7 @@ def device_build_sbf(dg: DeviceGraph, slice_bits: int = 64) -> sbf_mod.SlicedBit
     _check_slice_bits(slice_bits)
     raw = _sbf_step(dg, slice_bits)
     (*_, row_nvs), (*_, col_nvs), _ = raw
+    # tclint: sync-ok(the blocking compress-stage entry reads its valid counts)
     sizes = torch.stack([row_nvs, col_nvs]).cpu().tolist()
     return _finalize_sbf(dg, slice_bits, raw, sizes[0], sizes[1])
 
@@ -422,7 +432,7 @@ def _delta_index_arrays(sb: sbf_mod.SlicedBitmap, device: torch.device):
 
     host = (np.asarray(sb.row_ptr, dtype=np.int32), idx(sb.row_slice_idx),
             np.asarray(sb.col_ptr, dtype=np.int32), idx(sb.col_slice_idx))
-    return tuple(upload_pinned(a, device) for a in host), sum(a.nbytes for a in host)
+    return tuple(stage(a, device) for a in host), sum(a.nbytes for a in host)
 
 
 def device_delta_worklist(
@@ -447,7 +457,7 @@ def device_delta_worklist(
     bucket = pow2_ceil(max(m, 1))
     ends = np.zeros((2, bucket), dtype=np.int32)
     ends[0, :m], ends[1, :m] = src, dst
-    ends_d = upload_pinned(ends, dev)
+    ends_d = stage(ends, dev)
     index_arrays, index_bytes = _delta_index_arrays(sb, dev)
     cand = int(_candidates(ends_d[0], m, index_arrays[0]).sum(dtype=torch.int64))
     wl = _worklist(

@@ -66,7 +66,6 @@ import torch
 
 from repro_torch.core import sbf as sbf_mod
 from repro_torch.core.plan import clamp_chunk_pairs, plan_fusion, pow2_ceil
-from repro_torch.graphs.csr import upload_pinned
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.tc_gather_popcount import (
@@ -75,6 +74,8 @@ from repro_torch.kernels.tc_gather_popcount import (
     gather_segment_groups_cuda,
     modeled_hbm_bytes,
 )
+from repro_torch.runtime.contracts import max_transfers, no_host_sync, note_retrace
+from repro_torch.runtime.staging import stage
 
 __all__ = [
     "CountFuture",
@@ -128,6 +129,7 @@ class CountFuture:
             by_device: dict = {}
             for t in self._totals:
                 by_device.setdefault(t.device, []).append(t.reshape(-1, 2))
+            # tclint: sync-ok(the CountFuture close is the count's one readback)
             host = [row for rows in by_device.values() for row in torch.cat(rows).cpu().tolist()]
             out_of_range = sum(bad for _, bad in host)
             if out_of_range:
@@ -206,7 +208,7 @@ def apply_store_lanes(store: torch.Tensor, lanes) -> torch.Tensor:
         raise ValueError("apply_store_lanes needs a contiguous store")
     flat = lanes.pos.astype(np.int64) * store.shape[1] + lanes.word
     host = np.stack([flat, lanes.set_mask.view(np.int32), lanes.clear_mask.view(np.int32)])
-    dev = upload_pinned(host, store.device)
+    dev = stage(host, store.device)
     idx, set_mask, clear_mask = dev[0], dev[1].to(torch.int32), dev[2].to(torch.int32)
     words = store.view(-1)
     words.index_copy_(0, idx, (words.index_select(0, idx) | set_mask) & ~clear_mask)
@@ -222,9 +224,9 @@ class Executor:
 
     A streaming state edits the stores batch by batch (``update_stores``,
     ``adopt_stores``). ``store_upload_bytes``, ``lane_upload_bytes`` and
-    ``adopts`` count what those edits cost: the reference's retrace
-    counters have no counterpart in eager torch, so a steady streaming
-    batch is held to uploading no store bytes and adopting nothing instead.
+    ``adopts`` count what those edits cost. Binding the stores
+    (``_make_launcher``, at construction and in ``adopt_stores``) is a
+    retrace event for ``max_retrace``; a count is not.
     """
 
     def __init__(
@@ -260,7 +262,9 @@ class Executor:
 
     def _make_launcher(self) -> GatherTotalLauncher | None:
         """On the card, the fused kernel's launcher over the current stores
-        (validated once; it holds their pointers)."""
+        (validated once; it holds their pointers). A retrace event on every
+        device."""
+        note_retrace()
         if self.mode == "fused" and self.device.type == "cuda":
             return GatherTotalLauncher(self.row_data, self.col_data)
         return None
@@ -301,7 +305,7 @@ class Executor:
                 )
             if store.device != self.device:
                 self.store_upload_bytes += store.numel() * store.element_size()
-                store = store.to(self.device)
+                store = stage(store, self.device, non_blocking=False)
             rows = store.shape[0]
             bucket = pow2_ceil(max(rows, 1))
             if bucket != rows:
@@ -311,7 +315,7 @@ class Executor:
         self.store_upload_bytes += store.nbytes
         # A copy on the CPU too: ``update_stores`` edits the executor's
         # stores in place, and must never edit the caller's host arrays.
-        return torch.from_numpy(store.view(np.int32)).to(self.device, copy=True)
+        return stage(store.view(np.int32), self.device, non_blocking=False, copy=True)
 
     # ---------------------------------------------------------------- public
 
@@ -332,14 +336,7 @@ class Executor:
     def _put(self, chunk) -> tuple[torch.Tensor, torch.Tensor]:
         """One chunk's indices to the device: pinned host memory, then a
         non-blocking copy on the current stream."""
-        if self.device.type == "cpu":
-            return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in chunk)
-        return tuple(
-            torch.from_numpy(np.ascontiguousarray(a))
-            .pin_memory()
-            .to(self.device, non_blocking=True)
-            for a in chunk
-        )
+        return tuple(stage(a, self.device) for a in chunk)
 
     def _device_chunks(self, row_idx: np.ndarray, col_idx: np.ndarray):
         """Upload chunks to the device, one ahead of the consumer."""
@@ -407,6 +404,7 @@ class Executor:
                 self._stepper(accs[-1])(ridx, cidx)
             return CountFuture(accs)
 
+    @no_host_sync()
     def execute_indices_async(self, row_idx, col_idx, *, num_real: int | None = None
                               ) -> CountFuture:
         """Dispatch a count over explicit index arrays; defer the host sync.
@@ -417,7 +415,8 @@ class Executor:
         device chunk by chunk) or int32 tensors resident on the executor's
         device (``core.build``'s work lists: windows of views, nothing
         staged). ``num_real`` tightens the int32-overflow bound for padded
-        arrays whose real (non-sentinel) pair count is known.
+        arrays whose real (non-sentinel) pair count is known. Contract
+        (``TCIM_CONTRACTS=1``): ``no_host_sync``.
         """
         if len(row_idx) != len(col_idx):
             raise ValueError(
@@ -805,7 +804,7 @@ class MultiGraphExecutor:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         a = np.ascontiguousarray(a)
         self.upload_bytes += a.nbytes
-        return torch.from_numpy(a.view(np.int32)).to(self.device)
+        return stage(a.view(np.int32), self.device)
 
     def _stack(self, stores, rows: int, wps: int) -> torch.Tensor:
         """Stack host stores row-wise, pow2-pad the rows, upload once."""
@@ -815,6 +814,15 @@ class MultiGraphExecutor:
         )
         return self._upload(_pad_rows_pow2(host))
 
+    def _cached(self, jobs) -> tuple[tuple, _FusedBatch | None]:
+        """``jobs``' cache key and its resident batch (a hit), or None."""
+        key = tuple((sbf_content_key(sb), _worklist_key(wl)) for sb, wl in jobs)
+        batch = self._batches.get(key)
+        if batch is not None:
+            self.hits += 1
+            self._batches.move_to_end(key)
+        return key, batch
+
     def prepare(self, jobs) -> _FusedBatch:
         """The resident batch for ``jobs`` (list of host ``(SlicedBitmap,
         Worklist)``): the cached one, else planned, stacked and uploaded.
@@ -823,12 +831,11 @@ class MultiGraphExecutor:
         fused segment bound or mixes word widths — admission control filters
         those out before calling.
         """
-        key = tuple((sbf_content_key(sb), _worklist_key(wl)) for sb, wl in jobs)
-        batch = self._batches.get(key)
-        if batch is not None:
-            self.hits += 1
-            self._batches.move_to_end(key)
-            return batch
+        key, batch = self._cached(jobs)
+        return batch if batch is not None else self._stage(key, jobs)
+
+    def _stage(self, key: tuple, jobs) -> _FusedBatch:
+        """Plan, stack and upload a batch the cache does not hold."""
         self.misses += 1
         plan = self.plan(jobs)
         wps = plan.words_per_slice
@@ -890,20 +897,30 @@ class MultiGraphExecutor:
             for b, start, err in zip(batches, offsets, errors)
         ]
 
+    @no_host_sync()
     def count_fused_async(self, jobs) -> MultiCountFuture:
         """Dispatch one fused count over ``jobs`` (list of host
         ``(SlicedBitmap, Worklist)``); defer the single host readback.
 
         Raises ``ValueError`` as ``prepare`` does. A cached batch dispatches
         again against its resident tensors with nothing uploaded.
-        """
-        return self.dispatch([self.prepare(jobs)])[0]
 
+        Contract (``TCIM_CONTRACTS=1``): the fused dispatch never syncs, and
+        a cached batch re-dispatches with zero staging calls.
+        """
+        key, batch = self._cached(jobs)
+        if batch is not None:
+            with max_transfers(0):
+                return self.dispatch([batch])[0]
+        return self.dispatch([self._stage(key, jobs)])[0]
+
+    @no_host_sync()
     def count_fused_wave_async(self, job_lists) -> list[MultiCountFuture]:
         """Dispatch one fused count per job list, all at once: one future a
         batch, sharing the wave's launches and its one readback. A batch
         whose planning raises gets a future holding that error and stays
-        out of the launch."""
+        out of the launch. Contract (``TCIM_CONTRACTS=1``):
+        ``no_host_sync``."""
         futures: list = []
         batches = []
         for jobs in job_lists:

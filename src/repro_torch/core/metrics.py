@@ -23,6 +23,7 @@ from repro_torch.core.sbf import build_sbf, build_worklist
 from repro_torch.graphs.csr import Graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import resolve_device
+from repro_torch.runtime.staging import stage
 from repro_torch.kernels.slice_and_popcount import items_reference
 
 __all__ = ["edge_support", "clustering_coefficients", "ktruss", "max_truss"]
@@ -54,8 +55,8 @@ def edge_support(
         return np.zeros(g.m, dtype=np.int64)
 
     def gather(store: np.ndarray, pos: np.ndarray) -> torch.Tensor:
-        data = torch.from_numpy(np.ascontiguousarray(store).view(np.int32)).to(dev)
-        return data.index_select(0, torch.from_numpy(pos.astype(np.int64)).to(dev))
+        data = stage(np.ascontiguousarray(store).view(np.int32), dev, non_blocking=False)
+        return data.index_select(0, stage(pos.astype(np.int64), dev, non_blocking=False))
 
     rows = gather(sbf.row_slice_data, wl.pair_row_pos)
     cols = gather(sbf.col_slice_data, wl.pair_col_pos)

@@ -32,11 +32,12 @@ removed)`` costs O(touched pairs), not O(all pairs):
     5. ``triangles += after - before`` — exact, signed, equal to a
        from-scratch count of the final edge set (``verify()``).
 
-The reference guards steady batches with ``max_retrace(0)`` and its
-scatter's trace count; eager torch compiles nothing, so neither has a
-counterpart. A steady batch is held instead to uploading no store bytes and
-adopting nothing (``Executor.store_upload_bytes``/``adopts``); on the card
-it also builds no kernel library.
+As in the reference, a batch whose dispatch signature (pair buckets and
+store shapes) already ran on the stream is steady, and its counts and store
+edit run under ``max_retrace(0)`` when ``TCIM_CONTRACTS`` is truthy: no
+kernel library built or loaded, no stores bound (``adopt_stores``). A steady
+batch also uploads no store bytes (``Executor.store_upload_bytes``/
+``adopts``).
 
 Orientation is **stable**: edges orient by raw vertex id (``src < dst``),
 never by degree, so a batch can never relabel the graph. Triangle counts
@@ -56,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -63,8 +65,10 @@ import torch
 from repro_torch.core import build as build_mod
 from repro_torch.core import sbf as sbf_mod
 from repro_torch.core.executor import Executor
+from repro_torch.core.plan import pow2_ceil
 from repro_torch.graphs.csr import build_graph
 from repro_torch.kernels.common import resolve_device
+from repro_torch.runtime.contracts import max_retrace
 
 __all__ = [
     "DeltaResult",
@@ -256,6 +260,10 @@ class StreamingTCState:
         )
         self.fallbacks = 0
         self.index_upload_bytes = 0
+        # Dispatch signatures (pow2 lane / chunk buckets and store shapes)
+        # this stream has already run: re-running one is the steady state
+        # (max_retrace(0) under TCIM_CONTRACTS=1).
+        self._steady_sigs: set[tuple] = set()
 
     # ------------------------------------------------------------ internals
 
@@ -313,6 +321,47 @@ class StreamingTCState:
             m_edges=len(src),
             n_slices=sb.n_slices,
         )
+
+    def _store_sig(self) -> tuple:
+        """Shapes of the resident stores. They change on growth
+        (``adopt_stores``), so every steady signature includes them: a
+        repeat of a pair bucket across a growth event binds new stores
+        legitimately."""
+        return tuple(
+            tuple(store.shape) if store is not None else ()
+            for store in (
+                getattr(self.executor, "row_data", None),
+                getattr(self.executor, "col_data", None),
+            )
+        )
+
+    def _count_sig(self, wl) -> tuple:
+        """Signature of a count dispatch: the full-chunk count, the pow2
+        bucket of the tail chunk and the current store shapes."""
+        nfull, tail = divmod(int(wl.num_pairs), int(self._chunk_pairs))
+        return (
+            "count",
+            type(wl).__name__,
+            nfull,
+            pow2_ceil(tail) if tail else 0,
+            self._store_sig(),
+        )
+
+    def _steady_guard(self, sig: tuple):
+        """``max_retrace(0)`` when this signature already ran on this stream.
+
+        A first occurrence (growth, a new bucket) may build or bind and just
+        registers the signature; a repeat is the steady state, which builds
+        no kernel library and binds no stores. Sharded streams skip the
+        contract, as in the reference: their per-shard layout is not in the
+        signature.
+        """
+        if self._mesh is not None:
+            return nullcontext()
+        if sig in self._steady_sigs:
+            return max_retrace(0)
+        self._steady_sigs.add(sig)
+        return nullcontext()
 
     def _validate(self, ka: np.ndarray, kr: np.ndarray) -> None:
         for k, noun in ((ka, "added"), (kr, "removed")):
@@ -506,7 +555,8 @@ class StreamingTCState:
         wl_before = self._delta_worklist(src_b, dst_b, self._sbf)
         timings["schedule_before"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        fut_before = self.executor.count_async(wl_before)
+        with self._steady_guard(self._count_sig(wl_before)):
+            fut_before = self.executor.count_async(wl_before)
         timings["dispatch_before"] = time.perf_counter() - t0
 
         # Update the host mirror and edit/adopt the resident stores. The
@@ -525,7 +575,12 @@ class StreamingTCState:
         elif upd.grew:
             self.executor.adopt_stores(upd.sbf)
         else:
-            self.executor.update_stores(upd.row_lanes, upd.col_lanes)
+            sig = tuple(
+                pow2_ceil(max(int(lanes.num_lanes), 1)) if lanes is not None else 0
+                for lanes in (upd.row_lanes, upd.col_lanes)
+            )
+            with self._steady_guard(("scatter",) + sig + self._store_sig()):
+                self.executor.update_stores(upd.row_lanes, upd.col_lanes)
         self._sbf = upd.sbf
         timings["scatter"] = time.perf_counter() - t0
 
@@ -551,7 +606,8 @@ class StreamingTCState:
         wl_after = self._delta_worklist(src_a, dst_a, self._sbf)
         timings["schedule_after"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        fut_after = self.executor.count_async(wl_after)
+        with self._steady_guard(self._count_sig(wl_after)):
+            fut_after = self.executor.count_async(wl_after)
         timings["dispatch_after"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()

@@ -68,6 +68,7 @@ from repro_torch.core.streaming import (  # noqa: F401  (re-exported: streaming 
 from repro_torch.graphs.csr import Graph, build_graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import resolve_device
+from repro_torch.runtime.staging import stage
 from repro_torch.kernels.tc_bitgemm import padded_words
 from repro_torch.kernels.tc_dense_mxu import dense_mxu_operand
 
@@ -226,7 +227,7 @@ def _bitgemm_operands(g: Graph, device: torch.device) -> tuple[torch.Tensor, tor
     src, dst = g.edges[:, 0], g.edges[:, 1]
     w = words_for_bits(g.n)
     x, y = (
-        torch.from_numpy(_pack_words(r, c, g.n).view(np.int32)).to(device)[:, :w]
+        stage(_pack_words(r, c, g.n).view(np.int32), device, non_blocking=False)[:, :w]
         for r, c in ((src, dst), (dst, src))
     )
     return x, y
@@ -237,7 +238,7 @@ def _dense_upper(g: Graph, device: torch.device) -> torch.Tensor:
     scattered from the edges on ``device``."""
     a = dense_mxu_operand(g.n, device)  # row stride padded for the kernel's TMA
     if g.m:
-        e = torch.from_numpy(g.edges).to(device)
+        e = stage(g.edges, device, non_blocking=False)
         a[e[:, 0], e[:, 1]] = 1
     return a
 
@@ -253,7 +254,7 @@ def _execute_bitgemm(g: Graph, device: torch.device, chunk_rows: int = 2048) -> 
     product and is not computed.
     """
     x, y = _bitgemm_operands(g, device)
-    edges = torch.from_numpy(g.edges).to(device)
+    edges = stage(g.edges, device, non_blocking=False)
     total = torch.zeros((), dtype=torch.int64, device=device)
     for start in range(0, g.n, chunk_rows):
         stop = min(start + chunk_rows, g.n)

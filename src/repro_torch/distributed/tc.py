@@ -75,7 +75,9 @@ from repro_torch.kernels.tc_gather_popcount import (
     GatherTotalLauncher,
     gather_total_reference,
 )
+from repro_torch.runtime.contracts import no_host_sync, note_retrace
 from repro_torch.runtime.fault import CountInterrupted
+from repro_torch.runtime.staging import stage
 
 __all__ = [
     "shard_worklist",
@@ -139,20 +141,14 @@ def _place_block(words: torch.Tensor, lo: int, hi: int, rows: int,
     edit never touches the caller's arrays."""
     block = torch.zeros((rows, words.shape[1]), dtype=torch.int32)
     block[: hi - lo] = words[lo:hi]
-    return block.to(device)
+    return stage(block, device, non_blocking=False)
 
 
 def _upload_indices(ridx: np.ndarray, cidx: np.ndarray, device: torch.device):
     """One shard's index row to its device: a ``[2, P]`` int32 tensor, on
     the card one pinned, non-blocking copy on the current stream."""
-    if device.type == "cpu":
-        pair = torch.from_numpy(np.stack([ridx, cidx]).astype(np.int32, copy=False))
-        return pair[0], pair[1]
-    pinned = torch.empty((2, len(ridx)), dtype=torch.int32, pin_memory=True)
-    host = pinned.numpy()
-    host[0], host[1] = ridx, cidx
-    with torch.cuda.device(device):
-        pair = pinned.to(device, non_blocking=True)
+    with _device_context(device):
+        pair = stage(np.stack([ridx, cidx]).astype(np.int32, copy=False), device)
     return pair[0], pair[1]
 
 
@@ -163,7 +159,9 @@ class _Shard:
 
     def __init__(self, device: torch.device, row: torch.Tensor, col: torch.Tensor):
         self.device, self.row, self.col = device, row, col
-        # On the card the kernel's launcher, its stores validated once.
+        # On the card the kernel's launcher, its stores validated once: a
+        # retrace event (``max_retrace``) on every device.
+        note_retrace()
         self.launcher = GatherTotalLauncher(row, col) if device.type == "cuda" else None
 
     def step(self, out: torch.Tensor, ridx: torch.Tensor, cidx: torch.Tensor) -> None:
@@ -271,14 +269,16 @@ class _StripeScheduleDriver:
     def _sync(self) -> None:
         for d in self.mesh.unique_devices:
             if d.type == "cuda":
+                # tclint: sync-ok(a monitored resumable count times each step)
                 torch.cuda.synchronize(d)
 
+    @no_host_sync()
     def count_plan_async(self, plan: ExecutionPlan) -> CountFuture:
         """Launch every scheduled step; defer the exact host sum.
 
         Nothing here reads the device back: the one host sync is the
-        ``CountFuture`` close (checked on the card with
-        ``torch.cuda.set_sync_debug_mode("error")``).
+        ``CountFuture`` close. Contract (``TCIM_CONTRACTS=1``):
+        ``no_host_sync``.
         """
         self._check_plan(plan)
         sched = self.stripe_schedule(plan)

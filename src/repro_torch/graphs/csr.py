@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import resolve_device
+from repro_torch.runtime.staging import stage
 
 __all__ = [
     "Graph",
@@ -144,15 +145,6 @@ class DeviceGraph:
         )
 
 
-def upload_pinned(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One host array to ``device``: on the card through pinned memory and
-    a non-blocking copy on the current stream (no host sync)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 def _orient(ed: torch.Tensor, m: int, n: int, reorder: bool):
     """Degree-relabel (optional), orient src < dst, sort by (src, dst).
 
@@ -218,7 +210,7 @@ def device_orient(
     bucket = _pow2_ceil(m)
     padded = np.full((bucket, 2), n, dtype=np.int32)
     padded[:m] = edges
-    src, dst, indptr = _orient(upload_pinned(padded, dev), m, n, bool(reorder))
+    src, dst, indptr = _orient(stage(padded, dev), m, n, bool(reorder))
     return DeviceGraph(
         src=src,
         dst=dst,

@@ -10,6 +10,10 @@ spills per kernel) is kept beside the library as ``<name>-<digest>.log``.
 Nothing here runs at import time: the package imports on machines with no
 ``nvcc`` and no card, and a build runs only when a kernel is first called
 on a CUDA tensor. A failed build raises; there is no fallback.
+
+Each source compiled and each library loaded is a retrace event for the
+runtime contract ``max_retrace`` (``runtime.contracts.note_retrace``):
+eager torch compiles nothing else.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from repro_torch.runtime.contracts import note_retrace
 
 __all__ = [
     "BUILD_DIR", "NVCC_FLAGS", "compile_sources", "load_library", "ptxas_report",
@@ -72,6 +78,7 @@ def compile_sources(names) -> dict[str, Path]:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        note_retrace()
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -97,6 +104,7 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             path = compile_sources([name])[name]
+            note_retrace()
             lib = _LIBS[name] = ctypes.CDLL(str(path))
         return lib
 

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.runtime.staging import stage
+
 __all__ = [
     "popcount_u32_table",
     "ref_bitgemm",
@@ -28,7 +30,7 @@ def popcount_u32_table(x: torch.Tensor) -> torch.Tensor:
     """Per-word popcount of int32-viewed uint32 words via the byte table."""
     x = x.contiguous()
     b = x.view(torch.uint8).reshape(*x.shape, 4).to(torch.int64)
-    return _POP8.to(x.device)[b].sum(dim=-1, dtype=torch.int32)
+    return stage(_POP8, x.device, non_blocking=False)[b].sum(dim=-1, dtype=torch.int32)
 
 
 def ref_popcount_and_items(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models.model import check_supported, init_cache, init_model
 from repro_torch.models.params import tree_map
+from repro_torch.runtime.staging import stage
 
 __all__ = ["ServeSession", "main"]
 
@@ -66,7 +67,7 @@ class ServeSession:
         if params is None:
             self.params = init_model(0, cfg, self.device)
         else:
-            self.params = tree_map(lambda t: t.to(self.device), params)
+            self.params = tree_map(lambda t: stage(t, self.device, non_blocking=False), params)
         self._prefill = make_prefill_step(cfg)
         self._decode = make_serve_step(cfg)
 
@@ -76,7 +77,7 @@ class ServeSession:
 
     def prefill(self, prompts):
         """prompts: [B, P] ints. Returns (last logits [B, V] f32, cache)."""
-        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(self.device)
+        tokens = stage(np.asarray(prompts).astype(np.int32), self.device, non_blocking=False)
         if tokens.dim() != 2 or tokens.shape[0] != self.batch:
             raise ValueError(f"prompts must be [{self.batch}, P], got {tuple(tokens.shape)}")
         cache = init_cache(self.cfg, self.batch, self.max_seq, self.device)

@@ -125,11 +125,12 @@ def _flash(q, k, v, q_pos, k_pos, causal):
 def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:
     """Write ``new`` [B, 1, ...] into ``cache`` [B, S, ...] at seq index ``pos``.
 
-    In place (``index_copy_``), where the reference builds a new array by a
-    broadcast select; the contents are the same. Returns ``cache``.
+    In place (a copy into the ``pos`` slice), where the reference builds a
+    new array by a broadcast select; the contents are the same. Returns
+    ``cache``.
     """
-    idx = torch.tensor([pos], dtype=torch.long, device=cache.device)
-    return cache.index_copy_(1, idx, new.to(cache.dtype))
+    cache.narrow(1, pos, 1).copy_(new.to(cache.dtype))
+    return cache
 
 
 # ------------------------------------------------------------------ GQA attn

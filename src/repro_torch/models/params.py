@@ -22,6 +22,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.runtime.staging import stage
+
 __all__ = [
     "ParamDef",
     "init_params",
@@ -84,7 +86,7 @@ def init_params(gen: torch.Generator, schema: Schema, dtype=torch.bfloat16,
     every target device.
     """
     dev = gen.device if device is None else torch.device(device)
-    return tree_map(lambda d: _init_leaf(gen, d, dtype).to(dev), schema)
+    return tree_map(lambda d: stage(_init_leaf(gen, d, dtype), dev, non_blocking=False), schema)
 
 
 def stack_schema(schema: Schema, n: int) -> Schema:
@@ -134,4 +136,4 @@ def params_from_numpy(tree, cfg, device: str | torch.device | None = None):
             raise ValueError(f"shape at {path!r}: {np.shape(t)} != schema {s.shape}")
 
     check(tree, model_schema(cfg), "")
-    return tree_map(lambda a: _to_tensor(a).to(dev), tree)
+    return tree_map(lambda a: stage(_to_tensor(a), dev, non_blocking=False), tree)

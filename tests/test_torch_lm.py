@@ -382,3 +382,19 @@ def test_lm_modules_import_no_jax_and_nothing_of_repro():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_shape_matrix_matches_reference():
+    """The port's assigned shapes and its (arch x shape) cell matrix, skips
+    and reasons included, equal the JAX package's."""
+    import dataclasses
+
+    from repro.configs import SHAPES as JX_SHAPES
+    from repro.configs import all_cells as jx_all_cells
+    from repro.configs import arch_families as jx_arch_families
+    from repro_torch.configs import SHAPES, Shape, all_cells, arch_families
+
+    assert all(isinstance(s, Shape) for s in SHAPES.values())
+    assert {k: dataclasses.astuple(v) for k, v in SHAPES.items()} == {
+        k: dataclasses.astuple(v) for k, v in JX_SHAPES.items()}
+    assert list(all_cells(arch_families())) == list(jx_all_cells(jx_arch_families()))
