@@ -187,6 +187,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               ``execute_indices_async`` over the main count's resident
               windows and the warm main count's wall time, off and armed in
               alternating turns
+ 18. train    LM training on the card, smollm-135m at full width with
+              ``attention_impl="xla"`` (as the reference trains; the flash
+              kernel has no backward and launches no time here): ``loss_fn``
+              and its autograd gradients in float32 at 2 x 128 (TF32 off) on
+              the same parameters from one seed, held to the port's CPU path
+              (loss within 1e-5 relative, every leaf within 1e-4 relative L2)
+              under remat "none", "full" and "dots";
+              ``make_train_step(microbatches=4)`` against 1 (the moments
+              within 1e-5); ``TrainLoop`` in bf16 with remat "full", 8 x 2048
+              tokens a step on ``SyntheticLMDataset``, 40 steps of lr 1e-3
+              under ``{"warmup": 10, "total": 200}``: the loss must fall by
+              0.3 (tests/test_system.py's bar), with the synchronised ms a
+              step, tokens/s, the model-FLOPs share, peak memory and a
+              ``torch.profiler`` step (device busy share, device time by
+              op); then, in a child process under
+              ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and deterministic
+              algorithms, the three remat modes' gradients bit-equal and a
+              resume at 4 layers (two injected failures, ``ckpt_every`` 10,
+              ``run_with_auto_resume``): 2 restarts, every logged loss and
+              the final state equal to an uninterrupted run's
 
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
@@ -287,6 +307,23 @@ CONTRACT_TURNS = 4  # turns of off, armed, armed, off
 CONTRACT_COUNTS = 3  # warm main counts a mode, in the same turns
 CONTRACT_STREAM = "email-enron"
 CONTRACT_TENANTS = 16  # small tenants a fused batch of the contracts phase's wave
+# The training phase (smollm-135m at full width, attention_impl "xla" as the
+# reference trains): card-vs-CPU gradients in float32 at 2 x 128 under each
+# remat mode, microbatching at 8 x 128, a bf16 run of 8 x 2048 with
+# remat "full", and a deterministic resume at a cut depth in a child process.
+TRAIN_ARCH = "smollm-135m"
+TRAIN_REMATS = ("none", "full", "dots")
+TRAIN_GRAD_SHAPE = (2, 128)
+TRAIN_GRAD_TOL = 1e-4  # relative L2 a gradient leaf, card vs CPU, float32
+TRAIN_LOSS_TOL = 1e-5  # relative, card vs CPU, float32
+TRAIN_MICRO_SHAPE, TRAIN_MICROBATCHES, TRAIN_MICRO_TOL = (8, 128), 4, 1e-5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = 8, 2048, 40, 3
+TRAIN_SCHEDULE = {"warmup": 10, "total": 200}
+TRAIN_MIN_DROP = 0.3  # tests/test_system.py's bar for the loss from step 1 to the last logged
+BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core rate
+RESUME_LAYERS, RESUME_SHAPE, RESUME_STEPS = 4, (4, 256), 30
+RESUME_FAIL_AT, RESUME_EVERY = (13, 24), 10
+RESUME_FLAG = "--train-resume-child"  # the child process's mode (CUBLAS_WORKSPACE_CONFIG set)
 
 
 def log(msg: str) -> None:
@@ -3092,12 +3129,333 @@ def phase_contracts(main: dict, serve: dict) -> None:
     log(f"[contracts] phase 17 took {time.perf_counter() - t_phase:.3f} s")
 
 
+def _numpy_params(schema, seed: int) -> dict:
+    """A parameter tree of NumPy float32 arrays shaped like ``schema``, from
+    one seed (the init kinds of ``models/params.py``: ones, zeros, normal
+    times the leaf's scale), for ``params_from_numpy``."""
+    from repro_torch.models.params import tree_map
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(d):
+        if d.init in ("ones", "zeros"):
+            return (np.ones if d.init == "ones" else np.zeros)(d.shape, np.float32)
+        return (d.scale * rng.standard_normal(d.shape, dtype=np.float32)).astype(np.float32)
+
+    return tree_map(leaf, schema)
+
+
+def _grads(params, batch: dict, cfg, device) -> tuple:
+    """(loss, [gradient leaves]) of ``loss_fn`` on ``batch`` (NumPy) there."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.params import tree_leaves
+
+    loss, _, grads = loss_and_grads(
+        params, {k: torch.from_numpy(v).to(device) for k, v in batch.items()}, cfg)
+    return loss, tree_leaves(grads)
+
+
+def _leaf_names(tree) -> list[str]:
+    if isinstance(tree, dict):
+        return [f"{k}/{n}" if n else k for k in sorted(tree) for n in _leaf_names(tree[k])]
+    return [""]
+
+
+def _train_grads() -> None:
+    """Card against the port's CPU path: smollm-135m at full width in
+    float32, the same parameters from one seed, loss and every gradient leaf
+    under each remat mode."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models.model import model_schema
+    from repro_torch.models.params import params_from_numpy
+
+    cfg = get_config(TRAIN_ARCH).scaled(dtype="float32")
+    tree = _numpy_params(model_schema(cfg), seed=0)
+    names = _leaf_names(tree)
+    b, s = TRAIN_GRAD_SHAPE
+    batch = SyntheticLMDataset(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=0).batch(0)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = _grads(params_from_numpy(tree, cfg, "cpu"), batch,
+                                          cfg.scaled(remat="none"), "cpu")
+    cpu_s = time.perf_counter() - t0
+    params = params_from_numpy(tree, cfg, "cuda")
+    card = {}
+    _reset_launches()
+    for remat in TRAIN_REMATS:
+        loss, grads = _grads(params, batch, cfg.scaled(remat=remat), "cuda")
+        torch.cuda.synchronize()
+        loss_err = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+        errs = [_rel(g.cpu(), w) for g, w in zip(grads, cpu_grads)]
+        worst = int(np.argmax(errs))
+        check(all(g.is_cuda for g in grads) and loss_err <= TRAIN_LOSS_TOL
+              and errs[worst] <= TRAIN_GRAD_TOL,
+              f"[train] remat {remat}: loss {float(loss)} vs CPU {float(cpu_loss)} "
+              f"({loss_err:.3e}), gradient {names[worst]} {errs[worst]:.3e}")
+        card[remat] = grads
+        log(f"[train] gradients, remat {remat!r}, card vs CPU (float32, {b} x {s}, TF32 off): "
+            f"loss {float(loss):.7f} vs {float(cpu_loss):.7f} (relative {loss_err:.3e} <= "
+            f"{TRAIN_LOSS_TOL}); {len(grads)} leaves, worst {names[worst]} {errs[worst]:.3e} "
+            f"relative L2 (<= {TRAIN_GRAD_TOL}); median {float(np.median(errs)):.3e}")
+    check(not any(_launches().values()), f"the gradient runs launched {_launches()}")
+    cross = max(_rel(g, w) for r in TRAIN_REMATS[1:] for g, w in zip(card[r], card["none"]))
+    equal = sum(torch.equal(g, w) for r in TRAIN_REMATS[1:] for g, w in zip(card[r], card["none"]))
+    check(cross <= 1e-6, f"[train] remat modes differ on the card by {cross:.3e}")
+    log(f"[train] remat modes on the card: {equal} of {2 * len(names)} leaves bit-equal to "
+        f"'none', the largest difference {cross:.3e} relative L2 (the embedding's scatter-add "
+        f"is atomic; equality under deterministic algorithms is the child's check); the CPU "
+        f"path took {cpu_s:.2f} s")
+
+
+def _train_microbatches() -> None:
+    """``make_train_step(microbatches=4)`` against 1 on the card, float32:
+    the moments after one update (0.1 x the clipped gradient, and its
+    square) and the metrics."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import model_schema
+    from repro_torch.models.params import params_from_numpy, tree_leaves
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(TRAIN_ARCH).scaled(dtype="float32")
+    tree = _numpy_params(model_schema(cfg), seed=1)
+    b, s = TRAIN_MICRO_SHAPE
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=s, global_batch=b, seed=1).batch(0).items()}
+    params = params_from_numpy(tree, cfg, "cuda")
+    runs = {}
+    for n in (1, TRAIN_MICROBATCHES):
+        step = make_train_step(cfg, schedule={"warmup": 0}, microbatches=n)
+        runs[n] = step(params, adamw_init(params), batch)
+    (_, s1, m1), (_, sn, mn) = runs[1], runs[TRAIN_MICROBATCHES]
+    metric_err = max(abs(float(mn[k]) - float(m1[k])) / max(abs(float(m1[k])), 1e-30) for k in m1)
+    errs = [_rel(g, w) for part in ("m", "v")
+            for g, w in zip(tree_leaves(sn[part]), tree_leaves(s1[part]))]
+    check(max(errs) <= TRAIN_MICRO_TOL and metric_err <= TRAIN_MICRO_TOL,
+          f"[train] microbatches {TRAIN_MICROBATCHES} vs 1: moments {max(errs):.3e}, "
+          f"metrics {metric_err:.3e}")
+    log(f"[train] microbatches {TRAIN_MICROBATCHES} vs 1 on the card (float32, {b} x {s}): "
+        f"loss {float(mn['loss']):.7f} vs {float(m1['loss']):.7f}, grad_norm "
+        f"{float(mn['grad_norm']):.6f} vs {float(m1['grad_norm']):.6f}; moments worst "
+        f"{max(errs):.3e} relative L2 (<= {TRAIN_MICRO_TOL}), metrics {metric_err:.3e}")
+
+
+def _step_flops(cfg, n_params: int, b: int, s: int) -> tuple[float, float]:
+    """(model FLOPs of one step, FLOPs the step runs with full remat): 6 N T
+    for the products with the weights (the tied embedding counted once, as
+    the LM head) and 12 L B S^2 H hd for attention's scores and values (the
+    plain path computes every S^2 score), then remat "full"'s second forward
+    of the layers, 2 N_layers T + 4 L B S^2 H hd."""
+    from repro_torch.models.model import model_schema
+    from repro_torch.models.params import tree_leaves
+
+    tokens = b * s
+    attn = cfg.n_layers * b * s * s * cfg.n_heads * cfg.resolved_head_dim
+    layer_params = sum(int(np.prod(d.shape)) for d in tree_leaves(model_schema(cfg)["layers"]))
+    model = 6 * n_params * tokens + 12 * attn
+    return model, model + 2 * layer_params * tokens + 4 * attn
+
+
+def _profile_train_step(loop, params, opt_state) -> None:
+    """One step under ``torch.profiler``: the device's busy share of the
+    step's wall and its device time by torch op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in loop.ds.batch(TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, metrics = loop.step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(np.isfinite(float(metrics["loss"])), "profiled step's loss")
+    busy = sum(end - start for start, end in _device_intervals(prof.events()))
+    if busy == 0:
+        log("[train] profiled step: the profiler recorded no device activity; the device's "
+            "busy share is not measured")
+        return
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::") and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in ops)
+    log(f"[train] profiled step (torch.profiler, CPU + CUDA): {wall:.6f} s wall under the "
+        f"profiler, device busy {busy / 1e6:.6f} s = {100 * busy / (1e6 * wall):.2f} % of it; "
+        f"{total / 1e3:.3f} ms of device time in aten ops")
+    for e in ops[:15]:
+        log(f"[train]   {e.key}: {e.self_device_time_total / 1e3:.3f} ms on the device "
+            f"({100 * e.self_device_time_total / total:.2f} %), {e.count} calls")
+
+
+def _train_full_width() -> None:
+    """``TrainLoop`` on smollm-135m at full width: bf16 parameters, float32
+    moments, remat "full", 8 x 2048 tokens a step on the synthetic stream."""
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.params import tree_leaves
+
+    smi = nvidia_smi_line()
+    loop = TrainLoop(TRAIN_ARCH, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, schedule=TRAIN_SCHEDULE)
+    cfg = loop.cfg
+    check(cfg.dtype == "bfloat16" and cfg.remat == "full" and cfg.attention_impl == "xla"
+          and loop.device.type == "cuda", f"[train] config {cfg}")
+    times: list[float] = []
+    step_fn = loop.step_fn
+
+    def timed(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    loop.step_fn = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    params, opt_state, flags = loop.run(TRAIN_STEPS, log_every=5)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    loop.step_fn = step_fn
+    losses = [m["loss"] for m in loop.metrics_log]
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(not any(launches.values()), f"[train] the train path launched {launches}")
+    check(all(np.isfinite(x) for x in losses) and losses[0] - losses[-1] >= TRAIN_MIN_DROP,
+          f"[train] loss {losses} did not fall by {TRAIN_MIN_DROP}")
+    check(all(t.is_cuda and t.dtype == torch.bfloat16 for t in tree_leaves(params))
+          and all(t.dtype == torch.float32 for t in tree_leaves(opt_state["m"]))
+          and int(opt_state["step"]) == TRAIN_STEPS, "[train] state after the run")
+    med = float(np.median(times[TRAIN_WARM:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model, with_remat = _step_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    log(f"[train] TrainLoop({TRAIN_ARCH!r}) on the card: {cfg.n_layers} layers, {n_params} "
+        f"parameters in {cfg.dtype}, float32 moments, remat {cfg.remat!r}, attention "
+        f"{cfg.attention_impl!r}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, schedule "
+        f"{TRAIN_SCHEDULE} at lr {loop.opt_cfg.lr}; {TRAIN_STEPS} steps in {wall:.3f} s "
+        f"(straggler flags {flags}); loss at steps "
+        f"{[(m['step'], round(m['loss'], 4)) for m in loop.metrics_log]}; fell by "
+        f"{losses[0] - losses[-1]:.4f} (>= {TRAIN_MIN_DROP}); kernel launches {launches}")
+    log(f"[train] synchronised step: median {1e3 * med:.3f} ms over steps {TRAIN_WARM + 1}-"
+        f"{TRAIN_STEPS} (min {1e3 * min(times[TRAIN_WARM:]):.3f}, max "
+        f"{1e3 * max(times[TRAIN_WARM:]):.3f}; first {1e3 * times[0]:.3f}); {tokens / med:.1f} "
+        f"tokens/s; model FLOPs {model:.6e} a step = {100 * model / (med * BF16_PEAK):.2f} % of "
+        f"{BF16_PEAK:.3e} FLOP/s bf16, {100 * with_remat / (med * BF16_PEAK):.2f} % counting "
+        f"remat's second forward ({with_remat:.6e}); max_memory_allocated {peak} bytes; {smi}")
+    _profile_train_step(loop, params, opt_state)
+
+
+def _train_resume_child() -> int:
+    """The child process (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, deterministic
+    algorithms): bit-equal gradients under the three remat modes at full
+    width, then an uninterrupted run against one with two injected failures
+    under ``run_with_auto_resume``, at a cut depth. Prints one JSON line."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import TrainLoop, run_with_auto_resume
+    from repro_torch.models.model import model_schema
+    from repro_torch.models.params import params_from_numpy, tree_leaves
+    from repro_torch.runtime import FailureInjector
+
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8", "CUBLAS_WORKSPACE_CONFIG")
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config(TRAIN_ARCH).scaled(dtype="float32")
+    params = params_from_numpy(_numpy_params(model_schema(cfg), seed=0), cfg, "cuda")
+    b, s = TRAIN_GRAD_SHAPE
+    batch = SyntheticLMDataset(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=0).batch(0)
+    grads = {r: _grads(params, batch, cfg.scaled(remat=r), "cuda")
+             for r in TRAIN_REMATS}
+    remat_equal = all(torch.equal(grads[r][0], grads["none"][0])
+                      and all(torch.equal(g, w) for g, w in zip(grads[r][1], grads["none"][1]))
+                      for r in TRAIN_REMATS)
+    del params, grads
+
+    cut = get_config(TRAIN_ARCH).scaled(n_layers=RESUME_LAYERS)
+    b, s = RESUME_SHAPE
+    common = dict(global_batch=b, seq=s, schedule=TRAIN_SCHEDULE, ckpt_every=RESUME_EVERY,
+                  cfg_override=cut)
+    loop_a = TrainLoop(TRAIN_ARCH, **common)
+    t0 = time.perf_counter()
+    pa, sa, _ = loop_a.run(RESUME_STEPS, log_every=1)
+    plain_s = time.perf_counter() - t0
+    want = {m["step"]: m["loss"] for m in loop_a.metrics_log}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        loop_b = TrainLoop(TRAIN_ARCH, ckpt_dir=str(work), **common)
+        t0 = time.perf_counter()
+        (pb, sb, _), restarts = run_with_auto_resume(
+            loop_b, RESUME_STEPS, FailureInjector(fail_at_steps=RESUME_FAIL_AT))
+        resumed_s = time.perf_counter() - t0
+        latest = loop_b.ckpt.latest_step()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    logged = [(m["step"], m["loss"]) for m in loop_b.metrics_log]
+    state_equal = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves({"p": pa, "s": sa}), tree_leaves({"p": pb, "s": sb})))
+    print(json.dumps({
+        "remat_equal": remat_equal, "restarts": restarts, "latest": latest,
+        "logged": logged, "uninterrupted": sorted(want.items()),
+        "losses_equal": all(loss == want[step] for step, loss in logged),
+        "state_equal": state_equal, "plain_s": plain_s, "resumed_s": resumed_s,
+    }), flush=True)
+    return 0
+
+
+def _train_resume() -> None:
+    """Run ``_train_resume_child`` in a child process and check what it read."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), RESUME_FLAG], env=env,
+                          capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and bool(lines),
+          f"[train] resume child exited {proc.returncode}: {proc.stdout[-4000:]}"
+          f"{proc.stderr[-4000:]}")
+    res = json.loads(lines[-1])
+    check(res["remat_equal"], "[train] remat modes' gradients differ under deterministic algorithms")
+    # Logged: step 1, every RESUME_EVERY-th, and each restart's first step,
+    # the one after the checkpoint committed before its failure.
+    restarted = [f // RESUME_EVERY * RESUME_EVERY + 1 for f in RESUME_FAIL_AT]
+    steps = sorted([1, *range(RESUME_EVERY, RESUME_STEPS + 1, RESUME_EVERY), *restarted])
+    check(res["restarts"] == len(RESUME_FAIL_AT) and res["losses_equal"] and res["state_equal"]
+          and res["latest"] == RESUME_STEPS and [st for st, _ in res["logged"]] == steps,
+          f"[train] resume: {res['restarts']} restarts, logged {res['logged']} vs "
+          f"{res['uninterrupted']}, state equal {res['state_equal']}")
+    log(f"[train] deterministic child (CUBLAS_WORKSPACE_CONFIG=:4096:8, "
+        f"use_deterministic_algorithms): remat none/full/dots gradients bit-equal at full width; "
+        f"resume at {RESUME_LAYERS} layers (full width otherwise, bf16, remat 'full', "
+        f"{RESUME_SHAPE[0]} x {RESUME_SHAPE[1]}), {RESUME_STEPS} steps, ckpt_every {RESUME_EVERY}, "
+        f"failures at steps {RESUME_FAIL_AT}: {res['restarts']} restarts, every logged loss "
+        f"{res['logged']} equal to the uninterrupted run's, final params and moments bit-equal; "
+        f"uninterrupted {res['plain_s']:.3f} s, with the restarts {res['resumed_s']:.3f} s; "
+        f"the child took {child_s:.1f} s")
+
+
+def phase_train() -> None:
+    """18: LM training on the card (see the module docstring)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    _train_grads()
+    _train_microbatches()
+    _train_full_width()
+    _train_resume()
+    log(f"[train] phase 18 took {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:] == [RESUME_FLAG]:
+        return _train_resume_child()
     t_start = time.perf_counter()
     name = phase_device()
     phase_build()
@@ -3130,6 +3488,7 @@ def main() -> int:
     phase_stream_serve()
     row["sharded_launches"] = phase_sharded(main_run)
     phase_contracts(main_run, serve)
+    phase_train()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [row, *rows, *dense_rows, *flash_rows]}))

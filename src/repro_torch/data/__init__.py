@@ -1,4 +1,5 @@
-"""Data pipelines of the port (graph workloads only in this slice)."""
+"""Data pipelines of the port: graph workloads and the synthetic LM stream."""
 from repro_torch.data.graph_pipeline import load_graph
+from repro_torch.data.tokens import SyntheticLMDataset, batch_iterator
 
-__all__ = ["load_graph"]
+__all__ = ["SyntheticLMDataset", "batch_iterator", "load_graph"]

@@ -475,6 +475,10 @@ def resilient_tc_count(
             ckpt.wait()
             return total, info
         except CountInterrupted as ci:
+            # Join the cursor write still in flight, so that the root holds
+            # every commit made before the failure when this re-raises (a
+            # fresh TCCheckpoint on the root would not see it otherwise).
+            ckpt.wait()
             info["failures"] += 1
             if info["failures"] > config.max_failures:
                 raise

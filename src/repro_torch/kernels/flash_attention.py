@@ -288,12 +288,25 @@ def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
 flash_attention_cuda.launches = 0
 
 
+def _refuse_autograd(q, k, v) -> None:
+    """Raise where autograd would record the call: the kernel writes its
+    output through a raw pointer, so on the card the gradient would vanish
+    without an error, and the reference's kernel has no backward either."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash attention has no backward (nor has the reference's "
+            "flash_attention_pallas): train with attention_impl='xla', or call "
+            "it under torch.no_grad() or on operands that do not require grad")
+
+
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, block_q: int = 512,
                     block_k: int = 512) -> torch.Tensor:
     """The reference's entry point (``[BH, S, hd]``): the kernel on the card,
     the plain version on the CPU. ``block_q``/``block_k`` are accepted for
-    parity; the kernel's tiles are its own."""
+    parity; the kernel's tiles are its own. Raises ``NotImplementedError``
+    under autograd (``_refuse_autograd``), on both devices."""
     del block_q, block_k
+    _refuse_autograd(q, k, v)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal)
     return flash_attention_reference(q, k, v, q_pos, k_pos, causal=causal)
@@ -301,7 +314,10 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, block_q: int 
 
 def flash_attention_bshd(q, k, v, q_pos, k_pos, *, causal: bool = True) -> torch.Tensor:
     """The model's entry point (``[B, S, H, hd]``, GQA KV heads as they
-    are): the kernel on the card, the plain version on the CPU."""
+    are): the kernel on the card, the plain version on the CPU. Raises
+    ``NotImplementedError`` under autograd (``_refuse_autograd``), on both
+    devices."""
+    _refuse_autograd(q, k, v)
     if q.is_cuda:
         return flash_attention_bshd_cuda(q, k, v, q_pos, k_pos, causal=causal)
     return flash_attention_bshd_reference(q, k, v, q_pos, k_pos, causal=causal)

@@ -7,16 +7,20 @@ leaf-by-leaf copy); the reference's ``scan`` over layers is a Python loop
 over views of that stack. Caches are stacked the same way and updated in
 place.
 
-Families ``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``audio`` and
-``attention="mla"`` raise ``NotImplementedError`` (ROADMAP.md, queue 1,
-item 5). ``loss_fn`` and the backward wait for the training slice.
+``loss_fn`` is the next-token cross entropy of ``forward_train``; its
+backward is autograd's, with each layer under ``torch.utils.checkpoint`` as
+``cfg.remat`` asks (``_remat``). Families ``moe``, ``ssm``, ``hybrid``,
+``vlm`` and ``audio`` and ``attention="mla"`` raise ``NotImplementedError``
+(ROADMAP.md, queue 1, item 1, part 2).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.flash_attention import NEG_INF
@@ -28,6 +32,7 @@ __all__ = [
     "model_schema",
     "init_model",
     "forward_train",
+    "loss_fn",
     "forward_prefill",
     "decode_step",
     "init_cache",
@@ -41,11 +46,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port runs the dense "
-            "family (ROADMAP.md, queue 1, item 5)")
+            "family (ROADMAP.md, queue 1, item 1, part 2)")
     if cfg.attention != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} is not ported yet; the port runs GQA "
-            "(ROADMAP.md, queue 1, item 5)")
+            "(ROADMAP.md, queue 1, item 1, part 2)")
 
 
 # ------------------------------------------------------------------- schema
@@ -92,8 +97,13 @@ def count_params_analytical(cfg: ModelConfig, active_only: bool = False) -> int:
 # ----------------------------------------------------------- layer execution
 
 
-def _layer(params: dict, i: int) -> dict:
-    return tree_map(lambda t: t[i], params["layers"])
+def _layers(params: dict, cfg: ModelConfig) -> list[dict]:
+    """Each layer's views of the stacked ``[L, ...]`` leaves: one ``unbind(0)``
+    a leaf and forward, so that the backward is one ``stack`` a leaf (a
+    ``t[i]`` a layer would zero-fill and add a full ``[L, ...]`` gradient L
+    times)."""
+    rows = tree_map(lambda t: t.unbind(0), params["layers"])
+    return [tree_map(lambda r, i=i: r[i], rows) for i in range(cfg.n_layers)]
 
 
 def _post_mlp(lp, x, cfg: ModelConfig):
@@ -106,6 +116,35 @@ def _dense_layer(lp, x, positions, cfg: ModelConfig):
     a, kv = L.attn_forward(lp["attn"], h, positions, cfg)
     x = x + a
     return x + _post_mlp(lp, x, cfg), kv
+
+
+def _train_layer(lp, x, positions, cfg: ModelConfig):
+    return _dense_layer(lp, x, positions, cfg)[0]
+
+
+def _save_mm(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: keep the 2-D weight products (``aten.mm``, which the
+    ``[B, S, D] @ [D, F]`` projections lower to), recompute the rest —
+    attention's batched einsums (``bmm``) included, as the reference's
+    ``dots_with_no_batch_dims_saveable`` does."""
+    del ctx, args, kwargs
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``: ``"none"`` saves every activation,
+    ``"full"`` only the layer's inputs (everything inside is recomputed in the
+    backward), ``"dots"`` the inputs and the 2-D weight products. The layer
+    draws no random numbers, so no RNG state is stashed."""
+    if cfg.remat == "none":
+        return fn
+    kwargs = {}
+    if cfg.remat != "full":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_mm)
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+                             **kwargs)
 
 
 def _mask_pad_logits(logits, cfg: ModelConfig):
@@ -142,9 +181,23 @@ def forward_train(params, batch: dict, cfg: ModelConfig):
     check_supported(cfg)
     x = _embed_tokens(params, batch["tokens"])
     positions = _positions(*x.shape[:2], x.device)
-    for i in range(cfg.n_layers):
-        x, _ = _dense_layer(_layer(params, i), x, positions, cfg)
+    layer = _remat(_train_layer, cfg)
+    for lp in _layers(params, cfg):
+        x = layer(lp, x, positions, cfg)
     return _logits(params, x, cfg), {}
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig):
+    """Next-token cross entropy: ``(loss, {"ce_loss": loss})``, the loss a
+    float32 0-d tensor (``logsumexp`` of the logits minus the gold logit,
+    averaged over batch and sequence). The reference's moe and audio
+    branches raise through ``check_supported``, as ``forward_train`` does."""
+    logits, aux = forward_train(params, batch, cfg)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    loss = (logz - gold).mean()
+    return loss, {"ce_loss": loss, **aux}
 
 
 # -------------------------------------------------------------- KV cache
@@ -171,8 +224,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ModelCo
     """
     check_supported(cfg)
     x = _embed_tokens(params, token)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params, cfg)):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         a, _, _ = L.attn_decode(lp["attn"], h, pos, cache["k"][i], cache["v"][i], cfg)
         x = x + a
@@ -200,8 +252,8 @@ def _fill_attention_cache(params, batch, cache, cfg: ModelConfig):
     x = _embed_tokens(params, batch["tokens"])
     s = x.shape[1]
     positions = _positions(*x.shape[:2], x.device)
-    for i in range(cfg.n_layers):
-        x, (k, v) = _dense_layer(_layer(params, i), x, positions, cfg)
+    for i, lp in enumerate(_layers(params, cfg)):
+        x, (k, v) = _dense_layer(lp, x, positions, cfg)
         for name, new in (("k", k), ("v", v)):
             cache[name][i, :, :s] = new
             cache[name][i, :, s:] = 0

@@ -32,7 +32,9 @@ def stage(x, device: str | torch.device, *, non_blocking: bool = True,
     """
     note_transfer()
     device = torch.device(device)
-    t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
+    t = x
+    if isinstance(x, np.ndarray):  # ascontiguousarray makes a 0-d array 1-d
+        t = torch.from_numpy(np.ascontiguousarray(x).reshape(x.shape))
     on_host = t.device.type == "cpu"
     if device.type == "cpu" and on_host:
         return t.clone() if copy else t

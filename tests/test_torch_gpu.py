@@ -518,6 +518,89 @@ def test_lm_serving_on_card_matches_cpu(cuda, impl):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("entry", ["bshd", "bh"])
+def test_flash_refuses_autograd_on_card(cuda, entry):
+    """The kernel writes through a raw pointer: under autograd the output
+    would carry no gradient, so both entries raise before launching."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bshd,
+        flash_attention_cuda,
+    )
+
+    q, k, v, qp, kp = _flash_operands(4, 2, 64, 64, 64, torch.bfloat16, cuda)
+    if entry == "bshd":
+        fn, (q, k, v) = flash_attention_bshd, (t[:, :, None] for t in (q, k, v))
+    else:
+        fn = flash_attention
+    v.requires_grad_()
+    before = flash_attention_cuda.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fn(q, k, v, qp, kp)
+    assert flash_attention_cuda.launches == before
+    with torch.no_grad():
+        out = fn(q, k, v, qp, kp)
+    assert out.grad_fn is None and flash_attention_cuda.launches == before + 1
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_train_step_on_card_matches_cpu(cuda, remat):
+    """One f32 step of qwen's smoke config (its QKV bias included) on the
+    card and on the CPU: metrics within 1e-5, the moments (the clipped
+    gradient) within 1e-4 in relative L2 a leaf, the parameters' update
+    within 1e-3 (AdamW moves an element whose gradient is mostly rounding by
+    about lr whatever its sign: the key bias, as in
+    ``tests/test_torch_train.py``); the card's step makes no host sync
+    (``set_sync_debug_mode("error")``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    cfg = get_smoke_config("qwen1.5-110b").scaled(dtype="float32", remat=remat)
+    batch = SyntheticLMDataset(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=1).batch(0)
+    step_fn = make_train_step(cfg, schedule={"warmup": 0}, microbatches=2)
+    out, start = {}, {}
+    for dev in ("cuda", "cpu"):
+        params = start[dev] = init_model(0, cfg, dev)
+        state = adamw_init(params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if dev == "cuda" else 0)
+        try:
+            out[dev] = step_fn(params, state, b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    (pc, sc, mc), (pg, sg, mg) = out["cpu"], out["cuda"]
+    for k in mc:
+        assert mg[k].is_cuda
+        np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-5, err_msg=k)
+    for got, want in ((sg["m"], sc["m"]), (sg["v"], sc["v"])):
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            assert g.is_cuda and _rel_l2(g, w) <= 1e-4
+    for g, w, g0, w0 in zip(*(tree_leaves(t) for t in (pg, pc, start["cuda"], start["cpu"]))):
+        assert g.is_cuda and _rel_l2(g - g0, w - w0) <= 1e-3
+
+
+def test_train_loop_on_card_loss_decreases(cuda):
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim import AdamWConfig
+
+    loop = TrainLoop("smollm-135m", smoke=True, global_batch=4, seq=32,
+                     opt=AdamWConfig(lr=3e-3, weight_decay=0.0))
+    params, _, _ = loop.run(60, log_every=20)
+    assert all(t.is_cuda for t in params.values() if isinstance(t, torch.Tensor))
+    losses = [m["loss"] for m in loop.metrics_log]
+    assert losses[-1] < losses[0] - 0.3, losses
+
+
 def _segment_batch(rng, w, bucket, g, device):
     rows, cols = int(rng.integers(100, 3000)), int(rng.integers(100, 3000))
     row, col = _words(rng, rows, w, device), _words(rng, cols, w, device)

@@ -348,6 +348,30 @@ def test_resume_from_disk_is_exact(tmp_path):
         pt_dist.TCCheckpoint(tmp_path / "empty").peek()
 
 
+def test_interrupted_count_leaves_its_last_commit_on_disk(tmp_path, monkeypatch):
+    """With a slow writer (a loaded host) the cursor of step 4 is still on
+    its thread when step 5 fails: the re-raised interrupt joins it first, so
+    a fresh reader of the root finds step 4."""
+    import time
+
+    from repro_torch.checkpoint import store
+
+    save = store.save_checkpoint
+
+    def slow_save(*args, **kwargs):
+        time.sleep(0.3)
+        return save(*args, **kwargs)
+
+    monkeypatch.setattr(store, "save_checkpoint", slow_save)
+    _, _, psb, pwl, _ = _fixture()
+    cfg = pt_dist.ResilienceConfig(checkpoint_dir=tmp_path, checkpoint_every=2,
+                                   injector=pt_runtime.FailureInjector(fail_at_steps=(5,)),
+                                   lose_devices=0, max_failures=0)
+    with pytest.raises(pt_runtime.CountInterrupted):
+        pt_dist.resilient_tc_count(psb, pwl, _mesh((2, 2)), cfg, chunk_pairs=CHUNK)
+    assert pt_dist.TCCheckpoint(tmp_path).load_latest().committed_step == 4
+
+
 def test_snapshot_and_cursor_files_match_reference(tmp_path):
     """save_snapshot / save_cursor of one plan in both packages: the same
     manifest leaves (paths, shapes, dtypes), extras and leaf bytes."""
