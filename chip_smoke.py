@@ -207,6 +207,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               resume at 4 layers (two injected failures, ``ckpt_every`` 10,
               ``run_with_auto_resume``): 2 restarts, every logged loss and
               the final state equal to an uninterrupted run's
+ 19. families  the other LM families on the card. (a) Every arch's smoke
+              config: ``forward_train`` logits, ``loss_fn`` and its metrics
+              and every gradient leaf on the card within 1e-4 (relative, float32,
+              TF32 off) of the port's CPU path on the same weights; decode
+              against teacher forcing on the card within 2e-2
+              (tests/test_models.py:70) under "xla" and, where the kernel
+              takes the heads, "flash", every arch but the audio encoder.
+              (b) Full width in bf16 through ``ServeSession``, weights drawn
+              on the card from seed 0 (the vlm's cross-attention gates set
+              to 0.5, so that the image tokens count), 4 x 512 prompt tokens
+              and 16 generated: minicpm3-4b (MLA, 62 layers), mamba2-780m (48),
+              zamba2-7b (81 + 13 shared-block applications), moonshot (MoE,
+              12 of 48 layers) and llama-3.2-vision (10 of 100 layers, 1,601
+              image tokens) under "xla", the last two also under "flash"
+              (flash vs xla prefill logits within 3e-2 relative norm; flash
+              launches 12 and 8 self + 2 cross, none at decode); hubert's
+              ``forward_train`` on 4 x 512 frames; parameters equal to
+              ``count_params_analytical`` of the cut config, tokens in
+              range, logits finite, ``prefill_s``, ms a decode step,
+              tokens/s, peak memory, the MoE's dropped fraction at prefill
+              and decode; "flash" on MLA, hd 112 and hd 80 must raise
+              ``ValueError`` and launch nothing. (c) Full width in float32
+              at a cut depth (2 layers; the vlm one group of 5, the hybrid a
+              group and a trailing layer, 7): decode against teacher forcing
+              within 2e-2 (MLA, ssm, hybrid, vlm); the MoE's logits on the
+              card within 1e-4 of the port's CPU path at 2 x 16 tokens, its
+              dropped fraction equal
 
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
@@ -324,6 +351,22 @@ BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core rate
 RESUME_LAYERS, RESUME_SHAPE, RESUME_STEPS = 4, (4, 256), 30
 RESUME_FAIL_AT, RESUME_EVERY = (13, 24), 10
 RESUME_FLAG = "--train-resume-child"  # the child process's mode (CUBLAS_WORKSPACE_CONFIG set)
+# The families phase: every arch's smoke config on the card, then five
+# decoders and the audio encoder at full width (bf16, cut in depth where the
+# weights would pass about 21 GB) and four decoders plus the MoE at a cut
+# depth in float32.
+FAMILY_CARD_TOL = 1e-4  # card vs the port's CPU path, float32, relative norm / L2 a leaf
+FAMILY_TF_TOL = 2e-2  # decode vs teacher forcing, tests/test_models.py:70
+FAMILY_SERVE = (("minicpm3-4b", None, ("xla",)), ("mamba2-780m", None, ("xla",)),
+                ("zamba2-7b", None, ("xla",)), ("moonshot-v1-16b-a3b", 12, ("xla", "flash")),
+                ("llama-3.2-vision-90b", 10, ("xla", "flash")))  # (arch, depth cut, impls)
+FAMILY_FLASH_LAYERS = {"moonshot-v1-16b-a3b": 12, "llama-3.2-vision-90b": 8 + 2}  # self + cross
+FAMILY_AUDIO = "hubert-xlarge"
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 4, 512, 16  # B.S 2,048: two MoE groups of 1,024
+FAMILY_F32_DEPTH = {"llama-3.2-vision-90b": 5, "zamba2-7b": 7}  # one group (+1 trailing); else 2
+FAMILY_TF_SHAPE = (2, 32, 8)  # batch, tokens, the last ones decoded
+FAMILY_MOE_SHAPE = (2, 16)
+FAMILY_GATE = 0.5  # the vlm's cross-attention gates (tanh 0.46), so that image tokens count
 
 
 def log(msg: str) -> None:
@@ -1970,7 +2013,6 @@ def phase_lm_serve() -> dict:
     """smollm-135m served at full width on the card through the flash
     kernel, held against the plain attention path on the same weights."""
     from repro_torch.launch.serve import ServeSession
-    from repro_torch.models import layers
     from repro_torch.models.model import count_params_analytical, forward_train
     from repro_torch.models.params import tree_leaves, tree_map
 
@@ -2059,18 +2101,8 @@ def phase_lm_serve() -> dict:
     del every_f, every_x, by_pos
     # A planted fault the bound must see: a kernel that loses keys 64..127
     # (one KV tile) in every layer.
-    real = layers.flash_attention_bshd
-
-    def drop_tile(q, k, v, q_pos, k_pos, *, causal):
-        keep = torch.ones(k.shape[1], dtype=torch.bool, device=k.device)
-        keep[64:128] = False
-        return real(q, k[:, keep], v[:, keep], q_pos, k_pos[:, keep], causal=causal)
-
-    layers.flash_attention_bshd = drop_tile
-    try:
+    with _dropped_kv_tile():
         logits_b, cache_b = sess.prefill(prompts)
-    finally:
-        layers.flash_attention_bshd = real
     bad = {"prefill logits": _rel(logits_b, logits_x),
            **{f"cache {n}": max(_rel(cache_b[n][i], cache_x[n][i]) for i in range(cfg.n_layers))
               for n in ("k", "v")}}
@@ -3448,6 +3480,451 @@ def phase_train() -> None:
     log(f"[train] phase 18 took {time.perf_counter() - t_phase:.3f} s")
 
 
+# ---------------------------------------------------------------- phase 19
+
+
+def _flash_fits(cfg) -> bool:
+    """Whether the flash kernel takes the config's attention (equal q/k/v
+    widths in FLASH_HEAD_DIMS); where it does not, impl "flash" raises."""
+    from repro_torch.kernels.flash_attention import FLASH_HEAD_DIMS
+
+    return (cfg.uses_attention and cfg.attention != "mla"
+            and cfg.resolved_head_dim in FLASH_HEAD_DIMS)
+
+
+def _family_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """tests/test_models.py's batch of a family from a NumPy seed (frames,
+    mask and labels for audio; tokens, labels and vlm image embeddings)."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        return {"frames": rng.normal(size=(b, s, cfg.d_frontend)).astype(np.float32),
+                "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int64),
+                "mask": rng.random((b, s)) < 0.3}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int64),
+             "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.normal(
+            size=(b, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32)
+    return batch
+
+
+def _open_gates(params) -> None:
+    """A vlm's cross-attention gates at ``FAMILY_GATE`` (init leaves them at
+    0, where ``tanh(gate)`` mutes the image tokens), in place."""
+    if "cross_layers" in params:
+        params["cross_layers"]["xattn"]["gate"].fill_(FAMILY_GATE)
+
+
+def _on(batch: dict, device) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _teacher_forcing(params, cfg, batch: dict, decoded: int) -> tuple[float, float]:
+    """Prefill all but the last ``decoded`` tokens, decode those one by one:
+    (max |err|, max relative norm over the steps) of each step's logits
+    against ``forward_train``'s at the same position (tests/test_models.py:70
+    bounds the first at smoke width)."""
+    from repro_torch.models.model import decode_step, forward_prefill, forward_train, init_cache
+
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    sp = s - decoded
+    with torch.inference_mode():
+        full, _ = forward_train(params, batch, cfg)
+        cache = init_cache(cfg, b, s, tokens.device)
+        last, cache = forward_prefill(params, dict(batch, tokens=tokens[:, :sp]), cache, cfg)
+        pairs = [(last, full[:, sp - 1])]
+        for t in range(sp, s):
+            logits, cache = decode_step(params, cache, tokens[:, t:t + 1], t, cfg)
+            pairs.append((logits, full[:, t]))
+    live = slice(0, cfg.vocab)  # the padded vocab's -1e30 columns are equal and left out
+    return (max(_err(a[:, live], w[:, live]) for a, w in pairs),
+            max(_rel(a[:, live], w[:, live]) for a, w in pairs))
+
+
+def _families_smoke() -> int:
+    """19a: each arch's smoke config on the card against the port's CPU path
+    on the same float32 weights (forward_train logits, loss_fn and every
+    gradient leaf), and decode against teacher forcing on the card in the
+    config's dtype, under "xla" and, where the kernel takes the heads,
+    "flash". Returns the flash launches of the teacher-forcing runs."""
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import forward_train, init_model
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    flash = 0
+    for i, arch in enumerate(ARCHS):
+        cfg = get_smoke_config(arch).scaled(dtype="float32")
+        host = init_model(i, cfg, "cpu")
+        _open_gates(host)
+        card = tree_map(lambda t: t.cuda(), host)
+        batch = _family_batch(cfg, 2, 16, seed=i)
+        with torch.inference_mode():
+            lc = forward_train(card, _on(batch, "cuda"), cfg)[0]
+            lh = forward_train(host, _on(batch, "cpu"), cfg)[0]
+        rel_logits = _rel(lc.cpu(), lh)
+        loss_c, metrics_c, grads_c = loss_and_grads(card, _on(batch, "cuda"), cfg)
+        loss_h, metrics_h, grads_h = loss_and_grads(host, _on(batch, "cpu"), cfg)
+        grad_rel = [float((g.cpu().double() - w.double()).norm() / w.double().norm().clamp_min(1e-30))
+                    for g, w in zip(tree_leaves(grads_c), tree_leaves(grads_h))]
+        check(lc.is_cuda and rel_logits <= FAMILY_CARD_TOL,
+              f"[families] {arch}: card vs CPU logits relative norm {rel_logits}")
+        check(abs(float(loss_c) - float(loss_h)) <= FAMILY_CARD_TOL * abs(float(loss_h))
+              and sorted(metrics_c) == sorted(metrics_h) and max(grad_rel) <= FAMILY_CARD_TOL,
+              f"[families] {arch}: loss {float(loss_c)} vs {float(loss_h)}, gradient relative L2 "
+              f"max {max(grad_rel)}")
+        msg = (f"[families] {arch} ({cfg.family}{', mla' if cfg.attention == 'mla' else ''}) smoke, "
+               f"float32, card vs CPU: logits relative norm {rel_logits:.3e}, loss {float(loss_c):.6f} "
+               f"vs {float(loss_h):.6f}, metrics {sorted(metrics_c)}, {len(grad_rel)} gradient "
+               f"leaves, relative L2 max {max(grad_rel):.3e} (bound {FAMILY_CARD_TOL})")
+        if cfg.family != "audio":
+            dcfg = get_smoke_config(arch)  # the config's own dtype, as tests/test_models.py runs it
+            params = init_model(i + 100, dcfg, "cuda")
+            _open_gates(params)
+            tf_batch = _on({k: v for k, v in _family_batch(dcfg, 2, 12, seed=i + 3).items()
+                            if k != "labels"}, "cuda")
+            impls = ("xla", "flash") if _flash_fits(dcfg) else ("xla",)
+            errs = {}
+            for impl in impls:
+                _reset_launches()
+                errs[impl] = _teacher_forcing(params, dcfg.scaled(attention_impl=impl), tf_batch, 4)
+                launched = _launches()["flash_attention"]
+                check(errs[impl][0] < FAMILY_TF_TOL and (launched > 0) == (impl == "flash"),
+                      f"[families] {arch} {impl}: decode vs teacher forcing max |err| "
+                      f"{errs[impl][0]} (bound {FAMILY_TF_TOL}), {launched} flash launches")
+                flash += launched
+            msg += (f"; decode vs teacher forcing on the card ({dcfg.dtype}): "
+                    + ", ".join(f"{k} max |err| {e:.3e} (relative norm {r:.3e})"
+                                for k, (e, r) in errs.items()) + f" (bound {FAMILY_TF_TOL})")
+        log(msg)
+        del host, card, lc, lh, grads_c, grads_h
+    return flash
+
+
+@contextlib.contextmanager
+def _moe_drops():
+    """Record each MoE layer call's (sequence length, dropped fraction
+    tensor) while the model runs (read after it, no host sync inside)."""
+    from repro_torch.models import moe
+
+    real, seen = moe.moe_forward, []
+
+    def spy(p, x, cfg, group_size=1024):
+        y, aux = real(p, x, cfg, group_size=group_size)
+        seen.append((x.shape[1], aux["moe_dropped_frac"]))
+        return y, aux
+
+    moe.moe_forward = spy
+    try:
+        yield seen
+    finally:
+        moe.moe_forward = real
+
+
+def _families_serve(smi: str) -> dict:
+    """19b: the six configs at full width in bf16: ServeSession (4 x 512
+    prompt tokens, 16 generated) for the decoders, forward_train on 4 x 512
+    frames for the audio encoder. Returns the flash launches by config."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.model import count_params_analytical, forward_train, init_model
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    flash = {}
+    rng = np.random.default_rng(19)
+    for arch, depth, impls in FAMILY_SERVE:
+        full = get_config(arch)
+        cfg = full.scaled(n_layers=depth) if depth else full
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+        _open_gates(params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        check(n_params == count_params_analytical(cfg), f"[families] {arch}: {n_params} parameters")
+        cut = f"{depth} of {full.n_layers} layers" if depth else f"all {full.n_layers} layers"
+        log(f"[families] {arch} ({cfg.family}) at full width, {cut}: {n_params} parameters in bf16 "
+            f"({count_params_analytical(full)} at full depth), drawn on the card from seed 0 in "
+            f"{init_s:.3f} s; {smi}")
+        prompts = rng.integers(0, cfg.vocab, (FAMILY_BATCH, FAMILY_PROMPT), dtype=np.int32)
+        img = None
+        if cfg.family == "vlm":
+            img = rng.normal(size=(FAMILY_BATCH, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32)
+        first = {}
+        for impl in impls:
+            sess = ServeSession(arch, batch=FAMILY_BATCH, max_seq=FAMILY_PROMPT + FAMILY_GEN + 1,
+                                attention_impl=impl, n_layers=depth, params=params)
+            sess.generate(prompts[:, :64], 2, image_embeds=img)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            with _moe_drops() as drops:
+                tokens, stats = sess.generate(prompts, FAMILY_GEN, image_embeds=img,
+                                              keep_logits=True)
+            launches = _launches()
+            peak = torch.cuda.max_memory_allocated()
+            gen = tokens[:, FAMILY_PROMPT:]
+            want_flash = FAMILY_FLASH_LAYERS[arch] if impl == "flash" else 0
+            others = {k: v for k, v in launches.items() if k != "flash_attention" and v}
+            check(launches["flash_attention"] == want_flash and not others,
+                  f"[families] {arch} {impl}: launches {launches}, expected {want_flash} flash")
+            check(tokens.shape == (FAMILY_BATCH, FAMILY_PROMPT + FAMILY_GEN)
+                  and np.isfinite(stats["logits"][..., :cfg.vocab]).all()
+                  and 0 <= gen.min() and gen.max() < cfg.vocab,
+                  f"[families] {arch} {impl}: generated tokens or logits malformed")
+            first[impl] = torch.from_numpy(stats["logits"][0, :, :cfg.vocab])
+            if impl == "flash":
+                flash[arch] = launches["flash_attention"]
+            else:
+                _profile_serve(arch, sess, prompts, img)
+            step_ms = 1e3 * stats["decode_s"] / (FAMILY_GEN - 1)
+            moe = ""
+            if drops:
+                pre = [float(d) for s, d in drops if s > 1]
+                dec = [float(d) for s, d in drops if s == 1]
+                moe = (f"; MoE dropped fraction at prefill mean {np.mean(pre):.6f} (max "
+                       f"{max(pre):.6f} over {len(pre)} layers), at decode mean {np.mean(dec):.6f}")
+            log(f"[families] {arch} {impl} serve: {FAMILY_BATCH} x {FAMILY_PROMPT} prompt tokens, "
+                f"{FAMILY_GEN} generated; prefill_s {stats['prefill_s']:.6f} "
+                f"({FAMILY_BATCH * FAMILY_PROMPT / stats['prefill_s']:.1f} prompt tokens/s); decode "
+                f"{step_ms:.3f} ms a step ({stats['decode_tok_per_s']:.1f} tokens/s); launches "
+                f"{launches}; max_memory_allocated {peak} bytes{moe}")
+            del sess
+        if "flash" in impls:
+            _family_flash_cases(arch, cfg)
+            # The same weights in float32 (xla path): where each bf16 path's
+            # rounding takes it.
+            f32 = ServeSession(arch, batch=FAMILY_BATCH, max_seq=FAMILY_PROMPT + 1,
+                               attention_impl="xla", dtype="float32", n_layers=depth,
+                               params=tree_map(lambda t: t.float(), params))
+            exact = f32.prefill(prompts, img)[0][:, :cfg.vocab].cpu()
+            del f32
+            rel = {"flash-xla": _rel(first["flash"], first["xla"]),
+                   "flash-f32": _rel(first["flash"], exact), "xla-f32": _rel(first["xla"], exact)}
+            # A planted fault the checks must see: keys 64..127 (one KV tile)
+            # dropped in every flash call of the prefill.
+            with _dropped_kv_tile():
+                bad = ServeSession(arch, batch=FAMILY_BATCH, max_seq=FAMILY_PROMPT + 1,
+                                   attention_impl="flash", n_layers=depth, params=params
+                                   ).prefill(prompts, img)[0][:, :cfg.vocab].cpu()
+            rel["planted-f32"] = _rel(bad, exact)
+            log(f"[families] {arch}: prefill logits relative norm {json.dumps(rel)}; max |err| "
+                f"flash-xla {_err(first['flash'], first['xla']):.6f}")
+            # flash within LM_TOL of xla where bf16 itself keeps xla within
+            # LM_TOL of float32; everywhere, flash no farther from float32
+            # than xla is, plus LM_TOL, and the planted fault farther.
+            check(rel["flash-xla"] <= LM_TOL or rel["xla-f32"] > LM_TOL,
+                  f"[families] {arch}: flash vs xla prefill logits {rel}, bound {LM_TOL}")
+            check(rel["flash-f32"] <= rel["xla-f32"] + LM_TOL < rel["planted-f32"],
+                  f"[families] {arch}: prefill logits against float32 {rel}, bound {LM_TOL}")
+        if not _flash_fits(cfg) and cfg.uses_attention:
+            _refuses_flash(arch, lambda: ServeSession(
+                arch, batch=FAMILY_BATCH, max_seq=65, attention_impl="flash", n_layers=depth,
+                params=params).prefill(prompts[:, :64], img))
+        del params, first
+    # The audio encoder: forward_train over frames, as the reference serves it.
+    cfg = get_config(FAMILY_AUDIO)
+    torch.cuda.empty_cache()
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == count_params_analytical(cfg), f"[families] {FAMILY_AUDIO}: {n_params}")
+    frames = torch.from_numpy(rng.normal(size=(FAMILY_BATCH, FAMILY_PROMPT, cfg.d_frontend))
+                              .astype(np.float32)).cuda()
+    with torch.inference_mode():
+        forward_train(params, {"frames": frames[:, :64]}, cfg)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        logits, _ = forward_train(params, {"frames": frames}, cfg)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    launches = _launches()
+    check(tuple(logits.shape) == (FAMILY_BATCH, FAMILY_PROMPT, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()) and not any(launches.values()),
+          f"[families] {FAMILY_AUDIO}: logits {tuple(logits.shape)}, launches {launches}")
+    log(f"[families] {FAMILY_AUDIO} (audio encoder) at full width, all {cfg.n_layers} layers: "
+        f"{n_params} parameters in bf16; forward_train on {FAMILY_BATCH} x {FAMILY_PROMPT} frames "
+        f"in {enc_s:.6f} s ({FAMILY_BATCH * FAMILY_PROMPT / enc_s:.1f} frames/s); logits finite; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; {smi}")
+    _refuses_flash(FAMILY_AUDIO, lambda: forward_train(
+        params, {"frames": frames[:, :64]}, cfg.scaled(attention_impl="flash")))
+    del params, logits
+    return flash
+
+
+def _profile_serve(arch: str, sess, prompts, img) -> None:
+    """A prefill and one decode step under ``torch.profiler``: each one's
+    wall, the device's busy share of it, its device kernels and the top
+    torch ops by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    logits, cache = sess.prefill(prompts, img)
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    for step, run in (("prefill", lambda: sess.prefill(prompts, img)),
+                      ("decode step", lambda: sess.decode(cache, tok, FAMILY_PROMPT))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(end - start for start, end in _device_intervals(prof.events()))
+        ops = sorted((e for e in prof.key_averages()
+                      if e.key.startswith("aten::") and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+        total = max(sum(e.self_device_time_total for e in ops), 1e-9)
+        top = ", ".join(f"{e.key} {100 * e.self_device_time_total / total:.1f} %" for e in ops[:4])
+        log(f"[families] {arch} profiled {step} (torch.profiler): {1e3 * wall:.3f} ms wall, device "
+            f"busy {busy / 1e3:.3f} ms = {100 * busy / (1e6 * wall):.2f} %, {len(kernels)} device "
+            f"kernels and copies; top ops by device time: {top}")
+
+
+@contextlib.contextmanager
+def _dropped_kv_tile():
+    """The model's flash entry replaced by one that loses keys 64..127."""
+    from repro_torch.models import layers
+
+    real = layers.flash_attention_bshd
+
+    def drop_tile(q, k, v, q_pos, k_pos, *, causal):
+        keep = torch.ones(k.shape[1], dtype=torch.bool, device=k.device)
+        keep[64:128] = False
+        return real(q, k[:, keep], v[:, keep], q_pos, k_pos[:, keep], causal=causal)
+
+    layers.flash_attention_bshd = drop_tile
+    try:
+        yield
+    finally:
+        layers.flash_attention_bshd = real
+
+
+def _family_flash_cases(arch: str, cfg) -> None:
+    """The kernel at the config's attention shapes in the serve run (the
+    vlm's non-causal cross attention over the image tokens too), on normal
+    operands, held to its plain version elementwise and by row, with its
+    scored tiles equal to the skip rule's."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bshd_cuda,
+        flash_attention_bshd_reference,
+    )
+
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    shapes = [("self", FAMILY_PROMPT, True)]
+    if cfg.family == "vlm":
+        shapes.append(("cross", cfg.n_image_tokens, False))
+    for label, sk, causal in shapes:
+        ops = _gqa_inputs(FAMILY_BATCH, FAMILY_PROMPT, sk, h, kh, hd, torch.bfloat16, seed=sk)
+        err, row, tiles = _flash_case(flash_attention_bshd_cuda, flash_attention_bshd_reference,
+                                      ops, causal, h, f"{arch} {label}")
+        kernel = lambda *a: flash_attention_bshd_cuda(*a, causal=causal)  # noqa: E731
+        plain = lambda *a: flash_attention_bshd_reference(*a, causal=causal)  # noqa: E731
+        q4, k4, v4 = (t.transpose(1, 2) for t in ops[:3])
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, is_causal=causal, enable_gqa=True)
+        times = {}
+        for name, fn, calls, rounds in (("kernel", kernel, [ops], 10), ("plain", plain, [ops], 2),
+                                        ("sdpa", sdpa, [()], 10)):
+            _time_ms(fn, calls, 2)
+            times[name] = _time_ms(fn, calls, rounds)
+        kp = ops[4] if causal else torch.zeros_like(ops[4])  # not causal: every pair visible
+        bound, pairs = _flash_bound(ops[3], kp, hd, h, kh)
+        log(f"[families] {arch} {label} attention, the kernel vs its plain version (B "
+            f"{FAMILY_BATCH}, Sq {FAMILY_PROMPT}, Sk {sk}, H {h}, KH {kh}, hd {hd}, bf16, "
+            f"{'causal' if causal else 'not causal'}): max |err| {err:.3e} (bound "
+            f"{FLASH_TOL['bfloat16']}), max row error {row:.3e} (bound {FLASH_ROW_TOL['bfloat16']}), "
+            f"{tiles} KV tiles scored (== the skip rule); {times['kernel']:.6f} ms a launch, bound "
+            f"{bound[0]:.6f} ms ({bound[1]}, {pairs} pairs), {100 * bound[0] / times['kernel']:.2f} % "
+            f"of it; plain version {times['plain']:.6f} ms; scaled_dot_product_attention "
+            f"(enable_gqa) {times['sdpa']:.6f} ms")
+        del ops, q4, k4, v4
+
+
+def _refuses_flash(arch: str, run) -> None:
+    """``run``, a model call under ``attention_impl="flash"`` on heads the
+    kernel lacks, must raise ``ValueError`` on the card and launch nothing
+    (no plain fallback)."""
+    _reset_launches()
+    try:
+        with torch.inference_mode():
+            run()
+    except ValueError as e:
+        check(_launches()["flash_attention"] == 0, f"[families] {arch}: flash launched")
+        log(f"[families] {arch}: attention_impl 'flash' refused on the card: {e}")
+        return
+    check(False, f"[families] {arch}: attention_impl 'flash' ran on heads the kernel lacks")
+
+
+def _families_f32() -> None:
+    """19c: full width in float32 at a cut depth: decode against teacher
+    forcing on the card (MLA, ssm, hybrid, vlm), and the MoE card against
+    the port's CPU path (routing drops included)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import forward_train, init_model
+    from repro_torch.models.params import tree_map
+
+    b, s, decoded = FAMILY_TF_SHAPE
+    for arch in ("minicpm3-4b", "mamba2-780m", "zamba2-7b", "llama-3.2-vision-90b"):
+        depth = FAMILY_F32_DEPTH.get(arch, 2)
+        cfg = get_config(arch).scaled(n_layers=depth, dtype="float32")
+        torch.cuda.empty_cache()
+        params = init_model(torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+        _open_gates(params)
+        batch = _on({k: v for k, v in _family_batch(cfg, b, s, seed=5).items() if k != "labels"},
+                    "cuda")
+        err, rel = _teacher_forcing(params, cfg, batch, decoded)
+        # In relative norm at full width (the caches are bf16 whatever the
+        # dtype, as the reference's, and the logits' scale grows with the
+        # width), as phase 12 restates the reference's flash bound.
+        log(f"[families] {arch} float32 at full width, {depth} layers: decode vs teacher forcing "
+            f"({b} x {s} tokens, the last {decoded} decoded): relative norm {rel:.3e} (bound "
+            f"{FAMILY_TF_TOL}), max |err| {err:.3e}")
+        check(rel <= FAMILY_TF_TOL, f"[families] {arch} float32: decode vs teacher forcing {rel}")
+        del params, batch
+    arch = "moonshot-v1-16b-a3b"
+    cfg = get_config(arch).scaled(n_layers=2, dtype="float32")
+    torch.cuda.empty_cache()
+    card = init_model(torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+    host = tree_map(lambda t: t.cpu(), card)
+    batch = _family_batch(cfg, *FAMILY_MOE_SHAPE, seed=6)
+    with torch.inference_mode():
+        lc, ac = forward_train(card, _on(batch, "cuda"), cfg)
+        lh, ah = forward_train(host, _on(batch, "cpu"), cfg)
+    rel = _rel(lc.cpu()[..., :cfg.vocab], lh[..., :cfg.vocab])
+    drop_c, drop_h = float(ac["moe_dropped_frac"]), float(ah["moe_dropped_frac"])
+    check(rel <= FAMILY_CARD_TOL and drop_c == drop_h,
+          f"[families] {arch} float32: card vs CPU logits {rel}, dropped {drop_c} vs {drop_h}")
+    log(f"[families] {arch} float32 at full width, 2 layers, {FAMILY_MOE_SHAPE[0]} x "
+        f"{FAMILY_MOE_SHAPE[1]} tokens (group {FAMILY_MOE_SHAPE[0] * FAMILY_MOE_SHAPE[1]}, capacity "
+        f"{max(1, int(cfg.moe_capacity_factor * FAMILY_MOE_SHAPE[0] * FAMILY_MOE_SHAPE[1] * cfg.experts_per_token / cfg.n_experts))}): "
+        f"card vs CPU logits relative norm {rel:.3e} (bound {FAMILY_CARD_TOL}); dropped fraction "
+        f"{drop_c:.6f} on both; balance {float(ac['moe_balance_loss']):.6f} vs "
+        f"{float(ah['moe_balance_loss']):.6f}")
+    del card, host
+
+
+def phase_families() -> dict:
+    """19: the other LM families on the card (see the module docstring)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    smoke_flash = _families_smoke()
+    t_smoke = time.perf_counter() - t_phase
+    flash = _families_serve(smi)
+    t_serve = time.perf_counter() - t_phase - t_smoke
+    _families_f32()
+    torch.cuda.empty_cache()
+    log(f"[families] phase 19 took {time.perf_counter() - t_phase:.3f} s (smoke {t_smoke:.3f}, "
+        f"full-width serve {t_serve:.3f}); flash launches: serve {flash}, smoke teacher forcing "
+        f"{smoke_flash}")
+    return flash
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -3489,6 +3966,9 @@ def main() -> int:
     row["sharded_launches"] = phase_sharded(main_run)
     phase_contracts(main_run, serve)
     phase_train()
+    family_flash = phase_families()
+    flash_rows[0]["launches_by_path"] = {"lm_serve": flash_rows[0]["launches"], **family_flash}
+    flash_rows[0]["launches"] += sum(family_flash.values())
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [row, *rows, *dense_rows, *flash_rows]}))

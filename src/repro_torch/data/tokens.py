@@ -9,8 +9,7 @@ uniform noise would sit at ln(V) forever). Deterministic per (seed, step):
 restarting from a checkpoint replays the exact same batches — this is what
 makes the fault-tolerance test exact, and it is how a real deterministic
 data pipeline (e.g. grain) behaves. The ``audio`` and ``vlm`` keys are
-produced as the reference produces them, though only the dense family
-trains in the port so far.
+produced as the reference produces them.
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
 """Distribution layer of the port: sharded and resilient triangle counts.
 
 Port of ``src/repro/distributed/__init__.py`` for the TC engine (the
-reference's fourteen names), plus the port's ``Mesh``/``make_mesh``. The
-LM shardings and gradient compression of the reference are not ported.
+reference's fourteen names), plus the port's ``Mesh``/``make_mesh``.
+``kv_quant`` (int8 KV-cache quantization) is a module of its own, as in the
+reference. The LM shardings and gradient compression of the reference are
+not ported.
 """
 from repro_torch.distributed.mesh import Mesh, make_mesh
 from repro_torch.distributed.resilient import (

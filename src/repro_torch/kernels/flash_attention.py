@@ -204,14 +204,19 @@ def _strides(t: torch.Tensor, dims: tuple[int, ...]) -> list[int]:
     return [t.stride(d) if t.shape[d] != 1 else dense[d] for d in dims]
 
 
-def _check_bshd(q, k, v, q_pos, k_pos) -> None:
-    """Raise on what the ``[B, S, H, hd]`` entry does not take; the device is
-    checked last, so every other check runs on CPU tensors too."""
+def _check_bshd_shapes(q, k, v, q_pos, k_pos) -> None:
+    """Raise on shapes and types the kernel does not take in the
+    ``[B, S, H, hd]`` layout: ``flash_attention_bshd`` checks these on both
+    devices, so the CPU path refuses what the card would (an MLA value
+    width, hubert's hd 80, zamba2's 112)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be [B, S, heads, hd]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
+    if v.dim() == 4 and v.shape[-1] != hd:
+        raise ValueError(f"the kernel takes equal query, key and value head dims; got "
+                         f"q/k {hd}, v {v.shape[-1]}")
     if tuple(k.shape) != (b, sk, kh, hd) or tuple(v.shape) != (b, sk, kh, hd):
         raise ValueError(f"k and v must be [{b}, Sk, KH, {hd}]; got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
@@ -221,6 +226,13 @@ def _check_bshd(q, k, v, q_pos, k_pos) -> None:
         raise ValueError(f"positions must be [{b}, {sq}] and [{b}, {sk}]; got "
                          f"{tuple(q_pos.shape)}, {tuple(k_pos.shape)}")
     _check_types(hd, q, k, v, q_pos, k_pos)
+
+
+def _check_bshd(q, k, v, q_pos, k_pos) -> None:
+    """Raise on what the ``[B, S, H, hd]`` entry does not take; the device is
+    checked last, so every other check runs on CPU tensors too."""
+    _check_bshd_shapes(q, k, v, q_pos, k_pos)
+    b, h, hd = q.shape[0], q.shape[2], q.shape[3]
     if b > _GRID_LIMIT or h > _GRID_LIMIT:
         raise ValueError(f"batch {b} and heads {h} must each be at most {_GRID_LIMIT} "
                          "(the kernel's grid)")
@@ -314,9 +326,11 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, block_q: int 
 
 def flash_attention_bshd(q, k, v, q_pos, k_pos, *, causal: bool = True) -> torch.Tensor:
     """The model's entry point (``[B, S, H, hd]``, GQA KV heads as they
-    are): the kernel on the card, the plain version on the CPU. Raises
-    ``NotImplementedError`` under autograd (``_refuse_autograd``), on both
-    devices."""
+    are): the kernel on the card, the plain version on the CPU. On both
+    devices it raises ``ValueError`` on shapes the kernel lacks (a head dim
+    outside ``FLASH_HEAD_DIMS``, a value width other than the query's) and
+    ``NotImplementedError`` under autograd (``_refuse_autograd``)."""
+    _check_bshd_shapes(q, k, v, q_pos, k_pos)
     _refuse_autograd(q, k, v)
     if q.is_cuda:
         return flash_attention_bshd_cuda(q, k, v, q_pos, k_pos, causal=causal)

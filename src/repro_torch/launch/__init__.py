@@ -2,7 +2,7 @@
 
 Port of ``src/repro/launch/__init__.py`` for ``TCServer`` (one-shot
 requests, hosted streams, the write-ahead log ``StreamWAL``, checkpoint and
-restore). LM serving of the dense family is ``launch/serve.py``
+restore). LM serving of every decoder family is ``launch/serve.py``
 (``ServeSession``) over ``launch/steps.py``, and LM training on one device
 is ``launch/train.py`` (``TrainLoop``, ``run_with_auto_resume``) over
 ``make_train_step``. The mesh waits for ROADMAP.md queue 1, item 1, part 4,

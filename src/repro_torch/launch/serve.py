@@ -1,13 +1,18 @@
 """Batched LM serving driver: prefill a prompt batch, decode N tokens.
 
-Port of ``src/repro/launch/serve.py`` for the dense family, on one device:
+Port of ``src/repro/launch/serve.py`` on one device, for every decoder
+family (dense GQA or MLA, moe, ssm, hybrid, vlm; the audio encoder has no
+decode step and raises, as the reference's does):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --attention-impl flash --batch 8 --prompt-len 4096 --gen 32
 
 With ``attention_impl="flash"`` the prefill runs the CUDA flash-attention
-kernel (one launch a layer); decode is plain torch, as the reference's
-decode never calls its kernel. ``--device cpu`` runs the plain versions.
+kernel (one launch an attention layer, a vlm's cross layers included);
+decode is plain torch, as the reference's decode never calls its kernel.
+``--device cpu`` runs the plain versions. A vlm's prompts come with image
+embeddings ``[B, n_image_tokens, d_frontend]`` (the CLI draws them from a
+seed).
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models.model import check_supported, init_cache, init_model
+from repro_torch.models.model import init_cache, init_model
 from repro_torch.models.params import tree_map
 from repro_torch.runtime.staging import stage
 
@@ -31,8 +36,10 @@ class ServeSession:
     """Greedy (or seeded temperature) generation for one batch shape.
 
     ``device`` takes the reference's ``mesh``: the card unless ``"cpu"`` is
-    asked. ``attention_impl`` and ``dtype``, when set, replace the config's
-    fields (the reference keeps the config's, ``"xla"`` and bf16).
+    asked. ``attention_impl``, ``dtype`` and ``n_layers``, when set, replace
+    the config's fields (the reference keeps the config's, ``"xla"`` and
+    bf16 at the full depth; a cut depth serves a config at full width on one
+    card).
     ``params`` (the port's parameter tree, e.g. from ``params_from_numpy``)
     replaces the session's own init from seed 0, which the reference also
     uses whatever ``seed`` is; ``seed`` seeds temperature sampling.
@@ -45,7 +52,8 @@ class ServeSession:
 
     def __init__(self, arch: str, *, smoke=False, batch=4, max_seq=128, mesh=None,
                  temperature: float = 0.0, seed: int = 0, device=None,
-                 attention_impl: str | None = None, dtype: str | None = None, params=None):
+                 attention_impl: str | None = None, dtype: str | None = None,
+                 n_layers: int | None = None, params=None):
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh is not ported yet: the port serves on one device "
@@ -53,11 +61,10 @@ class ServeSession:
         cfg = get_smoke_config(arch) if smoke else get_config(arch)
         if cfg.family == "audio":
             raise ValueError("encoder-only arch has no decode step")
-        overrides = {"attention_impl": attention_impl, "dtype": dtype}
+        overrides = {"attention_impl": attention_impl, "dtype": dtype, "n_layers": n_layers}
         cfg = cfg.scaled(**{k: v for k, v in overrides.items() if v is not None})
         if cfg.attention_impl not in ("xla", "flash"):
             raise ValueError(f"attention_impl must be 'xla' or 'flash', got {cfg.attention_impl!r}")
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.batch = batch
@@ -75,20 +82,30 @@ class ServeSession:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def prefill(self, prompts):
-        """prompts: [B, P] ints. Returns (last logits [B, V] f32, cache)."""
+    def prefill(self, prompts, image_embeds=None):
+        """prompts: [B, P] ints; ``image_embeds`` [B, n_image_tokens,
+        d_frontend] (a NumPy array or tensor), which a vlm needs and other
+        families refuse. Returns (last logits [B, V] f32, cache)."""
         tokens = stage(np.asarray(prompts).astype(np.int32), self.device, non_blocking=False)
         if tokens.dim() != 2 or tokens.shape[0] != self.batch:
             raise ValueError(f"prompts must be [{self.batch}, P], got {tuple(tokens.shape)}")
+        batch = {"tokens": tokens}
+        if (image_embeds is None) == (self.cfg.family == "vlm"):
+            raise ValueError(f"image_embeds are given for a {self.cfg.family} arch"
+                             if image_embeds is not None else "a vlm prompt needs image_embeds")
+        if image_embeds is not None:
+            batch["image_embeds"] = stage(image_embeds, self.device, non_blocking=False)
         cache = init_cache(self.cfg, self.batch, self.max_seq, self.device)
-        return self._prefill(self.params, cache, {"tokens": tokens})
+        return self._prefill(self.params, cache, batch)
 
     def decode(self, cache, token: torch.Tensor, pos: int):
         """One step: token [B, 1] at position ``pos``. Returns (logits, cache)."""
         return self._decode(self.params, cache, token, pos)
 
-    def generate(self, prompts: np.ndarray, gen_tokens: int, keep_logits: bool = False):
-        """prompts: [B, P] int32. Returns (tokens [B, P+gen], stats).
+    def generate(self, prompts: np.ndarray, gen_tokens: int, image_embeds=None,
+                 keep_logits: bool = False):
+        """prompts: [B, P] int32 (a vlm's with ``image_embeds``). Returns
+        (tokens [B, P+gen], stats).
 
         ``stats`` has the reference's ``prefill_s``, ``decode_s`` and
         ``decode_tok_per_s``; with ``keep_logits`` also ``logits``, the
@@ -97,7 +114,7 @@ class ServeSession:
         b, plen = prompts.shape
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.prefill(prompts)
+        logits, cache = self.prefill(prompts, image_embeds)
         self._sync()
         t_prefill = time.perf_counter() - t0
         kept = [logits] if keep_logits else []
@@ -150,7 +167,11 @@ def main(argv=None) -> int:
     )
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, sess.cfg.vocab, (args.batch, args.prompt_len), dtype=np.int32)
-    tokens, stats = sess.generate(prompts, args.gen)
+    img = None
+    if sess.cfg.family == "vlm":
+        img = rng.normal(size=(args.batch, sess.cfg.n_image_tokens, sess.cfg.d_frontend))
+        img = img.astype(np.float32)
+    tokens, stats = sess.generate(prompts, args.gen, image_embeds=img)
     print(f"generated shape={tokens.shape} prefill={stats['prefill_s']:.3f}s "
           f"decode={stats['decode_s']:.3f}s ({stats['decode_tok_per_s']:.1f} tok/s)")
     return 0

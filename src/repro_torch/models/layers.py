@@ -1,20 +1,24 @@
-"""Transformer primitives: RMSNorm, RoPE, GQA attention, SwiGLU.
+"""Transformer primitives: RMSNorm, RoPE, GQA/MLA attention, SwiGLU.
 
-Port of the dense/GQA subset of ``src/repro/models/layers.py``. Parameters
-arrive as dicts produced from the schemas declared beside each block (see
-models/params.py). Attention supports:
+Port of ``src/repro/models/layers.py``. Parameters arrive as dicts produced
+from the schemas declared beside each block (see models/params.py).
+Attention supports:
 
   * GQA with optional QKV bias (qwen-style), causal or bidirectional
+  * gated cross attention (``kv_x``: keys and values from another stream,
+    llama-3.2-vision's image tokens), never causal
   * chunked query processing with full-row softmax per chunk — the
     memory-efficient path for long prefill (peak scores = [*, chunk, S])
   * ``impl="flash"``: the CUDA flash-attention kernel on the card, its
-    plain version on the CPU, for any shape (the kernel masks ragged tails,
-    so there is no fallback to the plain path), on the GQA heads as they are
+    plain version on the CPU, on the GQA heads as they are; the kernel masks
+    ragged tails, so there is no fallback to the plain path, and head dims
+    or value widths it lacks raise ``ValueError`` on both devices
   * decode with an externally managed KV cache (positions passed in),
     updated in place
+  * MLA (latent KV) in direct form for train/prefill and *absorbed* form
+    for decode (scores in latent space; no per-step KV decompression)
 
 One device: the reference's sharding constraints have no counterpart here.
-MLA (latent attention) and cross attention wait for later slices.
 """
 from __future__ import annotations
 
@@ -32,6 +36,10 @@ __all__ = [
     "attn_schema",
     "attn_forward",
     "attn_decode",
+    "cross_decode",
+    "mla_schema",
+    "mla_forward",
+    "mla_decode",
     "mlp_schema",
     "mlp_forward",
     "norm_schema",
@@ -116,7 +124,8 @@ def _flash(q, k, v, q_pos, k_pos, causal):
 
     The reference returns None when the shapes do not tile by its blocks and
     its caller falls back to XLA attention; the kernel masks ragged tails,
-    so this never falls back.
+    so this never falls back. A head dim outside the kernel's templates, or
+    a value width other than the query's (MLA), raises ``ValueError``.
     """
     return flash_attention_bshd(q, k, v, q_pos.to(torch.int32), k_pos.to(torch.int32),
                                 causal=causal)
@@ -136,7 +145,7 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tenso
 # ------------------------------------------------------------------ GQA attn
 
 
-def attn_schema(cfg: ModelConfig) -> dict:
+def attn_schema(cfg: ModelConfig, cross: bool = False) -> dict:
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     s = {
         "wq": ParamDef((d, h * hd), "normal", ("fsdp", "tp")),
@@ -148,35 +157,63 @@ def attn_schema(cfg: ModelConfig) -> dict:
         s["bq"] = ParamDef((h * hd,), "zeros", ("tp",))
         s["bk"] = ParamDef((k * hd,), "zeros", ("tp",))
         s["bv"] = ParamDef((k * hd,), "zeros", ("tp",))
+    if cross:
+        # Tanh-gated cross attention (llama-3.2-vision style).
+        s["gate"] = ParamDef((), "zeros", ())
     return s
 
 
-def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    b, s, _ = x.shape
-    h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+def _project_q(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     q = x @ p["wq"]
-    kk = x @ p["wk"]
-    vv = x @ p["wv"]
     if cfg.qkv_bias:
         q = q + p["bq"]
+    return q.reshape(*x.shape[:2], cfg.n_heads, cfg.resolved_head_dim)
+
+
+def _project_qkv(p: dict, x: torch.Tensor, kv_x: torch.Tensor, cfg: ModelConfig):
+    b, sk, _ = kv_x.shape
+    k, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    kk = kv_x @ p["wk"]
+    vv = kv_x @ p["wv"]
+    if cfg.qkv_bias:
         kk = kk + p["bk"]
         vv = vv + p["bv"]
-    return q.reshape(b, s, h, hd), kk.reshape(b, s, k, hd), vv.reshape(b, s, k, hd)
+    return _project_q(p, x, cfg), kk.reshape(b, sk, k, hd), vv.reshape(b, sk, k, hd)
+
+
+def _gated(p: dict, out: torch.Tensor) -> torch.Tensor:
+    """Cross attention's output scaled by ``tanh(gate)``, taken in float32."""
+    return torch.tanh(p["gate"].float()).to(out.dtype) * out
 
 
 def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
+                 kv_x: torch.Tensor | None = None, kv_positions: torch.Tensor | None = None,
                  causal: bool | None = None):
-    """Full-sequence self attention (train / prefill). Returns (out, (k, v))."""
-    q, k, v = _project_qkv(p, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    is_causal = cfg.causal if causal is None else causal
+    """Full-sequence attention (train / prefill). Returns (out, (k, v)).
+
+    ``kv_x`` switches to cross attention (keys and values from another
+    stream, e.g. image patch embeddings): no RoPE, never causal, key
+    positions zeros (``kv_positions`` is accepted as the reference's and
+    not used), the output gated by ``tanh(gate)``.
+    """
+    del kv_positions  # cross attention's key positions are zeros, as the reference's
+    cross = kv_x is not None
+    q, k, v = _project_qkv(p, x, kv_x if cross else x, cfg)
+    if cross:
+        is_causal = False
+        kv_pos = torch.zeros(kv_x.shape[:2], dtype=torch.int32, device=x.device)
+    else:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        is_causal = cfg.causal if causal is None else causal
+        kv_pos = positions
     out = attention_op(
-        q, k, v, positions, positions, is_causal,
+        q, k, v, positions, kv_pos, is_causal,
         chunk_threshold=cfg.long_context_threshold, chunk=cfg.attn_chunk,
         impl=cfg.attention_impl,
     )
-    return out.reshape(*x.shape[:2], -1) @ p["wo"], (k, v)
+    out = out.reshape(*x.shape[:2], -1) @ p["wo"]
+    return (_gated(p, out) if cross else out), (k, v)
 
 
 def attn_decode(p: dict, x: torch.Tensor, pos: int, k_cache: torch.Tensor,
@@ -185,7 +222,7 @@ def attn_decode(p: dict, x: torch.Tensor, pos: int, k_cache: torch.Tensor,
     in place at ``pos``. Returns (out, k_cache, v_cache)."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg)
+    q, k, v = _project_qkv(p, x, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     cache_write(k_cache, k, pos)
@@ -203,6 +240,102 @@ def attn_decode(p: dict, x: torch.Tensor, pos: int, k_cache: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrqs,bskv->bqkrv", w, vv)
     return out.reshape(b, 1, -1) @ p["wo"], k_cache, v_cache
+
+
+def cross_decode(p: dict, x: torch.Tensor, pos: int, xk: torch.Tensor, xv: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """One token's gated cross attention against the prefilled image K/V
+    ``[B, n_img, K, hd]`` (static during decode): the plain path whatever
+    ``cfg.attention_impl``, as the reference's decode step runs it."""
+    b = x.shape[0]
+    q = _project_q(p, x, cfg)
+    kx, vx = xk.to(q.dtype), xv.to(q.dtype)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    npos = torch.zeros((b, kx.shape[1]), dtype=torch.int32, device=x.device)
+    out = attention_op(q, kx, vx, positions, npos, False)
+    return _gated(p, out.reshape(b, 1, -1) @ p["wo"])
+
+
+# ------------------------------------------------------------------ MLA attn
+
+
+def mla_schema(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wdq": ParamDef((d, qr), "normal", ("fsdp", None)),
+        "q_norm": norm_schema(qr),
+        "wuq": ParamDef((qr, h * (nope + rope_d)), "normal", (None, "tp")),
+        "wdkv": ParamDef((d, kvr + rope_d), "normal", ("fsdp", None)),
+        "kv_norm": norm_schema(kvr),
+        "wuk": ParamDef((kvr, h * nope), "normal", (None, "tp")),
+        "wuv": ParamDef((kvr, h * vd), "normal", (None, "tp")),
+        "wo": ParamDef((h * vd, d), "scaled", ("tp", "fsdp")),
+    }
+
+
+def _mla_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Returns q_nope, q_rope (per head), the latent ckv and the shared roped
+    k_rope ``[B, S, rope_d]``."""
+    b, s, _ = x.shape
+    nope, kvr = cfg.qk_nope_dim, cfg.kv_lora_rank
+    cq = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(b, s, cfg.n_heads, nope + cfg.qk_rope_dim)
+    q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
+    dkv = x @ p["wdkv"]
+    ckv = rmsnorm(dkv[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(dkv[..., kvr:][:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, ckv, k_rope[:, :, 0, :]
+
+
+def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Direct-form MLA for train/prefill. Returns (out, (ckv, k_rope)).
+
+    Queries and keys are ``nope + rope`` wide, values ``v_head_dim``: the
+    flash kernel takes equal widths only, so ``attention_impl="flash"``
+    raises here (the reference's flash path would fail too, on its output
+    reshape)."""
+    b, s, _ = x.shape
+    h, nope, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, positions, cfg)
+    k_nope = (ckv @ p["wuk"]).reshape(b, s, h, nope)
+    v = (ckv @ p["wuv"]).reshape(b, s, h, vd)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
+    out = attention_op(
+        q, k, v, positions, positions, cfg.causal,
+        chunk_threshold=cfg.long_context_threshold, chunk=cfg.attn_chunk,
+        impl=cfg.attention_impl,
+    )
+    return out.reshape(b, s, -1) @ p["wo"], (ckv, k_rope)
+
+
+def mla_decode(p: dict, x: torch.Tensor, pos: int, ckv_cache: torch.Tensor,
+               krope_cache: torch.Tensor, cfg: ModelConfig):
+    """Absorbed-form MLA decode against ``[B, Smax, kv_rank]`` /
+    ``[B, Smax, rope_d]`` caches, written in place at ``pos``:
+
+        score = q_nope @ W_uk^T · ckv_cached + q_rope · k_rope_cached
+        out   = (softmax @ ckv_cached) @ W_uv, per head.
+
+    Returns (out, ckv_cache, krope_cache)."""
+    b = x.shape[0]
+    h, nope, vd, kvr = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, positions, cfg)
+    cache_write(ckv_cache, ckv, pos)
+    cache_write(krope_cache, k_rope, pos)
+    q_lat = torch.einsum("bqhn,khn->bqhk", q_nope, p["wuk"].reshape(kvr, h, nope))
+    scores = (torch.einsum("bqhk,bsk->bhqs", q_lat, ckv_cache.to(q_lat.dtype))
+              + torch.einsum("bqhr,bsr->bhqs", q_rope, krope_cache.to(q_rope.dtype))).float()
+    scale = 1.0 / ((nope + cfg.qk_rope_dim) ** 0.5)
+    valid = torch.arange(ckv_cache.shape[1], device=x.device) <= pos
+    scores = (scores * scale).masked_fill(~valid, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    lat_out = torch.einsum("bhqs,bsk->bqhk", w, ckv_cache.to(x.dtype))
+    out = torch.einsum("bqhk,khv->bqhv", lat_out, p["wuv"].reshape(kvr, h, vd))
+    return out.reshape(b, 1, -1) @ p["wo"], ckv_cache, krope_cache
 
 
 # -------------------------------------------------------------------- SwiGLU

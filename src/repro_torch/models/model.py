@@ -1,17 +1,26 @@
-"""The dense decoder: schema, init, train forward (logits), prefill, decode.
+"""Unified model: schema, init, train forward, prefill, decode — all families.
 
-Port of the dense-family branches of ``src/repro/models/model.py``. The
-parameters are the reference's tree of plain tensors, with every layer's
-leaves stacked on a leading ``[L, ...]`` dim (so ``params_from_numpy`` is a
-leaf-by-leaf copy); the reference's ``scan`` over layers is a Python loop
-over views of that stack. Caches are stacked the same way and updated in
-place.
+Port of ``src/repro/models/model.py``. The parameters are the reference's
+tree of plain tensors, with every layer's leaves stacked on a leading
+``[L, ...]`` dim (the VLM's self layers on ``[G, per, ...]``), so
+``params_from_numpy`` is a leaf-by-leaf copy; the reference's ``scan`` over
+layers is a Python loop over views of those stacks, and its heterogeneous
+structures are loops too:
 
-``loss_fn`` is the next-token cross entropy of ``forward_train``; its
-backward is autograd's, with each layer under ``torch.utils.checkpoint`` as
-``cfg.remat`` asks (``_remat``). Families ``moe``, ``ssm``, ``hybrid``,
-``vlm`` and ``audio`` and ``attention="mla"`` raise ``NotImplementedError``
-(ROADMAP.md, queue 1, item 1, part 2).
+  * hybrid — the weight-shared attention block after every
+    ``hybrid_attn_every`` mamba layers, trailing mamba layers without it
+    (zamba2)
+  * vlm    — groups of ``cross_attn_every - 1`` self layers, then one gated
+    cross-attention layer (llama-3.2-vision)
+
+``loss_fn`` is the next-token cross entropy of ``forward_train`` (audio:
+masked prediction; moe: plus the router's aux losses); its backward is
+autograd's, with each layer (the VLM: each group too) under
+``torch.utils.checkpoint`` as ``cfg.remat`` asks (``_remat``). Caches are
+stacked like the layers: attention caches bf16, written in place; SSM
+states replaced by what each step computes (bf16 conv states promoted to a
+float32 run's dtype at its first decode step, as JAX's concatenate
+promotes; the SSM state float32).
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef, init_params, stack_schema, tree_leaves, tree_map
 
@@ -37,27 +48,43 @@ __all__ = [
     "decode_step",
     "init_cache",
     "count_params_analytical",
-    "check_supported",
+    "vlm_counts",
+    "hybrid_counts",
 ]
 
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port runs the dense "
-            "family (ROADMAP.md, queue 1, item 1, part 2)")
-    if cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: attention {cfg.attention!r} is not ported yet; the port runs GQA "
-            "(ROADMAP.md, queue 1, item 1, part 2)")
+MOE_AUX_KEYS = ("moe_balance_loss", "moe_z_loss", "moe_dropped_frac")
 
 
 # ------------------------------------------------------------------- schema
 
 
 def _layer_schema(cfg: ModelConfig) -> dict:
-    """One stackable decoder layer."""
+    """One stackable decoder/encoder layer."""
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ln": L.norm_schema(cfg.d_model), "ssm": SSM.ssm_schema(cfg)}
+    s: dict[str, Any] = {
+        "ln1": L.norm_schema(cfg.d_model),
+        "attn": L.mla_schema(cfg) if cfg.attention == "mla" else L.attn_schema(cfg),
+        "ln2": L.norm_schema(cfg.d_model),
+    }
+    if cfg.family == "moe":
+        s["moe"] = MOE.moe_schema(cfg)
+    else:
+        s["mlp"] = L.mlp_schema(cfg)
+    return s
+
+
+def _cross_layer_schema(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": L.norm_schema(cfg.d_model),
+        "xattn": L.attn_schema(cfg, cross=True),
+        "ln2": L.norm_schema(cfg.d_model),
+        "mlp": L.mlp_schema(cfg),
+    }
+
+
+def _shared_block_schema(cfg: ModelConfig) -> dict:
+    """zamba2's weight-shared attention+MLP block (applied at intervals)."""
     return {
         "ln1": L.norm_schema(cfg.d_model),
         "attn": L.attn_schema(cfg),
@@ -66,60 +93,172 @@ def _layer_schema(cfg: ModelConfig) -> dict:
     }
 
 
+def vlm_counts(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(n_groups, self_per_group, n_cross) for the grouped vlm layers."""
+    n_groups = cfg.n_layers // cfg.cross_attn_every
+    return n_groups, cfg.cross_attn_every - 1, n_groups
+
+
+def hybrid_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """(n_groups, trailing) — zamba2: shared attn after every `every` mamba
+    layers; `trailing` mamba layers close the stack without attention."""
+    n_groups = cfg.n_layers // cfg.hybrid_attn_every
+    return n_groups, cfg.n_layers - n_groups * cfg.hybrid_attn_every
+
+
+def _hybrid_split(cfg: ModelConfig, per_layer: list) -> tuple[list[list], list]:
+    """Per-layer items (params or states) as (groups of ``every``, trailing),
+    the reference's ``[G, every, ...]`` / ``[T, ...]`` split."""
+    n_groups, _ = hybrid_counts(cfg)
+    every = cfg.hybrid_attn_every
+    groups = [per_layer[i * every:(i + 1) * every] for i in range(n_groups)]
+    return groups, per_layer[n_groups * every:]
+
+
 def model_schema(cfg: ModelConfig) -> dict:
-    check_supported(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
-    s: dict[str, Any] = {
-        "tok_embed": ParamDef((v, d), "embed", ("vocab", "fsdp")),
-        "layers": stack_schema(_layer_schema(cfg), cfg.n_layers),
-        "final_norm": L.norm_schema(d),
-    }
+    s: dict[str, Any] = {}
+    if cfg.family == "audio":
+        s["frontend"] = ParamDef((cfg.d_frontend, d), "normal", ("fsdp", "tp"))
+    else:
+        s["tok_embed"] = ParamDef((v, d), "embed", ("vocab", "fsdp"))
+    if cfg.family == "vlm":
+        s["img_proj"] = ParamDef((cfg.d_frontend, d), "normal", ("fsdp", "tp"))
+        n_groups, self_per, _ = vlm_counts(cfg)
+        s["layers"] = stack_schema(stack_schema(_layer_schema(cfg), self_per), n_groups)
+        s["cross_layers"] = stack_schema(_cross_layer_schema(cfg), n_groups)
+    else:
+        s["layers"] = stack_schema(_layer_schema(cfg), cfg.n_layers)
+    if cfg.family == "hybrid":
+        s["shared"] = _shared_block_schema(cfg)
+    s["final_norm"] = L.norm_schema(d)
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamDef((d, v), "normal", ("fsdp", "vocab"))
     return s
 
 
 def init_model(gen: torch.Generator | int, cfg: ModelConfig, device=None):
-    """Random parameters in ``cfg.dtype`` from ``gen`` (a seed or a
-    ``torch.Generator``), on ``device`` (default: the card)."""
+    """Random parameters in ``cfg.dtype`` (the SSM's ``a_log`` and
+    ``dt_bias`` float32) from ``gen`` (a seed, drawn on the CPU, or a
+    ``torch.Generator``, drawn where it lives), on ``device`` (default: the
+    card)."""
     if isinstance(gen, int):
         gen = torch.Generator().manual_seed(gen)
     return init_params(gen, model_schema(cfg), getattr(torch, cfg.dtype),
                        resolve_device(device))
 
 
+def _numel(schema) -> int:
+    return sum(int(np.prod(d.shape)) for d in tree_leaves(schema))
+
+
 def count_params_analytical(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Parameters of the schema, never materialised (dense: all active)."""
-    del active_only
-    return sum(int(np.prod(d.shape)) for d in tree_leaves(model_schema(cfg)))
+    """Parameters of the schema, never materialised; ``active_only`` (moe)
+    leaves out the experts a token does not reach, as the reference does."""
+    total = _numel(model_schema(cfg))
+    if active_only and cfg.family == "moe":
+        per_layer_experts = sum(int(np.prod(d.shape)) for d in tree_leaves(MOE.moe_schema(cfg))
+                                if len(d.shape) == 3)
+        total -= (per_layer_experts * cfg.n_layers * (cfg.n_experts - cfg.experts_per_token)
+                  // cfg.n_experts)
+    return total
 
 
 # ----------------------------------------------------------- layer execution
 
 
+def _unstack(tree, n: int) -> list:
+    """Views of the ``n`` rows of a stacked tree: one ``unbind(0)`` a leaf,
+    so that the backward is one ``stack`` a leaf (a ``t[i]`` a layer would
+    zero-fill and add a full gradient n times)."""
+    rows = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda r, i=i: r[i], rows) for i in range(n)]
+
+
 def _layers(params: dict, cfg: ModelConfig) -> list[dict]:
-    """Each layer's views of the stacked ``[L, ...]`` leaves: one ``unbind(0)``
-    a leaf and forward, so that the backward is one ``stack`` a leaf (a
-    ``t[i]`` a layer would zero-fill and add a full ``[L, ...]`` gradient L
-    times)."""
-    rows = tree_map(lambda t: t.unbind(0), params["layers"])
-    return [tree_map(lambda r, i=i: r[i], rows) for i in range(cfg.n_layers)]
+    """Each layer's parameters (non-vlm families)."""
+    return _unstack(params["layers"], cfg.n_layers)
+
+
+def _vlm_groups(params: dict, cfg: ModelConfig) -> list[tuple[list[dict], dict]]:
+    """(self layers, cross layer) of each vlm group."""
+    n_groups, self_per, _ = vlm_counts(cfg)
+    selfs = [_unstack(g, self_per) for g in _unstack(params["layers"], n_groups)]
+    return list(zip(selfs, _unstack(params["cross_layers"], n_groups)))
+
+
+def _moe_group(x: torch.Tensor) -> int:
+    """The serving paths' MoE group: one token a group at decode (S == 1,
+    drop-free), else the training grouping so that prefill routes (and
+    drops) as ``forward_train`` does."""
+    return 1 if x.shape[1] == 1 else min(1024, x.shape[0] * x.shape[1])
+
+
+def _ffn(lp, x, cfg: ModelConfig, group_size: int = 1024):
+    """The layer's MLP (or MoE) on ``rmsnorm(x)``: (out, aux)."""
+    h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        return MOE.moe_forward(lp["moe"], h, cfg, group_size=group_size)
+    return L.mlp_forward(lp["mlp"], h), {}
 
 
 def _post_mlp(lp, x, cfg: ModelConfig):
-    return L.mlp_forward(lp["mlp"], L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    return _ffn(lp, x, cfg, _moe_group(x))[0]
 
 
-def _dense_layer(lp, x, positions, cfg: ModelConfig):
-    """One layer on the full sequence; returns (x, (k, v))."""
+def _dense_layer(lp, x, positions, cfg: ModelConfig, group_size: int = 1024):
+    """One attention layer on the full sequence; returns (x, cache entries
+    ((k, v), or MLA's (ckv, k_rope)), aux)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    a, kv = L.attn_forward(lp["attn"], h, positions, cfg)
+    if cfg.attention == "mla":
+        a, kv = L.mla_forward(lp["attn"], h, positions, cfg)
+    else:
+        a, kv = L.attn_forward(lp["attn"], h, positions, cfg)
     x = x + a
-    return x + _post_mlp(lp, x, cfg), kv
+    m, aux = _ffn(lp, x, cfg, group_size)
+    return x + m, kv, aux
 
 
 def _train_layer(lp, x, positions, cfg: ModelConfig):
-    return _dense_layer(lp, x, positions, cfg)[0]
+    x, _, aux = _dense_layer(lp, x, positions, cfg)
+    return x, aux
+
+
+def _mamba_layer(lp, x, cfg: ModelConfig, state=None):
+    """One mamba layer: (x, the block's new state)."""
+    o, new_state = SSM.ssm_forward(lp["ssm"], L.rmsnorm(x, lp["ln"], cfg.norm_eps), cfg, state)
+    return x + o, new_state
+
+
+def _mamba_train(lp, x, cfg: ModelConfig):
+    return _mamba_layer(lp, x, cfg)[0]
+
+
+def _shared_block(sp, x, positions, cfg: ModelConfig):
+    """The hybrid's shared attention+MLP block: (x, (k, v))."""
+    a, kv = L.attn_forward(sp["attn"], L.rmsnorm(x, sp["ln1"], cfg.norm_eps), positions, cfg)
+    x = x + a
+    return x + L.mlp_forward(sp["mlp"], L.rmsnorm(x, sp["ln2"], cfg.norm_eps)), kv
+
+
+def _shared_train(sp, x, positions, cfg: ModelConfig):
+    return _shared_block(sp, x, positions, cfg)[0]
+
+
+def _cross_layer(cp, x, positions, img, cfg: ModelConfig):
+    """The vlm's gated cross-attention layer over the projected image
+    tokens: (x, (xk, xv))."""
+    a, xkv = L.attn_forward(cp["xattn"], L.rmsnorm(x, cp["ln1"], cfg.norm_eps), positions, cfg,
+                            kv_x=img)
+    x = x + a
+    return x + L.mlp_forward(cp["mlp"], L.rmsnorm(x, cp["ln2"], cfg.norm_eps)), xkv
+
+
+def _vlm_group_train(self_lps, cp, x, positions, img, cfg: ModelConfig):
+    layer = _remat(_train_layer, cfg)
+    for lp in self_lps:
+        x, _ = layer(lp, x, positions, cfg)
+    return _cross_layer(cp, x, positions, img, cfg)[0]
 
 
 def _save_mm(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -173,62 +312,197 @@ def _positions(bsz: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(bsz, s)
 
 
+def _image_tokens(params, batch, x):
+    return batch["image_embeds"].to(x.dtype) @ params["img_proj"]
+
+
 # ------------------------------------------------------------- train forward
 
 
 def forward_train(params, batch: dict, cfg: ModelConfig):
-    """Full forward of the dense decoder: (logits [B, S, V] f32, aux {})."""
-    check_supported(cfg)
-    x = _embed_tokens(params, batch["tokens"])
+    """Full training forward: (logits [B, S, V] f32, aux metrics dict).
+
+    batch keys: 'tokens' (decoder) | 'frames' (audio); 'image_embeds'
+    (vlm). ``aux`` is empty but for moe, whose three router metrics are
+    averaged over the layers.
+    """
+    if cfg.family == "audio":
+        x = batch["frames"].to(getattr(torch, cfg.dtype)) @ params["frontend"]
+    else:
+        x = _embed_tokens(params, batch["tokens"])
     positions = _positions(*x.shape[:2], x.device)
-    layer = _remat(_train_layer, cfg)
-    for lp in _layers(params, cfg):
-        x = layer(lp, x, positions, cfg)
-    return _logits(params, x, cfg), {}
+    aux: dict[str, torch.Tensor] = {}
+
+    if cfg.family == "vlm":
+        img = _image_tokens(params, batch, x)
+        # Remat at group granularity, each self layer under its own
+        # checkpoint inside, as the reference nests them.
+        group = _remat(_vlm_group_train, cfg)
+        for self_lps, cp in _vlm_groups(params, cfg):
+            x = group(self_lps, cp, x, positions, img, cfg)
+    elif cfg.family in ("ssm", "hybrid"):
+        mamba = _remat(_mamba_train, cfg)
+        lps = _layers(params, cfg)
+        if cfg.family == "ssm":
+            groups, tail = [], lps
+        else:
+            groups, tail = _hybrid_split(cfg, lps)
+        shared = _remat(_shared_train, cfg)
+        for grp in groups:
+            for lp in grp:
+                x = mamba(lp, x, cfg)
+            x = shared(params["shared"], x, positions, cfg)
+        for lp in tail:
+            x = mamba(lp, x, cfg)
+    else:  # dense / moe / audio
+        layer = _remat(_train_layer, cfg)
+        for lp in _layers(params, cfg):
+            x, layer_aux = layer(lp, x, positions, cfg)
+            aux = {k: aux[k] + v if k in aux else v for k, v in layer_aux.items()}
+        if cfg.family == "moe":
+            aux = {k: aux[k] / cfg.n_layers for k in MOE_AUX_KEYS}
+    return _logits(params, x, cfg), aux
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig):
-    """Next-token cross entropy: ``(loss, {"ce_loss": loss})``, the loss a
-    float32 0-d tensor (``logsumexp`` of the logits minus the gold logit,
-    averaged over batch and sequence). The reference's moe and audio
-    branches raise through ``check_supported``, as ``forward_train`` does."""
+    """Cross entropy (``logsumexp`` of the logits minus the gold logit) as a
+    float32 0-d tensor, with its metrics: decoders average it over batch and
+    sequence (next-token labels), the audio encoder over ``batch["mask"]``'s
+    frames (masked prediction); moe adds ``router_aux_coef`` times the
+    balance loss and 1e-4 times the z-loss. Returns ``(loss, {"ce_loss": ...,
+    **aux})``."""
     logits, aux = forward_train(params, batch, cfg)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    loss = (logz - gold).mean()
-    return loss, {"ce_loss": loss, **aux}
+    ce = logz - gold
+    if cfg.family == "audio":
+        mask = batch["mask"].float()
+        loss = (ce * mask).sum() / mask.sum().clamp_min(1.0)
+    else:
+        loss = ce.mean()
+    metrics = {"ce_loss": loss, **aux}
+    if cfg.family == "moe":
+        loss = loss + cfg.router_aux_coef * aux["moe_balance_loss"]
+        loss = loss + 1e-4 * aux["moe_z_loss"]
+    return loss, metrics
 
 
-# -------------------------------------------------------------- KV cache
+# -------------------------------------------------------------- KV/SSM cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    """Stacked decode cache for the whole model, bf16 whatever ``cfg.dtype``."""
-    check_supported(cfg)
+    """Stacked decode cache for the whole model: attention caches bf16
+    whatever ``cfg.dtype``, SSM states as ``ssm_state_shapes`` makes them
+    (bf16 conv, float32 state); the audio encoder has none."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-        "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-    }
+    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+
+    if cfg.family == "audio":
+        return {}
+    if cfg.family in ("ssm", "hybrid"):
+        one = SSM.ssm_state_shapes(cfg, batch, dev)
+        cache: dict[str, Any] = {"ssm": {k: torch.zeros((cfg.n_layers, *t.shape), dtype=t.dtype,
+                                                        device=dev) for k, t in one.items()}}
+        if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+            n_apps = cfg.n_layers // cfg.hybrid_attn_every
+            cache["shared_k"] = zeros(n_apps, batch, max_seq, kvh, hd)
+            cache["shared_v"] = zeros(n_apps, batch, max_seq, kvh, hd)
+        return cache
+    if cfg.attention == "mla":
+        return {"ckv": zeros(cfg.n_layers, batch, max_seq, cfg.kv_lora_rank),
+                "krope": zeros(cfg.n_layers, batch, max_seq, cfg.qk_rope_dim)}
+    if cfg.family == "vlm":
+        n_groups, self_per, _ = vlm_counts(cfg)
+        return {"k": zeros(n_groups, self_per, batch, max_seq, kvh, hd),
+                "v": zeros(n_groups, self_per, batch, max_seq, kvh, hd),
+                "xk": zeros(n_groups, batch, cfg.n_image_tokens, kvh, hd),
+                "xv": zeros(n_groups, batch, cfg.n_image_tokens, kvh, hd)}
+    return {"k": zeros(cfg.n_layers, batch, max_seq, kvh, hd),
+            "v": zeros(cfg.n_layers, batch, max_seq, kvh, hd)}
+
+
+def _put_states(cache: dict, i: int, new: dict) -> None:
+    """Write one layer's new SSM state into the stacked states, first
+    promoting a stacked leaf whose dtype the new state's outranks (a bf16
+    conv state meeting a float32 run), as the reference's returned states
+    are promoted."""
+    states = cache["ssm"]
+    for k, t in new.items():
+        if states[k].dtype != t.dtype:
+            states[k] = states[k].to(torch.promote_types(states[k].dtype, t.dtype))
+        states[k][i].copy_(t)
+
+
+def _fill_rows(dst: torch.Tensor, new: torch.Tensor) -> None:
+    """``dst [B, Smax, ...]`` (bf16) <- ``new [B, S, ...]``, zeros past S,
+    as the reference's padded prefill cache."""
+    s = new.shape[1]
+    dst[:, :s] = new
+    dst[:, s:] = 0
 
 
 # ------------------------------------------------------------------- decode
 
 
-def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ModelConfig):
+def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ModelConfig,
+                image_embeds: torch.Tensor | None = None):
     """One decode step. token: [B, 1] int; pos: the int position.
 
-    Returns (logits [B, vocab] f32, cache); the cache is updated in place.
+    Returns (logits [B, vocab] f32, cache); the cache is updated in place
+    (SSM states replaced, see ``_put_states``). VLM cross K/V must be
+    prefilled (``forward_prefill``); ``image_embeds`` is accepted for API
+    symmetry, as the reference's is.
     """
-    check_supported(cfg)
+    del image_embeds
+    if cfg.family == "audio":
+        raise ValueError("encoder-only arch has no decode step")
     x = _embed_tokens(params, token)
-    for i, lp in enumerate(_layers(params, cfg)):
-        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        a, _, _ = L.attn_decode(lp["attn"], h, pos, cache["k"][i], cache["v"][i], cfg)
-        x = x + a
-        x = x + _post_mlp(lp, x, cfg)
+
+    if cfg.family in ("ssm", "hybrid"):
+        lps = list(enumerate(_layers(params, cfg)))
+        if cfg.family == "ssm":
+            groups, tail = [], lps
+        else:
+            groups, tail = _hybrid_split(cfg, lps)
+        sp = params.get("shared")
+
+        def mamba(i, lp, x):
+            st = {k: t[i] for k, t in cache["ssm"].items()}
+            o, new = SSM.ssm_decode(lp["ssm"], L.rmsnorm(x, lp["ln"], cfg.norm_eps), cfg, st)
+            _put_states(cache, i, new)
+            return x + o
+
+        for gi, grp in enumerate(groups):
+            for i, lp in grp:
+                x = mamba(i, lp, x)
+            a, _, _ = L.attn_decode(sp["attn"], L.rmsnorm(x, sp["ln1"], cfg.norm_eps), pos,
+                                    cache["shared_k"][gi], cache["shared_v"][gi], cfg)
+            x = x + a
+            x = x + L.mlp_forward(sp["mlp"], L.rmsnorm(x, sp["ln2"], cfg.norm_eps))
+        for i, lp in tail:
+            x = mamba(i, lp, x)
+    elif cfg.family == "vlm":
+        for gi, (self_lps, cp) in enumerate(_vlm_groups(params, cfg)):
+            for li, lp in enumerate(self_lps):
+                a, _, _ = L.attn_decode(lp["attn"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps), pos,
+                                        cache["k"][gi, li], cache["v"][gi, li], cfg)
+                x = x + a + _post_mlp(lp, x + a, cfg)
+            x = x + L.cross_decode(cp["xattn"], L.rmsnorm(x, cp["ln1"], cfg.norm_eps), pos,
+                                   cache["xk"][gi], cache["xv"][gi], cfg)
+            x = x + L.mlp_forward(cp["mlp"], L.rmsnorm(x, cp["ln2"], cfg.norm_eps))
+    else:  # dense / moe
+        for i, lp in enumerate(_layers(params, cfg)):
+            h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            if cfg.attention == "mla":
+                a, _, _ = L.mla_decode(lp["attn"], h, pos, cache["ckv"][i], cache["krope"][i], cfg)
+            else:
+                a, _, _ = L.attn_decode(lp["attn"], h, pos, cache["k"][i], cache["v"][i], cfg)
+            x = x + a
+            x = x + _post_mlp(lp, x, cfg)
     return _logits(params, x, cfg)[:, 0], cache
 
 
@@ -238,23 +512,67 @@ def decode_step(params, cache: dict, token: torch.Tensor, pos: int, cfg: ModelCo
 def forward_prefill(params, batch: dict, cache: dict, cfg: ModelConfig):
     """Prefill: the full forward that also fills the decode cache.
 
-    Returns (last-position logits [B, vocab] f32, cache); positions past the
-    prompt are zeroed, as the reference's padded cache is.
+    Returns (last-position logits [B, vocab] f32, cache); attention caches
+    are written in place and zeroed past the prompt, as the reference's
+    padded caches are; SSM states are replaced by the prompt's. The audio
+    encoder's "prefill" is a plain full forward with no cache.
     """
-    check_supported(cfg)
-    x = _fill_attention_cache(params, batch, cache, cfg)
+    if cfg.family == "audio":
+        return forward_train(params, batch, cfg)[0][:, -1], {}
+    if cfg.family in ("ssm", "hybrid"):
+        x = _fill_ssm_cache(params, batch, cache, cfg)
+    else:
+        x = _fill_attention_cache(params, batch, cache, cfg)
     return _logits(params, x[:, -1:], cfg)[:, 0], cache
 
 
-def _fill_attention_cache(params, batch, cache, cfg: ModelConfig):
-    """Run the layers once over the prompt, writing each layer's K/V (bf16)
-    into the cache in place; returns the final residual stream."""
+def _fill_ssm_cache(params, batch, cache, cfg: ModelConfig):
+    """Run the mamba (and shared attention) layers once over the prompt:
+    the SSM states replaced by the stacked final states, the hybrid's
+    shared K/V written in place. Returns the final residual stream."""
     x = _embed_tokens(params, batch["tokens"])
-    s = x.shape[1]
     positions = _positions(*x.shape[:2], x.device)
+    lps = _layers(params, cfg)
+    if cfg.family == "ssm":
+        groups, tail = [], lps
+    else:
+        groups, tail = _hybrid_split(cfg, lps)
+    states = []
+    for gi, grp in enumerate(groups):
+        for lp in grp:
+            x, st = _mamba_layer(lp, x, cfg)
+            states.append(st)
+        x, (k, v) = _shared_block(params["shared"], x, positions, cfg)
+        _fill_rows(cache["shared_k"][gi], k)
+        _fill_rows(cache["shared_v"][gi], v)
+    for lp in tail:
+        x, st = _mamba_layer(lp, x, cfg)
+        states.append(st)
+    cache["ssm"] = {k: torch.stack([st[k] for st in states]) for k in states[0]}
+    return x
+
+
+def _fill_attention_cache(params, batch, cache, cfg: ModelConfig):
+    """Run the layers once over the prompt, writing each layer's K/V (MLA:
+    latent ckv and k_rope; vlm: the cross K/V of the image tokens too) into
+    the bf16 cache in place; returns the final residual stream."""
+    x = _embed_tokens(params, batch["tokens"])
+    positions = _positions(*x.shape[:2], x.device)
+    group = _moe_group(x)
+    if cfg.family == "vlm":
+        img = _image_tokens(params, batch, x)
+        for gi, (self_lps, cp) in enumerate(_vlm_groups(params, cfg)):
+            for li, lp in enumerate(self_lps):
+                x, (k, v), _ = _dense_layer(lp, x, positions, cfg, group)
+                _fill_rows(cache["k"][gi, li], k)
+                _fill_rows(cache["v"][gi, li], v)
+            x, (xk, xv) = _cross_layer(cp, x, positions, img, cfg)
+            cache["xk"][gi] = xk
+            cache["xv"][gi] = xv
+        return x
+    names = ("ckv", "krope") if cfg.attention == "mla" else ("k", "v")
     for i, lp in enumerate(_layers(params, cfg)):
-        x, (k, v) = _dense_layer(lp, x, positions, cfg)
-        for name, new in (("k", k), ("v", v)):
-            cache[name][i, :, :s] = new
-            cache[name][i, :, s:] = 0
+        x, kv, _ = _dense_layer(lp, x, positions, cfg, group)
+        for name, new in zip(names, kv):
+            _fill_rows(cache[name][i], new)
     return x

@@ -17,6 +17,7 @@ slice.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -40,7 +41,7 @@ Schema = dict[str, Any]  # nested dicts with ParamDef leaves
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
-    init: str = "normal"  # normal|zeros|ones|scaled|embed (the reference adds a_log|dt_bias)
+    init: str = "normal"  # normal|zeros|ones|scaled|embed|a_log|dt_bias
     axes: tuple[str | None, ...] = ()  # logical partition per dim
     scale: float = 0.02  # stddev for normal-family inits
 
@@ -73,7 +74,16 @@ def _init_leaf(gen: torch.Generator, d: ParamDef, dtype: torch.dtype) -> torch.T
     if d.init in ("normal", "scaled", "embed"):
         x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=dev)
         return (x * d.scale).to(dtype)
-    # The SSM inits (a_log, dt_bias) come with the SSM family.
+    if d.init == "a_log":
+        # Mamba2: A = -exp(A_log), A_log = log(U[1, 16]); float32 whatever
+        # ``dtype`` (as the reference keeps it, for stability).
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32, device=dev)
+        return torch.log(1.0 + 15.0 * u)
+    if d.init == "dt_bias":
+        # Inverse softplus of dt ~ logU[1e-3, 1e-1]; float32 whatever ``dtype``.
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32, device=dev)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return dt + torch.log(-torch.expm1(-dt))
     raise ValueError(f"unknown init {d.init!r}")
 
 

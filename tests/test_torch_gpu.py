@@ -937,3 +937,158 @@ def test_resilient_and_stream_on_card(tmp_path, cuda):
     assert state.device.type == "cuda"
     for kw in ({"added": hold}, {"removed": hold[:100]}):
         assert state.apply_batch(**kw).triangles == state.verify()
+
+
+# ------------------------------------------------------------ the LM families
+
+FAMILY_ARCHS = ("minicpm3-4b", "dbrx-132b", "moonshot-v1-16b-a3b", "mamba2-780m", "zamba2-7b",
+                "llama-3.2-vision-90b", "hubert-xlarge")
+
+
+def _family_batch(cfg, b, s, seed, device):
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        batch = {"frames": rng.normal(size=(b, s, cfg.d_frontend)).astype(np.float32),
+                 "labels": rng.integers(0, cfg.vocab, (b, s)), "mask": rng.random((b, s)) < 0.3}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)),
+                 "labels": rng.integers(0, cfg.vocab, (b, s))}
+        if cfg.family == "vlm":
+            batch["image_embeds"] = rng.normal(
+                size=(b, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _family_params(cfg, device):
+    from repro_torch.models.model import init_model
+
+    params = init_model(0, cfg, device)
+    if "cross_layers" in params:  # let the image tokens count (init's gate mutes them)
+        params["cross_layers"]["xattn"]["gate"].fill_(0.5)
+    return params
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_loss_and_grads_on_card_match_cpu(cuda, arch):
+    """float32 smoke config (TF32 off): logits within 1e-4 relative norm,
+    the loss, its metrics and every gradient leaf within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.params import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = loss_and_grads(_family_params(cfg, dev), _family_batch(cfg, 2, 16, 1, dev), cfg)
+    (lg, mg, gg), (lc, mc, gc) = out["cuda"], out["cpu"]
+    assert lg.is_cuda and sorted(mg) == sorted(mc)
+    for k in mc:
+        np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-4, atol=1e-6, err_msg=k)
+    for g, w in zip(tree_leaves(gg), tree_leaves(gc)):
+        assert g.is_cuda and _rel_l2(g, w) <= 1e-4
+
+
+@pytest.mark.parametrize("arch,impl", [(a, "xla") for a in FAMILY_ARCHS[:-1]]
+                         + [(a, "flash") for a in ("dbrx-132b", "moonshot-v1-16b-a3b",
+                                                    "zamba2-7b", "llama-3.2-vision-90b")])
+def test_family_serving_on_card_matches_cpu(cuda, arch, impl):
+    """float32 ServeSession on the card and on the CPU: equal tokens, logits
+    within 1e-4; flash launches one a prefill attention layer (the vlm's
+    cross layers and the hybrid's shared block applications included),
+    none at decode."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.model import hybrid_counts, vlm_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (2, 24), dtype=np.int32)
+    img = None
+    if cfg.family == "vlm":
+        img = np.random.default_rng(3).normal(size=(2, cfg.n_image_tokens, cfg.d_frontend))
+        img = img.astype(np.float32)
+    if cfg.family == "vlm":
+        n_groups, self_per, n_cross = vlm_counts(cfg)
+        want = n_groups * self_per + n_cross
+    else:
+        want = hybrid_counts(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
+    runs, launched = {}, {}
+    for dev in ("cuda", "cpu"):
+        sess = ServeSession(arch, smoke=True, batch=2, max_seq=32, device=dev, attention_impl=impl,
+                            dtype="float32", params=_family_params(cfg, dev))
+        before = flash_attention_cuda.launches
+        runs[dev] = sess.generate(prompts, 6, image_embeds=img, keep_logits=True)
+        launched[dev] = flash_attention_cuda.launches - before
+    assert launched == {"cuda": want if impl == "flash" else 0, "cpu": 0}
+    np.testing.assert_array_equal(runs["cuda"][0], runs["cpu"][0])
+    np.testing.assert_allclose(runs["cuda"][1]["logits"], runs["cpu"][1]["logits"],
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("capacity_factor", [None, 0.5])
+def test_moe_routing_on_card_matches_cpu(cuda, capacity_factor):
+    """float32 (TF32 off): the same experts, the same drops, y within 1e-5."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("moonshot-v1-16b-a3b")
+    if capacity_factor:
+        cfg = cfg.scaled(moe_capacity_factor=capacity_factor)
+    host = init_params(torch.Generator().manual_seed(0), moe.moe_schema(cfg), torch.float32)
+    card = tree_map(lambda t: t.to(cuda), host)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 64, cfg.d_model)).astype(np.float32))
+    yg, ag = moe.moe_forward(card, x.to(cuda), cfg, group_size=128)
+    yc, ac = moe.moe_forward(host, x, cfg, group_size=128)
+    assert torch.equal(moe.route(card, x.to(cuda), cfg, 128)[3].cpu(), moe.route(host, x, cfg, 128)[3])
+    assert float(ag["moe_dropped_frac"]) == float(ac["moe_dropped_frac"])
+    assert (float(ac["moe_dropped_frac"]) > 0) == bool(capacity_factor)
+    np.testing.assert_allclose(yg.cpu().numpy(), yc.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_chunked_on_card_matches_cpu_at_full_chunk(cuda):
+    """Chunk 256 with ``a`` down to -16 (zamba2's widths): finite and within
+    1e-4 of the CPU, the gradient finite."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    b, length, h, p, n = 2, 512, 8, 64, 64
+    x, bm, cm = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 for shape in ((b, length, h, p), (b, length, h, n), (b, length, h, n)))
+    dt = torch.from_numpy(rng.uniform(1e-3, 0.1, size=(b, length, h)).astype(np.float32))
+    a = -torch.linspace(1.0, 16.0, h)
+    want = ssd_chunked(x, dt, a, bm, cm, 256)
+    xs = x.to(cuda).requires_grad_()
+    got = ssd_chunked(xs, dt.to(cuda), a.to(cuda), bm.to(cuda), cm.to(cuda), 256)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and _rel_l2(g.detach(), w) <= 1e-4
+    got[0].square().sum().backward()
+    assert torch.isfinite(xs.grad).all()
+
+
+@pytest.mark.parametrize("hd,vd", [(80, 80), (96, 96), (112, 112), (96, 64), (128, 64)])
+def test_flash_refuses_unsupported_heads_on_card(cuda, hd, vd):
+    from repro_torch.kernels.flash_attention import flash_attention_bshd, flash_attention_cuda
+
+    q = torch.randn(1, 8, 2, hd, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 8, 2, hd, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn(1, 8, 2, vd, device=cuda, dtype=torch.bfloat16)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bshd(q, k, v, pos, pos)
+    assert flash_attention_cuda.launches == before
+
+
+def test_kv_quant_on_card_matches_cpu(cuda):
+    from repro_torch.distributed.kv_quant import kv_dequantize, kv_quantize
+
+    kv = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 64, 4, 32)).astype(np.float32))
+    qc, sc = kv_quantize(kv)
+    qg, sg = kv_quantize(kv.to(cuda))
+    assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+    assert torch.equal(kv_dequantize(qg, sg).cpu(), kv_dequantize(qc, sc))

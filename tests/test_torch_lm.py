@@ -228,16 +228,6 @@ def test_port_init_matches_schema_and_seed(arch):
     assert torch.equal(f32["tok_embed"].bfloat16(), a["tok_embed"])
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE])
-def test_unported_families_raise_naming_the_roadmap(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_model.model_schema(cfg)
-    if cfg.family != "audio":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt_serve.ServeSession(arch, smoke=True, device="cpu")
-
-
 # -------------------------------------------------------------------- model
 
 
@@ -368,6 +358,8 @@ def test_lm_modules_import_no_jax_and_nothing_of_repro():
         "import sys\n"
         "import repro_torch.configs, repro_torch.models.config, repro_torch.models.params\n"
         "import repro_torch.models.layers, repro_torch.models.model\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
+        "import repro_torch.distributed.kv_quant\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.launch.steps, repro_torch.launch.serve\n"
         "from repro_torch.configs import ARCHS, get_config\n"
