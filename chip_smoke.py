@@ -234,6 +234,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               within 2e-2 (MLA, ssm, hybrid, vlm); the MoE's logits on the
               card within 1e-4 of the port's CPU path at 2 x 16 tokens, its
               dropped fraction equal
+ 20. sharded train  ``TrainLoop(mesh=)`` on meshes of logical shards of
+              ``cuda:0`` (attention "xla"; no kernel launches): smollm-135m at
+              full width on 2 x 2 (profile "dp": params replicated, one tensor
+              a leaf; moments ZeRO-1 over 'data'; 8 x 2,048 tokens split four
+              ways), phase 18's init, data and schedule, each of 10 losses
+              within 3e-3 of phase 18's one-device losses; ms a step,
+              tokens/s, peak memory, host ms of placing and gathering, a
+              ``torch.profiler`` step (busy share, device time by op); its
+              checkpoint of step 5 restored onto 4 x 1 and onto one device
+              (every block bit-equal to the saved leaf's slice, steps 6-10
+              within 3e-3 of the uninterrupted run); mamba2-780m at full
+              width, all 48 layers, bf16, 4 x 2,048, on 2 x 2 (profile "tp":
+              ZeRO-3 blocks) against its one-device run (3 steps, losses
+              within 3e-3), the bytes each position's blocks hold; float32
+              gradients at 2 layers of both archs, the sharded step's reduced
+              blocks within 1e-5 relative L2 a leaf of one device's;
+              ``compressed_psum_mean`` over 8 logical 'pod' shards of
+              [8, 64] and of eight single-row gradients of smollm's embedding,
+              bit-equal to a NumPy emulation and within 0.02 of the exact mean;
+              in a deterministic child, a 2 x 2 loop at 4 layers resumed
+              after a failure bit-equal to its uninterrupted run
 
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
@@ -367,6 +388,23 @@ FAMILY_F32_DEPTH = {"llama-3.2-vision-90b": 5, "zamba2-7b": 7}  # one group (+1 
 FAMILY_TF_SHAPE = (2, 32, 8)  # batch, tokens, the last ones decoded
 FAMILY_MOE_SHAPE = (2, 16)
 FAMILY_GATE = 0.5  # the vlm's cross-attention gates (tanh 0.46), so that image tokens count
+# The sharded training phase: meshes of logical shards of one card. smollm
+# replays phase 18's first steps on 2 x 2 ("dp": params replicated, moments
+# ZeRO-1); mamba2 runs its ZeRO-3 blocks ("tp") against its one-device run.
+SHARD_TRAIN_MESH = (2, 2)
+SHARD_TRAIN_STEPS, SHARD_TRAIN_CKPT = 10, 5
+# Absolute, bf16, sharded vs one device, every step: 3 x the largest
+# difference read on an NVIDIA H100 80GB HBM3 at 700 W (1.011e-3 at step 7
+# of 10), inside tests/test_distributed.py:401's 5e-3 after 5 steps.
+SHARD_LOSS_TOL = 3e-3
+SHARD_MAMBA = "mamba2-780m"
+SHARD_MAMBA_BATCH, SHARD_MAMBA_SEQ, SHARD_MAMBA_STEPS = 4, 2048, 3
+SHARD_GRAD_LAYERS, SHARD_GRAD_SHAPE, SHARD_GRAD_TOL = 2, (4, 256), 1e-5  # float32, relative L2
+SHARD_PODS, SHARD_COMP_TOL = 8, 0.02  # compressed_psum_mean; tests/test_distributed.py:374's bound
+SHARD_COMP_SHAPE = (8, 128)  # eight single-row gradients of the full-width embedding
+SHARD_RESUME_FLAG = "--sharded-resume-child"
+SHARD_RESUME_LAYERS, SHARD_RESUME_SHAPE, SHARD_RESUME_STEPS = 4, (4, 256), 12
+SHARD_RESUME_FAIL_AT, SHARD_RESUME_EVERY = (7,), 5
 
 
 def log(msg: str) -> None:
@@ -3289,7 +3327,7 @@ def _step_flops(cfg, n_params: int, b: int, s: int) -> tuple[float, float]:
     return model, model + 2 * layer_params * tokens + 4 * attn
 
 
-def _profile_train_step(loop, params, opt_state) -> None:
+def _profile_train_step(loop, params, opt_state, tag: str = "[train]") -> None:
     """One step under ``torch.profiler``: the device's busy share of the
     step's wall and its device time by torch op."""
     from torch.profiler import ProfilerActivity, profile
@@ -3304,22 +3342,22 @@ def _profile_train_step(loop, params, opt_state) -> None:
     check(np.isfinite(float(metrics["loss"])), "profiled step's loss")
     busy = sum(end - start for start, end in _device_intervals(prof.events()))
     if busy == 0:
-        log("[train] profiled step: the profiler recorded no device activity; the device's "
+        log(f"{tag} profiled step: the profiler recorded no device activity; the device's "
             "busy share is not measured")
         return
     ops = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::") and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)
     total = sum(e.self_device_time_total for e in ops)
-    log(f"[train] profiled step (torch.profiler, CPU + CUDA): {wall:.6f} s wall under the "
+    log(f"{tag} profiled step (torch.profiler, CPU + CUDA): {wall:.6f} s wall under the "
         f"profiler, device busy {busy / 1e6:.6f} s = {100 * busy / (1e6 * wall):.2f} % of it; "
         f"{total / 1e3:.3f} ms of device time in aten ops")
     for e in ops[:15]:
-        log(f"[train]   {e.key}: {e.self_device_time_total / 1e3:.3f} ms on the device "
+        log(f"{tag}   {e.key}: {e.self_device_time_total / 1e3:.3f} ms on the device "
             f"({100 * e.self_device_time_total / total:.2f} %), {e.count} calls")
 
 
-def _train_full_width() -> None:
+def _train_full_width() -> dict:
     """``TrainLoop`` on smollm-135m at full width: bf16 parameters, float32
     moments, remat "full", 8 x 2048 tokens a step on the synthetic stream."""
     from repro_torch.launch.train import TrainLoop
@@ -3331,6 +3369,7 @@ def _train_full_width() -> None:
     check(cfg.dtype == "bfloat16" and cfg.remat == "full" and cfg.attention_impl == "xla"
           and loop.device.type == "cuda", f"[train] config {cfg}")
     times: list[float] = []
+    step_losses: list[float] = []
     step_fn = loop.step_fn
 
     def timed(params, opt_state, batch):
@@ -3339,6 +3378,7 @@ def _train_full_width() -> None:
         out = step_fn(params, opt_state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        step_losses.append(float(out[2]["loss"]))  # after the timing: phase 20's reference
         return out
 
     loop.step_fn = timed
@@ -3376,6 +3416,7 @@ def _train_full_width() -> None:
         f"{BF16_PEAK:.3e} FLOP/s bf16, {100 * with_remat / (med * BF16_PEAK):.2f} % counting "
         f"remat's second forward ({with_remat:.6e}); max_memory_allocated {peak} bytes; {smi}")
     _profile_train_step(loop, params, opt_state)
+    return {"losses": step_losses, "ms": 1e3 * med, "peak": peak}
 
 
 def _train_resume_child() -> int:
@@ -3468,16 +3509,19 @@ def _train_resume() -> None:
         f"the child took {child_s:.1f} s")
 
 
-def phase_train() -> None:
-    """18: LM training on the card (see the module docstring)."""
+def phase_train() -> dict:
+    """18: LM training on the card (see the module docstring). Returns the
+    full-width run's losses a step, ms a step and peak memory (phase 20's
+    one-device reference)."""
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     _train_grads()
     _train_microbatches()
-    _train_full_width()
+    one_device = _train_full_width()
     _train_resume()
     log(f"[train] phase 18 took {time.perf_counter() - t_phase:.3f} s")
+    return one_device
 
 
 # ---------------------------------------------------------------- phase 19
@@ -3925,6 +3969,408 @@ def phase_families() -> dict:
     return flash
 
 
+# ---------------------------------------------------------------- phase 20
+
+
+def _logical_mesh(shape, names=("data", "model")):
+    from repro_torch.distributed.mesh import make_mesh
+
+    return make_mesh(shape, names, devices=[torch.device(SHARD_DEVICE)] * math.prod(shape))
+
+
+def _timed_steps(loop) -> tuple[list, list]:
+    """Wrap ``loop.step_fn`` to record each synchronised step's seconds and
+    loss (read after the timing); returns the two lists."""
+    times: list[float] = []
+    losses: list[float] = []
+    step_fn = loop.step_fn
+
+    def timed(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out[2]["loss"]))
+        return out
+
+    loop.step_fn = timed
+    return times, losses
+
+
+def _host_ms(fn) -> tuple[object, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _held_bytes(tree, mesh) -> list[int]:
+    """Bytes of the blocks each mesh position holds, over a placed tree."""
+    from repro_torch.models.params import tree_leaves
+
+    return [sum(t.block(pos).numel() * t.block(pos).element_size() for t in tree_leaves(tree))
+            for pos in np.ndindex(*mesh.devices.shape)]
+
+
+def _sharded_smollm(one_device: dict, work: Path, smi: str) -> dict:
+    """smollm-135m at full width on 2 x 2 logical shards: phase 18's init,
+    data and schedule, each step's loss against phase 18's."""
+    from repro_torch.distributed.sharding import gather_tree, place_tree
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.model import init_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    mesh = _logical_mesh(SHARD_TRAIN_MESH)
+    loop = TrainLoop(TRAIN_ARCH, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, schedule=TRAIN_SCHEDULE,
+                     mesh=mesh, ckpt_dir=str(work / "ckpt"), ckpt_every=SHARD_TRAIN_CKPT)
+    cfg = loop.cfg
+    check(cfg.dtype == "bfloat16" and cfg.remat == "full" and cfg.attention_impl == "xla"
+          and loop.device == torch.device(SHARD_DEVICE), f"[sharded train] config {cfg}")
+    params = init_model(0, cfg, SHARD_DEVICE)
+    state = {"params": params, "opt": adamw_init(params)}
+    placed, place_ms = _host_ms(lambda: {"params": place_tree(state["params"], loop.param_sh),
+                                         "opt": place_tree(state["opt"], loop.opt_sh)})
+    _, batch_ms = _host_ms(lambda: place_tree(loop.ds.batch(0), loop.batch_sh))
+    gathered, gather_ms = _host_ms(lambda: gather_tree(placed["params"], SHARD_DEVICE))
+    check(all(g is p for g, p in zip(tree_leaves(gathered), tree_leaves(params))),
+          "[sharded train] gathering replicated params copied them")
+    _, host_ms = _host_ms(lambda: gather_tree(placed, "cpu"))
+    del params, state, placed, gathered
+    torch.cuda.empty_cache()
+
+    step_fn = loop.step_fn
+    times, losses = _timed_steps(loop)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    params, opt_state, flags = loop.run(SHARD_TRAIN_STEPS, log_every=SHARD_TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    loop.step_fn = step_fn
+    check(not any(launches.values()), f"[sharded train] the sharded train path launched {launches}")
+    ref = one_device["losses"][:SHARD_TRAIN_STEPS]
+    diffs = [abs(a - b) for a, b in zip(losses, ref)]
+    check(len(losses) == SHARD_TRAIN_STEPS and all(np.isfinite(losses))
+          and max(diffs) <= SHARD_LOSS_TOL,
+          f"[sharded train] losses {losses} vs one device {ref}: {diffs} > {SHARD_LOSS_TOL}")
+    check(all(len(t.blocks) == 1 and t.dtype == torch.bfloat16 for t in tree_leaves(params))
+          and all(len(t.blocks) == SHARD_TRAIN_MESH[0] for t in tree_leaves(opt_state["m"])
+                  if t.sharding.spec != tuple(None for _ in t.shape))
+          and int(opt_state["step"].full()) == SHARD_TRAIN_STEPS,
+          "[sharded train] state placement after the run")
+    med = float(np.median(times[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[sharded train] TrainLoop({TRAIN_ARCH!r}, mesh {SHARD_TRAIN_MESH} of logical shards of "
+        f"{SHARD_DEVICE}): profile 'dp' (params replicated, one tensor a leaf; moments ZeRO-1 over "
+        f"'data'; the batch over ('data', 'model'): 4 shards of {TRAIN_BATCH // 4} rows), "
+        f"{cfg.n_layers} layers, bf16, remat {cfg.remat!r}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a "
+        f"step, schedule {TRAIN_SCHEDULE} at lr {loop.opt_cfg.lr}; {SHARD_TRAIN_STEPS} steps in "
+        f"{wall:.3f} s (straggler flags {flags}); kernel launches {launches}")
+    log(f"[sharded train] losses a step {[round(x, 6) for x in losses]}; phase 18's one-device "
+        f"{[round(x, 6) for x in ref]}; |difference| max {max(diffs):.3e} (<= {SHARD_LOSS_TOL}), "
+        f"at step {int(np.argmax(diffs)) + 1}; each {[float(f'{d:.3e}') for d in diffs]}")
+    log(f"[sharded train] synchronised step: median {1e3 * med:.3f} ms over steps 2-"
+        f"{SHARD_TRAIN_STEPS} (min {1e3 * min(times[1:]):.3f}, max {1e3 * max(times[1:]):.3f}; "
+        f"first {1e3 * times[0]:.3f}) against phase 18's {one_device['ms']:.3f} ms one-device "
+        f"({100 * (1e3 * med / one_device['ms'] - 1):+.2f} %); {tokens / med:.1f} tokens/s; "
+        f"max_memory_allocated {peak} bytes against phase 18's {one_device['peak']}; host ms: "
+        f"placing the state {place_ms:.3f}, placing a batch {batch_ms:.3f}, gathering the params "
+        f"on the card {gather_ms:.3f} (replicated: no copy), gathering the state to the host "
+        f"{host_ms:.3f}; {smi}")
+    _profile_train_step(loop, params, opt_state, "[sharded train]")
+    return {"losses": losses, "mesh": mesh}
+
+
+def _check_restored_blocks(params, opt, ckpt_dir: Path, step: int) -> int:
+    """Every block of the restored state bit-equal to the saved leaf's
+    slice; returns the blocks compared."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.distributed.sharding import ShardedTensor
+    from repro_torch.models.params import tree_leaves
+
+    state = {"params": params, "opt": opt}
+    saved, _, _ = load_checkpoint(ckpt_dir, state, step=step)
+    n = 0
+    for got, leaf in zip(tree_leaves(state), tree_leaves(saved), strict=True):
+        leaf = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.asarray(leaf))
+        if not isinstance(got, ShardedTensor):
+            check(torch.equal(got.cpu(), leaf), "[sharded train] restored leaf differs")
+            n += 1
+            continue
+        for pos in np.ndindex(*got.sharding.mesh.devices.shape):
+            sl = got.sharding.block_slices(got.shape, got.sharding.block_index(pos, got.ndim))
+            check(torch.equal(got.block(pos).cpu(), leaf[sl]),
+                  f"[sharded train] restored block {pos} differs from the saved slice")
+            n += 1
+    return n
+
+
+def _elastic_restore(run: dict, work: Path) -> None:
+    """The 2 x 2 run's checkpoint of step 5 restored onto a 4 x 1 mesh and
+    onto one device: blocks bit-equal to the saved slices, and the steps
+    after it within the loss bound of the uninterrupted run's."""
+    import shutil
+
+    from repro_torch.launch.train import TrainLoop
+
+    name = f"step_{SHARD_TRAIN_CKPT:08d}"
+    for label, mesh in (("4 x 1", _logical_mesh((4, 1))), ("one device", None)):
+        d = work / f"restore_{label.replace(' ', '_')}"
+        shutil.copytree(work / "ckpt" / name, d / name)
+        loop = TrainLoop(TRAIN_ARCH, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         schedule=TRAIN_SCHEDULE, mesh=mesh, ckpt_dir=str(d),
+                         ckpt_every=10 * SHARD_TRAIN_STEPS,
+                         device=SHARD_DEVICE if mesh is None else None)
+        (params, opt, start), restore_ms = _host_ms(loop.restore_or_init)
+        check(start == SHARD_TRAIN_CKPT, f"[sharded train] restored step {start}")
+        blocks = _check_restored_blocks(params, opt, d, start)
+        del params, opt
+        _, losses = _timed_steps(loop)
+        loop.run(SHARD_TRAIN_STEPS, log_every=SHARD_TRAIN_STEPS)
+        want = run["losses"][SHARD_TRAIN_CKPT:]
+        diffs = [abs(a - b) for a, b in zip(losses, want)]
+        check(len(losses) == SHARD_TRAIN_STEPS - SHARD_TRAIN_CKPT and max(diffs) <= SHARD_LOSS_TOL,
+              f"[sharded train] restored onto {label}: {losses} vs {want}")
+        log(f"[sharded train] elastic restore of the 2 x 2 run's step {SHARD_TRAIN_CKPT} onto "
+            f"{label}: {blocks} blocks bit-equal to the saved leaves' slices, restore "
+            f"{restore_ms:.3f} ms of host time; steps {SHARD_TRAIN_CKPT + 1}-{SHARD_TRAIN_STEPS} "
+            f"losses {[round(x, 6) for x in losses]} vs the uninterrupted 2 x 2 run's "
+            f"{[round(x, 6) for x in want]}, |difference| max {max(diffs):.3e} "
+            f"(<= {SHARD_LOSS_TOL})")
+        del loop
+        torch.cuda.empty_cache()
+
+
+def _sharded_mamba(smi: str) -> None:
+    """mamba2-780m at full width ("tp": ZeRO-3, fsdp -> 'data', tp ->
+    'model') on 2 x 2 logical shards against its one-device run."""
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.params import tree_leaves
+
+    runs = {}
+    for label, mesh in (("one device", None), ("2 x 2", _logical_mesh(SHARD_TRAIN_MESH))):
+        loop = TrainLoop(SHARD_MAMBA, global_batch=SHARD_MAMBA_BATCH, seq=SHARD_MAMBA_SEQ,
+                         schedule=TRAIN_SCHEDULE, mesh=mesh,
+                         device=SHARD_DEVICE if mesh is None else None)
+        times, losses = _timed_steps(loop)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt, _ = loop.run(SHARD_MAMBA_STEPS, log_every=SHARD_MAMBA_STEPS)
+        wall = time.perf_counter() - t0
+        runs[label] = (losses, times, torch.cuda.max_memory_allocated())
+        if mesh is not None:
+            state = {"params": params, "opt": opt}
+            held = _held_bytes(state, mesh)
+            dense = sum(math.prod(t.shape) * t.dtype.itemsize for t in tree_leaves(state))
+            tensors = sum(t.nbytes for t in tree_leaves(state))
+            check(tensors == dense and max(held) < dense,
+                  f"[sharded train] mamba2 blocks: held {held}, tensors {tensors}, dense {dense}")
+            log(f"[sharded train] {SHARD_MAMBA} state on 2 x 2 (ZeRO-3): bytes held by each "
+                f"position's blocks {held} (params + moments + step; {[round(h / dense, 4) for h in held]} "
+                f"of the leaves' {dense} bytes); the distinct tensors hold {tensors} bytes, "
+                f"each block once")
+        log(f"[sharded train] {SHARD_MAMBA} at full width ({loop.cfg.n_layers} layers, bf16, "
+            f"remat {loop.cfg.remat!r}, {SHARD_MAMBA_BATCH} x {SHARD_MAMBA_SEQ}) on {label}: "
+            f"{SHARD_MAMBA_STEPS} steps in {wall:.3f} s, ms a step {[round(1e3 * t, 3) for t in times]}, "
+            f"losses {[round(x, 6) for x in losses]}, max_memory_allocated "
+            f"{runs[label][2]} bytes; {smi}")
+        del loop, params, opt
+        torch.cuda.empty_cache()
+    one, sharded = runs["one device"][0], runs["2 x 2"][0]
+    diffs = [abs(a - b) for a, b in zip(sharded, one)]
+    check(max(diffs) <= SHARD_LOSS_TOL, f"[sharded train] mamba2 losses {sharded} vs {one}")
+    log(f"[sharded train] {SHARD_MAMBA} 2 x 2 vs one device: |loss difference| {diffs} "
+        f"(<= {SHARD_LOSS_TOL}); median ms a step {1e3 * float(np.median(runs['2 x 2'][1][1:])):.3f} "
+        f"vs {1e3 * float(np.median(runs['one device'][1][1:])):.3f}")
+
+
+def _sharded_grads_f32() -> dict:
+    """Float32 gradients at 2 layers, full width, both archs: the sharded
+    step's reduced blocks against ``loss_and_grads`` on one device."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.distributed.lm_sharding import batch_spec_tree, named_tree, train_state_specs
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.launch.steps import loss_and_grads, sharded_loss_and_grads
+    from repro_torch.models.model import init_model
+    from repro_torch.models.params import tree_leaves
+
+    mesh = _logical_mesh(SHARD_TRAIN_MESH)
+    b, s = SHARD_GRAD_SHAPE
+    out = {}
+    for arch in (TRAIN_ARCH, SHARD_MAMBA):
+        cfg = get_config(arch).scaled(n_layers=SHARD_GRAD_LAYERS, dtype="float32")
+        params = init_model(0, cfg, SHARD_DEVICE)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
+            vocab=cfg.vocab, seq_len=s, global_batch=b, seed=3).batch(0).items()}
+        loss, _, grads = loss_and_grads(params, batch, cfg)
+        pspecs, _, gspecs = train_state_specs(cfg)
+        placed = place_tree(params, named_tree(mesh, pspecs))
+        bp = place_tree(batch, named_tree(mesh, batch_spec_tree(cfg, mesh, batch)))
+        s_loss, _, s_grads = sharded_loss_and_grads(placed, bp, cfg, named_tree(mesh, gspecs))
+        errs = [_rel(g.full(), w) for g, w in zip(tree_leaves(s_grads), tree_leaves(grads))]
+        worst = _leaf_names(grads)[int(np.argmax(errs))]
+        loss_err = abs(float(s_loss) - float(loss)) / abs(float(loss))
+        check(max(errs) <= SHARD_GRAD_TOL and loss_err <= SHARD_GRAD_TOL,
+              f"[sharded train] {arch} float32 gradients {max(errs):.3e} ({worst}), "
+              f"loss {loss_err:.3e}")
+        log(f"[sharded train] {arch} at full width, {SHARD_GRAD_LAYERS} layers, float32 (TF32 "
+            f"off), {b} x {s} on 2 x 2 logical shards (profile "
+            f"{'dp' if arch == TRAIN_ARCH else 'tp'}): loss {float(s_loss):.7f} vs one device "
+            f"{float(loss):.7f} ({loss_err:.3e}); {len(errs)} gradient leaves, worst {worst} "
+            f"{max(errs):.3e} relative L2 (<= {SHARD_GRAD_TOL}), median {float(np.median(errs)):.3e}")
+        if arch == TRAIN_ARCH:
+            out = {"params": params, "cfg": cfg}
+        del placed, s_grads, grads
+    return out
+
+
+def _emulated_mean(stacked: np.ndarray) -> np.ndarray:
+    """``compressed_psum_mean`` in NumPy: a shared amax, int8 against the
+    shared scale (half to even), an exact int32 sum, dequantize, / n."""
+    amax = np.float32(np.max(np.abs(stacked)))
+    scale = np.float32(max(amax, np.float32(1e-12))) / np.float32(127.0)
+    q = np.clip(np.round(stacked / scale), -127, 127).astype(np.int8)
+    total = q.astype(np.int32).sum(axis=0, dtype=np.int32)
+    return total.astype(np.float32) * scale / np.float32(len(stacked))
+
+
+def _compressed_mean(f32: dict) -> None:
+    """``compressed_psum_mean`` over 8 logical 'pod' shards: the reference
+    test's [8, 64] and eight single-row gradients of smollm's full-width
+    embedding, bit-equal to the NumPy emulation and within 0.02 of the
+    exact mean."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.distributed.compression import compressed_psum_mean
+    from repro_torch.distributed.sharding import NamedSharding, P, place
+    from repro_torch.launch.steps import loss_and_grads
+
+    mesh = _logical_mesh((SHARD_PODS,), ("pod",))
+    cfg, params = f32["cfg"], f32["params"]
+    b, s = SHARD_COMP_SHAPE
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=s, global_batch=b, seed=4).batch(0).items()}
+    rows = [loss_and_grads(params, {k: v[i:i + 1] for k, v in batch.items()}, cfg)[2]["tok_embed"]
+            for i in range(b)]
+    cases = {"[8, 64]": torch.from_numpy(
+                 np.random.default_rng(0).normal(size=(SHARD_PODS, 64)).astype(np.float32)).cuda(),
+             f"tok_embed {tuple(rows[0].shape)} x 8": torch.stack(rows)}
+    del rows
+    for label, stacked in cases.items():
+        placed = place(stacked, NamedSharding(mesh, P("pod", *([None] * (stacked.ndim - 1)))))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = compressed_psum_mean({"g": placed}, mesh, "pod")["g"]
+        end.record()
+        torch.cuda.synchronize()
+        got = out.full().cpu().numpy()
+        host = stacked.cpu().numpy()
+        want = _emulated_mean(host)
+        exact = host.mean(axis=0)
+        err = float(np.abs(got[0] - exact).max() / (np.abs(exact).max() + 1e-9))
+        check(all(got[i].tobytes() == want.tobytes() for i in range(SHARD_PODS))
+              and err < SHARD_COMP_TOL,
+              f"[sharded train] compressed mean {label}: emulation equal "
+              f"{[got[i].tobytes() == want.tobytes() for i in range(SHARD_PODS)]}, error {err}")
+        log(f"[sharded train] compressed_psum_mean over {SHARD_PODS} logical 'pod' shards of "
+            f"{label}: every entry bit-equal to the NumPy emulation; max |mean - exact| / max "
+            f"|exact| {err:.6f} (< {SHARD_COMP_TOL}); {start.elapsed_time(end):.3f} ms")
+
+
+def _sharded_resume_child() -> int:
+    """The child process (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, deterministic
+    algorithms): a 2 x 2 loop at a cut depth, uninterrupted against one
+    failure and ``run_with_auto_resume``. Prints one JSON line."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainLoop, run_with_auto_resume
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.runtime import FailureInjector
+
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8", "CUBLAS_WORKSPACE_CONFIG")
+    torch.use_deterministic_algorithms(True)
+    cut = get_config(TRAIN_ARCH).scaled(n_layers=SHARD_RESUME_LAYERS)
+    b, s = SHARD_RESUME_SHAPE
+    common = dict(global_batch=b, seq=s, schedule=TRAIN_SCHEDULE, ckpt_every=SHARD_RESUME_EVERY,
+                  cfg_override=cut, mesh=_logical_mesh(SHARD_TRAIN_MESH))
+    loop_a = TrainLoop(TRAIN_ARCH, **common)
+    pa, sa, _ = loop_a.run(SHARD_RESUME_STEPS, log_every=1)
+    want = {m["step"]: m["loss"] for m in loop_a.metrics_log}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        loop_b = TrainLoop(TRAIN_ARCH, ckpt_dir=str(work), **common)
+        (pb, sb, _), restarts = run_with_auto_resume(
+            loop_b, SHARD_RESUME_STEPS, FailureInjector(fail_at_steps=SHARD_RESUME_FAIL_AT))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    logged = [(m["step"], m["loss"]) for m in loop_b.metrics_log]
+    state_equal = all(
+        a.sharding.same_blocks(c.sharding, a.ndim)
+        and all(torch.equal(t, c.distinct_blocks()[idx]) for idx, t in a.distinct_blocks().items())
+        for a, c in zip(tree_leaves({"p": pa, "s": sa}), tree_leaves({"p": pb, "s": sb})))
+    print(json.dumps({"restarts": restarts, "logged": logged,
+                      "losses_equal": all(loss == want[step] for step, loss in logged),
+                      "state_equal": state_equal}), flush=True)
+    return 0
+
+
+def _sharded_resume() -> None:
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), SHARD_RESUME_FLAG],
+                          env=env, capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and bool(lines),
+          f"[sharded train] resume child exited {proc.returncode}: {proc.stdout[-4000:]}"
+          f"{proc.stderr[-4000:]}")
+    res = json.loads(lines[-1])
+    check(res["restarts"] == len(SHARD_RESUME_FAIL_AT) and res["losses_equal"]
+          and res["state_equal"], f"[sharded train] same-mesh resume: {res}")
+    log(f"[sharded train] deterministic child (CUBLAS_WORKSPACE_CONFIG=:4096:8, "
+        f"use_deterministic_algorithms): a 2 x 2 loop at {SHARD_RESUME_LAYERS} layers (full width "
+        f"otherwise, bf16, {SHARD_RESUME_SHAPE[0]} x {SHARD_RESUME_SHAPE[1]}), failure at step "
+        f"{SHARD_RESUME_FAIL_AT}, ckpt_every {SHARD_RESUME_EVERY}: {res['restarts']} restart, "
+        f"every logged loss {res['logged']} and every block of the final state bit-equal to the "
+        f"uninterrupted run's; the child took {child_s:.1f} s")
+
+
+def phase_sharded_train(one_device: dict) -> None:
+    """20: sharded training on meshes of logical shards of the card (see the
+    module docstring); ``one_device`` is phase 18's full-width run."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_train_"))
+    try:
+        run = _sharded_smollm(one_device, work, smi)
+        _elastic_restore(run, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t_smollm = time.perf_counter() - t_phase
+    _sharded_mamba(smi)
+    t_mamba = time.perf_counter() - t_phase - t_smollm
+    f32 = _sharded_grads_f32()
+    _compressed_mean(f32)
+    del f32
+    _sharded_resume()
+    torch.cuda.empty_cache()
+    log(f"[sharded train] phase 20 took {time.perf_counter() - t_phase:.3f} s (smollm and its "
+        f"restores {t_smollm:.3f}, mamba2 {t_mamba:.3f})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -3933,6 +4379,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if sys.argv[1:] == [RESUME_FLAG]:
         return _train_resume_child()
+    if sys.argv[1:] == [SHARD_RESUME_FLAG]:
+        return _sharded_resume_child()
     t_start = time.perf_counter()
     name = phase_device()
     phase_build()
@@ -3965,8 +4413,9 @@ def main() -> int:
     phase_stream_serve()
     row["sharded_launches"] = phase_sharded(main_run)
     phase_contracts(main_run, serve)
-    phase_train()
+    one_device = phase_train()
     family_flash = phase_families()
+    phase_sharded_train(one_device)
     flash_rows[0]["launches_by_path"] = {"lm_serve": flash_rows[0]["launches"], **family_flash}
     flash_rows[0]["launches"] += sum(family_flash.values())
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -19,7 +19,9 @@ Trees are nested dicts, lists and tuples whose leaves are NumPy arrays,
 torch tensors or scalars; ``None`` is an empty subtree, as in JAX. Leaf
 paths are JAX's key paths as strings (``['r5']/['row_ptr']``, ``[0]`` for a
 sequence index), with dict keys visited in sorted order. Tensors are copied
-to the host. Extension dtypes are stored as raw integers of the same width
+to the host, and a placed leaf (``distributed.sharding.ShardedTensor``)
+is gathered whole, so a sharded state writes the files a dense one does.
+Extension dtypes are stored as raw integers of the same width
 under the reference's names: a torch ``bfloat16`` tensor is saved as
 ``uint16`` under ``"bfloat16"``, and such leaves load back as torch tensors
 of their dtype (NumPy has no bfloat16 without ``ml_dtypes``).
@@ -56,7 +58,12 @@ _TORCH_EXT = {dtype: name for name, (dtype, _, _) in _EXT_DTYPES.items()}
 
 
 def _to_host(leaf) -> np.ndarray | torch.Tensor:
-    """A leaf on the host: NumPy, or a CPU tensor of an extension dtype."""
+    """A leaf on the host: NumPy, or a CPU tensor of an extension dtype (a
+    placed leaf gathered whole)."""
+    from repro_torch.distributed.sharding import ShardedTensor
+
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         return t if t.dtype in _TORCH_EXT else t.numpy()
@@ -109,6 +116,12 @@ def _unflatten(tree, leaves):
 def _flatten_with_paths(tree) -> tuple[list[str], list]:
     flat = _flatten(tree)
     return ["/".join(path) for path, _ in flat], [leaf for _, leaf in flat]
+
+
+def _place(arr, sharding, path: str):
+    from repro_torch.distributed.sharding import place
+
+    return place(arr, sharding, path)
 
 
 def _map_leaves(fn, tree):
@@ -168,12 +181,16 @@ def latest_step(directory: str | Path) -> int | None:
     return steps[-1] if steps else None
 
 
-def load_checkpoint(directory: str | Path, tree_like, step: int | None = None):
-    """Restore into the structure of ``tree_like``.
+def load_checkpoint(directory: str | Path, tree_like, step: int | None = None,
+                    shardings=None):
+    """Restore into the structure of ``tree_like``; optional placement.
 
     Leaves come back as host NumPy arrays (extension dtypes as CPU torch
     tensors). A ``tree_like`` leaf with a ``shape`` must match the stored
-    shape. Returns ``(tree, step, extra)``.
+    shape. ``shardings``, a matching tree of
+    ``distributed.sharding.NamedSharding``, places each leaf by its
+    sharding (the elastic restore onto another mesh). Returns ``(tree,
+    step, extra)``.
     """
     directory = Path(directory)
     if step is None:
@@ -184,8 +201,10 @@ def load_checkpoint(directory: str | Path, tree_like, step: int | None = None):
     manifest = json.loads((ckpt / "manifest.json").read_text())
     paths, leaves = _flatten_with_paths(tree_like)
     by_path = {rec["path"]: rec for rec in manifest["leaves"]}
+    sh_leaves = ([sh for _, sh in _flatten(shardings)] if shardings is not None
+                 else [None] * len(leaves))
     out = []
-    for path, leaf in zip(paths, leaves, strict=True):
+    for path, leaf, sh in zip(paths, leaves, sh_leaves, strict=True):
         rec = by_path.get(path)
         if rec is None:
             raise KeyError(f"checkpoint missing leaf {path!r}")
@@ -193,7 +212,7 @@ def load_checkpoint(directory: str | Path, tree_like, step: int | None = None):
         expect = tuple(leaf.shape) if hasattr(leaf, "shape") else None
         if expect is not None and tuple(arr.shape) != expect:
             raise ValueError(f"shape mismatch for {path}: {tuple(arr.shape)} vs {expect}")
-        out.append(arr)
+        out.append(arr if sh is None else _place(arr, sh, path))
     return _unflatten(tree_like, iter(out)), manifest["step"], manifest["extra"]
 
 
@@ -237,9 +256,9 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise RuntimeError(f"async checkpoint write to {self.directory} failed") from err
 
-    def restore(self, tree_like, step: int | None = None):
+    def restore(self, tree_like, step: int | None = None, shardings=None):
         self.wait()
-        return load_checkpoint(self.directory, tree_like, step)
+        return load_checkpoint(self.directory, tree_like, step, shardings)
 
     def latest_step(self):
         return latest_step(self.directory)

@@ -1,10 +1,13 @@
-"""Distribution layer of the port: sharded and resilient triangle counts.
+"""Distribution layer of the port: sharded and resilient triangle counts,
+and the LM's sharding specs.
 
 Port of ``src/repro/distributed/__init__.py`` for the TC engine (the
-reference's fourteen names), plus the port's ``Mesh``/``make_mesh``.
-``kv_quant`` (int8 KV-cache quantization) is a module of its own, as in the
-reference. The LM shardings and gradient compression of the reference are
-not ported.
+reference's fourteen names), plus the port's ``Mesh``/``make_mesh`` and its
+counterparts of ``jax.sharding`` (``PartitionSpec``, ``NamedSharding``, the
+placed ``ShardedTensor``). The LM's modules are imported by name, as in the
+reference: ``constants`` (the production mesh sizes), ``ctx`` (the
+activation scope), ``lm_sharding`` (param/train/batch/cache/logits specs),
+``compression`` (int8 gradients with error feedback) and ``kv_quant``.
 """
 from repro_torch.distributed.mesh import Mesh, make_mesh
 from repro_torch.distributed.resilient import (
@@ -25,10 +28,15 @@ from repro_torch.distributed.tc import (
     pooled_sharded_executor,
     shard_worklist,
 )
+from repro_torch.distributed.sharding import NamedSharding, P, PartitionSpec, ShardedTensor
 
 __all__ = [
     "Mesh",
     "make_mesh",
+    "NamedSharding",
+    "P",
+    "PartitionSpec",
+    "ShardedTensor",
     "RecoveryState",
     "ResilienceConfig",
     "TCCheckpoint",

@@ -56,8 +56,8 @@ class ServeSession:
                  n_layers: int | None = None, params=None):
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh is not ported yet: the port serves on one device "
-                "(ROADMAP.md, queue 1, item 1, part 4)")
+                "serving on a mesh is not ported yet: the port serves on one device "
+                "(ROADMAP.md, queue 1, item 1, part 4b: sharded serving)")
         cfg = get_smoke_config(arch) if smoke else get_config(arch)
         if cfg.family == "audio":
             raise ValueError("encoder-only arch has no decode step")

@@ -1,21 +1,60 @@
 """Step builders of the LM paths: train_step / prefill_step / serve_step.
 
 Port of ``src/repro/launch/steps.py``: plain closures over the config.
-PyTorch runs eagerly, so there is no jit, and one device needs no
-shardings or donation. ``make_train_step`` differentiates ``loss_fn`` by
-autograd and applies one AdamW update; the serving steps run under
-``torch.inference_mode()`` (the cache is updated in place).
+PyTorch runs eagerly, so there is no jit and no donation.
+``make_train_step`` differentiates ``loss_fn`` by autograd and applies one
+AdamW update; the serving steps run under ``torch.inference_mode()`` (the
+cache is updated in place).
+
+On a mesh (``make_train_step(mesh=)``) the step takes the state placed by
+``train_state_specs`` and the batch by ``batch_spec_tree``
+(``distributed/sharding.py``), and computes what the one-device step
+computes, up to reduction order (``sharded_loss_and_grads``):
+
+  1. the batch splits into the distinct data-parallel blocks of its spec
+     (microbatches first, contiguous, each then split over dp, as the
+     reference's scan over ``with_sharding_constraint``-ed slices does);
+  2. each leaf's params are gathered once a device;
+  3. ``loss_and_grads`` runs once a distinct dp shard, on its device, in a
+     fixed order (on the "tp" profile the 'model' axis only holds blocks:
+     the layers' tensor-parallel compute is not ported);
+  4. the shards' losses and gradients combine into the global loss's
+     gradient (next-token CE: ``1/n`` each; the audio family's masked loss:
+     each shard's mask count over the global count; MoE: each shard must
+     hold whole routing groups, else ``ValueError``), reduced in float32
+     into the blocks of the gradient spec;
+  5. the global norm is taken over distinct blocks (a replicated leaf
+     counts once, not once a logical shard), and AdamW runs block by block.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import (
+    NamedSharding,
+    ShardedTensor,
+    _map_named,
+    from_parts,
+    gather_tree,
+    place,
+    reshard,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import decode_step, forward_prefill, loss_fn
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_warmup
+from repro_torch.optim.adamw import adamw_leaf, bias_corrections, clip_scale
+from repro_torch.runtime.staging import stage
 
-__all__ = ["loss_and_grads", "make_train_step", "make_prefill_step", "make_serve_step"]
+__all__ = [
+    "loss_and_grads",
+    "sharded_loss_and_grads",
+    "make_train_step",
+    "make_prefill_step",
+    "make_serve_step",
+]
+
+MOE_GROUP = 1024  # models/moe.py's routing group (min(1024, tokens))
 
 
 def loss_and_grads(params, batch: dict, cfg: ModelConfig):
@@ -32,7 +71,8 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
-                    schedule: dict | None = None, microbatches: int = 1):
+                    schedule: dict | None = None, microbatches: int = 1, mesh=None,
+                    batch_sds: dict | None = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
     The learning rate is ``cosine_warmup`` of the optimizer's step under
@@ -43,10 +83,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
     inputs as they are; ``metrics`` (``loss``, ``ce_loss``, ``grad_norm``,
     ``lr``) are 0-d tensors on the device, and nothing is read back to the
     host.
+
+    With ``mesh`` the step is the sharded one (the module docstring): it
+    takes params and optimizer state placed by ``train_state_specs`` and the
+    batch by ``batch_spec_tree`` (dense leaves are placed on the way in, as
+    jit places uncommitted arrays; a leaf placed otherwise raises
+    ``ValueError``), and returns the state placed the same way. The batch
+    specs come from ``batch_sds`` (leaves with a ``shape``, e.g. meta
+    tensors) or, without it, from each batch.
     """
     sched = {"peak_lr": opt_cfg.lr, "warmup": 100, "total": 10000}
     if schedule:
         sched.update(schedule)
+    if mesh is not None:
+        return _sharded_train_step(cfg, mesh, opt_cfg, sched, microbatches, batch_sds)
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
@@ -71,6 +121,182 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
             metrics = {k: v / microbatches for k, v in metrics.items()}
         lr = cosine_warmup(opt_state["step"], **sched)
         new_params, new_opt, om = adamw_update(grads, params, opt_state, opt_cfg, lr)
+        return new_params, new_opt, {"loss": loss, **metrics, **om}
+
+    return train_step
+
+
+# ------------------------------------------------------------ on a mesh
+
+
+def _state_shardings(cfg: ModelConfig, mesh):
+    from repro_torch.distributed.lm_sharding import named_tree, train_state_specs
+
+    pspecs, ospecs, gspecs = train_state_specs(cfg)
+    return named_tree(mesh, pspecs), named_tree(mesh, ospecs), named_tree(mesh, gspecs)
+
+
+def _batch_shardings(cfg: ModelConfig, mesh, batch: dict) -> dict:
+    from repro_torch.distributed.lm_sharding import batch_spec_tree, named_tree
+
+    return named_tree(mesh, batch_spec_tree(cfg, mesh, batch))
+
+
+def _placed(x, sh: NamedSharding, name: str) -> ShardedTensor:
+    """``x`` placed by ``sh``: a dense leaf is placed, a placed one checked."""
+    if not isinstance(x, ShardedTensor):
+        return place(x, sh, name)
+    if not x.sharding.same_blocks(sh, x.ndim):
+        raise ValueError(f"{name} is placed by {x.sharding.spec}; the step takes {sh.spec}")
+    return x
+
+
+def _placed_tree(tree, shardings, prefix: str):
+    return _map_named(lambda name, x, sh: _placed(x, sh, name), tree, shardings, path=prefix)
+
+
+def _dp_shards(cfg: ModelConfig, batch: dict, microbatches: int) -> list:
+    """[(weight, device, rows of each batch leaf)] for every (microbatch,
+    distinct dp shard), microbatches first. A weight is what the shard's
+    loss counts in the global loss: a float, or a 0-d tensor on the first
+    shard's device (the audio family's mask counts, read from the batch on
+    the device: nothing is read back to the host)."""
+    first = batch["tokens" if "tokens" in batch else "frames"]
+    rows, seq = first.shape[0], first.shape[1]
+    layout = first.sharding.layout(first.ndim)
+    n = first.sharding.blocks_per_dim(first.ndim)[0]
+    dev_of: dict = {}
+    for dev, idx in layout.values():
+        dev_of.setdefault(idx[0], dev)
+    if rows % (microbatches * n):
+        raise ValueError(f"a batch of {rows} rows does not split into {microbatches} "
+                         f"microbatches of {n} data-parallel shards")
+    mb_rows = rows // microbatches
+    shard_rows = mb_rows // n
+    if cfg.family == "moe" and n > 1:
+        group = min(MOE_GROUP, mb_rows * seq)
+        if (shard_rows * seq) % group:
+            raise ValueError(
+                f"a shard of {shard_rows} x {seq} tokens cuts the MoE's routing groups of "
+                f"{group} tokens ({mb_rows} x {seq} a microbatch over {n} shards): the aux "
+                f"losses would route per shard; use a batch whose shards hold whole groups")
+    home = dev_of[0]
+    out = []
+    for j in range(microbatches):
+        shards = []
+        for i in range(n):
+            lo = j * mb_rows + i * shard_rows
+            dev = dev_of[i]
+            part = {}
+            for k, leaf in batch.items():
+                per_block = leaf.shape[0] // leaf.sharding.blocks_per_dim(leaf.ndim)[0]
+                idx = (lo // per_block,) + (0,) * (leaf.ndim - 1)
+                off = lo - idx[0] * per_block
+                part[k] = leaf.held(idx, dev)[off:off + shard_rows]
+            shards.append((dev, part))
+        if cfg.family == "audio":
+            counts = [stage(p["mask"].sum(dtype=torch.float32), home) for _, p in shards]
+            total = torch.clamp(sum(counts), min=1.0)
+            weights = [c / total / microbatches for c in counts]
+        else:
+            weights = [1.0 / n / microbatches] * n
+        out += [(w, dev, part) for w, (dev, part) in zip(weights, shards)]
+    return out
+
+
+def sharded_loss_and_grads(params, batch: dict, cfg: ModelConfig, grad_shardings,
+                           microbatches: int = 1):
+    """The sharded step's (loss, metrics, grads) on placed ``params`` and
+    ``batch``: the global loss and its float32 gradient, reduced into
+    ``ShardedTensor``s placed by ``grad_shardings`` (a tree of
+    ``NamedSharding``). Metrics are 0-d tensors on the first shard's
+    device."""
+    shards = _dp_shards(cfg, batch, microbatches)
+    home = shards[0][1]
+    full = {}
+    for _, dev, _ in shards:
+        if dev not in full:
+            full[dev] = gather_tree(params, dev)
+    gsh = tree_leaves(grad_shardings)
+    shapes = [p.shape for p in tree_leaves(params)]
+    # Each distinct gradient block is reduced on the first device holding it.
+    homes = [{idx: dev for dev, idx in reversed(list(sh.layout(len(shape)).values()))}
+             for sh, shape in zip(gsh, shapes)]
+    acc: list[dict] = [{} for _ in gsh]
+    loss, metrics = None, {}
+    for w, dev, part in shards:
+        s_loss, s_metrics, s_grads = loss_and_grads(full[dev], part, cfg)
+        w_home = w if isinstance(w, float) else stage(w, home)
+        term = stage(s_loss, home) * w_home
+        loss = term if loss is None else loss + term
+        for k, v in s_metrics.items():
+            t = stage(v, home) * w_home
+            metrics[k] = t if k not in metrics else metrics[k] + t
+        for g, sh, where, a in zip(tree_leaves(s_grads), gsh, homes, acc):
+            for idx, bdev in where.items():
+                wb = w if isinstance(w, float) else stage(w, bdev)
+                piece = stage(g[sh.block_slices(g.shape, idx)], bdev).float() * wb
+                a[idx] = piece if idx not in a else a[idx] + piece
+        del s_grads
+    placed = iter([from_parts(shape, torch.float32, sh, a)
+                   for a, shape, sh in zip(acc, shapes, gsh)])
+    return loss, metrics, tree_map(lambda _: next(placed), grad_shardings)
+
+
+def _sharded_adamw(grads, params, opt_state, opt_cfg: AdamWConfig, lr, home):
+    """AdamW block by block over placed state: clip by the global norm of
+    the distinct gradient blocks, update each block of the moments' layout
+    with the matching region of the params, place the new params as the old.
+    Returns (params, opt_state, metrics)."""
+    g_leaves = tree_leaves(grads)
+    sq = [stage(torch.sum(b.float() ** 2), home)
+          for g in g_leaves for b in g.distinct_blocks().values()]
+    gnorm = torch.sqrt(sum(sq))
+    scale = clip_scale(gnorm, opt_cfg.clip_norm)
+    step, b1c, b2c = bias_corrections(opt_state["step"].full(home), opt_cfg)
+    new_p, new_m, new_v = [], [], []
+    for g, p, m, v in zip(g_leaves, tree_leaves(params), tree_leaves(opt_state["m"]),
+                          tree_leaves(opt_state["v"])):
+        sh = g.sharding
+        same = p.sharding.same_blocks(sh, p.ndim)
+        p_full: dict = {}
+        out = {}
+        for idx, gb in g.distinct_blocks().items():
+            dev = gb.device
+            if same:
+                pb = p.held(idx, dev)
+            else:
+                if dev not in p_full:
+                    p_full[dev] = p.full(dev)
+                pb = p_full[dev][sh.block_slices(p.shape, idx)]
+            out[idx] = adamw_leaf(gb * stage(scale, dev), pb, m.held(idx, dev), v.held(idx, dev),
+                                  opt_cfg, stage(lr, dev), stage(b1c, dev), stage(b2c, dev))
+        parts = [{idx: o[i] for idx, o in out.items()} for i in range(3)]
+        new_m.append(from_parts(m.shape, torch.float32, m.sharding, parts[1]))
+        new_v.append(from_parts(v.shape, torch.float32, v.sharding, parts[2]))
+        new_p.append(reshard(from_parts(p.shape, p.dtype, sh, parts[0]), p.sharding))
+    its = [iter(x) for x in (new_p, new_m, new_v)]
+    return (tree_map(lambda _: next(its[0]), params),
+            {"m": tree_map(lambda _: next(its[1]), opt_state["m"]),
+             "v": tree_map(lambda _: next(its[2]), opt_state["v"]),
+             "step": place(step, opt_state["step"].sharding)},
+            {"grad_norm": gnorm, "lr": lr.to(torch.float32)})
+
+
+def _sharded_train_step(cfg: ModelConfig, mesh, opt_cfg: AdamWConfig, sched: dict,
+                        microbatches: int, batch_sds: dict | None):
+    psh, osh, gsh = _state_shardings(cfg, mesh)
+    bsh_fixed = None if batch_sds is None else _batch_shardings(cfg, mesh, batch_sds)
+
+    def train_step(params, opt_state, batch):
+        bsh = bsh_fixed or _batch_shardings(cfg, mesh, batch)
+        params = _placed_tree(params, psh, "params")
+        opt_state = _placed_tree(opt_state, osh, "opt")
+        batch = _placed_tree(batch, bsh, "batch")
+        loss, metrics, grads = sharded_loss_and_grads(params, batch, cfg, gsh, microbatches)
+        home = loss.device
+        lr = cosine_warmup(opt_state["step"].full(home), **sched)
+        new_params, new_opt, om = _sharded_adamw(grads, params, opt_state, opt_cfg, lr, home)
         return new_params, new_opt, {"loss": loss, **metrics, **om}
 
     return train_step

@@ -1,17 +1,23 @@
-"""Fault-tolerant training driver on one device.
+"""Fault-tolerant training driver, on one device or on a mesh.
 
 Port of ``src/repro/launch/train.py``: deterministic data replay, async
 checkpointing with atomic commit, auto-resume after (injected) failures and
-straggler monitoring, on the card unless ``device="cpu"`` is asked. The
-reference's mesh and shardings wait for the LM sharding slice (ROADMAP.md,
-queue 1, item 1, part 4).
+straggler monitoring, on the card unless ``device="cpu"`` is asked. With a
+mesh (``distributed.Mesh``, e.g. ``launch/mesh.py::make_host_mesh``) the
+state lives in the blocks of ``train_state_specs`` and each step is the
+sharded one of ``launch/steps.py``; a restore places the checkpoint on the
+loop's mesh, whatever mesh wrote it (the elastic restore).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --smoke \
         --steps 200 --global-batch 8 --seq 128 --ckpt-dir build/ckpt --device cpu
+    # the same on a 2 x 2 mesh of logical shards of the run's device:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --smoke \
+        --device cpu --data 2 --model 2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -19,7 +25,12 @@ import numpy as np
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import SyntheticLMDataset
+from repro_torch.distributed.ctx import activation_scope
+from repro_torch.distributed.lm_sharding import batch_spec_tree, named_tree, train_state_specs
+from repro_torch.distributed.mesh import mesh_device
+from repro_torch.distributed.sharding import place_tree
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import init_model, model_schema
 from repro_torch.models.params import tree_map
@@ -34,8 +45,10 @@ __all__ = ["TrainLoop", "run_with_auto_resume", "main"]
 class TrainLoop:
     """Train one model on the synthetic token stream.
 
-    ``device`` takes the reference's ``mesh``: the card unless ``"cpu"`` is
-    asked; a ``mesh`` raises. ``schedule`` updates ``make_train_step``'s
+    Without ``mesh`` the loop runs on ``device``: the card unless ``"cpu"``
+    is asked. With ``mesh`` it runs the sharded step over the mesh's
+    devices (``device``, if given, must be of the mesh's kind), under the
+    mesh's ``activation_scope``. ``schedule`` updates ``make_train_step``'s
     default learning-rate schedule (the reference's loop keeps the default).
     """
 
@@ -56,16 +69,13 @@ class TrainLoop:
         seed: int = 0,
         cfg_override=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh is not ported yet: the port trains on one device "
-                "(ROADMAP.md, queue 1, item 1, part 4)")
         if cfg_override is not None:
             self.cfg = cfg_override
         else:
             self.cfg = get_smoke_config(arch) if smoke else get_config(arch)
         self.arch = arch
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh_device(mesh, device)
         self.ds = SyntheticLMDataset(
             vocab=self.cfg.vocab,
             seq_len=seq,
@@ -76,8 +86,14 @@ class TrainLoop:
             n_image_tokens=self.cfg.n_image_tokens,
         )
         self.opt_cfg = opt or AdamWConfig(lr=1e-3, weight_decay=0.0)
+        batch0 = self.ds.batch(0)
         self.step_fn = make_train_step(self.cfg, self.opt_cfg, schedule=schedule,
-                                       microbatches=microbatches)
+                                       microbatches=microbatches, mesh=mesh, batch_sds=batch0)
+        if mesh is not None:
+            pspecs, ospecs, _ = train_state_specs(self.cfg)
+            self.param_sh = named_tree(mesh, pspecs)
+            self.opt_sh = named_tree(mesh, ospecs)
+            self.batch_sh = named_tree(mesh, batch_spec_tree(self.cfg, mesh, batch0))
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.ckpt_every = ckpt_every
         self.monitor = StragglerMonitor()
@@ -85,9 +101,14 @@ class TrainLoop:
 
     def init_state(self):
         """Parameters from seed 0 (the reference's ``PRNGKey(0)``, whatever
-        ``seed`` is) and fresh AdamW state, on the loop's device."""
+        ``seed`` is) and fresh AdamW state, on the loop's device; on a mesh
+        drawn on its first device, then placed by ``train_state_specs`` (the
+        weights of the one-device loop)."""
         params = init_model(0, self.cfg, self.device)
-        return params, adamw_init(params)
+        opt_state = adamw_init(params)
+        if self.mesh is None:
+            return params, opt_state
+        return place_tree(params, self.param_sh), place_tree(opt_state, self.opt_sh)
 
     def restore_or_init(self):
         """(params, opt_state, first step): the latest committed checkpoint,
@@ -104,21 +125,37 @@ class TrainLoop:
             schema = model_schema(self.cfg)
             like = {"params": schema,
                     "opt": {"m": schema, "v": schema, "step": np.zeros((), np.int32)}}
+            if self.mesh is not None:
+                state, step, _ = self.ckpt.restore(
+                    like, shardings={"params": self.param_sh, "opt": self.opt_sh})
+                return state["params"], state["opt"], step
             state, step, _ = self.ckpt.restore(like)
             state = tree_map(lambda a: stage(a, self.device, non_blocking=False), state)
             return state["params"], state["opt"], step
         params, opt_state = self.init_state()
         return params, opt_state, 0
 
+    def _batch(self, step: int) -> dict:
+        batch = self.ds.batch(step)
+        if self.mesh is None:
+            return {k: stage(v, self.device) for k, v in batch.items()}
+        return place_tree(batch, self.batch_sh)
+
     def run(self, steps: int, injector: FailureInjector | None = None,
             log_every: int = 10):
+        scope = (contextlib.nullcontext() if self.mesh is None
+                 else activation_scope(self.cfg, self.mesh))
+        with scope:
+            return self._run(steps, injector, log_every)
+
+    def _run(self, steps: int, injector: FailureInjector | None, log_every: int):
         params, opt_state, start = self.restore_or_init()
         straggler_flags = 0
         for step in range(start, steps):
             if injector:
                 injector.check(step)
             self.monitor.start_step()
-            batch = {k: stage(v, self.device) for k, v in self.ds.batch(step).items()}
+            batch = self._batch(step)
             params, opt_state, metrics = self.step_fn(params, opt_state, batch)
             if self.monitor.end_step():
                 straggler_flags += 1
@@ -168,16 +205,22 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--fail-at", type=int, nargs="*", default=[])
-    ap.add_argument("--data", type=int, default=1, help="mesh data-axis size (1: no mesh)")
-    ap.add_argument("--model", type=int, default=1, help="mesh model-axis size (1: no mesh)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-axis size of a mesh of logical shards of the run's device")
+    ap.add_argument("--model", type=int, default=1,
+                    help="model-axis size of that mesh (--data 1 --model 1: no mesh)")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
+    mesh = None
+    if (args.data, args.model) != (1, 1):
+        dev = resolve_device(args.device)
+        mesh = make_host_mesh(args.data, args.model, devices=[dev] * (args.data * args.model))
     loop = TrainLoop(
         args.arch,
         smoke=args.smoke,
         global_batch=args.global_batch,
         seq=args.seq,
-        mesh=None if (args.data, args.model) == (1, 1) else (args.data, args.model),
+        mesh=mesh,
         device=args.device,
         ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,

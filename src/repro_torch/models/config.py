@@ -19,12 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig", "FAMILIES", "MODEL_AXIS_SIZE"]
-
-# The reference's production model-axis size (its distributed/constants.py).
-# It decides ``padded_vocab``, so the port's parameter shapes equal the
-# reference's; the TPU hardware constants beside it are not carried over.
-MODEL_AXIS_SIZE = 16
+__all__ = ["ModelConfig", "FAMILIES"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -116,6 +111,8 @@ class ModelConfig:
         """Vocab rounded up to the model-axis size so the embedding/lm_head
         always shard on the vocab dim (pad logits are masked in the loss and
         sampling paths). 50280->50288, 73448->73456, 504->512."""
+        from repro_torch.distributed.constants import MODEL_AXIS_SIZE
+
         m = MODEL_AXIS_SIZE
         return ((self.vocab + m - 1) // m) * m
 

@@ -37,7 +37,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import ParamDef, init_params, stack_schema, tree_leaves, tree_map
+from repro_torch.models.params import (
+    ParamDef,
+    init_params,
+    param_specs,
+    stack_schema,
+    tree_leaves,
+    tree_map,
+)
 
 __all__ = [
     "model_schema",
@@ -47,6 +54,8 @@ __all__ = [
     "forward_prefill",
     "decode_step",
     "init_cache",
+    "cache_zeros",
+    "model_param_specs",
     "count_params_analytical",
     "vlm_counts",
     "hybrid_counts",
@@ -146,6 +155,12 @@ def init_model(gen: torch.Generator | int, cfg: ModelConfig, device=None):
         gen = torch.Generator().manual_seed(gen)
     return init_params(gen, model_schema(cfg), getattr(torch, cfg.dtype),
                        resolve_device(device))
+
+
+def model_param_specs(cfg: ModelConfig):
+    """The ``PartitionSpec`` tree of the model's parameters (ZeRO-3 and TP
+    axes from the schema)."""
+    return param_specs(model_schema(cfg))
 
 
 def _numel(schema) -> int:
@@ -395,7 +410,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     """Stacked decode cache for the whole model: attention caches bf16
     whatever ``cfg.dtype``, SSM states as ``ssm_state_shapes`` makes them
     (bf16 conv, float32 state); the audio encoder has none."""
-    dev = resolve_device(device)
+    return cache_zeros(cfg, batch, max_seq, resolve_device(device))
+
+
+def cache_zeros(cfg: ModelConfig, batch: int, max_seq: int, dev: torch.device):
+    """``init_cache``'s tree on ``dev`` as given (``"meta"`` included: the
+    cache's shapes and dtypes, nothing allocated)."""
     hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
 
     def zeros(*shape):

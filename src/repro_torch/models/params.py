@@ -7,12 +7,16 @@ axes). From one schema come:
   * ``init_params``  — materialized torch tensors, drawn from an explicit
     ``torch.Generator`` (its numbers differ from ``jax.random``'s)
   * ``stack_schema`` — the stacked-over-layers form ([L, ...] leaves)
+  * ``param_specs``  — the matching ``PartitionSpec`` tree
+    (``distributed/sharding.py``)
   * ``params_from_numpy`` — the JAX package's parameter tree, as numpy
     arrays, turned into the port's parameters bit for bit
 
-The logical axes are kept for parity with the reference's schema; the
-sharding specs built from them (``param_specs``) wait for the distributed
-slice.
+Logical axis names -> mesh axes (see ``distributed/lm_sharding.py``):
+  'fsdp'  -> 'data'   (ZeRO-3 style parameter/optimizer sharding)
+  'tp'    -> 'model'  (tensor parallel: blocks only, see ``launch/steps.py``)
+  'vocab' -> 'model'
+  None    -> replicated
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.runtime.staging import stage
 __all__ = [
     "ParamDef",
     "init_params",
+    "param_specs",
     "stack_schema",
     "tree_bytes",
     "tree_leaves",
@@ -97,6 +102,23 @@ def init_params(gen: torch.Generator, schema: Schema, dtype=torch.bfloat16,
     """
     dev = gen.device if device is None else torch.device(device)
     return tree_map(lambda d: stage(_init_leaf(gen, d, dtype), dev, non_blocking=False), schema)
+
+
+_LOGICAL_TO_MESH = {"fsdp": "data", "tp": "model", "vocab": "model", None: None}
+
+
+def param_specs(schema: Schema, logical_to_mesh: dict | None = None):
+    """PartitionSpec tree matching the schema structure; ``logical_to_mesh``
+    replaces the default table (a logical axis it lacks is replicated)."""
+    from repro_torch.distributed.sharding import P
+
+    table = _LOGICAL_TO_MESH if logical_to_mesh is None else logical_to_mesh
+
+    def leaf(d: ParamDef):
+        axes = d.axes if d.axes else (None,) * len(d.shape)
+        return P(*[table.get(a, None) for a in axes])
+
+    return tree_map(leaf, schema)
 
 
 def stack_schema(schema: Schema, n: int) -> Schema:

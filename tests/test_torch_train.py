@@ -434,10 +434,17 @@ def test_stage_keeps_the_array_shape(shape):
 
 
 def test_train_loop_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh trains since the sharding slice (tests/test_torch_sharded_train.py);
+    what is not the port's ``Mesh``, or a device of another kind than the
+    mesh's, is refused."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with pytest.raises(TypeError, match="repro_torch.distributed.Mesh"):
         pt_train.TrainLoop("smollm-135m", smoke=True, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_train.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--data", "2"])
+    mesh = make_host_mesh(2, 1, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="not of the mesh's kind"):
+        pt_train.TrainLoop("smollm-135m", smoke=True, device="cuda", mesh=mesh)
+    assert pt_train.TrainLoop("smollm-135m", smoke=True, mesh=mesh).device == torch.device("cpu")
 
 
 def test_train_cli_resumes_after_an_injected_failure(tmp_path, capsys):
