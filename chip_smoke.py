@@ -255,6 +255,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               bit-equal to a NumPy emulation and within 0.02 of the exact mean;
               in a deterministic child, a 2 x 2 loop at 4 layers resumed
               after a failure bit-equal to its uninterrupted run
+ 21. sharded serve  ``ServeSession(mesh=)`` on a 2 x 2 mesh of logical
+              shards of ``cuda:0`` (the cache's batch over 'data', its
+              sequence, or the SSM's heads, over 'model'; decode attention
+              one float32 partial a sequence block and a logsumexp combine,
+              the SSM step by head blocks). (a) smollm-135m at full width and
+              depth, bf16, "flash", phase 12's weights and prompts, 8 x 4,096
+              tokens and 32 generated, max_seq 4,128 (4,129 would not
+              split): profile "dp", the prompt batch in 4 prefill shards, 30
+              x 4 flash launches a prefill and none in decode; every k/v
+              leaf's sequence on 'model'; teacher-forced on phase 12's
+              tokens, the prefill and every decode step's logits within 3e-2
+              relative norm of phase 12's (3 x the first run's 0.012342 is
+              looser); a combine planted to drop the last block must exceed
+              it; prefill_s, ms a step, tokens/s, peak memory, a profiled
+              prefill and decode step. (b) minicpm3-4b (MLA), mamba2-780m,
+              zamba2-7b, the VLM ("flash", 10 layers) and moonshot ("flash",
+              12 layers, one routing group of 1,024 a data shard) at full
+              width in bf16, phase 19's 4 x 512 prompts and 16 steps, each
+              teacher-forced on its one-device session's tokens beside a
+              float32 run of the same weights: within 3e-2 of one device
+              where bf16 keeps one device within 3e-2 of float32, and never
+              farther from float32 than one device plus 3e-2 (phase 19's
+              rule). (c) float32 at full width, 2 layers (the VLM 5, zamba2
+              7), every arch above against the port's CPU session on the
+              same weights: the prefill logits within 1e-4; a decode step
+              (which reads the bf16 attention caches) within 1e-4 of the
+              card's one-device session's distance from the CPU
 
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
@@ -405,6 +432,24 @@ SHARD_COMP_SHAPE = (8, 128)  # eight single-row gradients of the full-width embe
 SHARD_RESUME_FLAG = "--sharded-resume-child"
 SHARD_RESUME_LAYERS, SHARD_RESUME_SHAPE, SHARD_RESUME_STEPS = 4, (4, 256), 12
 SHARD_RESUME_FAIL_AT, SHARD_RESUME_EVERY = (7,), 5
+# The sharded serve phase: ServeSession(mesh=) on 2 x 2 logical shards of
+# cuda:0 (cache sequence over 'model', batch over 'data'). smollm-135m at
+# full width and depth under "flash" on phase 12's weights: max_seq 4,128
+# splits over 'model' (phase 12's 4,129 does not). The other decoders at
+# phase 19's shapes and depth cuts; float32 at 2 layers against the CPU.
+SERVE_SHARD_MESH = (2, 2)
+SERVE_SHARD_MAX_SEQ = LM_PROMPT + LM_GEN
+# Relative norm of each step's logits (bf16, teacher-forced on the
+# one-device session's tokens), sharded against one device: 3 x the largest
+# difference of the first card run (0.012342 at a decode step of smollm;
+# the prefill's 0) is 0.037, so LM_TOL, never looser, holds.
+SERVE_SHARD_TOL = LM_TOL
+SERVE_SHARD_FAMILIES = (("minicpm3-4b", None, "xla"), ("mamba2-780m", None, "xla"),
+                        ("zamba2-7b", None, "xla"), ("llama-3.2-vision-90b", 10, "flash"),
+                        ("moonshot-v1-16b-a3b", 12, "flash"))  # (arch, depth cut, impl)
+SERVE_SHARD_IMPL = {LM_ARCH: "flash", **{a: impl for a, _, impl in SERVE_SHARD_FAMILIES}}
+SERVE_SHARD_F32_SHAPE = (4, 32, 4)  # batch, prompt, generated
+SERVE_SHARD_F32_MOE_SHAPE = (2, 1024, 4)  # one routing group of 1,024 a data shard
 
 
 def log(msg: str) -> None:
@@ -2213,7 +2258,8 @@ def phase_lm_serve() -> dict:
     return {"launches": launches["flash_attention"], "long_launches": long_launches,
             "stats": stats, "xstats": xstats, "long_s": lstats["prefill_s"],
             "long_xla_s": lxstats["prefill_s"], "heads": cfg.n_heads,
-            "kv_heads": cfg.n_kv_heads}
+            "kv_heads": cfg.n_kv_heads, "params": sess.params, "prompts": prompts,
+            "tokens": gen}
 
 
 def _flash_bound(qp: torch.Tensor, kp: torch.Tensor, hd: int, heads: int,
@@ -3800,32 +3846,37 @@ def _families_serve(smi: str) -> dict:
     return flash
 
 
-def _profile_serve(arch: str, sess, prompts, img) -> None:
-    """A prefill and one decode step under ``torch.profiler``: each one's
-    wall, the device's busy share of it, its device kernels and the top
-    torch ops by device time."""
+def _profile_serve(arch: str, sess, prompts, img, tag: str = "[families]",
+                   smi: str = "") -> None:
+    """A prefill and one decode step (at the prompt's end) under
+    ``torch.profiler``: each one's wall, the device's busy share of it, its
+    device kernels and the top torch ops by device time. On a mesh the
+    parameters are gathered once before both, as ``generate`` gathers them."""
     from torch.profiler import ProfilerActivity, profile
 
-    logits, cache = sess.prefill(prompts, img)
-    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
-    for step, run in (("prefill", lambda: sess.prefill(prompts, img)),
-                      ("decode step", lambda: sess.decode(cache, tok, FAMILY_PROMPT))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
+    with sess.gathered():
+        logits, cache = sess.prefill(prompts, img)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        for step, run in (("prefill", lambda: sess.prefill(prompts, img)),
+                          ("decode step", lambda: sess.decode(cache, tok, prompts.shape[1]))):
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(end - start for start, end in _device_intervals(prof.events()))
-        ops = sorted((e for e in prof.key_averages()
-                      if e.key.startswith("aten::") and e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
-        total = max(sum(e.self_device_time_total for e in ops), 1e-9)
-        top = ", ".join(f"{e.key} {100 * e.self_device_time_total / total:.1f} %" for e in ops[:4])
-        log(f"[families] {arch} profiled {step} (torch.profiler): {1e3 * wall:.3f} ms wall, device "
-            f"busy {busy / 1e3:.3f} ms = {100 * busy / (1e6 * wall):.2f} %, {len(kernels)} device "
-            f"kernels and copies; top ops by device time: {top}")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(end - start for start, end in _device_intervals(prof.events()))
+            ops = sorted((e for e in prof.key_averages()
+                          if e.key.startswith("aten::") and e.self_device_time_total > 0),
+                         key=lambda e: -e.self_device_time_total)
+            total = max(sum(e.self_device_time_total for e in ops), 1e-9)
+            top = ", ".join(f"{e.key} {100 * e.self_device_time_total / total:.1f} %"
+                            for e in ops[:4])
+            log(f"{tag} {arch} profiled {step} (torch.profiler): {1e3 * wall:.3f} ms wall, "
+                f"device busy {busy / 1e3:.3f} ms = {100 * busy / (1e6 * wall):.2f} %, "
+                f"{len(kernels)} device kernels and copies; top ops by device time: {top}"
+                + (f"; {smi}" if smi else ""))
 
 
 @contextlib.contextmanager
@@ -4371,6 +4422,311 @@ def phase_sharded_train(one_device: dict) -> None:
         f"restores {t_smollm:.3f}, mamba2 {t_mamba:.3f})")
 
 
+# ---------------------------------------------------------------- phase 21
+
+
+def _prefill_shards(cfg, mesh, batch: int, prompt: int) -> int:
+    """The distinct data-parallel shards ``batch_spec_tree`` gives a prompt
+    batch: the sharded prefill runs ``forward_prefill`` once each."""
+    from repro_torch.distributed.lm_sharding import batch_spec_tree
+    from repro_torch.distributed.sharding import NamedSharding
+
+    meta = {"tokens": torch.empty((batch, prompt), device="meta")}
+    return NamedSharding(mesh, batch_spec_tree(cfg, mesh, meta)["tokens"]).blocks_per_dim(2)[0]
+
+
+def _check_cache_layout(cfg, cache, tag: str) -> str:
+    """Every attention leaf's sequence, and the SSM state's heads, on
+    'model' (the flash-decoding layout); returns the specs for the log."""
+    seq = {"k": -3, "v": -3, "shared_k": 2, "shared_v": 2, "ckv": 2, "krope": 2}
+    specs = {}
+    for name, leaf in cache.items():
+        if name == "ssm":
+            check(leaf["ssm"].sharding.spec[2] == "model", f"{tag} SSM heads not on 'model'")
+            specs.update({f"ssm/{k}": v.sharding.spec for k, v in leaf.items()})
+            continue
+        specs[name] = leaf.sharding.spec
+        if name in seq:
+            check(leaf.sharding.spec[seq[name] % leaf.ndim] == "model",
+                  f"{tag} {name}'s sequence is not on 'model': {leaf.sharding.spec}")
+    return ", ".join(f"{k} {v}" for k, v in sorted(specs.items()))
+
+
+def _forced(sess, prompts, img, forced: np.ndarray) -> tuple:
+    """A session's prefill, then its decode fed the one-device session's
+    tokens ``forced [B, n]`` (on a mesh with the parameters gathered once):
+    (logits [n, B, V] on the host, flash launches of the prefill and of the
+    decode steps, prefill s, decode s, the placed cache's specs)."""
+    plen, kept = prompts.shape[1], []
+    with sess.gathered():
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = sess.prefill(prompts, img)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = _launches()
+        layout = "" if sess.mesh is None else _check_cache_layout(
+            sess.cfg, cache, f"[sharded serve] {sess.cfg.name}")
+        kept.append(logits)
+        _reset_launches()
+        t0 = time.perf_counter()
+        for i in range(forced.shape[1] - 1):
+            tok = torch.from_numpy(forced[:, i:i + 1].astype(np.int32)).cuda()
+            logits, cache = sess.decode(cache, tok, plen + i)
+            kept.append(logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec = _launches()
+    return torch.stack(kept).cpu(), pre, dec, prefill_s, decode_s, layout
+
+
+def _step_rels(got: torch.Tensor, want, vocab: int) -> list[float]:
+    """Relative norm of each step's logits (the live vocab columns)."""
+    want = torch.as_tensor(np.asarray(want))
+    return [_rel(g[:, :vocab], w[:, :vocab]) for g, w in zip(got, want)]
+
+
+def _sharded_smollm_serve(lm: dict, mesh, smi: str) -> int:
+    """21a: smollm-135m at full width and depth under "flash" on 2 x 2
+    logical shards, phase 12's weights and prompts. Returns the flash
+    launches of the timed generate."""
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.params import tree_leaves
+
+    sess = ServeSession(LM_ARCH, batch=LM_BATCH, max_seq=SERVE_SHARD_MAX_SEQ, mesh=mesh,
+                        attention_impl="flash", params=lm["params"])
+    cfg, prompts = sess.cfg, lm["prompts"]
+    shards = _prefill_shards(cfg, mesh, LM_BATCH, LM_PROMPT)
+    check(all(len(t.blocks) == 1 for t in tree_leaves(sess.params)) and shards == 4,
+          f"[sharded serve] {LM_ARCH}: params not replicated or {shards} prefill shards")
+    sess.generate(prompts[:, :64], 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_launches()
+    tokens, stats = sess.generate(prompts, LM_GEN)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    gen = tokens[:, LM_PROMPT:]
+    others = {k: v for k, v in launches.items() if k != "flash_attention" and v}
+    check(launches["flash_attention"] == cfg.n_layers * shards and not others,
+          f"[sharded serve] generate launches {launches}, expected {cfg.n_layers} x {shards} flash")
+    check(tokens.shape == (LM_BATCH, LM_PROMPT + LM_GEN) and 0 <= gen.min()
+          and gen.max() < cfg.vocab, "[sharded serve] generated tokens malformed")
+    step_ms = 1e3 * stats["decode_s"] / (LM_GEN - 1)
+    one = lm["stats"]
+    log(f"[sharded serve] ServeSession({LM_ARCH!r}, mesh {SERVE_SHARD_MESH} of logical shards of "
+        f"{SHARD_DEVICE}, attention 'flash'): {cfg.n_layers} layers at full width, bf16, "
+        f"phase 12's weights; {LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_GEN} generated, "
+        f"max_seq {SERVE_SHARD_MAX_SEQ}; profile 'dp': params replicated, the prompt batch over "
+        f"('data', 'model') in {shards} prefill shards of {LM_BATCH // shards} rows, the cache's "
+        f"batch over 'data' and its sequence over 'model'; launches {launches}; prefill_s "
+        f"{stats['prefill_s']:.6f} ({LM_BATCH * LM_PROMPT / stats['prefill_s']:.1f} prompt "
+        f"tokens/s; one device {one['prefill_s']:.6f}); decode {step_ms:.3f} ms a step "
+        f"({stats['decode_tok_per_s']:.1f} tokens/s; one device "
+        f"{1e3 * one['decode_s'] / (LM_GEN - 1):.3f} ms, {one['decode_tok_per_s']:.1f} tokens/s); "
+        f"max_memory_allocated {peak} bytes ({peak - base} above the {base} held before); greedy "
+        f"tokens equal to phase 12's: {float((gen == lm['tokens']).mean()):.4f}; {smi}")
+    # The kernel at a prefill shard's shape, held to its plain version.
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bshd_cuda,
+        flash_attention_bshd_reference,
+    )
+
+    rows = LM_BATCH // shards
+    ops = _gqa_inputs(rows, LM_PROMPT, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.resolved_head_dim, torch.bfloat16, seed=21)
+    err, row_err, tiles = _flash_case(flash_attention_bshd_cuda, flash_attention_bshd_reference,
+                                      ops, True, cfg.n_heads, "sharded prefill shard")
+    ms = _time_ms(lambda *a: flash_attention_bshd_cuda(*a, causal=True), [ops], 10)
+    log(f"[sharded serve] flash at a prefill shard's shape (B {rows}, S {LM_PROMPT}, H "
+        f"{cfg.n_heads}, KH {cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, bf16, causal): max "
+        f"|err| {err:.3e} against its plain version, max row error {row_err:.3e}, {tiles} tiles "
+        f"scored (== the skip rule); {ms:.6f} ms a launch")
+    del ops
+    got, pre, dec, prefill_s, decode_s, layout = _forced(sess, prompts, None, lm["tokens"])
+    check(pre["flash_attention"] == cfg.n_layers * shards and dec["flash_attention"] == 0,
+          f"[sharded serve] flash launches: prefill {pre}, decode {dec}")
+    rels = _step_rels(got, one["logits"], cfg.vocab)
+    check(max(rels) <= SERVE_SHARD_TOL, f"[sharded serve] {LM_ARCH} sharded vs one device "
+          f"relative norms {rels} > {SERVE_SHARD_TOL}")
+    log(f"[sharded serve] {LM_ARCH} teacher-forced on phase 12's tokens: logits relative norm "
+        f"against the one-device session, prefill {rels[0]:.6f}, decode steps max "
+        f"{max(rels[1:]):.6f} (each {[round(r, 6) for r in rels]}; bound {SERVE_SHARD_TOL}); "
+        f"flash launches {pre['flash_attention']} in the prefill ({cfg.n_layers} x {shards} "
+        f"shards), {dec['flash_attention']} in {LM_GEN - 1} decode steps; cache specs {layout}")
+    # A planted fault the bound must see: a combine that loses the last
+    # sequence block (the one holding the decoded positions).
+    from repro_torch.models import layers
+
+    real = layers.combine_partials
+    layers.combine_partials = lambda parts: real(parts[:-1])
+    try:
+        bad = _step_rels(_forced(sess, prompts, None, lm["tokens"][:, :4])[0],
+                         one["logits"][:4], cfg.vocab)
+    finally:
+        layers.combine_partials = real
+    check(min(bad[1:]) > SERVE_SHARD_TOL, f"[sharded serve] a dropped block passes: {bad}")
+    log(f"[sharded serve] planted fault (each decode step's combine without the block holding "
+        f"positions {SERVE_SHARD_MAX_SEQ // 2}..): relative norms {[round(r, 6) for r in bad]}, "
+        f"{min(bad[1:]) / SERVE_SHARD_TOL:.1f} x the bound at least")
+    _profile_serve(LM_ARCH, sess, prompts, None, "[sharded serve]", smi)
+    return launches["flash_attention"]
+
+
+def _sharded_families_serve(mesh, smi: str) -> dict:
+    """21b: the other decoders at full width in bf16 (phase 19's shapes and
+    depth cuts), each sharded session teacher-forced on its one-device
+    session's tokens. Returns the flash launches of each prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ctx import arch_profile
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.model import init_model
+    from repro_torch.models.params import tree_map
+
+    flash = {}
+    rng = np.random.default_rng(21)
+    for arch, depth, impl in SERVE_SHARD_FAMILIES:
+        full = get_config(arch)
+        cfg = full.scaled(n_layers=depth) if depth else full
+        torch.cuda.empty_cache()
+        params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+        _open_gates(params)
+        prompts = rng.integers(0, cfg.vocab, (FAMILY_BATCH, FAMILY_PROMPT), dtype=np.int32)
+        img = None
+        if cfg.family == "vlm":
+            img = rng.normal(size=(FAMILY_BATCH, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32)
+        common = dict(batch=FAMILY_BATCH, max_seq=FAMILY_PROMPT + FAMILY_GEN, attention_impl=impl,
+                      n_layers=depth)
+        one = ServeSession(arch, params=params, **common)
+        tokens, stats = one.generate(prompts, FAMILY_GEN, image_embeds=img, keep_logits=True)
+        del one
+        forced = tokens[:, FAMILY_PROMPT:]
+        # The same weights in float32 (one device), fed the same tokens:
+        # where each bf16 session's rounding takes it.
+        f32 = ServeSession(arch, params=tree_map(lambda t: t.float(), params), dtype="float32",
+                           **common)
+        exact = _forced(f32, prompts, img, forced)[0]
+        del f32
+        torch.cuda.empty_cache()
+        sess = ServeSession(arch, mesh=mesh, params=params, **common)
+        del params  # the sharded session holds its own blocks ("tp": ZeRO-3 copies)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shards = _prefill_shards(cfg, mesh, FAMILY_BATCH, FAMILY_PROMPT)
+        got, pre, dec, prefill_s, decode_s, layout = _forced(sess, prompts, img, forced)
+        peak = torch.cuda.max_memory_allocated()
+        rels = _step_rels(got, stats["logits"], cfg.vocab)
+        one_f32 = max(_step_rels(torch.as_tensor(stats["logits"]), exact, cfg.vocab))
+        sharded_f32 = max(_step_rels(got, exact, cfg.vocab))
+        want = FAMILY_FLASH_LAYERS[arch] * shards if impl == "flash" else 0
+        check(pre["flash_attention"] == want and dec["flash_attention"] == 0
+              and not any(v for k, v in {**pre, **dec}.items() if k != "flash_attention"),
+              f"[sharded serve] {arch}: launches prefill {pre}, decode {dec}; expected {want} flash")
+        # Phase 19's rule: within the bound of one device where bf16 keeps
+        # one device within LM_TOL of float32; everywhere no farther from
+        # float32 than one device is, plus LM_TOL.
+        check(bool(torch.isfinite(got[..., :cfg.vocab]).all())
+              and (max(rels) <= SERVE_SHARD_TOL or one_f32 > LM_TOL)
+              and sharded_f32 <= one_f32 + LM_TOL,
+              f"[sharded serve] {arch}: sharded vs one device relative norms {rels} (bound "
+              f"{SERVE_SHARD_TOL}); against float32: one device {one_f32}, sharded {sharded_f32}")
+        cut = f"{depth} of {full.n_layers} layers" if depth else f"all {full.n_layers} layers"
+        log(f"[sharded serve] {arch} ({cfg.family}, profile {arch_profile(cfg)!r}) at full width, {cut}, bf16, attention {impl!r}, on {SERVE_SHARD_MESH}: "
+            f"{FAMILY_BATCH} x {FAMILY_PROMPT} prompt tokens in {shards} prefill shards, "
+            f"{FAMILY_GEN} steps teacher-forced on the one-device session's tokens: logits "
+            f"relative norm prefill {rels[0]:.6f}, decode max {max(rels[1:]):.6f} (bound "
+            f"{SERVE_SHARD_TOL}); against a float32 run of the same weights, max over the steps: "
+            f"one device {one_f32:.6f}, sharded {sharded_f32:.6f}; flash launches prefill {pre['flash_attention']}, decode "
+            f"{dec['flash_attention']}; prefill {prefill_s:.6f} s (one device "
+            f"{stats['prefill_s']:.6f}), decode {1e3 * decode_s / (FAMILY_GEN - 1):.3f} ms a step "
+            f"(one device {1e3 * stats['decode_s'] / (FAMILY_GEN - 1):.3f}); max_memory_allocated "
+            f"{peak} bytes; cache specs {layout}; {smi}")
+        if impl == "flash":
+            flash[arch] = pre["flash_attention"]
+        del sess, got
+    return flash
+
+
+def _sharded_serve_f32(mesh) -> None:
+    """21c: float32 at full width and a cut depth, the sharded session on
+    the card teacher-forced on the port's CPU session's tokens, on the same
+    weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.model import init_model
+    from repro_torch.models.params import tree_map
+
+    rng = np.random.default_rng(22)
+    for arch in (LM_ARCH, *(a for a, _, _ in SERVE_SHARD_FAMILIES)):
+        depth = FAMILY_F32_DEPTH.get(arch, 2)
+        cfg = get_config(arch).scaled(n_layers=depth, dtype="float32")
+        b, plen, gen = SERVE_SHARD_F32_MOE_SHAPE if cfg.family == "moe" else SERVE_SHARD_F32_SHAPE
+        torch.cuda.empty_cache()
+        card = init_model(torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
+        _open_gates(card)
+        host = tree_map(lambda t: t.cpu(), card)
+        prompts = rng.integers(0, cfg.vocab, (b, plen), dtype=np.int32)
+        img = None
+        if cfg.family == "vlm":
+            img = rng.normal(size=(b, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32)
+        common = dict(batch=b, max_seq=plen + gen, attention_impl=SERVE_SHARD_IMPL[arch],
+                      n_layers=depth, dtype="float32")
+        t0 = time.perf_counter()
+        tokens, stats = ServeSession(arch, device="cpu", params=host, **common).generate(
+            prompts, gen, image_embeds=img, keep_logits=True)
+        cpu_s = time.perf_counter() - t0
+        del host
+        forced = tokens[:, plen:]
+        one = _forced(ServeSession(arch, params=card, **common), prompts, img, forced)[0]
+        sess = ServeSession(arch, mesh=mesh, params=card, **common)
+        del card
+        got, pre, _, _, _, _ = _forced(sess, prompts, img, forced)
+        rels = _step_rels(got, stats["logits"], cfg.vocab)
+        one_rels = _step_rels(one, stats["logits"], cfg.vocab)
+        # The prefill's logits read no cache; a decode step reads the bf16
+        # attention caches (bf16 whatever the dtype, as the reference's),
+        # whose rounding of the card's and the host's float32 K/V may part
+        # by one bf16 step: there the card's one-device session is the
+        # measure, and the sharded one may be no farther from the CPU.
+        check(rels[0] <= FAMILY_CARD_TOL
+              and all(r <= o + FAMILY_CARD_TOL for r, o in zip(rels[1:], one_rels[1:])),
+              f"[sharded serve] {arch} float32: sharded card vs CPU relative norms {rels}, the "
+              f"card's one-device session's {one_rels}")
+        log(f"[sharded serve] {arch} float32 at full width, {depth} layers, {b} x {plen} prompt "
+            f"tokens and {gen} steps on {SERVE_SHARD_MESH} (attention {SERVE_SHARD_IMPL[arch]!r}, "
+            f"flash launches {pre['flash_attention']}), teacher-forced on the port's CPU session's "
+            f"tokens: logits relative norm against the CPU, sharded "
+            f"{[float(f'{r:.3e}') for r in rels]}, the card's one-device session "
+            f"{[float(f'{r:.3e}') for r in one_rels]} (prefill bound {FAMILY_CARD_TOL}; a decode "
+            f"step within {FAMILY_CARD_TOL} of one device's distance); sharded against one device "
+            f"on the card {[float(f'{r:.3e}') for r in _step_rels(got, one, cfg.vocab)]}; the CPU "
+            f"run took {cpu_s:.1f} s")
+        del sess, got, one
+
+
+def phase_sharded_serve(lm: dict) -> dict:
+    """21: sharded serving on 2 x 2 logical shards of the card (see the
+    module docstring); ``lm`` is phase 12's return. Returns the flash
+    launches by path."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    mesh = _logical_mesh(SERVE_SHARD_MESH)
+    flash = {"sharded_serve": _sharded_smollm_serve(lm, mesh, smi)}
+    t_smollm = time.perf_counter() - t_phase
+    flash.update({f"sharded_serve:{k}": v for k, v in _sharded_families_serve(mesh, smi).items()})
+    t_families = time.perf_counter() - t_phase - t_smollm
+    _sharded_serve_f32(mesh)
+    torch.cuda.empty_cache()
+    log(f"[sharded serve] phase 21 took {time.perf_counter() - t_phase:.3f} s (smollm "
+        f"{t_smollm:.3f}, the other decoders {t_families:.3f})")
+    return flash
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
@@ -4416,8 +4772,10 @@ def main() -> int:
     one_device = phase_train()
     family_flash = phase_families()
     phase_sharded_train(one_device)
-    flash_rows[0]["launches_by_path"] = {"lm_serve": flash_rows[0]["launches"], **family_flash}
-    flash_rows[0]["launches"] += sum(family_flash.values())
+    sharded_flash = phase_sharded_serve(lm)
+    flash_rows[0]["launches_by_path"] = {"lm_serve": flash_rows[0]["launches"], **family_flash,
+                                         **sharded_flash}
+    flash_rows[0]["launches"] += sum(family_flash.values()) + sum(sharded_flash.values())
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [row, *rows, *dense_rows, *flash_rows]}))

@@ -15,8 +15,8 @@ Layout summary (mesh (pod, data, model); single-pod drops 'pod'):
   SSM states        heads over 'model', batch over dp.
   logits            vocab over 'model' when divisible.
 
-``launch/steps.py`` trains on these specs over logical shards; the cache
-specs wait for sharded serving (ROADMAP.md, queue 1, item 1, part 4b).
+``launch/steps.py`` trains and serves on these specs over logical shards
+(the cache's sequence blocks through ``models/model.py::decode_placed``).
 """
 from __future__ import annotations
 

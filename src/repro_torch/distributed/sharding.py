@@ -16,7 +16,11 @@ of a placed tensor and walks the mesh itself.
     leaf on four logical shards of one card is one tensor, not four.
   * ``place`` / ``place_tree`` (``jax.device_put``), ``ShardedTensor.full``
     and ``gather_tree`` (the gathered array), ``named_tree`` (a spec tree as
-    shardings).
+    shardings), ``zeros`` (a placed zero leaf, never dense).
+  * A placed cache's regions: ``ShardedTensor.read`` (a region, a view of
+    its block where one block holds it) and ``scatter_`` (a dense piece
+    written in place into the blocks that hold its region, every copy of
+    each: a decode step's token lands in the block holding ``pos``).
 
 A spec whose axes do not divide its dim raises ``ValueError`` naming the
 leaf, the dim and the axis size, as ``jax.device_put`` refuses uneven
@@ -40,6 +44,7 @@ __all__ = [
     "ShardedTensor",
     "place",
     "place_tree",
+    "zeros",
     "from_parts",
     "reshard",
     "gather_tree",
@@ -200,6 +205,68 @@ class ShardedTensor:
             out[self.sharding.block_slices(self.shape, idx)] = self.held(idx, dev)
         return out
 
+    def _region(self, index) -> list[tuple[int, int]]:
+        """[(start, stop)] a dim of ``index`` (slices for the leading dims)."""
+        out = []
+        for d, size in enumerate(self.shape):
+            s = index[d] if d < len(index) else slice(None)
+            start, stop, step = s.indices(size)
+            if step != 1:
+                raise ValueError(f"region {index} has a stepped slice")
+            out.append((start, stop))
+        return out
+
+    def _overlaps(self, region):
+        """(block index, slices into the block, slices into the region) of
+        every distinct block the region overlaps."""
+        for idx in self.distinct_blocks():
+            inner, outer = [], []
+            for (lo, hi), s in zip(region, self.sharding.block_slices(self.shape, idx)):
+                a, b = max(lo, s.start), min(hi, s.stop)
+                if a >= b:
+                    break
+                inner.append(slice(a - s.start, b - s.start))
+                outer.append(slice(a - lo, b - lo))
+            else:
+                yield idx, tuple(inner), tuple(outer)
+
+    def read(self, index, device) -> torch.Tensor:
+        """The region ``index`` (a slice a leading dim) on ``device``: a view
+        of the block held there when one block holds all of it, else a
+        tensor assembled from the blocks it overlaps."""
+        dev = _as_device(device)
+        region = self._region(index)
+        parts = list(self._overlaps(region))
+        shape = [hi - lo for lo, hi in region]
+        if len(parts) == 1 and all(o.stop - o.start == n for o, n in zip(parts[0][2], shape)):
+            idx, inner, _ = parts[0]
+            return self.held(idx, dev)[inner]
+        out = torch.empty(shape, dtype=self.dtype, device=dev)
+        for idx, inner, outer in parts:
+            out[outer] = self.held(idx, dev)[inner]
+        return out
+
+    def scatter_(self, piece: torch.Tensor, starts) -> None:
+        """Write ``piece`` (dense, ``ndim`` dims, cast to ``dtype``) in place
+        at the global offsets ``starts``, into every (device, block) entry of
+        ``blocks`` it overlaps: a block replicated on distinct devices gets
+        the write on each of them."""
+        if piece.dim() != self.ndim:
+            raise ValueError(f"a {piece.dim()}-dim piece for a {self.ndim}-dim leaf")
+        region = [(a, a + n) for a, n in zip(starts, piece.shape)]
+        parts = {idx: (inner, outer) for idx, inner, outer in self._overlaps(region)}
+        for (dev, idx), t in self.blocks.items():
+            if idx in parts:
+                inner, outer = parts[idx]
+                t[inner].copy_(stage(piece[outer], dev))
+
+    def astype(self, dtype) -> "ShardedTensor":
+        """The same blocks converted to ``dtype`` (``self`` when it has it)."""
+        if dtype == self.dtype:
+            return self
+        return ShardedTensor(self.shape, dtype, self.sharding,
+                             {k: t.to(dtype) for k, t in self.blocks.items()})
+
     @property
     def nbytes(self) -> int:
         """Bytes of the tensors held (each distinct (device, block) once)."""
@@ -242,6 +309,19 @@ def place(x, sharding: NamedSharding, name: str = "") -> ShardedTensor:
             out = out.clone()
         blocks[(dev, idx)] = out
     return ShardedTensor(t.shape, t.dtype, sharding, blocks)
+
+
+def zeros(shape, dtype, sharding: NamedSharding, name: str = "") -> ShardedTensor:
+    """A zero leaf of ``shape`` placed by ``sharding``, each distinct
+    (device, block) allocated where it lies (no dense tensor)."""
+    sharding.check(shape, name)
+    blocks = {}
+    for dev, idx in sharding.layout(len(shape)).values():
+        if (dev, idx) not in blocks:
+            sl = sharding.block_slices(shape, idx)
+            blocks[(dev, idx)] = torch.zeros([s.stop - s.start for s in sl], dtype=dtype,
+                                             device=dev)
+    return ShardedTensor(shape, dtype, sharding, blocks)
 
 
 def from_parts(shape, dtype, sharding: NamedSharding, parts: dict) -> ShardedTensor:

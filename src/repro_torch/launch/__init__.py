@@ -3,12 +3,12 @@
 Port of ``src/repro/launch/__init__.py`` for ``TCServer`` (one-shot
 requests, hosted streams, the write-ahead log ``StreamWAL``, checkpoint and
 restore). LM serving of every decoder family is ``launch/serve.py``
-(``ServeSession``) over ``launch/steps.py``, and LM training, on one device
-or on a mesh of (logical) shards, is ``launch/train.py`` (``TrainLoop``,
-``run_with_auto_resume``) over ``make_train_step``; ``launch/mesh.py``
-builds the meshes and ``launch/specs.py`` the meta-device inputs of every
-cell. Serving on a mesh waits for ROADMAP.md queue 1, item 1, part 4b, and
-the dry run for part 5.
+(``ServeSession``) over ``launch/steps.py``, and LM training is
+``launch/train.py`` (``TrainLoop``, ``run_with_auto_resume``) over
+``make_train_step``, both on one device or on a mesh of (logical) shards;
+``launch/mesh.py`` builds the meshes and ``launch/specs.py`` the
+meta-device inputs of every cell. The dry run waits for ROADMAP.md queue 1,
+item 1, part 5.
 """
 from repro_torch.launch.tc_serve import (
     ServeConfig,

@@ -13,19 +13,40 @@ decode is plain torch, as the reference's decode never calls its kernel.
 ``--device cpu`` runs the plain versions. A vlm's prompts come with image
 embeddings ``[B, n_image_tokens, d_frontend]`` (the CLI draws them from a
 seed).
+
+``ServeSession(mesh=)`` serves on a ``repro_torch.distributed.Mesh``, as
+the reference's does: the parameters placed by ``train_state_specs``, each
+prompt batch by ``batch_spec_tree`` and the cache by ``cache_spec_tree``
+(its sequence over 'model': decode attention runs one partial a block and
+a logsumexp combine; the SSM's heads over 'model'), through
+``make_prefill_step``/``make_serve_step`` on the mesh. Logical shards of one
+card (``make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)``) or
+of the host (``torch.device("cpu")`` entries) run every placement on one
+device. ``generate`` gathers the parameters once on each distinct device
+and frees them after the call (the reference's GSPMD gathers ZeRO-3 blocks
+each step: the same results on another schedule).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.distributed.lm_sharding import cache_spec_tree
+from repro_torch.distributed.mesh import Mesh, _as_device
+from repro_torch.distributed.sharding import named_tree, zeros
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models.model import init_cache, init_model
+from repro_torch.launch.steps import (
+    gather_params,
+    make_prefill_step,
+    make_serve_step,
+    place_params,
+)
+from repro_torch.models.model import cache_zeros, init_cache, init_model
 from repro_torch.models.params import tree_map
 from repro_torch.runtime.staging import stage
 
@@ -35,9 +56,12 @@ __all__ = ["ServeSession", "main"]
 class ServeSession:
     """Greedy (or seeded temperature) generation for one batch shape.
 
-    ``device`` takes the reference's ``mesh``: the card unless ``"cpu"`` is
-    asked. ``attention_impl``, ``dtype`` and ``n_layers``, when set, replace
-    the config's fields (the reference keeps the config's, ``"xla"`` and
+    ``device`` is the card unless ``"cpu"`` is asked; with ``mesh`` (a
+    ``repro_torch.distributed.Mesh``) it is the mesh's first device, where
+    prompts, logits and sampling live (a ``device`` that disagrees raises
+    ``ValueError``), and the session serves on the mesh (module docstring).
+    ``attention_impl``, ``dtype`` and ``n_layers``, when set, replace the
+    config's fields (the reference keeps the config's, ``"xla"`` and
     bf16 at the full depth; a cut depth serves a config at full width on one
     card).
     ``params`` (the port's parameter tree, e.g. from ``params_from_numpy``)
@@ -54,10 +78,9 @@ class ServeSession:
                  temperature: float = 0.0, seed: int = 0, device=None,
                  attention_impl: str | None = None, dtype: str | None = None,
                  n_layers: int | None = None, params=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving on a mesh is not ported yet: the port serves on one device "
-                "(ROADMAP.md, queue 1, item 1, part 4b: sharded serving)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be a repro_torch.distributed.Mesh, got "
+                             f"{type(mesh).__name__}")
         cfg = get_smoke_config(arch) if smoke else get_config(arch)
         if cfg.family == "audio":
             raise ValueError("encoder-only arch has no decode step")
@@ -66,17 +89,26 @@ class ServeSession:
         if cfg.attention_impl not in ("xla", "flash"):
             raise ValueError(f"attention_impl must be 'xla' or 'flash', got {cfg.attention_impl!r}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.devices.flat[0]
+            if device is not None and _as_device(device) != self.device:
+                raise ValueError(f"device {str(device)!r} disagrees with the mesh's first device "
+                                 f"{self.device}")
         self.batch = batch
         self.max_seq = max_seq
         self.temperature = temperature
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         if params is None:
-            self.params = init_model(0, cfg, self.device)
-        else:
-            self.params = tree_map(lambda t: stage(t, self.device, non_blocking=False), params)
-        self._prefill = make_prefill_step(cfg)
-        self._decode = make_serve_step(cfg)
+            params = init_model(0, cfg, self.device)
+        elif mesh is None:
+            params = tree_map(lambda t: stage(t, self.device, non_blocking=False), params)
+        self.params = params if mesh is None else place_params(cfg, mesh, params)
+        self._full = None  # the parameters gathered for the running generate
+        self._prefill = make_prefill_step(cfg, mesh)
+        self._decode = make_serve_step(cfg, mesh)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -95,38 +127,64 @@ class ServeSession:
                              if image_embeds is not None else "a vlm prompt needs image_embeds")
         if image_embeds is not None:
             batch["image_embeds"] = stage(image_embeds, self.device, non_blocking=False)
-        cache = init_cache(self.cfg, self.batch, self.max_seq, self.device)
-        return self._prefill(self.params, cache, batch)
+        return self._prefill(self._params(), self._new_cache(), batch)
+
+    def _new_cache(self):
+        if self.mesh is None:
+            return init_cache(self.cfg, self.batch, self.max_seq, self.device)
+        shapes = cache_zeros(self.cfg, self.batch, self.max_seq, torch.device("meta"))
+        shardings = named_tree(self.mesh, cache_spec_tree(self.cfg, self.mesh, shapes))
+        return tree_map(lambda t, sh: zeros(t.shape, t.dtype, sh), shapes, shardings)
+
+    def _params(self):
+        return self.params if self._full is None else self._full
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """On a mesh, the parameters gathered once on each distinct device
+        for the steps run inside (``generate`` runs in it), and freed after;
+        without a mesh, nothing. Outside it each sharded step gathers for
+        itself."""
+        if self.mesh is None or self._full is not None:
+            yield
+            return
+        self._full = gather_params(self.params, self.mesh)
+        try:
+            yield
+        finally:
+            self._full = None
 
     def decode(self, cache, token: torch.Tensor, pos: int):
         """One step: token [B, 1] at position ``pos``. Returns (logits, cache)."""
-        return self._decode(self.params, cache, token, pos)
+        return self._decode(self._params(), cache, token, pos)
 
     def generate(self, prompts: np.ndarray, gen_tokens: int, image_embeds=None,
                  keep_logits: bool = False):
         """prompts: [B, P] int32 (a vlm's with ``image_embeds``). Returns
         (tokens [B, P+gen], stats).
 
-        ``stats`` has the reference's ``prefill_s``, ``decode_s`` and
-        ``decode_tok_per_s``; with ``keep_logits`` also ``logits``, the
-        [gen, B, V] f32 logits each sampled token was drawn from.
+        ``stats`` has the reference's ``prefill_s`` (on a mesh, the gather of
+        the parameters included), ``decode_s`` and ``decode_tok_per_s``; with
+        ``keep_logits`` also ``logits``, the [gen, B, V] f32 logits each
+        sampled token was drawn from.
         """
         b, plen = prompts.shape
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.prefill(prompts, image_embeds)
-        self._sync()
-        t_prefill = time.perf_counter() - t0
-        kept = [logits] if keep_logits else []
-        out = [self._sample(logits)]
-        t0 = time.perf_counter()
-        for i in range(gen_tokens - 1):
-            logits, cache = self.decode(cache, out[-1], plen + i)
-            if keep_logits:
-                kept.append(logits)
-            out.append(self._sample(logits))
-        self._sync()
-        t_decode = time.perf_counter() - t0
+        with self.gathered():  # on a mesh the gather counts in prefill_s
+            logits, cache = self.prefill(prompts, image_embeds)
+            self._sync()
+            t_prefill = time.perf_counter() - t0
+            kept = [logits] if keep_logits else []
+            out = [self._sample(logits)]
+            t0 = time.perf_counter()
+            for i in range(gen_tokens - 1):
+                logits, cache = self.decode(cache, out[-1], plen + i)
+                if keep_logits:
+                    kept.append(logits)
+                out.append(self._sample(logits))
+            self._sync()
+            t_decode = time.perf_counter() - t0
         gen = torch.cat(out, dim=1).cpu().numpy()
         stats = {
             "prefill_s": t_prefill,

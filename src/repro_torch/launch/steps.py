@@ -25,6 +25,18 @@ computes, up to reduction order (``sharded_loss_and_grads``):
      into the blocks of the gradient spec;
   5. the global norm is taken over distinct blocks (a replicated leaf
      counts once, not once a logical shard), and AdamW runs block by block.
+
+The serving steps on a mesh (``make_prefill_step(cfg, mesh)``,
+``make_serve_step(cfg, mesh)``) take the params placed by
+``train_state_specs`` (or ``gather_params``' gathered copies), the cache
+placed by ``cache_spec_tree`` (a dense cache is placed on the way in) and
+the prompt batch by ``batch_spec_tree``, and return the logits ``[B, V]``
+gathered on the mesh's first device with the placed cache: the prefill runs
+``forward_prefill`` once a distinct data-parallel shard of the batch
+(``models/model.py::prefill_placed``), the decode step once a data-parallel
+row of the cache, its attention one partial a sequence block
+(``decode_placed``). The reference's logits are vocab-sharded; sampling
+reads them whole.
 """
 from __future__ import annotations
 
@@ -40,7 +52,13 @@ from repro_torch.distributed.sharding import (
     reshard,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import decode_step, forward_prefill, loss_fn
+from repro_torch.models.model import (
+    decode_placed,
+    decode_step,
+    forward_prefill,
+    loss_fn,
+    prefill_placed,
+)
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_warmup
 from repro_torch.optim.adamw import adamw_leaf, bias_corrections, clip_scale
@@ -52,6 +70,9 @@ __all__ = [
     "make_train_step",
     "make_prefill_step",
     "make_serve_step",
+    "GatheredParams",
+    "gather_params",
+    "place_params",
 ]
 
 MOE_GROUP = 1024  # models/moe.py's routing group (min(1024, tokens))
@@ -178,8 +199,9 @@ def _dp_shards(cfg: ModelConfig, batch: dict, microbatches: int) -> list:
         if (shard_rows * seq) % group:
             raise ValueError(
                 f"a shard of {shard_rows} x {seq} tokens cuts the MoE's routing groups of "
-                f"{group} tokens ({mb_rows} x {seq} a microbatch over {n} shards): the aux "
-                f"losses would route per shard; use a batch whose shards hold whole groups")
+                f"{group} tokens ({mb_rows} x {seq} a microbatch over {n} shards): routing, "
+                f"drops and aux losses would differ per shard; use a batch whose shards hold "
+                f"whole groups")
     home = dev_of[0]
     out = []
     for j in range(microbatches):
@@ -302,8 +324,39 @@ def _sharded_train_step(cfg: ModelConfig, mesh, opt_cfg: AdamWConfig, sched: dic
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, cache, batch) -> (last logits [B, V], cache)``."""
+class GatheredParams(dict):
+    """Device -> the full parameter tree gathered there: what the sharded
+    serving steps run on, built by ``gather_params`` once for many steps."""
+
+
+def place_params(cfg: ModelConfig, mesh, params):
+    """``params`` placed by ``train_state_specs`` (dense leaves placed, placed
+    ones checked), as the serving steps take them."""
+    return _placed_tree(params, _state_shardings(cfg, mesh)[0], "params")
+
+
+def gather_params(params, mesh) -> GatheredParams:
+    """``params`` (placed, or dense on the mesh's devices) gathered once on
+    each distinct device of ``mesh``; a replicated leaf held there is not
+    copied."""
+    return GatheredParams({dev: gather_tree(params, dev) for dev in mesh.unique_devices})
+
+
+def _serve_inputs(cfg: ModelConfig, mesh, params, cache):
+    """(gathered params, placed cache) of a sharded serving step."""
+    from repro_torch.distributed.lm_sharding import cache_spec_tree, named_tree
+
+    cache = _placed_tree(cache, named_tree(mesh, cache_spec_tree(cfg, mesh, cache)), "cache")
+    if not isinstance(params, GatheredParams):
+        params = gather_params(place_params(cfg, mesh, params), mesh)
+    return params, cache
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """``prefill_step(params, cache, batch) -> (last logits [B, V], cache)``;
+    with ``mesh`` the sharded step of the module docstring."""
+    if mesh is not None:
+        return _sharded_prefill_step(cfg, mesh)
 
     @torch.inference_mode()
     def prefill_step(params, cache, batch):
@@ -312,11 +365,40 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
-    """``serve_step(params, cache, token [B, 1], pos) -> (logits [B, V], cache)``."""
+def make_serve_step(cfg: ModelConfig, mesh=None):
+    """``serve_step(params, cache, token [B, 1], pos) -> (logits [B, V],
+    cache)``; with ``mesh`` the sharded step of the module docstring."""
+    if mesh is not None:
+        return _sharded_serve_step(cfg, mesh)
 
     @torch.inference_mode()
     def serve_step(params, cache, token, pos):
         return decode_step(params, cache, token, pos, cfg)
+
+    return serve_step
+
+
+def _sharded_prefill_step(cfg: ModelConfig, mesh):
+    home = mesh.devices.flat[0]
+
+    @torch.inference_mode()
+    def prefill_step(params, cache, batch):
+        full, cache = _serve_inputs(cfg, mesh, params, cache)
+        batch = _placed_tree(batch, _batch_shardings(cfg, mesh, batch), "batch")
+        shards = _dp_shards(cfg, batch, 1)
+        rows = batch["tokens"].shape[0]
+        shards = [(i * rows // len(shards), dev, part) for i, (_, dev, part) in enumerate(shards)]
+        return prefill_placed(full, shards, cache, cfg, home)
+
+    return prefill_step
+
+
+def _sharded_serve_step(cfg: ModelConfig, mesh):
+    home = mesh.devices.flat[0]
+
+    @torch.inference_mode()
+    def serve_step(params, cache, token, pos):
+        full, cache = _serve_inputs(cfg, mesh, params, cache)
+        return decode_placed(full, cache, token, pos, cfg, home)
 
     return serve_step

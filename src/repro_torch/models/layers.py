@@ -17,8 +17,17 @@ Attention supports:
     updated in place
   * MLA (latent KV) in direct form for train/prefill and *absorbed* form
     for decode (scores in latent space; no per-step KV decompression)
+  * decode over a cache split on its sequence (the flash-decoding layout of
+    a cache placed on a mesh): ``attn_decode_qkv`` / ``mla_decode_qkv``
+    project and rope the token, ``attn_partial`` / ``mla_partial`` give one
+    block's float32 ``(m, l, o)`` (running max, sum of weights, unnormalised
+    values; positions past ``pos`` masked with the finite ``NEG_INF``),
+    ``combine_partials`` rescales the blocks by ``exp(m_j - max m)`` and
+    normalises, and ``attn_decode_out`` / ``mla_decode_out`` project out.
+    MLA combines in latent space, before ``wuv``. On one block this is
+    ``attn_decode`` / ``mla_decode`` up to the order of float32 sums.
 
-One device: the reference's sharding constraints have no counterpart here.
+The reference's sharding constraints have no counterpart here.
 """
 from __future__ import annotations
 
@@ -36,10 +45,17 @@ __all__ = [
     "attn_schema",
     "attn_forward",
     "attn_decode",
+    "attn_decode_qkv",
+    "attn_partial",
+    "attn_decode_out",
+    "combine_partials",
     "cross_decode",
     "mla_schema",
     "mla_forward",
     "mla_decode",
+    "mla_decode_qkv",
+    "mla_partial",
+    "mla_decode_out",
     "mlp_schema",
     "mlp_forward",
     "norm_schema",
@@ -221,10 +237,7 @@ def attn_decode(p: dict, x: torch.Tensor, pos: int, k_cache: torch.Tensor,
     """Single-token decode against a KV cache ``[B, Smax, K, hd]``, written
     in place at ``pos``. Returns (out, k_cache, v_cache)."""
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, x, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = attn_decode_qkv(p, x, pos, cfg)
     cache_write(k_cache, k, pos)
     cache_write(v_cache, v, pos)
     smax, kheads = k_cache.shape[1], k_cache.shape[2]
@@ -240,6 +253,56 @@ def attn_decode(p: dict, x: torch.Tensor, pos: int, k_cache: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrqs,bskv->bqkrv", w, vv)
     return out.reshape(b, 1, -1) @ p["wo"], k_cache, v_cache
+
+
+def attn_decode_qkv(p: dict, x: torch.Tensor, pos: int, cfg: ModelConfig):
+    """The token's roped ``q [B, 1, H, hd]`` and ``k``, and ``v [B, 1, K, hd]``."""
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, x, cfg)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def _partial(scores: torch.Tensor, start: int, pos: int):
+    """``(m, l, p)`` of float32 ``scores [..., 1, Sb]`` against the keys at
+    positions ``start .. start + Sb - 1``, those past ``pos`` masked. A block
+    wholly past ``pos`` gives ``m = NEG_INF`` (finite, so no ``inf - inf``)."""
+    valid = torch.arange(start, start + scores.shape[-1], device=scores.device) <= pos
+    scores = scores.masked_fill(~valid, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    w = torch.exp(scores - m)
+    return m, w.sum(dim=-1, keepdim=True), w
+
+
+def attn_partial(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor, start: int,
+                 pos: int):
+    """One cache block's float32 partial for the query ``q [B, 1, H, hd]``
+    against ``k_blk``/``v_blk [B, Sb, K, hd]`` (positions ``start ..``):
+    ``m``, ``l [B, K, H/K, 1, 1]`` and ``o [B, K, H/K, 1, hd]``."""
+    b, _, h, hd = q.shape
+    kheads = k_blk.shape[2]
+    qg = q.reshape(b, 1, kheads, h // kheads, hd)
+    scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k_blk.to(q.dtype)).float() / (hd ** 0.5)
+    m, l, w = _partial(scores, start, pos)
+    return m, l, torch.einsum("bkrqs,bskv->bkrqv", w, v_blk.float())
+
+
+def combine_partials(parts) -> torch.Tensor:
+    """The normalised float32 output of blocks' ``(m, l, o)`` partials:
+    ``sum_j e^(m_j - m) o_j / sum_j e^(m_j - m) l_j`` with ``m = max_j m_j``
+    (a block wholly past ``pos`` weighs ``e^(NEG_INF - m) = 0``)."""
+    m = parts[0][0]
+    for mj, _, _ in parts[1:]:
+        m = torch.maximum(m, mj)
+    scales = [torch.exp(mj - m) for mj, _, _ in parts]
+    den = sum(s * lj for s, (_, lj, _) in zip(scales, parts))
+    num = sum(s * oj for s, (_, _, oj) in zip(scales, parts))
+    return num / den
+
+
+def attn_decode_out(p: dict, o: torch.Tensor, dtype) -> torch.Tensor:
+    """``combine_partials``' ``o [B, K, H/K, 1, hd]`` projected out: ``[B, 1, D]``."""
+    b = o.shape[0]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, 1, -1).to(dtype) @ p["wo"]
 
 
 def cross_decode(p: dict, x: torch.Tensor, pos: int, xk: torch.Tensor, xv: torch.Tensor,
@@ -322,11 +385,9 @@ def mla_decode(p: dict, x: torch.Tensor, pos: int, ckv_cache: torch.Tensor,
     Returns (out, ckv_cache, krope_cache)."""
     b = x.shape[0]
     h, nope, vd, kvr = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, positions, cfg)
+    q_lat, q_rope, ckv, k_rope = mla_decode_qkv(p, x, pos, cfg)
     cache_write(ckv_cache, ckv, pos)
     cache_write(krope_cache, k_rope, pos)
-    q_lat = torch.einsum("bqhn,khn->bqhk", q_nope, p["wuk"].reshape(kvr, h, nope))
     scores = (torch.einsum("bqhk,bsk->bhqs", q_lat, ckv_cache.to(q_lat.dtype))
               + torch.einsum("bqhr,bsr->bhqs", q_rope, krope_cache.to(q_rope.dtype))).float()
     scale = 1.0 / ((nope + cfg.qk_rope_dim) ** 0.5)
@@ -336,6 +397,38 @@ def mla_decode(p: dict, x: torch.Tensor, pos: int, ckv_cache: torch.Tensor,
     lat_out = torch.einsum("bhqs,bsk->bqhk", w, ckv_cache.to(x.dtype))
     out = torch.einsum("bqhk,khv->bqhv", lat_out, p["wuv"].reshape(kvr, h, vd))
     return out.reshape(b, 1, -1) @ p["wo"], ckv_cache, krope_cache
+
+
+def mla_decode_qkv(p: dict, x: torch.Tensor, pos: int, cfg: ModelConfig):
+    """The token's absorbed query ``q_lat [B, 1, H, kv_rank]`` and roped
+    ``q_rope [B, 1, H, rope_d]``, and its cache entries ``ckv [B, 1,
+    kv_rank]`` and ``k_rope [B, 1, rope_d]``."""
+    h, nope, kvr = cfg.n_heads, cfg.qk_nope_dim, cfg.kv_lora_rank
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, positions, cfg)
+    q_lat = torch.einsum("bqhn,khn->bqhk", q_nope, p["wuk"].reshape(kvr, h, nope))
+    return q_lat, q_rope, ckv, k_rope
+
+
+def mla_partial(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv_blk: torch.Tensor,
+                krope_blk: torch.Tensor, start: int, pos: int, cfg: ModelConfig):
+    """One latent cache block's float32 partial (``ckv_blk [B, Sb,
+    kv_rank]``, ``krope_blk [B, Sb, rope_d]``, positions ``start ..``): ``m``,
+    ``l [B, H, 1, 1]`` and the latent ``o [B, H, 1, kv_rank]``."""
+    scores = (torch.einsum("bqhk,bsk->bhqs", q_lat, ckv_blk.to(q_lat.dtype))
+              + torch.einsum("bqhr,bsr->bhqs", q_rope, krope_blk.to(q_rope.dtype))).float()
+    m, l, w = _partial(scores * (1.0 / ((cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5)), start, pos)
+    return m, l, torch.einsum("bhqs,bsk->bhqk", w, ckv_blk.float())
+
+
+def mla_decode_out(p: dict, lat: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
+    """``combine_partials``' latent ``[B, H, 1, kv_rank]`` through ``wuv``
+    and ``wo``: ``[B, 1, D]``."""
+    b = lat.shape[0]
+    h, vd, kvr = cfg.n_heads, cfg.v_head_dim, cfg.kv_lora_rank
+    out = torch.einsum("bqhk,khv->bqhv", lat.permute(0, 2, 1, 3).to(dtype),
+                       p["wuv"].reshape(kvr, h, vd))
+    return out.reshape(b, 1, -1) @ p["wo"]
 
 
 # -------------------------------------------------------------------- SwiGLU

@@ -21,6 +21,17 @@ stacked like the layers: attention caches bf16, written in place; SSM
 states replaced by what each step computes (bf16 conv states promoted to a
 float32 run's dtype at its first decode step, as JAX's concatenate
 promotes; the SSM state float32).
+
+On a mesh the cache's leaves are ``ShardedTensor``s placed by
+``distributed/lm_sharding.py::cache_spec_tree`` (batch over the
+data-parallel axes; the sequence, or the SSM's heads and channels, over
+'model'). ``prefill_placed`` runs ``forward_prefill`` once a data-parallel
+shard of the batch and scatters each shard's cache into the blocks it
+overlaps; ``decode_placed`` runs ``decode_step``'s layers once a
+data-parallel row of the cache's blocks, on that row's first device:
+attention as one partial a sequence block (on the device holding the block)
+and a logsumexp combine, the SSM step one head block at a time. The layers'
+projections are not split (the tensor-parallel compute is not ported).
 """
 from __future__ import annotations
 
@@ -45,6 +56,7 @@ from repro_torch.models.params import (
     tree_leaves,
     tree_map,
 )
+from repro_torch.runtime.staging import stage
 
 __all__ = [
     "model_schema",
@@ -53,6 +65,8 @@ __all__ = [
     "loss_fn",
     "forward_prefill",
     "decode_step",
+    "decode_placed",
+    "prefill_placed",
     "init_cache",
     "cache_zeros",
     "model_param_specs",
@@ -596,3 +610,200 @@ def _fill_attention_cache(params, batch, cache, cfg: ModelConfig):
         for name, new in zip(names, kv):
             _fill_rows(cache[name][i], new)
     return x
+
+
+# ------------------------------------------------------- on a placed cache
+
+
+def _batch_dim(key: str, leaf) -> int:
+    """The batch dim of a cache leaf (after the stacked layer dims)."""
+    return leaf.ndim - 4 if key in ("k", "v") else 1
+
+
+def _flat_cache(cache: dict) -> list:
+    """[(tree, key, leaf)] of a cache, the SSM states included."""
+    out = [(cache, k, v) for k, v in cache.items() if k != "ssm"]
+    return out + [(cache["ssm"], k, v) for k, v in cache.get("ssm", {}).items()]
+
+
+def _put_placed(tree: dict, key: str, new: torch.Tensor, starts) -> None:
+    """``new`` written into the placed leaf ``tree[key]`` at ``starts``, the
+    leaf first promoted to ``new``'s dtype where that outranks its own (as
+    ``_put_states`` promotes the one-device states)."""
+    leaf = tree[key]
+    dtype = torch.promote_types(leaf.dtype, new.dtype)
+    if dtype != leaf.dtype:
+        tree[key] = leaf = leaf.astype(dtype)
+    leaf.scatter_(new, starts)
+
+
+def prefill_placed(full: dict, shards: list, cache: dict, cfg: ModelConfig, home):
+    """``forward_prefill`` over a placed cache. ``shards`` is ``[(row
+    offset, device, batch part)]`` (the distinct data-parallel shards of the
+    batch), ``full`` maps each device to the parameters gathered there.
+    Each shard fills a cache of its own rows on its device, which is then
+    written into every block of ``cache`` it overlaps (a shard's rows may
+    span several of the cache's batch and sequence blocks). Returns (last
+    logits [B, vocab] f32 on ``home``, cache)."""
+    if cfg.family == "audio":
+        raise ValueError("encoder-only arch has no decode cache")
+    seq = next((leaf.shape[_batch_dim(k, leaf) + 1] for _, k, leaf in _flat_cache(cache)
+                if k in ("k", "ckv", "shared_k")), 1)
+    logits = []
+    for lo, dev, part in shards:
+        own = cache_zeros(cfg, part["tokens"].shape[0], seq, dev)
+        last, own = forward_prefill(full[dev], part, own, cfg)
+        for tree, key, new in _flat_cache(own):
+            target = cache if tree is own else cache["ssm"]
+            starts = [0] * new.dim()
+            starts[_batch_dim(key, new)] = lo
+            _put_placed(target, key, new, starts)
+        del own
+        logits.append(stage(last, home))
+    return torch.cat(logits), cache
+
+
+def _cache_rows(cache: dict) -> list:
+    """[(row, first row, end row, device)] of the cache's data-parallel rows
+    of blocks: each row runs on the first device (in mesh order) holding one
+    of its blocks."""
+    _, key, leaf = _flat_cache(cache)[0]
+    bdim = _batch_dim(key, leaf)
+    n = leaf.sharding.blocks_per_dim(leaf.ndim)[bdim]
+    dev_of: dict = {}
+    for dev, idx in leaf.sharding.layout(leaf.ndim).values():
+        dev_of.setdefault(idx[bdim], dev)
+    per = leaf.shape[bdim] // n
+    return [(r, r * per, (r + 1) * per, dev_of[r]) for r in range(n)]
+
+
+def _seq_blocks(leaf, lead: tuple, row: int) -> list:
+    """[(first position, block)] along the sequence of a placed attention
+    leaf, for the layer ``lead`` of data-parallel row ``row``: each block as
+    a view on the (first) device holding it."""
+    bdim = len(lead)
+    n = leaf.sharding.blocks_per_dim(leaf.ndim)[bdim + 1]
+    per = leaf.shape[bdim + 1] // n
+    blocks = leaf.distinct_blocks()
+    out = []
+    for j in range(n):
+        idx = [0] * leaf.ndim
+        idx[bdim], idx[bdim + 1] = row, j
+        out.append((j * per, blocks[tuple(idx)][lead]))
+    return out
+
+
+def _write_token(leaf, lead: tuple, lo: int, pos: int, new: torch.Tensor) -> None:
+    """The token's ``new [rows, 1, ...]`` written at ``pos`` into the block
+    holding it (each of its copies), rows from ``lo``."""
+    piece = new.reshape((1,) * len(lead) + tuple(new.shape))
+    leaf.scatter_(piece, (*lead, lo, pos) + (0,) * (new.dim() - 2))
+
+
+def _combine_blocks(partial, row_dev, q_parts: tuple, leaves: tuple, lead: tuple, row: int):
+    """``partial(*q_parts, *blocks, start)`` over the row's sequence blocks
+    of ``leaves`` (each on the device holding it), combined on ``row_dev``."""
+    parts = []
+    for blocks in zip(*(_seq_blocks(leaf, lead, row) for leaf in leaves)):
+        start, dev = blocks[0][0], blocks[0][1].device
+        qd = tuple(stage(t, dev) for t in q_parts)
+        out = partial(*qd, *(b for _, b in blocks), start)
+        parts.append(tuple(stage(t, row_dev) for t in out))
+    return L.combine_partials(parts)
+
+
+def _attn_placed(p, h, pos, cache, names, lead, row, lo, cfg: ModelConfig):
+    """Decode attention of the row's ``h`` against the placed leaves
+    ``names`` (``k``/``v``, ``shared_k``/``shared_v``) at layer ``lead``."""
+    q, k, v = L.attn_decode_qkv(p, h, pos, cfg)
+    kl, vl = cache[names[0]], cache[names[1]]
+    _write_token(kl, lead, lo, pos, k)
+    _write_token(vl, lead, lo, pos, v)
+    o = _combine_blocks(lambda q_, kb, vb, s: L.attn_partial(q_, kb, vb, s, pos), h.device,
+                        (q,), (kl, vl), lead, row)
+    return L.attn_decode_out(p, o, h.dtype)
+
+
+def _mla_placed(p, h, pos, cache, i, row, lo, cfg: ModelConfig):
+    q_lat, q_rope, ckv, k_rope = L.mla_decode_qkv(p, h, pos, cfg)
+    _write_token(cache["ckv"], (i,), lo, pos, ckv)
+    _write_token(cache["krope"], (i,), lo, pos, k_rope)
+    lat = _combine_blocks(
+        lambda ql, qr, cb, kb, s: L.mla_partial(ql, qr, cb, kb, s, pos, cfg), h.device,
+        (q_lat, q_rope), (cache["ckv"], cache["krope"]), (i,), row)
+    return L.mla_decode_out(p, lat, cfg, h.dtype)
+
+
+def _ssm_placed(lp, x, cache, i, lo, hi, cfg: ModelConfig):
+    """One mamba layer's step for rows ``lo .. hi-1`` over the placed
+    states: B/C conv states read whole, the recurrence one head block (of
+    the ``ssm`` leaf's split over 'model') at a time; the new states written
+    back into their blocks."""
+    states, dev = cache["ssm"], x.device
+    hp = cfg.ssm_head_dim
+    rows = (slice(i, i + 1), slice(lo, hi))
+    nh = states["ssm"].sharding.blocks_per_dim(states["ssm"].ndim)[2]
+    per = cfg.ssm_heads // nh
+    blocks = []
+    for j in range(nh):
+        h0, h1 = j * per, (j + 1) * per
+        blocks.append((h0, h1, states["conv_x"].read(rows + (slice(None), slice(h0 * hp, h1 * hp)),
+                                                     dev)[0],
+                       states["ssm"].read(rows + (slice(h0, h1),), dev)[0]))
+    o, ncb, ncc, new = SSM.ssm_decode_heads(
+        lp["ssm"], L.rmsnorm(x, lp["ln"], cfg.norm_eps), cfg,
+        states["conv_b"].read(rows, dev)[0], states["conv_c"].read(rows, dev)[0], blocks)
+    _put_placed(states, "conv_b", ncb[None], (i, lo, 0, 0))
+    _put_placed(states, "conv_c", ncc[None], (i, lo, 0, 0))
+    for (h0, _, _, _), (ncx, hnew) in zip(blocks, new):
+        _put_placed(states, "conv_x", ncx[None], (i, lo, 0, h0 * hp))
+        _put_placed(states, "ssm", hnew[None], (i, lo, h0, 0, 0))
+    return x + o
+
+
+def decode_placed(full: dict, cache: dict, token: torch.Tensor, pos: int, cfg: ModelConfig,
+                  home):
+    """``decode_step`` over a placed cache (the module docstring): ``token
+    [B, 1]`` on any device, ``full`` the parameters gathered on each device.
+    Returns (logits [B, vocab] f32 on ``home``, cache), the cache's blocks
+    written in place (SSM leaves promoted as ``_put_states`` promotes)."""
+    if cfg.family == "audio":
+        raise ValueError("encoder-only arch has no decode step")
+    logits = []
+    for row, lo, hi, dev in _cache_rows(cache):
+        params = full[dev]
+        x = _embed_tokens(params, stage(token[lo:hi], dev))
+        if cfg.family in ("ssm", "hybrid"):
+            lps = list(enumerate(_layers(params, cfg)))
+            groups, tail = ([], lps) if cfg.family == "ssm" else _hybrid_split(cfg, lps)
+            sp = params.get("shared")
+            for gi, grp in enumerate(groups):
+                for i, lp in grp:
+                    x = _ssm_placed(lp, x, cache, i, lo, hi, cfg)
+                x = x + _attn_placed(sp["attn"], L.rmsnorm(x, sp["ln1"], cfg.norm_eps), pos, cache,
+                                     ("shared_k", "shared_v"), (gi,), row, lo, cfg)
+                x = x + L.mlp_forward(sp["mlp"], L.rmsnorm(x, sp["ln2"], cfg.norm_eps))
+            for i, lp in tail:
+                x = _ssm_placed(lp, x, cache, i, lo, hi, cfg)
+        elif cfg.family == "vlm":
+            for gi, (self_lps, cp) in enumerate(_vlm_groups(params, cfg)):
+                for li, lp in enumerate(self_lps):
+                    a = _attn_placed(lp["attn"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps), pos, cache,
+                                     ("k", "v"), (gi, li), row, lo, cfg)
+                    x = x + a + _post_mlp(lp, x + a, cfg)
+                xk = cache["xk"].read((slice(gi, gi + 1), slice(lo, hi)), dev)[0]
+                xv = cache["xv"].read((slice(gi, gi + 1), slice(lo, hi)), dev)[0]
+                x = x + L.cross_decode(cp["xattn"], L.rmsnorm(x, cp["ln1"], cfg.norm_eps), pos,
+                                       xk, xv, cfg)
+                x = x + L.mlp_forward(cp["mlp"], L.rmsnorm(x, cp["ln2"], cfg.norm_eps))
+        else:  # dense / moe
+            for i, lp in enumerate(_layers(params, cfg)):
+                h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+                if cfg.attention == "mla":
+                    a = _mla_placed(lp["attn"], h, pos, cache, i, row, lo, cfg)
+                else:
+                    a = _attn_placed(lp["attn"], h, pos, cache, ("k", "v"), (i,), row, lo, cfg)
+                x = x + a
+                x = x + _post_mlp(lp, x, cfg)
+        logits.append(stage(_logits(params, x, cfg)[:, 0], home))
+    return torch.cat(logits), cache

@@ -10,6 +10,13 @@ Q tokens: within a chunk the contribution is an attention-like quadratic
 einsum; across chunks only the ``[H, N, P]`` states flow, here through a
 Python loop over the chunks (the reference's ``lax.scan``).
 
+``ssm_decode_heads`` is the recurrent step over blocks of heads (a state
+placed on a mesh splits its heads and ``conv_x``'s head-major channels over
+'model'): the projections, the B/C convolution (which every head needs
+whole) and the gated norm (over all of ``d_inner``) run once, the conv of
+``x`` and the state update once a block; ``ssm_decode`` is its one-block
+case.
+
 One difference from the reference that leaves the forward as it is: the
 segment matrix ``exp(cs_i - cs_j)`` is masked *before* the ``exp``. Above
 the diagonal the reference computes ``exp`` of a positive difference that
@@ -25,7 +32,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import ParamDef
 
-__all__ = ["ssm_schema", "ssd_chunked", "ssm_forward", "ssm_decode", "ssm_state_shapes"]
+__all__ = ["ssm_schema", "ssd_chunked", "ssm_forward", "ssm_decode", "ssm_decode_heads",
+           "ssm_state_shapes"]
 
 
 def ssm_schema(cfg: ModelConfig) -> dict:
@@ -170,28 +178,44 @@ def ssm_forward(p: dict, u: torch.Tensor, cfg: ModelConfig, state: dict | None =
 def ssm_decode(p: dict, u: torch.Tensor, cfg: ModelConfig, state: dict):
     """Single-token recurrent step. u: [B, 1, D]; state from
     ``ssm_state_shapes`` (or a previous step). Returns (out, new_state)."""
+    out, ncb, ncc, ((ncx, hnew),) = ssm_decode_heads(
+        p, u, cfg, state["conv_b"], state["conv_c"],
+        [(0, cfg.ssm_heads, state["conv_x"], state["ssm"])])
+    return out, {"conv_x": ncx, "conv_b": ncb, "conv_c": ncc, "ssm": hnew}
+
+
+def ssm_decode_heads(p: dict, u: torch.Tensor, cfg: ModelConfig, conv_b: torch.Tensor,
+                     conv_c: torch.Tensor, blocks):
+    """The recurrent step of ``u [B, 1, D]`` over head blocks: ``blocks`` is
+    ``[(h0, h1, conv_x [B, w-1, (h1-h0)·Pd], ssm [B, h1-h0, N, Pd])]``, the
+    states of heads ``h0 .. h1-1`` (together all heads, in order).
+    Returns (out, new conv_b, new conv_c, [(new conv_x, new ssm)] a block)."""
     bsz = u.shape[0]
     h, hp = cfg.ssm_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
     z, x, bb, cc, dt = _project(p, u, cfg)
-    x, ncx = _causal_conv(x, p["conv_x"], state["conv_x"])
-    bb, ncb = _causal_conv(bb.reshape(bsz, 1, -1), p["conv_b"], state["conv_b"])
-    cc, ncc = _causal_conv(cc.reshape(bsz, 1, -1), p["conv_c"], state["conv_c"])
+    bb, ncb = _causal_conv(bb.reshape(bsz, 1, -1), p["conv_b"], conv_b)
+    cc, ncc = _causal_conv(cc.reshape(bsz, 1, -1), p["conv_c"], conv_c)
     rep = h // g
     b_h = torch.repeat_interleave(bb.reshape(bsz, 1, g, n), rep, dim=2)[:, 0]  # [B, H, N]
     c_h = torch.repeat_interleave(cc.reshape(bsz, 1, g, n), rep, dim=2)[:, 0]
     a = -torch.exp(p["a_log"].float())
     dt0 = dt[:, 0]  # [B, H]
-    xh = x.reshape(bsz, h, hp).float()
-    decay = torch.exp(dt0 * a)  # [B, H]
-    upd = torch.einsum("bhn,bhp->bhnp", dt0[..., None] * b_h.float(), xh)
-    hnew = decay[..., None, None] * state["ssm"] + upd
-    y = torch.einsum("bhn,bhnp->bhp", c_h.float(), hnew)
-    y = y + p["d_skip"].float()[None, :, None] * xh
-    y = y.reshape(bsz, 1, h * hp).to(u.dtype)
+    ys, new = [], []
+    for h0, h1, conv_x, state in blocks:
+        c0, c1 = h0 * hp, h1 * hp
+        xb, ncx = _causal_conv(x[..., c0:c1], p["conv_x"][:, c0:c1], conv_x)
+        xh = xb.reshape(bsz, h1 - h0, hp).float()
+        dtb = dt0[:, h0:h1]
+        decay = torch.exp(dtb * a[h0:h1])  # [B, h]
+        upd = torch.einsum("bhn,bhp->bhnp", dtb[..., None] * b_h[:, h0:h1].float(), xh)
+        hnew = decay[..., None, None] * state + upd
+        y = torch.einsum("bhn,bhnp->bhp", c_h[:, h0:h1].float(), hnew)
+        ys.append(y + p["d_skip"][h0:h1].float()[None, :, None] * xh)
+        new.append((ncx, hnew))
+    y = torch.cat(ys, dim=1).reshape(bsz, 1, h * hp).to(u.dtype)
     y = rmsnorm(y * _silu(z), p["gate_norm"], cfg.norm_eps)
-    new_state = {"conv_x": ncx, "conv_b": ncb, "conv_c": ncc, "ssm": hnew}
-    return y @ p["out"], new_state
+    return y @ p["out"], ncb, ncc, new
 
 
 def ssm_state_shapes(cfg: ModelConfig, batch: int, device=None) -> dict:

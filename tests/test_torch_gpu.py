@@ -1201,3 +1201,42 @@ def test_compressed_psum_mean_on_card(cuda):
     assert all(got[i].tobytes() == want.tobytes() for i in range(8))
     exact = g.mean(0)
     assert np.abs(got[0] - exact).max() / np.abs(exact).max() < 0.02
+
+
+@pytest.mark.parametrize("arch,impl", [("smollm-135m", "flash"), ("minicpm3-4b", "xla"),
+                                       ("zamba2-7b", "flash"), ("llama-3.2-vision-90b", "flash")])
+def test_sharded_serving_on_card_matches_cpu(cuda, arch, impl):
+    """``ServeSession(mesh=)`` on 2 x 2 logical shards of the card (float32):
+    the greedy tokens and logits of the same session on a CPU mesh, with one
+    flash launch an attention layer and prefill shard, none in decode."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.model import init_model
+
+    cfg = get_smoke_config(arch).scaled(dtype="float32", attention_impl=impl)
+    params = init_model(0, cfg, "cpu")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (4, 16), dtype=np.int32)
+    img = None
+    if cfg.family == "vlm":
+        img = rng.normal(size=(4, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh((2, 2), ("data", "model"), devices=[torch.device(dev)] * 4)
+        sess = ServeSession(arch, smoke=True, batch=4, max_seq=24, mesh=mesh, dtype="float32",
+                            attention_impl=impl, params=params)
+        before = flash_attention_cuda.launches
+        logits, cache = sess.prefill(prompts, img)
+        flash = flash_attention_cuda.launches - before
+        if dev == "cuda":
+            assert cache[next(k for k in cache if k != "ssm")].blocks
+            layers = {"smollm-135m": 2, "zamba2-7b": 2, "llama-3.2-vision-90b": 4}.get(arch, 0)
+            assert flash == (layers * 4 if impl == "flash" else 0)  # "dp": 4 prefill shards
+        before = flash_attention_cuda.launches
+        runs[dev] = sess.generate(prompts, 6, image_embeds=img, keep_logits=True)
+        assert flash_attention_cuda.launches - before == (flash if dev == "cuda" else 0)
+    np.testing.assert_array_equal(runs["cuda"][0], runs["cpu"][0])
+    np.testing.assert_allclose(runs["cuda"][1]["logits"], runs["cpu"][1]["logits"],
+                               rtol=1e-4, atol=1e-4)

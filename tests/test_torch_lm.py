@@ -312,7 +312,7 @@ def test_serve_session_matches_reference_greedy_loop(arch, impl, dtype):
 def test_serve_session_defaults_and_guards():
     sess = pt_serve.ServeSession("smollm-135m", smoke=True, batch=B, device="cpu")
     assert sess.cfg.attention_impl == "xla" and sess.cfg.dtype == "bfloat16"  # the config's
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="Mesh"):  # a mesh must be the port's Mesh
         pt_serve.ServeSession("smollm-135m", smoke=True, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="attention_impl"):
         pt_serve.ServeSession("smollm-135m", smoke=True, device="cpu", attention_impl="pallas")

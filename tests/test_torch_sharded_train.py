@@ -400,8 +400,19 @@ def test_train_cli_on_a_mesh_of_logical_shards(tmp_path, capsys):
 
 
 def test_serving_on_a_mesh_still_raises():
-    with pytest.raises(NotImplementedError, match="part 4b"):
-        ServeSession("smollm-135m", smoke=True, device="cpu", mesh=_mesh(1, 1))
+    """Serving on a mesh is ported (``tests/test_torch_sharded_serve.py``): a
+    1 x 1 mesh serves the same greedy tokens as one device. What still
+    raises is a mesh that is not the port's ``Mesh`` and a device that
+    disagrees with the mesh's."""
+    kw = dict(smoke=True, batch=2, max_seq=24, dtype="float32")
+    prompts = np.random.default_rng(0).integers(0, 256, (2, 16), dtype=np.int32)
+    sharded = ServeSession("smollm-135m", mesh=_mesh(1, 1), **kw)  # both init from seed 0
+    one = ServeSession("smollm-135m", device="cpu", **kw)
+    assert np.array_equal(sharded.generate(prompts, 4)[0], one.generate(prompts, 4)[0])
+    with pytest.raises(ValueError, match="Mesh"):
+        ServeSession("smollm-135m", device="cpu", mesh=object(), **kw)
+    with pytest.raises(ValueError, match="disagrees"):
+        ServeSession("smollm-135m", device="cuda", mesh=_mesh(1, 1), **kw)
 
 
 def test_sharding_modules_import_no_jax_and_nothing_of_repro():
