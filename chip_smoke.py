@@ -87,8 +87,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               and ``torch._int_mm``
  11. flash cases  flash_attention against its plain version through both
               entries, bf16 (2e-2 elementwise, 1.2e-2 in relative norm per
-              query row) and f32 (2e-5, 2e-5), hd 16 / 32 / 64 / 128, causal
-              or not: [BH, S, hd] with BH 1 / 3 / 72 and (Sq, Sk) from (1, 1)
+              query row) and f32 (2e-5, 2e-5), hd 16 / 32 / 64 / 80 / 112 /
+              128, causal or not: [BH, S, hd] with BH 1 / 3 / 72 and (Sq, Sk) from (1, 1)
               to (2048, 2048), ragged and offset (Sq < Sk); [B, S, H, hd] with
               B 1 / 3, (H, KH) (9, 3) / (4, 1), ragged and offset; reversed,
               permuted and keys-after-queries positions (rows with no visible
@@ -220,14 +220,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               and 16 generated: minicpm3-4b (MLA, 62 layers), mamba2-780m (48),
               zamba2-7b (81 + 13 shared-block applications), moonshot (MoE,
               12 of 48 layers) and llama-3.2-vision (10 of 100 layers, 1,601
-              image tokens) under "xla", the last two also under "flash"
-              (flash vs xla prefill logits within 3e-2 relative norm; flash
-              launches 12 and 8 self + 2 cross, none at decode); hubert's
-              ``forward_train`` on 4 x 512 frames; parameters equal to
-              ``count_params_analytical`` of the cut config, tokens in
-              range, logits finite, ``prefill_s``, ms a decode step,
+              image tokens) under "xla", the last three also under "flash"
+              (flash launches 13 (hd 112), 12 and 8 self + 2 cross, none at
+              decode); hubert's ``forward_train`` on 4 x 512 frames under
+              "xla" and "flash" (hd 80, not causal: 48 launches); the flash
+              prefill (hubert: forward) logits within 3e-2 relative norm of
+              xla's where bf16 keeps xla within 3e-2 of a float32 run of the
+              same weights, never farther from float32 than xla plus 3e-2,
+              and a planted dropped KV tile farther; the kernel at each
+              path's attention shape against its plain version, timed with
+              the wrapper and alone (a CUDA graph) beside its bound and
+              SDPA (hd 112 and 80 are kernel rows of their own); parameters
+              equal to ``count_params_analytical`` of the cut config, tokens
+              in range, logits finite, ``prefill_s``, ms a decode step,
               tokens/s, peak memory, the MoE's dropped fraction at prefill
-              and decode; "flash" on MLA, hd 112 and hd 80 must raise
+              and decode; "flash" on MLA (q/k 96, values 64) must raise
               ``ValueError`` and launch nothing. (c) Full width in float32
               at a cut depth (2 layers; the vlm one group of 5, the hybrid a
               group and a trailing layer, 7): decode against teacher forcing
@@ -270,7 +277,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               looser); a combine planted to drop the last block must exceed
               it; prefill_s, ms a step, tokens/s, peak memory, a profiled
               prefill and decode step. (b) minicpm3-4b (MLA), mamba2-780m,
-              zamba2-7b, the VLM ("flash", 10 layers) and moonshot ("flash",
+              zamba2-7b ("flash", hd 112), the VLM ("flash", 10 layers) and
+              moonshot ("flash",
               12 layers, one routing group of 1,024 a data shard) at full
               width in bf16, phase 19's 4 x 512 prompts and 16 steps, each
               teacher-forced on its one-device session's tokens beside a
@@ -406,10 +414,16 @@ RESUME_FLAG = "--train-resume-child"  # the child process's mode (CUBLAS_WORKSPA
 FAMILY_CARD_TOL = 1e-4  # card vs the port's CPU path, float32, relative norm / L2 a leaf
 FAMILY_TF_TOL = 2e-2  # decode vs teacher forcing, tests/test_models.py:70
 FAMILY_SERVE = (("minicpm3-4b", None, ("xla",)), ("mamba2-780m", None, ("xla",)),
-                ("zamba2-7b", None, ("xla",)), ("moonshot-v1-16b-a3b", 12, ("xla", "flash")),
+                ("zamba2-7b", None, ("xla", "flash")), ("moonshot-v1-16b-a3b", 12, ("xla", "flash")),
                 ("llama-3.2-vision-90b", 10, ("xla", "flash")))  # (arch, depth cut, impls)
-FAMILY_FLASH_LAYERS = {"moonshot-v1-16b-a3b": 12, "llama-3.2-vision-90b": 8 + 2}  # self + cross
+# Flash launches a prefill (a forward): a layer each, the vlm's self + cross,
+# zamba2's 13 shared-block applications, hubert's 48 encoder layers.
+FAMILY_FLASH_LAYERS = {"moonshot-v1-16b-a3b": 12, "llama-3.2-vision-90b": 8 + 2,
+                       "zamba2-7b": 13, "hubert-xlarge": 48}
 FAMILY_AUDIO = "hubert-xlarge"
+# The head widths whose only path is a family's: their kernel rows in the
+# kernels line, timed at that path's shape (B 4, S 512).
+FAMILY_FLASH_ROWS = {"zamba2-7b": "flash_attention[hd=112]", FAMILY_AUDIO: "flash_attention[hd=80]"}
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 4, 512, 16  # B.S 2,048: two MoE groups of 1,024
 FAMILY_F32_DEPTH = {"llama-3.2-vision-90b": 5, "zamba2-7b": 7}  # one group (+1 trailing); else 2
 FAMILY_TF_SHAPE = (2, 32, 8)  # batch, tokens, the last ones decoded
@@ -445,7 +459,7 @@ SERVE_SHARD_MAX_SEQ = LM_PROMPT + LM_GEN
 # the prefill's 0) is 0.037, so LM_TOL, never looser, holds.
 SERVE_SHARD_TOL = LM_TOL
 SERVE_SHARD_FAMILIES = (("minicpm3-4b", None, "xla"), ("mamba2-780m", None, "xla"),
-                        ("zamba2-7b", None, "xla"), ("llama-3.2-vision-90b", 10, "flash"),
+                        ("zamba2-7b", None, "flash"), ("llama-3.2-vision-90b", 10, "flash"),
                         ("moonshot-v1-16b-a3b", 12, "flash"))  # (arch, depth cut, impl)
 SERVE_SHARD_IMPL = {LM_ARCH: "flash", **{a: impl for a, _, impl in SERVE_SHARD_FAMILIES}}
 SERVE_SHARD_F32_SHAPE = (4, 32, 4)  # batch, prompt, generated
@@ -3712,16 +3726,18 @@ def _moe_drops():
         moe.moe_forward = real
 
 
-def _families_serve(smi: str) -> dict:
+def _families_serve(smi: str) -> tuple[dict, dict]:
     """19b: the six configs at full width in bf16: ServeSession (4 x 512
     prompt tokens, 16 generated) for the decoders, forward_train on 4 x 512
-    frames for the audio encoder. Returns the flash launches by config."""
+    frames for the audio encoder, each under "xla" and, where the kernel
+    takes the heads, "flash". Returns the flash launches by config and the
+    kernel rows of FAMILY_FLASH_ROWS by config."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import ServeSession
     from repro_torch.models.model import count_params_analytical, forward_train, init_model
     from repro_torch.models.params import tree_leaves, tree_map
 
-    flash = {}
+    flash, rows = {}, {}
     rng = np.random.default_rng(19)
     for arch, depth, impls in FAMILY_SERVE:
         full = get_config(arch)
@@ -3784,7 +3800,9 @@ def _families_serve(smi: str) -> dict:
                 f"{launches}; max_memory_allocated {peak} bytes{moe}")
             del sess
         if "flash" in impls:
-            _family_flash_cases(arch, cfg)
+            cases = _family_flash_cases(arch, cfg)
+            if arch in FAMILY_FLASH_ROWS:
+                rows[arch] = cases["self"]
             # The same weights in float32 (xla path): where each bf16 path's
             # rounding takes it.
             f32 = ServeSession(arch, batch=FAMILY_BATCH, max_seq=FAMILY_PROMPT + 1,
@@ -3792,30 +3810,21 @@ def _families_serve(smi: str) -> dict:
                                params=tree_map(lambda t: t.float(), params))
             exact = f32.prefill(prompts, img)[0][:, :cfg.vocab].cpu()
             del f32
-            rel = {"flash-xla": _rel(first["flash"], first["xla"]),
-                   "flash-f32": _rel(first["flash"], exact), "xla-f32": _rel(first["xla"], exact)}
+            torch.cuda.empty_cache()
             # A planted fault the checks must see: keys 64..127 (one KV tile)
             # dropped in every flash call of the prefill.
             with _dropped_kv_tile():
                 bad = ServeSession(arch, batch=FAMILY_BATCH, max_seq=FAMILY_PROMPT + 1,
                                    attention_impl="flash", n_layers=depth, params=params
                                    ).prefill(prompts, img)[0][:, :cfg.vocab].cpu()
-            rel["planted-f32"] = _rel(bad, exact)
-            log(f"[families] {arch}: prefill logits relative norm {json.dumps(rel)}; max |err| "
-                f"flash-xla {_err(first['flash'], first['xla']):.6f}")
-            # flash within LM_TOL of xla where bf16 itself keeps xla within
-            # LM_TOL of float32; everywhere, flash no farther from float32
-            # than xla is, plus LM_TOL, and the planted fault farther.
-            check(rel["flash-xla"] <= LM_TOL or rel["xla-f32"] > LM_TOL,
-                  f"[families] {arch}: flash vs xla prefill logits {rel}, bound {LM_TOL}")
-            check(rel["flash-f32"] <= rel["xla-f32"] + LM_TOL < rel["planted-f32"],
-                  f"[families] {arch}: prefill logits against float32 {rel}, bound {LM_TOL}")
+            _flash_rule(arch, "prefill", first["flash"], first["xla"], exact, bad)
         if not _flash_fits(cfg) and cfg.uses_attention:
             _refuses_flash(arch, lambda: ServeSession(
                 arch, batch=FAMILY_BATCH, max_seq=65, attention_impl="flash", n_layers=depth,
                 params=params).prefill(prompts[:, :64], img))
         del params, first
-    # The audio encoder: forward_train over frames, as the reference serves it.
+    # The audio encoder: forward_train over frames, as the reference serves
+    # it, under "xla" and "flash" (hd 80, not causal: a launch a layer).
     cfg = get_config(FAMILY_AUDIO)
     torch.cuda.empty_cache()
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
@@ -3823,27 +3832,62 @@ def _families_serve(smi: str) -> dict:
     check(n_params == count_params_analytical(cfg), f"[families] {FAMILY_AUDIO}: {n_params}")
     frames = torch.from_numpy(rng.normal(size=(FAMILY_BATCH, FAMILY_PROMPT, cfg.d_frontend))
                               .astype(np.float32)).cuda()
+    first = {}
+    for impl in ("xla", "flash"):
+        run_cfg = cfg.scaled(attention_impl=impl)
+        with torch.inference_mode():
+            forward_train(params, {"frames": frames[:, :64]}, run_cfg)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = forward_train(params, {"frames": frames}, run_cfg)
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
+        launches = _launches()
+        want_flash = FAMILY_FLASH_LAYERS[FAMILY_AUDIO] if impl == "flash" else 0
+        others = {k: v for k, v in launches.items() if k != "flash_attention" and v}
+        check(tuple(logits.shape) == (FAMILY_BATCH, FAMILY_PROMPT, cfg.padded_vocab)
+              and bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+              and launches["flash_attention"] == want_flash and not others,
+              f"[families] {FAMILY_AUDIO} {impl}: logits {tuple(logits.shape)}, launches "
+              f"{launches}, expected {want_flash} flash")
+        if impl == "flash":
+            flash[FAMILY_AUDIO] = launches["flash_attention"]
+        log(f"[families] {FAMILY_AUDIO} (audio encoder) {impl} at full width, all {cfg.n_layers} "
+            f"layers: {n_params} parameters in bf16; forward_train on {FAMILY_BATCH} x "
+            f"{FAMILY_PROMPT} frames in {enc_s:.6f} s ({FAMILY_BATCH * FAMILY_PROMPT / enc_s:.1f} "
+            f"frames/s); launches {launches}; logits finite; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes; {smi}")
+        first[impl] = logits[..., :cfg.vocab].float().cpu()
+        del logits
+    rows[FAMILY_AUDIO] = _family_flash_cases(FAMILY_AUDIO, cfg)["self"]
     with torch.inference_mode():
-        forward_train(params, {"frames": frames[:, :64]}, cfg)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _reset_launches()
-        t0 = time.perf_counter()
-        logits, _ = forward_train(params, {"frames": frames}, cfg)
-        torch.cuda.synchronize()
-        enc_s = time.perf_counter() - t0
-    launches = _launches()
-    check(tuple(logits.shape) == (FAMILY_BATCH, FAMILY_PROMPT, cfg.padded_vocab)
-          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()) and not any(launches.values()),
-          f"[families] {FAMILY_AUDIO}: logits {tuple(logits.shape)}, launches {launches}")
-    log(f"[families] {FAMILY_AUDIO} (audio encoder) at full width, all {cfg.n_layers} layers: "
-        f"{n_params} parameters in bf16; forward_train on {FAMILY_BATCH} x {FAMILY_PROMPT} frames "
-        f"in {enc_s:.6f} s ({FAMILY_BATCH * FAMILY_PROMPT / enc_s:.1f} frames/s); logits finite; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; {smi}")
-    _refuses_flash(FAMILY_AUDIO, lambda: forward_train(
-        params, {"frames": frames[:, :64]}, cfg.scaled(attention_impl="flash")))
-    del params, logits
-    return flash
+        exact = forward_train(tree_map(lambda t: t.float(), params), {"frames": frames},
+                              cfg.scaled(dtype="float32"))[0][..., :cfg.vocab].cpu()
+        torch.cuda.empty_cache()
+        with _dropped_kv_tile():
+            bad = forward_train(params, {"frames": frames}, cfg.scaled(attention_impl="flash")
+                                )[0][..., :cfg.vocab].float().cpu()
+    _flash_rule(FAMILY_AUDIO, "forward_train", first["flash"], first["xla"], exact, bad)
+    del params
+    return flash, rows
+
+
+def _flash_rule(arch: str, what: str, flash, xla, exact, bad) -> None:
+    """Phase 19's rule for a model path's logits under "flash", against the
+    same path under "xla" and in float32 on the same weights: flash within
+    LM_TOL of xla where bf16 itself keeps xla within LM_TOL of float32;
+    everywhere, flash no farther from float32 than xla is, plus LM_TOL, and
+    ``bad`` (the path with a KV tile dropped in every flash call) farther."""
+    rel = {"flash-xla": _rel(flash, xla), "flash-f32": _rel(flash, exact),
+           "xla-f32": _rel(xla, exact), "planted-f32": _rel(bad, exact)}
+    log(f"[families] {arch}: {what} logits relative norm {json.dumps(rel)}; max |err| "
+        f"flash-xla {_err(flash, xla):.6f}")
+    check(rel["flash-xla"] <= LM_TOL or rel["xla-f32"] > LM_TOL,
+          f"[families] {arch}: flash vs xla {what} logits {rel}, bound {LM_TOL}")
+    check(rel["flash-f32"] <= rel["xla-f32"] + LM_TOL < rel["planted-f32"],
+          f"[families] {arch}: {what} logits against float32 {rel}, bound {LM_TOL}")
 
 
 def _profile_serve(arch: str, sess, prompts, img, tag: str = "[families]",
@@ -3898,20 +3942,24 @@ def _dropped_kv_tile():
         layers.flash_attention_bshd = real
 
 
-def _family_flash_cases(arch: str, cfg) -> None:
+def _family_flash_cases(arch: str, cfg) -> dict:
     """The kernel at the config's attention shapes in the serve run (the
     vlm's non-causal cross attention over the image tokens too), on normal
     operands, held to its plain version elementwise and by row, with its
-    scored tiles equal to the skip rule's."""
+    scored tiles equal to the skip rule's; timed a launch through the
+    wrapper (CUDA events) and alone on the device (a replayed CUDA graph),
+    beside its bound, its plain version and scaled_dot_product_attention.
+    Returns a kernels-line row by shape label (launches 0: the caller's)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bshd_cuda,
         flash_attention_bshd_reference,
     )
 
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    shapes = [("self", FAMILY_PROMPT, True)]
+    shapes = [("self", FAMILY_PROMPT, cfg.causal)]
     if cfg.family == "vlm":
         shapes.append(("cross", cfg.n_image_tokens, False))
+    rows = {}
     for label, sk, causal in shapes:
         ops = _gqa_inputs(FAMILY_BATCH, FAMILY_PROMPT, sk, h, kh, hd, torch.bfloat16, seed=sk)
         err, row, tiles = _flash_case(flash_attention_bshd_cuda, flash_attention_bshd_reference,
@@ -3926,17 +3974,29 @@ def _family_flash_cases(arch: str, cfg) -> None:
                                         ("sdpa", sdpa, [()], 10)):
             _time_ms(fn, calls, 2)
             times[name] = _time_ms(fn, calls, rounds)
+        graph = _graph(kernel, [ops])
+        device_ms = _replay_ms(graph)
+        del graph
         kp = ops[4] if causal else torch.zeros_like(ops[4])  # not causal: every pair visible
         bound, pairs = _flash_bound(ops[3], kp, hd, h, kh)
         log(f"[families] {arch} {label} attention, the kernel vs its plain version (B "
             f"{FAMILY_BATCH}, Sq {FAMILY_PROMPT}, Sk {sk}, H {h}, KH {kh}, hd {hd}, bf16, "
             f"{'causal' if causal else 'not causal'}): max |err| {err:.3e} (bound "
             f"{FLASH_TOL['bfloat16']}), max row error {row:.3e} (bound {FLASH_ROW_TOL['bfloat16']}), "
-            f"{tiles} KV tiles scored (== the skip rule); {times['kernel']:.6f} ms a launch, bound "
-            f"{bound[0]:.6f} ms ({bound[1]}, {pairs} pairs), {100 * bound[0] / times['kernel']:.2f} % "
-            f"of it; plain version {times['plain']:.6f} ms; scaled_dot_product_attention "
-            f"(enable_gqa) {times['sdpa']:.6f} ms")
+            f"{tiles} KV tiles scored (== the skip rule); {times['kernel']:.6f} ms a launch, "
+            f"{device_ms:.6f} ms alone on the device (a CUDA graph of {GRAPH_LAUNCHES} launches), "
+            f"bound {bound[0]:.6f} ms ({bound[1]}, {pairs} pairs), "
+            f"{100 * bound[0] / times['kernel']:.2f} % of it a launch, "
+            f"{100 * bound[0] / device_ms:.2f} % alone; plain version {times['plain']:.6f} ms; "
+            f"scaled_dot_product_attention (enable_gqa) {times['sdpa']:.6f} ms")
+        rows[label] = _row(FAMILY_FLASH_ROWS.get(arch, f"flash_attention[{arch} {label}]"),
+                           "src/repro_torch/kernels/csrc/flash_attention.cu",
+                           "src/repro/kernels/flash_attention.py:71", 0, times["kernel"],
+                           times["plain"], bound, times["sdpa"])
+        rows[label].update(max_abs_err=err, max_row_rel_err=row, tiles_scored=tiles,
+                           device_ms=device_ms)
         del ops, q4, k4, v4
+    return rows
 
 
 def _refuses_flash(arch: str, run) -> None:
@@ -4002,22 +4062,24 @@ def _families_f32() -> None:
     del card, host
 
 
-def phase_families() -> dict:
-    """19: the other LM families on the card (see the module docstring)."""
+def phase_families() -> tuple[dict, dict]:
+    """19: the other LM families on the card (see the module docstring).
+    Returns the flash launches of the full-width paths by config and the
+    kernel rows of FAMILY_FLASH_ROWS by config."""
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     smoke_flash = _families_smoke()
     t_smoke = time.perf_counter() - t_phase
-    flash = _families_serve(smi)
+    flash, rows = _families_serve(smi)
     t_serve = time.perf_counter() - t_phase - t_smoke
     _families_f32()
     torch.cuda.empty_cache()
     log(f"[families] phase 19 took {time.perf_counter() - t_phase:.3f} s (smoke {t_smoke:.3f}, "
         f"full-width serve {t_serve:.3f}); flash launches: serve {flash}, smoke teacher forcing "
         f"{smoke_flash}")
-    return flash
+    return flash, rows
 
 
 # ---------------------------------------------------------------- phase 20
@@ -4738,45 +4800,62 @@ def main() -> int:
     if sys.argv[1:] == [SHARD_RESUME_FLAG]:
         return _sharded_resume_child()
     t_start = time.perf_counter()
-    name = phase_device()
-    phase_build()
-    err = phase_kernel_cases()
-    err_seg = phase_segment_cases()
-    err_unfused = phase_unfused_cases()
-    main_run = phase_main()
-    phase_device_build(main_run)
-    row, err_main, chunks, store_row, store_col = phase_timing(main_run)
+    seconds = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__] = round(time.perf_counter() - t0, 3)
+        log(f"[time] {fn.__name__} took {seconds[fn.__name__]:.3f} s")
+        return out
+
+    name = timed(phase_device)
+    timed(phase_build)
+    err = timed(phase_kernel_cases)
+    err_seg = timed(phase_segment_cases)
+    err_unfused = timed(phase_unfused_cases)
+    main_run = timed(phase_main)
+    timed(phase_device_build, main_run)
+    row, err_main, chunks, store_row, store_col = timed(phase_timing, main_run)
     row["max_abs_err"] = max(err, err_main)
-    serve = phase_serve()
-    rows, err_serve = phase_serve_timing(serve, chunks, store_row, store_col)
+    serve = timed(phase_serve)
+    rows, err_serve = timed(phase_serve_timing, serve, chunks, store_row, store_col)
     rows[0]["max_abs_err"] = max(err_seg, err_serve)
     for r in rows[1:]:
         r["max_abs_err"] = max(err_unfused, err_serve)
-    err_bitgemm, err_mxu = phase_dense_cases()
-    dense = phase_dense()
-    dense_rows = phase_dense_timing(dense)
+    err_bitgemm, err_mxu = timed(phase_dense_cases)
+    dense = timed(phase_dense)
+    dense_rows = timed(phase_dense_timing, dense)
     dense_rows[0]["max_abs_err"] = err_bitgemm
     for r in dense_rows[1:]:
         r["max_abs_err"] = err_mxu
-    err_flash, row_err_flash = phase_flash_cases()
-    lm = phase_lm_serve()
-    flash_rows = phase_flash_timing(lm)
-    for r in flash_rows:
-        r["max_abs_err"] = max(r["max_abs_err"], *err_flash.values())
-        r["max_row_rel_err"] = max(r["max_row_rel_err"], *row_err_flash.values())
-    stream = phase_stream()
+    err_flash, row_err_flash = timed(phase_flash_cases)
+    lm = timed(phase_lm_serve)
+    flash_rows = timed(phase_flash_timing, lm)
+    stream = timed(phase_stream)
     row["stream_launches_per_batch"] = stream["launches_per_batch"]
-    phase_stream_serve()
-    row["sharded_launches"] = phase_sharded(main_run)
-    phase_contracts(main_run, serve)
-    one_device = phase_train()
-    family_flash = phase_families()
-    phase_sharded_train(one_device)
-    sharded_flash = phase_sharded_serve(lm)
+    timed(phase_stream_serve)
+    row["sharded_launches"] = timed(phase_sharded, main_run)
+    timed(phase_contracts, main_run, serve)
+    one_device = timed(phase_train)
+    family_flash, family_rows = timed(phase_families)
+    timed(phase_sharded_train, one_device)
+    sharded_flash = timed(phase_sharded_serve, lm)
     flash_rows[0]["launches_by_path"] = {"lm_serve": flash_rows[0]["launches"], **family_flash,
                                          **sharded_flash}
     flash_rows[0]["launches"] += sum(family_flash.values()) + sum(sharded_flash.values())
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    # The two widths only a family runs: launches on their own paths.
+    for arch, r in family_rows.items():
+        r["launches_by_path"] = {"families": family_flash[arch]}
+        if f"sharded_serve:{arch}" in sharded_flash:
+            r["launches_by_path"]["sharded_serve"] = sharded_flash[f"sharded_serve:{arch}"]
+        r["launches"] = sum(r["launches_by_path"].values())
+        flash_rows.append(r)
+    for r in flash_rows:
+        r["max_abs_err"] = max(r["max_abs_err"], *err_flash.values())
+        r["max_row_rel_err"] = max(r["max_row_rel_err"], *row_err_flash.values())
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by phase "
+        f"{json.dumps(seconds)}")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": [row, *rows, *dense_rows, *flash_rows]}))
     print(json.dumps({"ok": True, "device": {

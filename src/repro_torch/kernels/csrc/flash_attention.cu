@@ -48,9 +48,14 @@
 //   while P V finishes, so the exponentials overlap the tensor cores.
 //   Tiles are stored as TMA writes them: rows of hd * 2 bytes with the 32B
 //   (hd 16), 64B (hd 32) or 128B (hd 64, and two 64-column panels at hd
-//   128) swizzle, and the wgmma descriptors name the same swizzle. TMA
-//   zero-fills rows past Sq and Sk; keys past Sk still get s = -inf (p = 0)
-//   and rows past Sq are never stored. The mask is applied by selects, with
+//   80, 112 and 128) swizzle, and the wgmma descriptors name the same
+//   swizzle. TMA zero-fills rows past Sq and Sk, and at hd 80 and 112 the
+//   columns hd..127 of the second panel (the tensor maps are hd wide, the
+//   boxes 64): Q K^T takes only the hd / 16 real k steps, P V multiplies
+//   the zero columns into output columns that are never stored, so those
+//   two widths run hd 128's shared-memory plan and P V at 128 / hd of its
+//   true work. Keys past Sk still get s = -inf (p = 0) and rows past Sq
+//   are never stored. The mask is applied by selects, with
 //   no branch between an MMA in flight and its wait (ptxas serialises the
 //   MMAs across such a branch). The producer warpgroup keeps 40 registers
 //   a thread, the consumers 232.
@@ -58,13 +63,14 @@
 //   tiles and 64-key KV tiles staged with plain loads, 4 threads a row, the
 //   same skip rule and rescan.
 //
-// Bound. Operations: 4 hd flops a visible (query, key) pair (QK^T and PV),
-// against 989 TFLOP/s dense bf16 on the H100; bytes: Q, K, V and the
-// positions read once and O written once, against 3.35 TB/s. At the LM
-// serving prefill (8 x 9 heads, S = 4096, hd 64, causal) the operations
-// bind: about 0.16 ms against 0.04 ms for the bytes. The diagonal tiles are
-// scored whole, so the kernel does about 3 % more work than the bound
-// counts at that shape.
+// Bound. Operations: 4 hd flops a visible (query, key) pair (QK^T and PV,
+// at the true hd), against 989 TFLOP/s dense bf16 on the H100; bytes: Q, K,
+// V and the positions read once and O written once, against 3.35 TB/s. At
+// the LM serving prefill (8 x 9 heads, S = 4096, hd 64, causal) the
+// operations bind: about 0.16 ms against 0.04 ms for the bytes. The
+// diagonal tiles are scored whole, so the kernel does about 3 % more work
+// than the bound counts at that shape. At the hd 80 and 112 paths (B 4 x
+// 512) the bytes bind.
 
 #include <climits>
 #include <cmath>
@@ -137,11 +143,13 @@ constexpr int kEmptyArrivals = 8;   // one a consumer warp
 
 template <int HD>
 struct Plan {
+  static_assert(HD % 16 == 0, "the bf16 wgmma's k step is 16");
   static constexpr int kPanelCols = HD < 64 ? HD : 64;   // columns a swizzled panel
-  static constexpr int kPanels = HD / kPanelCols;
+  // Rounded up: at hd 80 and 112 the second panel is zero past column hd.
+  static constexpr int kPanels = (HD + kPanelCols - 1) / kPanelCols;
   static constexpr int kSwizzle = 2 * kPanelCols;       // bytes a panel row
   static constexpr int kPanelBytes = kTile * kSwizzle;
-  static constexpr int kTileBytes = kTile * HD * 2;      // Q, one K or one V tile
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // Q, one K or one V tile (TMA's box)
   static constexpr int kStages = 3;  // the consumers hold two: the third loads meanwhile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kTileBytes;
@@ -155,8 +163,9 @@ struct Plan {
 };
 
 // S[64 x 128] = Q K^T for one consumer warpgroup: Q's 64 rows at `q_wg`, a
-// K tile at `k_tile`, both K-major in swizzled panels. Element 4j + e of s
-// sits at row r_lo (+8 for e >= 2), key column 8j + 2 tig + (e & 1).
+// K tile at `k_tile`, both K-major in swizzled panels; only the hd / 16 k
+// steps over real columns. Element 4j + e of s sits at row r_lo (+8 for
+// e >= 2), key column 8j + 2 tig + (e & 1).
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&s)[kTile / 2], const unsigned char* q_wg,
                                          const unsigned char* k_tile) {
@@ -176,7 +185,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[kTile / 2], const unsigned c
 }
 
 // acc += P V: P in registers (the A fragments of the 8 k16 steps), a V
-// tile at `v_tile` read N-major (transposed) from its swizzled panels.
+// tile at `v_tile` read N-major (transposed) from its swizzled panels, every
+// panel whole (a padded panel's zero columns give zero outputs).
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&acc)[Plan<HD>::kPanels][Plan<HD>::kPanelCols / 2],
                                          const uint32_t (&pa)[kTile / 16][4],
@@ -547,6 +557,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
     for (int p = 0; p < P::kPanels; ++p) {
 #pragma unroll
       for (int j = 0; j < P::kPanelCols / 8; ++j) {
+        if (p * P::kPanelCols + 8 * j >= HD) continue;  // a padded panel's zero columns
         const int c = p * P::kPanelCols + 8 * j + 2 * tig;
         if (row0 < sq) {
           *reinterpret_cast<__nv_bfloat162*>(o + row0 * args.o_ss + c) =
@@ -697,7 +708,8 @@ flash_f32_kernel(const Args args) {
 
 // A 4-D map (hd, heads, rows, batch) over a bf16 [B, S, heads, hd] tensor
 // with element strides sb, ss, sh; box: one panel of the head dim, one head,
-// 128 rows, one batch.
+// 128 rows, one batch. The map is hd wide, so a box past column hd (the
+// second panel at hd 80 and 112) reads zeros there.
 template <int HD>
 int bf16_map(CUtensorMap* map, const void* base, int batch, int rows, int heads, long long sb,
              long long ss, long long sh) {
@@ -756,7 +768,7 @@ int launch(const Args& args, int batch, int is_bf16, cudaStream_t stream) {
 // `strides` holds the element strides (batch, row, head) of q, k, v and o
 // and (batch, row) of qpos and kpos, 16 values; hd is contiguous. bf16 when
 // is_bf16 (16-byte aligned bases and strides, for TMA), else f32. hd is 16,
-// 32, 64 or 128; batch and heads <= 65535; sq, sk >= 1. `tiles`, if not
+// 32, 64, 80, 112 or 128; batch and heads <= 65535; sq, sk >= 1. `tiles`, if not
 // null, gains the number of KV tiles scored. Returns 0 on success, a CUDA
 // error code, or minus a driver error code if a tensor map was refused.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* qpos,
@@ -774,6 +786,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 16: return launch<16>(args, batch, is_bf16, s);
     case 32: return launch<32>(args, batch, is_bf16, s);
     case 64: return launch<64>(args, batch, is_bf16, s);
+    case 80: return launch<80>(args, batch, is_bf16, s);
+    case 112: return launch<112>(args, batch, is_bf16, s);
     case 128: return launch<128>(args, batch, is_bf16, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,7 +10,8 @@ output ``acc / max(l, 1e-30)`` in ``q``'s type. It carries the prefill of
 Two layouts, one kernel (``csrc/flash_attention.cu``; its header gives the
 design and bound: ``wgmma`` fed by TMA for bfloat16, scalar FMA for float32,
 KV tiles that every pair of a q tile masks are skipped, ``hd`` in
-{16, 32, 64, 128}):
+{16, 32, 64, 80, 112, 128}; at 80 and 112 the bf16 body pads the head dim
+to two 64-column panels in shared memory):
 
   * ``flash_attention_bshd`` — the model's layout and the port's main entry:
     ``q [B, Sq, H, hd]``, ``k``/``v [B, Sk, KH, hd]`` (GQA: query head ``h``
@@ -54,7 +55,7 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
-FLASH_HEAD_DIMS = (16, 32, 64, 128)  # the kernel's templates
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 112, 128)  # the kernel's templates
 FLASH_TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}  # (q rows, keys) a tile
 _GRID_LIMIT = 65535  # gridDim.y (heads) and gridDim.z (batch)
 _PLAIN_SCORES = 1 << 28  # score elements the plain version holds at once
@@ -208,7 +209,7 @@ def _check_bshd_shapes(q, k, v, q_pos, k_pos) -> None:
     """Raise on shapes and types the kernel does not take in the
     ``[B, S, H, hd]`` layout: ``flash_attention_bshd`` checks these on both
     devices, so the CPU path refuses what the card would (an MLA value
-    width, hubert's hd 80, zamba2's 112)."""
+    width, a head dim outside ``FLASH_HEAD_DIMS``)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be [B, S, heads, hd]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")

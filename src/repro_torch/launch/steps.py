@@ -20,9 +20,11 @@ computes, up to reduction order (``sharded_loss_and_grads``):
      the layers' tensor-parallel compute is not ported);
   4. the shards' losses and gradients combine into the global loss's
      gradient (next-token CE: ``1/n`` each; the audio family's masked loss:
-     each shard's mask count over the global count; MoE: each shard must
-     hold whole routing groups, else ``ValueError``), reduced in float32
-     into the blocks of the gradient spec;
+     each shard's mask count over the global count), reduced in float32
+     into the blocks of the gradient spec. An MoE microbatch whose shards
+     would cut a routing group of ``min(1024, tokens)`` runs as one shard
+     on its first device instead, so its routing, drops and aux losses are
+     the global ones, as the reference's GSPMD step routes them;
   5. the global norm is taken over distinct blocks (a replicated leaf
      counts once, not once a logical shard), and AdamW runs block by block.
 
@@ -177,11 +179,13 @@ def _placed_tree(tree, shardings, prefix: str):
 
 
 def _dp_shards(cfg: ModelConfig, batch: dict, microbatches: int) -> list:
-    """[(weight, device, rows of each batch leaf)] for every (microbatch,
-    distinct dp shard), microbatches first. A weight is what the shard's
-    loss counts in the global loss: a float, or a 0-d tensor on the first
-    shard's device (the audio family's mask counts, read from the batch on
-    the device: nothing is read back to the host)."""
+    """[(weight, device, rows of each batch leaf, first row)] for every
+    (microbatch, distinct dp shard), microbatches first. A weight is what
+    the shard's loss counts in the global loss: a float, or a 0-d tensor on
+    the first shard's device (the audio family's mask counts, read from the
+    batch on the device: nothing is read back to the host). An MoE
+    microbatch whose dp shards would cut a routing group is one shard on
+    the first device, weight ``1 / microbatches``."""
     first = batch["tokens" if "tokens" in batch else "frames"]
     rows, seq = first.shape[0], first.shape[1]
     layout = first.sharding.layout(first.ndim)
@@ -193,15 +197,9 @@ def _dp_shards(cfg: ModelConfig, batch: dict, microbatches: int) -> list:
         raise ValueError(f"a batch of {rows} rows does not split into {microbatches} "
                          f"microbatches of {n} data-parallel shards")
     mb_rows = rows // microbatches
+    if cfg.family == "moe" and (mb_rows // n * seq) % min(MOE_GROUP, mb_rows * seq):
+        n = 1  # the shards would cut a routing group: the microbatch routes whole
     shard_rows = mb_rows // n
-    if cfg.family == "moe" and n > 1:
-        group = min(MOE_GROUP, mb_rows * seq)
-        if (shard_rows * seq) % group:
-            raise ValueError(
-                f"a shard of {shard_rows} x {seq} tokens cuts the MoE's routing groups of "
-                f"{group} tokens ({mb_rows} x {seq} a microbatch over {n} shards): routing, "
-                f"drops and aux losses would differ per shard; use a batch whose shards hold "
-                f"whole groups")
     home = dev_of[0]
     out = []
     for j in range(microbatches):
@@ -209,20 +207,15 @@ def _dp_shards(cfg: ModelConfig, batch: dict, microbatches: int) -> list:
         for i in range(n):
             lo = j * mb_rows + i * shard_rows
             dev = dev_of[i]
-            part = {}
-            for k, leaf in batch.items():
-                per_block = leaf.shape[0] // leaf.sharding.blocks_per_dim(leaf.ndim)[0]
-                idx = (lo // per_block,) + (0,) * (leaf.ndim - 1)
-                off = lo - idx[0] * per_block
-                part[k] = leaf.held(idx, dev)[off:off + shard_rows]
-            shards.append((dev, part))
+            part = {k: leaf.read((slice(lo, lo + shard_rows),), dev) for k, leaf in batch.items()}
+            shards.append((dev, part, lo))
         if cfg.family == "audio":
-            counts = [stage(p["mask"].sum(dtype=torch.float32), home) for _, p in shards]
+            counts = [stage(p["mask"].sum(dtype=torch.float32), home) for _, p, _ in shards]
             total = torch.clamp(sum(counts), min=1.0)
             weights = [c / total / microbatches for c in counts]
         else:
             weights = [1.0 / n / microbatches] * n
-        out += [(w, dev, part) for w, (dev, part) in zip(weights, shards)]
+        out += [(w, dev, part, lo) for w, (dev, part, lo) in zip(weights, shards)]
     return out
 
 
@@ -236,7 +229,7 @@ def sharded_loss_and_grads(params, batch: dict, cfg: ModelConfig, grad_shardings
     shards = _dp_shards(cfg, batch, microbatches)
     home = shards[0][1]
     full = {}
-    for _, dev, _ in shards:
+    for _, dev, _, _ in shards:
         if dev not in full:
             full[dev] = gather_tree(params, dev)
     gsh = tree_leaves(grad_shardings)
@@ -246,7 +239,7 @@ def sharded_loss_and_grads(params, batch: dict, cfg: ModelConfig, grad_shardings
              for sh, shape in zip(gsh, shapes)]
     acc: list[dict] = [{} for _ in gsh]
     loss, metrics = None, {}
-    for w, dev, part in shards:
+    for w, dev, part, _ in shards:
         s_loss, s_metrics, s_grads = loss_and_grads(full[dev], part, cfg)
         w_home = w if isinstance(w, float) else stage(w, home)
         term = stage(s_loss, home) * w_home
@@ -385,9 +378,7 @@ def _sharded_prefill_step(cfg: ModelConfig, mesh):
     def prefill_step(params, cache, batch):
         full, cache = _serve_inputs(cfg, mesh, params, cache)
         batch = _placed_tree(batch, _batch_shardings(cfg, mesh, batch), "batch")
-        shards = _dp_shards(cfg, batch, 1)
-        rows = batch["tokens"].shape[0]
-        shards = [(i * rows // len(shards), dev, part) for i, (_, dev, part) in enumerate(shards)]
+        shards = [(lo, dev, part) for _, dev, part, lo in _dp_shards(cfg, batch, 1)]
         return prefill_placed(full, shards, cache, cfg, home)
 
     return prefill_step

@@ -12,11 +12,14 @@ on this JAX). The prefill caches are held leaf by leaf, their dtypes
 included (SSM conv states follow the activations' dtype, as JAX promotes
 them); decode equals teacher forcing on the port within the reference's
 2e-2 (``tests/test_models.py``); an MoE config that drops tokens drops
-them as the reference does; the flash path refuses the head dims and value
-widths its kernel lacks, on the CPU as on the card.
+them as the reference does; the flash path takes hubert's head dim 80 and
+zamba2's 112 as the reference's does, and refuses MLA's widths (96, values
+64), on the CPU as on the card.
 
 Tolerances: float32 equal tokens and 1e-4 on logits; bfloat16 3e-2 on
-logits, teacher-forced on the port's tokens; caches 3e-2 (bf16 leaves).
+logits, teacher-forced on the port's tokens; caches 3e-2 (bf16 leaves);
+flash attention at hd 80 and 112 against the reference's XLA attention,
+relative norm 1e-5 in float32 and 3e-2 in bfloat16.
 """
 import functools
 
@@ -29,6 +32,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_smoke_config as jx_get_smoke_config  # noqa: E402
+from repro.models import layers as jx_layers  # noqa: E402
 from repro.models import model as jx_model  # noqa: E402
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
@@ -265,12 +269,39 @@ def test_audio_prefill_is_a_full_forward_and_has_no_decode():
 # ------------------------------------------------ flash: no quiet fallback
 
 
-@pytest.mark.parametrize("hd,vd", [(80, 80), (96, 96), (112, 112), (96, 64)])
+FLASH_REL_TOL = {"float32": 1e-5, "bfloat16": 3e-2}  # relative norm, flash vs xla
+
+
+@pytest.mark.parametrize("hd", [80, 112])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_takes_head_dims_80_and_112(hd, dtype):
+    """hubert's 80 and zamba2's 112 (GQA and MHA heads, causal and not):
+    the port's ``attention_op(impl="flash")`` against the reference's
+    ``attention_op(impl="xla")`` on the same numbers."""
+    rng = np.random.default_rng(hd)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    for (h, kh), causal in (((4, 2), True), ((2, 2), False)):
+        q, k, v = (np.asarray(jnp.asarray(rng.normal(size=(2, s, n, hd)), jdt), np.float32)
+                   for s, n in ((9, h), (13, kh), (13, kh)))
+        qp = np.broadcast_to(np.arange(4, 13, dtype=np.int32), (2, 9)).copy()
+        kp = np.broadcast_to(np.arange(13, dtype=np.int32), (2, 13)).copy()
+        want = jx_layers.attention_op(*(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(qp),
+                                      jnp.asarray(kp), causal, impl="xla")
+        got = pt_layers.attention_op(
+            *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)),
+            torch.from_numpy(qp), torch.from_numpy(kp), causal, impl="flash")
+        assert tuple(got.shape) == (2, 9, h, hd) and got.dtype == getattr(torch, dtype)
+        want = np.asarray(want, np.float32)
+        rel = np.linalg.norm(_np(got) - want) / np.linalg.norm(want)
+        assert rel <= FLASH_REL_TOL[dtype], (h, kh, causal, rel)
+
+
+@pytest.mark.parametrize("hd,vd", [(96, 96), (96, 64)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_refuses_head_dims_the_kernel_lacks(hd, vd, dtype):
-    """hubert's 80, MLA's 96 (values 64) and zamba2's 112: ``impl="flash"``
-    raises ``ValueError`` naming the widths, on the CPU as on the card,
-    where the plain path would have taken them."""
+    """MLA's 96 (values 64), and 96 alone: ``impl="flash"`` raises
+    ``ValueError`` naming the widths, on the CPU as on the card, where the
+    plain path would have taken them."""
     rng = np.random.default_rng(hd + vd)
     q = torch.from_numpy(rng.normal(size=(1, 5, 2, hd)).astype(np.float32)).to(getattr(torch, dtype))
     k = torch.from_numpy(rng.normal(size=(1, 5, 2, hd)).astype(np.float32)).to(q.dtype)
@@ -282,12 +313,29 @@ def test_flash_refuses_head_dims_the_kernel_lacks(hd, vd, dtype):
     assert tuple(out.shape) == (1, 5, 2, vd)
 
 
-@pytest.mark.parametrize("arch,head_dim", [("minicpm3-4b", None), ("hubert-xlarge", 80),
-                                           ("zamba2-7b", 112)])
-def test_flash_configs_with_unsupported_heads_raise(arch, head_dim):
+@pytest.mark.parametrize("arch,head_dim", [("hubert-xlarge", 80), ("zamba2-7b", 112)])
+def test_flash_configs_at_80_and_112_match_reference(arch, head_dim):
+    """hubert and zamba2 at their real head width (smoke depth and model
+    width otherwise), float32: the port's ``forward_train`` under "flash"
+    against the reference's under "xla" on the same weights."""
+    jcfg, pcfg = _cfg(arch, "float32", head_dim=head_dim)
+    jp, pp = _params(arch, "float32", head_dim=head_dim)
+    rng = np.random.default_rng(0)
+    if pcfg.family == "audio":
+        batch = {"frames": rng.normal(size=(B, 8, pcfg.d_frontend)).astype(np.float32)}
+    else:
+        batch = {"tokens": rng.integers(0, pcfg.vocab, (B, 8)).astype(np.int32)}
+    want, _ = jx_model.forward_train(jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+    with torch.no_grad():
+        got, _ = pt_model.forward_train(pp, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                        pcfg.scaled(attention_impl="flash"))
+    assert got.shape == want.shape and pcfg.resolved_head_dim == head_dim
+    _close(got, want, LOGIT_TOL["float32"])
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b"])
+def test_flash_configs_with_unsupported_heads_raise(arch):
     cfg = get_smoke_config(arch).scaled(attention_impl="flash", dtype="float32")
-    if head_dim:
-        cfg = cfg.scaled(head_dim=head_dim)
     params = pt_model.init_model(0, cfg, "cpu")
     rng = np.random.default_rng(0)
     if cfg.family == "audio":

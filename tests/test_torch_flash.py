@@ -85,7 +85,7 @@ def test_plain_version_matches_ref_attn(sq, sk, causal, dtype):
     _close(_port(q, k, v, qp, kp, causal, dtype), want, dtype)
 
 
-@pytest.mark.parametrize("hd", [16, 64, 128, 48])
+@pytest.mark.parametrize("hd", [16, 64, 80, 112, 128, 48])
 def test_plain_version_any_head_dim(hd):
     q, k, v, qp, kp = _operands(hd, 2, 70, 70, hd, "float32")
     want = _ref_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -276,7 +276,7 @@ def _good(hd=32, dtype=torch.bfloat16, bh=2, sq=8, sk=8):
     return q, k, k.clone(), pos_q, pos_k
 
 
-@pytest.mark.parametrize("hd", [8, 48, 80, 256])
+@pytest.mark.parametrize("hd", [8, 48, 96, 256])
 def test_kernel_wrapper_rejects_unsupported_head_dim(hd):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_cuda(*_good(hd=hd))

@@ -419,7 +419,7 @@ def _flash_operands(seed, bh, sq, sk, hd, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128])
 @pytest.mark.parametrize("sq,sk", [(1, 1), (64, 64), (100, 100), (256, 128), (64, 256), (517, 1030)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_equals_plain_on_card(cuda, dtype, hd, sq, sk, causal):
@@ -442,7 +442,7 @@ def test_flash_kernel_equals_plain_on_card(cuda, dtype, hd, sq, sk, causal):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128])
 @pytest.mark.parametrize("h,kh", [(9, 3), (4, 1)])
 @pytest.mark.parametrize("positions", ["arange", "reversed", "keys after queries"])
 def test_flash_bshd_kernel_equals_plain_on_card(cuda, dtype, hd, h, kh, positions):
@@ -1070,7 +1070,29 @@ def test_ssd_chunked_on_card_matches_cpu_at_full_chunk(cuda):
     assert torch.isfinite(xs.grad).all()
 
 
-@pytest.mark.parametrize("hd,vd", [(80, 80), (96, 96), (112, 112), (96, 64), (128, 64)])
+@pytest.mark.parametrize("hd", [80, 112])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_takes_hubert_and_zamba2_heads_on_card(cuda, hd, causal):
+    """hubert's 80 (not causal) and zamba2's 112 (causal): the model's entry
+    launches the kernel once and equals the plain version."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bshd,
+        flash_attention_bshd_reference,
+        flash_attention_cuda,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn(2, 200, 4, hd, generator=gen, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    pos = torch.arange(200, dtype=torch.int32, device=cuda)[None].expand(2, 200)
+    before = flash_attention_cuda.launches
+    got = flash_attention_bshd(q, k, v, pos, pos, causal=causal)
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention_bshd_reference(q, k, v, pos, pos, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("hd,vd", [(96, 96), (96, 64), (128, 64)])
 def test_flash_refuses_unsupported_heads_on_card(cuda, hd, vd):
     from repro_torch.kernels.flash_attention import flash_attention_bshd, flash_attention_cuda
 

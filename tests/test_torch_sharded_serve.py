@@ -58,12 +58,12 @@ PARTIAL_TOL = 1e-6
 CACHE_TOL = 1e-6
 
 
-def _shape(arch):
-    return SHAPE.get(arch, (B, PLEN, GEN))
+def _shape(arch, shape=None):
+    return shape or SHAPE.get(arch, (B, PLEN, GEN))
 
 
-def _max_seq(arch):
-    b, plen, gen = _shape(arch)
+def _max_seq(arch, shape=None):
+    b, plen, gen = _shape(arch, shape)
     return plen + gen + 2  # even: the sequence splits over 'model'
 
 
@@ -95,8 +95,8 @@ def _params(arch, dtype):
     return jp, params_from_numpy(jax.tree.map(np.asarray, jp), pcfg, "cpu")
 
 
-def _prompts(arch, cfg):
-    b, plen, _ = _shape(arch)
+def _prompts(arch, cfg, shape=None):
+    b, plen, _ = _shape(arch, shape)
     return np.random.default_rng(1).integers(0, cfg.vocab, (b, plen), dtype=np.int32)
 
 
@@ -108,19 +108,20 @@ def _image(arch, cfg):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_greedy(arch, dtype):
+def _reference_greedy(arch, dtype, shape=None):
     """The reference's greedy loop outside a mesh: (tokens [B, GEN], logits
     [GEN, B, V]). Its two steps are jitted, which gives the eager loop's
-    tokens and logits here in a third of the time."""
+    tokens and logits here in a third of the time. ``shape`` (batch, prompt,
+    generated) replaces the arch's own."""
     jcfg, _ = _cfg(arch, dtype)
     params, _ = _params(arch, dtype)
-    b, plen, gen = _shape(arch)
-    batch = {"tokens": jnp.asarray(_prompts(arch, jcfg))}
+    b, plen, gen = _shape(arch, shape)
+    batch = {"tokens": jnp.asarray(_prompts(arch, jcfg, shape))}
     if jcfg.family == "vlm":
         batch["image_embeds"] = jnp.asarray(_image(arch, jcfg))
     prefill = jax.jit(jx_model.forward_prefill, static_argnums=3)  # the eager loop's numbers
     decode = jax.jit(jx_model.decode_step, static_argnums=4)
-    cache = jx_model.init_cache(jcfg, b, _max_seq(arch))
+    cache = jx_model.init_cache(jcfg, b, _max_seq(arch, shape))
     logits, cache = prefill(params, batch, cache, jcfg)
     kept = [np.asarray(logits)]
     out = [jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]]
@@ -453,18 +454,37 @@ def test_steps_on_a_mesh_place_a_dense_cache():
     _close(cache["k"].full(CPU), wcache["k"], CACHE_TOL)
 
 
-def test_moe_prefill_refuses_shards_that_cut_routing_groups():
+def test_moe_prefill_routes_groups_its_shards_would_cut(monkeypatch):
     """16-token prompts route groups of 64 (4 x 16): a 2-way 'data' split
-    would route each shard's 32 tokens alone, so the sharded prefill raises
-    instead of routing and dropping otherwise than one device."""
-    arch = "moonshot-v1-16b-a3b"
+    would route each shard's 32 tokens alone, so the sharded prefill runs
+    the batch as one shard on the mesh's first device (one
+    ``forward_prefill``) and scatters its cache into every block: the
+    generated tokens and every step's logits equal the one-device session's
+    and the reference's greedy loop. Rows that do not split still raise."""
+    arch, shape = "moonshot-v1-16b-a3b", (B, PLEN, GEN)
     _, pcfg = _cfg(arch, "float32")
-    sess = _session(arch, "float32", _mesh(2, 2), batch=B, max_seq=24)
-    prompts = np.random.default_rng(1).integers(0, pcfg.vocab, (B, PLEN), dtype=np.int32)
-    with pytest.raises(ValueError, match="routing groups of 64 tokens"):
-        sess.generate(prompts, 2)
-    sess = _session(arch, "float32", _mesh(1, 1), batch=B, max_seq=24)
-    assert sess.generate(prompts, 2)[0].shape == (B, PLEN + 2)  # one shard holds every group
+    prompts = _prompts(arch, pcfg, shape)
+    want_tokens, want_logits = _reference_greedy(arch, "float32", shape)
+    calls = []
+    real = pt_model.forward_prefill
+    monkeypatch.setattr(pt_model, "forward_prefill",
+                        lambda p, batch, *a: calls.append(batch["tokens"].shape) or real(p, batch, *a))
+    runs = {}
+    for name, mesh in (("2x2", _mesh(2, 2)), ("one device", None)):
+        sess = _session(arch, "float32", mesh, batch=B, max_seq=_max_seq(arch, shape),
+                        device="cpu")
+        runs[name] = sess.generate(prompts, GEN, keep_logits=True)
+        if mesh is not None:  # the placed prefill: one shard of the whole batch
+            assert calls == [(B, PLEN)]
+    for tokens, stats in runs.values():
+        np.testing.assert_array_equal(tokens[:, PLEN:], want_tokens)
+        _close(stats["logits"], want_logits, LOGIT_TOL["float32"])
+    _close(runs["2x2"][1]["logits"], runs["one device"][1]["logits"], LOGIT_TOL["float32"])
+    mesh = _mesh(2, 2)
+    batch = {"tokens": torch.from_numpy(prompts)}
+    placed = pt_steps._placed_tree(batch, pt_steps._batch_shardings(pcfg, mesh, batch), "batch")
+    with pytest.raises(ValueError, match="does not split"):
+        pt_steps._dp_shards(pcfg, placed, 3)
 
 
 def test_mesh_and_device_guards():

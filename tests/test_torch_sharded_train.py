@@ -26,6 +26,8 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from repro.checkpoint import load_checkpoint as jx_load_checkpoint  # noqa: E402
+from repro.configs import get_smoke_config as jx_get_smoke_config  # noqa: E402
+from repro.models import model as jx_model  # noqa: E402
 from repro_torch import optim as pt_optim  # noqa: E402
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
@@ -53,7 +55,7 @@ from repro_torch.launch.steps import (  # noqa: E402
     sharded_loss_and_grads,
 )
 from repro_torch.models.model import init_model  # noqa: E402
-from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.models.params import params_from_numpy, tree_leaves  # noqa: E402
 from repro_torch.runtime import FailureInjector, no_host_sync  # noqa: E402
 from repro_torch.runtime.fault import SimulatedFailure  # noqa: E402
 
@@ -196,19 +198,44 @@ def test_audio_masked_loss_weighs_shards_by_mask_count():
     _run_steps(cfg, _mesh(2, 2), params, [batch] * 3)
 
 
-def test_moe_whole_groups_match_and_cut_groups_raise():
+def test_moe_whole_groups_match_and_cut_groups_route_whole():
     """MoE aux losses are means over routing groups of min(1024, tokens):
-    shards of 1,024 tokens hold whole groups and match; 4 x 32 tokens (one
-    group of 128) would be cut by a split and raise."""
-    cfg = get_smoke_config("moonshot-v1-16b-a3b").scaled(dtype="float32")
-    params = init_model(0, cfg, "cpu")
+    shards of 1,024 tokens hold whole groups and split. 4 x 32 tokens (one
+    group of 128) would be cut by a split, so the batch (each microbatch,
+    when there are several) runs as one shard on the mesh's first device:
+    the loss, the aux losses and the float32 gradients equal the one-device
+    step's and the reference's ``loss_fn`` on the whole batch, and 3 steps
+    equal one device's. Rows that do not split still raise."""
+    arch = "moonshot-v1-16b-a3b"
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    jcfg = jx_get_smoke_config(arch).scaled(dtype="float32")
+    jp = jx_model.init_model(jax.random.PRNGKey(0), jcfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
     _check_grads(cfg, _mesh(2, 2), params, _batch(cfg, 8, 512))
-    small = _batch(cfg, 4, 32)
-    with pytest.raises(ValueError, match="routing groups of 128 tokens"):
-        _check_grads(cfg, _mesh(2, 2), params, small)
-    with pytest.raises(ValueError, match="routing groups"):
-        make_train_step(cfg, OPT, mesh=_mesh(2, 1))(params, pt_optim.adamw_init(params), small)
-    _check_grads(cfg, _mesh(1, 1), params, small)  # one shard: nothing is cut
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=0)
+    small = ds.batch(0)
+    (wloss, wmetrics), wgrads = jax.value_and_grad(jx_model.loss_fn, has_aux=True)(
+        jp, {k: jax.numpy.asarray(v) for k, v in small.items()}, jcfg)
+    for shape in ((2, 2), (2, 1)):
+        pp, _, gsh = _place_state(cfg, _mesh(*shape), params)
+        bp = {k: torch.from_numpy(v) for k, v in small.items()}
+        _check_grads(cfg, _mesh(*shape), params, bp)
+        bp = place_tree(bp, named_tree(_mesh(*shape), batch_spec_tree(cfg, _mesh(*shape), bp)))
+        loss, metrics, grads = sharded_loss_and_grads(pp, bp, cfg, gsh)
+        assert abs(float(loss) - float(wloss)) <= LOSS_TOL * abs(float(wloss))
+        assert sorted(metrics) == sorted(wmetrics)
+        assert {"moe_balance_loss", "moe_dropped_frac"} <= set(metrics)
+        for k in metrics:
+            assert abs(float(metrics[k]) - float(wmetrics[k])) <= LOSS_TOL * max(
+                abs(float(wmetrics[k])), 1e-6), k
+        for g, w in zip(tree_leaves(grads), jax.tree.leaves(wgrads), strict=True):
+            assert _rel(g.full(CPU), torch.from_numpy(np.array(w))) <= GRAD_TOL
+    _check_grads(cfg, _mesh(2, 2), params, _batch(cfg, 8, 32), microbatches=2)
+    _run_steps(cfg, _mesh(2, 2), params, [_batch(cfg, 4, 32, step=i) for i in range(3)])
+    _check_grads(cfg, _mesh(1, 1), params, _batch(cfg, 4, 32))  # one shard: nothing is cut
+    with pytest.raises(ValueError, match="does not split"):
+        make_train_step(cfg, OPT, microbatches=3, mesh=_mesh(2, 2))(
+            params, pt_optim.adamw_init(params), _batch(cfg, 4, 32))
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "minicpm3-4b"])
