@@ -207,6 +207,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               resume at 4 layers (two injected failures, ``ckpt_every`` 10,
               ``run_with_auto_resume``): 2 restarts, every logged loss and
               the final state equal to an uninterrupted run's
+ 18b. cost   the counted cost of the LM paths timed in phases 12 and 18
+              (``analysis/hlo_cost.py::step_cost`` on meta tensors at their
+              exact shapes: smollm-135m's train step, its flash prefill with
+              30 launches reported by the kernel's wrapper, one decode step)
+              and their roofline over the H100's constants; the train
+              step's counted products within 1 % of ``_step_flops``'s, and
+              no path's bound above its measured time; a gather_total and a
+              flash launch on CUDA tensors each reported once to a counter
  19. families  the other LM families on the card. (a) Every arch's smoke
               config: ``forward_train`` logits, ``loss_fn`` and its metrics
               and every gradient leaf on the card within 1e-4 (relative, float32,
@@ -313,11 +321,15 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# The H100's HBM rate and dense bf16 tensor-core peak, as the roofline takes them.
+from repro_torch.distributed.constants import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.distributed.constants import PEAK_FLOPS_BF16 as BF16_PEAK  # noqa: E402
+
 MAIN_GRAPH = "com-youtube"
 MAIN_SLICE_BITS = 64
 JAX_PACKAGE_COUNT = 3_090_378  # the JAX package's count of the same graph, for the log
 SMALL_GRAPHS = ("ego-facebook", "email-enron")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry)
 INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 POPC_PER_CLOCK_PER_SM = 16  # __popc issue rate, compute capability 9.0 (CUDA C++ Programming Guide)
@@ -346,7 +358,6 @@ BITGEMM_CHUNK_ROWS = 2048  # tcim's bitgemm backend
 NO_POPCOUNT_OP = "torch has no popcount op"
 GRAPH_LAUNCHES = 50  # kernel launches in one CUDA graph: device time without the wrapper's
 WAVE_GRAPH_LAUNCHES = 20  # whole-wave segment launches in one CUDA graph
-BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 FLASH_BH = (1, 3, 72)
 FLASH_SHAPES = ((1, 1), (64, 64), (100, 100), (128, 128), (256, 128), (64, 256), (517, 1030),
                 (2048, 2048))
@@ -403,7 +414,7 @@ TRAIN_MICRO_SHAPE, TRAIN_MICROBATCHES, TRAIN_MICRO_TOL = (8, 128), 4, 1e-5
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = 8, 2048, 40, 3
 TRAIN_SCHEDULE = {"warmup": 10, "total": 200}
 TRAIN_MIN_DROP = 0.3  # tests/test_system.py's bar for the loss from step 1 to the last logged
-BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core rate
+COST_MATMUL_TOL = 0.01  # phase 18b: counted products against _step_flops's, relative
 RESUME_LAYERS, RESUME_SHAPE, RESUME_STEPS = 4, (4, 256), 30
 RESUME_FAIL_AT, RESUME_EVERY = (13, 24), 10
 RESUME_FLAG = "--train-resume-child"  # the child process's mode (CUBLAS_WORKSPACE_CONFIG set)
@@ -2287,7 +2298,7 @@ def _flash_bound(qp: torch.Tensor, kp: torch.Tensor, hd: int, heads: int,
     ks, _ = torch.sort(kp, dim=1)
     pairs = heads * int(torch.searchsorted(ks, qp, right=True).sum())
     nbytes = 2 * b * hd * (2 * sq * heads + 2 * sk * kv_heads) + 4 * b * (sq + sk)
-    return _bound_ms(nbytes, 4 * hd * pairs, BF16_TENSOR_FLOPS), pairs
+    return _bound_ms(nbytes, 4 * hd * pairs, BF16_PEAK), pairs
 
 
 def phase_flash_timing(lm: dict) -> list:
@@ -3372,19 +3383,28 @@ def _train_microbatches() -> None:
 
 
 def _step_flops(cfg, n_params: int, b: int, s: int) -> tuple[float, float]:
-    """(model FLOPs of one step, FLOPs the step runs with full remat): 6 N T
-    for the products with the weights (the tied embedding counted once, as
-    the LM head) and 12 L B S^2 H hd for attention's scores and values (the
-    plain path computes every S^2 score), then remat "full"'s second forward
-    of the layers, 2 N_layers T + 4 L B S^2 H hd."""
+    """(model FLOPs of one step, the products the step runs with remat
+    "full"). Model FLOPs: 6 N T for the products with the weights (the tied
+    embedding counted once, as the LM head) and 12 L B S^2 H hd for
+    attention's scores and values (the plain path computes every S^2 score).
+    The products run: 6 N_p T, N_p the product weights (the norms' scales in
+    N are none), the same 12 L B S^2 H hd, and remat "full"'s second forward
+    of each layer, 2 N_r T + 4 L B S^2 H hd, where N_r leaves out the MLP's
+    output projection: non-reentrant ``torch.utils.checkpoint`` stops
+    recomputing once the last tensor the backward saved is rebuilt, and no
+    backward saves that product's output."""
     from repro_torch.models.model import model_schema
     from repro_torch.models.params import tree_leaves
 
     tokens = b * s
     attn = cfg.n_layers * b * s * s * cfg.n_heads * cfg.resolved_head_dim
-    layer_params = sum(int(np.prod(d.shape)) for d in tree_leaves(model_schema(cfg)["layers"]))
+    schema = model_schema(cfg)
+    layer_products = sum(math.prod(d.shape) for d in tree_leaves(schema["layers"])
+                         if len(d.shape) == 3)
+    products = math.prod(schema["tok_embed"].shape) + layer_products
+    recomputed = layer_products - math.prod(schema["layers"]["mlp"]["wo"].shape)
     model = 6 * n_params * tokens + 12 * attn
-    return model, model + 2 * layer_params * tokens + 4 * attn
+    return model, 6 * products * tokens + 16 * attn + 2 * recomputed * tokens
 
 
 def _profile_train_step(loop, params, opt_state, tag: str = "[train]") -> None:
@@ -3474,7 +3494,7 @@ def _train_full_width() -> dict:
         f"{1e3 * max(times[TRAIN_WARM:]):.3f}; first {1e3 * times[0]:.3f}); {tokens / med:.1f} "
         f"tokens/s; model FLOPs {model:.6e} a step = {100 * model / (med * BF16_PEAK):.2f} % of "
         f"{BF16_PEAK:.3e} FLOP/s bf16, {100 * with_remat / (med * BF16_PEAK):.2f} % counting "
-        f"remat's second forward ({with_remat:.6e}); max_memory_allocated {peak} bytes; {smi}")
+        f"the products run, remat's second forward included ({with_remat:.6e}); max_memory_allocated {peak} bytes; {smi}")
     _profile_train_step(loop, params, opt_state)
     return {"losses": step_losses, "ms": 1e3 * med, "peak": peak}
 
@@ -3582,6 +3602,133 @@ def phase_train() -> dict:
     _train_resume()
     log(f"[train] phase 18 took {time.perf_counter() - t_phase:.3f} s")
     return one_device
+
+
+# ---------------------------------------------------------------- phase 18b
+
+
+def _counted_paths(cfg, n_params: int) -> dict:
+    """``step_cost`` of the three timed LM paths at the exact shapes phases 12
+    and 18 timed, on meta tensors (nothing allocated): smollm's train step
+    (8 x 2,048, bf16, remat "full", attention "xla"), its flash prefill (8 x
+    4,096 into a fresh cache of phase 12's max_seq) and one decode step at 8
+    rows with its greedy pick."""
+    from repro_torch.analysis.hlo_cost import step_cost
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.specs import META, CellSpec, batch_struct
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
+    from repro_torch.models.model import cache_zeros
+
+    tags = {"attn": "attn_core"}
+    spec = CellSpec(LM_ARCH, "train_4k")
+    params = spec.params_struct()
+    flash = cfg.scaled(attention_impl="flash")
+    max_seq = LM_PROMPT + LM_GEN + 1
+    prefill, decode = make_prefill_step(flash), make_serve_step(flash)
+    train_batch = batch_struct(cfg, Shape("train", "train", TRAIN_SEQ, TRAIN_BATCH), True)
+    prompts = {"tokens": torch.empty(LM_BATCH, LM_PROMPT, dtype=torch.int32, device=META)}
+    token = torch.empty(LM_BATCH, 1, dtype=torch.int32, device=META)
+
+    def decode_and_pick(cache):
+        logits, _ = decode(params, cache, token, LM_PROMPT)
+        return torch.argmax(logits, dim=-1)
+
+    return {
+        "train step": step_cost(make_train_step(cfg), params, spec.opt_struct(), train_batch,
+                                tags=tags),
+        "prefill": step_cost(lambda: prefill(params, cache_zeros(flash, LM_BATCH, max_seq, META),
+                                             prompts), tags=tags),
+        "decode step": step_cost(decode_and_pick, cache_zeros(flash, LM_BATCH, max_seq, META),
+                                 tags=tags),
+    }
+
+
+def _reported_on_card() -> None:
+    """The kernel wrappers' cost reports on CUDA tensors: one
+    ``gather_total`` launch (1,000 pairs of 2 words) and one flash launch
+    (2 x 200, 4 heads over 2 KV heads, hd 64), each counted once with its
+    analytic FLOPs and bytes."""
+    from repro_torch.analysis.hlo_cost import step_cost
+    from repro_torch.kernels.flash_attention import flash_attention_bshd, flash_launch_cost
+    from repro_torch.kernels.tc_gather_popcount import gather_total_cuda, modeled_hbm_bytes
+
+    rng = np.random.default_rng(5)
+    row, col = _words(rng, 500, 2), _words(rng, 300, 2)
+    ridx = torch.from_numpy(rng.integers(0, 500, 1000).astype(np.int32)).cuda()
+    cidx = torch.from_numpy(rng.integers(0, 300, 1000).astype(np.int32)).cuda()
+    out = torch.zeros(2, dtype=torch.int32, device="cuda")
+    gather = step_cost(gather_total_cuda, row, col, ridx, cidx, out)
+    check(gather.custom_calls == 1 and gather.flops == 3 * 1000 * 2
+          and gather.bytes == modeled_hbm_bytes(1000, 2, fused=True),
+          f"[cost] gather_total's report on the card: {gather}")
+    q = torch.randn(2, 200, 4, 64, device="cuda", dtype=torch.bfloat16)
+    kv = torch.randn(2, 200, 2, 64, device="cuda", dtype=torch.bfloat16)
+    pos = torch.arange(200, device="cuda", dtype=torch.int32).expand(2, 200).contiguous()
+    with torch.inference_mode():
+        flash = step_cost(flash_attention_bshd, q, kv, kv, pos, pos)
+    flops, nbytes = flash_launch_cost(2, 4, 2, 200, 200, 64, 2, True)
+    check(flash.custom_calls == 1 and flash.matmul_flops == flops and flash.bytes >= nbytes,
+          f"[cost] flash's report on the card: {flash}")
+    torch.cuda.synchronize()
+    log(f"[cost] reports on the card: gather_total {gather.flops:.0f} ops, {gather.bytes:.0f} "
+        f"bytes; flash {flash.matmul_flops:.0f} FLOPs, {flash.bytes:.0f} bytes (analytic "
+        f"{nbytes})")
+
+
+def phase_cost(lm: dict, one_device: dict) -> dict:
+    """18b: the counted cost of smollm-135m's train step, prefill and decode
+    step (``analysis/hlo_cost.py::step_cost`` on meta tensors) and its
+    roofline over the H100's constants, beside the times phases 12 and 18
+    read; runs no new timed workload. Returns each path's numbers."""
+    from repro_torch.analysis.roofline import model_flops, roofline_terms
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    _reported_on_card()
+    cfg = get_config(LM_ARCH)
+    check(LM_ARCH == TRAIN_ARCH and cfg.dtype == "bfloat16" and cfg.remat == "full"
+          and cfg.attention_impl == "xla", f"[cost] config {cfg}")
+    n_params = 134_515_008  # phase 12's count_params_analytical check
+    counted = _counted_paths(cfg, n_params)
+    step_model, step_products = _step_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    train = counted["train step"]
+    gap = train.matmul_flops / step_products - 1
+    log(f"[cost] train step's counted matmul FLOPs {train.matmul_flops:.6e} against "
+        f"_step_flops's products with remat {step_products:.6e}: {100 * gap:+.4f} % "
+        f"(bound {100 * COST_MATMUL_TOL:.0f} %)")
+    check(abs(gap) <= COST_MATMUL_TOL, f"[cost] counted matmul FLOPs {train.matmul_flops:.6e} "
+          f"vs {step_products:.6e}")
+    check(counted["prefill"].custom_calls == cfg.n_layers,
+          f"[cost] prefill reported {counted['prefill'].custom_calls} flash launches")
+    measured = {"train step": one_device["ms"] / 1e3, "prefill": lm["stats"]["prefill_s"],
+                "decode step": lm["stats"]["decode_s"] / (LM_GEN - 1)}
+    kinds = {"train step": ("train", TRAIN_BATCH * TRAIN_SEQ), "prefill": ("prefill",
+             LM_BATCH * LM_PROMPT), "decode step": ("decode", LM_BATCH)}
+    out = {}
+    for path, cost in counted.items():
+        rl = roofline_terms(cost.flops, cost.bytes, cost.collective_bytes)
+        share = rl["step_lower_bound_s"] / measured[path]
+        kind, tokens = kinds[path]
+        out[path] = {"flops": cost.flops, "matmul_flops": cost.matmul_flops, "bytes": cost.bytes,
+                     "attn_bytes": (cost.bytes_by_tag or {}).get("attn", 0.0),
+                     "custom_calls": cost.custom_calls, "compute_s": rl["compute_s"],
+                     "memory_s": rl["memory_s"], "dominant": rl["dominant"],
+                     "bound_s": rl["step_lower_bound_s"], "measured_s": measured[path],
+                     "share": share, "model_flops": model_flops(kind, n_params, tokens)}
+        log(f"[cost] {path}: counted {cost.flops:.6e} FLOPs ({cost.matmul_flops:.6e} in "
+            f"products), {cost.bytes:.6e} bytes (eager, unfused), attn_core "
+            f"{out[path]['attn_bytes']:.6e} bytes, {cost.custom_calls} kernel launches reported; "
+            f"compute {1e3 * rl['compute_s']:.6f} ms, memory {1e3 * rl['memory_s']:.6f} ms, "
+            f"bound {1e3 * rl['step_lower_bound_s']:.6f} ms ({rl['dominant']}); measured "
+            f"{1e3 * measured[path]:.6f} ms, share {100 * share:.2f} %; model_flops "
+            f"{out[path]['model_flops']:.6e}; {smi}")
+        check(share <= 1.0, f"[cost] {path}: bound {rl['step_lower_bound_s']} s exceeds the "
+              f"measured {measured[path]} s")
+    log(f"[cost] train step's model FLOPs: model_flops (6 N D) {out['train step']['model_flops']:.6e}, "
+        f"_step_flops (6 N D + 12 L B S^2 H hd) {step_model:.6e}")
+    log(f"[cost] phase 18b took {time.perf_counter() - t_phase:.3f} s")
+    return out
 
 
 # ---------------------------------------------------------------- phase 19
@@ -4794,7 +4941,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     if sys.argv[1:] == [RESUME_FLAG]:
         return _train_resume_child()
     if sys.argv[1:] == [SHARD_RESUME_FLAG]:
@@ -4838,6 +4984,7 @@ def main() -> int:
     row["sharded_launches"] = timed(phase_sharded, main_run)
     timed(phase_contracts, main_run, serve)
     one_device = timed(phase_train)
+    timed(phase_cost, lm, one_device)
     family_flash, family_rows = timed(phase_families)
     timed(phase_sharded_train, one_device)
     sharded_flash = timed(phase_sharded_serve, lm)

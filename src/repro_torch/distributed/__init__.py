@@ -5,7 +5,8 @@ Port of ``src/repro/distributed/__init__.py`` for the TC engine (the
 reference's fourteen names), plus the port's ``Mesh``/``make_mesh`` and its
 counterparts of ``jax.sharding`` (``PartitionSpec``, ``NamedSharding``, the
 placed ``ShardedTensor``). The LM's modules are imported by name, as in the
-reference: ``constants`` (the production mesh sizes), ``ctx`` (the
+reference: ``constants`` (the production mesh sizes and the H100's
+rates for the roofline), ``ctx`` (the
 activation scope), ``lm_sharding`` (param/train/batch/cache/logits specs),
 ``compression`` (int8 gradients with error feedback) and ``kv_quant``.
 """

@@ -5,16 +5,34 @@ package; the port keeps them as int32 *views* of the same bits, because torch
 on the CPU has no ``>>`` for ``torch.uint32`` and ``>>`` on int32 is
 arithmetic. ``swar_popcount_u32`` therefore widens to int64 and masks to the
 low 32 bits before shifting. On the card the kernels use ``__popc`` instead.
+
+``report_cost`` is the hook through which a kernel's wrapper tells an active
+cost counter (``analysis/hlo_cost.py::step_cost``) what one launch does:
+the counter's dispatch mode sees torch's ops, not a launch through ctypes.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["INT32_SAFE_WORDS", "swar_popcount_u32", "resolve_device"]
+__all__ = ["INT32_SAFE_WORDS", "swar_popcount_u32", "resolve_device", "report_cost",
+           "COST_SINKS"]
 
 # Largest number of uint32 words whose AND-popcount total provably fits the
 # kernels' int32 accumulator: each word contributes at most 32 to the sum.
 INT32_SAFE_WORDS = (2**31 - 1) // 32
+
+# Active cost counters, innermost last: each a callable
+# ``sink(flops, nbytes, matmul)``. Empty unless a counter is running.
+COST_SINKS: list = []
+
+
+def report_cost(flops: float, nbytes: float, matmul: bool = False) -> None:
+    """Tell the innermost active cost counter, if any, that a kernel launch
+    (or its stand-in on meta tensors) does ``flops`` operations (tensor-core
+    products when ``matmul``) and moves ``nbytes`` of device memory. Costs
+    one list test when no counter is active."""
+    if COST_SINKS:
+        COST_SINKS[-1](flops, nbytes, matmul)
 
 
 def swar_popcount_u32(x: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,11 @@ to two 64-column panels in shared memory):
 
 Each entry takes the plain version for CPU tensors and the kernel for CUDA
 tensors (no fallback). ``flash_attention_cuda.launches`` counts the
-kernel's launches from either entry. ``flash_tiles_scored`` is the plain
+kernel's launches from either entry. Each launch reports its cost
+(``flash_launch_cost``) to an active cost counter through
+``kernels.common.report_cost``; on meta tensors (a counted step, nothing
+computed) an entry reports the launch it stands for and returns an empty
+meta output. ``flash_tiles_scored`` is the plain
 statement of the kernel's skip rule: the number of KV tiles it scores.
 
 The reference needs ``Sq`` and ``Sk`` to tile by its blocks and its caller
@@ -39,6 +43,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.common import report_cost
+
 __all__ = [
     "NEG_INF",
     "FLASH_HEAD_DIMS",
@@ -50,6 +56,7 @@ __all__ = [
     "flash_attention_cuda",
     "flash_attention_reference",
     "flash_io_bytes",
+    "flash_launch_cost",
     "flash_tile_visible",
     "flash_tiles_scored",
 ]
@@ -273,7 +280,21 @@ def _launch(q, k, v, q_pos, k_pos, causal: bool, tiles) -> torch.Tensor:
         what = f"driver error {-err} (a TMA tensor map)" if err < 0 else f"CUDA error {err}"
         raise RuntimeError(f"flash_attention launch failed: {what}")
     flash_attention_cuda.launches += 1
+    _report(q, k, causal)
     return out
+
+
+def _report(q, k, causal: bool) -> None:
+    """Report a launch on ``[B, S, H, hd]`` operands to a cost counter."""
+    b, sq, h, hd = q.shape
+    report_cost(*flash_launch_cost(b, h, k.shape[2], sq, k.shape[1], hd, q.element_size(),
+                                   causal), matmul=True)
+
+
+def _meta_launch(q, k, causal: bool) -> torch.Tensor:
+    """The stand-in for a launch on meta ``[B, S, H, hd]`` operands."""
+    _report(q, k, causal)
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 def flash_attention_bshd_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
@@ -322,6 +343,8 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, block_q: int 
     _refuse_autograd(q, k, v)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, q_pos, k_pos, causal=causal)
+    if q.is_meta:
+        return _meta_launch(q[:, :, None], k[:, :, None], causal)[:, :, 0]
     return flash_attention_reference(q, k, v, q_pos, k_pos, causal=causal)
 
 
@@ -335,6 +358,8 @@ def flash_attention_bshd(q, k, v, q_pos, k_pos, *, causal: bool = True) -> torch
     _refuse_autograd(q, k, v)
     if q.is_cuda:
         return flash_attention_bshd_cuda(q, k, v, q_pos, k_pos, causal=causal)
+    if q.is_meta:
+        return _meta_launch(q, k, causal)
     return flash_attention_bshd_reference(q, k, v, q_pos, k_pos, causal=causal)
 
 
@@ -344,3 +369,13 @@ def flash_io_bytes(b, h, sq, sk, hd, vd=None, dtype_bytes=2, train=True) -> int:
     vd = hd if vd is None else vd
     fwd = b * h * (sq * hd + sk * hd + sk * vd + sq * vd) * dtype_bytes
     return int(fwd * (3 if train else 1))
+
+
+def flash_launch_cost(b, h, kh, sq, sk, hd, dtype_bytes=2, causal=True) -> tuple[float, int]:
+    """(FLOPs, bytes) of one launch: 4 B H Sq Sk hd for the two products,
+    halved where causal, and ``flash_io_bytes`` with Q and O at the ``h``
+    query heads, K and V at the ``kh`` KV heads (GQA reads them once)."""
+    flops = 4.0 * b * h * sq * sk * hd / (2 if causal else 1)
+    nbytes = (flash_io_bytes(b, h, sq, 0, hd, dtype_bytes=dtype_bytes, train=False)
+              + flash_io_bytes(b, kh, 0, sk, hd, dtype_bytes=dtype_bytes, train=False))
+    return flops, nbytes

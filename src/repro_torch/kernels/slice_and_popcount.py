@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import swar_popcount_u32
+from repro_torch.kernels.common import report_cost, swar_popcount_u32
 
 __all__ = ["items_cuda", "items_reference", "total_cuda", "total_reference"]
 
@@ -97,6 +97,8 @@ def total_cuda(rows: torch.Tensor, cols: torch.Tensor, out: torch.Tensor) -> tor
         return out
     _launch("tc_total", out, rows.data_ptr(), cols.data_ptr(), rows.numel())
     total_cuda.launches += 1
+    # An AND, a popcount and an add a word; both operands read, one int32 out.
+    report_cost(3.0 * rows.numel(), 8 * rows.numel() + 4)
     return out
 
 
@@ -116,6 +118,7 @@ def items_cuda(rows: torch.Tensor, cols: torch.Tensor, out: torch.Tensor) -> tor
         return out
     _launch("tc_items", out, rows.data_ptr(), cols.data_ptr(), rows.shape[0], w)
     items_cuda.launches += 1
+    report_cost(3.0 * rows.numel(), 8 * rows.numel() + 4 * rows.shape[0])
     return out
 
 

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import swar_popcount_u32
+from repro_torch.kernels.common import report_cost, swar_popcount_u32
 
 __all__ = ["ROW_ALIGN_WORDS", "bitgemm_cuda", "bitgemm_reference", "padded_view", "padded_words"]
 
@@ -146,6 +146,8 @@ def bitgemm_cuda(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor) -> torch.T
         what = f"driver error {-err} (a TMA tensor map)" if err < 0 else f"CUDA error {err}"
         raise RuntimeError(f"tc_bitgemm launch failed: {what}")
     bitgemm_cuda.launches += 1
+    # An AND, a popcount and an add for each word of each (i, j) pair.
+    report_cost(3.0 * rows_i * rows_j * words, 4 * words * (rows_i + rows_j) + 4 * rows_i * rows_j)
     return out
 
 

@@ -34,6 +34,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.common import report_cost
+
 __all__ = [
     "DENSE_TILE",
     "PLAN_GROUP",
@@ -220,6 +222,10 @@ def dense_mxu_tc_cuda(a: torch.Tensor, out: torch.Tensor,
         what = f"driver error {-err} (a TMA tensor map)" if err < 0 else f"CUDA error {err}"
         raise RuntimeError(f"tc_dense_mxu launch failed: {what}")
     dense_mxu_tc_cuda.launches += 1
+    # The dense product's 2 N^3 int8 MACs and the masked sum's 2 N^2 (the
+    # occupancy plan that skips empty tiles stays on the card); A and its
+    # transpose read once.
+    report_cost(2.0 * n**3 + 2.0 * n * n, 2 * n * lda + 8, matmul=True)
     return out
 
 

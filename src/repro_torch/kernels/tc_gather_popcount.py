@@ -45,7 +45,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import INT32_SAFE_WORDS, swar_popcount_u32
+from repro_torch.kernels.common import INT32_SAFE_WORDS, report_cost, swar_popcount_u32
 
 __all__ = [
     "GROUP_CAP",
@@ -259,6 +259,7 @@ def gather_total_cuda(
         )
     _raise_on(err, "tc_gather_total")
     gather_total_cuda.launches += 1
+    _report_pairs(p, w)
     return out
 
 
@@ -305,6 +306,7 @@ class GatherTotalLauncher:
             _raise_on(fn(*prefix, row_idx.data_ptr(), col_idx.data_ptr(), p, out_ptr, index,
                          stream), "tc_gather_total")
             gather_total_cuda.launches += 1
+            _report_pairs(p, words)
 
         return launch
 
@@ -373,7 +375,7 @@ class SegmentTable:
     count and ``offsets[b]`` batch ``b``'s first row in it.
     """
 
-    __slots__ = ("device", "groups", "offsets", "rows", "tables")
+    __slots__ = ("device", "groups", "offsets", "rows", "tables", "work")
 
     def __init__(self, batches):
         batches = list(batches)
@@ -403,6 +405,9 @@ class SegmentTable:
             for (row, col, ridx, cidx, bucket), w in zip(batches, words)
         ]
         self.tables = [pack_segment_table(g, entries[g.start : g.stop]) for g in self.groups]
+        # (pairs, pair-words) of each launch: what it reports to a cost counter.
+        self.work = [(sum(e[4] for e in entries[g.start : g.stop]),
+                      sum(e[4] * e[7] for e in entries[g.start : g.stop])) for g in self.groups]
 
 
 def gather_segment_groups_cuda(table: SegmentTable, out: torch.Tensor, group: int) -> torch.Tensor:
@@ -425,7 +430,16 @@ def gather_segment_groups_cuda(table: SegmentTable, out: torch.Tensor, group: in
         err = fn(table.tables[group].ctypes.data, out.data_ptr() + 8 * g.out_row[0], stream)
     _raise_on(err, "tc_gather_segment_groups")
     gather_segment_totals_cuda.launches += 1
+    pairs, pair_words = table.work[group]
+    # Both sides' words, two int32 indices a pair, an int32 pair a segment row.
+    report_cost(3.0 * pair_words, 8 * pair_words + 8 * pairs + 8 * (g.out_row[-1] - g.out_row[0]))
     return out
+
+
+def _report_pairs(pairs: int, words: int) -> None:
+    """Report a fused launch over ``pairs`` pairs of ``words``-word slices:
+    an AND, a popcount and an add a word; ``modeled_hbm_bytes``."""
+    report_cost(3.0 * pairs * words, modeled_hbm_bytes(pairs, words, fused=True))
 
 
 def gather_segment_totals_cuda(

@@ -7,8 +7,8 @@ restore). LM serving of every decoder family is ``launch/serve.py``
 ``launch/train.py`` (``TrainLoop``, ``run_with_auto_resume``) over
 ``make_train_step``, both on one device or on a mesh of (logical) shards;
 ``launch/mesh.py`` builds the meshes and ``launch/specs.py`` the
-meta-device inputs of every cell. The dry run waits for ROADMAP.md queue 1,
-item 1, part 5.
+meta-device inputs of every cell; ``launch/dryrun.py`` counts every cell's
+device step on the production meshes without a device.
 """
 from repro_torch.launch.tc_serve import (
     ServeConfig,

@@ -1,0 +1,409 @@
+"""Dry run of every (arch x shape) cell on the production meshes: what a
+device holds and what it runs, counted on meta tensors with no device.
+
+Port of ``src/repro/launch/dryrun.py``. The reference lowers and compiles
+each cell's sharded step on 256 / 512 placeholder TPU devices and reads
+XLA's memory and cost analyses. The port has no compiler to ask: for each
+runnable cell of ``launch/specs.py::CellSpec`` on the duck-typed single
+(data 16, model 16) and multi (pod 2, data 16, model 16) meshes, where the
+port's specs equal the reference's, it records
+
+  * the bytes a device holds of parameters, optimizer state (train), cache
+    (prefill, decode) and batch as ``distributed/lm_sharding.py``'s specs
+    place them, against 80 GB (``fits_80GB``). Activations are not counted,
+    and neither is the full parameter copy the port's sharded steps gather
+    on each device (``gathered_params_bytes``, beside it);
+  * ``analysis/hlo_cost.py::step_cost`` of the step one data-parallel shard
+    runs on its device: the port computes each distinct data-parallel shard
+    once, on its first device, with every parameter gathered there (the
+    layers' tensor-parallel compute is not ported), so the per-device FLOPs
+    and bytes are that shard's, not divided by the model axis. Training
+    takes the reference's microbatch rule; a microbatch's
+    ``loss_and_grads`` and its float32 accumulation into the device's
+    gradient blocks are counted once and multiplied by the microbatches
+    (identical shapes), AdamW once over the device's blocks;
+  * the collective bytes into a device (``analysis/hlo_cost.py::split_bytes``):
+    the parameter gather of a step (``all-gather``) and, in training, each
+    microbatch's gradient reduction into the gradient spec's blocks
+    (``reduce-scatter``);
+  * ``model_flops`` (global, and the shard's share) and ``roofline_terms``
+    over the H100's constants, and the useful-FLOPs ratio.
+
+``run_tcim`` records the sharded triangle count at com-LiveJournal scale
+(the reference's 2^21 slices of 2 words, 2^26 pairs) as the port's
+replicated plan places it, also without allocating.
+
+Records are JSON files in ``results/dryrun_torch/`` (the reference writes
+``results/dryrun/``), one per (arch, shape, mesh), reused unless ``--force``:
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh single|multi|both] [--force]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --tcim
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import math
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.analysis.hlo_cost import StepCost, collectives, split_bytes, step_cost
+from repro_torch.analysis.roofline import model_flops, roofline_terms
+from repro_torch.configs import ARCHS, SHAPES
+from repro_torch.configs.shapes import Shape
+from repro_torch.distributed.ctx import arch_profile
+from repro_torch.distributed.lm_sharding import (
+    batch_spec_tree,
+    cache_spec_tree,
+    dp_size,
+    named_tree,
+    train_state_specs,
+)
+from repro_torch.launch.specs import META, CellSpec, batch_struct
+from repro_torch.launch.steps import MOE_GROUP, loss_and_grads, make_prefill_step, make_serve_step
+from repro_torch.models.model import cache_zeros
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.optim import AdamWConfig, adamw_update, cosine_warmup
+
+__all__ = ["DuckMesh", "production_mesh", "cut_depth", "run_cell", "run_tcim", "train_cost",
+           "RESULTS_DIR", "DEVICE_BYTES"]
+
+RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
+DEVICE_BYTES = 80e9  # an H100's device memory
+TAGS = {"attn": "attn_core"}
+PER_DEVICE = ("the step of one distinct data-parallel shard, run on its first device with "
+              "every parameter gathered there (tensor-parallel compute is not ported, so the "
+              "model axis does not divide it)")
+
+
+class DuckMesh:
+    """A production mesh as the spec functions read it: axis names and the
+    device grid's shape (no devices: nothing is placed)."""
+
+    def __init__(self, shape, names):
+        self.devices = np.empty(shape, dtype=object)
+        self.axis_names = tuple(names)
+
+
+def production_mesh(kind: str) -> DuckMesh:
+    if kind == "multi":
+        return DuckMesh((2, 16, 16), ("pod", "data", "model"))
+    return DuckMesh((16, 16), ("data", "model"))
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _blocks(sh, ndim: int) -> int:
+    return math.prod(sh.blocks_per_dim(ndim))
+
+
+def _held(tree, shardings) -> int:
+    """Bytes of one device's blocks of ``tree`` placed by ``shardings``."""
+    return sum(_nbytes(t) // _blocks(sh, t.ndim)
+               for t, sh in zip(tree_leaves(tree), tree_leaves(shardings)))
+
+
+def _block_slices(shape, blocks: tuple) -> tuple:
+    """The first block's slices of a leaf of ``shape`` split ``blocks`` ways a dim."""
+    return tuple(slice(0, d // n) for d, n in zip(shape, blocks))
+
+
+def _blocks_of(shardings, leaves) -> tuple:
+    return tuple(tuple(sh.blocks_per_dim(t.ndim)) for t, sh in zip(leaves, shardings))
+
+
+def _part(batch: dict, rows: int) -> dict:
+    return {k: v[:rows] for k, v in batch.items()}
+
+
+def _microbatches(cfg, shape, mesh) -> int:
+    """The reference's rule (``src/repro/launch/dryrun.py:97-110``)."""
+    n_chips = int(np.prod(mesh.devices.shape))
+    gb = shape.global_batch
+    if arch_profile(cfg) == "dp" and gb % n_chips == 0:
+        return 1
+    return max(8, gb // dp_size(mesh))
+
+
+@functools.lru_cache(maxsize=64)
+def _microbatch_cost(arch: str, cfg, rows: int, seq: int, grad_blocks: tuple) -> StepCost:
+    """One microbatch on a device: ``loss_and_grads`` on ``rows`` rows and
+    the float32 accumulation of its gradient into the device's blocks
+    (``grad_blocks``: each leaf's blocks a dim)."""
+    spec = CellSpec(arch, "train_4k")
+    spec.cfg = cfg
+    batch = batch_struct(cfg, Shape("microbatch", "train", seq, rows), True)
+
+    def microbatch(params, batch):
+        _, _, grads = loss_and_grads(params, batch, cfg)
+        for g, blocks in zip(tree_leaves(grads), grad_blocks):
+            block = g[_block_slices(g.shape, blocks)].float()
+            block.add_(block)  # the running sum's add
+
+    return step_cost(microbatch, spec.params_struct(), batch, tags=TAGS)
+
+
+def _optimizer_cost(params, opt_blocks: tuple, grad_blocks: tuple) -> StepCost:
+    """AdamW over the device's gradient blocks (``_sharded_adamw``): float32
+    gradient blocks, the parameters' matching regions, the moments' blocks."""
+    def blocks_of(blocks, make):
+        it = iter(blocks)
+        return tree_map(lambda p: make(p[_block_slices(p.shape, next(it))]), params)
+
+    def f32(b):
+        return torch.empty(b.shape, dtype=torch.float32, device=META)
+
+    grads, regions = blocks_of(grad_blocks, f32), blocks_of(grad_blocks, lambda b: b)
+    moments = blocks_of(opt_blocks, f32)
+    state = {"m": moments, "v": moments, "step": torch.empty((), dtype=torch.int32, device=META)}
+
+    def update(grads, regions, state):
+        lr = cosine_warmup(state["step"], peak_lr=AdamWConfig().lr, warmup=100, total=10000)
+        adamw_update(grads, regions, state, AdamWConfig(), lr)
+
+    return step_cost(update, grads, regions, state)
+
+
+def _dp_blocks(shardings: dict, batch: dict) -> int:
+    key = "tokens" if "tokens" in batch else "frames"
+    return shardings[key].blocks_per_dim(batch[key].ndim)[0]
+
+
+def train_cost(spec: CellSpec, mesh, microbatches: int | None = None) -> tuple[StepCost, dict]:
+    """(cost, info) of a device's train step of ``spec`` on ``mesh``:
+    ``microbatches`` by the reference's rule unless given; ``info`` holds
+    the bytes a device holds (``held``), the microbatches, the distinct
+    data-parallel shards and a microbatch's rows on a device."""
+    cfg, shape = spec.cfg, spec.shape
+    params, opt, batch = spec.args()
+    psh, osh, gsh = (named_tree(mesh, s) for s in train_state_specs(cfg))
+    bsh = named_tree(mesh, batch_spec_tree(cfg, mesh, batch))
+    mb = microbatches or _microbatches(cfg, shape, mesh)
+    n = _dp_blocks(bsh, batch)
+    if shape.global_batch % (mb * n):
+        raise ValueError(f"{shape.global_batch} rows do not split into {mb} microbatches "
+                         f"of {n} data-parallel shards")
+    mb_rows = shape.global_batch // mb
+    if cfg.family == "moe" and (mb_rows // n * shape.seq) % min(MOE_GROUP, mb_rows * shape.seq):
+        n = 1  # the shards would cut a routing group: the microbatch runs on one device
+    rows = mb_rows // n
+    leaves = tree_leaves(params)
+    grad_blocks = _blocks_of(tree_leaves(gsh), leaves)
+    cost = mb * _microbatch_cost(spec.arch, cfg, rows, shape.seq, grad_blocks)
+    cost = cost + _optimizer_cost(params, _blocks_of(tree_leaves(osh["m"]), leaves), grad_blocks)
+    coll = {"all-gather": split_bytes(leaves, tree_leaves(psh)),
+            "reduce-scatter": mb * split_bytes(leaves, tree_leaves(gsh))}
+    held = {"params": _held(params, psh), "opt_state": _held(opt, osh),
+            "grads": sum(t.numel() * 4 // _blocks(sh, t.ndim)  # the float32 accumulator
+                         for t, sh in zip(leaves, tree_leaves(gsh))),
+            "batch": _held(batch, bsh)}
+    info = {"microbatches": mb, "dp_shards": n, "rows_per_microbatch": rows}
+    return cost + collectives(coll), {"held": held, **info}
+
+
+def _serve(spec: CellSpec, mesh) -> tuple[StepCost, dict]:
+    cfg, shape = spec.cfg, spec.shape
+    params = spec.params_struct()
+    cache = spec.cache_struct()
+    psh = named_tree(mesh, train_state_specs(cfg)[0])
+    csh = named_tree(mesh, cache_spec_tree(cfg, mesh, cache))
+    if shape.kind == "prefill":
+        batch = batch_struct(cfg, shape, with_labels=False)
+        bsh = named_tree(mesh, batch_spec_tree(cfg, mesh, batch))
+        n = _dp_blocks(bsh, batch)
+        rows = shape.global_batch // n
+        cost = step_cost(make_prefill_step(cfg), params, cache_zeros(cfg, rows, shape.seq, META),
+                         _part(batch, rows), tags=TAGS)
+        held_batch = _held(batch, bsh)
+    else:
+        # decode: one data-parallel row of the cache (``decode_placed``)
+        dp = dp_size(mesh)
+        n = dp if shape.global_batch % dp == 0 else 1
+        rows = shape.global_batch // n
+        token = torch.empty((rows, 1), dtype=torch.int32, device=META)
+        cost = step_cost(make_serve_step(cfg), params, cache_zeros(cfg, rows, shape.seq, META),
+                         token, shape.seq - 1, tags=TAGS)
+        held_batch = shape.global_batch // n * 4
+    coll = {"all-gather": split_bytes(tree_leaves(params), tree_leaves(psh))}
+    held = {"params": _held(params, psh), "cache": _held(cache, csh), "batch": held_batch}
+    return cost + collectives(coll), {"held": held, "dp_shards": n, "rows": rows}
+
+
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` at ``n_layers`` layers, its hybrid and cross-attention groups
+    cut to fit, so that every kind of block still runs."""
+    return cfg.scaled(n_layers=n_layers,
+                      hybrid_attn_every=min(cfg.hybrid_attn_every, n_layers),
+                      cross_attn_every=min(cfg.cross_attn_every, n_layers))
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, n_layers: int | None = None) -> dict:
+    """One cell's record (``n_layers`` cuts the depth, ``cut_depth``)."""
+    spec = CellSpec(arch, shape_name)
+    record = {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "kind": spec.shape.kind,
+              "skipped": not spec.runs, "skip_reason": spec.skip_reason}
+    if not spec.runs:
+        return record
+    if n_layers is not None:
+        spec.cfg = cut_depth(spec.cfg, n_layers)
+    cfg = spec.cfg
+    mesh = production_mesh(mesh_kind)
+    n_chips = int(np.prod(mesh.devices.shape))
+    t0 = time.perf_counter()
+    cost, info = (train_cost if spec.shape.kind == "train" else _serve)(spec, mesh)
+    count_s = time.perf_counter() - t0
+    held = info.pop("held")
+    params = spec.params_struct()
+    gathered = sum(_nbytes(t) for t in tree_leaves(params))
+    tokens = spec.shape.global_batch * (spec.shape.seq if spec.shape.kind != "decode" else 1)
+    n_active = cfg.active_param_count()
+    mf = model_flops(spec.shape.kind, n_active, tokens)
+    per_device = mf / info["dp_shards"]
+    record.update({
+        "n_chips": n_chips,
+        "n_layers": cfg.n_layers,
+        "count_s": round(count_s, 2),
+        "memory": {**{f"{k}_bytes": v for k, v in held.items()},
+                   "placed_bytes": sum(held.values()),
+                   "gathered_params_bytes": gathered,
+                   "note": "placed state a device; activations and the step's gathered "
+                           "parameter copy are not in placed_bytes"},
+        "fits_80GB": sum(held.values()) <= DEVICE_BYTES,
+        "per_device": PER_DEVICE,
+        **info,
+        "flops_per_device": cost.flops,
+        "matmul_flops_per_device": cost.matmul_flops,
+        "bytes_per_device": cost.bytes,
+        "collectives": {"total_bytes": cost.collective_bytes, "by_op": cost.collective_by_op,
+                        "unknown_trip_whiles": cost.unknown_trip_whiles,
+                        "custom_calls": cost.custom_calls},
+        "bytes_by_tag": cost.bytes_by_tag or {},
+        "params_total": cfg.param_count(),
+        "params_active": n_active,
+        "tokens_per_step": tokens,
+        "model_flops_global": mf,
+        "model_flops_per_device": per_device,
+        "roofline": roofline_terms(cost.flops, cost.bytes, cost.collective_bytes),
+    })
+    if cost.flops > 0:
+        record["useful_flops_ratio"] = per_device / cost.flops
+    return record
+
+
+# ------------------------------------------------------------------ TCIM
+
+TCIM_SLICES, TCIM_WORDS, TCIM_PAIRS = 1 << 21, 2, 1 << 26  # com-LiveJournal scale
+
+
+def run_tcim(mesh_kind: str, row_slices: int = TCIM_SLICES, col_slices: int = TCIM_SLICES,
+             pairs: int = TCIM_PAIRS, words: int = TCIM_WORDS) -> dict:
+    """The sharded count of ``pairs`` slice pairs over stores of
+    ``row_slices`` and ``col_slices`` slices of ``words`` words on the mesh,
+    as the port's replicated placement runs it (``distributed/tc.py``): both
+    stores on every device, the pairs dealt in equal stripes
+    (``shard_worklist``: ``ceil(pairs / chips)`` a device, sentinel-padded),
+    one fused ``gather_total`` a stripe, one int32 pair read back from each
+    device. The reference sizes both stores at 2^21 slices."""
+    from repro_torch.kernels.tc_gather_popcount import modeled_hbm_bytes
+
+    mesh = production_mesh(mesh_kind)
+    n_chips = int(np.prod(mesh.devices.shape))
+    per = -(-max(pairs, 1) // n_chips)
+    store = (row_slices + col_slices) * words * 4  # row and column stores, int32 words
+    index = 2 * per * 4  # row and column positions, int32
+    flops = 3.0 * per * words  # AND, popcount and add a word
+    nbytes = modeled_hbm_bytes(per, words, fused=True)
+    readback = 8  # the device's [total, out_of_range] int32 pair
+    return {
+        "arch": "tcim-distributed",
+        "shape": f"comlj_{pairs}pairs",
+        "mesh": mesh_kind,
+        "kind": "tc",
+        "skipped": False,
+        "skip_reason": "",
+        "n_chips": n_chips,
+        "placement": "replicated",
+        "memory": {"store_bytes": store, "index_bytes": index,
+                   "placed_bytes": store + index},
+        "pairs_per_device": per,
+        "flops_per_device": flops,
+        "bytes_per_device": nbytes,
+        "collectives": {"total_bytes": readback, "by_op": {"readback": readback}},
+        "roofline": roofline_terms(flops, nbytes, readback),
+    }
+
+
+# ------------------------------------------------------------------ CLI
+
+
+def _result_path(arch: str, shape: str, mesh_kind: str) -> Path:
+    return RESULTS_DIR / f"{arch}__{shape}__{mesh_kind}.json"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", choices=list(ARCHS) + ["tcim"], default=None)
+    ap.add_argument("--shape", choices=list(SHAPES), default=None)
+    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="both")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--tcim", action="store_true")
+    args = ap.parse_args(argv)
+
+    RESULTS_DIR.mkdir(parents=True, exist_ok=True)
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    if args.tcim or args.arch == "tcim":
+        cells = [("tcim", "tc")]
+    elif args.all:
+        cells = [(a, s) for a in ARCHS for s in SHAPES]
+    elif args.arch and args.shape:
+        cells = [(args.arch, args.shape)]
+    else:
+        ap.error("need --all, --tcim, or both --arch and --shape")
+
+    failures = 0
+    t_start = time.perf_counter()
+    for arch, shape in cells:
+        for mk in meshes:
+            path = (_result_path("tcim-distributed", "comlj", mk) if arch == "tcim"
+                    else _result_path(arch, shape, mk))
+            if path.exists() and not args.force:
+                rec = json.loads(path.read_text())
+                print(f"[{'skip' if rec.get('skipped') else 'cached'}] {arch} x {shape} x {mk}")
+                continue
+            try:
+                rec = run_tcim(mk) if arch == "tcim" else run_cell(arch, shape, mk)
+            except Exception:
+                failures += 1
+                err = traceback.format_exc()
+                print(f"[FAIL] {arch} x {shape} x {mk}\n{err}")
+                path.write_text(json.dumps({"arch": arch, "shape": shape, "mesh": mk,
+                                            "skipped": False, "error": err.splitlines()[-1]},
+                                           indent=1))
+                continue
+            path.write_text(json.dumps(rec, indent=1))
+            if rec.get("skipped"):
+                print(f"[skip] {arch} x {shape} x {mk}: {rec['skip_reason']}")
+            else:
+                r = rec["roofline"]
+                print(f"[ok]   {arch} x {shape} x {mk} count={rec.get('count_s', 0.0)}s "
+                      f"flops/dev={rec['flops_per_device']:.3e} "
+                      f"bytes/dev={rec['bytes_per_device']:.3e} "
+                      f"coll={rec['collectives']['total_bytes']:.3e}B "
+                      f"dominant={r['dominant']}", flush=True)
+    print(f"[done] {len(cells) * len(meshes)} records in {time.perf_counter() - t_start:.1f} s, "
+          f"{failures} failed")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -27,12 +27,15 @@ Attention supports:
     MLA combines in latent space, before ``wuv``. On one block this is
     ``attn_decode`` / ``mla_decode`` up to the order of float32 sums.
 
-The reference's sharding constraints have no counterpart here.
+The reference's sharding constraints have no counterpart here. Its
+``jax.named_scope("attn_core")`` regions are ``cost_scope("attn_core")``
+(``analysis/hlo_cost.py``), which only names ops for an active cost counter.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.hlo_cost import cost_scope
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_bshd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
@@ -127,9 +130,10 @@ def attention_op(q, k, v, q_pos, k_pos, causal, chunk_threshold=8192, chunk=1024
     if impl == "flash":
         return _flash(q, k, v, q_pos, k_pos, causal)
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    if q.shape[1] > chunk_threshold and q.shape[1] % chunk == 0:
-        return _sdpa_chunked(q, k, v, q_pos, k_pos, causal, scale, chunk)
-    return _sdpa(q, k, v, q_pos, k_pos, causal, scale)
+    with cost_scope("attn_core"):
+        if q.shape[1] > chunk_threshold and q.shape[1] % chunk == 0:
+            return _sdpa_chunked(q, k, v, q_pos, k_pos, causal, scale, chunk)
+        return _sdpa(q, k, v, q_pos, k_pos, causal, scale)
 
 
 def _flash(q, k, v, q_pos, k_pos, causal):
@@ -246,11 +250,12 @@ def attn_decode(p: dict, x: torch.Tensor, pos: int, k_cache: torch.Tensor,
     vv = v_cache.to(q.dtype)
     # Grouped-query einsum directly against the cache: no repeated KV.
     qg = q.reshape(b, 1, kheads, rep, q.shape[-1])
-    scores = torch.einsum("bqkrd,bskd->bkrqs", qg, kk).float()
-    scores = scores / (q.shape[-1] ** 0.5)
-    valid = torch.arange(smax, device=x.device) <= pos
-    scores = scores.masked_fill(~valid, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    with cost_scope("attn_core"):
+        scores = torch.einsum("bqkrd,bskd->bkrqs", qg, kk).float()
+        scores = scores / (q.shape[-1] ** 0.5)
+        valid = torch.arange(smax, device=x.device) <= pos
+        scores = scores.masked_fill(~valid, NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrqs,bskv->bqkrv", w, vv)
     return out.reshape(b, 1, -1) @ p["wo"], k_cache, v_cache
 
