@@ -25,14 +25,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               seed), a cold and a warm count, each through ``build="auto"``,
               which must take the device build; held against the port's CPU
               path (the host build, whose stage split is logged beside the
-              device's) and the exact oracle, with the kernel's launch count
+              device's) and the exact oracle, both counted in host children
+              started with the script (``_host_child``: "cpu-paths" on 3
+              torch threads, "oracles" on 6 forked processes, while the
+              kernels build), with the kernel's launch count
               equal to the device work list's windows (its pow2 bucket over
               the chunk); then ``ego-facebook`` and ``email-enron`` at
               slice_bits 32/64/128, device-built
-  4b. build   the device build (``core.build``) bit-identical to the host
-              build on the card (graph, SBF stores with their zero rows, work
-              list with its ``-1`` padding): ego-facebook and email-enron at
-              32/64/128, com-youtube at 64; its stages synchronised one by
+  4b. build   (run after phase 6) the device build (``core.build``)
+              bit-identical to the host build on the card (graph, SBF stores
+              with their zero rows, work list with its ``-1`` padding):
+              ego-facebook and email-enron at 32/64/128, com-youtube at 64
+              (its host build the "cpu-paths" host child's); its stages synchronised one by
               one and its peak memory; ``device_build_async`` under
               ``torch.cuda.set_sync_debug_mode("error")``; the delta work list
               over random edge subsets against the host's; ego-facebook's
@@ -73,7 +77,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               transposed, an int64 and a host operand
   9. dense    ``tcim_count(edges, backend="bitgemm" | "mxu")`` on
               ego-facebook and email-enron at full size against the exact
-              oracle (and the port's CPU path on ego-facebook), with launch
+              oracle (and the port's CPU path on ego-facebook, counted in the
+              "cpu-paths" host child), with launch
               counts (no bitgemm operand copied), stage split and peak memory
               (the mxu count's: A and its transpose); ``metrics.edge_support``
               (the items kernel) and ``baselines.matmul_tc`` on ego-facebook
@@ -196,17 +201,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               under remat "none", "full" and "dots";
               ``make_train_step(microbatches=4)`` against 1 (the moments
               within 1e-5); ``TrainLoop`` in bf16 with remat "full", 8 x 2048
-              tokens a step on ``SyntheticLMDataset``, 40 steps of lr 1e-3
+              tokens a step on ``SyntheticLMDataset``, 30 steps of lr 1e-3
               under ``{"warmup": 10, "total": 200}``: the loss must fall by
               0.3 (tests/test_system.py's bar), with the synchronised ms a
               step, tokens/s, the model-FLOPs share, peak memory and a
               ``torch.profiler`` step (device busy share, device time by
-              op); then, in a child process under
+              op); in a child process under
               ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and deterministic
-              algorithms, the three remat modes' gradients bit-equal and a
-              resume at 4 layers (two injected failures, ``ckpt_every`` 10,
-              ``run_with_auto_resume``): 2 restarts, every logged loss and
-              the final state equal to an uninterrupted run's
+              algorithms (run in phase 18c's window), the three remat modes'
+              gradients bit-equal and a resume at 4 layers (two injected
+              failures, ``ckpt_every`` 10, ``run_with_auto_resume``): 2
+              restarts, every logged loss and the final state equal to an
+              uninterrupted run's
  18b. cost   the counted cost of the LM paths timed in phases 12 and 18
               (``analysis/hlo_cost.py::step_cost`` on meta tensors at their
               exact shapes: smollm-135m's train step, its flash prefill with
@@ -215,6 +221,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               step's counted products within 1 % of ``_step_flops``'s, and
               no path's bound above its measured time; a gather_total and a
               flash launch on CUDA tensors each reported once to a counter
+ 18c. families train  the LM families' training on the card, every config
+              at full width with ``attention_impl="xla"`` (flash has no
+              backward; no kernel launches), the loops (2) first, then
+              the holds (1) of the five smaller configs beside the
+              deterministic children of phases 18, 20 and (3), every one a
+              process of its own, and the vlm's hold last: (1) float32
+              ``loss_and_grads``
+              at 2 x 128 (TF32 off), remat "full", one parameter draw on the
+              card copied to the host, the card against the port's CPU path
+              (loss within 1e-5 relative, every metric, the MoE's router
+              losses and dropped fraction included, and every gradient leaf
+              within 1e-4 relative L2) for moonshot-v1-16b-a3b (MoE, 2
+              layers, also under remat "dots"), zamba2-7b (7: a group of six
+              mamba2 layers, the shared block and a trailing layer),
+              mamba2-780m, hubert-xlarge, minicpm3-4b (MLA; 2 each) and the
+              vlm (one group of 5, 6.39 B parameters: the host must hold
+              about 52 GB for the CPU half, checked first; it runs alone,
+              once both host children and the deterministic children have
+              exited); (2) a bf16
+              ``TrainLoop`` of five (moonshot 2 of 48 layers, zamba2 24 of
+              81, mamba2 and hubert whole, minicpm3 24 of 62), 4 x 2,048
+              tokens a step (MoE: routing groups of 1,024), remat "full", 30
+              steps under ``{"warmup": 10, "total": 200}``: the first step's
+              loss must exceed the mean of the last five by 0.3; ms a
+              synchronised step, tokens/s, peak memory, the MoE's dropped
+              fraction, a ``torch.profiler`` step (busy share) and the step's
+              counted bound on meta tensors (phase 18b's format); (3) in a
+              child process under deterministic algorithms, the MoE at one
+              layer resumed from ``TrainLoop``'s checkpoints after a failure:
+              every logged loss and dropped fraction and the final state
+              bit-equal to an uninterrupted run's. The vlm does not train:
+              its AdamW state alone (6.39 B x 12 B) passes the card
  19. families  the other LM families on the card. (a) Every arch's smoke
               config: ``forward_train`` logits, ``loss_fn`` and its metrics
               and every gradient leaf on the card within 1e-4 (relative, float32,
@@ -253,14 +291,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               ``cuda:0`` (attention "xla"; no kernel launches): smollm-135m at
               full width on 2 x 2 (profile "dp": params replicated, one tensor
               a leaf; moments ZeRO-1 over 'data'; 8 x 2,048 tokens split four
-              ways), phase 18's init, data and schedule, each of 10 losses
+              ways), phase 18's init, data and schedule, each of 6 losses
               within 3e-3 of phase 18's one-device losses; ms a step,
               tokens/s, peak memory, host ms of placing and gathering, a
               ``torch.profiler`` step (busy share, device time by op); its
-              checkpoint of step 5 restored onto 4 x 1 and onto one device
-              (every block bit-equal to the saved leaf's slice, steps 6-10
+              checkpoint of step 3 restored onto 4 x 1 and onto one device
+              (every block bit-equal to the saved leaf's slice, steps 4-6
               within 3e-3 of the uninterrupted run); mamba2-780m at full
-              width, all 48 layers, bf16, 4 x 2,048, on 2 x 2 (profile "tp":
+              width, 16 of 48 layers, bf16, 4 x 2,048, on 2 x 2 (profile "tp":
               ZeRO-3 blocks) against its one-device run (3 steps, losses
               within 3e-3), the bytes each position's blocks hold; float32
               gradients at 2 layers of both archs, the sharded step's reduced
@@ -268,8 +306,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               ``compressed_psum_mean`` over 8 logical 'pod' shards of
               [8, 64] and of eight single-row gradients of smollm's embedding,
               bit-equal to a NumPy emulation and within 0.02 of the exact mean;
-              in a deterministic child, a 2 x 2 loop at 4 layers resumed
-              after a failure bit-equal to its uninterrupted run
+              in a deterministic child (run in phase 18c's window), a 2 x 2
+              loop at 4 layers resumed after a failure bit-equal to its
+              uninterrupted run
  21. sharded serve  ``ServeSession(mesh=)`` on a 2 x 2 mesh of logical
               shards of ``cuda:0`` (the cache's batch over 'data', its
               sequence, or the SSM's heads, over 'model'; decode attention
@@ -299,6 +338,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               (which reads the bf16 attention caches) within 1e-4 of the
               card's one-device session's distance from the CPU
 
+ 22. livejournal  com-livejournal, the paper's largest graph, at full size
+              (|V| 3,997,962, |E| 34,681,189, rmat from its config's seed).
+              The "oracles" host child (no card visible to it) works on it
+              in the background (nice 19) from phase 4 until before
+              phase 18c's vlm hold, in two processes: one generates it
+              and runs the host build's orient and SBF at 64 and 128 bits,
+              the other counts the exact triangles of the graph scaled by
+              0.5 (``triangles_intersection`` over 6 forked processes). No
+              host child runs from that hold on, so phases 19-21 have the
+              host to themselves. On the card:
+              ``tcim_count(build="device")`` at full size raises the device
+              build's documented ``ValueError`` at 64 and 128 bits (timed),
+              after its orient and both SBF sides ran, whose valid slices and
+              candidate totals (``DeviceBuildFuture.sizes()``) must equal the
+              host build's and exceed 2**30; the x0.5 graph (921,636,266
+              candidates at 64 bits, the largest bucket the device build
+              takes: 2**30 lanes) through ``build="auto"``, which must take
+              the device build, cold and warm, equal to the exact count, with
+              its launches of gather_total equal to its windows, the stage
+              split, pairs and peak memory, and the schedule step's own peak.
+              The full-size count through the host build is
+              ``tools/livejournal_count.py``'s (about half an hour of the
+              host's ``build_worklist``)
+
 Each path's kernel launch counts are set to 0 just before the path runs and
 read just after it.
 
@@ -309,6 +372,7 @@ only: no JAX, nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -411,7 +475,7 @@ TRAIN_GRAD_SHAPE = (2, 128)
 TRAIN_GRAD_TOL = 1e-4  # relative L2 a gradient leaf, card vs CPU, float32
 TRAIN_LOSS_TOL = 1e-5  # relative, card vs CPU, float32
 TRAIN_MICRO_SHAPE, TRAIN_MICROBATCHES, TRAIN_MICRO_TOL = (8, 128), 4, 1e-5
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = 8, 2048, 40, 3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = 8, 2048, 30, 3  # cut from 40 for the time limit
 TRAIN_SCHEDULE = {"warmup": 10, "total": 200}
 TRAIN_MIN_DROP = 0.3  # tests/test_system.py's bar for the loss from step 1 to the last logged
 COST_MATMUL_TOL = 0.01  # phase 18b: counted products against _step_flops's, relative
@@ -440,17 +504,42 @@ FAMILY_F32_DEPTH = {"llama-3.2-vision-90b": 5, "zamba2-7b": 7}  # one group (+1 
 FAMILY_TF_SHAPE = (2, 32, 8)  # batch, tokens, the last ones decoded
 FAMILY_MOE_SHAPE = (2, 16)
 FAMILY_GATE = 0.5  # the vlm's cross-attention gates (tanh 0.46), so that image tokens count
+# The families' training phase (18c), every config at full width and
+# attention "xla" (flash has no backward): float32 gradients, card vs the
+# port's CPU path, at phase 19c's cut depths (FAMILY_F32_DEPTH, else 2); a
+# bf16 TrainLoop of each config whose AdamW state fits one card, cut in
+# depth where parameters and state at about 22 B a parameter would pass
+# about 53 GB; an MoE resume at one layer in a deterministic child. The VLM
+# trains nowhere: its AdamW state alone (6.39 B x 12 B) passes the card.
+FAMILY_TRAIN_GRADS = ("moonshot-v1-16b-a3b", "zamba2-7b", "mamba2-780m", "hubert-xlarge",
+                      "minicpm3-4b", "llama-3.2-vision-90b")
+FAMILY_TRAIN_DOTS = "moonshot-v1-16b-a3b"  # tests/test_torch_families_model.py holds its "dots"
+FAMILY_VLM = "llama-3.2-vision-90b"  # its float32 hold takes 52 GB of the host and of the card
+FAMILY_TRAIN_LOOPS = (("moonshot-v1-16b-a3b", 2), ("zamba2-7b", 24), ("mamba2-780m", None),
+                      ("hubert-xlarge", None), ("minicpm3-4b", 24))  # (arch, depth cut)
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS, FAMILY_TRAIN_WARM = 4, 2048, 30, 3
+# TRAIN_MIN_DROP holds the first step's loss against the mean of the last five:
+# one step's loss is noisy where few tokens count (hubert's masked
+# prediction scores about 8 % of 8,192 frames a step).
+FAMILY_TRAIN_TAIL = 5
+FAMILY_RESUME_ARCH = "moonshot-v1-16b-a3b"
+FAMILY_RESUME_LAYERS, FAMILY_RESUME_SHAPE, FAMILY_RESUME_STEPS = 1, (4, 256), 20
+FAMILY_RESUME_FAIL_AT, FAMILY_RESUME_EVERY = (13,), 10
+FAMILY_RESUME_FLAG = "--family-resume-child"
 # The sharded training phase: meshes of logical shards of one card. smollm
 # replays phase 18's first steps on 2 x 2 ("dp": params replicated, moments
 # ZeRO-1); mamba2 runs its ZeRO-3 blocks ("tp") against its one-device run.
 SHARD_TRAIN_MESH = (2, 2)
-SHARD_TRAIN_STEPS, SHARD_TRAIN_CKPT = 10, 5
+SHARD_TRAIN_STEPS, SHARD_TRAIN_CKPT = 6, 3  # cut from 10 and 5 for the time limit
 # Absolute, bf16, sharded vs one device, every step: 3 x the largest
-# difference read on an NVIDIA H100 80GB HBM3 at 700 W (1.011e-3 at step 7
-# of 10), inside tests/test_distributed.py:401's 5e-3 after 5 steps.
+# difference read on an NVIDIA H100 80GB HBM3 at 700 W when the phase ran
+# 10 steps (1.011e-3, at step 7), inside tests/test_distributed.py:401's
+# 5e-3 after 5 steps. Over the 6 steps it runs now, the same card read at
+# most 7.906e-4.
 SHARD_LOSS_TOL = 3e-3
 SHARD_MAMBA = "mamba2-780m"
 SHARD_MAMBA_BATCH, SHARD_MAMBA_SEQ, SHARD_MAMBA_STEPS = 4, 2048, 3
+SHARD_MAMBA_LAYERS = 16  # of 48, cut for the time limit (phase 18c trains all 48 on one device)
 SHARD_GRAD_LAYERS, SHARD_GRAD_SHAPE, SHARD_GRAD_TOL = 2, (4, 256), 1e-5  # float32, relative L2
 SHARD_PODS, SHARD_COMP_TOL = 8, 0.02  # compressed_psum_mean; tests/test_distributed.py:374's bound
 SHARD_COMP_SHAPE = (8, 128)  # eight single-row gradients of the full-width embedding
@@ -475,6 +564,25 @@ SERVE_SHARD_FAMILIES = (("minicpm3-4b", None, "xla"), ("mamba2-780m", None, "xla
 SERVE_SHARD_IMPL = {LM_ARCH: "flash", **{a: impl for a, _, impl in SERVE_SHARD_FAMILIES}}
 SERVE_SHARD_F32_SHAPE = (4, 32, 4)  # batch, prompt, generated
 SERVE_SHARD_F32_MOE_SHAPE = (2, 1024, 4)  # one routing group of 1,024 a data shard
+# The com-livejournal phase: the paper's largest graph at full size (|V|
+# 3,997,962, |E| 34,681,189, rmat from its seed). Its host work runs in a
+# child process in the background from the script's start and ends before
+# phase 18c's vlm hold. The device build refuses it past 2**30
+# candidates; the graph scaled by LJ_LIMIT_SCALE fills the largest bucket
+# the device build takes (921,636,266 candidates at 64 bits, a bucket of
+# 2**30 lanes). The full-size count through the host build is
+# tools/livejournal_count.py's.
+LJ_GRAPH = "com-livejournal"
+LJ_SLICE_BITS = (64, 128)
+LJ_LIMIT_SCALE = 0.5
+LJ_ORACLE_WORKERS = 6  # with the full graph's process, 7 of the host's 8 cores when idle
+HOST_CHILD_FLAG = "--host-child"  # _host_child: the host's work of phases 4, 4b, 9, 18c and 22
+CPU_PATH_THREADS = 3  # torch threads of the "cpu-paths" child, beside the card's phases
+HOST_SBF_FIELDS = ("slice_bits", "n", "n_slices", "row_ptr", "row_slice_idx", "row_slice_data",
+                   "col_ptr", "col_slice_idx", "col_slice_data")
+HOST_WORKLIST_FIELDS = ("pair_edge", "pair_row_pos", "pair_col_pos", "m_edges")  # + the SBF's n_slices
+LJ_CHILD_TIMEOUT = 1200  # seconds phase 18c waits for the host children at most
+MAIN_ORACLE_TIMEOUT = 600  # seconds phase 4 waits for com-youtube's exact count at most
 
 
 def log(msg: str) -> None:
@@ -601,10 +709,12 @@ def _edges(cfg) -> np.ndarray:
     return gen(cfg.n, cfg.m, seed=cfg.seed)
 
 
-def phase_main() -> dict:
+def phase_main(oracles: tuple, cpu_paths: tuple) -> dict:
     """The main path on the card (``build="auto"``: the device build), a
     cold and a warm count, held against the CPU path (the host build, whose
-    stage split is logged beside the device's) and the oracle."""
+    stage split is logged beside the device's) and the oracle, both counted
+    by the host children (``_host_child``: the same graph, made from its
+    config and seed, while the kernels build)."""
     from repro_torch.configs import GRAPHS
     from repro_torch.core import tcim_count
     from repro_torch.core.plan import clamp_chunk_pairs, pow2_ceil
@@ -640,23 +750,29 @@ def phase_main() -> dict:
         runs[label] = {"result": res, "wall": wall, "launches": launches, "peak": peak}
 
     t0 = time.perf_counter()
-    cpu = tcim_count(edges, slice_bits=MAIN_SLICE_BITS, device="cpu")
-    log(f"[main] port CPU path: {cpu.triangles} triangles, build {cpu.stats['build']!r}, "
-        f"{time.perf_counter() - t0:.6f} s wall")
+    cpu = _child_result(cpu_paths, "main.json", MAIN_ORACLE_TIMEOUT)
+    check(cpu["m"] == len(edges), f"[main] the CPU path's graph has {cpu['m']} edges")
+    log(f"[main] port CPU path (in the host child): {cpu['triangles']} "
+        f"triangles, build {cpu['build']!r}, {cpu['wall']:.6f} s wall; waited "
+        f"{time.perf_counter() - t0:.3f} s here")
     log(f"[main] host build split (the CPU path's timings_s; its orient, compress and schedule "
-        f"are the host front end): {json.dumps(cpu.timings_s)}")
-    check(cpu.stats["build"] == "host", f"the CPU path took build {cpu.stats['build']!r}")
-    t0 = time.perf_counter()
+        f"are the host front end): {json.dumps(cpu['timings_s'])}")
+    check(cpu["build"] == "host", f"the CPU path took build {cpu['build']!r}")
     g = build_graph(edges, reorder=True)
-    exact = triangles_intersection(g)
-    log(f"[main] exact oracle (triangles_intersection): {exact} in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    host = _child_result(oracles, "main.json", MAIN_ORACLE_TIMEOUT)
+    exact = host["exact"]
+    check(host["m"] == len(edges), f"[main] the host child's graph has {host['m']} edges")
+    log(f"[main] exact oracle (triangles_intersection over {LJ_ORACLE_WORKERS} processes in "
+        f"the host child): {exact} in {host['oracle_s']:.2f} s there; waited "
+        f"{time.perf_counter() - t0:.2f} s here")
     log(f"[main] JAX package's count of this graph, for reference: {JAX_PACKAGE_COUNT}")
     for label, run in runs.items():
         got = run["result"]
-        check(got.triangles == cpu.triangles == exact,
-              f"card ({label}) {got.triangles}, CPU {cpu.triangles}, oracle {exact}")
-        check(got.stats["num_pairs"] == cpu.stats["num_pairs"] and got.stats["nvs"] == cpu.stats["nvs"],
-              f"card ({label}) stats {got.stats} != CPU path's {cpu.stats}")
+        check(got.triangles == cpu["triangles"] == exact,
+              f"card ({label}) {got.triangles}, CPU {cpu['triangles']}, oracle {exact}")
+        check(got.stats["num_pairs"] == cpu["num_pairs"] and got.stats["nvs"] == cpu["nvs"],
+              f"card ({label}) stats {got.stats} != CPU path's {cpu}")
 
     for name in SMALL_GRAPHS:
         small = _edges(GRAPHS[name])
@@ -668,7 +784,7 @@ def phase_main() -> dict:
             log(f"[main] {name} slice_bits={bits}: {res.triangles} == oracle (device build)")
     cold = runs["cold"]
     return {"graph": g, "edges": edges, "launches": cold["launches"], "result": cold["result"],
-            "peak": cold["peak"], "warm": runs["warm"], "host_timings": cpu.timings_s,
+            "peak": cold["peak"], "warm": runs["warm"], "host_timings": cpu["timings_s"],
             "exact": exact}
 
 
@@ -744,12 +860,12 @@ def _profile_count(edges: np.ndarray) -> None:
             f"{e.count} calls")
 
 
-def phase_device_build(main: dict) -> None:
+def phase_device_build(main: dict, cpu_paths: tuple) -> None:
     """The device build on the card: bit-identical to the host build, its
     synchronised stage split and peak, no host sync inside
     ``device_build_async``, the delta work list, and the unfused backends
-    over a device build. Leaves com-youtube's host SBF and work list in
-    ``main`` for the timing phase."""
+    over a device build. Leaves com-youtube's host SBF and work list (the
+    "cpu-paths" host child's build) in ``main`` for the timing phase."""
     from repro_torch.configs import GRAPHS
     from repro_torch.core import (
         build_sbf,
@@ -760,27 +876,35 @@ def phase_device_build(main: dict) -> None:
         device_build_sbf,
         device_build_worklist,
         device_delta_worklist,
+        sbf_from_arrays,
         tcim_count,
+        worklist_from_arrays,
     )
     from repro_torch.core.plan import clamp_chunk_pairs, pow2_ceil
     from repro_torch.graphs import build_graph, csr, device_orient, triangles_intersection
 
     cases = [(name, bits) for name in SMALL_GRAPHS for bits in (32, 64, 128)]
     for name, bits in cases + [(MAIN_GRAPH, MAIN_SLICE_BITS)]:
-        if name == MAIN_GRAPH:
+        if name == MAIN_GRAPH:  # its host build is the "cpu-paths" host child's
             edges, g = main["edges"], main["graph"]
+            info = _child_result(cpu_paths, "host_build.json", MAIN_ORACLE_TIMEOUT)
+            check(info["m"] == len(edges), f"[device build] the host child's graph: {info}")
+            with np.load(cpu_paths[1] / "host_build.npz") as arrays:
+                sb, wl = sbf_from_arrays(arrays), worklist_from_arrays(arrays)
+            host_s = info["s"]
         else:
             edges = _edges(GRAPHS[name])
             g = build_graph(edges, reorder=True)
-        t0 = time.perf_counter()
-        sb = build_sbf(g, bits)
-        wl = build_worklist(g, sb)
-        host_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sb = build_sbf(g, bits)
+            wl = build_worklist(g, sb)
+            host_s = time.perf_counter() - t0
         db = device_build(edges, slice_bits=bits)
         _check_build_identical(db, g, sb, wl, f"{name} slice_bits={bits}")
         log(f"[device build] {name} slice_bits={bits}: graph, SBF ({db.sbf.row_valid} + "
             f"{db.sbf.col_valid} records) and work list ({wl.num_pairs} pairs) identical to the "
-            f"host build ({host_s:.3f} s of host compress + schedule)")
+            f"host build ({host_s:.3f} s of host compress + schedule"
+            f"{' in the host child' if name == MAIN_GRAPH else ''})")
         if name == MAIN_GRAPH:
             main["sbf"], main["worklist"] = sb, wl
     del db
@@ -1735,9 +1859,10 @@ def _dense_operands(g, backend: str) -> float:
     return time.perf_counter() - t0
 
 
-def phase_dense() -> dict:
+def phase_dense(cpu_paths: tuple) -> dict:
     """The dense backends on the card at full size, held against the exact
-    oracle (and, on ego-facebook, the port's CPU path); the analytics."""
+    oracle (and, on ego-facebook, the port's CPU path, counted by the
+    "cpu-paths" host child); the analytics."""
     from repro_torch.configs import GRAPHS
     from repro_torch.core import baselines, metrics, tcim_count
     from repro_torch.graphs import build_graph, triangles_intersection
@@ -1780,11 +1905,11 @@ def phase_dense() -> dict:
                 f"operand build alone {build_s:.6f} s; max_memory_allocated {peak} bytes above "
                 f"the {base} bytes held before")
             if name == "ego-facebook":
-                t0 = time.perf_counter()
-                cpu = tcim_count(edges, backend=backend, device="cpu")
-                check(cpu.triangles == exact, f"{name} {backend}: CPU {cpu.triangles} != {exact}")
-                log(f"[dense] {name} {backend}: port CPU path {cpu.triangles} == card, "
-                    f"{time.perf_counter() - t0:.3f} s")
+                cpu = _child_result(cpu_paths, "dense.json", MAIN_ORACLE_TIMEOUT)[backend]
+                check(cpu["triangles"] == exact,
+                      f"{name} {backend}: CPU {cpu['triangles']} != {exact}")
+                log(f"[dense] {name} {backend}: port CPU path (in the host child) "
+                    f"{cpu['triangles']} == card, {cpu['wall']:.3f} s")
             else:
                 work = ("a float64 A @ A of about 10^14 operations" if backend == "mxu"
                         else f"{g.n * g.n * -(-g.n // 32):.3e} SWAR popcounts")
@@ -3598,8 +3723,7 @@ def phase_train() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     _train_grads()
     _train_microbatches()
-    one_device = _train_full_width()
-    _train_resume()
+    one_device = _train_full_width()  # its deterministic child runs in phase 18c
     log(f"[train] phase 18 took {time.perf_counter() - t_phase:.3f} s")
     return one_device
 
@@ -3729,6 +3853,393 @@ def phase_cost(lm: dict, one_device: dict) -> dict:
         f"_step_flops (6 N D + 12 L B S^2 H hd) {step_model:.6e}")
     log(f"[cost] phase 18b took {time.perf_counter() - t_phase:.3f} s")
     return out
+
+
+# --------------------------------------------------------------- phase 18c
+
+
+def _host_available_bytes() -> int:
+    """MemAvailable of this host, as /proc/meminfo reports it."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return 1024 * int(line.split()[1])
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _leaf_rel(card: torch.Tensor, host: torch.Tensor) -> float:
+    """||card - host|| / ||host|| of one leaf, on the card in float32 (the
+    VLM's stacked leaves are gigabytes; float64 copies would not fit)."""
+    want = host.to(card.device, torch.float32)
+    diff = float((card.float() - want).norm())
+    scale = float(want.norm())
+    return diff / scale if scale else diff
+
+
+def _metric_rel(got: float, want: float) -> float:
+    return abs(got - want) / abs(want) if want else abs(got)
+
+
+def _family_train_grads(smi: str, archs) -> None:
+    """18c (1): each family at full width in float32, remat "full", one
+    parameter draw on the card copied to the host: ``loss_and_grads`` on the
+    card against the port's CPU path at TRAIN_GRAD_SHAPE, the loss within
+    TRAIN_LOSS_TOL, every metric (the MoE's router losses and dropped
+    fraction) and every gradient leaf within FAMILY_CARD_TOL; the MoE also
+    under remat "dots" against the same CPU gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import init_model
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    b, s = TRAIN_GRAD_SHAPE
+    for arch in archs:
+        i = FAMILY_TRAIN_GRADS.index(arch)
+        depth = FAMILY_F32_DEPTH.get(arch, 2)
+        cfg = get_config(arch).scaled(n_layers=depth, dtype="float32", remat="full",
+                                      attention_impl="xla")
+        gc.collect()
+        torch.cuda.empty_cache()
+        card = init_model(torch.Generator(device="cuda").manual_seed(20 + i), cfg, "cuda")
+        _open_gates(card)
+        n_params = sum(t.numel() for t in tree_leaves(card))
+        need, avail = 8 * n_params, _host_available_bytes()
+        check(need < avail, f"[families-train] {arch}: the CPU half needs {need} bytes for "
+              f"float32 parameters and gradients; the host has {avail} available")
+        names = _leaf_names(card)
+        batch = _family_batch(cfg, b, s, seed=30 + i)
+        t0 = time.perf_counter()
+        host = tree_map(lambda t: t.cpu(), card)
+        loss_h, metrics_h, grads_h = loss_and_grads(host, _on(batch, "cpu"), cfg)
+        cpu_s = time.perf_counter() - t0
+        del host
+        grads_h = tree_leaves(grads_h)
+        remats = ("full", "dots") if arch == FAMILY_TRAIN_DOTS else ("full",)
+        for remat in remats:
+            _reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss_c, metrics_c, grads_c = loss_and_grads(card, _on(batch, "cuda"),
+                                                        cfg.scaled(remat=remat))
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            grads_c = tree_leaves(grads_c)
+            check(not any(_launches().values()), f"[families-train] {arch} launched {_launches()}")
+            loss_err = _metric_rel(float(loss_c), float(loss_h))
+            metric_errs = {k: _metric_rel(float(metrics_c[k]), float(metrics_h[k]))
+                           for k in metrics_h}
+            errs = [_leaf_rel(g, w) for g, w in zip(grads_c, grads_h)]
+            worst = int(np.argmax(errs))
+            check(all(g.is_cuda and g.dtype == torch.float32 for g in grads_c)
+                  and all(np.isfinite(float(g.float().norm())) for g in grads_c)
+                  and sorted(metrics_c) == sorted(metrics_h) and loss_err <= TRAIN_LOSS_TOL
+                  and max(metric_errs.values()) <= FAMILY_CARD_TOL
+                  and errs[worst] <= FAMILY_CARD_TOL,
+                  f"[families-train] {arch} remat {remat}: loss {float(loss_c)} vs "
+                  f"{float(loss_h)} ({loss_err:.3e}), metrics {metric_errs}, gradient "
+                  f"{names[worst]} {errs[worst]:.3e}")
+            log(f"[families-train] {arch} ({cfg.family}{', mla' if cfg.attention == 'mla' else ''}) "
+                f"float32 at full width, {depth} layers, {n_params} parameters, remat {remat!r}, "
+                f"{b} x {s}, card vs CPU (TF32 off): loss {float(loss_c):.7f} vs "
+                f"{float(loss_h):.7f} (relative {loss_err:.3e} <= {TRAIN_LOSS_TOL}); metrics "
+                + ", ".join(f"{k} {float(metrics_c[k]):.6f} ({e:.3e})"
+                            for k, e in sorted(metric_errs.items()))
+                + f" (<= {FAMILY_CARD_TOL}); {len(errs)} gradient leaves, worst {names[worst]} "
+                f"{errs[worst]:.3e} relative L2 (<= {FAMILY_CARD_TOL}), median "
+                f"{float(np.median(errs)):.3e}; card {card_s:.3f} s, max_memory_allocated "
+                f"{peak} bytes; the CPU path {cpu_s:.3f} s; {smi}")
+            del grads_c
+        del card, grads_h
+    torch.cuda.empty_cache()
+
+
+def _family_loop_cfg(arch: str, depth):
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    return full, (full.scaled(n_layers=depth) if depth else full)
+
+
+def _family_counted(cfg) -> dict:
+    """``step_cost`` of one bf16 train step of ``cfg`` at the timed shape
+    (FAMILY_TRAIN_BATCH x FAMILY_TRAIN_SEQ) on meta tensors, and its
+    roofline over the H100's constants (device-independent: the
+    "cpu-paths" host child counts them while the card's phases run)."""
+    from repro_torch.analysis.hlo_cost import step_cost
+    from repro_torch.analysis.roofline import roofline_terms
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.specs import batch_struct, params_struct
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    params = params_struct(cfg)
+    batch = batch_struct(cfg, Shape("train", "train", FAMILY_TRAIN_SEQ, FAMILY_TRAIN_BATCH), True)
+    cost = step_cost(make_train_step(cfg), params, adamw_init(params), batch,
+                     tags={"attn": "attn_core"})
+    rl = roofline_terms(cost.flops, cost.bytes, cost.collective_bytes)
+    return {"flops": cost.flops, "matmul_flops": cost.matmul_flops, "bytes": cost.bytes,
+            "attn_bytes": (cost.bytes_by_tag or {}).get("attn", 0.0),
+            "compute_s": rl["compute_s"], "memory_s": rl["memory_s"],
+            "bound_s": rl["step_lower_bound_s"], "dominant": rl["dominant"]}
+
+
+def _card_drawn_loop(arch: str, **kwargs):
+    """A ``TrainLoop`` whose fresh state is drawn on its device from seed 0
+    (``init_model`` with a generator there, as phase 19 draws its weights):
+    the loop's own init draws on the host, one normal at a time, which takes
+    10-25 s for the 1-2.3 B parameters of a config here. Everything else is
+    ``TrainLoop``'s: steps, logging, checkpoints, restores."""
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import adamw_init
+
+    class CardDrawn(TrainLoop):
+        def init_state(self):
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            params = init_model(gen, self.cfg, self.device)
+            return params, adamw_init(params)
+
+    return CardDrawn(arch, **kwargs)
+
+
+def _family_train_loop(arch: str, depth, smi: str, counted: dict) -> dict:
+    """18c (2): ``TrainLoop`` of one family at full width: bf16 parameters,
+    float32 moments, remat "full", FAMILY_TRAIN_BATCH x FAMILY_TRAIN_SEQ
+    tokens a step (MoE: routing groups of 1,024), TRAIN_SCHEDULE."""
+    from repro_torch.models.model import count_params_analytical
+    from repro_torch.models.params import tree_leaves
+
+    full, cfg = _family_loop_cfg(arch, depth)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop = _card_drawn_loop(arch, global_batch=FAMILY_TRAIN_BATCH, seq=FAMILY_TRAIN_SEQ,
+                            schedule=TRAIN_SCHEDULE, cfg_override=cfg)
+    check(cfg.dtype == "bfloat16" and cfg.remat == "full" and cfg.attention_impl == "xla"
+          and loop.device.type == "cuda", f"[families-train] {arch} config {cfg}")
+    times: list[float] = []
+    losses: list[float] = []
+    dropped: list[float] = []
+    step_fn = loop.step_fn
+
+    def timed(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out[2]["loss"]))
+        if "moe_dropped_frac" in out[2]:
+            dropped.append(float(out[2]["moe_dropped_frac"]))
+        return out
+
+    loop.step_fn = timed
+    _reset_launches()
+    t0 = time.perf_counter()
+    params, opt_state, flags = loop.run(FAMILY_TRAIN_STEPS, log_every=10)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    loop.step_fn = step_fn
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    bar = TRAIN_MIN_DROP
+    check(n_params == count_params_analytical(cfg), f"[families-train] {arch}: {n_params} "
+          f"parameters, the schema counts {count_params_analytical(cfg)}")
+    check(not any(launches.values()), f"[families-train] {arch} launched {launches}")
+    tail = float(np.mean(losses[-FAMILY_TRAIN_TAIL:]))
+    check(all(np.isfinite(x) for x in losses) and losses[0] - tail >= bar,
+          f"[families-train] {arch}: loss {losses} did not fall by {bar}")
+    check(all(t.is_cuda and t.dtype in (torch.bfloat16, torch.float32) for t in tree_leaves(params))
+          and int(opt_state["step"]) == FAMILY_TRAIN_STEPS, f"[families-train] {arch} state")
+    med = float(np.median(times[FAMILY_TRAIN_WARM:]))
+    tokens = FAMILY_TRAIN_BATCH * FAMILY_TRAIN_SEQ
+    cost = counted
+    share = cost["bound_s"] / med
+    check(share <= 1.0, f"[families-train] {arch}: bound {cost['bound_s']} s exceeds "
+          f"the measured {med} s")
+    drops = (f"; dropped fraction first {dropped[0]:.6f}, last {dropped[-1]:.6f}, mean "
+             f"{float(np.mean(dropped)):.6f}" if dropped else "")
+    log(f"[families-train] TrainLoop({arch!r}) on the card: {cfg.family}, {cfg.n_layers} of "
+        f"{full.n_layers} layers, {n_params} parameters in {cfg.dtype}, float32 moments, remat "
+        f"{cfg.remat!r}, attention {cfg.attention_impl!r}, {FAMILY_TRAIN_BATCH} x "
+        f"{FAMILY_TRAIN_SEQ} tokens a step (no microbatches), schedule {TRAIN_SCHEDULE} "
+        f"at lr {loop.opt_cfg.lr}; {FAMILY_TRAIN_STEPS} steps in {wall:.3f} s (straggler flags "
+        f"{flags}); loss first {losses[0]:.4f}, last {losses[-1]:.4f}, mean of the last "
+        f"{FAMILY_TRAIN_TAIL} {tail:.4f}: fell by {losses[0] - tail:.4f} (>= {bar}); logged "
+        f"{[(m['step'], round(m['loss'], 4)) for m in loop.metrics_log]}{drops}; kernel "
+        f"launches {launches}")
+    log(f"[families-train] {arch} synchronised step: median {1e3 * med:.3f} ms over steps "
+        f"{FAMILY_TRAIN_WARM + 1}-{FAMILY_TRAIN_STEPS} (min {1e3 * min(times[FAMILY_TRAIN_WARM:]):.3f}, "
+        f"max {1e3 * max(times[FAMILY_TRAIN_WARM:]):.3f}; first {1e3 * times[0]:.3f}); "
+        f"{tokens / med:.1f} tokens/s; max_memory_allocated {peak} bytes ({peak / n_params:.2f} "
+        f"a parameter); {smi}")
+    log(f"[families-train] {arch} counted step (meta, eager unfused bytes, in the host "
+        f"child): {cost['flops']:.6e} FLOPs "
+        f"({cost['matmul_flops']:.6e} in products), {cost['bytes']:.6e} bytes, attn_core "
+        f"{cost['attn_bytes']:.6e}; compute {1e3 * cost['compute_s']:.6f} ms, memory "
+        f"{1e3 * cost['memory_s']:.6f} ms, bound {1e3 * cost['bound_s']:.6f} ms "
+        f"({cost['dominant']}); measured {1e3 * med:.6f} ms, share {100 * share:.2f} %; {smi}")
+    _profile_train_step(loop, params, opt_state, tag=f"[families-train] {arch}")
+    return {"ms": 1e3 * med, "peak": peak, "params": n_params, "share": share,
+            "losses": (losses[0], losses[-1], tail)}
+
+
+def _family_resume_child() -> int:
+    """The child process (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, deterministic
+    algorithms): the MoE at full width and FAMILY_RESUME_LAYERS layers, an
+    uninterrupted ``TrainLoop`` against one with injected failures under
+    ``run_with_auto_resume``. Prints one JSON line."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_with_auto_resume
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.runtime import FailureInjector
+
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8", "CUBLAS_WORKSPACE_CONFIG")
+    torch.use_deterministic_algorithms(True)
+    cut = get_config(FAMILY_RESUME_ARCH).scaled(n_layers=FAMILY_RESUME_LAYERS)
+    b, s = FAMILY_RESUME_SHAPE
+    common = dict(global_batch=b, seq=s, schedule=TRAIN_SCHEDULE, ckpt_every=FAMILY_RESUME_EVERY,
+                  cfg_override=cut)
+    loop_a = _card_drawn_loop(FAMILY_RESUME_ARCH, **common)
+    t0 = time.perf_counter()
+    pa, sa, _ = loop_a.run(FAMILY_RESUME_STEPS, log_every=1)
+    plain_s = time.perf_counter() - t0
+    want = {m["step"]: (m["loss"], m["moe_dropped_frac"]) for m in loop_a.metrics_log}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_"))
+    try:
+        free = shutil.disk_usage(work).free
+        loop_b = _card_drawn_loop(FAMILY_RESUME_ARCH, ckpt_dir=str(work), **common)
+        t0 = time.perf_counter()
+        (pb, sb, _), restarts = run_with_auto_resume(
+            loop_b, FAMILY_RESUME_STEPS, FailureInjector(fail_at_steps=FAMILY_RESUME_FAIL_AT))
+        resumed_s = time.perf_counter() - t0
+        latest = loop_b.ckpt.latest_step()
+        ckpt_bytes = sum(f.stat().st_size for f in work.rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    logged = [(m["step"], m["loss"], m["moe_dropped_frac"]) for m in loop_b.metrics_log]
+    leaves_a = tree_leaves({"p": pa, "s": sa})
+    state_equal = len(leaves_a) == len(tree_leaves({"p": pb, "s": sb})) and all(
+        torch.equal(x, y) for x, y in zip(leaves_a, tree_leaves({"p": pb, "s": sb})))
+    print(json.dumps({
+        "restarts": restarts, "latest": latest, "logged": logged,
+        "uninterrupted": sorted((k, *v) for k, v in want.items()),
+        "losses_equal": all((loss, drop) == want[step] for step, loss, drop in logged),
+        "state_equal": state_equal, "plain_s": plain_s, "resumed_s": resumed_s,
+        "n_params": sum(t.numel() for t in tree_leaves(pa)), "disk_free": free,
+        "ckpt_bytes": ckpt_bytes,
+    }), flush=True)
+    return 0
+
+
+def _family_resume() -> None:
+    """Run ``_family_resume_child`` in a child process and check what it read."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), FAMILY_RESUME_FLAG],
+                          env=env, capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and bool(lines),
+          f"[families-train] resume child exited {proc.returncode}: {proc.stdout[-4000:]}"
+          f"{proc.stderr[-4000:]}")
+    res = json.loads(lines[-1])
+    every, steps_n = FAMILY_RESUME_EVERY, FAMILY_RESUME_STEPS
+    # Logged under run_with_auto_resume: step 1, every 10th (TrainLoop.run's
+    # default), and each restart's first, the one after the checkpoint
+    # committed before its failure.
+    restarted = [f // every * every + 1 for f in FAMILY_RESUME_FAIL_AT]
+    steps = sorted({1, *range(10, steps_n + 1, 10), *restarted})
+    check(res["restarts"] == len(FAMILY_RESUME_FAIL_AT) and res["losses_equal"]
+          and res["state_equal"] and res["latest"] == steps_n
+          and [st for st, *_ in res["logged"]] == steps,
+          f"[families-train] MoE resume: {res['restarts']} restarts, logged {res['logged']} vs "
+          f"{res['uninterrupted']}, state equal {res['state_equal']}")
+    log(f"[families-train] deterministic child (CUBLAS_WORKSPACE_CONFIG=:4096:8, "
+        f"use_deterministic_algorithms): {FAMILY_RESUME_ARCH} at full width, "
+        f"{FAMILY_RESUME_LAYERS} layer(s), {res['n_params']} parameters, bf16, remat 'full', "
+        f"{FAMILY_RESUME_SHAPE[0]} x {FAMILY_RESUME_SHAPE[1]} tokens (one routing group of "
+        f"1,024), {steps_n} steps, ckpt_every {every}, failures at steps "
+        f"{FAMILY_RESUME_FAIL_AT}: {res['restarts']} restart(s), every logged (step, loss, "
+        f"dropped fraction) {res['logged']} equal to the uninterrupted run's, final params and "
+        f"moments bit-equal; uninterrupted {res['plain_s']:.3f} s, with the restart "
+        f"{res['resumed_s']:.3f} s; {res['ckpt_bytes']} bytes of checkpoints at the end "
+        f"({res['disk_free']} free before); the child took {child_s:.1f} s")
+
+
+def _beside(children, body) -> None:
+    """Run each of ``children`` (each starts a child process and checks what
+    it read) in a thread while ``body()`` runs here; then wait for them all
+    and raise the first failure. No child outlives the call."""
+    import threading
+
+    failed: list = []
+
+    def run(fn):
+        try:
+            fn()
+        except BaseException as e:  # re-raised below, once every thread has ended
+            failed.append(e)
+
+    threads = [threading.Thread(target=run, args=(fn,)) for fn in children]
+    for t in threads:
+        t.start()
+
+    try:
+        body()
+    finally:
+        for t in threads:
+            t.join()
+    if failed:
+        raise failed[0]
+
+
+def _host_children_done(children, tag: str) -> None:
+    """Wait until every host child has exited 0 (at most LJ_CHILD_TIMEOUT
+    seconds each) and log by when they had."""
+    t0 = time.perf_counter()
+    for proc, work, _ in children:
+        rc = proc.wait(timeout=LJ_CHILD_TIMEOUT)
+        if rc != 0:
+            check(False, f"{tag} host child exited {rc}: {(work / 'child.log').read_text()[-4000:]}")
+    log(f"{tag} host children have exited, by {time.perf_counter() - min(c[2] for c in children):.1f}"
+        f" s after they started; waited {time.perf_counter() - t0:.3f} s here")
+
+
+def phase_families_train(oracles: tuple, cpu_paths: tuple) -> dict:
+    """18c: the LM families' training on the card (see the module
+    docstring): the TrainLoops first, with their counted bounds from the
+    "cpu-paths" host child; then the float32 holds of the five smaller
+    configs, beside the deterministic children of phases 18, 20 and 18c;
+    then, once those and both host children have exited, the vlm's hold
+    alone (52 GB of the host and of the card). Returns each TrainLoop's ms
+    a step, peak, parameters and share of its counted bound by config."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    costs = _child_result(cpu_paths, "costs.json", MAIN_ORACLE_TIMEOUT)
+    loops = {arch: _family_train_loop(arch, depth, smi, costs[arch])
+             for arch, depth in FAMILY_TRAIN_LOOPS}
+    t_loops = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()  # the children need the card's memory that this process cached
+
+    _beside((_train_resume, _sharded_resume, _family_resume),
+            lambda: _family_train_grads(smi, [a for a in FAMILY_TRAIN_GRADS if a != FAMILY_VLM]))
+    t_window = time.perf_counter() - t_phase - t_loops
+    _host_children_done((oracles, cpu_paths), "[families-train]")
+    _family_train_grads(smi, [FAMILY_VLM])
+    torch.cuda.empty_cache()
+    log(f"[families-train] phase 18c took {time.perf_counter() - t_phase:.3f} s (TrainLoops "
+        f"{t_loops:.3f}, float32 gradients beside the deterministic children {t_window:.3f}, "
+        f"the vlm's {time.perf_counter() - t_phase - t_loops - t_window:.3f})")
+    return loops
 
 
 # ---------------------------------------------------------------- phase 19
@@ -4370,7 +4881,7 @@ def _check_restored_blocks(params, opt, ckpt_dir: Path, step: int) -> int:
 
 
 def _elastic_restore(run: dict, work: Path) -> None:
-    """The 2 x 2 run's checkpoint of step 5 restored onto a 4 x 1 mesh and
+    """The 2 x 2 run's checkpoint of step SHARD_TRAIN_CKPT restored onto a 4 x 1 mesh and
     onto one device: blocks bit-equal to the saved slices, and the steps
     after it within the loss bound of the uninterrupted run's."""
     import shutil
@@ -4408,13 +4919,15 @@ def _elastic_restore(run: dict, work: Path) -> None:
 def _sharded_mamba(smi: str) -> None:
     """mamba2-780m at full width ("tp": ZeRO-3, fsdp -> 'data', tp ->
     'model') on 2 x 2 logical shards against its one-device run."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.train import TrainLoop
     from repro_torch.models.params import tree_leaves
 
     runs = {}
+    cut = get_config(SHARD_MAMBA).scaled(n_layers=SHARD_MAMBA_LAYERS)
     for label, mesh in (("one device", None), ("2 x 2", _logical_mesh(SHARD_TRAIN_MESH))):
         loop = TrainLoop(SHARD_MAMBA, global_batch=SHARD_MAMBA_BATCH, seq=SHARD_MAMBA_SEQ,
-                         schedule=TRAIN_SCHEDULE, mesh=mesh,
+                         schedule=TRAIN_SCHEDULE, mesh=mesh, cfg_override=cut,
                          device=SHARD_DEVICE if mesh is None else None)
         times, losses = _timed_steps(loop)
         torch.cuda.empty_cache()
@@ -4623,9 +5136,8 @@ def phase_sharded_train(one_device: dict) -> None:
     _sharded_mamba(smi)
     t_mamba = time.perf_counter() - t_phase - t_smollm
     f32 = _sharded_grads_f32()
-    _compressed_mean(f32)
+    _compressed_mean(f32)  # the deterministic child ran in phase 18c
     del f32
-    _sharded_resume()
     torch.cuda.empty_cache()
     log(f"[sharded train] phase 20 took {time.perf_counter() - t_phase:.3f} s (smollm and its "
         f"restores {t_smollm:.3f}, mamba2 {t_mamba:.3f})")
@@ -4936,7 +5448,304 @@ def phase_sharded_serve(lm: dict) -> dict:
     return flash
 
 
+# ---------------------------------------------------------------- phase 22
+
+
+def _start_host_child(kind: str) -> tuple:
+    """Start ``_host_child(kind)`` in its own session (so that its forked
+    oracle workers can be stopped with it), with no card visible. Returns
+    (process, working directory, start time)."""
+    import atexit
+    import shutil
+    import signal
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_host_"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    with open(work / "child.log", "w") as out:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), HOST_CHILD_FLAG,
+                                 kind, str(work)],
+                                env=env, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, work, time.perf_counter()
+
+
+def _write_json(path: Path, obj: dict) -> None:
+    """Write ``obj`` so that a reader polling for ``path`` sees it whole."""
+    tmp = path.with_suffix(".tmp")
+    tmp.write_text(json.dumps(obj))
+    tmp.rename(path)
+
+
+def _child_result(child: tuple, name: str, timeout: float) -> dict:
+    """The host child's ``name`` once written; fails if the child exits
+    without it or ``timeout`` seconds pass."""
+    proc, work, _ = child
+    deadline = time.perf_counter() + timeout
+    while not (work / name).exists():
+        rc = proc.poll()
+        check(rc is None and time.perf_counter() < deadline,
+              f"host child exited {rc} or took {timeout} s without {name}: "
+              f"{(work / 'child.log').read_text()[-4000:]}")
+        time.sleep(0.5)
+    return json.loads((work / name).read_text())
+
+
+def _cpu_path_count(edges: np.ndarray, **kwargs) -> dict:
+    """``tcim_count(edges, device="cpu", **kwargs)``: the port's CPU path
+    (the host build and the kernels' plain versions), as phases 4 and 9
+    hold the card to it."""
+    from repro_torch.core import tcim_count
+
+    t0 = time.perf_counter()
+    res = tcim_count(edges, device="cpu", **kwargs)
+    return {"triangles": res.triangles, "build": res.stats.get("build"), "m": len(edges),
+            "num_pairs": res.stats.get("num_pairs"), "nvs": res.stats.get("nvs"),
+            "timings_s": res.timings_s, "wall": time.perf_counter() - t0}
+
+
+def _background() -> None:
+    """Put this host child, and the processes it forks after, at the lowest
+    priority (nice 19), so that the card's phases keep their host cores.
+    (The card's machine refuses SCHED_IDLE.)"""
+    os.nice(19 - os.nice(0))
+
+
+def _host_child(kind: str, work: Path) -> int:
+    """The host's work of the card's phases, in child processes beside
+    them (``kind``): "cpu-paths" counts com-youtube through the port's CPU
+    path (``main.json``, phase 4), runs its host build (``host_build.npz``,
+    phase 4b), counts ego-facebook through the dense backends' CPU paths
+    (``dense.json``, phase 9), on CPU_PATH_THREADS torch threads, then the
+    families' train steps on meta tensors (``costs.json``, phase 18c);
+    "oracles" runs NumPy only, so that it may fork (``_oracles``). What
+    phase 9 and phase 4 need runs at nice 10, what later phases need runs
+    in the background (``_background``: nice 19)."""
+    from repro_torch.configs import GRAPHS
+
+    os.nice(10)
+    if kind == "cpu-paths":
+        from repro_torch.core.sbf import build_sbf, build_worklist
+        from repro_torch.graphs import build_graph
+
+        torch.set_num_threads(CPU_PATH_THREADS)
+        edges = _edges(GRAPHS[MAIN_GRAPH])
+        _write_json(work / "main.json", _cpu_path_count(edges, slice_bits=MAIN_SLICE_BITS))
+        g = build_graph(edges, reorder=True)
+        t0 = time.perf_counter()
+        sb = build_sbf(g, MAIN_SLICE_BITS)
+        wl = build_worklist(g, sb)
+        host_s = time.perf_counter() - t0
+        np.savez(work / "host_build_tmp.npz", **{f: getattr(sb, f) for f in HOST_SBF_FIELDS},
+                 **{f: getattr(wl, f) for f in HOST_WORKLIST_FIELDS})
+        (work / "host_build_tmp.npz").rename(work / "host_build.npz")
+        _write_json(work / "host_build.json", {"s": host_s, "m": len(edges)})
+        del g, sb, wl
+        edges = _edges(GRAPHS["ego-facebook"])
+        _write_json(work / "dense.json", {b: _cpu_path_count(edges, backend=b)
+                                          for b in DENSE_BACKENDS})
+        _background()
+        _write_json(work / "costs.json", {arch: _family_counted(_family_loop_cfg(arch, depth)[1])
+                                          for arch, depth in FAMILY_TRAIN_LOOPS})
+        return 0
+    check(kind == "oracles", f"host child kind {kind!r}")
+    return _oracles(work)
+
+
+def _oracles(work: Path) -> int:
+    """Phases 4 and 22's host work. First com-youtube's exact count
+    (``main.json``); then, in the background, com-livejournal in two
+    processes: this one makes the graph scaled by LJ_LIMIT_SCALE (saved)
+    and its exact count (``lj_scaled.json``), a forked one the full graph
+    from its config and seed (saved for the card) and the host build's
+    orient and SBF at LJ_SLICE_BITS with their valid slices a side and
+    candidate totals (``lj_full.json``). Every exact count is
+    ``triangles_intersection`` over LJ_ORACLE_WORKERS forked processes."""
+    import multiprocessing
+
+    from repro_torch.configs import GRAPHS
+    from repro_torch.graphs import build_graph
+    from tools.livejournal_count import triangles_forked
+
+    edges = _edges(GRAPHS[MAIN_GRAPH])
+    t0 = time.perf_counter()
+    exact = triangles_forked(build_graph(edges, reorder=True), LJ_ORACLE_WORKERS)
+    _write_json(work / "main.json", {"exact": exact, "m": len(edges),
+                                     "oracle_s": time.perf_counter() - t0})
+    _background()
+    full = multiprocessing.get_context("fork").Process(target=_lj_full, args=(work,))
+    full.start()
+    cfg = GRAPHS[LJ_GRAPH].scaled(LJ_LIMIT_SCALE)
+    t0 = time.perf_counter()
+    scaled = _edges(cfg)
+    out = {"n": cfg.n, "m": len(scaled), "gen_s": time.perf_counter() - t0}
+    np.save(work / "scaled.npy", scaled)
+    t0 = time.perf_counter()
+    out["exact"] = triangles_forked(build_graph(scaled, reorder=True), LJ_ORACLE_WORKERS)
+    out["oracle_s"] = time.perf_counter() - t0
+    _write_json(work / "lj_scaled.json", out)
+    print(json.dumps(out), flush=True)
+    full.join()
+    check(full.exitcode == 0, f"the full graph's process exited {full.exitcode}")
+    return 0
+
+
+def _lj_full(work: Path) -> None:
+    """``_oracles``'s forked half: com-livejournal at full size (saved),
+    its host orient and SBF at LJ_SLICE_BITS (``lj_full.json``)."""
+    from repro_torch.configs import GRAPHS
+    from repro_torch.core.sbf import build_sbf
+    from repro_torch.graphs import build_graph
+
+    out: dict = {"sides": {}}
+    t0 = time.perf_counter()
+    edges = _edges(GRAPHS[LJ_GRAPH])
+    out["gen_s"] = time.perf_counter() - t0
+    out["m"] = len(edges)
+    np.save(work / "edges.npy", edges)
+    t0 = time.perf_counter()
+    g = build_graph(edges, reorder=True)
+    out["orient_s"] = time.perf_counter() - t0
+    out["max_out_degree"] = int(np.diff(g.indptr).max())
+    del edges
+    u = g.edges[:, 0]
+    for bits in LJ_SLICE_BITS:
+        t0 = time.perf_counter()
+        sb = build_sbf(g, bits)
+        out["sides"][str(bits)] = {
+            "row_valid": len(sb.row_slice_idx), "col_valid": len(sb.col_slice_idx),
+            "candidates": int((sb.row_ptr[u + 1] - sb.row_ptr[u]).sum(dtype=np.int64)),
+            "compress_s": time.perf_counter() - t0}
+        del sb
+        print(f"slice_bits {bits}: {out['sides'][str(bits)]}", flush=True)
+    _write_json(work / "lj_full.json", out)
+
+
+def _refused(fn) -> tuple[str, float]:
+    """(the ValueError's message, seconds until it was raised) of ``fn()``,
+    which must raise the device build's documented refusal."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        fn()
+    except ValueError as e:
+        torch.cuda.synchronize()
+        return str(e), time.perf_counter() - t0
+    raise RuntimeError("chip_smoke check failed: the device build took a total past its limit")
+
+
+def phase_livejournal(child: tuple) -> dict:
+    """22: com-livejournal on the card (see the module docstring). Returns
+    the scaled count's launches of gather_total and its figures."""
+    from repro_torch.configs import GRAPHS
+    from repro_torch.core import build as build_mod
+    from repro_torch.core import device_build_async, tcim_count
+    from repro_torch.core.plan import clamp_chunk_pairs, pow2_ceil
+    from repro_torch.kernels.tc_gather_popcount import gather_total_cuda
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    limit = build_mod._CAND_GUARD  # 2**30: the largest bucket the device build takes
+    proc, work, started = child
+    _host_children_done((child,), "[livejournal]")  # phase 18c waited for it already
+    host = _child_result(child, "lj_full.json", 0)
+    small = _child_result(child, "lj_scaled.json", 0)
+    cfg = GRAPHS[LJ_GRAPH]
+    log(f"[livejournal] host child (in the background, nice 19): {cfg.name} |V|={cfg.n} "
+        f"|E|={host['m']} generated in {host['gen_s']:.2f} s, host orient (build_graph, reorder) "
+        f"{host['orient_s']:.2f} s, largest oriented out-degree {host['max_out_degree']}; scaled "
+        f"x{LJ_LIMIT_SCALE} generated in {small['gen_s']:.2f} s, its exact count in "
+        f"{small['oracle_s']:.2f} s over {LJ_ORACLE_WORKERS} processes")
+    edges = np.load(work / "edges.npy")
+    check(len(edges) == host["m"], "[livejournal] the saved edges")
+    out = {}
+    for bits in LJ_SLICE_BITS:
+        want = host["sides"][str(bits)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        msg, refused_s = _refused(lambda: tcim_count(edges, backend="pallas_total", build="device",
+                                                    slice_bits=bits))
+        peak = torch.cuda.max_memory_allocated()
+        check("at or past int32 device indexing" in msg and "host" in msg,
+              f"[livejournal] {bits} bits refused with {msg!r}")
+        t0 = time.perf_counter()
+        fut = device_build_async(edges, slice_bits=bits)
+        sizes = fut.sizes()
+        sizes_s = time.perf_counter() - t0
+        del fut
+        check(sizes == {k: want[k] for k in sizes} and sizes["candidates"] > limit,
+              f"[livejournal] {bits} bits: the device's {sizes} vs the host's {want}")
+        log(f"[livejournal] full size, slice_bits {bits}, build='device': ValueError after "
+            f"{refused_s:.3f} s ({msg!r}), max_memory_allocated {peak} bytes; device orient + both "
+            f"SBF sides {sizes_s:.3f} s: row valid slices {sizes['row_valid']}, column "
+            f"{sizes['col_valid']}, candidates {sizes['candidates']} ({sizes['candidates'] / 2**31:.3f}"
+            f" x 2^31) == the host build's (compress {want['compress_s']:.2f} s on the host); "
+            f"{smi}")
+        out[bits] = {"refused_s": refused_s, **sizes}
+    del edges
+    torch.cuda.empty_cache()
+
+    scaled = np.load(work / "scaled.npy")
+    exact = small["exact"]
+    chunk = clamp_chunk_pairs(1 << 20, 64 // 32)
+    fut = device_build_async(scaled, slice_bits=64)
+    sizes = fut.sizes()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    db = fut.result()
+    torch.cuda.synchronize()
+    schedule_s = time.perf_counter() - t0
+    schedule_peak = torch.cuda.max_memory_allocated()
+    cb = pow2_ceil(sizes["candidates"])
+    check(limit // 2 < sizes["candidates"] <= limit and cb == limit,
+          f"[livejournal] x{LJ_LIMIT_SCALE}: {sizes['candidates']} candidates, bucket {cb}")
+    log(f"[livejournal] x{LJ_LIMIT_SCALE} (|V|={small['n']} |E|={small['m']}), "
+        f"slice_bits 64: {sizes['candidates']} candidates, a bucket of {cb} lanes (the largest the "
+        f"device build takes); the schedule step alone {schedule_s:.3f} s, max_memory_allocated "
+        f"{schedule_peak} bytes with {before} bytes held before it (graph, SBF), "
+        f"{db.worklist.num_pairs} pairs; {smi}")
+    del db, fut
+    torch.cuda.empty_cache()
+    runs = []
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gather_total_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = tcim_count(scaled, backend="pallas_total", slice_bits=64)
+        wall = time.perf_counter() - t0
+        launches = gather_total_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        windows = math.ceil(pow2_ceil(res.stats["num_pairs"]) / chunk)
+        check(res.stats["build"] == "device" and res.triangles == exact and launches == windows,
+              f"[livejournal] x{LJ_LIMIT_SCALE} {label}: {res.triangles} triangles (oracle "
+              f"{exact}), build {res.stats['build']!r}, {launches} launches for {windows} windows")
+        log(f"[livejournal] x{LJ_LIMIT_SCALE} {label} count, build='auto' on the card: "
+            f"{res.triangles} triangles == triangles_intersection, build {res.stats['build']!r}, "
+            f"{res.stats['num_pairs']} pairs, {launches} gather_total launches ({windows} windows), "
+            f"{wall:.6f} s wall, timings_s {json.dumps(res.timings_s)}, max_memory_allocated "
+            f"{peak} bytes; {smi}")
+        runs.append({"wall": wall, "launches": launches, "peak": peak, "timings": res.timings_s})
+    torch.cuda.empty_cache()
+    log(f"[livejournal] phase 22 took {time.perf_counter() - t_phase:.3f} s")
+    return {"full": out, "scale": LJ_LIMIT_SCALE, "candidates": sizes["candidates"],
+            "pairs": res.stats["num_pairs"], "launches": runs[0]["launches"],
+            "schedule_peak": schedule_peak, "runs": runs}
+
+
 def main() -> int:
+    if sys.argv[1:2] == [HOST_CHILD_FLAG]:  # a host child: no card visible to it
+        return _host_child(sys.argv[2], Path(sys.argv[3]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
@@ -4945,6 +5754,8 @@ def main() -> int:
         return _train_resume_child()
     if sys.argv[1:] == [SHARD_RESUME_FLAG]:
         return _sharded_resume_child()
+    if sys.argv[1:] == [FAMILY_RESUME_FLAG]:
+        return _family_resume_child()
     t_start = time.perf_counter()
     seconds = {}
 
@@ -4956,21 +5767,23 @@ def main() -> int:
         return out
 
     name = timed(phase_device)
+    oracles = _start_host_child("oracles")
+    cpu_paths = _start_host_child("cpu-paths")
     timed(phase_build)
     err = timed(phase_kernel_cases)
     err_seg = timed(phase_segment_cases)
     err_unfused = timed(phase_unfused_cases)
-    main_run = timed(phase_main)
-    timed(phase_device_build, main_run)
+    main_run = timed(phase_main, oracles, cpu_paths)
+    serve = timed(phase_serve)  # before 4b, while the host child builds com-youtube for it
+    timed(phase_device_build, main_run, cpu_paths)
     row, err_main, chunks, store_row, store_col = timed(phase_timing, main_run)
     row["max_abs_err"] = max(err, err_main)
-    serve = timed(phase_serve)
     rows, err_serve = timed(phase_serve_timing, serve, chunks, store_row, store_col)
     rows[0]["max_abs_err"] = max(err_seg, err_serve)
     for r in rows[1:]:
         r["max_abs_err"] = max(err_unfused, err_serve)
     err_bitgemm, err_mxu = timed(phase_dense_cases)
-    dense = timed(phase_dense)
+    dense = timed(phase_dense, cpu_paths)
     dense_rows = timed(phase_dense_timing, dense)
     dense_rows[0]["max_abs_err"] = err_bitgemm
     for r in dense_rows[1:]:
@@ -4985,9 +5798,12 @@ def main() -> int:
     timed(phase_contracts, main_run, serve)
     one_device = timed(phase_train)
     timed(phase_cost, lm, one_device)
+    timed(phase_families_train, oracles, cpu_paths)
     family_flash, family_rows = timed(phase_families)
     timed(phase_sharded_train, one_device)
     sharded_flash = timed(phase_sharded_serve, lm)
+    lj = timed(phase_livejournal, oracles)
+    row["livejournal_launches"] = lj["launches"]
     flash_rows[0]["launches_by_path"] = {"lm_serve": flash_rows[0]["launches"], **family_flash,
                                          **sharded_flash}
     flash_rows[0]["launches"] += sum(family_flash.values()) + sum(sharded_flash.values())

@@ -26,7 +26,11 @@ and to the JAX package's device build:
 
 Stores are trimmed to pow2 row buckets (the executor's layout) and the
 candidate and pair arrays to their own pow2 buckets. The candidate total is
-summed exactly in int64. Between the upload and the execute stage the host
+summed exactly in int64. The schedule step's lanes are int32 indices up to
+the candidate bucket ``cb`` (its spare slot included), so the build takes at
+most ``2**30`` candidates (``cb <= 2**30``) and refuses more with a
+``ValueError`` before it allocates a lane: ``build="auto"`` then counts on
+the host build. Between the upload and the execute stage the host
 reads back two small things: ``[row_nvs, col_nvs, candidates]`` and then the
 pair count; the bulk arrays never leave the device, and ``SlicedBitmap``
 carries the device stores straight into ``core.executor.Executor``.
@@ -64,12 +68,13 @@ __all__ = [
     "device_delta_worklist",
 ]
 
-_INT32_LIMIT = 2**31 - 1
 _I32 = torch.int32
 
-# The candidate total sizes int32 lane arrays. It is summed exactly in
-# int64; the guard keeps the reference's margin below the int32 limit.
-_CAND_GUARD = _INT32_LIMIT - (1 << 16)
+# The candidate total sizes the schedule step's int32 lane arrays: cb =
+# pow2_ceil(candidates) lanes, misses sent to the spare slot cb, so cb must
+# itself be an int32 index. The largest such pow2 is 2**30, the most
+# candidates the device build takes (summed exactly in int64 before).
+_CAND_GUARD = 1 << 30
 
 
 def _lanes(k: int, device: torch.device) -> torch.Tensor:
@@ -254,10 +259,13 @@ def _worklist(src, dst, m, index_arrays, n_slices: int, cand: int, m_edges: int,
               refusal: str) -> DeviceWorklist:
     """Guard the candidate total, run the schedule step, read back the pair
     count and trim the pairs to their pow2 bucket (contiguous copies, so the
-    candidate-sized buffers are freed)."""
-    if cand >= _CAND_GUARD:
+    candidate-sized buffers are freed). A total past ``_CAND_GUARD`` raises
+    ``ValueError`` before anything is allocated."""
+    if cand > _CAND_GUARD:
         raise ValueError(
-            f"candidate total {cand} is at or past int32 device indexing; {refusal}"
+            f"candidate total {cand} is at or past int32 device indexing (at most "
+            f"{_CAND_GUARD}: a bucket of pow2_ceil(candidates) int32 lanes and its spare "
+            f"slot); {refusal}"
         )
     cb = pow2_ceil(max(cand, 1))
     pe, pr, pc, npair = _worklist_step(src, dst, m, *index_arrays, n_slices, cb)
@@ -289,9 +297,9 @@ class DeviceBuildFuture:
 
     Construction enqueues the sort-bound orient + SBF device work and
     returns with no host sync. ``result()`` performs the one readback of
-    ``[row_nvs, col_nvs, candidates]``, trims the stores, runs the schedule
-    step (whose pair count is the second readback) and returns the
-    ``DeviceBuild``. Idempotent.
+    ``[row_nvs, col_nvs, candidates]`` (``sizes()``), trims the stores, runs
+    the schedule step (whose pair count is the second readback) and returns
+    the ``DeviceBuild``. Idempotent.
     """
 
     def __init__(self, dg: DeviceGraph, slice_bits: int, raw, timings: dict):
@@ -299,15 +307,25 @@ class DeviceBuildFuture:
         self._slice_bits = slice_bits
         self._raw = raw
         self.timings_s = timings
+        self._sizes: list[int] | None = None
         self._build: DeviceBuild | None = None
+
+    def sizes(self) -> dict:
+        """The SBF's valid slices a side and the work list's candidate total
+        (``row_valid``, ``col_valid``, ``candidates``): the sizing readback,
+        done once. Known before the schedule step, which may refuse the
+        total."""
+        if self._sizes is None:
+            (*_, row_nvs), (*_, col_nvs), cand = self._raw
+            # tclint: sync-ok(the device build's sizing readback, deferred to result())
+            self._sizes = torch.stack([row_nvs.long(), col_nvs.long(), cand]).cpu().tolist()
+        return dict(zip(("row_valid", "col_valid", "candidates"), self._sizes))
 
     def result(self) -> DeviceBuild:
         if self._build is None:
             t0 = time.perf_counter()
-            raw = self._raw
-            (*_, row_nvs), (*_, col_nvs), cand = raw
-            # tclint: sync-ok(the device build's sizing readback, deferred to result())
-            sizes = torch.stack([row_nvs.long(), col_nvs.long(), cand]).cpu().tolist()
+            self.sizes()
+            raw, sizes = self._raw, self._sizes
             sb = _finalize_sbf(self._dg, self._slice_bits, raw, sizes[0], sizes[1])
             self._raw = raw = None
             wl = _graph_worklist(self._dg, sb, sizes[2])

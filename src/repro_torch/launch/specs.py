@@ -22,7 +22,7 @@ from repro_torch.models.model import cache_zeros, model_schema
 from repro_torch.models.params import tree_map
 from repro_torch.optim import adamw_init
 
-__all__ = ["input_specs", "batch_struct", "CellSpec"]
+__all__ = ["input_specs", "batch_struct", "params_struct", "CellSpec"]
 
 META = torch.device("meta")
 
@@ -48,6 +48,14 @@ def batch_struct(cfg: ModelConfig, shape: Shape, with_labels: bool) -> dict:
     return batch
 
 
+def params_struct(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``cfg`` as meta tensors, in ``init_model``'s
+    dtypes: ``cfg.dtype``, the SSM's ``a_log`` and ``dt_bias`` float32."""
+    dtype = getattr(torch, cfg.dtype)
+    return tree_map(lambda d: _sds(d.shape, torch.float32 if d.init in ("a_log", "dt_bias")
+                                   else dtype), model_schema(cfg))
+
+
 class CellSpec:
     """Everything a step of one (arch, shape) cell takes, on the meta device."""
 
@@ -58,10 +66,7 @@ class CellSpec:
         self.runs, self.skip_reason = cell_status(self.cfg.family, shape_name)
 
     def params_struct(self):
-        # init_model's dtypes: cfg.dtype, the SSM's a_log and dt_bias float32.
-        dtype = getattr(torch, self.cfg.dtype)
-        return tree_map(lambda d: _sds(d.shape, torch.float32 if d.init in ("a_log", "dt_bias")
-                                       else dtype), model_schema(self.cfg))
+        return params_struct(self.cfg)
 
     def opt_struct(self):
         return adamw_init(self.params_struct())

@@ -1,0 +1,281 @@
+"""A rehearsal on the CPU of chip_smoke.py's phases 18c and 22.
+
+``chip_smoke.py`` drives the port on one card. Here a copy of it runs on the
+host (``"cuda"`` read as ``"cpu"``, ``.cuda()`` as ``.cpu()``, the
+``torch.cuda`` sync and memory calls stubbed, ``resolve_device(None)`` the
+CPU), so that the new phases' logic (what they build, count, hold to what,
+and check) runs before a card does:
+
+  * 18c, the families' training: every family's smoke widths at the full
+    configs' dtype and remat (the float32 gradients at the phase's depth
+    cuts, the loops at 4 layers), each ``TrainLoop`` with its counted bound
+    on meta tensors (the "cpu-paths" host child's file, written here), the
+    float32 gradients "card" (the CPU path again) against the CPU path
+    beside the MoE resume, whose child process runs in this one (its
+    ``subprocess.run`` replaced; the deterministic children of phases 18
+    and 20, which share the window, are not rehearsed here);
+  * 22, com-livejournal: the config scaled to 0.004 stands in for the full
+    graph (and com-youtube x0.01 for phase 4's, whose exact count the host
+    child makes first), the device build's limit is patched from 2**30 to
+    2**19, so
+    that the stand-in is refused at 64 and 128 bits as the full graph is on
+    the card, and the phase's own scaled graph (x0.5: 455,806 candidates)
+    fills the largest bucket; the host child runs in this process (its
+    full-graph half forked from it, NumPy only),
+    ``build="auto"`` is handed the card's device, and ``gather_total``
+    launches are counted through a fake over its plain version.
+
+The shapes and step counts are cut (constants of the copy), and the loss's
+bar is what smoke widths reach in 12 steps. Nothing here compares with the
+JAX package: the phases hold the port to itself and to the exact oracle.
+"""
+import contextlib
+import importlib.util
+import io
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+import repro_torch.configs as pt_configs  # noqa: E402
+import repro_torch.core.build as pt_build  # noqa: E402
+import repro_torch.core.executor as pt_executor  # noqa: E402
+import repro_torch.core.tcim as pt_tcim  # noqa: E402
+import repro_torch.graphs.csr as pt_csr  # noqa: E402
+import repro_torch.kernels.common as pt_common  # noqa: E402
+import repro_torch.kernels.ops as pt_ops  # noqa: E402
+import repro_torch.kernels.tc_gather_popcount as pt_tgp  # noqa: E402
+import repro_torch.launch.train as pt_train  # noqa: E402
+import repro_torch.models.model as pt_model  # noqa: E402
+from repro_torch.core.sbf import (  # noqa: E402
+    build_sbf,
+    build_worklist,
+    sbf_from_arrays,
+    worklist_from_arrays,
+)
+from repro_torch.graphs import build_graph, rmat, triangles_intersection  # noqa: E402
+from repro_torch.kernels.tc_gather_popcount import gather_total_reference  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _cpu(device=None):
+    return torch.device("cpu") if device is None else torch.device(device)
+
+
+@pytest.fixture
+def smoke(tmp_path, monkeypatch):
+    """The CPU copy of chip_smoke.py, imported, with the card's calls stubbed."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    for a, b in ((".cuda()", ".cpu()"), (".is_cuda", ".is_cpu"), ('"cuda"', '"cpu"')):
+        text = text.replace(a, b)
+    path = tmp_path / "chip_smoke_cpu.py"
+    path.write_text(text)
+    spec = importlib.util.spec_from_file_location("chip_smoke_cpu", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    for module in (pt_common, pt_csr, pt_model, pt_tcim, pt_executor, pt_build, pt_train):
+        monkeypatch.setattr(module, "resolve_device", _cpu)
+    monkeypatch.setattr(mod, "nvidia_smi_line", lambda: "CPU rehearsal, no card")
+    monkeypatch.setattr(mod.os, "nice", lambda inc: 0)  # a host child's; not this process's
+    monkeypatch.setattr(mod, "_background", lambda: "rehearsal")
+    # Smoke widths on one torch thread: their ops are too small to share,
+    # and under the suite's parallel workers many threads a process contend.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield mod
+    torch.set_num_threads(threads)
+
+
+def test_families_train_phase_runs_on_the_host(smoke, monkeypatch, tmp_path):
+    real = pt_configs.get_config
+
+    def narrow(arch):
+        full = real(arch)
+        return pt_configs.get_smoke_config(arch).scaled(
+            n_layers=full.n_layers, dtype=full.dtype, remat=full.remat,
+            attention_impl=full.attention_impl)
+
+    monkeypatch.setattr(pt_configs, "get_config", narrow)
+    for name, value in (("TRAIN_GRAD_SHAPE", (2, 16)), ("FAMILY_TRAIN_BATCH", 2),
+                        ("FAMILY_TRAIN_SEQ", 64), ("FAMILY_TRAIN_STEPS", 12),
+                        ("FAMILY_TRAIN_WARM", 2), ("TRAIN_SCHEDULE", {"warmup": 2, "total": 50}),
+                        ("TRAIN_MIN_DROP", 0.05),
+                        ("FAMILY_RESUME_SHAPE", (2, 16)), ("FAMILY_RESUME_STEPS", 12),
+                        ("FAMILY_RESUME_EVERY", 5), ("FAMILY_RESUME_FAIL_AT", (7,)),
+                        ("FAMILY_TRAIN_LOOPS", tuple((a, 4) for a, _ in smoke.FAMILY_TRAIN_LOOPS))):
+        monkeypatch.setattr(smoke, name, value)
+    profiled = []
+    monkeypatch.setattr(smoke, "_profile_train_step",
+                        lambda loop, params, opt, tag="": profiled.append(tag))
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    monkeypatch.setattr(torch, "use_deterministic_algorithms", lambda *a, **k: None)
+
+    def run(args, **kwargs):  # the resume child, in this process
+        assert args[-1] == smoke.FAMILY_RESUME_FLAG
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = smoke._family_resume_child()
+        return subprocess.CompletedProcess(args, rc, out.getvalue(), "")
+
+    monkeypatch.setattr(smoke, "subprocess", types.SimpleNamespace(run=run))
+    window = []  # phases 18's and 20's deterministic children: the window's, not rehearsed
+    monkeypatch.setattr(smoke, "_train_resume", lambda: window.append("train"))
+    monkeypatch.setattr(smoke, "_sharded_resume", lambda: window.append("sharded"))
+    smoke._write_json(tmp_path / "costs.json", {  # what the "cpu-paths" host child leaves
+        arch: smoke._family_counted(smoke._family_loop_cfg(arch, depth)[1])
+        for arch, depth in smoke.FAMILY_TRAIN_LOOPS})
+    logged = []
+    monkeypatch.setattr(smoke, "log", logged.append)
+    loops = smoke.phase_families_train((_Done(), tmp_path, 0.0), (_Done(), tmp_path, 0.0))
+    assert sorted(window) == ["sharded", "train"]
+    assert sum("host children have exited" in m for m in logged) == 1
+    assert sorted(loops) == sorted(a for a, _ in smoke.FAMILY_TRAIN_LOOPS)
+    for arch, run_ in loops.items():
+        first, _, tail = run_["losses"]
+        assert first - tail >= 0.05 and 0 < run_["share"] <= 1.0, (arch, run_)
+    assert len(profiled) == len(loops)
+    grads = [m for m in logged if "card vs CPU" in m]
+    assert len(grads) == len(smoke.FAMILY_TRAIN_GRADS) + 1  # the MoE under "dots" too
+    assert any("moe_dropped_frac" in m for m in grads)
+    assert any("every logged (step, loss, dropped fraction)" in m for m in logged)
+
+
+def _card_counts(monkeypatch):
+    """Counts as on the card: "auto" takes the device build, and the fused
+    path's gather_total launches are counted through a fake over its plain
+    version."""
+    resolve = pt_tcim._resolve_build
+    monkeypatch.setattr(pt_tcim, "_resolve_build",
+                        lambda build, backend, m, device: resolve(build, backend, m,
+                                                                  torch.device("cuda")))
+    real = pt_tgp.gather_total_cuda
+
+    def counted(row, col, ridx, cidx, out):
+        real.launches += 1
+        out += gather_total_reference(row, col, ridx, cidx)
+        return out
+
+    monkeypatch.setattr(pt_ops, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(pt_ops, "gather_total_cuda", counted)
+    monkeypatch.setattr(real, "launches", 0)
+
+
+class _Done:
+    """A child process that has already exited 0."""
+
+    def poll(self):
+        return 0
+
+    def wait(self, timeout=None):
+        return 0
+
+
+def test_livejournal_phase_runs_on_the_host(smoke, monkeypatch, tmp_path):
+    graphs = pt_configs.GRAPHS
+    monkeypatch.setitem(graphs, "com-livejournal", graphs["com-livejournal"].scaled(0.004))
+    monkeypatch.setitem(graphs, "com-youtube", graphs["com-youtube"].scaled(0.01))
+    monkeypatch.setattr(pt_build, "_CAND_GUARD", 1 << 19)
+    monkeypatch.setattr(smoke, "LJ_ORACLE_WORKERS", 1)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert smoke._host_child("oracles", tmp_path) == 0
+    (tmp_path / "child.log").write_text(out.getvalue())
+    main = smoke._child_result((_Done(), tmp_path, 0.0), "main.json", 1)
+    yt = graphs["com-youtube"]
+    want = triangles_intersection(build_graph(rmat(yt.n, yt.m, seed=yt.seed), reorder=True))
+    assert main["exact"] == want and main["m"] == len(rmat(yt.n, yt.m, seed=yt.seed))
+    _card_counts(monkeypatch)
+    logged = []
+    monkeypatch.setattr(smoke, "log", logged.append)
+    out = smoke.phase_livejournal((_Done(), tmp_path, time.perf_counter()))
+    assert set(out["full"]) == {64, 128}
+    assert all(v["candidates"] > 1 << 19 for v in out["full"].values())
+    assert out["candidates"] == 455_806 and out["launches"] >= 1
+    scaled = np.load(tmp_path / "scaled.npy")
+    assert out["pairs"] > 0 and len(scaled) == 69_362
+    assert sum("ValueError after" in m for m in logged) == 2
+    assert sum("== triangles_intersection" in m for m in logged) == 2
+
+
+def test_main_phase_takes_the_host_childrens_counts(smoke, monkeypatch, tmp_path):
+    """Phase 4 with its CPU path and oracle from the two host children
+    (run here, in this process, on com-youtube x0.01), as main() runs it;
+    what the "cpu-paths" child leaves for phases 4b (the host build), 9
+    (the dense backends' CPU paths) and 18c (the counted train steps)."""
+    graphs = pt_configs.GRAPHS
+    monkeypatch.setitem(graphs, "com-youtube", graphs["com-youtube"].scaled(0.01))
+    monkeypatch.setitem(graphs, "ego-facebook", graphs["ego-facebook"].scaled(0.25))
+    monkeypatch.setattr(smoke, "SMALL_GRAPHS", ("ego-facebook",))
+    monkeypatch.setattr(smoke, "LJ_GRAPH", "ego-facebook")  # a small stand-in after the oracle
+    monkeypatch.setattr(smoke, "LJ_ORACLE_WORKERS", 1)
+    monkeypatch.setattr(smoke, "FAMILY_TRAIN_LOOPS", (("hubert-xlarge", 2),))
+    monkeypatch.setattr(torch, "set_num_threads", lambda n: None)
+    oracles, cpu_paths = tmp_path / "oracles", tmp_path / "cpu"
+    for kind, work in (("oracles", oracles), ("cpu-paths", cpu_paths)):
+        work.mkdir()
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert smoke._host_child(kind, work) == 0
+    dense = smoke._child_result((_Done(), cpu_paths, 0.0), "dense.json", 1)
+    fb = graphs["ego-facebook"]
+    want = triangles_intersection(build_graph(rmat(fb.n, fb.m, seed=fb.seed), reorder=True))
+    assert {b: v["triangles"] for b, v in dense.items()} == {"bitgemm": want, "mxu": want}
+    yt = graphs["com-youtube"]
+    g = build_graph(rmat(yt.n, yt.m, seed=yt.seed), reorder=True)
+    sb = build_sbf(g, smoke.MAIN_SLICE_BITS)
+    wl = build_worklist(g, sb)
+    with np.load(cpu_paths / "host_build.npz") as arrays:  # phase 4b's host build
+        got_sb, got_wl = sbf_from_arrays(arrays), worklist_from_arrays(arrays)
+    for f in smoke.HOST_SBF_FIELDS:
+        assert np.array_equal(getattr(got_sb, f), getattr(sb, f)), f
+    for f in smoke.HOST_WORKLIST_FIELDS:
+        assert np.array_equal(getattr(got_wl, f), getattr(wl, f)), f
+    costs = smoke._child_result((_Done(), cpu_paths, 0.0), "costs.json", 1)
+    hubert = smoke._family_counted(smoke._family_loop_cfg("hubert-xlarge", 2)[1])
+    assert costs == {"hubert-xlarge": hubert} and 0 < hubert["bound_s"]
+    _card_counts(monkeypatch)
+    logged = []
+    monkeypatch.setattr(smoke, "log", logged.append)
+    main = smoke.phase_main((_Done(), oracles, 0.0), (_Done(), cpu_paths, 0.0))
+    assert main["launches"] >= 1 and main["exact"] == main["result"].triangles
+    assert any("port CPU path (in the host child)" in m for m in logged)
+    assert any("in the host child): " in m and "exact oracle" in m for m in logged)
+
+
+@pytest.mark.parametrize("workers", [2, 3])
+def test_oracle_workers_count_the_same(workers):
+    """``tools/livejournal_count.py::triangles_forked``: the edges split
+    over forked processes give ``triangles_intersection``'s one-process
+    count. Forked from a fresh process (as phase 22's host child and the
+    tool fork, before any torch op starts a thread), not from this one."""
+    g = build_graph(rmat(3000, 24000, seed=8), reorder=True)
+    code = ("from tools.livejournal_count import triangles_forked; "
+            "from repro_torch.graphs import build_graph, rmat; "
+            "g = build_graph(rmat(3000, 24000, seed=8), reorder=True); "
+            f"print(triangles_forked(g, {workers}))")
+    proc = subprocess.run([sys.executable, "-W", "error::DeprecationWarning", "-c", code],
+                          capture_output=True, text=True, timeout=120, check=True, cwd=ROOT)
+    assert int(proc.stdout) == triangles_intersection(g)
+
+
+def test_phase_modes_dispatch_before_the_card_check():
+    """The host child of phase 22 runs with no card visible: its flag is
+    read before main()'s CUDA check, which still refuses a run without one."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    main = text[text.index("def main() -> int:"):]
+    assert main.index("HOST_CHILD_FLAG") < main.index("torch.cuda.is_available()")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                          text=True, timeout=120, env={"PATH": "/usr/bin:/bin",
+                                                       "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout

@@ -48,6 +48,9 @@ from repro_torch.runtime import FailureInjector, no_host_sync  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 DENSE = ("smollm-135m", "qwen1.5-110b", "deepseek-67b")
+# One small config of each other family: moe, ssm, hybrid, vlm, audio, MLA.
+FAMILIES = ("moonshot-v1-16b-a3b", "mamba2-780m", "zamba2-7b", "llama-3.2-vision-90b",
+            "hubert-xlarge", "minicpm3-4b")
 REMATS = ("none", "full", "dots")
 GRAD_TOL = 1e-5
 B, S = 2, 16
@@ -61,7 +64,11 @@ def _cfgs(arch, dtype="float32", **kw):
 @functools.lru_cache(maxsize=None)
 def _jx_params(arch, dtype="float32"):
     jcfg, _ = _cfgs(arch, dtype)
-    return jx_model.init_model(jax.random.PRNGKey(0), jcfg)
+    params = jax.jit(jx_model.init_model, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    if "cross_layers" in params:  # init mutes the image tokens (tanh(0)); let them count
+        gate = params["cross_layers"]["xattn"]["gate"]
+        params["cross_layers"]["xattn"]["gate"] = jnp.full_like(gate, 0.5)
+    return params
 
 
 def _pt_params(arch, dtype="float32"):
@@ -70,7 +77,9 @@ def _pt_params(arch, dtype="float32"):
 
 
 def _batch(cfg, step=0, b=B, s=S):
-    return SyntheticLMDataset(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=5).batch(step)
+    return SyntheticLMDataset(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=5,
+                              family=cfg.family, d_frontend=cfg.d_frontend,
+                              n_image_tokens=cfg.n_image_tokens).batch(step)
 
 
 def _pt(batch):
@@ -247,29 +256,35 @@ def test_remat_modes_give_equal_grads():
 
 def _reference_steps(arch, batches, sched, opt_kw):
     """The reference's step outside a mesh: value_and_grad(loss_fn) ->
-    cosine_warmup(step) -> adamw_update, once a batch."""
+    cosine_warmup(step) -> adamw_update, once a batch (the gradient jitted,
+    as the reference's train step runs it)."""
     jcfg, _ = _cfgs(arch)
     params = _jx_params(arch)
     state = jx_optim.adamw_init(params)
     opt = jx_optim.AdamWConfig(**opt_kw)
+    value_and_grad = jax.jit(jax.value_and_grad(jx_model.loss_fn, has_aux=True),
+                             static_argnums=2)
     metrics = []
     for b in batches:
-        (loss, m), grads = jax.value_and_grad(jx_model.loss_fn, has_aux=True)(
-            params, _jx(b), jcfg)
+        (loss, m), grads = value_and_grad(params, _jx(b), jcfg)
         lr = jx_optim.cosine_warmup(state["step"], **sched)
         params, state, om = jx_optim.adamw_update(grads, params, state, opt, lr)
         metrics.append({"loss": loss, **m, **om})
     return params, state, metrics
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 def test_train_steps_match_reference_composed_outside_a_mesh(arch):
     """Three steps: metrics within 1e-5, the moments within 1e-5 in relative
     L2 a leaf, the parameters' update (p - p0) within 1e-3. AdamW divides
     each element by its own gradient's magnitude, so an element whose
     gradient is mostly rounding moves by about lr whatever its sign: qwen's
     key bias, whose gradient softmax's shift invariance nearly cancels,
-    reads 4e-4 to 7e-4 over batch seeds 5-8 (every other leaf below 1e-5)."""
+    reads 4e-4 to 7e-4 over batch seeds 5-8 (every other leaf below 1e-5).
+    The families' smoke configs run the same three steps: the MoE's router
+    losses and dropped fraction are metrics of the step, the audio
+    encoder's loss is its masked prediction, the VLM's gates are 0.5 in
+    both packages."""
     opt_kw = dict(lr=1e-3, weight_decay=0.1)
     sched = {"warmup": 1, "total": 20}
     _, pcfg = _cfgs(arch)
@@ -370,6 +385,33 @@ def test_train_loop_loss_decreases():
     assert losses[-1] < losses[0] - 0.3, losses
 
 
+@pytest.fixture
+def one_thread():
+    """Smoke configs on one torch thread: their ops are too small to share,
+    and under the suite's parallel workers many threads a process contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_train_loop_loss_decreases(arch, one_thread):
+    """Each family's smoke config trains on the synthetic stream: the mean
+    of the last logged losses below the first by 0.3 (the dense bar), the
+    MoE's router metrics logged beside them."""
+    loop = pt_train.TrainLoop(arch, smoke=True, global_batch=4, seq=32, device="cpu",
+                              opt=pt_optim.AdamWConfig(lr=3e-3, weight_decay=0.0))
+    loop.run(60, log_every=10)
+    losses = [m["loss"] for m in loop.metrics_log]
+    assert [m["step"] for m in loop.metrics_log] == [1, 10, 20, 30, 40, 50, 60]
+    assert all(np.isfinite(losses))
+    assert np.mean(losses[-3:]) < losses[0] - 0.3, losses
+    if loop.cfg.family == "moe":
+        assert all({"moe_balance_loss", "moe_z_loss", "moe_dropped_frac"} <= set(m)
+                   for m in loop.metrics_log)
+
+
 @pytest.mark.parametrize("fail_at", [(17,), (13, 24)])
 def test_auto_resume_is_bit_exact(tmp_path, fail_at):
     """Auto-resume after injected failures replays the uninterrupted run bit
@@ -392,6 +434,25 @@ def test_auto_resume_is_bit_exact(tmp_path, fail_at):
     for a, b in zip(tree_leaves({"p": pa, "s": sa}), tree_leaves({"p": pb, "s": sb})):
         assert torch.equal(a, b)
     assert loop_b.ckpt.latest_step() == steps
+
+
+def test_moe_auto_resume_is_bit_exact(tmp_path, one_thread):
+    """The MoE's routing is discrete: a resumed run replays the
+    uninterrupted run's losses, router metrics and state bit for bit."""
+    common = dict(smoke=True, global_batch=2, seq=16, ckpt_every=10, device="cpu",
+                  opt=pt_optim.AdamWConfig(lr=1e-3, weight_decay=0.0))
+    loop_a = pt_train.TrainLoop("moonshot-v1-16b-a3b", **common)
+    pa, sa, _ = loop_a.run(30, log_every=1)
+    want = {m["step"]: m for m in loop_a.metrics_log}
+    loop_b = pt_train.TrainLoop("moonshot-v1-16b-a3b", ckpt_dir=str(tmp_path), **common)
+    (pb, sb, _), restarts = pt_train.run_with_auto_resume(
+        loop_b, 30, FailureInjector(fail_at_steps=(13, 24)))
+    assert restarts == 2
+    assert [m["step"] for m in loop_b.metrics_log] == [1, 10, 11, 20, 21, 30]
+    assert all(m == want[m["step"]] for m in loop_b.metrics_log)
+    assert all("moe_dropped_frac" in m for m in loop_b.metrics_log)
+    for a, b in zip(tree_leaves({"p": pa, "s": sa}), tree_leaves({"p": pb, "s": sb})):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])
