@@ -9,7 +9,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. build    compile every CUDA kernel of the path from ``src/repro_torch/
               kernels/csrc`` (one ``nvcc`` per source, all at once) and print
               the ``ptxas -v`` registers and spills and the tensor-core MMA
-              opcodes of each library's SASS (bitgemm's must AND-popcount)
+              opcodes of each library's SASS (bitgemm's must AND-popcount;
+              ``flash_bf16_kernel<80>`` and ``<112>``, the exact-width plan,
+              must not spill and must hold Q K^T's m64n64k16 and P V at
+              their panels' N only: 64 + 16 and 64 + 32 + 16)
   3. kernels  each kernel against its plain torch version on the card, exact
               equality, over word widths, sizes, sentinels, hot indices and
               an out-of-range index that must raise at ``result()``:
@@ -429,6 +432,10 @@ FLASH_GQA_B = (1, 3)
 FLASH_GQA_HEADS = ((9, 3), (4, 1))  # (H, KH)
 FLASH_GQA_SHAPES = ((1, 1), (128, 128), (100, 300), (517, 1030))  # ragged, offset queries
 FLASH_POSITIONS = ("reversed", "permuted", "keys after queries")
+# The bf16 flash kernel's MMAs at the exact-width plan: Q K^T against a
+# stage of 64 keys (m64n64k16) and P V a panel at its N (hd 80: 64 + 16
+# columns, hd 112: 64 + 32 + 16).
+FLASH_EXACT_MMA = {80: ("64x16x16", "64x64x16"), 112: ("64x16x16", "64x32x16", "64x64x16")}
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # tests/test_flash_and_cost.py's own
 # Largest per-row ||got - want|| / ||want|| over query rows, ``want`` being
 # the plain version's output before its last rounding. Outputs shrink as
@@ -499,6 +506,11 @@ FAMILY_AUDIO = "hubert-xlarge"
 # The head widths whose only path is a family's: their kernel rows in the
 # kernels line, timed at that path's shape (B 4, S 512).
 FAMILY_FLASH_ROWS = {"zamba2-7b": "flash_attention[hd=112]", FAMILY_AUDIO: "flash_attention[hd=80]"}
+# (ms a launch, ms alone on the device) of those rows before the exact-width
+# plan and the lean launch path (hd 128's padded plan; strides from meta
+# tensors), read on an NVIDIA H100 80GB HBM3 at 700 W: logged beside this
+# run's readings.
+FAMILY_FLASH_BEFORE = {"zamba2-7b": (0.149869, 0.065949), FAMILY_AUDIO: (0.088070, 0.035775)}
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 4, 512, 16  # B.S 2,048: two MoE groups of 1,024
 FAMILY_F32_DEPTH = {"llama-3.2-vision-90b": 5, "zamba2-7b": 7}  # one group (+1 trailing); else 2
 FAMILY_TF_SHAPE = (2, 32, 8)  # batch, tokens, the last ones decoded
@@ -632,6 +644,20 @@ def phase_build() -> None:
         log(f"[build] {name}: SASS MMA opcodes {_build.sass_mma_opcodes(name)}")
     bitgemm_mma = [op for op in _build.sass_mma_opcodes("tc_bitgemm") if "POPC" in op]
     check(bool(bitgemm_mma), "tc_bitgemm's SASS holds no AND-popcount tensor-core MMA")
+    kernels = _build.ptxas_kernels("flash_attention")
+    sass = _build.sass_mma_by_kernel("flash_attention")
+    for hd, shapes in FLASH_EXACT_MMA.items():
+        names = [k for k in kernels if f"flash_bf16_kernelILi{hd}E" in k]
+        check(len(names) == 1, f"flash_bf16_kernel<{hd}>: {len(names)} kernels in ptxas' report")
+        ptx, ops = kernels[names[0]], sass.get(names[0], [])
+        log(f"[build] flash_bf16_kernel<{hd}>: {ptx.get('registers')} registers, "
+            f"{ptx.get('spill_stores')} bytes spill stores, {ptx.get('spill_loads')} bytes spill "
+            f"loads; SASS MMA opcodes {ops}")
+        check(ops == sorted(f"HGMMA.{s}.F32.BF16" for s in shapes),
+              f"flash_bf16_kernel<{hd}>: SASS MMA opcodes {ops}, not Q K^T's m64n64 and P V at "
+              f"the exact panels' N {shapes}")
+        check(ptx.get("spill_stores") == 0 and ptx.get("spill_loads") == 0,
+              f"flash_bf16_kernel<{hd}> spills: {ptx}")
 
 
 def _words(rng, rows: int, w: int) -> torch.Tensor:
@@ -4647,6 +4673,12 @@ def _family_flash_cases(arch: str, cfg) -> dict:
             f"{100 * bound[0] / times['kernel']:.2f} % of it a launch, "
             f"{100 * bound[0] / device_ms:.2f} % alone; plain version {times['plain']:.6f} ms; "
             f"scaled_dot_product_attention (enable_gqa) {times['sdpa']:.6f} ms")
+        if label == "self" and arch in FAMILY_FLASH_BEFORE:
+            call_ms, alone_ms = FAMILY_FLASH_BEFORE[arch]
+            log(f"[families] {arch} self attention before the exact-width plan and the lean launch "
+                f"path: {call_ms:.6f} ms a launch, {alone_ms:.6f} ms alone (an earlier run on the "
+                f"same card model); now {times['kernel']:.6f} and {device_ms:.6f} ms, "
+                f"{call_ms / times['kernel']:.2f} x and {alone_ms / device_ms:.2f} x faster")
         rows[label] = _row(FAMILY_FLASH_ROWS.get(arch, f"flash_attention[{arch} {label}]"),
                            "src/repro_torch/kernels/csrc/flash_attention.cu",
                            "src/repro/kernels/flash_attention.py:71", 0, times["kernel"],

@@ -29,8 +29,8 @@ from pathlib import Path
 from repro_torch.runtime.contracts import note_retrace
 
 __all__ = [
-    "BUILD_DIR", "NVCC_FLAGS", "compile_sources", "load_library", "ptxas_report",
-    "sass_mma_opcodes",
+    "BUILD_DIR", "NVCC_FLAGS", "compile_sources", "load_library", "ptxas_kernels",
+    "ptxas_report", "sass_mma_by_kernel", "sass_mma_opcodes",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -121,14 +121,47 @@ def ptxas_report(name: str) -> list[str]:
     ]
 
 
+def ptxas_kernels(name: str) -> dict[str, dict[str, int]]:
+    """Per kernel of the built ``name``, by mangled name: the ``ptxas -v``
+    ``registers`` and the ``spill_stores`` and ``spill_loads`` in bytes."""
+    out: dict[str, dict[str, int]] = {}
+    current = None
+    for line in ptxas_report(name):
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = out.setdefault(entry.group(1), {})
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if current is not None and spills:
+            current["spill_stores"], current["spill_loads"] = map(int, spills.groups())
+        if current is not None and used:
+            current["registers"] = int(used.group(1))
+    return out
+
+
+# An instruction line: /*0190*/ [@P0] OPCODE.MODIFIERS operands ;
+_MMA = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]*MMA[\w.]*)")
+
+
+def _sass(library: str | Path) -> str:
+    path = Path(library) if "/" in str(library) else _paths(str(library))[1]
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def sass_mma_opcodes(library: str | Path) -> list[str]:
     """The distinct tensor-core MMA opcodes (``HGMMA``, ``IMMA``, ``BMMA``,
     ...) in the SASS of a built library: ``csrc/<name>.cu``'s when given a
     source name, else the library at that path. Read with the toolkit's
     ``cuobjdump -sass``."""
-    path = Path(library) if "/" in str(library) else _paths(str(library))[1]
-    tool = Path(_nvcc()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
-                          check=True).stdout
-    # An instruction line: /*0190*/ [@P0] OPCODE.MODIFIERS operands ;
-    return sorted(set(re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]*MMA[\w.]*)", text)))
+    return sorted(set(_MMA.findall(_sass(library))))
+
+
+def sass_mma_by_kernel(library: str | Path) -> dict[str, list[str]]:
+    """As ``sass_mma_opcodes``, kernel by kernel (by mangled name)."""
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", _sass(library))[1:]:
+        out[chunk.split(maxsplit=1)[0]] = sorted(set(_MMA.findall(chunk)))
+    return out

@@ -10,8 +10,8 @@ output ``acc / max(l, 1e-30)`` in ``q``'s type. It carries the prefill of
 Two layouts, one kernel (``csrc/flash_attention.cu``; its header gives the
 design and bound: ``wgmma`` fed by TMA for bfloat16, scalar FMA for float32,
 KV tiles that every pair of a q tile masks are skipped, ``hd`` in
-{16, 32, 64, 80, 112, 128}; at 80 and 112 the bf16 body pads the head dim
-to two 64-column panels in shared memory):
+{16, 32, 64, 80, 112, 128}; at 80 and 112 the bf16 body runs exact-width
+panels (64 + 16, 64 + 32 + 16 columns) on a persistent grid):
 
   * ``flash_attention_bshd`` — the model's layout and the port's main entry:
     ``q [B, Sq, H, hd]``, ``k``/``v [B, Sk, KH, hd]`` (GQA: query head ``h``
@@ -30,7 +30,10 @@ kernel's launches from either entry. Each launch reports its cost
 (``flash_launch_cost``) to an active cost counter through
 ``kernels.common.report_cost``; on meta tensors (a counted step, nothing
 computed) an entry reports the launch it stands for and returns an empty
-meta output. ``flash_tiles_scored`` is the plain
+meta output. The launch path is lean: shapes checked once a call, strides
+by arithmetic on the shape, the cost computed only under a counter, the
+card's current stream read raw and the device switched in C only when it
+is not the current one. ``flash_tiles_scored`` is the plain
 statement of the kernel's skip rule: the number of KV tiles it scores.
 
 The reference needs ``Sq`` and ``Sk`` to tile by its blocks and its caller
@@ -40,10 +43,11 @@ itself, so ``block_q``/``block_k`` are accepted for signature parity only.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
-from repro_torch.kernels.common import report_cost
+from repro_torch.kernels.common import COST_SINKS, report_cost
 
 __all__ = [
     "NEG_INF",
@@ -67,6 +71,7 @@ FLASH_TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}  # (q rows, 
 _GRID_LIMIT = 65535  # gridDim.y (heads) and gridDim.z (batch)
 _PLAIN_SCORES = 1 << 28  # score elements the plain version holds at once
 _INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
+_PACK_STRIDES = struct.Struct("16q").pack  # the launch's 16 element strides, as C reads them
 
 
 def flash_attention_reference(q, k, v, q_pos, k_pos, *, causal: bool = True) -> torch.Tensor:
@@ -157,8 +162,8 @@ def _kernel():
     fn = load_library("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                       ctypes.c_float, vp, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_char_p, ci, ci, ci, ci, ci, ci, ci, ci,
+                       ctypes.c_float, vp, ci, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -204,12 +209,25 @@ def _check_operands(q, k, v, q_pos, k_pos) -> None:
     _check_devices(q=q, k=k, v=v, q_pos=q_pos, k_pos=k_pos)
 
 
+def _dense_strides(shape) -> list[int]:
+    """The contiguous layout's element strides of ``shape``, as torch gives
+    them (a size-0 dimension counts as 1)."""
+    strides, step = [], 1
+    for size in reversed(shape):
+        strides.append(step)
+        step *= max(size, 1)
+    return strides[::-1]
+
+
 def _strides(t: torch.Tensor, dims: tuple[int, ...]) -> list[int]:
     """Element strides of ``t`` along ``dims``; a dimension of size 1 gets the
     stride of the contiguous layout (any value addresses it, and TMA wants a
     16-byte multiple)."""
-    dense = torch.empty(t.shape, device="meta").stride()
-    return [t.stride(d) if t.shape[d] != 1 else dense[d] for d in dims]
+    shape, stride = t.shape, t.stride()
+    if 1 not in shape:
+        return [stride[d] for d in dims]
+    dense = _dense_strides(shape)
+    return [stride[d] if shape[d] != 1 else dense[d] for d in dims]
 
 
 def _check_bshd_shapes(q, k, v, q_pos, k_pos) -> None:
@@ -221,61 +239,71 @@ def _check_bshd_shapes(q, k, v, q_pos, k_pos) -> None:
         raise ValueError(f"q, k, v must be [B, S, heads, hd]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, hd = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    if v.dim() == 4 and v.shape[-1] != hd:
+    kv = k.shape
+    sk, kh = kv[1], kv[2]
+    if v.shape[3] != hd:
         raise ValueError(f"the kernel takes equal query, key and value head dims; got "
                          f"q/k {hd}, v {v.shape[-1]}")
-    if tuple(k.shape) != (b, sk, kh, hd) or tuple(v.shape) != (b, sk, kh, hd):
+    if kv != (b, sk, kh, hd) or v.shape != kv:
         raise ValueError(f"k and v must be [{b}, Sk, KH, {hd}]; got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if kh == 0 or h % kh:
         raise ValueError(f"query heads {h} must be a multiple of the KV heads {kh}")
-    if q_pos.dim() != 2 or tuple(q_pos.shape) != (b, sq) or tuple(k_pos.shape) != (b, sk):
+    if q_pos.shape != (b, sq) or k_pos.shape != (b, sk):
         raise ValueError(f"positions must be [{b}, {sq}] and [{b}, {sk}]; got "
                          f"{tuple(q_pos.shape)}, {tuple(k_pos.shape)}")
     _check_types(hd, q, k, v, q_pos, k_pos)
 
 
-def _check_bshd(q, k, v, q_pos, k_pos) -> None:
-    """Raise on what the ``[B, S, H, hd]`` entry does not take; the device is
-    checked last, so every other check runs on CPU tensors too."""
-    _check_bshd_shapes(q, k, v, q_pos, k_pos)
-    b, h, hd = q.shape[0], q.shape[2], q.shape[3]
+def _check_bshd(q, k, v, q_pos, k_pos) -> list[int]:
+    """Raise on what the ``[B, S, H, hd]`` entry does not take beyond the
+    shapes and types of ``_check_bshd_shapes`` (grid limits, layout,
+    alignment, devices; the device last, so every other check runs on CPU
+    tensors too). Returns the element strides (batch, row, head) of q, k
+    and v, the launch's first nine."""
+    b, _, h, hd = q.shape
     if b > _GRID_LIMIT or h > _GRID_LIMIT:
         raise ValueError(f"batch {b} and heads {h} must each be at most {_GRID_LIMIT} "
                          "(the kernel's grid)")
     vec = 16 // q.element_size()
+    strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 and hd != 1:
+        st = _strides(t, (0, 1, 2, 3))
+        if st[3] != 1 and hd != 1:
             raise ValueError(f"{name} must have a contiguous head dim (stride 1)")
-        if t.data_ptr() % 16 or any(st % vec for st in _strides(t, (0, 1, 2))):
+        if t.data_ptr() % 16 or st[0] % vec or st[1] % vec or st[2] % vec:
             raise ValueError(f"{name} must be 16-byte aligned, its base and strides "
                              "(the kernel's TMA and vector loads)")
-    _check_devices(q=q, k=k, v=v, q_pos=q_pos, k_pos=k_pos)
+        strides += st[:3]
+    device = q.device
+    if not (q.is_cuda and k.device == device and v.device == device
+            and q_pos.device == device and k_pos.device == device):
+        _check_devices(q=q, k=k, v=v, q_pos=q_pos, k_pos=k_pos)  # raises, naming the fault
+    return strides
 
 
-def _launch(q, k, v, q_pos, k_pos, causal: bool, tiles) -> torch.Tensor:
-    """Launch the kernel on checked ``[B, S, H, hd]`` operands."""
+def _launch(q, k, v, q_pos, k_pos, causal: bool, tiles, qkv_strides: list[int]) -> torch.Tensor:
+    """Launch the kernel on checked ``[B, S, H, hd]`` operands whose element
+    strides (batch, row, head) of q, k and v are ``qkv_strides``."""
     b, sq, h, hd = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    out = torch.empty(b, sq, h, hd, dtype=q.dtype, device=q.device)
+    _, sk, kh, _ = k.shape
+    device = q.device
+    out = torch.empty(b, sq, h, hd, dtype=q.dtype, device=device)
     if tiles is not None and (not tiles.is_cuda or tiles.dtype != torch.int64
-                              or tiles.numel() != 1 or tiles.device != q.device):
+                              or tiles.numel() != 1 or tiles.device != device):
         raise ValueError("tiles must be a one-element int64 tensor on q's card")
     if out.numel() == 0:
         return out
     if sk == 0:
         return out.zero_()  # no key: acc = 0, as the reference's empty scan
-    strides = [*_strides(q, (0, 1, 2)), *_strides(k, (0, 1, 2)), *_strides(v, (0, 1, 2)),
-               *_strides(out, (0, 1, 2)), *_strides(q_pos, (0, 1)), *_strides(k_pos, (0, 1))]
-    c_strides = (ctypes.c_longlong * 16)(*strides)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-                 out.data_ptr(), c_strides, b, sq, sk, h, kh, hd, int(q.dtype == torch.bfloat16),
-                 int(causal), 1.0 / (hd ** 0.5), None if tiles is None else tiles.data_ptr(),
-                 stream)
+    row = h * hd  # out is contiguous with no size-0 dimension: its strides are these
+    strides = _PACK_STRIDES(*qkv_strides, sq * row, row, hd, *_strides(q_pos, (0, 1)),
+                            *_strides(k_pos, (0, 1)))
+    index = device.index
+    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+                    out.data_ptr(), strides, b, sq, sk, h, kh, hd, q.dtype == torch.bfloat16,
+                    causal, 1.0 / (hd ** 0.5), None if tiles is None else tiles.data_ptr(),
+                    index, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         what = f"driver error {-err} (a TMA tensor map)" if err < 0 else f"CUDA error {err}"
         raise RuntimeError(f"flash_attention launch failed: {what}")
@@ -285,10 +313,12 @@ def _launch(q, k, v, q_pos, k_pos, causal: bool, tiles) -> torch.Tensor:
 
 
 def _report(q, k, causal: bool) -> None:
-    """Report a launch on ``[B, S, H, hd]`` operands to a cost counter."""
-    b, sq, h, hd = q.shape
-    report_cost(*flash_launch_cost(b, h, k.shape[2], sq, k.shape[1], hd, q.element_size(),
-                                   causal), matmul=True)
+    """Report a launch on ``[B, S, H, hd]`` operands to a cost counter; costs
+    one test when none is active."""
+    if COST_SINKS:
+        b, sq, h, hd = q.shape
+        report_cost(*flash_launch_cost(b, h, k.shape[2], sq, k.shape[1], hd, q.element_size(),
+                                       causal), matmul=True)
 
 
 def _meta_launch(q, k, causal: bool) -> torch.Tensor:
@@ -303,8 +333,8 @@ def flash_attention_bshd_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
     ``[B, Sq, H, hd]`` in ``q``'s type. ``tiles`` (one int64 on the card), if
     given, gains the KV tiles scored. Raises on operands it does not take or
     a failed launch."""
-    _check_bshd(q, k, v, q_pos, k_pos)
-    return _launch(q, k, v, q_pos, k_pos, causal, tiles)
+    _check_bshd_shapes(q, k, v, q_pos, k_pos)
+    return _launch(q, k, v, q_pos, k_pos, causal, tiles, _check_bshd(q, k, v, q_pos, k_pos))
 
 
 def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
@@ -315,7 +345,9 @@ def flash_attention_cuda(q, k, v, q_pos, k_pos, *, causal: bool = True,
     _check_operands(q, k, v, q_pos, k_pos)
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("q, k and v must be 16-byte aligned (the kernel's TMA and vector loads)")
-    out = _launch(q[:, :, None], k[:, :, None], v[:, :, None], q_pos, k_pos, causal, tiles)
+    sq, sk, hd = q.shape[1], k.shape[1], q.shape[2]
+    out = _launch(q[:, :, None], k[:, :, None], v[:, :, None], q_pos, k_pos, causal, tiles,
+                  [sq * hd, hd, hd, sk * hd, hd, hd, sk * hd, hd, hd])
     return out[:, :, 0]
 
 
@@ -356,8 +388,8 @@ def flash_attention_bshd(q, k, v, q_pos, k_pos, *, causal: bool = True) -> torch
     ``NotImplementedError`` under autograd (``_refuse_autograd``)."""
     _check_bshd_shapes(q, k, v, q_pos, k_pos)
     _refuse_autograd(q, k, v)
-    if q.is_cuda:
-        return flash_attention_bshd_cuda(q, k, v, q_pos, k_pos, causal=causal)
+    if q.is_cuda:  # the shapes are checked: the rest of flash_attention_bshd_cuda's checks
+        return _launch(q, k, v, q_pos, k_pos, causal, None, _check_bshd(q, k, v, q_pos, k_pos))
     if q.is_meta:
         return _meta_launch(q, k, causal)
     return flash_attention_bshd_reference(q, k, v, q_pos, k_pos, causal=causal)

@@ -1092,6 +1092,44 @@ def test_flash_takes_hubert_and_zamba2_heads_on_card(cuda, hd, causal):
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("hd", [80, 112])
+@pytest.mark.parametrize("case", ["family", "ragged", "one", "offset", "keys_after_queries"])
+def test_flash_exact_width_cases_on_card(cuda, hd, case):
+    """The exact-width plan (hd 80: 64 + 16 columns, 112: 64 + 32 + 16) at
+    the families' shapes (zamba2: B 4 x 512, H 32, causal; hubert: H 16,
+    not causal), ragged 517 x 1030, 1 x 1, offset queries and keys after
+    every query (each row blind: the rescan): one launch, within 2e-2 of
+    the plain version, its scored tiles equal to the skip rule's."""
+    from repro_torch.kernels.flash_attention import (
+        FLASH_TILES,
+        flash_attention_bshd_cuda,
+        flash_attention_bshd_reference,
+        flash_attention_cuda,
+        flash_tiles_scored,
+    )
+
+    b, sq, sk, h, kh = {"family": (4, 512, 512, 32 if hd == 112 else 16, 32 if hd == 112 else 16),
+                        "ragged": (2, 517, 1030, 4, 2), "one": (3, 1, 1, 2, 1),
+                        "offset": (2, 100, 300, 4, 4), "keys_after_queries": (2, 300, 260, 9, 3)}[case]
+    causal = hd == 112 or case != "family"
+    gen = torch.Generator(device=cuda).manual_seed(hd + len(case))
+    q = torch.randn(b, sq, h, hd, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(b, sk, kh, hd, generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    start = sk - sq if case == "offset" else 0
+    qp = torch.arange(start, start + sq, dtype=torch.int32, device=cuda)[None].expand(b, sq)
+    kp = torch.arange(sk, dtype=torch.int32, device=cuda)[None].expand(b, sk)
+    if case == "keys_after_queries":
+        kp = kp + sq
+    tiles = torch.zeros(1, dtype=torch.int64, device=cuda)
+    before = flash_attention_cuda.launches
+    got = flash_attention_bshd_cuda(q, k, v, qp, kp, causal=causal, tiles=tiles)
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention_bshd_reference(q, k, v, qp, kp, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert int(tiles) == flash_tiles_scored(qp, kp, h, *FLASH_TILES[torch.bfloat16], causal=causal)
+
+
 @pytest.mark.parametrize("hd,vd", [(96, 96), (96, 64), (128, 64)])
 def test_flash_refuses_unsupported_heads_on_card(cuda, hd, vd):
     from repro_torch.kernels.flash_attention import flash_attention_bshd, flash_attention_cuda

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time what each design choice of the Hopper-redesigned kernels gives.
 
-    PYTHONPATH=src python3 tools/kernel_levers.py [probe] [bitgemm] [flash] [dense] [gather]
+    PYTHONPATH=src python3 tools/kernel_levers.py [probe] [bitgemm] [flash] [flash_exact] [dense] [gather]
 
-Runs the named sections (all five when none is named). Needs one NVIDIA
+Runs the named sections (all six when none is named). Needs one NVIDIA
 Hopper card and ``nvcc``; exits non-zero without them.
 
 ``probe``: the register-only rate of each tensor-core MMA a popcount-GEMM
@@ -44,6 +44,37 @@ and is held to the kernel's output (bf16 rounding apart):
     one is done, so the softmax no longer overlaps an MMA;
   * ``natural_exp``: ``expf`` on natural-log scores instead of ``ex2`` on
     scores with log2(e) folded into the scale.
+
+These undo levers of the hd 16-128 body only (``flash_bf16_kernel`` on
+``Plan``), not of the exact-width plan that hd 80 and 112 take.
+
+``flash_exact``: the exact-width plan of hd 80 and 112 at the families'
+shapes (zamba2-7b: B 4 x 512, H 32, hd 112, causal; hubert-xlarge: B 4 x
+512, H 16, hd 80, not causal), each variant timed a call through
+``flash_attention_bshd_cuda`` (CUDA events) and alone on the device (a
+replayed CUDA graph of 50 launches), in turns, beside
+``scaled_dot_product_attention``, each held to the kernel's output within
+2e-2:
+
+  * ``padded_panels``: the kernel these widths ran before the exact-width
+    plan, hd 128's plan with its second 64-column panel zero past hd
+    (``exact_plan`` false);
+  * ``attribute_every_call``: ``cudaFuncSetAttribute`` on every launch,
+    not once a device;
+  * ``register_store``: O stored from registers, 4 bytes a store, not
+    staged in shared memory and written by TMA (the Q buffer handed back
+    at once);
+  * ``no_overlap``: one work item a block (a grid of every item), so no
+    item's loads overlap another's epilogue;
+  * ``no_ping_pong``: each consumer warpgroup issues its MMAs when it is
+    ready, not in turns with the other;
+  * ``deepest_ring``: as many stages as shared memory holds (8 at hd 80,
+    6 at hd 112), not 4;
+  * ``full_tiles``: KV stages of 128 keys, S by m64n128k16, a ring of 4 at
+    hd 80 and 3 at hd 112 (ptxas spills there);
+  * ``old_launch_path``: the final kernel behind the launch path before
+    it was made lean (shapes checked twice, strides from meta tensors, the
+    cost computed with no counter, a device context and a stream object).
 
 ``dense``: the tile order of ``dense_mxu_tc``'s plan at ego-facebook's and
 email-enron's N (the config graphs, oriented as ``tcim_count`` does):
@@ -87,6 +118,9 @@ CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "levers"
 FLASH_SHAPES = ((8, 4096), (1, 32768))
 HEADS, KV_HEADS, HEAD_DIM = 9, 3, 64
+# (B, S, H, KH, hd, causal) of zamba2-7b's and hubert-xlarge's attention.
+EXACT_CELLS = {"zamba2-7b hd 112": (4, 512, 32, 32, 112, True),
+               "hubert-xlarge hd 80": (4, 512, 16, 16, 80, False)}
 
 LEVERS = {
     "final": [],
@@ -107,6 +141,59 @@ LEVERS = {
         ("constexpr float kLog2e = 1.4426950408889634f;", "constexpr float kLog2e = 1.0f;"),
     ],
 }
+# The exact-width plan's epilogue before O went through shared memory: 4-byte
+# stores from registers, the Q buffer handed back at once.
+REGISTER_STORE = """    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(args.o) + it.b * args.o_sb + it.h * args.o_sh;
+    const int row0 = it.q0 + r_lo;
+    const int row1 = row0 + 8;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = 8 * j + 2 * tig;
+      if (row0 < sq) {
+        *reinterpret_cast<__nv_bfloat162*>(o + row0 * args.o_ss + c) =
+            __floats2bfloat162_rn(acc[4 * j] * r0, acc[4 * j + 1] * r0);
+      }
+      if (row1 < sq) {
+        *reinterpret_cast<__nv_bfloat162*>(o + row1 * args.o_ss + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * r1, acc[4 * j + 3] * r1);
+      }
+    }
+    bar_sync(1 + wg, 128);  // every wgmma of the warpgroup is done with Q
+    if (leader) mbar_arrive(&q_empty[qb]);
+  }"""
+STAGED_STORE = """    // The warpgroup's wgmmas no longer read its 64 rows of Q: O takes them.
+    stage_o<HD>(acc, s_qt, r_lo, tig, r0, r1);
+    fence_async_shared();
+    bar_sync(1 + wg, 128);
+    if (leader) {
+      const int row = it.q0 + wg * 64;
+      if (row < sq) {
+#pragma unroll
+        for (int p = 0; p < panel_count(HD); ++p) {
+          tma_store_4d(&maps.o[p],
+                       s_qt + panel_col0(HD, p) * 2 * kTile + wg * 64 * 2 * panel_cols(HD, p),
+                       panel_col0(HD, p), it.h, row, it.b);
+        }
+      }
+      bulk_commit();
+      stored = qb;
+    }
+  }"""
+EXACT_LEVERS = {
+    "final": [],
+    "padded_panels": [(
+        "__host__ __device__ constexpr bool exact_plan(int hd) { return hd == 80 || hd == 112; }",
+        "__host__ __device__ constexpr bool exact_plan(int hd) { return false; }")],
+    "attribute_every_call": [(
+        "  if (kept && done[device].load(std::memory_order_relaxed)) return 0;\n", "")],
+    "register_store": [(STAGED_STORE, REGISTER_STORE)],
+    "no_overlap": [("  const long long blocks = sm_count(device);  // one block an SM fits: a persistent grid",
+                    "  const long long blocks = INT_MAX;")],
+    "no_ping_pong": [("    mbar_wait(&turn[wg], turn_phase);\n    turn_phase ^= 1;\n", ""),
+                     ("    if (leader) mbar_arrive(&turn[wg ^ 1]);\n", "")],
+    "deepest_ring": [("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 8;")],
+    "full_tiles": [("constexpr int kStageKeys = 64;", "constexpr int kStageKeys = 128;")],
+}
 
 
 def log(msg: str) -> None:
@@ -125,22 +212,22 @@ def time_ms(fn, rounds: int) -> float:
     return start.elapsed_time(stop) / rounds
 
 
-def build_variants() -> dict:
+def build_variants(levers: dict, tag: str = "flash") -> dict:
     """Write and compile every variant at once; returns {name: C function}."""
     from repro_torch.kernels import _build
 
     source = (CSRC / "flash_attention.cu").read_text()
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in LEVERS.items():
+    for name, subs in levers.items():
         text = source
         for old, new in subs:
             if text.count(old) != 1:
                 raise RuntimeError(f"lever {name}: the source no longer holds {old!r} once")
             text = text.replace(old, new)
-        src = OUT / f"flash_{name}.cu"
+        src = OUT / f"{tag}_{name}.cu"
         src.write_text(text)
-        lib = OUT / f"flash_{name}.so"
+        lib = OUT / f"{tag}_{name}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{CSRC}", "-o", str(lib), str(src)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
@@ -152,7 +239,7 @@ def build_variants() -> dict:
             raise RuntimeError(f"nvcc failed for lever {name}:\n{text}")
         fn = ctypes.CDLL(str(lib)).flash_attention_fwd
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                       ctypes.c_float, vp, vp]
+                       ctypes.c_float, vp, ci, vp]
         fn.restype = ci
         fns[name] = fn
     return fns
@@ -189,6 +276,80 @@ def flash_levers(fns: dict) -> dict:
             log(f"[levers] flash {cell} {name}: {', '.join(f'{t:.6f}' for t in ts)} ms")
         log(f"[levers] flash {cell} scaled_dot_product_attention (enable_gqa): {sdpa:.6f} ms")
         del q, k, v, q4, k4, v4
+    return readings
+
+
+def old_launch_path(q, k, v, q_pos, k_pos, causal: bool) -> torch.Tensor:
+    """The launch path before it was made lean, around today's kernel: the
+    shapes checked twice, nine meta tensors for strides, the cost computed
+    with no counter, a device context and a stream object a call."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def strides(t, dims):
+        dense = torch.empty(t.shape, device="meta").stride()
+        return [t.stride(d) if t.shape[d] != 1 else dense[d] for d in dims]
+
+    fa._check_bshd_shapes(q, k, v, q_pos, k_pos)
+    fa._check_bshd_shapes(q, k, v, q_pos, k_pos)
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(st % 8 for st in strides(t, (0, 1, 2))):
+            raise ValueError("q, k and v must be 16-byte aligned")
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    out = torch.empty(b, sq, h, hd, dtype=q.dtype, device=q.device)
+    c_strides = (ctypes.c_longlong * 16)(
+        *strides(q, (0, 1, 2)), *strides(k, (0, 1, 2)), *strides(v, (0, 1, 2)),
+        *strides(out, (0, 1, 2)), *strides(q_pos, (0, 1)), *strides(k_pos, (0, 1)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fa._kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+                           k_pos.data_ptr(), out.data_ptr(), c_strides, b, sq, sk, h, kh, hd, 1,
+                           int(causal), 1.0 / (hd ** 0.5), None, q.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: {err}")
+    fa.flash_launch_cost(b, h, kh, sq, sk, hd, q.element_size(), causal)
+    return out
+
+
+def flash_exact_levers(fns: dict) -> dict:
+    """Each variant of the exact-width plan at zamba2's and hubert's
+    attention, per call and alone on the device, in turns, beside SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kernel = fa._kernel
+    readings = {}
+    for cell, (b, s, h, kh, hd, causal) in EXACT_CELLS.items():
+        gen = torch.Generator(device="cuda").manual_seed(hd)
+        q = torch.randn(b, s, h, hd, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(b, s, kh, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
+        pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
+        ops = (q, k, v, pos, pos)
+        names = [*fns, "old_launch_path"]
+        times = {name: [] for name in names}
+        want = None
+        for name in [*names, *reversed(names)]:
+            fa._kernel = lambda fn=fns.get(name, fns["final"]): fn
+            if name == "old_launch_path":
+                call = lambda: old_launch_path(*ops, causal)  # noqa: E731
+            else:
+                call = lambda: fa.flash_attention_bshd_cuda(*ops, causal=causal)  # noqa: E731
+            got = call()
+            want = got if want is None else want
+            err = float((got.float() - want.float()).abs().max())
+            if err > 2e-2:
+                raise RuntimeError(f"lever {name} at {cell}: output off by {err}")
+            times[name].append((time_ms(call, 20), graph_ms(lambda *_: call(), [()])))
+        fa._kernel = kernel
+        q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, is_causal=causal, enable_gqa=True)
+        sdpa_ms = (time_ms(sdpa, 20), graph_ms(lambda *_: sdpa(), [()]))
+        readings[cell] = {**times, "scaled_dot_product_attention": sdpa_ms}
+        for name, ts in times.items():
+            log(f"[levers] flash {cell} {name}: per call {', '.join(f'{p:.6f}' for p, _ in ts)} "
+                f"ms; device alone {', '.join(f'{d:.6f}' for _, d in ts)} ms")
+        log(f"[levers] flash {cell} scaled_dot_product_attention (enable_gqa): per call "
+            f"{sdpa_ms[0]:.6f} ms; device alone {sdpa_ms[1]:.6f} ms")
     return readings
 
 
@@ -874,7 +1035,7 @@ def segment_levers() -> dict:
     return readings
 
 
-SECTIONS = ("probe", "bitgemm", "flash", "dense", "gather")
+SECTIONS = ("probe", "bitgemm", "flash", "flash_exact", "dense", "gather")
 
 
 def main() -> int:
@@ -897,7 +1058,10 @@ def main() -> int:
     if "bitgemm" in sections:
         readings["bitgemm"] = bitgemm_levers()
     if "flash" in sections:
-        readings["flash_attention"] = flash_levers(build_variants())
+        readings["flash_attention"] = flash_levers(build_variants(LEVERS))
+    if "flash_exact" in sections:
+        readings["flash_attention_exact"] = flash_exact_levers(
+            build_variants(EXACT_LEVERS, "flash_exact"))
     if "dense" in sections:
         readings["dense_mxu_tc"] = dense_levers()
     if "gather" in sections:
