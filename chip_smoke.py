@@ -340,6 +340,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               same weights: the prefill logits within 1e-4; a decode step
               (which reads the bf16 attention caches) within 1e-4 of the
               card's one-device session's distance from the CPU
+ 21d. tensor-parallel serve  the dense decoders on the 2 x 2 mesh of
+              logical shards tensor-parallel (``distributed/
+              tensor_parallel.py``): each position gathers over 'data' only,
+              into its 'model' block of every leaf whose spec has 'model',
+              and computes its query heads (flash on H/m of them), its
+              columns of wq/wk/wv and wi_gate/wi_up, its rows of both wo
+              (the partials reduced in float32) and its vocab block of the
+              embedding and the logits; decode keeps the cache's
+              flash-decoding layout. deepseek-67b at full width, 8 of 95
+              layers, bf16, phase 19's 4 x 512 prompts and 16 steps,
+              teacher-forced on its one-device session's tokens within
+              4.5e-2 (1.5 x the 0.030 at which any two bf16 runs whose
+              roundings part land there, ``SERVE_TP_BF16_TOL``) and no
+              farther from a float32 run of the same weights than one
+              device plus 3e-2; float32 at 2 layers within 1e-4 of the
+              one-device float32 session at the prefill and at each decode
+              step fed a copy of its cache (TF32 off); qwen1.5-110b at 2
+              layers (QKV biases drawn non-zero) within 3e-2 by the same
+              rule. Each run: the bytes each
+              position gathered on this path and on the gathered path
+              (under 0.55 of it), the flash launches (layers x data shards x
+              model shards, each on H/m query heads; none at decode), the
+              prefill and decode times beside the one-device session's (a
+              first and a second run), peak memory, and a planted reduction
+              that drops the last shard's partial, which the run's own rule
+              must refuse
 
  22. livejournal  com-livejournal, the paper's largest graph, at full size
               (|V| 3,997,962, |E| 34,681,189, rmat from its config's seed).
@@ -576,6 +602,28 @@ SERVE_SHARD_FAMILIES = (("minicpm3-4b", None, "xla"), ("mamba2-780m", None, "xla
 SERVE_SHARD_IMPL = {LM_ARCH: "flash", **{a: impl for a, _, impl in SERVE_SHARD_FAMILIES}}
 SERVE_SHARD_F32_SHAPE = (4, 32, 4)  # batch, prompt, generated
 SERVE_SHARD_F32_MOE_SHAPE = (2, 1024, 4)  # one routing group of 1,024 a data shard
+# Phase 21d: the dense decoders served tensor-parallel on 2 x 2 logical
+# shards of cuda:0 (each position gathers its 'model' blocks over 'data'
+# and computes its heads, columns and vocab block). deepseek-67b at full
+# width, cut to 8 of 95 layers (about 1.42 GB a layer and 3.36 GB of
+# embedding and head in bf16: its placed blocks and the blocks a step
+# gathers, both on the card, are 2 x 14.7 GB); float32 at 2 layers;
+# qwen1.5-110b at 2 layers for the QKV biases (drawn at SERVE_TP_BIAS_STD:
+# init makes them 0).
+SERVE_TP_MESH = (2, 2)
+SERVE_TP_RUNS = (("deepseek-67b", 2, "float32"), ("deepseek-67b", 8, "bfloat16"),
+                 ("qwen1.5-110b", 2, "bfloat16"))  # (arch, depth cut, dtype)
+SERVE_TP_BIAS_STD = 0.5
+# bf16 logits against the one-device session: SERVE_SHARD_TOL, but for
+# deepseek-67b at 8 layers. There two bf16 runs whose roundings part
+# anywhere land about 0.030 apart whatever parts them (tools/tp_drift.py on
+# the card: the gathered path on 2 x 2 0.030047 from one device, the
+# tensor-parallel path on 2 x 1, which splits no product, 0.029977), and the
+# tensor-parallel path on 2 x 2 read 0.032550 and 0.034763 in two card runs:
+# the bound is 1.5 x that floor. A run is also held no farther from float32
+# than one device plus LM_TOL; the float32 run at 1e-4 is the tight check
+# of the path.
+SERVE_TP_BF16_TOL = {"deepseek-67b": 1.5 * SERVE_SHARD_TOL}
 # The com-livejournal phase: the paper's largest graph at full size (|V|
 # 3,997,962, |E| 34,681,189, rmat from its seed). Its host work runs in a
 # child process in the background from the script's start and ends before
@@ -5480,6 +5528,205 @@ def phase_sharded_serve(lm: dict) -> dict:
     return flash
 
 
+# ---------------------------------------------------------------- phase 21d
+
+
+def _same_cache_steps(one, sess, prompts, forced: np.ndarray) -> list[float]:
+    """Relative norms of ``sess``'s logits against ``one``'s (a one-device
+    session): the prefill, then each decode step fed a copy of ``one``'s
+    cache (dense; the sharded step places it) and the token ``forced``
+    gives."""
+    from repro_torch.models.params import tree_map
+
+    plen, vocab = prompts.shape[1], sess.cfg.vocab
+    with sess.gathered():
+        want, cache = one.prefill(prompts)
+        got, _ = sess.prefill(prompts)
+        rels = [_rel(got[:, :vocab], want[:, :vocab])]
+        for i in range(forced.shape[1] - 1):
+            tok = torch.from_numpy(forced[:, i:i + 1].astype(np.int32)).cuda()
+            got, _ = sess.decode(tree_map(torch.clone, cache), tok, plen + i)
+            want, cache = one.decode(cache, tok, plen + i)
+            rels.append(_rel(got[:, :vocab], want[:, :vocab]))
+    return rels
+
+
+@contextlib.contextmanager
+def _flash_heads():
+    """The (query heads, KV heads) of each flash launch of the model code,
+    recorded in the list yielded."""
+    from repro_torch.models import layers
+
+    seen: list = []
+    real = layers.flash_attention_bshd
+
+    def spy(q, k, v, *args, **kwargs):
+        seen.append((q.shape[2], k.shape[2]))
+        return real(q, k, v, *args, **kwargs)
+
+    layers.flash_attention_bshd = spy
+    try:
+        yield seen
+    finally:
+        layers.flash_attention_bshd = real
+
+
+def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng) -> int:
+    """One config of 21d: the one-device session's tokens, then the
+    tensor-parallel session teacher-forced on them. Returns the flash
+    launches of its prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.tensor_parallel import ModelBlocks, serves_tensor_parallel
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.model import init_model
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    full = get_config(arch)
+    cfg = full.scaled(n_layers=depth, dtype=dtype)
+    check(serves_tensor_parallel(cfg, mesh), f"[tp serve] {arch} does not take the TP path")
+    b, plen, gen = ((FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN) if dtype == "bfloat16"
+                    else SERVE_SHARD_F32_SHAPE)
+    torch.cuda.empty_cache()
+    gen_card = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(gen_card, cfg, "cuda")
+    if cfg.qkv_bias:
+        for name in ("bq", "bk", "bv"):
+            params["layers"]["attn"][name].normal_(0.0, SERVE_TP_BIAS_STD, generator=gen_card)
+    prompts = rng.integers(0, cfg.vocab, (b, plen), dtype=np.int32)
+    common = dict(batch=b, max_seq=plen + gen, attention_impl="flash", n_layers=depth)
+    one = ServeSession(arch, params=params, dtype=dtype, **common)
+    tokens, stats = one.generate(prompts, gen, keep_logits=True)
+    forced = tokens[:, plen:]
+    _, one_pre, _, one_prefill_s, one_decode_s, _ = _forced(one, prompts, None, forced)
+    if dtype == "bfloat16":  # its logits are kept; its parameters are freed
+        one = None
+    exact = None
+    if dtype == "bfloat16":  # the same weights in float32, fed the same tokens
+        f32 = ServeSession(arch, params=tree_map(lambda t: t.float(), params), dtype="float32",
+                           **common)
+        exact = _forced(f32, prompts, None, forced)[0]
+        del f32
+        torch.cuda.empty_cache()
+    sess = ServeSession(arch, mesh=mesh, params=params, dtype=dtype, **common)
+    del params  # the session holds its own blocks
+    torch.cuda.empty_cache()
+    # What the gathered path gives each position: every parameter, whole.
+    whole = sum(t.shape.numel() * t.dtype.itemsize for t in tree_leaves(sess.params))
+    with sess.gathered():  # the blocks are freed on the way out
+        check(isinstance(sess._full, ModelBlocks), f"[tp serve] {arch}: gathered "
+              f"{type(sess._full)}")
+        tp_bytes = dict(sess._full.bytes_by_position)
+    m = mesh.devices.shape[-1]
+    shards = _prefill_shards(cfg, mesh, b, plen) * m
+    check(all(v < 0.55 * whole for v in tp_bytes.values()),
+          f"[tp serve] {arch}: a position gathered {tp_bytes} of {whole}")
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):  # the first run's steps meet the column blocks' shapes first
+        with _flash_heads() as heads:
+            runs.append((*_forced(sess, prompts, None, forced), list(heads)))
+    peak = torch.cuda.max_memory_allocated()
+    got, pre, dec, prefill_s, decode_s, layout, heads = runs[-1]
+    want_heads = [(cfg.n_heads // m, max(cfg.n_kv_heads // m, 1))] * (depth * shards)
+    check(pre["flash_attention"] == depth * shards and dec["flash_attention"] == 0
+          and not any(v for k, v in {**pre, **dec}.items() if k != "flash_attention")
+          and heads == want_heads,
+          f"[tp serve] {arch}: launches prefill {pre}, decode {dec}, heads {heads[:4]}..; "
+          f"expected {depth} x {shards} flash on {want_heads[0]} heads")
+    rels = _step_rels(got, stats["logits"], cfg.vocab)
+    tol = SERVE_TP_BF16_TOL.get(arch, SERVE_SHARD_TOL) if exact is not None else FAMILY_CARD_TOL
+
+    def verdict(steps: int) -> tuple:
+        """The run's rule over its first ``steps`` steps: (passes, relative
+        norms against one device, the text of the float32 comparison). In
+        bf16: finite logits within ``tol`` of one device, and no farther
+        from the float32 run than one device is, plus LM_TOL. In float32 a
+        decode step reads the bf16 attention caches (bf16 whatever the
+        dtype), whose rounding of the two paths' float32 K/V may part by one
+        bf16 step, and the parted entries add up over the steps: each step
+        is held within ``tol`` from a copy of the one-device session's
+        cache."""
+        if exact is None:
+            same = _same_cache_steps(one, sess, prompts, forced[:, :steps])
+            return (max(same) <= tol, same,
+                    f"; each step from a copy of the one-device session's cache "
+                    f"{[float(f'{r:.3e}') for r in same]} (bound {tol}; the steps above read "
+                    f"their own caches)")
+        logits = got if steps == gen else _forced(sess, prompts, None, forced[:, :steps])[0]
+        near = _step_rels(logits, stats["logits"][:steps], cfg.vocab)
+        one_f32 = max(_step_rels(torch.as_tensor(stats["logits"][:steps]), exact[:steps],
+                                 cfg.vocab))
+        tp_f32 = max(_step_rels(logits, exact[:steps], cfg.vocab))
+        return (bool(torch.isfinite(logits[..., :cfg.vocab]).all()) and max(near) <= tol
+                and tp_f32 <= one_f32 + LM_TOL, near,
+                f"; against a float32 run of the same weights, max over the steps: one device "
+                f"{one_f32:.6f}, tensor-parallel {tp_f32:.6f} (bound one device + {LM_TOL})")
+
+    ok, _, against_f32 = verdict(gen)
+    check(bool(torch.isfinite(got[..., :cfg.vocab]).all()) and ok,
+          f"[tp serve] {arch} {dtype}: tensor-parallel vs one device relative norms {rels} "
+          f"(bound {tol}){against_f32}")
+    # A planted fault the rule must refuse: a reduction that loses the last
+    # model shard's partial, held by the same verdict over two steps.
+    real = tensor_parallel.reduce_f32
+    tensor_parallel.reduce_f32 = lambda parts, dev, dt: real(parts[:-1], dev, dt)
+    try:
+        bad_ok, bad, _ = verdict(2)
+    finally:
+        tensor_parallel.reduce_f32 = real
+    check(not bad_ok, f"[tp serve] {arch}: a dropped partial passes the rule: {bad}")
+    del one
+    cut = f"{depth} of {full.n_layers} layers"
+    first = runs[0]
+    log(f"[tp serve] {arch} ({cfg.family}, profile 'tp') at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, KV {cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}), {cut}, {dtype}, attention 'flash', tensor-parallel on "
+        f"{SERVE_TP_MESH} logical shards of {SHARD_DEVICE}"
+        + (f", QKV biases drawn at std {SERVE_TP_BIAS_STD}" if cfg.qkv_bias else "")
+        + f": {b} x {plen} prompt tokens, {gen} steps teacher-forced on the one-device session's "
+        f"tokens: logits relative norm prefill {rels[0]:.3e}, decode max {max(rels[1:]):.3e} "
+        f"(each {[float(f'{r:.3e}') for r in rels]}; bound {tol}){against_f32}; bytes each "
+        f"position gathered "
+        f"for a step: tensor-parallel {sorted(set(tp_bytes.values()))} (its 'model' blocks), the "
+        f"gathered path {whole} (every parameter), ratio "
+        f"{max(tp_bytes.values()) / whole:.4f}; flash launches prefill "
+        f"{pre['flash_attention']} ({depth} layers x {shards // m} data shards x {m} model "
+        f"shards, each on {heads[0][0]} query and {heads[0][1]} KV heads; one device "
+        f"{one_pre['flash_attention']} on {cfg.n_heads}), decode {dec['flash_attention']}; prefill "
+        f"{prefill_s:.6f} s (first run {first[3]:.6f}; one device {one_prefill_s:.6f}), decode "
+        f"{1e3 * decode_s / (gen - 1):.3f} ms a step (first run "
+        f"{1e3 * first[4] / (gen - 1):.3f}; one device {1e3 * one_decode_s / (gen - 1):.3f}); "
+        f"max_memory_allocated {peak} bytes (the placed and the gathered blocks on one card: "
+        f"logical shards share its memory); a reduction dropping the last shard's partial, "
+        f"refused by the same rule: {[round(r, 6) for r in bad]}, {max(bad) / tol:.1f} x the "
+        f"bound; cache specs "
+        f"{layout}; {smi}")
+    del sess, got, runs
+    return pre["flash_attention"]
+
+
+def phase_tensor_parallel_serve() -> dict:
+    """21d: the dense decoders served tensor-parallel on 2 x 2 logical
+    shards of the card (the module docstring). Returns the flash launches of
+    each run's prefill."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    mesh = _logical_mesh(SERVE_TP_MESH)
+    rng = np.random.default_rng(23)
+    flash = {}
+    for arch, depth, dtype in SERVE_TP_RUNS:
+        t0 = time.perf_counter()
+        flash[f"tensor_parallel_serve:{arch}:{dtype}"] = _tensor_parallel_run(
+            arch, depth, dtype, mesh, smi, rng)
+        log(f"[tp serve] {arch} {dtype} took {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    log(f"[tp serve] phase 21d took {time.perf_counter() - t_phase:.3f} s")
+    return flash
+
+
 # ---------------------------------------------------------------- phase 22
 
 
@@ -5834,6 +6081,7 @@ def main() -> int:
     family_flash, family_rows = timed(phase_families)
     timed(phase_sharded_train, one_device)
     sharded_flash = timed(phase_sharded_serve, lm)
+    sharded_flash.update(timed(phase_tensor_parallel_serve))
     lj = timed(phase_livejournal, oracles)
     row["livejournal_launches"] = lj["launches"]
     flash_rows[0]["launches_by_path"] = {"lm_serve": flash_rows[0]["launches"], **family_flash,

@@ -39,7 +39,10 @@ Conventions (the reference's where they carry over):
     a scope whose path contains ``attn_core`` add up in
     ``bytes_by_tag["attn"]``, backward included: a backward op is charged to
     the scope that created its autograd node, a recomputed one to the scope
-    it runs in.
+    it runs in. ``skip=name`` leaves out the ops (and custom calls) run
+    inside a scope whose path contains ``name``: the tensor-parallel path
+    runs its other model shards' work in such a scope, so that one call
+    counts its home shard's step alone.
   - collective bytes are not seen by the dispatch mode: they are what the
     port's sharded paths move between distinct devices, computed from the
     placed specs by the caller (``split_bytes``: a leaf of S bytes split k
@@ -223,9 +226,10 @@ class CostCounter(TorchDispatchMode):
     """Counts the ops dispatched while it is entered (``with CostCounter()
     as c: ...; c.result()``); see the module docstring."""
 
-    def __init__(self, tags: dict | None = None):
+    def __init__(self, tags: dict | None = None, skip: str | None = None):
         super().__init__()
         self.tags = dict(tags or {})
+        self.skip = skip
         self.flops = 0.0
         self.matmul_flops = 0.0
         self.bytes = 0.0
@@ -275,7 +279,12 @@ class CostCounter(TorchDispatchMode):
                         self.by_tag[name] = self.by_tag.get(name, 0.0) + nbytes
                         break
 
+    def _skipped(self) -> bool:
+        return self.skip is not None and self.skip in self._path()
+
     def _custom_call(self, flops: float, nbytes: float, matmul: bool) -> None:
+        if self._skipped():
+            return
         self.custom_calls += 1
         self.flops += flops
         if matmul:
@@ -286,6 +295,8 @@ class CostCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._skipped():
+            return func(*args, **kwargs)
         kind = _KINDS.get(func) or _classify(func)
         if kind == "composite":
             # A composite op (``matmul``, ``einsum`` under inference mode)
@@ -333,11 +344,13 @@ class CostCounter(TorchDispatchMode):
                         matmul_flops=self.matmul_flops)
 
 
-def step_cost(fn, *args, tags: dict | None = None, **kwargs) -> StepCost:
+def step_cost(fn, *args, tags: dict | None = None, skip: str | None = None,
+              **kwargs) -> StepCost:
     """The cost of ``fn(*args, **kwargs)`` (run once, under ``CostCounter``);
-    ``tags``: {tag: scope substring}, the reference's ``{"attn": "attn_core"}``.
+    ``tags``: {tag: scope substring}, the reference's ``{"attn": "attn_core"}``;
+    ``skip``: a scope substring whose ops are left out.
     Its collective bytes are 0: a caller on a mesh adds ``collectives``."""
-    with CostCounter(tags) as counter:
+    with CostCounter(tags, skip) as counter:
         fn(*args, **kwargs)
     return counter.result()
 

@@ -1,0 +1,259 @@
+"""Tensor-parallel serving of the dense decoders over a mesh's 'model' axis.
+
+The reference gets this compute from GSPMD: on the "tp" profile
+(``src/repro/distributed/ctx.py:34-52``) it places wq/wk/wv and the MLP's
+wi_gate/wi_up by columns over 'model', wo by rows, tok_embed and lm_head by
+vocab, and its layer code pins the activations to those blocks
+(``src/repro/models/layers.py:87-97``, ``:280-296``, ``:414-417``). The port
+is single-controller and eager, so it writes the schedule out: this module
+holds the blocks and the moves, ``models/model.py`` the layer loops
+(``prefill_placed_tp``, ``decode_placed_tp``).
+
+Which configs take it: ``serves_tensor_parallel(cfg, mesh)``, the one place
+that decides. The dense family with standard (GQA) attention on the "tp"
+profile, on a mesh with a 'model' axis whose size divides the query heads
+(deepseek-67b, qwen1.5-110b, a smoke config pinned ``parallelism="tp"``).
+Every other config (the MoE, VLM, hybrid, SSM, MLA and audio families, the
+"dp" profile) serves on the gathered path: every parameter gathered whole
+on each device.
+
+What model shard ``j`` of ``m`` holds (``gather_model_blocks``): the ``j``-th
+'model' block of every leaf whose spec splits a dim over 'model', gathered
+over the other axes ('data': the ZeRO-3 gather), and every other leaf (the
+norms) whole. What it computes, on its device:
+
+  * embedding: the tokens in its vocab range (zeros elsewhere);
+  * attention: its ``H / m`` query heads (``head_range``) from its column
+    blocks of wq (and bq); its column blocks of wk/wv (bk/bv) are joined on
+    the group's home, roped there, and each shard takes the KV heads its
+    query heads use (``kv_block``: ``q // (H / K)``; a shard's query heads
+    may share one KV head with another shard's when K does not divide m);
+    then its rows of wo;
+  * MLP: its columns of wi_gate/wi_up and its rows of wo;
+  * logits: its vocab columns of lm_head (``tok_embed``'s rows when tied).
+
+A row-parallel output is a float32 ``[B, S, d]`` partial a shard (never
+rounded to the run's dtype: ``models/layers.py::matmul_f32``);
+``ModelGroup.reduce`` sums them in float32 in shard order on the home device
+and casts once, so a bf16 run rounds each sum once, as one device's product
+does. The
+residual stream, the norms and the cache writes live on the home (shard 0's
+device). Every move between the group's shards goes through
+``runtime/staging.stage`` and adds its bytes to ``ModelGroup.moved`` (bytes
+into each shard): what the dry run records as the step's activation
+collectives. A shard's own work runs in ``ModelGroup.on(j)``: for shards
+other than the home a ``cost_scope(SHARD_SCOPE)``, which the dry run's
+counter skips, so that it counts the home shard's step, the one that
+bounds the group's (it alone reduces, joins and runs the residual stream).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from repro_torch.analysis.hlo_cost import cost_scope
+from repro_torch.distributed.ctx import arch_profile
+from repro_torch.distributed.sharding import ShardedTensor, _entry_axes
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.runtime.staging import stage
+
+__all__ = [
+    "MODEL",
+    "SHARD_SCOPE",
+    "serves_tensor_parallel",
+    "model_size",
+    "model_dim",
+    "block_range",
+    "head_range",
+    "kv_block",
+    "model_block",
+    "ModelBlocks",
+    "gather_model_blocks",
+    "first_positions",
+    "ModelGroup",
+    "model_group",
+    "reduce_f32",
+]
+
+MODEL = "model"
+SHARD_SCOPE = "tp_other_shard"  # the cost scope of a shard's own work, the home's excepted
+
+
+def model_size(mesh) -> int:
+    """The size of the mesh's 'model' axis (1 without one)."""
+    return dict(zip(mesh.axis_names, mesh.devices.shape)).get(MODEL, 1)
+
+
+def serves_tensor_parallel(cfg, mesh) -> bool:
+    """Whether ``cfg`` serves tensor-parallel on ``mesh`` (module
+    docstring): the dense family, GQA attention, the "tp" profile, and a
+    'model' axis that divides the query heads. Every other config takes the
+    gathered path."""
+    return (cfg.family == "dense" and cfg.attention == "gqa" and arch_profile(cfg) == "tp"
+            and MODEL in mesh.axis_names and cfg.n_heads % model_size(mesh) == 0)
+
+
+def model_dim(spec, ndim: int) -> int | None:
+    """The dim ``spec`` splits over 'model', or None. A dim split over
+    'model' together with another axis raises ``ValueError`` (no schema
+    places one so)."""
+    entries = tuple(spec) + (None,) * (ndim - len(spec))
+    for d, e in enumerate(entries):
+        axes = _entry_axes(e)
+        if MODEL in axes:
+            if axes != (MODEL,):
+                raise ValueError(f"spec {spec} splits dim {d} over {axes}: only 'model' alone "
+                                 "has model blocks")
+            return d
+    return None
+
+
+def block_range(size: int, j: int, m: int) -> tuple[int, int]:
+    """``[lo, hi)`` of block ``j`` of a dim of ``size`` split ``m`` ways."""
+    if size % m:
+        raise ValueError(f"{size} does not split into {m} blocks")
+    per = size // m
+    return j * per, (j + 1) * per
+
+
+def head_range(cfg, j: int, m: int) -> tuple[int, int]:
+    """Model shard ``j``'s query heads: its columns of wq, ``hd`` each."""
+    return block_range(cfg.n_heads, j, m)
+
+
+def kv_block(cfg, j: int, m: int) -> tuple[int, int, list | None]:
+    """The KV heads model shard ``j``'s query heads use: ``(k0, k1, local)``,
+    heads ``k0 .. k1 - 1``. ``local`` is None when query head ``i`` of the
+    shard uses KV head ``k0 + i // ((h1 - h0) / (k1 - k0))``, so the
+    kernel's GQA takes the ``k1 - k0`` heads as they are; else it lists
+    each query head's KV head (from ``k0``), to expand them to one a query
+    head."""
+    h0, h1 = head_range(cfg, j, m)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    heads = [q // rep for q in range(h0, h1)]
+    k0, k1 = heads[0], heads[-1] + 1
+    local = [k - k0 for k in heads]
+    n, kn = h1 - h0, k1 - k0
+    if n % kn == 0 and local == [i // (n // kn) for i in range(n)]:
+        return k0, k1, None
+    return k0, k1, local
+
+
+def model_block(leaf: ShardedTensor, j: int, device) -> torch.Tensor:
+    """Model block ``j`` of a placed leaf on ``device``, gathered over its
+    other axes (a view of the block held there when one block holds it);
+    a leaf with no 'model' dim whole."""
+    d = model_dim(leaf.sharding.spec, leaf.ndim)
+    if d is None:
+        return leaf.full(device)
+    m = leaf.sharding.blocks_per_dim(leaf.ndim)[d]
+    index = [slice(None)] * leaf.ndim
+    index[d] = slice(*block_range(leaf.shape[d], j, m))
+    return leaf.read(tuple(index), device)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+class ModelBlocks(dict):
+    """``(device, j)`` -> the parameter tree of model block ``j`` gathered
+    there (``gather_model_blocks``): what the tensor-parallel serving steps
+    run on. ``bytes_by_position``: mesh position -> the bytes of the tree
+    that position computes with."""
+
+    bytes_by_position: dict
+
+
+def _positions(mesh):
+    ax = mesh.axis_names.index(MODEL)
+    return [(pos, dev, pos[ax]) for pos, dev in np.ndenumerate(mesh.devices)]
+
+
+def gather_model_blocks(params, mesh) -> ModelBlocks:
+    """``params`` (placed by ``train_state_specs``) gathered over 'data'
+    only: one tree a distinct (device, model block)."""
+    out = ModelBlocks()
+    for _, dev, j in _positions(mesh):
+        if (dev, j) not in out:
+            out[(dev, j)] = tree_map(lambda leaf, j=j, dev=dev: model_block(leaf, j, dev), params)
+    out.bytes_by_position = {pos: _tree_bytes(out[(dev, j)]) for pos, dev, j in _positions(mesh)}
+    return out
+
+
+def first_positions(leaf: ShardedTensor, dim: int) -> dict:
+    """Block index along ``dim`` -> the first mesh position (row-major)
+    holding a block with that index."""
+    out: dict = {}
+    for pos, (_, idx) in leaf.sharding.layout(leaf.ndim).items():
+        out.setdefault(idx[dim], pos)
+    return out
+
+
+def reduce_f32(parts, device, dtype) -> torch.Tensor:
+    """``sum(parts)`` on ``device``: each part staged there and added in
+    float32 in the order given, the sum cast once to ``dtype``."""
+    acc = None
+    for p in parts:
+        p = stage(p, device).float()
+        acc = p if acc is None else acc + p
+    return acc.to(dtype)
+
+
+class ModelGroup:
+    """The model shards of one data-parallel block: shard ``j``'s device
+    and parameter blocks; ``home`` is shard 0's device, where the residual
+    stream lives. ``moved[j]`` counts the activation bytes moved into shard
+    ``j`` from another shard of the group."""
+
+    def __init__(self, devices: list, blocks: list):
+        self.devices = list(devices)
+        self.blocks = list(blocks)
+        self.m = len(self.devices)
+        self.home = self.devices[0]
+        self.moved = [0] * self.m
+
+    def on(self, j: int):
+        """The context of shard ``j``'s own work: ``cost_scope(SHARD_SCOPE)``
+        for a shard other than the home."""
+        return cost_scope(SHARD_SCOPE) if j else contextlib.nullcontext()
+
+    def note(self, t: torch.Tensor, src: int, dst: int) -> None:
+        """Count ``t`` as moved from shard ``src`` into shard ``dst``."""
+        if src != dst:
+            self.moved[dst] += t.numel() * t.element_size()
+
+    def send(self, t: torch.Tensor, j: int, src: int = 0) -> torch.Tensor:
+        """``t`` (on shard ``src``'s device) on shard ``j``'s device."""
+        self.note(t, src, j)
+        return stage(t, self.devices[j])
+
+    def collect(self, t: torch.Tensor, j: int) -> torch.Tensor:
+        """Shard ``j``'s ``t`` on the home device."""
+        return self.send(t, 0, src=j)
+
+    def broadcast(self, t: torch.Tensor) -> list:
+        """The home's ``t`` on every shard's device."""
+        return [self.send(t, j) for j in range(self.m)]
+
+    def join(self, parts: list, dim: int = -1) -> torch.Tensor:
+        """The shards' ``parts`` concatenated along ``dim`` on the home."""
+        return torch.cat([self.collect(p, j) for j, p in enumerate(parts)], dim=dim)
+
+    def reduce(self, parts: list, dtype) -> torch.Tensor:
+        """The shards' partial sums reduced on the home (``reduce_f32``)."""
+        return reduce_f32([self.collect(p, j) for j, p in enumerate(parts)], self.home, dtype)
+
+
+def model_group(blocks: ModelBlocks, mesh, pos) -> ModelGroup:
+    """The group of mesh position ``pos``: the positions that differ from
+    it in the 'model' coordinate alone, in model order."""
+    ax = mesh.axis_names.index(MODEL)
+    devices = []
+    for j in range(model_size(mesh)):
+        p = list(pos)
+        p[ax] = j
+        devices.append(mesh.devices[tuple(p)])
+    return ModelGroup(devices, [blocks[(dev, j)] for j, dev in enumerate(devices)])

@@ -11,21 +11,37 @@ port's specs equal the reference's, it records
   * the bytes a device holds of parameters, optimizer state (train), cache
     (prefill, decode) and batch as ``distributed/lm_sharding.py``'s specs
     place them, against 80 GB (``fits_80GB``). Activations are not counted,
-    and neither is the full parameter copy the port's sharded steps gather
-    on each device (``gathered_params_bytes``, beside it);
-  * ``analysis/hlo_cost.py::step_cost`` of the step one data-parallel shard
-    runs on its device: the port computes each distinct data-parallel shard
-    once, on its first device, with every parameter gathered there (the
-    layers' tensor-parallel compute is not ported), so the per-device FLOPs
-    and bytes are that shard's, not divided by the model axis. Training
-    takes the reference's microbatch rule; a microbatch's
-    ``loss_and_grads`` and its float32 accumulation into the device's
-    gradient blocks are counted once and multiplied by the microbatches
-    (identical shapes), AdamW once over the device's blocks;
+    and neither is the parameter copy the port's sharded steps gather on
+    each device (``gathered_params_bytes``, beside it: the whole tree, or on
+    the tensor-parallel path the device's 'model' block);
+  * ``analysis/hlo_cost.py::step_cost`` of the step a device runs. Two
+    kinds of cells (``PER_DEVICE``, ``PER_DEVICE_TP``):
+      - the dense decoders' serving cells on the "tp" profile (deepseek-67b
+        and qwen1.5-110b at prefill_32k and decode_32k,
+        ``distributed/tensor_parallel.py::serves_tensor_parallel``) take the
+        tensor-parallel step: one data-parallel shard's step (a row of the
+        cache at decode) over its 16 model shards
+        (``models/model.py::prefill_tp``, ``decode_row_tp``), run on meta,
+        of which the home shard's part is counted (the other shards' work
+        skipped, ``tensor_parallel.SHARD_SCOPE``): its 1/16 of the split
+        products, and the reductions of every shard's partials, the joins,
+        norms and residual stream, which it alone runs. It bounds the
+        group's step; the other shards run the split products alone;
+      - every other cell (training, the other families, the "dp" profile)
+        the step of one distinct data-parallel shard, run on its first
+        device with every parameter gathered there: the per-device FLOPs
+        and bytes are that shard's, not divided by the model axis. Training
+        takes the reference's microbatch rule; a microbatch's
+        ``loss_and_grads`` and its float32 accumulation into the device's
+        gradient blocks are counted once and multiplied by the microbatches
+        (identical shapes), AdamW once over the device's blocks;
   * the collective bytes into a device (``analysis/hlo_cost.py::split_bytes``):
-    the parameter gather of a step (``all-gather``) and, in training, each
-    microbatch's gradient reduction into the gradient spec's blocks
-    (``reduce-scatter``);
+    the parameter gather of a step (``all-gather``: the whole tree's, or on
+    the tensor-parallel path the 'data' gather of the device's model
+    blocks), the activations a tensor-parallel step moves between its model
+    shards (``activations``: the most ``ModelGroup.moved`` brings into one
+    shard, the home's) and, in training, each microbatch's gradient reduction
+    into the gradient spec's blocks (``reduce-scatter``);
   * ``model_flops`` (global, and the shard's share) and ``roofline_terms``
     over the H100's constants, and the useful-FLOPs ratio.
 
@@ -65,9 +81,17 @@ from repro_torch.distributed.lm_sharding import (
     named_tree,
     train_state_specs,
 )
+from repro_torch.distributed.sharding import zeros
+from repro_torch.distributed.tensor_parallel import (
+    SHARD_SCOPE,
+    ModelGroup,
+    model_dim,
+    model_size,
+    serves_tensor_parallel,
+)
 from repro_torch.launch.specs import META, CellSpec, batch_struct
 from repro_torch.launch.steps import MOE_GROUP, loss_and_grads, make_prefill_step, make_serve_step
-from repro_torch.models.model import cache_zeros
+from repro_torch.models.model import cache_zeros, decode_row_tp, prefill_tp
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_warmup
 
@@ -78,23 +102,29 @@ RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 DEVICE_BYTES = 80e9  # an H100's device memory
 TAGS = {"attn": "attn_core"}
 PER_DEVICE = ("the step of one distinct data-parallel shard, run on its first device with "
-              "every parameter gathered there (tensor-parallel compute is not ported, so the "
+              "every parameter gathered there (this cell takes the gathered path, so the "
               "model axis does not divide it)")
+PER_DEVICE_TP = ("the home model shard's step of the tensor-parallel path, which bounds its "
+                 "group's: its share of the data-parallel shard's products (divided by the "
+                 "model axis), and the reductions, joins, norms and residual stream that it "
+                 "alone runs for the group")
 
 
 class DuckMesh:
     """A production mesh as the spec functions read it: axis names and the
-    device grid's shape (no devices: nothing is placed)."""
+    device grid's shape. Its devices are ``device`` (default None: nothing
+    is placed; the tensor-parallel decode places its cache on meta ones)."""
 
-    def __init__(self, shape, names):
+    def __init__(self, shape, names, device=None):
         self.devices = np.empty(shape, dtype=object)
+        self.devices.fill(device)
         self.axis_names = tuple(names)
 
 
-def production_mesh(kind: str) -> DuckMesh:
+def production_mesh(kind: str, device=None) -> DuckMesh:
     if kind == "multi":
-        return DuckMesh((2, 16, 16), ("pod", "data", "model"))
-    return DuckMesh((16, 16), ("data", "model"))
+        return DuckMesh((2, 16, 16), ("pod", "data", "model"), device)
+    return DuckMesh((16, 16), ("data", "model"), device)
 
 
 def _nbytes(t) -> int:
@@ -237,6 +267,67 @@ def _serve(spec: CellSpec, mesh) -> tuple[StepCost, dict]:
     return cost + collectives(coll), {"held": held, "dp_shards": n, "rows": rows}
 
 
+def _block_struct(t, sh) -> torch.Tensor:
+    """A meta leaf's model block (its 'model' dim divided)."""
+    shape = list(t.shape)
+    d = model_dim(sh.spec, t.ndim)
+    if d is not None:
+        shape[d] //= sh.blocks_per_dim(t.ndim)[d]
+    return torch.empty(shape, dtype=t.dtype, device=META)
+
+
+def _serve_tp(spec: CellSpec, mesh, kind: str) -> tuple[StepCost, dict]:
+    """``_serve`` on the tensor-parallel path: one data-parallel shard's
+    step (a cache row's at decode) over a group of the mesh's model shards
+    on meta, of which the home shard's part is counted; the collectives are
+    the 'data' gather of a device's model blocks and the activations moved
+    into the home, the most any shard receives."""
+    cfg, shape = spec.cfg, spec.shape
+    params = spec.params_struct()
+    cache = spec.cache_struct()
+    psh = named_tree(mesh, train_state_specs(cfg)[0])
+    csh = named_tree(mesh, cache_spec_tree(cfg, mesh, cache))
+    m = model_size(mesh)
+    blocks = tree_map(_block_struct, params, psh)
+    group = ModelGroup([META] * m, [blocks] * m)
+    if shape.kind == "prefill":
+        batch = batch_struct(cfg, shape, with_labels=False)
+        bsh = named_tree(mesh, batch_spec_tree(cfg, mesh, batch))
+        n = _dp_blocks(bsh, batch)
+        rows = shape.global_batch // n
+        own = cache_zeros(cfg, rows, shape.seq, META)
+
+        def step():
+            prefill_tp(group, _part(batch, rows), own, cfg, META)
+
+        held_batch = _held(batch, bsh)
+    else:
+        dp = dp_size(mesh)
+        n = dp if shape.global_batch % dp == 0 else 1
+        rows = shape.global_batch // n
+        on_meta = production_mesh(kind, META)
+        placed = tree_map(lambda t, s: zeros(t.shape, t.dtype, s), cache,
+                          named_tree(on_meta, cache_spec_tree(cfg, on_meta, cache)))
+        token = torch.empty((rows, 1), dtype=torch.int32, device=META)
+
+        def step():
+            decode_row_tp(group, placed, token, shape.seq - 1, 0, 0, cfg, META)
+
+        held_batch = shape.global_batch // n * 4
+    with torch.inference_mode():
+        cost = step_cost(step, tags=TAGS, skip=SHARD_SCOPE)
+    block_leaves = tree_leaves(blocks)
+    # A model block is split over the other axes ('data') into the rest of the leaf's blocks.
+    others = [_blocks(sh, t.ndim) // (1 if model_dim(sh.spec, t.ndim) is None else m)
+              for t, sh in zip(tree_leaves(params), tree_leaves(psh))]
+    coll = {"all-gather": sum(_nbytes(b) * (k - 1) / k for b, k in zip(block_leaves, others)),
+            "activations": max(group.moved)}
+    held = {"params": _held(params, psh), "cache": _held(cache, csh), "batch": held_batch}
+    info = {"held": held, "dp_shards": n, "model_shards": m, "rows": rows,
+            "gathered": sum(_nbytes(b) for b in block_leaves)}
+    return cost + collectives(coll), info
+
+
 def cut_depth(cfg, n_layers: int):
     """``cfg`` at ``n_layers`` layers, its hybrid and cross-attention groups
     cut to fit, so that every kind of block still runs."""
@@ -257,16 +348,22 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, n_layers: int | None = 
     cfg = spec.cfg
     mesh = production_mesh(mesh_kind)
     n_chips = int(np.prod(mesh.devices.shape))
+    tensor_parallel = spec.shape.kind != "train" and serves_tensor_parallel(cfg, mesh)
     t0 = time.perf_counter()
-    cost, info = (train_cost if spec.shape.kind == "train" else _serve)(spec, mesh)
+    if tensor_parallel:
+        cost, info = _serve_tp(spec, mesh, mesh_kind)
+    else:
+        cost, info = (train_cost if spec.shape.kind == "train" else _serve)(spec, mesh)
     count_s = time.perf_counter() - t0
     held = info.pop("held")
-    params = spec.params_struct()
-    gathered = sum(_nbytes(t) for t in tree_leaves(params))
+    gathered = info.pop("gathered", None)
+    if gathered is None:
+        gathered = sum(_nbytes(t) for t in tree_leaves(spec.params_struct()))
+    info.setdefault("model_shards", 1)
     tokens = spec.shape.global_batch * (spec.shape.seq if spec.shape.kind != "decode" else 1)
     n_active = cfg.active_param_count()
     mf = model_flops(spec.shape.kind, n_active, tokens)
-    per_device = mf / info["dp_shards"]
+    per_device = mf / (info["dp_shards"] * info["model_shards"])
     record.update({
         "n_chips": n_chips,
         "n_layers": cfg.n_layers,
@@ -275,9 +372,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, n_layers: int | None = 
                    "placed_bytes": sum(held.values()),
                    "gathered_params_bytes": gathered,
                    "note": "placed state a device; activations and the step's gathered "
-                           "parameter copy are not in placed_bytes"},
+                           "parameter copy (the whole tree, or a tensor-parallel step's model "
+                           "blocks) are not in placed_bytes"},
         "fits_80GB": sum(held.values()) <= DEVICE_BYTES,
-        "per_device": PER_DEVICE,
+        "per_device": PER_DEVICE_TP if tensor_parallel else PER_DEVICE,
         **info,
         "flops_per_device": cost.flops,
         "matmul_flops_per_device": cost.matmul_flops,

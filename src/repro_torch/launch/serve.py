@@ -22,9 +22,13 @@ a logsumexp combine; the SSM's heads over 'model'), through
 ``make_prefill_step``/``make_serve_step`` on the mesh. Logical shards of one
 card (``make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)``) or
 of the host (``torch.device("cpu")`` entries) run every placement on one
-device. ``generate`` gathers the parameters once on each distinct device
-and frees them after the call (the reference's GSPMD gathers ZeRO-3 blocks
-each step: the same results on another schedule).
+device. ``generate`` gathers the parameters once and frees them after the
+call (the reference's GSPMD gathers ZeRO-3 blocks each step: the same
+results on another schedule): the dense decoders with GQA attention on the
+"tp" profile (deepseek-67b, qwen1.5-110b) gather over 'data' only, each
+position its 'model' block, and serve tensor-parallel (heads, columns and
+vocab a shard, ``distributed/tensor_parallel.py``); every other config
+gathers every parameter whole on each distinct device.
 """
 from __future__ import annotations
 
@@ -141,14 +145,16 @@ class ServeSession:
 
     @contextlib.contextmanager
     def gathered(self):
-        """On a mesh, the parameters gathered once on each distinct device
-        for the steps run inside (``generate`` runs in it), and freed after;
+        """On a mesh, the parameters gathered once for the steps run inside
+        (``generate`` runs in it; ``launch/steps.py::gather_params``: each
+        position's model blocks on the tensor-parallel path, the whole tree
+        on each distinct device on the gathered one), and freed after;
         without a mesh, nothing. Outside it each sharded step gathers for
         itself."""
         if self.mesh is None or self._full is not None:
             yield
             return
-        self._full = gather_params(self.params, self.mesh)
+        self._full = gather_params(self.params, self.mesh, self.cfg)
         try:
             yield
         finally:

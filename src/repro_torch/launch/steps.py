@@ -17,7 +17,8 @@ computes, up to reduction order (``sharded_loss_and_grads``):
   2. each leaf's params are gathered once a device;
   3. ``loss_and_grads`` runs once a distinct dp shard, on its device, in a
      fixed order (on the "tp" profile the 'model' axis only holds blocks:
-     the layers' tensor-parallel compute is not ported);
+     the training step's tensor-parallel forward and backward are not
+     ported; serving's are, below);
   4. the shards' losses and gradients combine into the global loss's
      gradient (next-token CE: ``1/n`` each; the audio family's masked loss:
      each shard's mask count over the global count), reduced in float32
@@ -33,15 +34,30 @@ The serving steps on a mesh (``make_prefill_step(cfg, mesh)``,
 ``train_state_specs`` (or ``gather_params``' gathered copies), the cache
 placed by ``cache_spec_tree`` (a dense cache is placed on the way in) and
 the prompt batch by ``batch_spec_tree``, and return the logits ``[B, V]``
-gathered on the mesh's first device with the placed cache: the prefill runs
-``forward_prefill`` once a distinct data-parallel shard of the batch
-(``models/model.py::prefill_placed``), the decode step once a data-parallel
-row of the cache, its attention one partial a sequence block
-(``decode_placed``). The reference's logits are vocab-sharded; sampling
-reads them whole.
+gathered on the mesh's first device with the placed cache. Two paths,
+chosen by ``distributed/tensor_parallel.py::serves_tensor_parallel``:
+
+  * tensor-parallel (the dense decoders with GQA attention on the "tp"
+    profile): each position gathers over 'data' only, into its 'model'
+    block of every leaf whose spec has 'model' (the norms whole;
+    ``gather_params`` returns ``ModelBlocks``). The prefill runs each
+    distinct data-parallel shard of the batch over its model group
+    (``models/model.py::prefill_placed_tp``), the decode step each
+    data-parallel row of the cache (``decode_placed_tp``): heads, columns
+    and vocab a shard, the row-parallel partials reduced in float32;
+  * gathered (every other config): every parameter gathered whole once a
+    distinct device (``GatheredParams``); the prefill runs
+    ``forward_prefill`` once a distinct data-parallel shard
+    (``prefill_placed``), the decode step once a data-parallel row of the
+    cache, its attention one partial a sequence block (``decode_placed``).
+
+Both record the bytes each mesh position computes with
+(``bytes_by_position``). The reference's logits are vocab-sharded;
+sampling reads them whole.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import (
@@ -53,13 +69,22 @@ from repro_torch.distributed.sharding import (
     place,
     reshard,
 )
+from repro_torch.distributed.tensor_parallel import (
+    ModelBlocks,
+    first_positions,
+    gather_model_blocks,
+    model_group,
+    serves_tensor_parallel,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
     decode_placed,
+    decode_placed_tp,
     decode_step,
     forward_prefill,
     loss_fn,
     prefill_placed,
+    prefill_placed_tp,
 )
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_warmup
@@ -318,8 +343,12 @@ def _sharded_train_step(cfg: ModelConfig, mesh, opt_cfg: AdamWConfig, sched: dic
 
 
 class GatheredParams(dict):
-    """Device -> the full parameter tree gathered there: what the sharded
-    serving steps run on, built by ``gather_params`` once for many steps."""
+    """Device -> the full parameter tree gathered there: what the gathered
+    serving path runs on, built by ``gather_params`` once for many steps.
+    ``bytes_by_position``: mesh position -> the bytes of the tree that
+    position computes with."""
+
+    bytes_by_position: dict
 
 
 def place_params(cfg: ModelConfig, mesh, params):
@@ -328,20 +357,38 @@ def place_params(cfg: ModelConfig, mesh, params):
     return _placed_tree(params, _state_shardings(cfg, mesh)[0], "params")
 
 
-def gather_params(params, mesh) -> GatheredParams:
-    """``params`` (placed, or dense on the mesh's devices) gathered once on
-    each distinct device of ``mesh``; a replicated leaf held there is not
-    copied."""
-    return GatheredParams({dev: gather_tree(params, dev) for dev in mesh.unique_devices})
+def _full_bytes(params) -> int:
+    return sum(t.shape.numel() * t.dtype.itemsize for t in tree_leaves(params))
+
+
+def gather_params(params, mesh, cfg: ModelConfig | None = None):
+    """``params`` gathered for the serving steps. With a ``cfg`` that
+    serves tensor-parallel on ``mesh``, ``ModelBlocks``: placed ``params``
+    gathered over 'data' only, one tree a distinct (device, model block).
+    Else ``GatheredParams``: ``params`` (placed, or dense on the mesh's
+    devices) gathered whole once on each distinct device of ``mesh``; a
+    replicated leaf held there is not copied."""
+    if cfg is not None and serves_tensor_parallel(cfg, mesh):
+        return gather_model_blocks(params, mesh)
+    out = GatheredParams({dev: gather_tree(params, dev) for dev in mesh.unique_devices})
+    nbytes = _full_bytes(params)
+    out.bytes_by_position = {pos: nbytes for pos, _ in np.ndenumerate(mesh.devices)}
+    return out
 
 
 def _serve_inputs(cfg: ModelConfig, mesh, params, cache):
-    """(gathered params, placed cache) of a sharded serving step."""
+    """(gathered params, placed cache) of a sharded serving step: the
+    ``ModelBlocks`` of the tensor-parallel path or the ``GatheredParams``
+    of the gathered one (either given, or gathered here)."""
     from repro_torch.distributed.lm_sharding import cache_spec_tree, named_tree
 
     cache = _placed_tree(cache, named_tree(mesh, cache_spec_tree(cfg, mesh, cache)), "cache")
-    if not isinstance(params, GatheredParams):
-        params = gather_params(place_params(cfg, mesh, params), mesh)
+    want = ModelBlocks if serves_tensor_parallel(cfg, mesh) else GatheredParams
+    if not isinstance(params, (GatheredParams, ModelBlocks)):
+        params = gather_params(place_params(cfg, mesh, params), mesh, cfg)
+    elif not isinstance(params, want):
+        raise ValueError(f"{cfg.name} serves on this mesh from {want.__name__}, got "
+                         f"{type(params).__name__}")
     return params, cache
 
 
@@ -371,6 +418,16 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
     return serve_step
 
 
+def _tp_shards(blocks: ModelBlocks, mesh, batch: dict, shards: list) -> list:
+    """[(row offset, model group, batch part)]: each data-parallel shard of
+    ``_dp_shards`` with the model group of the first position holding its
+    block of the batch."""
+    tokens = batch["tokens"]
+    at = first_positions(tokens, 0)
+    per = tokens.shape[0] // tokens.sharding.blocks_per_dim(tokens.ndim)[0]
+    return [(lo, model_group(blocks, mesh, at[lo // per]), part) for _, _, part, lo in shards]
+
+
 def _sharded_prefill_step(cfg: ModelConfig, mesh):
     home = mesh.devices.flat[0]
 
@@ -378,8 +435,11 @@ def _sharded_prefill_step(cfg: ModelConfig, mesh):
     def prefill_step(params, cache, batch):
         full, cache = _serve_inputs(cfg, mesh, params, cache)
         batch = _placed_tree(batch, _batch_shardings(cfg, mesh, batch), "batch")
-        shards = [(lo, dev, part) for _, dev, part, lo in _dp_shards(cfg, batch, 1)]
-        return prefill_placed(full, shards, cache, cfg, home)
+        shards = _dp_shards(cfg, batch, 1)
+        if isinstance(full, ModelBlocks):
+            return prefill_placed_tp(_tp_shards(full, mesh, batch, shards), cache, cfg, home)
+        return prefill_placed(full, [(lo, dev, part) for _, dev, part, lo in shards], cache,
+                              cfg, home)
 
     return prefill_step
 
@@ -390,6 +450,8 @@ def _sharded_serve_step(cfg: ModelConfig, mesh):
     @torch.inference_mode()
     def serve_step(params, cache, token, pos):
         full, cache = _serve_inputs(cfg, mesh, params, cache)
+        if isinstance(full, ModelBlocks):
+            return decode_placed_tp(full, mesh, cache, token, pos, cfg, home)
         return decode_placed(full, cache, token, pos, cfg, home)
 
     return serve_step

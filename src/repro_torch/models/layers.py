@@ -27,9 +27,18 @@ Attention supports:
     MLA combines in latent space, before ``wuv``. On one block this is
     ``attn_decode`` / ``mla_decode`` up to the order of float32 sums.
 
-The reference's sharding constraints have no counterpart here. Its
-``jax.named_scope("attn_core")`` regions are ``cost_scope("attn_core")``
-(``analysis/hlo_cost.py``), which only names ops for an active cost counter.
+The reference's sharding constraints have no counterpart here: on a mesh
+the dense decoders' tensor-parallel schedule is written out in
+``models/model.py`` (``prefill_placed_tp``, ``decode_placed_tp``) over
+``distributed/tensor_parallel.py``, and runs these functions on a model
+shard's blocks. ``attn_qkv_block`` projects a shard's query heads and its
+K/V columns (a column block of wk/wv may end inside a head),
+``mlp_hidden`` takes a column block of wi_gate/wi_up, ``matmul_f32`` gives
+a row block of wo's partial product in float32, and ``combined_heads``
+lays a combined decode output out by heads for the row blocks of wo. The
+reference's ``jax.named_scope("attn_core")``
+regions are ``cost_scope("attn_core")`` (``analysis/hlo_cost.py``),
+which only names ops for an active cost counter.
 """
 from __future__ import annotations
 
@@ -49,7 +58,9 @@ __all__ = [
     "attn_forward",
     "attn_decode",
     "attn_decode_qkv",
+    "attn_qkv_block",
     "attn_partial",
+    "combined_heads",
     "attn_decode_out",
     "combine_partials",
     "cross_decode",
@@ -61,6 +72,8 @@ __all__ = [
     "mla_decode_out",
     "mlp_schema",
     "mlp_forward",
+    "mlp_hidden",
+    "matmul_f32",
     "norm_schema",
 ]
 
@@ -184,21 +197,33 @@ def attn_schema(cfg: ModelConfig, cross: bool = False) -> dict:
 
 
 def _project_q(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``[B, S, heads, hd]``: as many heads as ``wq`` has columns of ``hd``
+    (all of them, or a model shard's block)."""
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    return q.reshape(*x.shape[:2], cfg.n_heads, cfg.resolved_head_dim)
+    return q.reshape(*x.shape[:2], -1, cfg.resolved_head_dim)
 
 
-def _project_qkv(p: dict, x: torch.Tensor, kv_x: torch.Tensor, cfg: ModelConfig):
-    b, sk, _ = kv_x.shape
-    k, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+def attn_qkv_block(p: dict, x: torch.Tensor, cfg: ModelConfig, kv_x: torch.Tensor | None = None):
+    """The projections on ``p``'s columns (the whole of wq/wk/wv, or a
+    model shard's column blocks, biases included): ``q [B, S, heads, hd]``
+    (not roped) and the K and V columns ``[B, Sk, c]`` of ``kv_x`` (default
+    ``x``), which a column block may end inside a head."""
+    kv_x = x if kv_x is None else kv_x
     kk = kv_x @ p["wk"]
     vv = kv_x @ p["wv"]
     if cfg.qkv_bias:
         kk = kk + p["bk"]
         vv = vv + p["bv"]
-    return _project_q(p, x, cfg), kk.reshape(b, sk, k, hd), vv.reshape(b, sk, k, hd)
+    return _project_q(p, x, cfg), kk, vv
+
+
+def _project_qkv(p: dict, x: torch.Tensor, kv_x: torch.Tensor, cfg: ModelConfig):
+    b, sk, _ = kv_x.shape
+    k, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    q, kk, vv = attn_qkv_block(p, x, cfg, kv_x)
+    return q, kk.reshape(b, sk, k, hd), vv.reshape(b, sk, k, hd)
 
 
 def _gated(p: dict, out: torch.Tensor) -> torch.Tensor:
@@ -304,10 +329,16 @@ def combine_partials(parts) -> torch.Tensor:
     return num / den
 
 
+def combined_heads(o: torch.Tensor, dtype) -> torch.Tensor:
+    """``combine_partials``' ``o [B, K, H/K, 1, hd]`` as ``[B, 1, H hd]`` in
+    ``dtype``, head by head (query head ``k H/K + r`` at ``(k, r)``): the
+    rows of ``wo`` in order."""
+    return o.permute(0, 3, 1, 2, 4).reshape(o.shape[0], 1, -1).to(dtype)
+
+
 def attn_decode_out(p: dict, o: torch.Tensor, dtype) -> torch.Tensor:
     """``combine_partials``' ``o [B, K, H/K, 1, hd]`` projected out: ``[B, 1, D]``."""
-    b = o.shape[0]
-    return o.permute(0, 3, 1, 2, 4).reshape(b, 1, -1).to(dtype) @ p["wo"]
+    return combined_heads(o, dtype) @ p["wo"]
 
 
 def cross_decode(p: dict, x: torch.Tensor, pos: int, xk: torch.Tensor, xv: torch.Tensor,
@@ -449,7 +480,29 @@ def mlp_schema(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_hidden(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU's hidden activations (on a column block of wi_gate/wi_up, that
+    block's columns)."""
     gate = x @ p["wi_gate"]
     up = x @ p["wi_up"]
-    return (gate * torch.sigmoid(gate) * up) @ p["wo"]
+    return gate * torch.sigmoid(gate) * up
+
+
+def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return mlp_hidden(p, x) @ p["wo"]
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` as a float32 result, never rounded to ``x``'s dtype: a
+    row-parallel partial, which a reduction sums in float32 and rounds once.
+    A bf16 product accumulates in float32 on the card and on meta tensors
+    (``torch.mm``'s ``out_dtype``); on the CPU, which lacks that kernel, its
+    operands are widened first."""
+    if x.dtype == torch.float32:
+        return x @ w
+    flat = x.reshape(-1, x.shape[-1])
+    if flat.device.type == "cpu":
+        out = flat.float() @ w.float()
+    else:
+        out = torch.mm(flat, w, out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])

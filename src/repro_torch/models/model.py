@@ -30,8 +30,21 @@ shard of the batch and scatters each shard's cache into the blocks it
 overlaps; ``decode_placed`` runs ``decode_step``'s layers once a
 data-parallel row of the cache's blocks, on that row's first device:
 attention as one partial a sequence block (on the device holding the block)
-and a logsumexp combine, the SSM step one head block at a time. The layers'
-projections are not split (the tensor-parallel compute is not ported).
+and a logsumexp combine, the SSM step one head block at a time. These
+layers' projections are not split: the gathered path, every parameter
+gathered whole on the device.
+
+The dense decoders with GQA attention on the "tp" profile serve
+tensor-parallel instead (``distributed/tensor_parallel.py`` decides which
+and holds the blocks and the moves): ``prefill_placed_tp`` and
+``decode_placed_tp`` run each data-parallel shard (or cache row) over the
+'model' shards of its group, each on its head, column and vocab blocks;
+the row-parallel partials are reduced in float32 on the group's home,
+where the residual stream, the norms and the cache writes live. Decode
+keeps the flash-decoding layout above: the token's K/V heads are joined
+on the home and written into the sequence block holding ``pos``, the
+joined query runs one partial a sequence block, and the combined output is
+split by head blocks for the rows of ``wo``.
 """
 from __future__ import annotations
 
@@ -66,7 +79,9 @@ __all__ = [
     "forward_prefill",
     "decode_step",
     "decode_placed",
+    "decode_placed_tp",
     "prefill_placed",
+    "prefill_placed_tp",
     "init_cache",
     "cache_zeros",
     "model_param_specs",
@@ -647,49 +662,63 @@ def prefill_placed(full: dict, shards: list, cache: dict, cfg: ModelConfig, home
     logits [B, vocab] f32 on ``home``, cache)."""
     if cfg.family == "audio":
         raise ValueError("encoder-only arch has no decode cache")
-    seq = next((leaf.shape[_batch_dim(k, leaf) + 1] for _, k, leaf in _flat_cache(cache)
-                if k in ("k", "ckv", "shared_k")), 1)
+    seq = _cache_seq(cache)
     logits = []
     for lo, dev, part in shards:
         own = cache_zeros(cfg, part["tokens"].shape[0], seq, dev)
         last, own = forward_prefill(full[dev], part, own, cfg)
-        for tree, key, new in _flat_cache(own):
-            target = cache if tree is own else cache["ssm"]
-            starts = [0] * new.dim()
-            starts[_batch_dim(key, new)] = lo
-            _put_placed(target, key, new, starts)
+        _scatter_rows(cache, own, lo)
         del own
         logits.append(stage(last, home))
     return torch.cat(logits), cache
 
 
+def _cache_seq(cache: dict) -> int:
+    return next((leaf.shape[_batch_dim(k, leaf) + 1] for _, k, leaf in _flat_cache(cache)
+                 if k in ("k", "ckv", "shared_k")), 1)
+
+
+def _scatter_rows(cache: dict, own: dict, lo: int) -> None:
+    """A shard's dense cache ``own`` (its rows from ``lo``) written into
+    every block of the placed ``cache`` it overlaps."""
+    for tree, key, new in _flat_cache(own):
+        target = cache if tree is own else cache["ssm"]
+        starts = [0] * new.dim()
+        starts[_batch_dim(key, new)] = lo
+        _put_placed(target, key, new, starts)
+
+
 def _cache_rows(cache: dict) -> list:
-    """[(row, first row, end row, device)] of the cache's data-parallel rows
-    of blocks: each row runs on the first device (in mesh order) holding one
-    of its blocks."""
+    """[(row, first row, end row, device, mesh position)] of the cache's
+    data-parallel rows of blocks: each row runs on the first position (in
+    mesh order) holding one of its blocks, on its device."""
     _, key, leaf = _flat_cache(cache)[0]
     bdim = _batch_dim(key, leaf)
     n = leaf.sharding.blocks_per_dim(leaf.ndim)[bdim]
-    dev_of: dict = {}
-    for dev, idx in leaf.sharding.layout(leaf.ndim).values():
-        dev_of.setdefault(idx[bdim], dev)
+    at: dict = {}
+    for pos, (dev, idx) in leaf.sharding.layout(leaf.ndim).items():
+        at.setdefault(idx[bdim], (dev, pos))
     per = leaf.shape[bdim] // n
-    return [(r, r * per, (r + 1) * per, dev_of[r]) for r in range(n)]
+    return [(r, r * per, (r + 1) * per, *at[r]) for r in range(n)]
 
 
 def _seq_blocks(leaf, lead: tuple, row: int) -> list:
-    """[(first position, block)] along the sequence of a placed attention
-    leaf, for the layer ``lead`` of data-parallel row ``row``: each block as
-    a view on the (first) device holding it."""
+    """[(first position, block, mesh position)] along the sequence of a
+    placed attention leaf, for the layer ``lead`` of data-parallel row
+    ``row``: each block as a view on the first mesh position (in mesh order)
+    holding it, and that position."""
     bdim = len(lead)
     n = leaf.sharding.blocks_per_dim(leaf.ndim)[bdim + 1]
     per = leaf.shape[bdim + 1] // n
-    blocks = leaf.distinct_blocks()
+    holder: dict = {}
+    for at, (dev, idx) in leaf.sharding.layout(leaf.ndim).items():
+        holder.setdefault(idx, (at, leaf.blocks[(dev, idx)]))
     out = []
     for j in range(n):
         idx = [0] * leaf.ndim
         idx[bdim], idx[bdim + 1] = row, j
-        out.append((j * per, blocks[tuple(idx)][lead]))
+        at, block = holder[tuple(idx)]
+        out.append((j * per, block[lead], at))
     return out
 
 
@@ -700,15 +729,30 @@ def _write_token(leaf, lead: tuple, lo: int, pos: int, new: torch.Tensor) -> Non
     leaf.scatter_(piece, (*lead, lo, pos) + (0,) * (new.dim() - 2))
 
 
-def _combine_blocks(partial, row_dev, q_parts: tuple, leaves: tuple, lead: tuple, row: int):
+def _combine_blocks(partial, row_dev, q_parts: tuple, leaves: tuple, lead: tuple, row: int,
+                    group=None):
     """``partial(*q_parts, *blocks, start)`` over the row's sequence blocks
-    of ``leaves`` (each on the device holding it), combined on ``row_dev``."""
+    of ``leaves`` (each on the device holding it), combined on ``row_dev``.
+    With a model ``group`` (``row_dev`` its home), a block's work is that of
+    the group's shard holding it, read from the block's mesh position: the
+    moves go through the group, the partial runs in the shard's context."""
+    if group is not None:
+        from repro_torch.distributed.tensor_parallel import MODEL
+
+        ax = leaves[0].sharding.mesh.axis_names.index(MODEL)
     parts = []
     for blocks in zip(*(_seq_blocks(leaf, lead, row) for leaf in leaves)):
-        start, dev = blocks[0][0], blocks[0][1].device
-        qd = tuple(stage(t, dev) for t in q_parts)
-        out = partial(*qd, *(b for _, b in blocks), start)
-        parts.append(tuple(stage(t, row_dev) for t in out))
+        start, dev, at = blocks[0][0], blocks[0][1].device, blocks[0][2]
+        kv = tuple(b for _, b, _ in blocks)
+        if group is None:
+            out = partial(*(stage(t, dev) for t in q_parts), *kv, start)
+            parts.append(tuple(stage(t, row_dev) for t in out))
+            continue
+        j = at[ax]
+        qd = tuple(group.send(t, j) for t in q_parts)
+        with group.on(j):
+            out = partial(*qd, *kv, start)
+        parts.append(tuple(group.collect(t, j) for t in out))
     return L.combine_partials(parts)
 
 
@@ -770,7 +814,7 @@ def decode_placed(full: dict, cache: dict, token: torch.Tensor, pos: int, cfg: M
     if cfg.family == "audio":
         raise ValueError("encoder-only arch has no decode step")
     logits = []
-    for row, lo, hi, dev in _cache_rows(cache):
+    for row, lo, hi, dev, _ in _cache_rows(cache):
         params = full[dev]
         x = _embed_tokens(params, stage(token[lo:hi], dev))
         if cfg.family in ("ssm", "hybrid"):
@@ -806,4 +850,189 @@ def decode_placed(full: dict, cache: dict, token: torch.Tensor, pos: int, cfg: M
                 x = x + a
                 x = x + _post_mlp(lp, x, cfg)
         logits.append(stage(_logits(params, x, cfg)[:, 0], home))
+    return torch.cat(logits), cache
+
+
+# ------------------------------------------------------- tensor parallel
+
+
+def _tp_embed(group, tokens: torch.Tensor) -> torch.Tensor:
+    """Vocab-parallel lookup of the home's ``tokens``: each shard its vocab
+    block's rows (zeros for the tokens outside it), summed on the home (one
+    shard contributes each row, so the sum is the lookup exactly)."""
+    parts = []
+    for j in range(group.m):
+        emb = group.blocks[j]["tok_embed"]
+        local = group.send(tokens, j)
+        with group.on(j):
+            local = local - j * emb.shape[0]
+            hit = (local >= 0) & (local < emb.shape[0])
+            rows = emb.index_select(0, local.clamp(0, emb.shape[0] - 1).reshape(-1))
+            rows = rows.reshape(*local.shape, -1)
+            parts.append(torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                        device=rows.device)))
+    return group.reduce(parts, group.blocks[0]["tok_embed"].dtype)
+
+
+def _tp_logits(group, x: torch.Tensor, cfg: ModelConfig, out) -> torch.Tensor:
+    """Vocab-parallel logits of the home's ``x``: each shard its vocab
+    columns (of lm_head, or tied tok_embed's rows) in float32, concatenated
+    on ``out`` (the mesh's first device), the pad columns masked there."""
+    hs = group.broadcast(L.rmsnorm(x, group.blocks[0]["final_norm"], cfg.norm_eps))
+    parts = []
+    for j, (h, b) in enumerate(zip(hs, group.blocks)):
+        w = b["tok_embed"].t() if cfg.tie_embeddings else b["lm_head"]
+        with group.on(j):
+            part = (h @ w).float()
+        group.note(part, j, 0)
+        parts.append(stage(part, out))
+    return _mask_pad_logits(torch.cat(parts, dim=-1), cfg)
+
+
+def _tp_layers(group, cfg: ModelConfig) -> list:
+    """[layer][shard] views of the group's stacked layer blocks."""
+    per_shard = [_layers(b, cfg) for b in group.blocks]
+    return [list(shards) for shards in zip(*per_shard)]
+
+
+def _tp_mlp(group, lps: list, h: torch.Tensor) -> torch.Tensor:
+    """Column-parallel wi_gate/wi_up and row-parallel wo on the home's
+    ``h``, the float32 partials reduced on the home."""
+    parts = []
+    for j, (lp, hj) in enumerate(zip(lps, group.broadcast(h))):
+        with group.on(j):
+            parts.append(L.matmul_f32(L.mlp_hidden(lp["mlp"], hj), lp["mlp"]["wo"]))
+    return group.reduce(parts, h.dtype)
+
+
+def _tp_qkv(group, lps: list, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Each shard's roped query heads (on its device) and the K/V heads of
+    every shard's columns joined and roped on the home: ``([q_j], k, v)``,
+    k and v ``[B, S, K, hd]``."""
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    qs, ks, vs = [], [], []
+    for j, (lp, hj) in enumerate(zip(lps, group.broadcast(h))):
+        with group.on(j):
+            q, kc, vc = L.attn_qkv_block(lp["attn"], hj, cfg)
+            qs.append(L.rope(q, stage(positions, hj.device), cfg.rope_theta))
+        ks.append(kc)
+        vs.append(vc)
+    k = L.rope(group.join(ks).reshape(b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    v = group.join(vs).reshape(b, s, cfg.n_kv_heads, hd)
+    return qs, k, v
+
+
+def _tp_kv(group, k: torch.Tensor, v: torch.Tensor, j: int, cfg: ModelConfig):
+    """The home's K/V heads that shard ``j``'s query heads use, on its
+    device (expanded to one a query head where the kernel's GQA cannot take
+    them as they are)."""
+    from repro_torch.distributed.tensor_parallel import kv_block
+
+    k0, k1, local = kv_block(cfg, j, group.m)
+    kj, vj = group.send(k[:, :, k0:k1], j), group.send(v[:, :, k0:k1], j)
+    if local is not None:
+        idx = stage(np.asarray(local, dtype=np.int64), kj.device)
+        with group.on(j):
+            kj, vj = kj.index_select(2, idx), vj.index_select(2, idx)
+    return kj, vj
+
+
+def _tp_attention(group, lps: list, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """One self-attention layer over the prompt: each shard attends with its
+    query heads, then its rows of wo; returns (out [B, S, d] on the home,
+    (k, v) [B, S, K, hd] on the home, for the cache)."""
+    qs, k, v = _tp_qkv(group, lps, h, positions, cfg)
+    outs = []
+    for j, (lp, q) in enumerate(zip(lps, qs)):
+        kj, vj = _tp_kv(group, k, v, j, cfg)
+        pos = stage(positions, q.device)
+        with group.on(j):
+            o = L.attention_op(q, kj, vj, pos, pos, cfg.causal,
+                               chunk_threshold=cfg.long_context_threshold, chunk=cfg.attn_chunk,
+                               impl=cfg.attention_impl)
+            outs.append(L.matmul_f32(o.reshape(*h.shape[:2], -1), lp["attn"]["wo"]))
+    return group.reduce(outs, h.dtype), (k, v)
+
+
+def prefill_tp(group, batch: dict, cache: dict, cfg: ModelConfig, out):
+    """``forward_prefill`` of one data-parallel shard over its model group
+    (the module docstring): ``cache`` is the shard's dense cache on the
+    group's home, filled in place. Returns the last logits [B, vocab] f32 on
+    ``out``."""
+    x = _tp_embed(group, batch["tokens"])
+    positions = _positions(*x.shape[:2], group.home)
+    for i, lps in enumerate(_tp_layers(group, cfg)):
+        a, (k, v) = _tp_attention(group, lps, L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps),
+                                  positions, cfg)
+        _fill_rows(cache["k"][i], k)
+        _fill_rows(cache["v"][i], v)
+        x = x + a
+        x = x + _tp_mlp(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps))
+    return _tp_logits(group, x[:, -1:], cfg, out)[:, 0]
+
+
+def prefill_placed_tp(shards: list, cache: dict, cfg: ModelConfig, home):
+    """``prefill_placed`` on the tensor-parallel path: ``shards`` is ``[(row
+    offset, model group, batch part)]``. Returns (last logits [B, vocab] f32
+    on ``home``, cache)."""
+    seq = _cache_seq(cache)
+    logits = []
+    for lo, group, part in shards:
+        own = cache_zeros(cfg, part["tokens"].shape[0], seq, group.home)
+        logits.append(prefill_tp(group, part, own, cfg, home))
+        _scatter_rows(cache, own, lo)
+        del own
+    return torch.cat(logits), cache
+
+
+def _tp_attn_decode(group, lps: list, h: torch.Tensor, pos: int, cache: dict, i: int, row: int,
+                    lo: int, cfg: ModelConfig) -> torch.Tensor:
+    """One decode attention layer of a cache row over its model group: the
+    projections by column blocks, the token's K/V written whole, the joined
+    query's partials a sequence block (on the shard holding it), and the
+    combined output's head blocks through each shard's rows of wo."""
+    positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32, device=h.device)
+    qs, k, v = _tp_qkv(group, lps, h, positions, cfg)
+    q = group.join(qs, dim=2)
+    kl, vl = cache["k"], cache["v"]
+    _write_token(kl, (i,), lo, pos, k)
+    _write_token(vl, (i,), lo, pos, v)
+    o = _combine_blocks(lambda q_, kb, vb, s: L.attn_partial(q_, kb, vb, s, pos), group.home,
+                        (q,), (kl, vl), (i,), row, group)
+    o = L.combined_heads(o, h.dtype)
+    width = o.shape[-1] // group.m
+    outs = []
+    for j, lp in enumerate(lps):
+        oj = group.send(o[..., j * width:(j + 1) * width], j)
+        with group.on(j):
+            outs.append(L.matmul_f32(oj, lp["attn"]["wo"]))
+    return group.reduce(outs, h.dtype)
+
+
+def decode_row_tp(group, cache: dict, token: torch.Tensor, pos: int, row: int, lo: int,
+                  cfg: ModelConfig, out) -> torch.Tensor:
+    """``decode_step`` of cache row ``row`` (rows from ``lo``; ``token`` on
+    the group's home) over its model group. Returns its logits [rows,
+    vocab] f32 on ``out``."""
+    x = _tp_embed(group, token)
+    for i, lps in enumerate(_tp_layers(group, cfg)):
+        x = x + _tp_attn_decode(group, lps, L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps), pos,
+                                cache, i, row, lo, cfg)
+        x = x + _tp_mlp(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps))
+    return _tp_logits(group, x, cfg, out)[:, 0]
+
+
+def decode_placed_tp(blocks, mesh, cache: dict, token: torch.Tensor, pos: int, cfg: ModelConfig,
+                     home):
+    """``decode_placed`` on the tensor-parallel path: ``blocks`` the
+    ``ModelBlocks`` gathered on ``mesh``. Returns (logits [B, vocab] f32 on
+    ``home``, cache)."""
+    from repro_torch.distributed.tensor_parallel import model_group
+
+    logits = []
+    for row, lo, hi, dev, at in _cache_rows(cache):
+        group = model_group(blocks, mesh, at)
+        logits.append(decode_row_tp(group, cache, stage(token[lo:hi], dev), pos, row, lo, cfg,
+                                    home))
     return torch.cat(logits), cache

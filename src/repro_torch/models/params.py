@@ -14,7 +14,8 @@ axes). From one schema come:
 
 Logical axis names -> mesh axes (see ``distributed/lm_sharding.py``):
   'fsdp'  -> 'data'   (ZeRO-3 style parameter/optimizer sharding)
-  'tp'    -> 'model'  (tensor parallel: blocks only, see ``launch/steps.py``)
+  'tp'    -> 'model'  (tensor parallel: computed by blocks when serving the dense
+                       decoders, else blocks only; see ``launch/steps.py``)
   'vocab' -> 'model'
   None    -> replicated
 """

@@ -1,4 +1,4 @@
-"""A rehearsal on the CPU of chip_smoke.py's phases 18c and 22.
+"""A rehearsal on the CPU of chip_smoke.py's phases 18c, 21d and 22.
 
 ``chip_smoke.py`` drives the port on one card. Here a copy of it runs on the
 host (``"cuda"`` read as ``"cpu"``, ``.cuda()`` as ``.cpu()``, the
@@ -23,7 +23,11 @@ and check) runs before a card does:
     fills the largest bucket; the host child runs in this process (its
     full-graph half forked from it, NumPy only),
     ``build="auto"`` is handed the card's device, and ``gather_total``
-    launches are counted through a fake over its plain version.
+    launches are counted through a fake over its plain version;
+  * 21d, tensor-parallel serving: deepseek-67b's and qwen1.5-110b's smoke
+    widths pinned to the "tp" profile at the phase's depth cuts, on a 2 x 2
+    mesh of logical CPU shards, flash launches counted through a fake over
+    its plain version.
 
 The shapes and step counts are cut (constants of the copy), and the loss's
 bar is what smoke widths reach in 12 steps. Nothing here compares with the
@@ -251,6 +255,38 @@ def test_main_phase_takes_the_host_childrens_counts(smoke, monkeypatch, tmp_path
     assert main["launches"] >= 1 and main["exact"] == main["result"].triangles
     assert any("port CPU path (in the host child)" in m for m in logged)
     assert any("in the host child): " in m and "exact oracle" in m for m in logged)
+
+
+def test_tensor_parallel_serve_phase_runs_on_the_host(smoke, monkeypatch):
+    import repro_torch.launch.serve as pt_serve
+    from repro_torch.kernels import flash_attention as pt_flash
+    from repro_torch.models import layers as pt_layers
+
+    def narrow(arch):
+        return pt_configs.get_smoke_config(arch).scaled(parallelism="tp")
+
+    monkeypatch.setattr(pt_configs, "get_config", narrow)
+    monkeypatch.setattr(pt_serve, "get_config", narrow)
+    monkeypatch.setattr(pt_serve, "resolve_device", _cpu)
+    monkeypatch.setattr(smoke, "SHARD_DEVICE", "cpu")
+    monkeypatch.setattr(smoke, "FAMILY_PROMPT", 64)
+    real = pt_layers.flash_attention_bshd
+
+    def counted(*args, **kwargs):
+        pt_flash.flash_attention_cuda.launches += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pt_layers, "flash_attention_bshd", counted)
+    logged = []
+    monkeypatch.setattr(smoke, "log", logged.append)
+    flash = smoke.phase_tensor_parallel_serve()
+    # layers x 2 data shards x 2 model shards a prefill
+    assert flash == {f"tensor_parallel_serve:{a}:{d}": n * 4 for a, n, d in smoke.SERVE_TP_RUNS}
+    runs = [m for m in logged if "teacher-forced on the one-device session's tokens" in m]
+    assert len(runs) == len(smoke.SERVE_TP_RUNS)
+    assert all("ratio 0.50" in m and "each on 2 query and 1 KV heads" in m for m in runs)
+    assert "QKV biases drawn" in runs[-1] and "from a copy of the one-device" in runs[0]
+    assert all("refused by the same rule" in m for m in runs)
 
 
 @pytest.mark.parametrize("workers", [2, 3])

@@ -81,6 +81,30 @@ def test_step_cost_tag_attribution():
     assert c.flops >= 256 * 256
 
 
+def test_step_cost_skips_a_scope_and_its_launches():
+    """``skip`` leaves out the ops and custom calls run inside the scope it
+    names (the tensor-parallel path's other model shards), nested too."""
+    b, s, h, hd = 1, 64, 2, 64
+    q = _meta(b, s, h, hd, dtype=torch.bfloat16)
+    pos = torch.empty(b, s, dtype=torch.int32, device=META)
+
+    def f(a):
+        c = a @ a
+        with cost_scope("other"):
+            with cost_scope("attn_core"):
+                flash_attention_bshd(q, q, q, pos, pos)
+            d = a @ a + 1.0
+        return c + d
+
+    a = _meta(32, 32)
+    whole = step_cost(f, a, tags={"attn": "attn_core"})
+    home = step_cost(f, a, tags={"attn": "attn_core"}, skip="other")
+    assert whole.custom_calls == 1 and home.custom_calls == 0
+    assert home.matmul_flops == 2 * 32 ** 3 and home.flops == 2 * 32 ** 3 + 32 * 32
+    assert home.bytes == 3 * 32 * 32 * 4 + 3 * 32 * 32 * 4  # the product and the sum
+    assert "attn" in whole.bytes_by_tag and not home.bytes_by_tag
+
+
 def test_scope_charges_backward_and_costs_nothing_idle():
     x = _meta(64, 64).requires_grad_()
 
@@ -180,17 +204,21 @@ def test_dryrun_records_every_cell_on_meta(mesh):
     n_chips = 256 if mesh == "single" else 512
     for r in runnable:
         name = (r["arch"], r["shape"])
+        # The dense decoders' serving cells take the tensor-parallel step.
+        tp = r["arch"] in ("deepseek-67b", "qwen1.5-110b") and r["kind"] != "train"
         assert r["n_chips"] == n_chips and r["n_layers"] == 2, name
         assert r["flops_per_device"] > 0 and r["bytes_per_device"] > 0, name
         assert 0 < r["matmul_flops_per_device"] <= r["flops_per_device"], name
         assert r["memory"]["placed_bytes"] > 0 and isinstance(r["fits_80GB"], bool), name
         ops = set(r["collectives"]["by_op"])
         assert ops == ({"all-gather", "reduce-scatter"} if r["kind"] == "train"
-                       else {"all-gather"}), name
+                       else {"all-gather", "activations"} if tp else {"all-gather"}), name
         assert r["collectives"]["unknown_trip_whiles"] == 0, name
         assert r["roofline"]["dominant"] in ("compute", "memory", "collective"), name
-        assert r["model_flops_per_device"] == r["model_flops_global"] / r["dp_shards"], name
-        assert "not divided" in r["per_device"] or "does not divide" in r["per_device"]
+        assert r["model_shards"] == (16 if tp else 1), name
+        assert r["model_flops_per_device"] == (
+            r["model_flops_global"] / (r["dp_shards"] * r["model_shards"])), name
+        assert ("divided by the model axis" if tp else "does not divide") in r["per_device"]
 
 
 def test_dryrun_full_depth_smollm_train():
