@@ -243,8 +243,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               about 52 GB for the CPU half, checked first; it runs alone,
               once both host children and the deterministic children have
               exited); (2) a bf16
-              ``TrainLoop`` of five (moonshot 2 of 48 layers, zamba2 24 of
-              81, mamba2 and hubert whole, minicpm3 24 of 62), 4 x 2,048
+              ``TrainLoop`` of five (moonshot 2 of 48 layers, zamba2 12 of
+              81, mamba2 and hubert 24 of 48, minicpm3 12 of 62), 4 x 2,048
               tokens a step (MoE: routing groups of 1,024), remat "full", 30
               steps under ``{"warmup": 10, "total": 200}``: the first step's
               loss must exceed the mean of the last five by 0.3; ms a
@@ -327,27 +327,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               looser); a combine planted to drop the last block must exceed
               it; prefill_s, ms a step, tokens/s, peak memory, a profiled
               prefill and decode step. (b) minicpm3-4b (MLA), mamba2-780m,
-              zamba2-7b ("flash", hd 112), the VLM ("flash", 10 layers) and
-              moonshot ("flash",
-              12 layers, one routing group of 1,024 a data shard) at full
-              width in bf16, phase 19's 4 x 512 prompts and 16 steps, each
-              teacher-forced on its one-device session's tokens beside a
-              float32 run of the same weights: within 3e-2 of one device
-              where bf16 keeps one device within 3e-2 of float32, and never
-              farther from float32 than one device plus 3e-2 (phase 19's
-              rule). (c) float32 at full width, 2 layers (the VLM 5, zamba2
-              7), every arch above against the port's CPU session on the
-              same weights: the prefill logits within 1e-4; a decode step
-              (which reads the bf16 attention caches) within 1e-4 of the
-              card's one-device session's distance from the CPU
- 21d. tensor-parallel serve  the dense decoders on the 2 x 2 mesh of
-              logical shards tensor-parallel (``distributed/
+              zamba2-7b ("flash", hd 112) and the VLM ("flash", 10 layers)
+              at full width in bf16, phase 19's 4 x 512 prompts and 16
+              steps, each teacher-forced on its one-device session's tokens
+              beside a float32 run of the same weights: within a config's
+              bound of one device (``SERVE_SHARD_BF16_TOL``, 1.5 x the
+              largest reading of ``tools/tp_drift.py``'s gathered path on 2
+              x 2), and never farther from float32 than one device plus
+              3e-2; a prefill whose last data shard's cache is lost must
+              fail the same rule. (c) float32 at full width, 2 layers (the
+              VLM 5, zamba2 7), every arch above and moonshot (on its
+              tensor-parallel path, 2 x 1,024 tokens) against the port's CPU
+              session on the same weights: the prefill logits within 1e-4;
+              a decode step (which reads the bf16 attention caches) within
+              1e-4 of the card's one-device session's distance from the CPU
+ 21d. tensor-parallel serve  the dense and MoE decoders on the 2 x 2 mesh
+              of logical shards tensor-parallel (``distributed/
               tensor_parallel.py``): each position gathers over 'data' only,
               into its 'model' block of every leaf whose spec has 'model',
               and computes its query heads (flash on H/m of them), its
               columns of wq/wk/wv and wi_gate/wi_up, its rows of both wo
-              (the partials reduced in float32) and its vocab block of the
-              embedding and the logits; decode keeps the cache's
+              (the partials reduced in float32), its E/m experts (routed
+              once on the home; its share of the MoE's output reduced in
+              float32) and its vocab block of the embedding and the logits;
+              decode keeps the cache's
               flash-decoding layout. deepseek-67b at full width, 8 of 95
               layers, bf16, phase 19's 4 x 512 prompts and 16 steps,
               teacher-forced on its one-device session's tokens within
@@ -358,14 +361,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               one-device float32 session at the prefill and at each decode
               step fed a copy of its cache (TF32 off); qwen1.5-110b at 2
               layers (QKV biases drawn non-zero) within 3e-2 by the same
-              rule. Each run: the bytes each
+              rule; moonshot-v1-16b-a3b at 12 of 48 layers and dbrx-132b at
+              2 of 40, bf16, at phase 19's shape (8 query and 8 KV heads, 32
+              experts a shard; 24 and 4 heads, 8 experts), each within a
+              bound set from a ``tools/tp_drift.py`` reading; their float32
+              runs at 2 and 1 layers, 2 x 1,024 tokens (one routing group a
+              data shard, capacity factor 1.25: tokens dropped), within
+              1e-4 of one device. Layer 0's MoE on one input gives one
+              device's choices and drops exactly and its output within 1e-4
+              (bf16: 2^-8); the float32 prefill's drops a layer differ from
+              one device's by at most the choices routed to another expert,
+              at most 0.1 % of them (near ties that the reductions' order
+              rounds apart). Each run: the bytes each
               position gathered on this path and on the gathered path
               (under 0.55 of it), the flash launches (layers x data shards x
               model shards, each on H/m query heads; none at decode), the
               prefill and decode times beside the one-device session's (a
-              first and a second run), peak memory, and a planted reduction
-              that drops the last shard's partial, which the run's own rule
-              must refuse
+              first and a second run), peak memory, and planted faults the
+              run's own rule must refuse: a reduction that drops the last
+              shard's partial, and (MoE) a shard that runs its neighbour's
+              expert block
 
  22. livejournal  com-livejournal, the paper's largest graph, at full size
               (|V| 3,997,962, |E| 34,681,189, rmat from its config's seed).
@@ -547,14 +562,16 @@ FAMILY_GATE = 0.5  # the vlm's cross-attention gates (tanh 0.46), so that image 
 # port's CPU path, at phase 19c's cut depths (FAMILY_F32_DEPTH, else 2); a
 # bf16 TrainLoop of each config whose AdamW state fits one card, cut in
 # depth where parameters and state at about 22 B a parameter would pass
-# about 53 GB; an MoE resume at one layer in a deterministic child. The VLM
-# trains nowhere: its AdamW state alone (6.39 B x 12 B) passes the card.
+# about 53 GB, and the others to half their depth so that the script ends
+# well inside its time limit; an MoE resume at one layer in a deterministic
+# child. The VLM trains nowhere: its AdamW state alone (6.39 B x 12 B)
+# passes the card.
 FAMILY_TRAIN_GRADS = ("moonshot-v1-16b-a3b", "zamba2-7b", "mamba2-780m", "hubert-xlarge",
                       "minicpm3-4b", "llama-3.2-vision-90b")
 FAMILY_TRAIN_DOTS = "moonshot-v1-16b-a3b"  # tests/test_torch_families_model.py holds its "dots"
 FAMILY_VLM = "llama-3.2-vision-90b"  # its float32 hold takes 52 GB of the host and of the card
-FAMILY_TRAIN_LOOPS = (("moonshot-v1-16b-a3b", 2), ("zamba2-7b", 24), ("mamba2-780m", None),
-                      ("hubert-xlarge", None), ("minicpm3-4b", 24))  # (arch, depth cut)
+FAMILY_TRAIN_LOOPS = (("moonshot-v1-16b-a3b", 2), ("zamba2-7b", 12), ("mamba2-780m", 24),
+                      ("hubert-xlarge", 24), ("minicpm3-4b", 12))  # (arch, depth cut)
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS, FAMILY_TRAIN_WARM = 4, 2048, 30, 3
 # TRAIN_MIN_DROP holds the first step's loss against the mean of the last five:
 # one step's loss is noisy where few tokens count (hubert's masked
@@ -597,11 +614,25 @@ SERVE_SHARD_MAX_SEQ = LM_PROMPT + LM_GEN
 # the prefill's 0) is 0.037, so LM_TOL, never looser, holds.
 SERVE_SHARD_TOL = LM_TOL
 SERVE_SHARD_FAMILIES = (("minicpm3-4b", None, "xla"), ("mamba2-780m", None, "xla"),
-                        ("zamba2-7b", None, "flash"), ("llama-3.2-vision-90b", 10, "flash"),
-                        ("moonshot-v1-16b-a3b", 12, "flash"))  # (arch, depth cut, impl)
-SERVE_SHARD_IMPL = {LM_ARCH: "flash", **{a: impl for a, _, impl in SERVE_SHARD_FAMILIES}}
+                        ("zamba2-7b", None, "flash"), ("llama-3.2-vision-90b", 10, "flash"))
+# (arch, depth cut, impl) of 21b; 21c also runs moonshot, which serves
+# tensor-parallel on 2 x 2 (phase 21d holds its bf16 and float32 runs).
+SERVE_SHARD_IMPL = {LM_ARCH: "flash", **{a: impl for a, _, impl in SERVE_SHARD_FAMILIES},
+                    "moonshot-v1-16b-a3b": "flash"}
 SERVE_SHARD_F32_SHAPE = (4, 32, 4)  # batch, prompt, generated
 SERVE_SHARD_F32_MOE_SHAPE = (2, 1024, 4)  # one routing group of 1,024 a data shard
+# 21b's bf16 logits against the one-device session, a config (relative
+# norm, max over the steps): 1.5 x the largest reading of the gathered path
+# on 2 x 2, from tools/tp_drift.py (its prompts) and from this phase's runs
+# (NVIDIA H100 80GB HBM3, 700 W): minicpm3 0.072696 / 0.075101, mamba2
+# 0.0 / 0.016160, zamba2 0.046105 / 0.045503, the VLM 0.031834 / 0.031674.
+# Splitting the batch over 'data' changes the products' shapes, so their
+# bf16 roundings part, and the parted roundings grow over the decode steps
+# (one device reads 0.058-0.077 from float32). A run is also held no
+# farther from float32 than one device plus LM_TOL; 21c's float32 runs are
+# the tight check.
+SERVE_SHARD_BF16_TOL = {"minicpm3-4b": 1.5 * 0.075101, "mamba2-780m": 1.5 * 0.016160,
+                        "zamba2-7b": 1.5 * 0.046105, "llama-3.2-vision-90b": 1.5 * 0.031834}
 # Phase 21d: the dense decoders served tensor-parallel on 2 x 2 logical
 # shards of cuda:0 (each position gathers its 'model' blocks over 'data'
 # and computes its heads, columns and vocab block). deepseek-67b at full
@@ -612,8 +643,26 @@ SERVE_SHARD_F32_MOE_SHAPE = (2, 1024, 4)  # one routing group of 1,024 a data sh
 # init makes them 0).
 SERVE_TP_MESH = (2, 2)
 SERVE_TP_RUNS = (("deepseek-67b", 2, "float32"), ("deepseek-67b", 8, "bfloat16"),
-                 ("qwen1.5-110b", 2, "bfloat16"))  # (arch, depth cut, dtype)
+                 ("qwen1.5-110b", 2, "bfloat16"), ("moonshot-v1-16b-a3b", 2, "float32"),
+                 ("moonshot-v1-16b-a3b", 12, "bfloat16"), ("dbrx-132b", 1, "float32"),
+                 ("dbrx-132b", 2, "bfloat16"))  # (arch, depth cut, dtype)
+# The MoE runs: moonshot-v1-16b-a3b at phase 19's cut (12 of 48 layers,
+# 7.52 B parameters, 15.0 GB in bf16) and dbrx-132b at 2 of 40 (7.75 B,
+# 15.5 GB; its bf16 and float32 copies together about 47 GB), their float32
+# runs at SERVE_SHARD_F32_MOE_SHAPE (one routing group of 1,024 a data
+# shard at the production capacity factor 1.25, so tokens are dropped), dbrx
+# at 1 layer (18.0 GB a copy; the one-device, placed and gathered copies
+# about 54 GB on the card).
 SERVE_TP_BIAS_STD = 0.5
+# The MoE runs' routing against one device's. Layer 0's MoE on one input:
+# the same choices and drops, the output within FAMILY_CARD_TOL (float32)
+# or MOE_LAYER_BF16_TOL (bf16: the experts' shares summed in float32 and
+# rounded once, one bf16 step, 2^-8, apart at most where the sums round
+# apart). The float32 prefill: at most MOE_FLIP_TOL of the choices of the
+# first layer whose routing parts from one device's moved to another
+# expert (ties to the rounding of the reductions' order).
+MOE_LAYER_BF16_TOL = 2.0 ** -8
+MOE_FLIP_TOL = 1e-3
 # bf16 logits against the one-device session: SERVE_SHARD_TOL, but for
 # deepseek-67b at 8 layers. There two bf16 runs whose roundings part
 # anywhere land about 0.030 apart whatever parts them (tools/tp_drift.py on
@@ -623,7 +672,21 @@ SERVE_TP_BIAS_STD = 0.5
 # the bound is 1.5 x that floor. A run is also held no farther from float32
 # than one device plus LM_TOL; the float32 run at 1e-4 is the tight check
 # of the path.
-SERVE_TP_BF16_TOL = {"deepseek-67b": 1.5 * SERVE_SHARD_TOL}
+# The MoE runs' bounds are 1.5 x the largest reading of tools/tp_drift.py
+# (same card) at their cuts, over the tensor-parallel path on 2 x 2, 1 x 2
+# and 2 x 1 and the gathered path on 2 x 2: moonshot 0.050049 (1 x 2; the
+# floor, 2 x 1, 0.049662), dbrx 0.337294 (2 x 1, which splits no product;
+# the tensor-parallel path on 2 x 2 read 0.175984). dbrx's random router is
+# near uniform over 16 experts, so a bf16 rounding moves top-4 choices and
+# one device lands 0.326 from float32 itself; its float32 run is the check.
+SERVE_TP_BF16_TOL = {"deepseek-67b": 1.5 * SERVE_SHARD_TOL, "moonshot-v1-16b-a3b": 1.5 * 0.050049,
+                     "dbrx-132b": 1.5 * 0.337294}
+# A bf16 run lands no farther from float32 than one device plus LM_TOL; for
+# dbrx plus its bound: two runs that far apart may differ by that much in
+# their distance from float32 (the triangle inequality), and its readings
+# of one device against float32 spread 0.149-0.394 with the prompts, the
+# tensor-parallel path's 0.213-0.326 (tools/tp_drift.py and 21d, same card).
+SERVE_TP_F32_MARGIN = {"dbrx-132b": SERVE_TP_BF16_TOL["dbrx-132b"]}
 # The com-livejournal phase: the paper's largest graph at full size (|V|
 # 3,997,962, |E| 34,681,189, rmat from its seed). Its host work runs in a
 # child process in the background from the script's start and ends before
@@ -4077,6 +4140,36 @@ def _card_drawn_loop(arch: str, **kwargs):
     return CardDrawn(arch, **kwargs)
 
 
+@contextlib.contextmanager
+def _expandable_segments():
+    """The card's allocator with expandable segments, for the full-width
+    TrainLoops. With fixed segments a step's freed blocks (up to 5 GiB:
+    moonshot's float32 logits) split the cached segments into holes that a
+    later block does not fit: a step that needs 52 GiB ran out of the card
+    with 36 GiB reserved and unused. Only here: a segment that grows maps
+    its pages anew after each ``empty_cache``, which slowed the phases that
+    place tens of GB (21d 2.6 x with it on for the whole script)."""
+    settings = (getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+                or torch.cuda.memory._set_allocator_settings)  # the older torch's name
+    gc.collect()
+    torch.cuda.empty_cache()
+    settings("expandable_segments:True")
+    try:
+        probe = torch.empty(1 << 28, device="cuda")  # 1 GiB: past what the cache holds free
+        ptr = probe.data_ptr()
+        home = [seg for seg in torch.cuda.memory_snapshot()
+                if seg["address"] <= ptr < seg["address"] + seg["total_size"]]
+        del probe
+        check(len(home) == 1 and home[0].get("is_expandable", False),
+              f"[families-train] the allocator put a block in a fixed segment under "
+              f"expandable_segments:True ({home})")
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        settings("expandable_segments:False")
+
+
 def _family_train_loop(arch: str, depth, smi: str, counted: dict) -> dict:
     """18c (2): ``TrainLoop`` of one family at full width: bf16 parameters,
     float32 moments, remat "full", FAMILY_TRAIN_BATCH x FAMILY_TRAIN_SEQ
@@ -4088,6 +4181,7 @@ def _family_train_loop(arch: str, depth, smi: str, counted: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    held, cached = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
     loop = _card_drawn_loop(arch, global_batch=FAMILY_TRAIN_BATCH, seq=FAMILY_TRAIN_SEQ,
                             schedule=TRAIN_SCHEDULE, cfg_override=cfg)
@@ -4115,7 +4209,7 @@ def _family_train_loop(arch: str, depth, smi: str, counted: dict) -> dict:
     params, opt_state, flags = loop.run(FAMILY_TRAIN_STEPS, log_every=10)
     wall = time.perf_counter() - t0
     launches = _launches()
-    peak = torch.cuda.max_memory_allocated()
+    peak, peak_reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     loop.step_fn = step_fn
     n_params = sum(t.numel() for t in tree_leaves(params))
     bar = TRAIN_MIN_DROP
@@ -4148,7 +4242,8 @@ def _family_train_loop(arch: str, depth, smi: str, counted: dict) -> dict:
         f"{FAMILY_TRAIN_WARM + 1}-{FAMILY_TRAIN_STEPS} (min {1e3 * min(times[FAMILY_TRAIN_WARM:]):.3f}, "
         f"max {1e3 * max(times[FAMILY_TRAIN_WARM:]):.3f}; first {1e3 * times[0]:.3f}); "
         f"{tokens / med:.1f} tokens/s; max_memory_allocated {peak} bytes ({peak / n_params:.2f} "
-        f"a parameter); {smi}")
+        f"a parameter), max_memory_reserved {peak_reserved} bytes; before the loop {held} "
+        f"bytes allocated and {cached} reserved; {smi}")
     log(f"[families-train] {arch} counted step (meta, eager unfused bytes, in the host "
         f"child): {cost['flops']:.6e} FLOPs "
         f"({cost['matmul_flops']:.6e} in products), {cost['bytes']:.6e} bytes, attn_core "
@@ -4298,8 +4393,9 @@ def phase_families_train(oracles: tuple, cpu_paths: tuple) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     costs = _child_result(cpu_paths, "costs.json", MAIN_ORACLE_TIMEOUT)
-    loops = {arch: _family_train_loop(arch, depth, smi, costs[arch])
-             for arch, depth in FAMILY_TRAIN_LOOPS}
+    with _expandable_segments():
+        loops = {arch: _family_train_loop(arch, depth, smi, costs[arch])
+                 for arch, depth in FAMILY_TRAIN_LOOPS}
     t_loops = time.perf_counter() - t_phase
     gc.collect()
     torch.cuda.empty_cache()  # the children need the card's memory that this process cached
@@ -5419,27 +5515,51 @@ def _sharded_families_serve(mesh, smi: str) -> dict:
         got, pre, dec, prefill_s, decode_s, layout = _forced(sess, prompts, img, forced)
         peak = torch.cuda.max_memory_allocated()
         rels = _step_rels(got, stats["logits"], cfg.vocab)
-        one_f32 = max(_step_rels(torch.as_tensor(stats["logits"]), exact, cfg.vocab))
-        sharded_f32 = max(_step_rels(got, exact, cfg.vocab))
         want = FAMILY_FLASH_LAYERS[arch] * shards if impl == "flash" else 0
         check(pre["flash_attention"] == want and dec["flash_attention"] == 0
               and not any(v for k, v in {**pre, **dec}.items() if k != "flash_attention"),
               f"[sharded serve] {arch}: launches prefill {pre}, decode {dec}; expected {want} flash")
-        # Phase 19's rule: within the bound of one device where bf16 keeps
-        # one device within LM_TOL of float32; everywhere no farther from
-        # float32 than one device is, plus LM_TOL.
-        check(bool(torch.isfinite(got[..., :cfg.vocab]).all())
-              and (max(rels) <= SERVE_SHARD_TOL or one_f32 > LM_TOL)
-              and sharded_f32 <= one_f32 + LM_TOL,
-              f"[sharded serve] {arch}: sharded vs one device relative norms {rels} (bound "
-              f"{SERVE_SHARD_TOL}); against float32: one device {one_f32}, sharded {sharded_f32}")
+        tol = SERVE_SHARD_BF16_TOL[arch]
+
+        def verdict(steps: int) -> tuple:
+            """The run's rule over its first ``steps`` steps: (passes,
+            relative norms against one device, one device's and the sharded
+            session's distance from float32): finite logits within ``tol``
+            of one device, and no farther from float32 than one device is,
+            plus LM_TOL."""
+            logits = got if steps == FAMILY_GEN else _forced(sess, prompts, img,
+                                                              forced[:, :steps])[0]
+            near = _step_rels(logits, stats["logits"][:steps], cfg.vocab)
+            one_f32 = max(_step_rels(torch.as_tensor(stats["logits"][:steps]), exact[:steps],
+                                     cfg.vocab))
+            sharded_f32 = max(_step_rels(logits, exact[:steps], cfg.vocab))
+            return (bool(torch.isfinite(logits[..., :cfg.vocab]).all()) and max(near) <= tol
+                    and sharded_f32 <= one_f32 + LM_TOL, near, one_f32, sharded_f32)
+
+        ok, _, one_f32, sharded_f32 = verdict(FAMILY_GEN)
+        check(ok, f"[sharded serve] {arch}: sharded vs one device relative norms {rels} (bound "
+                  f"{tol}); against float32: one device {one_f32}, sharded {sharded_f32}")
+        # A planted fault the rule must refuse: the prefill's last data shard
+        # never writes its cache rows into the placed cache (its rows decode
+        # from zeros), held by the same verdict over two steps.
+        from repro_torch.models import model as model_mod
+
+        real = model_mod._scatter_rows
+        model_mod._scatter_rows = lambda cache, own, lo: real(cache, own, lo) if lo == 0 else None
+        try:
+            bad_ok, bad, _, _ = verdict(2)
+        finally:
+            model_mod._scatter_rows = real
+        check(not bad_ok, f"[sharded serve] {arch}: a lost cache shard passes the rule: {bad}")
         cut = f"{depth} of {full.n_layers} layers" if depth else f"all {full.n_layers} layers"
         log(f"[sharded serve] {arch} ({cfg.family}, profile {arch_profile(cfg)!r}) at full width, {cut}, bf16, attention {impl!r}, on {SERVE_SHARD_MESH}: "
             f"{FAMILY_BATCH} x {FAMILY_PROMPT} prompt tokens in {shards} prefill shards, "
             f"{FAMILY_GEN} steps teacher-forced on the one-device session's tokens: logits "
             f"relative norm prefill {rels[0]:.6f}, decode max {max(rels[1:]):.6f} (bound "
-            f"{SERVE_SHARD_TOL}); against a float32 run of the same weights, max over the steps: "
-            f"one device {one_f32:.6f}, sharded {sharded_f32:.6f}; flash launches prefill {pre['flash_attention']}, decode "
+            f"{tol:.6f}); against a float32 run of the same weights, max over the steps: "
+            f"one device {one_f32:.6f}, sharded {sharded_f32:.6f}; a prefill whose last data "
+            f"shard's cache is lost, refused by the same rule: {[round(r, 6) for r in bad]}, "
+            f"{max(bad) / tol:.1f} x the bound; flash launches prefill {pre['flash_attention']}, decode "
             f"{dec['flash_attention']}; prefill {prefill_s:.6f} s (one device "
             f"{stats['prefill_s']:.6f}), decode {1e3 * decode_s / (FAMILY_GEN - 1):.3f} ms a step "
             f"(one device {1e3 * stats['decode_s'] / (FAMILY_GEN - 1):.3f}); max_memory_allocated "
@@ -5460,7 +5580,7 @@ def _sharded_serve_f32(mesh) -> None:
     from repro_torch.models.params import tree_map
 
     rng = np.random.default_rng(22)
-    for arch in (LM_ARCH, *(a for a, _, _ in SERVE_SHARD_FAMILIES)):
+    for arch in SERVE_SHARD_IMPL:
         depth = FAMILY_F32_DEPTH.get(arch, 2)
         cfg = get_config(arch).scaled(n_layers=depth, dtype="float32")
         b, plen, gen = SERVE_SHARD_F32_MOE_SHAPE if cfg.family == "moe" else SERVE_SHARD_F32_SHAPE
@@ -5531,24 +5651,90 @@ def phase_sharded_serve(lm: dict) -> dict:
 # ---------------------------------------------------------------- phase 21d
 
 
-def _same_cache_steps(one, sess, prompts, forced: np.ndarray) -> list[float]:
+def _same_cache_steps(one, sess, prompts, forced: np.ndarray, rows=None) -> list[float]:
     """Relative norms of ``sess``'s logits against ``one``'s (a one-device
-    session): the prefill, then each decode step fed a copy of ``one``'s
-    cache (dense; the sharded step places it) and the token ``forced``
-    gives."""
+    session): the prefill (its batch rows ``rows``, all by default), then
+    each decode step fed a copy of ``one``'s cache (dense; the sharded step
+    places it) and the token ``forced`` gives."""
     from repro_torch.models.params import tree_map
 
     plen, vocab = prompts.shape[1], sess.cfg.vocab
+    rows = slice(None) if rows is None else rows
     with sess.gathered():
         want, cache = one.prefill(prompts)
         got, _ = sess.prefill(prompts)
-        rels = [_rel(got[:, :vocab], want[:, :vocab])]
+        rels = [_rel(got[rows, :vocab], want[rows, :vocab])]
         for i in range(forced.shape[1] - 1):
             tok = torch.from_numpy(forced[:, i:i + 1].astype(np.int32)).cuda()
             got, _ = sess.decode(tree_map(torch.clone, cache), tok, plen + i)
             want, cache = one.decode(cache, tok, plen + i)
             rels.append(_rel(got[:, :vocab], want[:, :vocab]))
     return rels
+
+
+def _prefill_routing(sess, prompts) -> tuple:
+    """The routing of each MoE layer of ``sess``'s prefill of ``prompts``:
+    (dropped (token, choice) pairs a layer, summed over the data shards,
+    the pairs a layer, each layer's expert choices ``[groups, g, k]`` on the
+    host, the data shards' groups in order), read from every ``moe.plan``
+    the prefill's layers make."""
+    from repro_torch.models import moe
+
+    seen: list = []
+    real = moe.aux_metrics
+
+    def spy(pl, cfg):
+        seen.append((int((~pl.within).sum()), pl.within.numel(), pl.experts.cpu()))
+        return real(pl, cfg)
+
+    moe.aux_metrics = spy
+    try:
+        with sess.gathered():
+            sess.prefill(prompts)
+    finally:
+        moe.aux_metrics = real
+    layers = sess.cfg.n_layers
+    shards = len(seen) // layers  # the prefill runs its data shards one after another
+    at = [[seen[j * layers + i] for j in range(shards)] for i in range(layers)]
+    return ([sum(c[0] for c in calls) for calls in at], sum(c[1] for c in at[0]),
+            [torch.cat([c[2] for c in calls]) for calls in at])
+
+
+def _moe_layer_same_input(sess, moe_params, cfg, shape: tuple, dtype) -> tuple:
+    """Layer 0's MoE on one input, tensor-parallel (``_tp_moe`` over the
+    first position's model group) and on one device (``moe_forward`` on
+    ``moe_params``, the layer's whole tree): (relative norm of the outputs,
+    dropped choices of each, the choices whose expert differs). Normal
+    tokens around a shared direction, which skews the routing, at the
+    prefill's group size."""
+    from repro_torch.distributed.tensor_parallel import model_group
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    h = torch.randn(*shape, cfg.d_model, generator=gen, device="cuda")
+    h = (h + 2.0 * torch.randn(cfg.d_model, generator=gen, device="cuda")).to(dtype)
+    group_size = model_mod._moe_group(h)
+    seen: list = []
+    real = moe.aux_metrics
+
+    def spy(pl, c):
+        seen.append(pl)
+        return real(pl, c)
+
+    moe.aux_metrics = spy
+    try:
+        with sess.gathered():
+            group = model_group(sess._full, sess.mesh, (0,) * sess.mesh.devices.ndim)
+            got, _ = model_mod._tp_moe(group, model_mod._tp_layers(group, cfg)[0], h, cfg,
+                                       group_size)
+        want, _ = moe.moe_forward(tree_map(lambda t: t[0], moe_params), h, cfg, group_size)
+    finally:
+        moe.aux_metrics = real
+    tp_plan, one_plan = seen
+    return (_rel(got, want), int((~tp_plan.within).sum()), int((~one_plan.within).sum()),
+            int((tp_plan.experts != one_plan.experts).sum()))
 
 
 @contextlib.contextmanager
@@ -5585,8 +5771,9 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     full = get_config(arch)
     cfg = full.scaled(n_layers=depth, dtype=dtype)
     check(serves_tensor_parallel(cfg, mesh), f"[tp serve] {arch} does not take the TP path")
+    moe = cfg.family == "moe"
     b, plen, gen = ((FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN) if dtype == "bfloat16"
-                    else SERVE_SHARD_F32_SHAPE)
+                    else SERVE_SHARD_F32_MOE_SHAPE if moe else SERVE_SHARD_F32_SHAPE)
     torch.cuda.empty_cache()
     gen_card = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(gen_card, cfg, "cuda")
@@ -5599,6 +5786,7 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     tokens, stats = one.generate(prompts, gen, keep_logits=True)
     forced = tokens[:, plen:]
     _, one_pre, _, one_prefill_s, one_decode_s, _ = _forced(one, prompts, None, forced)
+    one_routing = _prefill_routing(one, prompts) if moe else None
     if dtype == "bfloat16":  # its logits are kept; its parameters are freed
         one = None
     exact = None
@@ -5609,6 +5797,15 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         del f32
         torch.cuda.empty_cache()
     sess = ServeSession(arch, mesh=mesh, params=params, dtype=dtype, **common)
+    same = None
+    if moe:  # the layer on one input: its routing and drops are one device's exactly
+        same = _moe_layer_same_input(sess, params["layers"]["moe"], cfg, (b, plen),
+                                     getattr(torch, dtype))
+        check(same[0] <= (FAMILY_CARD_TOL if dtype == "float32" else MOE_LAYER_BF16_TOL)
+              and same[1] == same[2] and same[3] == 0,
+              f"[tp serve] {arch} {dtype}: layer 0's MoE on one input, tensor-parallel vs one "
+              f"device: relative norm {same[0]}, dropped {same[1]} / {same[2]}, {same[3]} "
+              f"choices routed elsewhere")
     del params  # the session holds its own blocks
     torch.cuda.empty_cache()
     # What the gathered path gives each position: every parameter, whole.
@@ -5634,8 +5831,54 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
           and heads == want_heads,
           f"[tp serve] {arch}: launches prefill {pre}, decode {dec}, heads {heads[:4]}..; "
           f"expected {depth} x {shards} flash on {want_heads[0]} heads")
+    # The kernel at a launch's shape (a data shard's rows, the model shard's
+    # query and KV heads), held to its plain version.
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bshd_cuda,
+        flash_attention_bshd_reference,
+    )
+
+    rows = b // (shards // m)
+    ops = _gqa_inputs(rows, plen, plen, *heads[0], cfg.resolved_head_dim, getattr(torch, dtype),
+                      seed=31)
+    kernel = _flash_case(flash_attention_bshd_cuda, flash_attention_bshd_reference, ops, True,
+                         heads[0][0], f"{arch} tensor-parallel prefill shard")
+    del ops
     rels = _step_rels(got, stats["logits"], cfg.vocab)
     tol = SERVE_TP_BF16_TOL.get(arch, SERVE_SHARD_TOL) if exact is not None else FAMILY_CARD_TOL
+    drops, held = "", None
+    if moe:  # the prefill's routing and drops, layer by layer, against one device's
+        tp_drops, choices, tp_experts = _prefill_routing(sess, prompts)
+        one_drops, _, one_experts = one_routing
+        moved = [(a != e).flatten(1).sum(1) for a, e in zip(tp_experts, one_experts)]
+        flips = [int(t.sum()) for t in moved]
+        per_group = tp_experts[0].shape[1] // plen  # a routing group's batch rows
+        parted = sorted({g * per_group + r for t in moved for g in t.nonzero().flatten().tolist()
+                         for r in range(per_group)})
+        held = [r for r in range(b) if r not in parted]
+        first = next((f for f in flips if f), 0)
+        # In float32 a layer's input differs from one device's by the
+        # reductions' order, which can move a choice between two experts
+        # whose probabilities tie to that rounding: a moved choice changes
+        # the drops by one at most, and in its routing group it moves other
+        # tokens past the capacity, which parts that group's later layers
+        # and logits. The layer on one input is exact above; the prefill's
+        # logits are held on the rows of the groups that route as one
+        # device's (at least one), its drops by the moved choices.
+        check(exact is not None or (
+            all(abs(t - o) <= f for t, o, f in zip(tp_drops, one_drops, flips))
+            and first <= MOE_FLIP_TOL * choices and held),
+              f"[tp serve] {arch} float32: dropped choices a layer {tp_drops} of {choices}, "
+              f"one device {one_drops}; choices routed elsewhere {flips}, rows parted {parted}")
+        drops = (f"; the prefill's dropped choices a layer {tp_drops} of {choices} (dropped "
+                 f"fraction {sum(tp_drops) / (choices * depth):.6f}; one device {one_drops}; "
+                 f"choices routed to another expert than one device's {flips}, in the routing "
+                 f"groups of rows {parted}); layer 0's MoE on one {b} x {plen} input against one "
+                 f"device's: relative norm {same[0]:.3e}, dropped {same[1]} and {same[2]}, "
+                 f"{same[3]} choices routed elsewhere")
+        if exact is not None:
+            held = None
+    margin = SERVE_TP_F32_MARGIN.get(arch, LM_TOL)
 
     def verdict(steps: int) -> tuple:
         """The run's rule over its first ``steps`` steps: (passes, relative
@@ -5646,62 +5889,77 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         dtype), whose rounding of the two paths' float32 K/V may part by one
         bf16 step, and the parted entries add up over the steps: each step
         is held within ``tol`` from a copy of the one-device session's
-        cache."""
+        cache (the MoE's prefill on the rows ``held``)."""
         if exact is None:
-            same = _same_cache_steps(one, sess, prompts, forced[:, :steps])
+            same = _same_cache_steps(one, sess, prompts, forced[:, :steps], held)
+            rows = "" if held is None else f"; the prefill on rows {held}"
             return (max(same) <= tol, same,
                     f"; each step from a copy of the one-device session's cache "
-                    f"{[float(f'{r:.3e}') for r in same]} (bound {tol}; the steps above read "
-                    f"their own caches)")
+                    f"{[float(f'{r:.3e}') for r in same]} (bound {tol}{rows}; the steps above "
+                    f"read their own caches)")
         logits = got if steps == gen else _forced(sess, prompts, None, forced[:, :steps])[0]
         near = _step_rels(logits, stats["logits"][:steps], cfg.vocab)
         one_f32 = max(_step_rels(torch.as_tensor(stats["logits"][:steps]), exact[:steps],
                                  cfg.vocab))
         tp_f32 = max(_step_rels(logits, exact[:steps], cfg.vocab))
         return (bool(torch.isfinite(logits[..., :cfg.vocab]).all()) and max(near) <= tol
-                and tp_f32 <= one_f32 + LM_TOL, near,
+                and tp_f32 <= one_f32 + margin, near,
                 f"; against a float32 run of the same weights, max over the steps: one device "
-                f"{one_f32:.6f}, tensor-parallel {tp_f32:.6f} (bound one device + {LM_TOL})")
+                f"{one_f32:.6f}, tensor-parallel {tp_f32:.6f} (bound one device + {margin:.6f})")
 
     ok, _, against_f32 = verdict(gen)
     check(bool(torch.isfinite(got[..., :cfg.vocab]).all()) and ok,
           f"[tp serve] {arch} {dtype}: tensor-parallel vs one device relative norms {rels} "
           f"(bound {tol}){against_f32}")
-    # A planted fault the rule must refuse: a reduction that loses the last
-    # model shard's partial, held by the same verdict over two steps.
-    real = tensor_parallel.reduce_f32
-    tensor_parallel.reduce_f32 = lambda parts, dev, dt: real(parts[:-1], dev, dt)
-    try:
-        bad_ok, bad, _ = verdict(2)
-    finally:
-        tensor_parallel.reduce_f32 = real
-    check(not bad_ok, f"[tp serve] {arch}: a dropped partial passes the rule: {bad}")
+    # Planted faults the rule must refuse, each held by the same verdict
+    # over two steps: a reduction that loses the last model shard's
+    # partial; for the MoE, a shard that builds its neighbour's expert
+    # block's one-hots and runs them on its own weights.
+    faults = {"a reduction dropping the last shard's partial": (
+        "reduce_f32", lambda real: lambda parts, dev, dt: real(parts[:-1], dev, dt))}
+    if moe:
+        faults["a shard running its neighbour's expert block"] = (
+            "expert_range", lambda real: lambda c, j, m_: real(c, (j + 1) % m_, m_))
+    refused = {}
+    for name, (attr, planted) in faults.items():
+        real = getattr(tensor_parallel, attr)
+        setattr(tensor_parallel, attr, planted(real))
+        try:
+            bad_ok, bad, _ = verdict(2)
+        finally:
+            setattr(tensor_parallel, attr, real)
+        check(not bad_ok, f"[tp serve] {arch}: {name} passes the rule: {bad}")
+        refused[name] = bad
     del one
     cut = f"{depth} of {full.n_layers} layers"
     first = runs[0]
+    experts = (f", {cfg.n_experts} experts top-{cfg.experts_per_token} ({cfg.n_experts // m} a "
+               f"shard), capacity factor {cfg.moe_capacity_factor}") if moe else ""
     log(f"[tp serve] {arch} ({cfg.family}, profile 'tp') at full width (d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads, KV {cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab}), {cut}, {dtype}, attention 'flash', tensor-parallel on "
+        f"vocab {cfg.vocab}{experts}), {cut}, {dtype}, attention 'flash', tensor-parallel on "
         f"{SERVE_TP_MESH} logical shards of {SHARD_DEVICE}"
         + (f", QKV biases drawn at std {SERVE_TP_BIAS_STD}" if cfg.qkv_bias else "")
         + f": {b} x {plen} prompt tokens, {gen} steps teacher-forced on the one-device session's "
         f"tokens: logits relative norm prefill {rels[0]:.3e}, decode max {max(rels[1:]):.3e} "
-        f"(each {[float(f'{r:.3e}') for r in rels]}; bound {tol}){against_f32}; bytes each "
+        f"(each {[float(f'{r:.3e}') for r in rels]}; bound {tol}){against_f32}{drops}; bytes each "
         f"position gathered "
         f"for a step: tensor-parallel {sorted(set(tp_bytes.values()))} (its 'model' blocks), the "
         f"gathered path {whole} (every parameter), ratio "
         f"{max(tp_bytes.values()) / whole:.4f}; flash launches prefill "
         f"{pre['flash_attention']} ({depth} layers x {shards // m} data shards x {m} model "
         f"shards, each on {heads[0][0]} query and {heads[0][1]} KV heads; one device "
-        f"{one_pre['flash_attention']} on {cfg.n_heads}), decode {dec['flash_attention']}; prefill "
+        f"{one_pre['flash_attention']} on {cfg.n_heads}), decode {dec['flash_attention']}; the "
+        f"kernel at a launch's shape (B {rows}, S {plen}) against its plain version: max |err| "
+        f"{kernel[0]:.3e}, max row error {kernel[1]:.3e}, {kernel[2]} tiles scored; prefill "
         f"{prefill_s:.6f} s (first run {first[3]:.6f}; one device {one_prefill_s:.6f}), decode "
         f"{1e3 * decode_s / (gen - 1):.3f} ms a step (first run "
         f"{1e3 * first[4] / (gen - 1):.3f}; one device {1e3 * one_decode_s / (gen - 1):.3f}); "
         f"max_memory_allocated {peak} bytes (the placed and the gathered blocks on one card: "
-        f"logical shards share its memory); a reduction dropping the last shard's partial, "
-        f"refused by the same rule: {[round(r, 6) for r in bad]}, {max(bad) / tol:.1f} x the "
-        f"bound; cache specs "
-        f"{layout}; {smi}")
+        f"logical shards share its memory); refused by the same rule: "
+        + "; ".join(f"{name} {[round(r, 6) for r in bad]}, {max(bad) / tol:.1f} x the bound"
+                    for name, bad in refused.items())
+        + f"; cache specs {layout}; {smi}")
     del sess, got, runs
     return pre["flash_attention"]
 

@@ -326,7 +326,10 @@ class CostCounter(TorchDispatchMode):
             return
         nbytes = sum(_nbytes(t) for t in operands) + sum(_nbytes(t) for t in outs)
         if kind == "matmul":
-            f = float(flop_registry[func._overloadpacket](*args, **kwargs, out_val=out))
+            # A product's ``out_dtype`` overload (``mm.dtype``, ``bmm.dtype``)
+            # counts as the product: its formula takes the operands alone.
+            margs = tuple(a for a in args if not isinstance(a, torch.dtype))
+            f = float(flop_registry[func._overloadpacket](*margs, **kwargs, out_val=out))
             self.flops += f
             self.matmul_flops += f
         elif kind == "pointwise":

@@ -22,9 +22,9 @@ changes no result: ``constrain`` resolves its entries exactly as the
 reference does (``resolve_constraint``), checks them against the tensor's
 rank, and returns the tensor as it is. The model code does not call it.
 Where the reference's constraints make GSPMD compute a layer split over
-'model', the port writes that schedule out: serving the dense decoders on
-the "tp" profile runs each model shard on its head, column and vocab
-blocks (``distributed/tensor_parallel.py``, ``models/model.py``'s
+'model', the port writes that schedule out: serving the dense and MoE decoders
+on the "tp" profile runs each model shard on its head, column, expert and
+vocab blocks (``distributed/tensor_parallel.py``, ``models/model.py``'s
 ``prefill_placed_tp`` / ``decode_placed_tp``); the other families and the
 training step run on gathered parameters (``launch/steps.py``).
 """

@@ -1,26 +1,28 @@
-"""Tensor-parallel serving of the dense decoders over a mesh's 'model' axis.
+"""Tensor-parallel serving of the dense and MoE decoders over a mesh's 'model' axis.
 
 The reference gets this compute from GSPMD: on the "tp" profile
 (``src/repro/distributed/ctx.py:34-52``) it places wq/wk/wv and the MLP's
 wi_gate/wi_up by columns over 'model', wo by rows, tok_embed and lm_head by
-vocab, and its layer code pins the activations to those blocks
-(``src/repro/models/layers.py:87-97``, ``:280-296``, ``:414-417``). The port
+vocab, the MoE's experts by their expert dim, and its layer code pins the
+activations to those blocks (``src/repro/models/layers.py:87-97``,
+``:280-296``, ``:414-417``; ``src/repro/models/moe.py:69-85``). The port
 is single-controller and eager, so it writes the schedule out: this module
 holds the blocks and the moves, ``models/model.py`` the layer loops
 (``prefill_placed_tp``, ``decode_placed_tp``).
 
 Which configs take it: ``serves_tensor_parallel(cfg, mesh)``, the one place
-that decides. The dense family with standard (GQA) attention on the "tp"
-profile, on a mesh with a 'model' axis whose size divides the query heads
-(deepseek-67b, qwen1.5-110b, a smoke config pinned ``parallelism="tp"``).
-Every other config (the MoE, VLM, hybrid, SSM, MLA and audio families, the
-"dp" profile) serves on the gathered path: every parameter gathered whole
-on each device.
+that decides. The dense and MoE families with standard (GQA) attention on
+the "tp" profile, on a mesh with a 'model' axis whose size divides the
+query heads and, for the MoE, the experts (deepseek-67b, qwen1.5-110b,
+moonshot-v1-16b-a3b, dbrx-132b, a smoke config pinned
+``parallelism="tp"``). Every other config (the VLM, hybrid, SSM, MLA and
+audio families, the "dp" profile) serves on the gathered path: every
+parameter gathered whole on each device.
 
 What model shard ``j`` of ``m`` holds (``gather_model_blocks``): the ``j``-th
 'model' block of every leaf whose spec splits a dim over 'model', gathered
 over the other axes ('data': the ZeRO-3 gather), and every other leaf (the
-norms) whole. What it computes, on its device:
+norms, the MoE router) whole. What it computes, on its device:
 
   * embedding: the tokens in its vocab range (zeros elsewhere);
   * attention: its ``H / m`` query heads (``head_range``) from its column
@@ -30,21 +32,29 @@ norms) whole. What it computes, on its device:
     may share one KV head with another shard's when K does not divide m);
     then its rows of wo;
   * MLP: its columns of wi_gate/wi_up and its rows of wo;
+  * MoE: its ``E / m`` experts (``expert_range``). The home routes the
+    group's tokens once (router, top-k, slots and drops over the whole
+    routing group, ``models/moe.py::plan``) and sends each shard the
+    tokens and the small routing tensors (gates, experts, slots, ``[ng, g,
+    k]`` each); the shard builds the dispatch and combine one-hots of its
+    own experts and returns its float32 share of ``y``;
   * logits: its vocab columns of lm_head (``tok_embed``'s rows when tied).
 
-A row-parallel output is a float32 ``[B, S, d]`` partial a shard (never
-rounded to the run's dtype: ``models/layers.py::matmul_f32``);
+A row-parallel output (wo's rows, an expert block's share of the MoE's
+``y``) is a float32 ``[B, S, d]`` partial a shard (never rounded to the
+run's dtype: ``models/layers.py::matmul_f32``, ``bmm_f32``);
 ``ModelGroup.reduce`` sums them in float32 in shard order on the home device
 and casts once, so a bf16 run rounds each sum once, as one device's product
 does. The
-residual stream, the norms and the cache writes live on the home (shard 0's
-device). Every move between the group's shards goes through
+residual stream, the norms, the routing and the cache writes live on the
+home (shard 0's device). Every move between the group's shards goes through
 ``runtime/staging.stage`` and adds its bytes to ``ModelGroup.moved`` (bytes
 into each shard): what the dry run records as the step's activation
 collectives. A shard's own work runs in ``ModelGroup.on(j)``: for shards
 other than the home a ``cost_scope(SHARD_SCOPE)``, which the dry run's
 counter skips, so that it counts the home shard's step, the one that
-bounds the group's (it alone reduces, joins and runs the residual stream).
+bounds the group's (it alone routes, reduces, joins and runs the residual
+stream).
 """
 from __future__ import annotations
 
@@ -67,6 +77,7 @@ __all__ = [
     "model_dim",
     "block_range",
     "head_range",
+    "expert_range",
     "kv_block",
     "model_block",
     "ModelBlocks",
@@ -88,11 +99,15 @@ def model_size(mesh) -> int:
 
 def serves_tensor_parallel(cfg, mesh) -> bool:
     """Whether ``cfg`` serves tensor-parallel on ``mesh`` (module
-    docstring): the dense family, GQA attention, the "tp" profile, and a
-    'model' axis that divides the query heads. Every other config takes the
-    gathered path."""
-    return (cfg.family == "dense" and cfg.attention == "gqa" and arch_profile(cfg) == "tp"
-            and MODEL in mesh.axis_names and cfg.n_heads % model_size(mesh) == 0)
+    docstring): the dense or MoE family, GQA attention, the "tp" profile,
+    and a 'model' axis that divides the query heads (and the MoE's
+    experts). Every other config takes the gathered path."""
+    if cfg.family not in ("dense", "moe") or cfg.attention != "gqa" or arch_profile(cfg) != "tp":
+        return False
+    if MODEL not in mesh.axis_names:
+        return False
+    m = model_size(mesh)
+    return cfg.n_heads % m == 0 and (cfg.family == "dense" or cfg.n_experts % m == 0)
 
 
 def model_dim(spec, ndim: int) -> int | None:
@@ -121,6 +136,11 @@ def block_range(size: int, j: int, m: int) -> tuple[int, int]:
 def head_range(cfg, j: int, m: int) -> tuple[int, int]:
     """Model shard ``j``'s query heads: its columns of wq, ``hd`` each."""
     return block_range(cfg.n_heads, j, m)
+
+
+def expert_range(cfg, j: int, m: int) -> tuple[int, int]:
+    """Model shard ``j``'s experts: its block of w_gate/w_up/w_down."""
+    return block_range(cfg.n_experts, j, m)
 
 
 def kv_block(cfg, j: int, m: int) -> tuple[int, int, list | None]:

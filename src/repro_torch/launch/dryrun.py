@@ -16,17 +16,19 @@ port's specs equal the reference's, it records
     the tensor-parallel path the device's 'model' block);
   * ``analysis/hlo_cost.py::step_cost`` of the step a device runs. Two
     kinds of cells (``PER_DEVICE``, ``PER_DEVICE_TP``):
-      - the dense decoders' serving cells on the "tp" profile (deepseek-67b
-        and qwen1.5-110b at prefill_32k and decode_32k,
+      - the dense and MoE decoders' serving cells on the "tp" profile
+        (deepseek-67b, qwen1.5-110b, moonshot-v1-16b-a3b and dbrx-132b at
+        prefill_32k and decode_32k,
         ``distributed/tensor_parallel.py::serves_tensor_parallel``) take the
         tensor-parallel step: one data-parallel shard's step (a row of the
         cache at decode) over its 16 model shards
         (``models/model.py::prefill_tp``, ``decode_row_tp``), run on meta,
         of which the home shard's part is counted (the other shards' work
         skipped, ``tensor_parallel.SHARD_SCOPE``): its 1/16 of the split
-        products, and the reductions of every shard's partials, the joins,
-        norms and residual stream, which it alone runs. It bounds the
-        group's step; the other shards run the split products alone;
+        products (heads, columns, experts, vocab), and the MoE's routing,
+        the reductions of every shard's partials, the joins, norms and
+        residual stream, which it alone runs. It bounds the group's step;
+        the other shards run the split products alone;
       - every other cell (training, the other families, the "dp" profile)
         the step of one distinct data-parallel shard, run on its first
         device with every parameter gathered there: the per-device FLOPs
@@ -106,8 +108,8 @@ PER_DEVICE = ("the step of one distinct data-parallel shard, run on its first de
               "model axis does not divide it)")
 PER_DEVICE_TP = ("the home model shard's step of the tensor-parallel path, which bounds its "
                  "group's: its share of the data-parallel shard's products (divided by the "
-                 "model axis), and the reductions, joins, norms and residual stream that it "
-                 "alone runs for the group")
+                 "model axis), and the MoE's routing, the reductions, joins, norms and "
+                 "residual stream that it alone runs for the group")
 
 
 class DuckMesh:

@@ -28,13 +28,14 @@ Attention supports:
     ``attn_decode`` / ``mla_decode`` up to the order of float32 sums.
 
 The reference's sharding constraints have no counterpart here: on a mesh
-the dense decoders' tensor-parallel schedule is written out in
-``models/model.py`` (``prefill_placed_tp``, ``decode_placed_tp``) over
+the tensor-parallel schedule of the dense and MoE decoders is written out
+in ``models/model.py`` (``prefill_placed_tp``, ``decode_placed_tp``) over
 ``distributed/tensor_parallel.py``, and runs these functions on a model
 shard's blocks. ``attn_qkv_block`` projects a shard's query heads and its
 K/V columns (a column block of wk/wv may end inside a head),
 ``mlp_hidden`` takes a column block of wi_gate/wi_up, ``matmul_f32`` gives
-a row block of wo's partial product in float32, and ``combined_heads``
+a row block of wo's partial product in float32 (``bmm_f32`` an expert
+block's combine, ``models/moe.py::expert_block``), and ``combined_heads``
 lays a combined decode output out by heads for the row blocks of wo. The
 reference's ``jax.named_scope("attn_core")``
 regions are ``cost_scope("attn_core")`` (``analysis/hlo_cost.py``),
@@ -74,6 +75,7 @@ __all__ = [
     "mlp_forward",
     "mlp_hidden",
     "matmul_f32",
+    "bmm_f32",
     "norm_schema",
 ]
 
@@ -506,3 +508,18 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         out = torch.mm(flat, w, out_dtype=torch.float32)
     return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(x, w)`` as a float32 result: ``matmul_f32``'s batched
+    form (``torch.bmm``'s ``out_dtype`` on the card and meta, widened
+    operands on the CPU). Under autograd (a training step, which sums every
+    expert on one device: nothing to reduce) the product is taken in ``x``'s
+    dtype, as the card's ``out_dtype`` product has no derivative."""
+    if x.dtype == torch.float32:
+        return torch.bmm(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return torch.bmm(x, w).float()
+    if x.device.type == "cpu":
+        return torch.bmm(x.float(), w.float())
+    return torch.bmm(x, w, out_dtype=torch.float32)

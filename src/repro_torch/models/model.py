@@ -34,13 +34,15 @@ and a logsumexp combine, the SSM step one head block at a time. These
 layers' projections are not split: the gathered path, every parameter
 gathered whole on the device.
 
-The dense decoders with GQA attention on the "tp" profile serve
+The dense and MoE decoders with GQA attention on the "tp" profile serve
 tensor-parallel instead (``distributed/tensor_parallel.py`` decides which
 and holds the blocks and the moves): ``prefill_placed_tp`` and
 ``decode_placed_tp`` run each data-parallel shard (or cache row) over the
-'model' shards of its group, each on its head, column and vocab blocks;
-the row-parallel partials are reduced in float32 on the group's home,
-where the residual stream, the norms and the cache writes live. Decode
+'model' shards of its group, each on its head, column, expert and vocab
+blocks; the row-parallel partials are reduced in float32 on the group's
+home, where the residual stream, the norms, the MoE's routing (once a
+routing group: its slots and drops are one device's) and the cache writes
+live. Decode
 keeps the flash-decoding layout above: the token's K/V heads are joined
 on the home and written into the sequence block holding ``pos``, the
 joined query runs one partial a sequence block, and the combined output is
@@ -905,6 +907,36 @@ def _tp_mlp(group, lps: list, h: torch.Tensor) -> torch.Tensor:
     return group.reduce(parts, h.dtype)
 
 
+def _tp_moe(group, lps: list, h: torch.Tensor, cfg: ModelConfig, group_size: int):
+    """The MoE layer on the home's ``h`` over the group: routed once on the
+    home (``moe.plan``: the routing group's slots and drops, as one
+    device's), the tokens and the routing tensors (gates, experts, slots)
+    sent to each shard, which builds the one-hots of its own experts
+    (``expert_range``) and computes their float32 share of ``y``; the shares
+    reduced on the home. Returns (y, aux) as ``moe.moe_forward``."""
+    from repro_torch.distributed import tensor_parallel
+
+    pl = MOE.plan(lps[0]["moe"], h, cfg, group_size)
+    xt = h.reshape(*pl.gates.shape[:2], h.shape[-1])
+    parts = []
+    for j, lp in enumerate(lps):
+        xj, gates, experts, slots = (group.send(t, j) for t in (xt, pl.gates, pl.experts,
+                                                                pl.slots))
+        e0, e1 = tensor_parallel.expert_range(cfg, j, group.m)
+        with group.on(j):
+            parts.append(MOE.expert_block(lp["moe"], xj, gates, experts, slots, pl.capacity,
+                                          e0, e1))
+    return group.reduce(parts, h.dtype).reshape(h.shape), MOE.aux_metrics(pl, cfg)
+
+
+def _tp_ffn(group, lps: list, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's MLP (or MoE, routed in ``_moe_group``'s groups) over the
+    group on the home's ``h``."""
+    if cfg.family == "moe":
+        return _tp_moe(group, lps, h, cfg, _moe_group(h))[0]
+    return _tp_mlp(group, lps, h)
+
+
 def _tp_qkv(group, lps: list, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     """Each shard's roped query heads (on its device) and the K/V heads of
     every shard's columns joined and roped on the home: ``([q_j], k, v)``,
@@ -968,7 +1000,7 @@ def prefill_tp(group, batch: dict, cache: dict, cfg: ModelConfig, out):
         _fill_rows(cache["k"][i], k)
         _fill_rows(cache["v"][i], v)
         x = x + a
-        x = x + _tp_mlp(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps))
+        x = x + _tp_ffn(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps), cfg)
     return _tp_logits(group, x[:, -1:], cfg, out)[:, 0]
 
 
@@ -1019,7 +1051,7 @@ def decode_row_tp(group, cache: dict, token: torch.Tensor, pos: int, row: int, l
     for i, lps in enumerate(_tp_layers(group, cfg)):
         x = x + _tp_attn_decode(group, lps, L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps), pos,
                                 cache, i, row, lo, cfg)
-        x = x + _tp_mlp(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps))
+        x = x + _tp_ffn(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps), cfg)
     return _tp_logits(group, x, cfg, out)[:, 0]
 
 

@@ -1,4 +1,4 @@
-"""A rehearsal on the CPU of chip_smoke.py's phases 18c, 21d and 22.
+"""A rehearsal on the CPU of chip_smoke.py's phases 18c, 21b, 21d and 22.
 
 ``chip_smoke.py`` drives the port on one card. Here a copy of it runs on the
 host (``"cuda"`` read as ``"cpu"``, ``.cuda()`` as ``.cpu()``, the
@@ -24,10 +24,15 @@ and check) runs before a card does:
     full-graph half forked from it, NumPy only),
     ``build="auto"`` is handed the card's device, and ``gather_total``
     launches are counted through a fake over its plain version;
-  * 21d, tensor-parallel serving: deepseek-67b's and qwen1.5-110b's smoke
-    widths pinned to the "tp" profile at the phase's depth cuts, on a 2 x 2
-    mesh of logical CPU shards, flash launches counted through a fake over
-    its plain version.
+  * 21b, the families' bf16 serving on a mesh (the gathered path):
+    minicpm3, mamba2, zamba2 and the VLM at smoke widths and depths on a 2
+    x 2 mesh, each held by its bound and the planted lost cache shard;
+  * 21d, tensor-parallel serving: deepseek-67b's, qwen1.5-110b's,
+    moonshot-v1-16b-a3b's and dbrx-132b's smoke widths pinned to the "tp"
+    profile (the MoE at the production capacity factor, so that tokens are
+    dropped) at the phase's depth cuts and shapes, on a 2 x 2 mesh of
+    logical CPU shards, flash launches counted through a fake over its
+    plain version.
 
 The shapes and step counts are cut (constants of the copy), and the loss's
 bar is what smoke widths reach in 12 steps. Nothing here compares with the
@@ -87,8 +92,10 @@ def smoke(tmp_path, monkeypatch):
     spec.loader.exec_module(mod)
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
-    for name in ("max_memory_allocated", "memory_allocated"):
+    for name in ("max_memory_allocated", "memory_allocated", "max_memory_reserved",
+                 "memory_reserved"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(mod, "_expandable_segments", contextlib.nullcontext)  # the card's allocator
     for module in (pt_common, pt_csr, pt_model, pt_tcim, pt_executor, pt_build, pt_train):
         monkeypatch.setattr(module, "resolve_device", _cpu)
     monkeypatch.setattr(mod, "nvidia_smi_line", lambda: "CPU rehearsal, no card")
@@ -262,14 +269,85 @@ def test_tensor_parallel_serve_phase_runs_on_the_host(smoke, monkeypatch):
     from repro_torch.kernels import flash_attention as pt_flash
     from repro_torch.models import layers as pt_layers
 
+    real_config = pt_configs.get_config
+
     def narrow(arch):
-        return pt_configs.get_smoke_config(arch).scaled(parallelism="tp")
+        return pt_configs.get_smoke_config(arch).scaled(
+            parallelism="tp", moe_capacity_factor=real_config(arch).moe_capacity_factor)
+
+    monkeypatch.setattr(pt_configs, "get_config", narrow)
+    monkeypatch.setattr(pt_serve, "get_config", narrow)
+    monkeypatch.setattr(pt_serve, "resolve_device", _cpu)
+    monkeypatch.setattr(smoke, "SHARD_DEVICE", "cpu")
+    # The bf16 bounds of the card's full-width runs (dbrx's near-uniform
+    # router: 0.51) are wider than smoke widths need: hold the default.
+    monkeypatch.setattr(smoke, "SERVE_TP_BF16_TOL", {})
+    monkeypatch.setattr(smoke, "SERVE_TP_F32_MARGIN", {})
+    real = pt_layers.flash_attention_bshd
+
+    def counted(*args, **kwargs):
+        pt_flash.flash_attention_cuda.launches += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pt_layers, "flash_attention_bshd", counted)
+
+    def kernel(q, k, v, qp, kp, causal, tiles):  # the plain version, scoring the rule's tiles
+        tiles += pt_flash.flash_tiles_scored(qp, kp, q.shape[2], *pt_flash.FLASH_TILES[q.dtype],
+                                             causal=causal)
+        return pt_flash.flash_attention_bshd_reference(q, k, v, qp, kp, causal=causal)
+
+    monkeypatch.setattr(pt_flash, "flash_attention_bshd_cuda", kernel)
+    logged = []
+    monkeypatch.setattr(smoke, "log", logged.append)
+    flash = smoke.phase_tensor_parallel_serve()
+    # layers x 2 data shards x 2 model shards a prefill
+    assert flash == {f"tensor_parallel_serve:{a}:{d}": n * 4 for a, n, d in smoke.SERVE_TP_RUNS}
+    runs = [m for m in logged if "teacher-forced on the one-device session's tokens" in m]
+    assert len(runs) == len(smoke.SERVE_TP_RUNS)
+    for (arch, _, dtype), m in zip(smoke.SERVE_TP_RUNS, runs):
+        cfg = narrow(arch)
+        heads = f"each on {cfg.n_heads // 2} query and {max(cfg.n_kv_heads // 2, 1)} KV heads"
+        assert "ratio 0.50" in m and heads in m, (arch, m)
+        assert ("from a copy of the one-device" in m) == (dtype == "float32")
+        assert ("QKV biases drawn" in m) == cfg.qkv_bias
+        assert "refused by the same rule: a reduction dropping the last shard's partial" in m
+        assert "against its plain version: max |err|" in m
+        if cfg.family == "moe":
+            assert "a shard running its neighbour's expert block" in m
+            assert f"({cfg.n_experts // 2} a shard), capacity factor 1.25" in m
+            assert "the prefill's dropped choices a layer" in m
+            assert "choices routed to another expert than one device's" in m
+            assert "layer 0's MoE on one" in m and "0 choices routed elsewhere" in m
+            # moonshot's 8 smoke experts drop at 1.25 (dbrx's 4 need not)
+            assert arch != "moonshot-v1-16b-a3b" or "dropped fraction 0.000000" not in m
+
+
+def test_sharded_families_serve_phase_runs_on_the_host(smoke, monkeypatch):
+    """21b at the families' smoke widths and depths (each on its full
+    config's profile) on a 2 x 2 mesh of logical CPU shards: each held by
+    its bound, and a prefill whose last data shard's cache is lost refused
+    by the same rule."""
+    import repro_torch.launch.serve as pt_serve
+    from repro_torch.distributed.ctx import arch_profile
+    from repro_torch.kernels import flash_attention as pt_flash
+    from repro_torch.models import layers as pt_layers
+
+    real_config = pt_configs.get_config
+
+    def narrow(arch):
+        return pt_configs.get_smoke_config(arch).scaled(parallelism=arch_profile(real_config(arch)))
 
     monkeypatch.setattr(pt_configs, "get_config", narrow)
     monkeypatch.setattr(pt_serve, "get_config", narrow)
     monkeypatch.setattr(pt_serve, "resolve_device", _cpu)
     monkeypatch.setattr(smoke, "SHARD_DEVICE", "cpu")
     monkeypatch.setattr(smoke, "FAMILY_PROMPT", 64)
+    monkeypatch.setattr(smoke, "SERVE_SHARD_FAMILIES",
+                        tuple((a, None, impl) for a, _, impl in smoke.SERVE_SHARD_FAMILIES))
+    vlm, hybrid = narrow("llama-3.2-vision-90b"), narrow("zamba2-7b")
+    layers = {"llama-3.2-vision-90b": vlm.n_layers,  # each self and cross layer attends once
+              "zamba2-7b": pt_model.hybrid_counts(hybrid)[0]}  # the shared attention blocks
+    monkeypatch.setattr(smoke, "FAMILY_FLASH_LAYERS", layers)
     real = pt_layers.flash_attention_bshd
 
     def counted(*args, **kwargs):
@@ -279,14 +357,14 @@ def test_tensor_parallel_serve_phase_runs_on_the_host(smoke, monkeypatch):
     monkeypatch.setattr(pt_layers, "flash_attention_bshd", counted)
     logged = []
     monkeypatch.setattr(smoke, "log", logged.append)
-    flash = smoke.phase_tensor_parallel_serve()
-    # layers x 2 data shards x 2 model shards a prefill
-    assert flash == {f"tensor_parallel_serve:{a}:{d}": n * 4 for a, n, d in smoke.SERVE_TP_RUNS}
+    flash = smoke._sharded_families_serve(smoke._logical_mesh(smoke.SERVE_SHARD_MESH), "rehearsal")
+    assert flash == {arch: n * 2 for arch, n in layers.items()}  # 2 prefill (data) shards
     runs = [m for m in logged if "teacher-forced on the one-device session's tokens" in m]
-    assert len(runs) == len(smoke.SERVE_TP_RUNS)
-    assert all("ratio 0.50" in m and "each on 2 query and 1 KV heads" in m for m in runs)
-    assert "QKV biases drawn" in runs[-1] and "from a copy of the one-device" in runs[0]
-    assert all("refused by the same rule" in m for m in runs)
+    assert len(runs) == len(smoke.SERVE_SHARD_FAMILIES)
+    assert all("moonshot" not in m for m in runs)
+    for (arch, _, _), m in zip(smoke.SERVE_SHARD_FAMILIES, runs):
+        assert f"(bound {smoke.SERVE_SHARD_BF16_TOL[arch]:.6f})" in m, arch
+        assert "last data shard's cache is lost, refused by the same rule" in m, arch
 
 
 @pytest.mark.parametrize("workers", [2, 3])

@@ -1,11 +1,17 @@
-"""Tensor-parallel serving of the dense decoders on logical CPU meshes.
+"""Tensor-parallel serving of the dense and MoE decoders on logical CPU meshes.
 
-deepseek-67b's and qwen1.5-110b's smoke configs pinned ``parallelism="tp"``
-serve through ``ServeSession(mesh=)`` on (1, 2), (2, 2) and (1, 4): each
-position gathers over 'data' only, into its 'model' block of every leaf
-whose spec has 'model', and computes its heads, columns and vocab block
+deepseek-67b's, qwen1.5-110b's, moonshot-v1-16b-a3b's and dbrx-132b's smoke
+configs pinned ``parallelism="tp"`` serve through ``ServeSession(mesh=)``
+on (1, 2), (2, 2) and (1, 4): each position gathers over 'data' only, into
+its 'model' block of every leaf whose spec has 'model', and computes its
+heads, columns, experts and vocab block
 (``distributed/tensor_parallel.py``, ``models/model.py::prefill_placed_tp``
-and ``decode_placed_tp``). The oracle is the reference's greedy loop
+and ``decode_placed_tp``). On (1, 4) dbrx's smoke config holds one expert
+a shard. The MoE's prefill routes groups of ``min(1024, tokens)``: the 4 x
+16 prompts are one group, so its prefill runs them as one data-parallel
+shard (``launch/steps.py::_dp_shards``); ``test_torch_tensor_parallel_moe.py``
+splits whole groups over 'data' and holds the drops of the production
+capacity factor. The oracle is the reference's greedy loop
 outside a mesh (``init_cache`` -> ``forward_prefill`` -> ``decode_step`` x n
 -> argmax) on the same parameters, converted bit for bit by
 ``params_from_numpy``: the reference's sharded steps fail on this JAX
@@ -50,8 +56,11 @@ from repro_torch.models import layers as pt_layers  # noqa: E402
 from repro_torch.models.params import params_from_numpy, tree_leaves  # noqa: E402
 
 CPU = torch.device("cpu")
-ARCHS = ("deepseek-67b", "qwen1.5-110b")
-IMPL = {"deepseek-67b": "flash", "qwen1.5-110b": "xla"}
+DENSE = ("deepseek-67b", "qwen1.5-110b")
+MOE = ("moonshot-v1-16b-a3b", "dbrx-132b")
+ARCHS = DENSE + MOE
+IMPL = {"deepseek-67b": "flash", "qwen1.5-110b": "xla", "moonshot-v1-16b-a3b": "flash",
+        "dbrx-132b": "xla"}
 MESHES = ((1, 2), (2, 2), (1, 4))
 B, PLEN, GEN = 4, 16, 6
 MAX_SEQ = PLEN + GEN + 2  # even: the sequence splits over 'model'
@@ -59,7 +68,8 @@ LOGIT_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 PATH_TOL = 1e-5
 MODEL_LEAVES = {"tok_embed", "lm_head", "layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
                 "layers/attn/wo", "layers/attn/bq", "layers/attn/bk", "layers/attn/bv",
-                "layers/mlp/wi_gate", "layers/mlp/wi_up", "layers/mlp/wo"}
+                "layers/mlp/wi_gate", "layers/mlp/wi_up", "layers/mlp/wo",
+                "layers/moe/w_gate", "layers/moe/w_up", "layers/moe/w_down"}
 # A GQA layout whose query blocks straddle KV heads on 2 shards: 6 query
 # heads, 3 KV heads, shard 0 holds heads 0-2 (KV heads 0, 0, 1).
 STRADDLE = {"n_heads": 6, "n_kv_heads": 3}
@@ -209,7 +219,7 @@ def test_kv_blocks_of_the_production_configs():
     at model 2, 32 query heads on 4 KV heads a shard, as they are."""
     from repro_torch.configs import get_config
 
-    for arch in ARCHS:
+    for arch in DENSE:
         cfg = get_config(arch)
         assert [tp.kv_block(cfg, j, 16) for j in range(16)] == [(j // 2, j // 2 + 1, None)
                                                                 for j in range(16)]
@@ -309,9 +319,8 @@ def test_each_position_gathers_its_model_blocks(monkeypatch, arch, mesh):
     for name, leaf in placed.items():
         assert JP(*leaf.sharding.spec) == want[name], name
     assert {n for n, leaf in placed.items()
-            if tp.model_dim(leaf.sharding.spec, leaf.ndim) is not None} == (
-        MODEL_LEAVES if pcfg.qkv_bias else MODEL_LEAVES - {"layers/attn/bq", "layers/attn/bk",
-                                                           "layers/attn/bv"})
+            if tp.model_dim(leaf.sharding.spec, leaf.ndim) is not None} == MODEL_LEAVES & set(placed)
+    assert pcfg.qkv_bias == ("layers/attn/bq" in placed)
     m = shape[1]
     with sess.gathered():
         blocks = sess._full
@@ -339,7 +348,8 @@ def test_each_position_gathers_its_model_blocks(monkeypatch, arch, mesh):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_launches_flash_on_each_shard_heads(monkeypatch, arch):
     """On 2 x 2 the prefill attends once a (layer, data shard, model
-    shard), on that shard's H/m query heads and the KV heads they use."""
+    shard), on that shard's H/m query heads and the KV heads they use. The
+    MoE's 4 x 16 prompts are one routing group: one data shard."""
     _, pcfg = _cfg(arch, "float32", attention_impl="flash")
     calls = []
     real = pt_layers.flash_attention_bshd
@@ -355,7 +365,8 @@ def test_prefill_launches_flash_on_each_shard_heads(monkeypatch, arch):
                                  params=_params(arch, "float32")[1])
     logits, cache = sess.prefill(_prompts(pcfg))
     h, k = pcfg.n_heads, pcfg.n_kv_heads
-    assert calls == [(B // 2, h // 2, k // 2)] * (pcfg.n_layers * 2 * 2)
+    dp = 1 if pcfg.family == "moe" else 2
+    assert calls == [(B // dp, h // 2, k // 2)] * (pcfg.n_layers * dp * 2)
     calls.clear()
     sess.decode(cache, torch.argmax(logits, -1, keepdim=True), PLEN)
     assert calls == []  # decode attends by sequence blocks, as on the gathered path
@@ -366,8 +377,10 @@ def test_prefill_launches_flash_on_each_shard_heads(monkeypatch, arch):
 
 @pytest.mark.parametrize("arch", ("moonshot-v1-16b-a3b", "mamba2-780m"))
 def test_other_families_on_tp_keep_the_gathered_path(monkeypatch, arch):
-    """An MoE and an SSM config pinned "tp" gather every parameter whole
-    and give the one-device session's results, as before."""
+    """Pinned "tp" on 2 x 2: the SSM config gathers every parameter whole,
+    as before; the MoE config now takes the tensor-parallel path and gathers
+    its ``ModelBlocks`` (its experts split over 'model'). Both give the
+    one-device session's results."""
     mesh = _mesh(2, 2)
     pinned = get_smoke_config(arch).scaled(parallelism="tp")
     monkeypatch.setattr(pt_serve, "get_smoke_config", lambda a: pinned)
@@ -375,21 +388,28 @@ def test_other_families_on_tp_keep_the_gathered_path(monkeypatch, arch):
     one = pt_serve.ServeSession(arch, device="cpu", **common)
     sess = pt_serve.ServeSession(arch, mesh=mesh, params=one.params, **common)
     pcfg = sess.cfg
-    assert pcfg.parallelism == "tp" and not tp.serves_tensor_parallel(pcfg, mesh)
+    takes_tp = pcfg.family == "moe"
+    assert pcfg.parallelism == "tp" and tp.serves_tensor_parallel(pcfg, mesh) == takes_tp
     prompts = _prompts(pcfg)
     want_tokens, want = one.generate(prompts, GEN, keep_logits=True)
     with sess.gathered():
-        assert isinstance(sess._full, pt_steps.GatheredParams)
         total = sum(t.numel() * t.element_size() for t in tree_leaves(one.params))
-        assert set(sess._full.bytes_by_position.values()) == {total}
+        if takes_tp:
+            assert isinstance(sess._full, tp.ModelBlocks)
+            assert all(v < 0.55 * total for v in sess._full.bytes_by_position.values())
+        else:
+            assert isinstance(sess._full, pt_steps.GatheredParams)
+            assert set(sess._full.bytes_by_position.values()) == {total}
     tokens, got = sess.generate(prompts, GEN, keep_logits=True)
     np.testing.assert_array_equal(tokens, want_tokens)
     _close(got["logits"], want["logits"], LOGIT_TOL["float32"])
 
 
 def test_which_configs_serve_tensor_parallel():
-    """The one test that decides: the dense family, GQA attention, the "tp"
-    profile, and a 'model' axis dividing the query heads."""
+    """The one test that decides: the dense or MoE family, GQA attention,
+    the "tp" profile, and a 'model' axis dividing the query heads (and the
+    experts). The production meshes give moonshot 4 experts a shard and
+    dbrx 1; 2 x 2, 32 and 8."""
     from repro_torch.configs import get_config
 
     prod = DuckMesh((16, 16), ("data", "model"))
@@ -399,6 +419,16 @@ def test_which_configs_serve_tensor_parallel():
                         "llama-3.2-vision-90b", "hubert-xlarge")
             if tp.serves_tensor_parallel(get_config(a), prod)
             and tp.serves_tensor_parallel(get_config(a), multi)} == set(ARCHS)
+    two = DuckMesh((2, 2), ("data", "model"))
+    for arch, per in (("moonshot-v1-16b-a3b", (4, 32)), ("dbrx-132b", (1, 8))):
+        cfg = get_config(arch)
+        assert tp.serves_tensor_parallel(cfg, two)
+        assert [tp.expert_range(cfg, j, m)[1] - tp.expert_range(cfg, j, m)[0]
+                for m, j in ((16, 15), (2, 1))] == list(per)
+    moe = get_smoke_config("dbrx-132b").scaled(parallelism="tp")  # 4 heads, 4 experts
+    assert tp.serves_tensor_parallel(moe, DuckMesh((1, 4), ("data", "model")))
+    assert not tp.serves_tensor_parallel(moe.scaled(n_experts=6), DuckMesh((1, 4),
+                                                                          ("data", "model")))
     cfg = get_smoke_config("deepseek-67b")
     assert not tp.serves_tensor_parallel(cfg, _mesh(1, 2))  # "auto": 4 heads -> "dp"
     assert tp.serves_tensor_parallel(cfg.scaled(parallelism="tp"), _mesh(1, 4))
@@ -422,7 +452,8 @@ def test_which_configs_serve_tensor_parallel():
 def test_dryrun_serving_cells_take_the_tensor_parallel_step(monkeypatch, arch):
     """At 2 layers on the production mesh: a device gathers its model
     blocks (1/16 of every 'model' leaf), and its matmul FLOPs are the
-    gathered path's count over the model axis (the same products, split)."""
+    gathered path's count over the model axis (the same products, split),
+    but for the MoE's router product, which the home runs whole."""
     from repro_torch.launch.specs import CellSpec
 
     for shape in ("prefill_32k", "decode_32k"):
@@ -439,9 +470,13 @@ def test_dryrun_serving_cells_take_the_tensor_parallel_step(monkeypatch, arch):
         monkeypatch.setattr(dryrun, "serves_tensor_parallel", lambda cfg, mesh: False)
         g = dryrun.run_cell(arch, shape, "single", n_layers=2)
         monkeypatch.undo()
-        assert g["memory"]["gathered_params_bytes"] == whole
-        assert r["matmul_flops_per_device"] == pytest.approx(g["matmul_flops_per_device"] / 16,
-                                                             rel=1e-9)
+        assert g["memory"]["gathered_params_bytes"] == whole and g["rows"] == r["rows"]
+        cfg, router = spec.cfg, 0
+        if cfg.family == "moe":
+            tokens = r["rows"] * (spec.shape.seq if spec.shape.kind == "prefill" else 1)
+            router = 2 * tokens * cfg.d_model * cfg.n_experts * cfg.n_layers
+        assert r["matmul_flops_per_device"] == pytest.approx(
+            (g["matmul_flops_per_device"] - router) / 16 + router, rel=1e-9)
         # The home shard, counted, also runs the group's reductions: more
         # than a sixteenth of the step's bytes.
         assert r["bytes_per_device"] > g["bytes_per_device"] / 16

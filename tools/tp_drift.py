@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
 """How far bf16 serving on a mesh lands from one device, path by path.
 
-    PYTHONPATH=src python3 tools/tp_drift.py [--layers 8]
+    PYTHONPATH=src python3 tools/tp_drift.py [--arch ARCH[:LAYERS]] ...
 
-deepseek-67b at full width, cut to ``--layers`` of 95, bf16, attention
-"flash", on logical shards of one card: 4 x 512 prompt tokens and 16 steps
-(chip_smoke's phase 21d shape) teacher-forced on the one-device session's
-tokens, for
+Each ``--arch`` (default deepseek-67b:8; LAYERS cuts the depth, none: every
+layer) at full width, bf16, on logical shards of one card: 4 x 512 prompt
+tokens and 16 steps (chip_smoke's phase 21b / 21d shape) teacher-forced on
+the one-device session's tokens, under phase 21b's attention for the
+configs it serves (21d's "flash" for the others), for
 
-  * the tensor-parallel path on 2 x 2, 1 x 2 and 2 x 1 (on 2 x 1 the model
-    axis splits nothing: only the data split and the path's float32
-    reductions differ from one device);
-  * the gathered path on 2 x 2 (every parameter gathered whole, as the
-    other families serve; ``serves_tensor_parallel`` patched off).
+  * a config that serves tensor-parallel (``serves_tensor_parallel``: the
+    dense and MoE decoders): the tensor-parallel path on 2 x 2, 1 x 2 and
+    2 x 1 (on 2 x 1 the model axis splits nothing: only the data split and
+    the path's float32 reductions differ from one device), and the gathered
+    path on 2 x 2 (every parameter gathered whole; ``serves_tensor_parallel``
+    patched off);
+  * any other config: the gathered path on 2 x 2, 2 x 1 and 1 x 2.
 
 Each prints the logits' relative norm against the one-device session and
 against a float32 run of the same weights (the max over the steps), the
 prefill's and the largest decode step's. The bf16 runs' distance from
 float32 sets the scale: two bf16 runs whose roundings part anywhere land
-about that far apart. Needs one NVIDIA card; exits non-zero without one.
+about that far apart. Phases 21b and 21d set their bf16 bounds from these
+readings. Needs one NVIDIA card; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -30,62 +34,86 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCH = "deepseek-67b"
-PATHS = (("tensor-parallel", (2, 2)), ("tensor-parallel", (1, 2)), ("tensor-parallel", (2, 1)),
-         ("gathered", (2, 2)))
+TP_PATHS = (("tensor-parallel", (2, 2)), ("tensor-parallel", (1, 2)), ("tensor-parallel", (2, 1)),
+            ("gathered", (2, 2)))
+GATHERED_PATHS = (("gathered", (2, 2)), ("gathered", (2, 1)), ("gathered", (1, 2)))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=8)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("tp_drift: needs an NVIDIA card", file=sys.stderr)
-        return 1
-    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    import chip_smoke as smoke
+def _spec(text: str) -> tuple[str, int | None]:
+    arch, _, layers = text.partition(":")
+    return arch, int(layers) if layers else None
+
+
+def drift(smoke, arch: str, layers: int | None) -> None:
+    """Print one config's readings (module docstring)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
     from repro_torch.launch.serve import ServeSession
     from repro_torch.models.model import init_model
     from repro_torch.models.params import tree_map
 
-    smoke.phase_device()
-    smoke.phase_build()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(ARCH).scaled(n_layers=args.layers)
+    full = get_config(arch)
+    cfg = full.scaled(n_layers=layers) if layers else full
     b, plen, gen = smoke.FAMILY_BATCH, smoke.FAMILY_PROMPT, smoke.FAMILY_GEN
+    impl = smoke.SERVE_SHARD_IMPL.get(arch, "flash")
+    torch.cuda.empty_cache()
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
-    prompts = np.random.default_rng(23).integers(0, cfg.vocab, (b, plen), dtype=np.int32)
-    common = dict(batch=b, max_seq=plen + gen, attention_impl="flash", n_layers=args.layers)
-    tokens, stats = ServeSession(ARCH, params=params, **common).generate(prompts, gen,
-                                                                        keep_logits=True)
+    smoke._open_gates(params)
+    rng = np.random.default_rng(23)
+    prompts = rng.integers(0, cfg.vocab, (b, plen), dtype=np.int32)
+    img = None
+    if cfg.family == "vlm":
+        img = rng.normal(size=(b, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32)
+    common = dict(batch=b, max_seq=plen + gen, attention_impl=impl, n_layers=layers)
+    tokens, stats = ServeSession(arch, params=params, **common).generate(
+        prompts, gen, image_embeds=img, keep_logits=True)
     forced = tokens[:, plen:]
-    f32 = ServeSession(ARCH, params=tree_map(lambda t: t.float(), params), dtype="float32",
+    f32 = ServeSession(arch, params=tree_map(lambda t: t.float(), params), dtype="float32",
                        **common)
-    exact = smoke._forced(f32, prompts, None, forced)[0]
+    exact = smoke._forced(f32, prompts, img, forced)[0]
     del f32
     torch.cuda.empty_cache()
     one_f32 = smoke._step_rels(torch.as_tensor(stats["logits"]), exact, cfg.vocab)
-    print(f"[tp drift] {ARCH}, {args.layers} layers, bf16, {b} x {plen} + {gen}; one device "
+    cut = f"{layers} layers" if layers else f"all {full.n_layers} layers"
+    print(f"[tp drift] {arch}, {cut}, bf16, attention {impl!r}, {b} x {plen} + {gen}; one device "
           f"against float32: prefill {one_f32[0]:.6f}, decode max {max(one_f32[1:]):.6f}; "
           f"{smoke.nvidia_smi_line()}", flush=True)
     real = steps.serves_tensor_parallel
-    for path, shape in PATHS:
+    tp = real(cfg, smoke._logical_mesh((2, 2)))
+    for path, shape in TP_PATHS if tp else GATHERED_PATHS:
         if path == "gathered":
             steps.serves_tensor_parallel = lambda cfg, mesh: False
         try:
-            sess = ServeSession(ARCH, mesh=smoke._logical_mesh(shape), params=params, **common)
-            got = smoke._forced(sess, prompts, None, forced)[0]
+            sess = ServeSession(arch, mesh=smoke._logical_mesh(shape), params=params, **common)
+            got = smoke._forced(sess, prompts, img, forced)[0]
         finally:
             steps.serves_tensor_parallel = real
         del sess
         torch.cuda.empty_cache()
         rels = smoke._step_rels(got, stats["logits"], cfg.vocab)
         to_f32 = smoke._step_rels(got, exact, cfg.vocab)
-        print(f"[tp drift] {path} on {shape}: against one device prefill {rels[0]:.6f}, decode "
-              f"max {max(rels[1:]):.6f}; against float32 prefill {to_f32[0]:.6f}, decode max "
-              f"{max(to_f32[1:]):.6f}", flush=True)
+        print(f"[tp drift] {arch} {path} on {shape}: against one device prefill {rels[0]:.6f}, "
+              f"decode max {max(rels[1:]):.6f}; against float32 prefill {to_f32[0]:.6f}, decode "
+              f"max {max(to_f32[1:]):.6f}", flush=True)
+    del params
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", type=_spec, action="append",
+                    help="ARCH[:LAYERS], repeatable (default deepseek-67b:8)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("tp_drift: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import chip_smoke as smoke
+
+    smoke.phase_device()
+    smoke.phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, layers in args.arch or [("deepseek-67b", 8)]:
+        drift(smoke, arch, layers)
     return 0
 
 
