@@ -326,30 +326,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               relative norm of phase 12's (3 x the first run's 0.012342 is
               looser); a combine planted to drop the last block must exceed
               it; prefill_s, ms a step, tokens/s, peak memory, a profiled
-              prefill and decode step. (b) minicpm3-4b (MLA), mamba2-780m,
-              zamba2-7b ("flash", hd 112) and the VLM ("flash", 10 layers)
-              at full width in bf16, phase 19's 4 x 512 prompts and 16
-              steps, each teacher-forced on its one-device session's tokens
+              prefill and decode step. (b) minicpm3-4b (MLA), mamba2-780m
+              and zamba2-7b ("flash", hd 112), the configs that serve on the
+              gathered path, at full width in bf16, phase 19's 4 x 512
+              prompts and 16 steps, each teacher-forced on its one-device
+              session's tokens
               beside a float32 run of the same weights: within a config's
               bound of one device (``SERVE_SHARD_BF16_TOL``, 1.5 x the
               largest reading of ``tools/tp_drift.py``'s gathered path on 2
               x 2), and never farther from float32 than one device plus
               3e-2; a prefill whose last data shard's cache is lost must
               fail the same rule. (c) float32 at full width, 2 layers (the
-              VLM 5, zamba2 7), every arch above and moonshot (on its
-              tensor-parallel path, 2 x 1,024 tokens) against the port's CPU
+              VLM 5, zamba2 7), every arch above, moonshot (2 x 1,024
+              tokens) and the VLM (both on their tensor-parallel path: the
+              VLM's 5 layers launch flash 20 times) against the port's CPU
               session on the same weights: the prefill logits within 1e-4;
               a decode step (which reads the bf16 attention caches) within
               1e-4 of the card's one-device session's distance from the CPU
- 21d. tensor-parallel serve  the dense and MoE decoders on the 2 x 2 mesh
-              of logical shards tensor-parallel (``distributed/
+ 21d. tensor-parallel serve  the dense, MoE and VLM decoders on the 2 x 2
+              mesh of logical shards tensor-parallel (``distributed/
               tensor_parallel.py``): each position gathers over 'data' only,
               into its 'model' block of every leaf whose spec has 'model',
               and computes its query heads (flash on H/m of them), its
               columns of wq/wk/wv and wi_gate/wi_up, its rows of both wo
               (the partials reduced in float32), its E/m experts (routed
               once on the home; its share of the MoE's output reduced in
-              float32) and its vocab block of the embedding and the logits;
+              float32), its columns of the VLM's image projection (once a
+              prefill) and its vocab block of the embedding and the logits;
               decode keeps the cache's
               flash-decoding layout. deepseek-67b at full width, 8 of 95
               layers, bf16, phase 19's 4 x 512 prompts and 16 steps,
@@ -372,15 +375,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               (bf16: 2^-8); the float32 prefill's drops a layer differ from
               one device's by at most the choices routed to another expert,
               at most 0.1 % of them (near ties that the reductions' order
-              rounds apart). Each run: the bytes each
+              rounds apart). llama-3.2-vision-90b (cross gates opened to
+              0.5, 1,601 image tokens from the phase's seed, around a
+              shared direction so that the cross layers count) at 10 of 100
+              layers in bf16 (two groups of 4 self and 1 gated cross
+              layer) within a bound set from a ``tools/tp_drift.py``
+              reading, and one group (5 layers) in float32 within 1e-4 of
+              one device, whose steps are computed before its parameters
+              are freed. Each run: the bytes each
               position gathered on this path and on the gathered path
               (under 0.55 of it), the flash launches (layers x data shards x
-              model shards, each on H/m query heads; none at decode), the
+              model shards, each on H/m query heads, the VLM's cross layers
+              non-causal at its 1,601 image keys; none at decode), the
+              kernel held to its plain version at each of those shapes, the
               prefill and decode times beside the one-device session's (a
               first and a second run), peak memory, and planted faults the
               run's own rule must refuse: a reduction that drops the last
-              shard's partial, and (MoE) a shard that runs its neighbour's
-              expert block
+              shard's partial, (MoE) a shard that runs its neighbour's
+              expert block, and (VLM) a shard that takes its neighbour's
+              KV heads of the image K/V in the cross layers only
 
  22. livejournal  com-livejournal, the paper's largest graph, at full size
               (|V| 3,997,962, |E| 34,681,189, rmat from its config's seed).
@@ -562,16 +575,17 @@ FAMILY_GATE = 0.5  # the vlm's cross-attention gates (tanh 0.46), so that image 
 # port's CPU path, at phase 19c's cut depths (FAMILY_F32_DEPTH, else 2); a
 # bf16 TrainLoop of each config whose AdamW state fits one card, cut in
 # depth where parameters and state at about 22 B a parameter would pass
-# about 53 GB, and the others to half their depth so that the script ends
-# well inside its time limit; an MoE resume at one layer in a deterministic
+# about 53 GB, and the others to a quarter of their depth (zamba2, minicpm3:
+# half of that cut) so that the script ends well inside its time limit (the
+# VLM's 21d runs took their time); an MoE resume at one layer in a deterministic
 # child. The VLM trains nowhere: its AdamW state alone (6.39 B x 12 B)
 # passes the card.
 FAMILY_TRAIN_GRADS = ("moonshot-v1-16b-a3b", "zamba2-7b", "mamba2-780m", "hubert-xlarge",
                       "minicpm3-4b", "llama-3.2-vision-90b")
 FAMILY_TRAIN_DOTS = "moonshot-v1-16b-a3b"  # tests/test_torch_families_model.py holds its "dots"
 FAMILY_VLM = "llama-3.2-vision-90b"  # its float32 hold takes 52 GB of the host and of the card
-FAMILY_TRAIN_LOOPS = (("moonshot-v1-16b-a3b", 2), ("zamba2-7b", 12), ("mamba2-780m", 24),
-                      ("hubert-xlarge", 24), ("minicpm3-4b", 12))  # (arch, depth cut)
+FAMILY_TRAIN_LOOPS = (("moonshot-v1-16b-a3b", 2), ("zamba2-7b", 6), ("mamba2-780m", 12),
+                      ("hubert-xlarge", 12), ("minicpm3-4b", 6))  # (arch, depth cut)
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS, FAMILY_TRAIN_WARM = 4, 2048, 30, 3
 # TRAIN_MIN_DROP holds the first step's loss against the mean of the last five:
 # one step's loss is noisy where few tokens count (hubert's masked
@@ -614,26 +628,28 @@ SERVE_SHARD_MAX_SEQ = LM_PROMPT + LM_GEN
 # the prefill's 0) is 0.037, so LM_TOL, never looser, holds.
 SERVE_SHARD_TOL = LM_TOL
 SERVE_SHARD_FAMILIES = (("minicpm3-4b", None, "xla"), ("mamba2-780m", None, "xla"),
-                        ("zamba2-7b", None, "flash"), ("llama-3.2-vision-90b", 10, "flash"))
-# (arch, depth cut, impl) of 21b; 21c also runs moonshot, which serves
-# tensor-parallel on 2 x 2 (phase 21d holds its bf16 and float32 runs).
+                        ("zamba2-7b", None, "flash"))
+# (arch, depth cut, impl) of 21b; 21c also runs moonshot and the VLM, which
+# serve tensor-parallel on 2 x 2 (phase 21d holds their bf16 and float32
+# runs).
 SERVE_SHARD_IMPL = {LM_ARCH: "flash", **{a: impl for a, _, impl in SERVE_SHARD_FAMILIES},
-                    "moonshot-v1-16b-a3b": "flash"}
+                    "moonshot-v1-16b-a3b": "flash", "llama-3.2-vision-90b": "flash"}
 SERVE_SHARD_F32_SHAPE = (4, 32, 4)  # batch, prompt, generated
 SERVE_SHARD_F32_MOE_SHAPE = (2, 1024, 4)  # one routing group of 1,024 a data shard
 # 21b's bf16 logits against the one-device session, a config (relative
 # norm, max over the steps): 1.5 x the largest reading of the gathered path
 # on 2 x 2, from tools/tp_drift.py (its prompts) and from this phase's runs
 # (NVIDIA H100 80GB HBM3, 700 W): minicpm3 0.072696 / 0.075101, mamba2
-# 0.0 / 0.016160, zamba2 0.046105 / 0.045503, the VLM 0.031834 / 0.031674.
+# 0.0 / 0.016160, zamba2 0.046105 / 0.045503 (the VLM, which now serves
+# tensor-parallel in 21d, read 0.031834 / 0.031674 there).
 # Splitting the batch over 'data' changes the products' shapes, so their
 # bf16 roundings part, and the parted roundings grow over the decode steps
 # (one device reads 0.058-0.077 from float32). A run is also held no
 # farther from float32 than one device plus LM_TOL; 21c's float32 runs are
 # the tight check.
 SERVE_SHARD_BF16_TOL = {"minicpm3-4b": 1.5 * 0.075101, "mamba2-780m": 1.5 * 0.016160,
-                        "zamba2-7b": 1.5 * 0.046105, "llama-3.2-vision-90b": 1.5 * 0.031834}
-# Phase 21d: the dense decoders served tensor-parallel on 2 x 2 logical
+                        "zamba2-7b": 1.5 * 0.046105}
+# Phase 21d: the decoders served tensor-parallel on 2 x 2 logical
 # shards of cuda:0 (each position gathers its 'model' blocks over 'data'
 # and computes its heads, columns and vocab block). deepseek-67b at full
 # width, cut to 8 of 95 layers (about 1.42 GB a layer and 3.36 GB of
@@ -645,7 +661,17 @@ SERVE_TP_MESH = (2, 2)
 SERVE_TP_RUNS = (("deepseek-67b", 2, "float32"), ("deepseek-67b", 8, "bfloat16"),
                  ("qwen1.5-110b", 2, "bfloat16"), ("moonshot-v1-16b-a3b", 2, "float32"),
                  ("moonshot-v1-16b-a3b", 12, "bfloat16"), ("dbrx-132b", 1, "float32"),
-                 ("dbrx-132b", 2, "bfloat16"))  # (arch, depth cut, dtype)
+                 ("dbrx-132b", 2, "bfloat16"), ("llama-3.2-vision-90b", 5, "float32"),
+                 ("llama-3.2-vision-90b", 10, "bfloat16"))  # (arch, depth cut, dtype)
+# The VLM's runs: 10 of 100 layers in bf16 (21b's cut: two groups of 4 self
+# and 1 cross layer, 10.67 B parameters, 21.3 GB; its float32 reference
+# copy, 42.7 GB, sits beside it), one whole group (5 layers, 6.39 B, 25.6 GB
+# a copy) in float32 at SERVE_SHARD_F32_SHAPE. The float32 run's one-device
+# session computes its prefill, each decode step's starting cache and
+# logits first and is freed before the mesh session places and gathers its
+# copies (two copies on the card, not three). The cross gates are opened
+# (_open_gates) and the image embeddings drawn from the phase's seed around
+# a shared direction (_image_embeds).
 # The MoE runs: moonshot-v1-16b-a3b at phase 19's cut (12 of 48 layers,
 # 7.52 B parameters, 15.0 GB in bf16) and dbrx-132b at 2 of 40 (7.75 B,
 # 15.5 GB; its bf16 and float32 copies together about 47 GB), their float32
@@ -679,8 +705,11 @@ MOE_FLIP_TOL = 1e-3
 # the tensor-parallel path on 2 x 2 read 0.175984). dbrx's random router is
 # near uniform over 16 experts, so a bf16 rounding moves top-4 choices and
 # one device lands 0.326 from float32 itself; its float32 run is the check.
+# The VLM's at 10 layers: 1.5 x its largest reading, 0.033598 (1 x 2; 2 x 2
+# 0.033594, 2 x 1 0.031270, the gathered path 0.031404), with 21d's image
+# embeddings (_image_embeds).
 SERVE_TP_BF16_TOL = {"deepseek-67b": 1.5 * SERVE_SHARD_TOL, "moonshot-v1-16b-a3b": 1.5 * 0.050049,
-                     "dbrx-132b": 1.5 * 0.337294}
+                     "dbrx-132b": 1.5 * 0.337294, "llama-3.2-vision-90b": 1.5 * 0.033598}
 # A bf16 run lands no farther from float32 than one device plus LM_TOL; for
 # dbrx plus its bound: two runs that far apart may differ by that much in
 # their distance from float32 (the triangle inequality), and its readings
@@ -5651,24 +5680,43 @@ def phase_sharded_serve(lm: dict) -> dict:
 # ---------------------------------------------------------------- phase 21d
 
 
-def _same_cache_steps(one, sess, prompts, forced: np.ndarray, rows=None) -> list[float]:
-    """Relative norms of ``sess``'s logits against ``one``'s (a one-device
-    session): the prefill (its batch rows ``rows``, all by default), then
-    each decode step fed a copy of ``one``'s cache (dense; the sharded step
-    places it) and the token ``forced`` gives."""
+def _one_device_steps(one, prompts, img, forced: np.ndarray) -> tuple:
+    """A one-device session's prefill logits and, for each decode step fed
+    the token ``forced`` gives, a copy of the dense cache it starts from and
+    its logits: what ``_same_cache_steps`` holds another session to once
+    ``one``'s parameters are freed."""
+    from repro_torch.models.params import tree_map
+
+    plen, steps = prompts.shape[1], []
+    with one.gathered():
+        want, cache = one.prefill(prompts, img)
+        for i in range(forced.shape[1] - 1):
+            tok = torch.from_numpy(forced[:, i:i + 1].astype(np.int32)).cuda()
+            start = tree_map(torch.clone, cache)
+            logits, cache = one.decode(cache, tok, plen + i)
+            steps.append((start, logits))
+    return want, steps
+
+
+def _same_cache_steps(one_steps: tuple, sess, prompts, img, forced: np.ndarray,
+                      rows=None) -> list[float]:
+    """Relative norms of ``sess``'s logits against a one-device session's
+    (``one_steps``, ``_one_device_steps``): the prefill (its batch rows
+    ``rows``, all by default), then each decode step fed a copy of the
+    one-device session's cache (dense; the sharded step places it) and the
+    token ``forced`` gives."""
     from repro_torch.models.params import tree_map
 
     plen, vocab = prompts.shape[1], sess.cfg.vocab
     rows = slice(None) if rows is None else rows
+    want, steps = one_steps
     with sess.gathered():
-        want, cache = one.prefill(prompts)
-        got, _ = sess.prefill(prompts)
+        got, _ = sess.prefill(prompts, img)
         rels = [_rel(got[rows, :vocab], want[rows, :vocab])]
-        for i in range(forced.shape[1] - 1):
+        for i, (start, want_i) in enumerate(steps[:forced.shape[1] - 1]):
             tok = torch.from_numpy(forced[:, i:i + 1].astype(np.int32)).cuda()
-            got, _ = sess.decode(tree_map(torch.clone, cache), tok, plen + i)
-            want, cache = one.decode(cache, tok, plen + i)
-            rels.append(_rel(got[:, :vocab], want[:, :vocab]))
+            got, _ = sess.decode(tree_map(torch.clone, start), tok, plen + i)
+            rels.append(_rel(got[:, :vocab], want_i[:, :vocab]))
     return rels
 
 
@@ -5739,15 +5787,15 @@ def _moe_layer_same_input(sess, moe_params, cfg, shape: tuple, dtype) -> tuple:
 
 @contextlib.contextmanager
 def _flash_heads():
-    """The (query heads, KV heads) of each flash launch of the model code,
-    recorded in the list yielded."""
+    """The (query heads, KV heads, keys, causal) of each flash launch of the
+    model code, recorded in the list yielded."""
     from repro_torch.models import layers
 
     seen: list = []
     real = layers.flash_attention_bshd
 
     def spy(q, k, v, *args, **kwargs):
-        seen.append((q.shape[2], k.shape[2]))
+        seen.append((q.shape[2], k.shape[2], k.shape[1], bool(kwargs.get("causal"))))
         return real(q, k, v, *args, **kwargs)
 
     layers.flash_attention_bshd = spy
@@ -5755,6 +5803,65 @@ def _flash_heads():
         yield seen
     finally:
         layers.flash_attention_bshd = real
+
+
+def _image_embeds(rng, b: int, cfg) -> np.ndarray:
+    """The VLM's image embeddings in 21d and ``tools/tp_drift.py``: normal
+    patches around one shared direction of twice their scale, as a vision
+    tower's patch embeddings share a common component. At random weights a
+    cross layer attends nearly uniformly over its 1,601 keys, so the
+    patches' own noise averages to about 1/40 of a token's size; the shared
+    part keeps the cross layers' output, and a fault there, of a token's
+    size."""
+    shared = 2.0 * rng.normal(size=cfg.d_frontend)
+    return (rng.normal(size=(b, cfg.n_image_tokens, cfg.d_frontend)) + shared).astype(np.float32)
+
+
+def _tp_launches(cfg, m: int, plen: int, data_shards: int) -> list:
+    """The flash launches of a tensor-parallel prefill, in order: (query
+    heads, KV heads, keys, causal) a (data shard, layer, model shard), the
+    VLM's cross layers non-causal over its image tokens."""
+    from repro_torch.models.model import vlm_counts
+
+    heads = (cfg.n_heads // m, max(cfg.n_kv_heads // m, 1))
+    layers = [(plen, True)] * cfg.n_layers
+    if cfg.family == "vlm":
+        groups, self_per, _ = vlm_counts(cfg)
+        layers = ([(plen, True)] * self_per + [(cfg.n_image_tokens, False)]) * groups
+    return [(*heads, sk, causal) for _ in range(data_shards) for sk, causal in layers
+            for _ in range(m)]
+
+
+@contextlib.contextmanager
+def _patched(module, attr: str, make):
+    """``module.attr`` replaced by ``make(real)`` inside the block."""
+    real = getattr(module, attr)
+    setattr(module, attr, make(real))
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+@contextlib.contextmanager
+def _neighbour_image_heads():
+    """A planted fault: in the VLM's cross layers only (``_tp_cross`` at
+    the prefill, ``_tp_cross_decode`` at decode), each model shard takes its
+    neighbour's KV heads of the image K/V; the self layers keep theirs."""
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.models import model as model_mod
+
+    def crossing(fn):
+        def wrapped(*args, **kwargs):
+            with _patched(tensor_parallel, "kv_block",
+                          lambda real: lambda c, j, m: real(c, (j + 1) % m, m)):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+    with _patched(model_mod, "_tp_cross", crossing), \
+            _patched(model_mod, "_tp_cross_decode", crossing):
+        yield
 
 
 def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng) -> int:
@@ -5765,35 +5872,40 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     from repro_torch.distributed.tensor_parallel import ModelBlocks, serves_tensor_parallel
     from repro_torch.distributed import tensor_parallel
     from repro_torch.launch.serve import ServeSession
-    from repro_torch.models.model import init_model
+    from repro_torch.models.model import init_model, vlm_counts
     from repro_torch.models.params import tree_leaves, tree_map
 
     full = get_config(arch)
     cfg = full.scaled(n_layers=depth, dtype=dtype)
     check(serves_tensor_parallel(cfg, mesh), f"[tp serve] {arch} does not take the TP path")
-    moe = cfg.family == "moe"
+    moe, vlm = cfg.family == "moe", cfg.family == "vlm"
     b, plen, gen = ((FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN) if dtype == "bfloat16"
                     else SERVE_SHARD_F32_MOE_SHAPE if moe else SERVE_SHARD_F32_SHAPE)
     torch.cuda.empty_cache()
     gen_card = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(gen_card, cfg, "cuda")
+    _open_gates(params)
     if cfg.qkv_bias:
         for name in ("bq", "bk", "bv"):
             params["layers"]["attn"][name].normal_(0.0, SERVE_TP_BIAS_STD, generator=gen_card)
     prompts = rng.integers(0, cfg.vocab, (b, plen), dtype=np.int32)
+    img = _image_embeds(rng, b, cfg) if vlm else None
     common = dict(batch=b, max_seq=plen + gen, attention_impl="flash", n_layers=depth)
     one = ServeSession(arch, params=params, dtype=dtype, **common)
-    tokens, stats = one.generate(prompts, gen, keep_logits=True)
+    tokens, stats = one.generate(prompts, gen, image_embeds=img, keep_logits=True)
     forced = tokens[:, plen:]
-    _, one_pre, _, one_prefill_s, one_decode_s, _ = _forced(one, prompts, None, forced)
+    _, one_pre, _, one_prefill_s, one_decode_s, _ = _forced(one, prompts, img, forced)
     one_routing = _prefill_routing(one, prompts) if moe else None
-    if dtype == "bfloat16":  # its logits are kept; its parameters are freed
-        one = None
+    # The float32 rule holds each step to the one-device session's, which
+    # is computed here so that its parameters are freed before the mesh
+    # session places and gathers its copies; in bf16 its logits are kept.
+    one_steps = _one_device_steps(one, prompts, img, forced) if dtype == "float32" else None
+    del one
     exact = None
     if dtype == "bfloat16":  # the same weights in float32, fed the same tokens
         f32 = ServeSession(arch, params=tree_map(lambda t: t.float(), params), dtype="float32",
                            **common)
-        exact = _forced(f32, prompts, None, forced)[0]
+        exact = _forced(f32, prompts, img, forced)[0]
         del f32
         torch.cuda.empty_cache()
     sess = ServeSession(arch, mesh=mesh, params=params, dtype=dtype, **common)
@@ -5822,28 +5934,37 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     runs = []
     for _ in range(2):  # the first run's steps meet the column blocks' shapes first
         with _flash_heads() as heads:
-            runs.append((*_forced(sess, prompts, None, forced), list(heads)))
+            runs.append((*_forced(sess, prompts, img, forced), list(heads)))
     peak = torch.cuda.max_memory_allocated()
     got, pre, dec, prefill_s, decode_s, layout, heads = runs[-1]
-    want_heads = [(cfg.n_heads // m, max(cfg.n_kv_heads // m, 1))] * (depth * shards)
+    want_heads = _tp_launches(cfg, m, plen, shards // m)
     check(pre["flash_attention"] == depth * shards and dec["flash_attention"] == 0
           and not any(v for k, v in {**pre, **dec}.items() if k != "flash_attention")
           and heads == want_heads,
-          f"[tp serve] {arch}: launches prefill {pre}, decode {dec}, heads {heads[:4]}..; "
-          f"expected {depth} x {shards} flash on {want_heads[0]} heads")
-    # The kernel at a launch's shape (a data shard's rows, the model shard's
-    # query and KV heads), held to its plain version.
+          f"[tp serve] {arch}: launches prefill {pre}, decode {dec}, (heads, KV heads, keys, "
+          f"causal) {sorted(set(heads))}; expected {depth} x {shards} flash, "
+          f"{sorted(set(want_heads))}")
+    # The kernel at each of the path's shapes (a data shard's rows, the
+    # model shard's query and KV heads; the VLM's cross layers non-causal at
+    # its image tokens, key positions zero), held to its plain version.
     from repro_torch.kernels.flash_attention import (
         flash_attention_bshd_cuda,
         flash_attention_bshd_reference,
     )
 
     rows = b // (shards // m)
-    ops = _gqa_inputs(rows, plen, plen, *heads[0], cfg.resolved_head_dim, getattr(torch, dtype),
-                      seed=31)
-    kernel = _flash_case(flash_attention_bshd_cuda, flash_attention_bshd_reference, ops, True,
-                         heads[0][0], f"{arch} tensor-parallel prefill shard")
-    del ops
+    kernel = {}
+    for hq, hk, sk, causal in sorted(set(heads), key=lambda t: not t[3]):
+        ops = _gqa_inputs(rows, plen, sk, hq, hk, cfg.resolved_head_dim, getattr(torch, dtype),
+                          seed=31 if causal else 32)
+        if not causal:  # attn_forward's cross branch: queries at 0 .., keys at 0
+            ops = (*ops[:3], torch.arange(plen, dtype=torch.int32, device="cuda").repeat(rows, 1),
+                   torch.zeros_like(ops[4]))
+        label = "self" if causal else "cross"
+        kernel[label] = (sk, causal, *_flash_case(
+            flash_attention_bshd_cuda, flash_attention_bshd_reference, ops, causal, hq,
+            f"{arch} tensor-parallel prefill shard, {label} attention"))
+        del ops
     rels = _step_rels(got, stats["logits"], cfg.vocab)
     tol = SERVE_TP_BF16_TOL.get(arch, SERVE_SHARD_TOL) if exact is not None else FAMILY_CARD_TOL
     drops, held = "", None
@@ -5891,13 +6012,13 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         is held within ``tol`` from a copy of the one-device session's
         cache (the MoE's prefill on the rows ``held``)."""
         if exact is None:
-            same = _same_cache_steps(one, sess, prompts, forced[:, :steps], held)
+            same = _same_cache_steps(one_steps, sess, prompts, img, forced[:, :steps], held)
             rows = "" if held is None else f"; the prefill on rows {held}"
             return (max(same) <= tol, same,
                     f"; each step from a copy of the one-device session's cache "
                     f"{[float(f'{r:.3e}') for r in same]} (bound {tol}{rows}; the steps above "
                     f"read their own caches)")
-        logits = got if steps == gen else _forced(sess, prompts, None, forced[:, :steps])[0]
+        logits = got if steps == gen else _forced(sess, prompts, img, forced[:, :steps])[0]
         near = _step_rels(logits, stats["logits"][:steps], cfg.vocab)
         one_f32 = max(_step_rels(torch.as_tensor(stats["logits"][:steps]), exact[:steps],
                                  cfg.vocab))
@@ -5914,27 +6035,33 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     # Planted faults the rule must refuse, each held by the same verdict
     # over two steps: a reduction that loses the last model shard's
     # partial; for the MoE, a shard that builds its neighbour's expert
-    # block's one-hots and runs them on its own weights.
-    faults = {"a reduction dropping the last shard's partial": (
-        "reduce_f32", lambda real: lambda parts, dev, dt: real(parts[:-1], dev, dt))}
+    # block's one-hots and runs them on its own weights; for the VLM, a
+    # shard that takes its neighbour's KV heads of the image K/V in the
+    # cross layers only.
+    faults = {"a reduction dropping the last shard's partial": lambda: _patched(
+        tensor_parallel, "reduce_f32", lambda real: lambda parts, dev, dt: real(parts[:-1], dev,
+                                                                                dt))}
     if moe:
-        faults["a shard running its neighbour's expert block"] = (
-            "expert_range", lambda real: lambda c, j, m_: real(c, (j + 1) % m_, m_))
+        faults["a shard running its neighbour's expert block"] = lambda: _patched(
+            tensor_parallel, "expert_range", lambda real: lambda c, j, m_: real(c, (j + 1) % m_,
+                                                                               m_))
+    if vlm:
+        faults["a shard taking its neighbour's KV heads of the image K/V"] = _neighbour_image_heads
     refused = {}
-    for name, (attr, planted) in faults.items():
-        real = getattr(tensor_parallel, attr)
-        setattr(tensor_parallel, attr, planted(real))
-        try:
+    for name, planted in faults.items():
+        with planted():
             bad_ok, bad, _ = verdict(2)
-        finally:
-            setattr(tensor_parallel, attr, real)
         check(not bad_ok, f"[tp serve] {arch}: {name} passes the rule: {bad}")
         refused[name] = bad
-    del one
     cut = f"{depth} of {full.n_layers} layers"
     first = runs[0]
     experts = (f", {cfg.n_experts} experts top-{cfg.experts_per_token} ({cfg.n_experts // m} a "
                f"shard), capacity factor {cfg.moe_capacity_factor}") if moe else ""
+    if vlm:
+        groups, self_per, _ = vlm_counts(cfg)
+        experts = (f", {cfg.n_image_tokens} image tokens of width {cfg.d_frontend} (seeded), "
+                   f"{groups} groups of {self_per} self and 1 cross layer, cross gates "
+                   f"{FAMILY_GATE}")
     log(f"[tp serve] {arch} ({cfg.family}, profile 'tp') at full width (d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads, KV {cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
         f"vocab {cfg.vocab}{experts}), {cut}, {dtype}, attention 'flash', tensor-parallel on "
@@ -5950,8 +6077,12 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         f"{pre['flash_attention']} ({depth} layers x {shards // m} data shards x {m} model "
         f"shards, each on {heads[0][0]} query and {heads[0][1]} KV heads; one device "
         f"{one_pre['flash_attention']} on {cfg.n_heads}), decode {dec['flash_attention']}; the "
-        f"kernel at a launch's shape (B {rows}, S {plen}) against its plain version: max |err| "
-        f"{kernel[0]:.3e}, max row error {kernel[1]:.3e}, {kernel[2]} tiles scored; prefill "
+        f"kernel at the path's shapes against its plain version: "
+        + "; ".join(f"{label} attention (B {rows}, Sq {plen}, Sk {sk}, "
+                    f"{'causal' if causal else 'not causal'}) max |err| {err:.3e}, max row error "
+                    f"{row:.3e}, {tiles} tiles scored"
+                    for label, (sk, causal, err, row, tiles) in kernel.items())
+        + "; prefill "
         f"{prefill_s:.6f} s (first run {first[3]:.6f}; one device {one_prefill_s:.6f}), decode "
         f"{1e3 * decode_s / (gen - 1):.3f} ms a step (first run "
         f"{1e3 * first[4] / (gen - 1):.3f}; one device {1e3 * one_decode_s / (gen - 1):.3f}); "
@@ -5965,8 +6096,8 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
 
 
 def phase_tensor_parallel_serve() -> dict:
-    """21d: the dense decoders served tensor-parallel on 2 x 2 logical
-    shards of the card (the module docstring). Returns the flash launches of
+    """21d: the dense, MoE and VLM decoders served tensor-parallel on 2 x 2
+    logical shards of the card (the module docstring). Returns the flash launches of
     each run's prefill."""
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32

@@ -246,6 +246,18 @@ class ShardedTensor:
             out[outer] = self.held(idx, dev)[inner]
         return out
 
+    def view_at(self, pos, index) -> torch.Tensor:
+        """The region ``index`` (a slice a leading dim) as a view of the
+        block mesh position ``pos`` holds: nothing is copied or moved.
+        Raises ``ValueError`` where that block does not hold all of it."""
+        dev, idx = self._layout[tuple(pos)]
+        inner = []
+        for (lo, hi), s in zip(self._region(index), self.sharding.block_slices(self.shape, idx)):
+            if lo < s.start or hi > s.stop:
+                raise ValueError(f"block {idx} at {tuple(pos)} does not hold region {index}")
+            inner.append(slice(lo - s.start, hi - s.start))
+        return self.blocks[(dev, idx)][tuple(inner)]
+
     def scatter_(self, piece: torch.Tensor, starts) -> None:
         """Write ``piece`` (dense, ``ndim`` dims, cast to ``dtype``) in place
         at the global offsets ``starts``, into every (device, block) entry of

@@ -1,28 +1,33 @@
-"""Tensor-parallel serving of the dense and MoE decoders over a mesh's 'model' axis.
+"""Tensor-parallel serving of the dense, MoE and VLM decoders over a mesh's 'model' axis.
 
 The reference gets this compute from GSPMD: on the "tp" profile
 (``src/repro/distributed/ctx.py:34-52``) it places wq/wk/wv and the MLP's
 wi_gate/wi_up by columns over 'model', wo by rows, tok_embed and lm_head by
-vocab, the MoE's experts by their expert dim, and its layer code pins the
-activations to those blocks (``src/repro/models/layers.py:87-97``,
-``:280-296``, ``:414-417``; ``src/repro/models/moe.py:69-85``). The port
+vocab, the MoE's experts by their expert dim, the VLM's image projection
+by columns, and its layer code pins the activations to those blocks
+(``src/repro/models/layers.py:87-97``, ``:181-196``, ``:280-296``,
+``:407-417``; ``src/repro/models/moe.py:69-85``;
+``src/repro/models/model.py:123``). The port
 is single-controller and eager, so it writes the schedule out: this module
 holds the blocks and the moves, ``models/model.py`` the layer loops
 (``prefill_placed_tp``, ``decode_placed_tp``).
 
 Which configs take it: ``serves_tensor_parallel(cfg, mesh)``, the one place
-that decides. The dense and MoE families with standard (GQA) attention on
-the "tp" profile, on a mesh with a 'model' axis whose size divides the
-query heads and, for the MoE, the experts (deepseek-67b, qwen1.5-110b,
-moonshot-v1-16b-a3b, dbrx-132b, a smoke config pinned
-``parallelism="tp"``). Every other config (the VLM, hybrid, SSM, MLA and
-audio families, the "dp" profile) serves on the gathered path: every
-parameter gathered whole on each device.
+that decides. The dense, MoE and VLM families with standard (GQA)
+attention on the "tp" profile, on a mesh with a 'model' axis whose size
+divides the query heads and, for the MoE, the experts (deepseek-67b,
+qwen1.5-110b, moonshot-v1-16b-a3b, dbrx-132b, llama-3.2-vision-90b, a
+smoke config pinned ``parallelism="tp"``). Every other config (the hybrid,
+SSM, MLA and audio families, the "dp" profile) serves on the gathered
+path: every parameter gathered whole on each device.
 
 What model shard ``j`` of ``m`` holds (``gather_model_blocks``): the ``j``-th
 'model' block of every leaf whose spec splits a dim over 'model', gathered
 over the other axes ('data': the ZeRO-3 gather), and every other leaf (the
-norms, the MoE router) whole. What it computes, on its device:
+norms, the MoE router, the VLM's cross gates) whole. For the VLM that is
+the image projection's columns, and the self and cross layers' blocks as
+a decoder layer's (``layers`` stacked ``[G, per, ...]``, ``cross_layers``
+``[G, ...]``). What it computes, on its device:
 
   * embedding: the tokens in its vocab range (zeros elsewhere);
   * attention: its ``H / m`` query heads (``head_range``) from its column
@@ -38,6 +43,16 @@ norms, the MoE router) whole. What it computes, on its device:
     tokens and the small routing tensors (gates, experts, slots, ``[ng, g,
     k]`` each); the shard builds the dispatch and combine one-hots of its
     own experts and returns its float32 share of ``y``;
+  * the VLM's image tokens: its columns of ``image_embeds @ img_proj``,
+    once a prefill; the home joins them and sends them whole to every
+    shard;
+  * a VLM cross layer: its query heads (not roped) from its wq columns,
+    its wk/wv columns of the image tokens, joined on the home (not roped)
+    and its KV heads taken as above, non-causal attention, its rows of wo;
+    the home gates the reduced output (``tanh(gate)``) and writes the
+    joined image K/V into the cache. At decode a shard reads its KV heads
+    of the image K/V from the copy its own device holds (the cache's
+    ``xk``/``xv`` are replicated over 'model'): nothing moves;
   * logits: its vocab columns of lm_head (``tok_embed``'s rows when tied).
 
 A row-parallel output (wo's rows, an expert block's share of the MoE's
@@ -85,6 +100,7 @@ __all__ = [
     "first_positions",
     "ModelGroup",
     "model_group",
+    "group_positions",
     "reduce_f32",
 ]
 
@@ -99,15 +115,16 @@ def model_size(mesh) -> int:
 
 def serves_tensor_parallel(cfg, mesh) -> bool:
     """Whether ``cfg`` serves tensor-parallel on ``mesh`` (module
-    docstring): the dense or MoE family, GQA attention, the "tp" profile,
-    and a 'model' axis that divides the query heads (and the MoE's
-    experts). Every other config takes the gathered path."""
-    if cfg.family not in ("dense", "moe") or cfg.attention != "gqa" or arch_profile(cfg) != "tp":
+    docstring): the dense, MoE or VLM family, GQA attention, the "tp"
+    profile, and a 'model' axis that divides the query heads (and the
+    MoE's experts). Every other config takes the gathered path."""
+    if (cfg.family not in ("dense", "moe", "vlm") or cfg.attention != "gqa"
+            or arch_profile(cfg) != "tp"):
         return False
     if MODEL not in mesh.axis_names:
         return False
     m = model_size(mesh)
-    return cfg.n_heads % m == 0 and (cfg.family == "dense" or cfg.n_experts % m == 0)
+    return cfg.n_heads % m == 0 and (cfg.family != "moe" or cfg.n_experts % m == 0)
 
 
 def model_dim(spec, ndim: int) -> int | None:
@@ -223,14 +240,16 @@ def reduce_f32(parts, device, dtype) -> torch.Tensor:
 
 
 class ModelGroup:
-    """The model shards of one data-parallel block: shard ``j``'s device
-    and parameter blocks; ``home`` is shard 0's device, where the residual
-    stream lives. ``moved[j]`` counts the activation bytes moved into shard
-    ``j`` from another shard of the group."""
+    """The model shards of one data-parallel block: shard ``j``'s device,
+    parameter blocks and mesh position (where its copies of the placed
+    cache's blocks are read); ``home`` is shard 0's device, where the
+    residual stream lives. ``moved[j]`` counts the activation bytes moved
+    into shard ``j`` from another shard of the group."""
 
-    def __init__(self, devices: list, blocks: list):
+    def __init__(self, devices: list, blocks: list, positions: list):
         self.devices = list(devices)
         self.blocks = list(blocks)
+        self.positions = [tuple(p) for p in positions]
         self.m = len(self.devices)
         self.home = self.devices[0]
         self.moved = [0] * self.m
@@ -270,10 +289,12 @@ class ModelGroup:
 def model_group(blocks: ModelBlocks, mesh, pos) -> ModelGroup:
     """The group of mesh position ``pos``: the positions that differ from
     it in the 'model' coordinate alone, in model order."""
+    positions = group_positions(mesh, pos)
+    devices = [mesh.devices[p] for p in positions]
+    return ModelGroup(devices, [blocks[(dev, j)] for j, dev in enumerate(devices)], positions)
+
+
+def group_positions(mesh, pos) -> list:
+    """The mesh positions of ``pos``'s model group, in model order."""
     ax = mesh.axis_names.index(MODEL)
-    devices = []
-    for j in range(model_size(mesh)):
-        p = list(pos)
-        p[ax] = j
-        devices.append(mesh.devices[tuple(p)])
-    return ModelGroup(devices, [blocks[(dev, j)] for j, dev in enumerate(devices)])
+    return [tuple(j if a == ax else p for a, p in enumerate(pos)) for j in range(model_size(mesh))]

@@ -16,19 +16,20 @@ port's specs equal the reference's, it records
     the tensor-parallel path the device's 'model' block);
   * ``analysis/hlo_cost.py::step_cost`` of the step a device runs. Two
     kinds of cells (``PER_DEVICE``, ``PER_DEVICE_TP``):
-      - the dense and MoE decoders' serving cells on the "tp" profile
-        (deepseek-67b, qwen1.5-110b, moonshot-v1-16b-a3b and dbrx-132b at
-        prefill_32k and decode_32k,
+      - the dense, MoE and VLM decoders' serving cells on the "tp"
+        profile (deepseek-67b, qwen1.5-110b, moonshot-v1-16b-a3b,
+        dbrx-132b and llama-3.2-vision-90b at prefill_32k and decode_32k,
         ``distributed/tensor_parallel.py::serves_tensor_parallel``) take the
         tensor-parallel step: one data-parallel shard's step (a row of the
         cache at decode) over its 16 model shards
         (``models/model.py::prefill_tp``, ``decode_row_tp``), run on meta,
         of which the home shard's part is counted (the other shards' work
         skipped, ``tensor_parallel.SHARD_SCOPE``): its 1/16 of the split
-        products (heads, columns, experts, vocab), and the MoE's routing,
-        the reductions of every shard's partials, the joins, norms and
-        residual stream, which it alone runs. It bounds the group's step;
-        the other shards run the split products alone;
+        products (heads, columns, experts, vocab, the VLM's image
+        projection), and the MoE's routing, the reductions of every
+        shard's partials, the joins, norms, cross gates and residual
+        stream, which it alone runs. It bounds the group's step; the other
+        shards run the split products alone;
       - every other cell (training, the other families, the "dp" profile)
         the step of one distinct data-parallel shard, run on its first
         device with every parameter gathered there: the per-device FLOPs
@@ -87,6 +88,7 @@ from repro_torch.distributed.sharding import zeros
 from repro_torch.distributed.tensor_parallel import (
     SHARD_SCOPE,
     ModelGroup,
+    group_positions,
     model_dim,
     model_size,
     serves_tensor_parallel,
@@ -291,7 +293,7 @@ def _serve_tp(spec: CellSpec, mesh, kind: str) -> tuple[StepCost, dict]:
     csh = named_tree(mesh, cache_spec_tree(cfg, mesh, cache))
     m = model_size(mesh)
     blocks = tree_map(_block_struct, params, psh)
-    group = ModelGroup([META] * m, [blocks] * m)
+    group = ModelGroup([META] * m, [blocks] * m, group_positions(mesh, (0,) * mesh.devices.ndim))
     if shape.kind == "prefill":
         batch = batch_struct(cfg, shape, with_labels=False)
         bsh = named_tree(mesh, batch_spec_tree(cfg, mesh, batch))

@@ -37,17 +37,20 @@ the prompt batch by ``batch_spec_tree``, and return the logits ``[B, V]``
 gathered on the mesh's first device with the placed cache. Two paths,
 chosen by ``distributed/tensor_parallel.py::serves_tensor_parallel``:
 
-  * tensor-parallel (the dense and MoE decoders with GQA attention on the
-    "tp" profile): each position gathers over 'data' only, into its
-    'model' block of every leaf whose spec has 'model' (the norms and the
-    MoE's router whole; ``gather_params`` returns ``ModelBlocks``). The
-    prefill runs each distinct data-parallel shard of the batch over its
-    model group (``models/model.py::prefill_placed_tp``), the decode step
-    each data-parallel row of the cache (``decode_placed_tp``): heads,
-    columns, experts and vocab a shard, the row-parallel partials reduced
-    in float32. The MoE's shards are ``_dp_shards``' (whole routing groups,
-    or the batch as one shard), each routed once on its group's home, so
-    its routing and drops are one device's;
+  * tensor-parallel (the dense, MoE and VLM decoders with GQA attention
+    on the "tp" profile): each position gathers over 'data' only, into its
+    'model' block of every leaf whose spec has 'model' (the norms, the
+    MoE's router and the VLM's cross gates whole; ``gather_params``
+    returns ``ModelBlocks``). The prefill runs each distinct data-parallel
+    shard of the batch over its model group
+    (``models/model.py::prefill_placed_tp``), the decode step each
+    data-parallel row of the cache (``decode_placed_tp``): heads, columns,
+    experts and vocab a shard, the row-parallel partials reduced in
+    float32. A shard of ``_dp_shards`` carries its rows of every batch
+    leaf, so a VLM shard's prefill projects its own rows of
+    ``image_embeds``. The MoE's shards are ``_dp_shards``' (whole routing
+    groups, or the batch as one shard), each routed once on its group's
+    home, so its routing and drops are one device's;
   * gathered (every other config): every parameter gathered whole once a
     distinct device (``GatheredParams``); the prefill runs
     ``forward_prefill`` once a distinct data-parallel shard

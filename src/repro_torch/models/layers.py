@@ -28,15 +28,18 @@ Attention supports:
     ``attn_decode`` / ``mla_decode`` up to the order of float32 sums.
 
 The reference's sharding constraints have no counterpart here: on a mesh
-the tensor-parallel schedule of the dense and MoE decoders is written out
-in ``models/model.py`` (``prefill_placed_tp``, ``decode_placed_tp``) over
-``distributed/tensor_parallel.py``, and runs these functions on a model
-shard's blocks. ``attn_qkv_block`` projects a shard's query heads and its
-K/V columns (a column block of wk/wv may end inside a head),
-``mlp_hidden`` takes a column block of wi_gate/wi_up, ``matmul_f32`` gives
-a row block of wo's partial product in float32 (``bmm_f32`` an expert
-block's combine, ``models/moe.py::expert_block``), and ``combined_heads``
-lays a combined decode output out by heads for the row blocks of wo. The
+the tensor-parallel schedule of the dense, MoE and VLM decoders is written
+out in ``models/model.py`` (``prefill_placed_tp``, ``decode_placed_tp``)
+over ``distributed/tensor_parallel.py``, and runs these functions on a
+model shard's blocks. ``attn_qkv_block`` projects a shard's query heads and
+its K/V columns (of ``kv_x`` for cross attention; a column block of wk/wv
+may end inside a head), ``mlp_hidden`` takes a column block of
+wi_gate/wi_up, ``matmul_f32`` gives a row block of wo's partial product in
+float32 (``bmm_f32`` an expert block's combine,
+``models/moe.py::expert_block``), ``combined_heads`` lays a combined decode
+output out by heads for the row blocks of wo, ``cross_decode_heads`` is a
+shard's cross attention at decode before its rows of wo, and ``gated``
+scales a cross layer's reduced output once. The
 reference's ``jax.named_scope("attn_core")``
 regions are ``cost_scope("attn_core")`` (``analysis/hlo_cost.py``),
 which only names ops for an active cost counter.
@@ -65,6 +68,8 @@ __all__ = [
     "attn_decode_out",
     "combine_partials",
     "cross_decode",
+    "cross_decode_heads",
+    "gated",
     "mla_schema",
     "mla_forward",
     "mla_decode",
@@ -228,8 +233,9 @@ def _project_qkv(p: dict, x: torch.Tensor, kv_x: torch.Tensor, cfg: ModelConfig)
     return q, kk.reshape(b, sk, k, hd), vv.reshape(b, sk, k, hd)
 
 
-def _gated(p: dict, out: torch.Tensor) -> torch.Tensor:
-    """Cross attention's output scaled by ``tanh(gate)``, taken in float32."""
+def gated(p: dict, out: torch.Tensor) -> torch.Tensor:
+    """Cross attention's output scaled by ``tanh(gate)``, taken in float32
+    (on the tensor-parallel path once, after the reduction's rounding)."""
     return torch.tanh(p["gate"].float()).to(out.dtype) * out
 
 
@@ -260,7 +266,7 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCo
         impl=cfg.attention_impl,
     )
     out = out.reshape(*x.shape[:2], -1) @ p["wo"]
-    return (_gated(p, out) if cross else out), (k, v)
+    return (gated(p, out) if cross else out), (k, v)
 
 
 def attn_decode(p: dict, x: torch.Tensor, pos: int, k_cache: torch.Tensor,
@@ -343,18 +349,26 @@ def attn_decode_out(p: dict, o: torch.Tensor, dtype) -> torch.Tensor:
     return combined_heads(o, dtype) @ p["wo"]
 
 
-def cross_decode(p: dict, x: torch.Tensor, pos: int, xk: torch.Tensor, xv: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    """One token's gated cross attention against the prefilled image K/V
-    ``[B, n_img, K, hd]`` (static during decode): the plain path whatever
-    ``cfg.attention_impl``, as the reference's decode step runs it."""
+def cross_decode_heads(p: dict, x: torch.Tensor, pos: int, xk: torch.Tensor, xv: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """One token's cross attention before ``wo``, ``[B, 1, heads hd]``: the
+    query heads of ``p``'s wq columns (all, or a model shard's block)
+    against the image K/V ``[B, n_img, KV, hd]`` (static during decode),
+    by the plain path whatever ``cfg.attention_impl``, as the reference's
+    decode step runs it."""
     b = x.shape[0]
     q = _project_q(p, x, cfg)
     kx, vx = xk.to(q.dtype), xv.to(q.dtype)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     npos = torch.zeros((b, kx.shape[1]), dtype=torch.int32, device=x.device)
-    out = attention_op(q, kx, vx, positions, npos, False)
-    return _gated(p, out.reshape(b, 1, -1) @ p["wo"])
+    return attention_op(q, kx, vx, positions, npos, False).reshape(b, 1, -1)
+
+
+def cross_decode(p: dict, x: torch.Tensor, pos: int, xk: torch.Tensor, xv: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """One token's gated cross attention against the prefilled image K/V
+    ``[B, n_img, K, hd]``: ``cross_decode_heads`` through ``wo``, gated."""
+    return gated(p, cross_decode_heads(p, x, pos, xk, xv, cfg) @ p["wo"])
 
 
 # ------------------------------------------------------------------ MLA attn

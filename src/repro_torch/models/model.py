@@ -34,19 +34,22 @@ and a logsumexp combine, the SSM step one head block at a time. These
 layers' projections are not split: the gathered path, every parameter
 gathered whole on the device.
 
-The dense and MoE decoders with GQA attention on the "tp" profile serve
-tensor-parallel instead (``distributed/tensor_parallel.py`` decides which
-and holds the blocks and the moves): ``prefill_placed_tp`` and
+The dense, MoE and VLM decoders with GQA attention on the "tp" profile
+serve tensor-parallel instead (``distributed/tensor_parallel.py`` decides
+which and holds the blocks and the moves): ``prefill_placed_tp`` and
 ``decode_placed_tp`` run each data-parallel shard (or cache row) over the
 'model' shards of its group, each on its head, column, expert and vocab
 blocks; the row-parallel partials are reduced in float32 on the group's
 home, where the residual stream, the norms, the MoE's routing (once a
-routing group: its slots and drops are one device's) and the cache writes
-live. Decode
+routing group: its slots and drops are one device's), the cross layers'
+gates and the cache writes live. The VLM's image tokens are projected by
+column blocks once a prefill and sent whole to every shard, whose cross
+layers take their K/V heads of them (not roped). Decode
 keeps the flash-decoding layout above: the token's K/V heads are joined
 on the home and written into the sequence block holding ``pos``, the
 joined query runs one partial a sequence block, and the combined output is
-split by head blocks for the rows of ``wo``.
+split by head blocks for the rows of ``wo``; a cross layer's shard attends
+to its KV heads of the image K/V in the copy its own device holds.
 """
 from __future__ import annotations
 
@@ -892,9 +895,28 @@ def _tp_logits(group, x: torch.Tensor, cfg: ModelConfig, out) -> torch.Tensor:
 
 
 def _tp_layers(group, cfg: ModelConfig) -> list:
-    """[layer][shard] views of the group's stacked layer blocks."""
+    """[layer][shard] views of the group's stacked layer blocks; for the
+    vlm [group] -> ([self layer][shard], [shard] cross layer), from
+    ``_vlm_groups`` of each shard's blocks."""
+    if cfg.family == "vlm":
+        per_shard = [_vlm_groups(b, cfg) for b in group.blocks]
+        return [([list(s) for s in zip(*(selfs for selfs, _ in grp))], [cp for _, cp in grp])
+                for grp in zip(*per_shard)]
     per_shard = [_layers(b, cfg) for b in group.blocks]
     return [list(shards) for shards in zip(*per_shard)]
+
+
+def _tp_walk(group, cfg: ModelConfig) -> list:
+    """The TP loops' layers in order: ``(lead, [shard] layer, cross)``,
+    ``lead`` the layer's index into the stacked cache (``(i,)``; the vlm's
+    self layers ``(gi, li)``, its cross layers ``(gi,)``)."""
+    if cfg.family != "vlm":
+        return [((i,), lps, False) for i, lps in enumerate(_tp_layers(group, cfg))]
+    out = []
+    for gi, (selfs, cps) in enumerate(_tp_layers(group, cfg)):
+        out += [((gi, li), lps, False) for li, lps in enumerate(selfs)]
+        out.append(((gi,), cps, True))
+    return out
 
 
 def _tp_mlp(group, lps: list, h: torch.Tensor) -> torch.Tensor:
@@ -937,32 +959,51 @@ def _tp_ffn(group, lps: list, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     return _tp_mlp(group, lps, h)
 
 
-def _tp_qkv(group, lps: list, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """Each shard's roped query heads (on its device) and the K/V heads of
-    every shard's columns joined and roped on the home: ``([q_j], k, v)``,
-    k and v ``[B, S, K, hd]``."""
+def _tp_image_tokens(group, image_embeds: torch.Tensor, dtype) -> list:
+    """The projected image tokens ``[B, n_img, d]`` on every shard's
+    device, once a prefill: each shard its columns of ``image_embeds @
+    img_proj``, joined on the home and sent whole to each shard (every
+    cross layer's wk/wv columns need every column of them)."""
+    parts = []
+    for j, ej in enumerate(group.broadcast(image_embeds.to(dtype))):
+        with group.on(j):
+            parts.append(ej @ group.blocks[j]["img_proj"])
+    return group.broadcast(group.join(parts))
+
+
+def _tp_qkv(group, lps: list, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+            imgs: list | None = None):
+    """Each shard's query heads (on its device) and the K/V heads of every
+    shard's columns joined on the home: ``([q_j], k, v)``, k and v ``[B,
+    Sk, K, hd]``. Self attention ropes q and k; with ``imgs`` (the image
+    tokens on each shard's device) cross attention: ``xattn``'s K/V columns
+    of the image tokens, nothing roped."""
     b, s, _ = h.shape
     hd = cfg.resolved_head_dim
+    name = "attn" if imgs is None else "xattn"
     qs, ks, vs = [], [], []
     for j, (lp, hj) in enumerate(zip(lps, group.broadcast(h))):
         with group.on(j):
-            q, kc, vc = L.attn_qkv_block(lp["attn"], hj, cfg)
-            qs.append(L.rope(q, stage(positions, hj.device), cfg.rope_theta))
+            q, kc, vc = L.attn_qkv_block(lp[name], hj, cfg, None if imgs is None else imgs[j])
+            qs.append(q if imgs is not None else
+                      L.rope(q, stage(positions, hj.device), cfg.rope_theta))
         ks.append(kc)
         vs.append(vc)
-    k = L.rope(group.join(ks).reshape(b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
-    v = group.join(vs).reshape(b, s, cfg.n_kv_heads, hd)
-    return qs, k, v
+    sk = ks[0].shape[1]
+    k = group.join(ks).reshape(b, sk, cfg.n_kv_heads, hd)
+    v = group.join(vs).reshape(b, sk, cfg.n_kv_heads, hd)
+    return qs, (k if imgs is not None else L.rope(k, positions, cfg.rope_theta)), v
 
 
-def _tp_kv(group, k: torch.Tensor, v: torch.Tensor, j: int, cfg: ModelConfig):
-    """The home's K/V heads that shard ``j``'s query heads use, on its
-    device (expanded to one a query head where the kernel's GQA cannot take
-    them as they are)."""
+def _tp_kv_heads(group, j: int, cfg: ModelConfig, take):
+    """The KV heads shard ``j``'s query heads use, on its device:
+    ``take(k0, k1)`` gives heads ``k0 .. k1 - 1`` of (k, v) there; they are
+    expanded to one a query head where the kernel's GQA cannot take them as
+    they are."""
     from repro_torch.distributed.tensor_parallel import kv_block
 
     k0, k1, local = kv_block(cfg, j, group.m)
-    kj, vj = group.send(k[:, :, k0:k1], j), group.send(v[:, :, k0:k1], j)
+    kj, vj = take(k0, k1)
     if local is not None:
         idx = stage(np.asarray(local, dtype=np.int64), kj.device)
         with group.on(j):
@@ -970,21 +1011,53 @@ def _tp_kv(group, k: torch.Tensor, v: torch.Tensor, j: int, cfg: ModelConfig):
     return kj, vj
 
 
-def _tp_attention(group, lps: list, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """One self-attention layer over the prompt: each shard attends with its
+def _tp_kv(group, k: torch.Tensor, v: torch.Tensor, j: int, cfg: ModelConfig):
+    """The home's K/V heads that shard ``j``'s query heads use, sent to its
+    device (``_tp_kv_heads``)."""
+    return _tp_kv_heads(group, j, cfg, lambda k0, k1: (group.send(k[:, :, k0:k1], j),
+                                                       group.send(v[:, :, k0:k1], j)))
+
+
+def _tp_attention(group, lps: list, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                  imgs: list | None = None):
+    """One attention layer over the prompt: each shard attends with its
     query heads, then its rows of wo; returns (out [B, S, d] on the home,
-    (k, v) [B, S, K, hd] on the home, for the cache)."""
-    qs, k, v = _tp_qkv(group, lps, h, positions, cfg)
+    (k, v) [B, Sk, K, hd] on the home, for the cache). With ``imgs`` the
+    gated cross attention (``attn_forward``'s cross branch): non-causal,
+    key positions zero, the reduced output gated by ``tanh(gate)`` on the
+    home after its single rounding."""
+    cross = imgs is not None
+    name = "xattn" if cross else "attn"
+    qs, k, v = _tp_qkv(group, lps, h, positions, cfg, imgs)
     outs = []
     for j, (lp, q) in enumerate(zip(lps, qs)):
         kj, vj = _tp_kv(group, k, v, j, cfg)
         pos = stage(positions, q.device)
         with group.on(j):
-            o = L.attention_op(q, kj, vj, pos, pos, cfg.causal,
+            kpos = torch.zeros(kj.shape[:2], dtype=torch.int32, device=q.device) if cross else pos
+            o = L.attention_op(q, kj, vj, pos, kpos, cfg.causal and not cross,
                                chunk_threshold=cfg.long_context_threshold, chunk=cfg.attn_chunk,
                                impl=cfg.attention_impl)
-            outs.append(L.matmul_f32(o.reshape(*h.shape[:2], -1), lp["attn"]["wo"]))
-    return group.reduce(outs, h.dtype), (k, v)
+            outs.append(L.matmul_f32(o.reshape(*h.shape[:2], -1), lp[name]["wo"]))
+    out = group.reduce(outs, h.dtype)
+    return (L.gated(lps[0][name], out) if cross else out), (k, v)
+
+
+def _tp_layer(group, lps: list, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """A decoder layer over the prompt (``_dense_layer``): (x, (k, v))."""
+    a, kv = _tp_attention(group, lps, L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps), positions, cfg)
+    x = x + a
+    return x + _tp_ffn(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps), cfg), kv
+
+
+def _tp_cross(group, cps: list, x: torch.Tensor, positions: torch.Tensor, imgs: list,
+              cfg: ModelConfig):
+    """The vlm's gated cross-attention layer over the group
+    (``_cross_layer``): (x, (xk, xv) joined on the home)."""
+    a, xkv = _tp_attention(group, cps, L.rmsnorm(x, cps[0]["ln1"], cfg.norm_eps), positions,
+                           cfg, imgs)
+    x = x + a
+    return x + _tp_mlp(group, cps, L.rmsnorm(x, cps[0]["ln2"], cfg.norm_eps)), xkv
 
 
 def prefill_tp(group, batch: dict, cache: dict, cfg: ModelConfig, out):
@@ -994,13 +1067,16 @@ def prefill_tp(group, batch: dict, cache: dict, cfg: ModelConfig, out):
     ``out``."""
     x = _tp_embed(group, batch["tokens"])
     positions = _positions(*x.shape[:2], group.home)
-    for i, lps in enumerate(_tp_layers(group, cfg)):
-        a, (k, v) = _tp_attention(group, lps, L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps),
-                                  positions, cfg)
-        _fill_rows(cache["k"][i], k)
-        _fill_rows(cache["v"][i], v)
-        x = x + a
-        x = x + _tp_ffn(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps), cfg)
+    imgs = _tp_image_tokens(group, batch["image_embeds"], x.dtype) if cfg.family == "vlm" else None
+    for lead, lps, cross in _tp_walk(group, cfg):
+        if cross:
+            x, (xk, xv) = _tp_cross(group, lps, x, positions, imgs, cfg)
+            cache["xk"][lead] = xk
+            cache["xv"][lead] = xv
+        else:
+            x, (k, v) = _tp_layer(group, lps, x, positions, cfg)
+            _fill_rows(cache["k"][lead], k)
+            _fill_rows(cache["v"][lead], v)
     return _tp_logits(group, x[:, -1:], cfg, out)[:, 0]
 
 
@@ -1018,20 +1094,21 @@ def prefill_placed_tp(shards: list, cache: dict, cfg: ModelConfig, home):
     return torch.cat(logits), cache
 
 
-def _tp_attn_decode(group, lps: list, h: torch.Tensor, pos: int, cache: dict, i: int, row: int,
-                    lo: int, cfg: ModelConfig) -> torch.Tensor:
+def _tp_attn_decode(group, lps: list, h: torch.Tensor, pos: int, cache: dict, lead: tuple,
+                    row: int, lo: int, cfg: ModelConfig) -> torch.Tensor:
     """One decode attention layer of a cache row over its model group: the
-    projections by column blocks, the token's K/V written whole, the joined
-    query's partials a sequence block (on the shard holding it), and the
-    combined output's head blocks through each shard's rows of wo."""
+    projections by column blocks, the token's K/V written whole at the
+    layer ``lead`` of the stacked cache, the joined query's partials a
+    sequence block (on the shard holding it), and the combined output's
+    head blocks through each shard's rows of wo."""
     positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32, device=h.device)
     qs, k, v = _tp_qkv(group, lps, h, positions, cfg)
     q = group.join(qs, dim=2)
     kl, vl = cache["k"], cache["v"]
-    _write_token(kl, (i,), lo, pos, k)
-    _write_token(vl, (i,), lo, pos, v)
+    _write_token(kl, lead, lo, pos, k)
+    _write_token(vl, lead, lo, pos, v)
     o = _combine_blocks(lambda q_, kb, vb, s: L.attn_partial(q_, kb, vb, s, pos), group.home,
-                        (q,), (kl, vl), (i,), row, group)
+                        (q,), (kl, vl), lead, row, group)
     o = L.combined_heads(o, h.dtype)
     width = o.shape[-1] // group.m
     outs = []
@@ -1042,15 +1119,39 @@ def _tp_attn_decode(group, lps: list, h: torch.Tensor, pos: int, cache: dict, i:
     return group.reduce(outs, h.dtype)
 
 
+def _tp_cross_decode(group, cps: list, h: torch.Tensor, pos: int, cache: dict, gi: int, lo: int,
+                     hi: int, cfg: ModelConfig) -> torch.Tensor:
+    """One token's gated cross attention of cache rows ``lo .. hi - 1``
+    over their model group (``cross_decode``): each shard its query heads
+    from its wq columns, attending by the plain path to its KV heads of
+    group ``gi``'s image K/V, read from the copy its own device holds
+    (``xk``/``xv`` are replicated over 'model': nothing moves), then its
+    rows of wo in float32; the partials reduced and gated on the home."""
+    outs = []
+    for j, (cp, hj) in enumerate(zip(cps, group.broadcast(h))):
+        def own_copy(k0, k1, at=group.positions[j]):
+            index = (slice(gi, gi + 1), slice(lo, hi), slice(None), slice(k0, k1))
+            return cache["xk"].view_at(at, index)[0], cache["xv"].view_at(at, index)[0]
+
+        xk, xv = _tp_kv_heads(group, j, cfg, own_copy)
+        with group.on(j):
+            o = L.cross_decode_heads(cp["xattn"], hj, pos, xk, xv, cfg)
+            outs.append(L.matmul_f32(o, cp["xattn"]["wo"]))
+    return L.gated(cps[0]["xattn"], group.reduce(outs, h.dtype))
+
+
 def decode_row_tp(group, cache: dict, token: torch.Tensor, pos: int, row: int, lo: int,
                   cfg: ModelConfig, out) -> torch.Tensor:
     """``decode_step`` of cache row ``row`` (rows from ``lo``; ``token`` on
     the group's home) over its model group. Returns its logits [rows,
     vocab] f32 on ``out``."""
     x = _tp_embed(group, token)
-    for i, lps in enumerate(_tp_layers(group, cfg)):
-        x = x + _tp_attn_decode(group, lps, L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps), pos,
-                                cache, i, row, lo, cfg)
+    for lead, lps, cross in _tp_walk(group, cfg):
+        h = L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps)
+        if cross:
+            x = x + _tp_cross_decode(group, lps, h, pos, cache, lead[0], lo, lo + x.shape[0], cfg)
+        else:
+            x = x + _tp_attn_decode(group, lps, h, pos, cache, lead, row, lo, cfg)
         x = x + _tp_ffn(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps), cfg)
     return _tp_logits(group, x, cfg, out)[:, 0]
 

@@ -25,14 +25,16 @@ and check) runs before a card does:
     ``build="auto"`` is handed the card's device, and ``gather_total``
     launches are counted through a fake over its plain version;
   * 21b, the families' bf16 serving on a mesh (the gathered path):
-    minicpm3, mamba2, zamba2 and the VLM at smoke widths and depths on a 2
-    x 2 mesh, each held by its bound and the planted lost cache shard;
+    minicpm3, mamba2 and zamba2 at smoke widths and depths on a 2 x 2 mesh,
+    each held by its bound and the planted lost cache shard (the VLM now
+    serves tensor-parallel, in 21d);
   * 21d, tensor-parallel serving: deepseek-67b's, qwen1.5-110b's,
-    moonshot-v1-16b-a3b's and dbrx-132b's smoke widths pinned to the "tp"
-    profile (the MoE at the production capacity factor, so that tokens are
-    dropped) at the phase's depth cuts and shapes, on a 2 x 2 mesh of
-    logical CPU shards, flash launches counted through a fake over its
-    plain version.
+    moonshot-v1-16b-a3b's, dbrx-132b's and llama-3.2-vision-90b's smoke
+    widths pinned to the "tp" profile (the MoE at the production capacity
+    factor, so that tokens are dropped; the VLM at its full config's group
+    size, 4 self and 1 cross layer) at the phase's depth cuts and shapes, on
+    a 2 x 2 mesh of logical CPU shards, flash launches counted through a
+    fake over its plain version.
 
 The shapes and step counts are cut (constants of the copy), and the loss's
 bar is what smoke widths reach in 12 steps. Nothing here compares with the
@@ -272,8 +274,10 @@ def test_tensor_parallel_serve_phase_runs_on_the_host(smoke, monkeypatch):
     real_config = pt_configs.get_config
 
     def narrow(arch):
+        full = real_config(arch)
         return pt_configs.get_smoke_config(arch).scaled(
-            parallelism="tp", moe_capacity_factor=real_config(arch).moe_capacity_factor)
+            parallelism="tp", moe_capacity_factor=full.moe_capacity_factor,
+            cross_attn_every=full.cross_attn_every)
 
     monkeypatch.setattr(pt_configs, "get_config", narrow)
     monkeypatch.setattr(pt_serve, "get_config", narrow)
@@ -304,14 +308,19 @@ def test_tensor_parallel_serve_phase_runs_on_the_host(smoke, monkeypatch):
     assert flash == {f"tensor_parallel_serve:{a}:{d}": n * 4 for a, n, d in smoke.SERVE_TP_RUNS}
     runs = [m for m in logged if "teacher-forced on the one-device session's tokens" in m]
     assert len(runs) == len(smoke.SERVE_TP_RUNS)
-    for (arch, _, dtype), m in zip(smoke.SERVE_TP_RUNS, runs):
+    for (arch, depth, dtype), m in zip(smoke.SERVE_TP_RUNS, runs):
         cfg = narrow(arch)
         heads = f"each on {cfg.n_heads // 2} query and {max(cfg.n_kv_heads // 2, 1)} KV heads"
         assert "ratio 0.50" in m and heads in m, (arch, m)
         assert ("from a copy of the one-device" in m) == (dtype == "float32")
         assert ("QKV biases drawn" in m) == cfg.qkv_bias
         assert "refused by the same rule: a reduction dropping the last shard's partial" in m
-        assert "against its plain version: max |err|" in m
+        assert "self attention (B " in m and ", causal) max |err|" in m
+        assert ("a shard taking its neighbour's KV heads of the image K/V" in m) == (
+            cfg.family == "vlm")
+        if cfg.family == "vlm":  # two groups of 4 self and 1 cross layer at 10 layers, one at 5
+            assert f"Sk {cfg.n_image_tokens}, not causal) max |err|" in m
+            assert f"{depth // 5} groups of 4 self and 1 cross layer, cross gates 0.5" in m
         if cfg.family == "moe":
             assert "a shard running its neighbour's expert block" in m
             assert f"({cfg.n_experts // 2} a shard), capacity factor 1.25" in m
@@ -344,9 +353,8 @@ def test_sharded_families_serve_phase_runs_on_the_host(smoke, monkeypatch):
     monkeypatch.setattr(smoke, "FAMILY_PROMPT", 64)
     monkeypatch.setattr(smoke, "SERVE_SHARD_FAMILIES",
                         tuple((a, None, impl) for a, _, impl in smoke.SERVE_SHARD_FAMILIES))
-    vlm, hybrid = narrow("llama-3.2-vision-90b"), narrow("zamba2-7b")
-    layers = {"llama-3.2-vision-90b": vlm.n_layers,  # each self and cross layer attends once
-              "zamba2-7b": pt_model.hybrid_counts(hybrid)[0]}  # the shared attention blocks
+    # the shared attention blocks of zamba2, the one family here that attends by flash
+    layers = {"zamba2-7b": pt_model.hybrid_counts(narrow("zamba2-7b"))[0]}
     monkeypatch.setattr(smoke, "FAMILY_FLASH_LAYERS", layers)
     real = pt_layers.flash_attention_bshd
 
@@ -361,7 +369,7 @@ def test_sharded_families_serve_phase_runs_on_the_host(smoke, monkeypatch):
     assert flash == {arch: n * 2 for arch, n in layers.items()}  # 2 prefill (data) shards
     runs = [m for m in logged if "teacher-forced on the one-device session's tokens" in m]
     assert len(runs) == len(smoke.SERVE_SHARD_FAMILIES)
-    assert all("moonshot" not in m for m in runs)
+    assert all("moonshot" not in m and "vision" not in m for m in runs)
     for (arch, _, _), m in zip(smoke.SERVE_SHARD_FAMILIES, runs):
         assert f"(bound {smoke.SERVE_SHARD_BF16_TOL[arch]:.6f})" in m, arch
         assert "last data shard's cache is lost, refused by the same rule" in m, arch

@@ -69,7 +69,12 @@ PATH_TOL = 1e-5
 MODEL_LEAVES = {"tok_embed", "lm_head", "layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
                 "layers/attn/wo", "layers/attn/bq", "layers/attn/bk", "layers/attn/bv",
                 "layers/mlp/wi_gate", "layers/mlp/wi_up", "layers/mlp/wo",
-                "layers/moe/w_gate", "layers/moe/w_up", "layers/moe/w_down"}
+                "layers/moe/w_gate", "layers/moe/w_up", "layers/moe/w_down",
+                # the VLM's image projection and cross layers
+                "img_proj", "cross_layers/xattn/wq", "cross_layers/xattn/wk",
+                "cross_layers/xattn/wv", "cross_layers/xattn/wo", "cross_layers/mlp/wi_gate",
+                "cross_layers/mlp/wi_up", "cross_layers/mlp/wo"}
+VLM = "llama-3.2-vision-90b"  # test_torch_tensor_parallel_vlm.py serves it
 # A GQA layout whose query blocks straddle KV heads on 2 shards: 6 query
 # heads, 3 KV heads, shard 0 holds heads 0-2 (KV heads 0, 0, 1).
 STRADDLE = {"n_heads": 6, "n_kv_heads": 3}
@@ -406,10 +411,12 @@ def test_other_families_on_tp_keep_the_gathered_path(monkeypatch, arch):
 
 
 def test_which_configs_serve_tensor_parallel():
-    """The one test that decides: the dense or MoE family, GQA attention,
-    the "tp" profile, and a 'model' axis dividing the query heads (and the
-    experts). The production meshes give moonshot 4 experts a shard and
-    dbrx 1; 2 x 2, 32 and 8."""
+    """The one test that decides: the dense, MoE or VLM family, GQA
+    attention, the "tp" profile, and a 'model' axis dividing the query
+    heads (and the experts). The production meshes give moonshot 4 experts
+    a shard and dbrx 1; 2 x 2, 32 and 8. The VLM takes it on the production
+    meshes and on 2 x 2; the SSM, hybrid, MLA, audio and "dp" configs do
+    not."""
     from repro_torch.configs import get_config
 
     prod = DuckMesh((16, 16), ("data", "model"))
@@ -418,8 +425,11 @@ def test_which_configs_serve_tensor_parallel():
                         "moonshot-v1-16b-a3b", "dbrx-132b", "mamba2-780m", "zamba2-7b",
                         "llama-3.2-vision-90b", "hubert-xlarge")
             if tp.serves_tensor_parallel(get_config(a), prod)
-            and tp.serves_tensor_parallel(get_config(a), multi)} == set(ARCHS)
+            and tp.serves_tensor_parallel(get_config(a), multi)} == set(ARCHS) | {VLM}
     two = DuckMesh((2, 2), ("data", "model"))
+    assert tp.serves_tensor_parallel(get_config(VLM), two)
+    assert [tp.kv_block(get_config(VLM), j, m) for m, j in ((16, 15), (2, 1))] == [
+        (7, 8, None), (4, 8, None)]
     for arch, per in (("moonshot-v1-16b-a3b", (4, 32)), ("dbrx-132b", (1, 8))):
         cfg = get_config(arch)
         assert tp.serves_tensor_parallel(cfg, two)
@@ -448,12 +458,14 @@ def test_which_configs_serve_tensor_parallel():
 # ------------------------------------------------------------ the dry run
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + (VLM,))
 def test_dryrun_serving_cells_take_the_tensor_parallel_step(monkeypatch, arch):
-    """At 2 layers on the production mesh: a device gathers its model
-    blocks (1/16 of every 'model' leaf), and its matmul FLOPs are the
-    gathered path's count over the model axis (the same products, split),
-    but for the MoE's router product, which the home runs whole."""
+    """At 2 layers on the production mesh (the VLM: one self and one cross
+    layer): a device gathers its model blocks (1/16 of every 'model'
+    leaf), and its matmul FLOPs are the gathered path's count over the
+    model axis (the same products, split: the VLM's image projection and
+    cross K/V too), but for the MoE's router product, which the home runs
+    whole."""
     from repro_torch.launch.specs import CellSpec
 
     for shape in ("prefill_32k", "decode_32k"):

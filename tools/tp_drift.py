@@ -6,11 +6,12 @@
 Each ``--arch`` (default deepseek-67b:8; LAYERS cuts the depth, none: every
 layer) at full width, bf16, on logical shards of one card: 4 x 512 prompt
 tokens and 16 steps (chip_smoke's phase 21b / 21d shape) teacher-forced on
-the one-device session's tokens, under phase 21b's attention for the
+the one-device session's tokens (the VLM's image embeddings as 21d draws
+them, ``chip_smoke._image_embeds``), under phase 21b's attention for the
 configs it serves (21d's "flash" for the others), for
 
   * a config that serves tensor-parallel (``serves_tensor_parallel``: the
-    dense and MoE decoders): the tensor-parallel path on 2 x 2, 1 x 2 and
+    dense, MoE and VLM decoders): the tensor-parallel path on 2 x 2, 1 x 2 and
     2 x 1 (on 2 x 1 the model axis splits nothing: only the data split and
     the path's float32 reductions differ from one device), and the gathered
     path on 2 x 2 (every parameter gathered whole; ``serves_tensor_parallel``
@@ -61,9 +62,7 @@ def drift(smoke, arch: str, layers: int | None) -> None:
     smoke._open_gates(params)
     rng = np.random.default_rng(23)
     prompts = rng.integers(0, cfg.vocab, (b, plen), dtype=np.int32)
-    img = None
-    if cfg.family == "vlm":
-        img = rng.normal(size=(b, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32)
+    img = smoke._image_embeds(rng, b, cfg) if cfg.family == "vlm" else None
     common = dict(batch=b, max_seq=plen + gen, attention_impl=impl, n_layers=layers)
     tokens, stats = ServeSession(arch, params=params, **common).generate(
         prompts, gen, image_embeds=img, keep_logits=True)
