@@ -326,11 +326,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               relative norm of phase 12's (3 x the first run's 0.012342 is
               looser); a combine planted to drop the last block must exceed
               it; prefill_s, ms a step, tokens/s, peak memory, a profiled
-              prefill and decode step. (b) minicpm3-4b (MLA), mamba2-780m
-              and zamba2-7b ("flash", hd 112), the configs that serve on the
-              gathered path, at full width in bf16, phase 19's 4 x 512
-              prompts and 16 steps, each teacher-forced on its one-device
-              session's tokens
+              prefill and decode step. (b) minicpm3-4b (MLA), the config
+              that serves on the gathered path, at full width in bf16,
+              phase 19's 4 x 512 prompts and 16 steps, teacher-forced on
+              its one-device session's tokens
               beside a float32 run of the same weights: within a config's
               bound of one device (``SERVE_SHARD_BF16_TOL``, 1.5 x the
               largest reading of ``tools/tp_drift.py``'s gathered path on 2
@@ -338,12 +337,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               3e-2; a prefill whose last data shard's cache is lost must
               fail the same rule. (c) float32 at full width, 2 layers (the
               VLM 5, zamba2 7), every arch above, moonshot (2 x 1,024
-              tokens) and the VLM (both on their tensor-parallel path: the
-              VLM's 5 layers launch flash 20 times) against the port's CPU
+              tokens), the VLM, mamba2 and zamba2 (on their tensor-parallel
+              path: the VLM's 5 layers launch flash 20 times) against the port's CPU
               session on the same weights: the prefill logits within 1e-4;
               a decode step (which reads the bf16 attention caches) within
               1e-4 of the card's one-device session's distance from the CPU
- 21d. tensor-parallel serve  the dense, MoE and VLM decoders on the 2 x 2
+ 21d. tensor-parallel serve  the dense, MoE, VLM, SSM and hybrid decoders on the 2 x 2
               mesh of logical shards tensor-parallel (``distributed/
               tensor_parallel.py``): each position gathers over 'data' only,
               into its 'model' block of every leaf whose spec has 'model',
@@ -352,9 +351,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               (the partials reduced in float32), its E/m experts (routed
               once on the home; its share of the MoE's output reduced in
               float32), its columns of the VLM's image projection (once a
-              prefill) and its vocab block of the embedding and the logits;
-              decode keeps the cache's
-              flash-decoding layout. deepseek-67b at full width, 8 of 95
+              prefill), its SSM heads and channels of B and C (the gated
+              norm's statistic summed on the home) and its vocab block of
+              the embedding and the logits; decode keeps the cache's
+              flash-decoding layout, and reads and writes each shard's own
+              blocks of the SSM states. deepseek-67b at full width, 8 of 95
               layers, bf16, phase 19's 4 x 512 prompts and 16 steps,
               teacher-forced on its one-device session's tokens within
               4.5e-2 (1.5 x the 0.030 at which any two bf16 runs whose
@@ -382,7 +383,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               layer) within a bound set from a ``tools/tp_drift.py``
               reading, and one group (5 layers) in float32 within 1e-4 of
               one device, whose steps are computed before its parameters
-              are freed. Each run: the bytes each
+              are freed. mamba2-780m at all 48 layers in bf16 and 2 in
+              float32, zamba2-7b at 15 of 81 (two groups of 6 mamba layers
+              and the shared block, 3 trailing; flash on 16 query and 16 KV
+              heads of hd 112 a shard) in bf16 and 7 in float32, their conv
+              taps passing their input so that the state counts, each bf16
+              run within a bound set from a ``tools/tp_drift.py`` reading.
+              Each run: the bytes each
               position gathered on this path and on the gathered path
               (under 0.55 of it), the flash launches (layers x data shards x
               model shards, each on H/m query heads, the VLM's cross layers
@@ -392,8 +399,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               first and a second run), peak memory, and planted faults the
               run's own rule must refuse: a reduction that drops the last
               shard's partial, (MoE) a shard that runs its neighbour's
-              expert block, and (VLM) a shard that takes its neighbour's
-              KV heads of the image K/V in the cross layers only
+              expert block, (VLM) a shard that takes its neighbour's
+              KV heads of the image K/V in the cross layers only, and (SSM,
+              hybrid) a shard that reads its neighbour's head block of the
+              SSM state at decode
 
  22. livejournal  com-livejournal, the paper's largest graph, at full size
               (|V| 3,997,962, |E| 34,681,189, rmat from its config's seed).
@@ -627,28 +636,27 @@ SERVE_SHARD_MAX_SEQ = LM_PROMPT + LM_GEN
 # difference of the first card run (0.012342 at a decode step of smollm;
 # the prefill's 0) is 0.037, so LM_TOL, never looser, holds.
 SERVE_SHARD_TOL = LM_TOL
-SERVE_SHARD_FAMILIES = (("minicpm3-4b", None, "xla"), ("mamba2-780m", None, "xla"),
-                        ("zamba2-7b", None, "flash"))
-# (arch, depth cut, impl) of 21b; 21c also runs moonshot and the VLM, which
-# serve tensor-parallel on 2 x 2 (phase 21d holds their bf16 and float32
-# runs).
+SERVE_SHARD_FAMILIES = (("minicpm3-4b", None, "xla"),)
+# (arch, depth cut, impl) of 21b; 21c also runs moonshot, the VLM, mamba2
+# and zamba2, which serve tensor-parallel on 2 x 2 (phase 21d holds their
+# bf16 and float32 runs).
 SERVE_SHARD_IMPL = {LM_ARCH: "flash", **{a: impl for a, _, impl in SERVE_SHARD_FAMILIES},
+                    "mamba2-780m": "xla", "zamba2-7b": "flash",
                     "moonshot-v1-16b-a3b": "flash", "llama-3.2-vision-90b": "flash"}
 SERVE_SHARD_F32_SHAPE = (4, 32, 4)  # batch, prompt, generated
 SERVE_SHARD_F32_MOE_SHAPE = (2, 1024, 4)  # one routing group of 1,024 a data shard
 # 21b's bf16 logits against the one-device session, a config (relative
 # norm, max over the steps): 1.5 x the largest reading of the gathered path
 # on 2 x 2, from tools/tp_drift.py (its prompts) and from this phase's runs
-# (NVIDIA H100 80GB HBM3, 700 W): minicpm3 0.072696 / 0.075101, mamba2
-# 0.0 / 0.016160, zamba2 0.046105 / 0.045503 (the VLM, which now serves
-# tensor-parallel in 21d, read 0.031834 / 0.031674 there).
+# (NVIDIA H100 80GB HBM3, 700 W): minicpm3 0.072696 / 0.075101 (the VLM,
+# mamba2 and zamba2, which now serve tensor-parallel in 21d, read 0.031834 /
+# 0.031674, 0.0 / 0.016160 and 0.046105 / 0.045503 there).
 # Splitting the batch over 'data' changes the products' shapes, so their
 # bf16 roundings part, and the parted roundings grow over the decode steps
 # (one device reads 0.058-0.077 from float32). A run is also held no
 # farther from float32 than one device plus LM_TOL; 21c's float32 runs are
 # the tight check.
-SERVE_SHARD_BF16_TOL = {"minicpm3-4b": 1.5 * 0.075101, "mamba2-780m": 1.5 * 0.016160,
-                        "zamba2-7b": 1.5 * 0.046105}
+SERVE_SHARD_BF16_TOL = {"minicpm3-4b": 1.5 * 0.075101}
 # Phase 21d: the decoders served tensor-parallel on 2 x 2 logical
 # shards of cuda:0 (each position gathers its 'model' blocks over 'data'
 # and computes its heads, columns and vocab block). deepseek-67b at full
@@ -662,7 +670,9 @@ SERVE_TP_RUNS = (("deepseek-67b", 2, "float32"), ("deepseek-67b", 8, "bfloat16")
                  ("qwen1.5-110b", 2, "bfloat16"), ("moonshot-v1-16b-a3b", 2, "float32"),
                  ("moonshot-v1-16b-a3b", 12, "bfloat16"), ("dbrx-132b", 1, "float32"),
                  ("dbrx-132b", 2, "bfloat16"), ("llama-3.2-vision-90b", 5, "float32"),
-                 ("llama-3.2-vision-90b", 10, "bfloat16"))  # (arch, depth cut, dtype)
+                 ("llama-3.2-vision-90b", 10, "bfloat16"), ("mamba2-780m", 2, "float32"),
+                 ("mamba2-780m", 48, "bfloat16"), ("zamba2-7b", 7, "float32"),
+                 ("zamba2-7b", 15, "bfloat16"))  # (arch, depth cut, dtype)
 # The VLM's runs: 10 of 100 layers in bf16 (21b's cut: two groups of 4 self
 # and 1 cross layer, 10.67 B parameters, 21.3 GB; its float32 reference
 # copy, 42.7 GB, sits beside it), one whole group (5 layers, 6.39 B, 25.6 GB
@@ -679,6 +689,12 @@ SERVE_TP_RUNS = (("deepseek-67b", 2, "float32"), ("deepseek-67b", 8, "bfloat16")
 # shard at the production capacity factor 1.25, so tokens are dropped), dbrx
 # at 1 layer (18.0 GB a copy; the one-device, placed and gathered copies
 # about 54 GB on the card).
+# The SSM runs: mamba2-780m at all 48 layers in bf16 (about 1.6 GB), 2 in
+# float32; zamba2-7b at 15 of 81 in bf16 (two groups of 6 mamba layers, each
+# followed by the shared block, then 3 trailing: the full config's layout),
+# 7 in float32 (one group and a trailing layer, FAMILY_F32_DEPTH). Their
+# depthwise conv taps pass their input (_passing_conv), so that the scan's
+# state counts in the logits.
 SERVE_TP_BIAS_STD = 0.5
 # The MoE runs' routing against one device's. Layer 0's MoE on one input:
 # the same choices and drops, the output within FAMILY_CARD_TOL (float32)
@@ -707,9 +723,16 @@ MOE_FLIP_TOL = 1e-3
 # one device lands 0.326 from float32 itself; its float32 run is the check.
 # The VLM's at 10 layers: 1.5 x its largest reading, 0.033598 (1 x 2; 2 x 2
 # 0.033594, 2 x 1 0.031270, the gathered path 0.031404), with 21d's image
-# embeddings (_image_embeds).
+# embeddings (_image_embeds). mamba2's at 48 layers: 0.043560 (2 x 2 and
+# 1 x 2, prefill 0.043379; 2 x 1 and the gathered path 0.031704, prefill
+# 0.0: the split norm statistic and the float32 out reduce part the bf16
+# roundings from one device's); zamba2's at 15: 0.028908 (2 x 2; 1 x 2
+# 0.028542, 2 x 1 0.027917, the gathered path 0.028309), both with their
+# conv taps passing their input (_passing_conv; one device 0.061821 and
+# 0.042172 from float32).
 SERVE_TP_BF16_TOL = {"deepseek-67b": 1.5 * SERVE_SHARD_TOL, "moonshot-v1-16b-a3b": 1.5 * 0.050049,
-                     "dbrx-132b": 1.5 * 0.337294, "llama-3.2-vision-90b": 1.5 * 0.033598}
+                     "dbrx-132b": 1.5 * 0.337294, "llama-3.2-vision-90b": 1.5 * 0.033598,
+                     "mamba2-780m": 1.5 * 0.043560, "zamba2-7b": 1.5 * 0.028908}
 # A bf16 run lands no farther from float32 than one device plus LM_TOL; for
 # dbrx plus its bound: two runs that far apart may differ by that much in
 # their distance from float32 (the triangle inequality), and its readings
@@ -4476,6 +4499,19 @@ def _open_gates(params) -> None:
         params["cross_layers"]["xattn"]["gate"].fill_(FAMILY_GATE)
 
 
+def _passing_conv(params) -> None:
+    """An SSM or hybrid config's mamba layers with their depthwise conv taps
+    passing their input (1 added to the last tap), in place. At the init's
+    taps (N(0, 0.02^2)) the conv shrinks x, B and C about 30 x each, so the
+    scan's recurrent term ``C·h`` is about 1e-3 of the skip ``D·x`` and a
+    fault in the state (a shard reading its neighbour's heads) hides in the
+    bf16 drift."""
+    ssm = params.get("layers", {}).get("ssm")
+    if ssm is not None:
+        for k in ("conv_x", "conv_b", "conv_c"):
+            ssm[k][:, -1] += 1.0
+
+
 def _on(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
@@ -5819,15 +5855,20 @@ def _image_embeds(rng, b: int, cfg) -> np.ndarray:
 
 def _tp_launches(cfg, m: int, plen: int, data_shards: int) -> list:
     """The flash launches of a tensor-parallel prefill, in order: (query
-    heads, KV heads, keys, causal) a (data shard, layer, model shard), the
-    VLM's cross layers non-causal over its image tokens."""
-    from repro_torch.models.model import vlm_counts
+    heads, KV heads, keys, causal) a (data shard, attention layer, model
+    shard), the VLM's cross layers non-causal over its image tokens; the
+    hybrid attends once a group (its shared block), the SSM never."""
+    from repro_torch.models.model import hybrid_counts, vlm_counts
 
+    if cfg.family == "ssm":
+        return []
     heads = (cfg.n_heads // m, max(cfg.n_kv_heads // m, 1))
     layers = [(plen, True)] * cfg.n_layers
     if cfg.family == "vlm":
         groups, self_per, _ = vlm_counts(cfg)
         layers = ([(plen, True)] * self_per + [(cfg.n_image_tokens, False)]) * groups
+    if cfg.family == "hybrid":
+        layers = [(plen, True)] * hybrid_counts(cfg)[0]
     return [(*heads, sk, causal) for _ in range(data_shards) for sk, causal in layers
             for _ in range(m)]
 
@@ -5864,6 +5905,16 @@ def _neighbour_image_heads():
         yield
 
 
+def _neighbour_state():
+    """A planted fault: at decode each model shard reads its neighbour's
+    head block of a mamba layer's ``ssm`` state (from the neighbour's mesh
+    position); its conv states stay its own."""
+    from repro_torch.models import model as model_mod
+
+    return _patched(model_mod, "_tp_state_views", lambda real: lambda group, j, *a: {
+        **real(group, j, *a), "ssm": real(group, (j + 1) % group.m, *a)["ssm"]})
+
+
 def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng) -> int:
     """One config of 21d: the one-device session's tokens, then the
     tensor-parallel session teacher-forced on them. Returns the flash
@@ -5872,19 +5923,21 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     from repro_torch.distributed.tensor_parallel import ModelBlocks, serves_tensor_parallel
     from repro_torch.distributed import tensor_parallel
     from repro_torch.launch.serve import ServeSession
-    from repro_torch.models.model import init_model, vlm_counts
+    from repro_torch.models.model import hybrid_counts, init_model, vlm_counts
     from repro_torch.models.params import tree_leaves, tree_map
 
     full = get_config(arch)
     cfg = full.scaled(n_layers=depth, dtype=dtype)
     check(serves_tensor_parallel(cfg, mesh), f"[tp serve] {arch} does not take the TP path")
     moe, vlm = cfg.family == "moe", cfg.family == "vlm"
+    ssm = cfg.family in ("ssm", "hybrid")
     b, plen, gen = ((FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN) if dtype == "bfloat16"
                     else SERVE_SHARD_F32_MOE_SHAPE if moe else SERVE_SHARD_F32_SHAPE)
     torch.cuda.empty_cache()
     gen_card = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(gen_card, cfg, "cuda")
     _open_gates(params)
+    _passing_conv(params)
     if cfg.qkv_bias:
         for name in ("bq", "bk", "bv"):
             params["layers"]["attn"][name].normal_(0.0, SERVE_TP_BIAS_STD, generator=gen_card)
@@ -5938,11 +5991,11 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     peak = torch.cuda.max_memory_allocated()
     got, pre, dec, prefill_s, decode_s, layout, heads = runs[-1]
     want_heads = _tp_launches(cfg, m, plen, shards // m)
-    check(pre["flash_attention"] == depth * shards and dec["flash_attention"] == 0
+    check(pre["flash_attention"] == len(want_heads) and dec["flash_attention"] == 0
           and not any(v for k, v in {**pre, **dec}.items() if k != "flash_attention")
           and heads == want_heads,
           f"[tp serve] {arch}: launches prefill {pre}, decode {dec}, (heads, KV heads, keys, "
-          f"causal) {sorted(set(heads))}; expected {depth} x {shards} flash, "
+          f"causal) {sorted(set(heads))}; expected {len(want_heads)} flash, "
           f"{sorted(set(want_heads))}")
     # The kernel at each of the path's shapes (a data shard's rows, the
     # model shard's query and KV heads; the VLM's cross layers non-causal at
@@ -6047,6 +6100,8 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
                                                                                m_))
     if vlm:
         faults["a shard taking its neighbour's KV heads of the image K/V"] = _neighbour_image_heads
+    if ssm:
+        faults["a shard reading its neighbour's head block of the SSM state"] = _neighbour_state
     refused = {}
     for name, planted in faults.items():
         with planted():
@@ -6062,9 +6117,25 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         experts = (f", {cfg.n_image_tokens} image tokens of width {cfg.d_frontend} (seeded), "
                    f"{groups} groups of {self_per} self and 1 cross layer, cross gates "
                    f"{FAMILY_GATE}")
+    attn = (f"{cfg.n_heads} heads, KV {cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, d_ff "
+            f"{cfg.d_ff}, " if cfg.n_heads else "")
+    if ssm:
+        groups, trailing = hybrid_counts(cfg) if cfg.family == "hybrid" else (0, cfg.n_layers)
+        experts = (f", {cfg.ssm_heads} SSM heads ({cfg.ssm_heads // m} a shard) of "
+                   f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, {cfg.ssm_groups} B/C group, "
+                   f"chunk {cfg.ssm_chunk}, conv taps passing their input"
+                   + (f", {groups} groups of {cfg.hybrid_attn_every} mamba layers and the shared "
+                      f"block, {trailing} trailing" if groups else ""))
+    if heads:
+        launched = (f"{pre['flash_attention']} ({len(want_heads) // (shards // m * m)} attention "
+                    f"layers x {shards // m} data shards x {m} model shards, each on "
+                    f"{heads[0][0]} query and {heads[0][1]} KV heads; one device "
+                    f"{one_pre['flash_attention']} on {cfg.n_heads})")
+    else:
+        launched = (f"{pre['flash_attention']} (no attention layer; one device "
+                    f"{one_pre['flash_attention']})")
     log(f"[tp serve] {arch} ({cfg.family}, profile 'tp') at full width (d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads, KV {cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab}{experts}), {cut}, {dtype}, attention 'flash', tensor-parallel on "
+        f"{attn}vocab {cfg.vocab}{experts}), {cut}, {dtype}, attention 'flash', tensor-parallel on "
         f"{SERVE_TP_MESH} logical shards of {SHARD_DEVICE}"
         + (f", QKV biases drawn at std {SERVE_TP_BIAS_STD}" if cfg.qkv_bias else "")
         + f": {b} x {plen} prompt tokens, {gen} steps teacher-forced on the one-device session's "
@@ -6073,15 +6144,12 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         f"position gathered "
         f"for a step: tensor-parallel {sorted(set(tp_bytes.values()))} (its 'model' blocks), the "
         f"gathered path {whole} (every parameter), ratio "
-        f"{max(tp_bytes.values()) / whole:.4f}; flash launches prefill "
-        f"{pre['flash_attention']} ({depth} layers x {shards // m} data shards x {m} model "
-        f"shards, each on {heads[0][0]} query and {heads[0][1]} KV heads; one device "
-        f"{one_pre['flash_attention']} on {cfg.n_heads}), decode {dec['flash_attention']}; the "
-        f"kernel at the path's shapes against its plain version: "
-        + "; ".join(f"{label} attention (B {rows}, Sq {plen}, Sk {sk}, "
-                    f"{'causal' if causal else 'not causal'}) max |err| {err:.3e}, max row error "
-                    f"{row:.3e}, {tiles} tiles scored"
-                    for label, (sk, causal, err, row, tiles) in kernel.items())
+        f"{max(tp_bytes.values()) / whole:.4f}; flash launches prefill {launched}, decode "
+        f"{dec['flash_attention']}; the kernel at the path's shapes against its plain version: "
+        + ("; ".join(f"{label} attention (B {rows}, Sq {plen}, Sk {sk}, "
+                     f"{'causal' if causal else 'not causal'}) max |err| {err:.3e}, max row "
+                     f"error {row:.3e}, {tiles} tiles scored"
+                     for label, (sk, causal, err, row, tiles) in kernel.items()) or "none run")
         + "; prefill "
         f"{prefill_s:.6f} s (first run {first[3]:.6f}; one device {one_prefill_s:.6f}), decode "
         f"{1e3 * decode_s / (gen - 1):.3f} ms a step (first run "
@@ -6479,8 +6547,8 @@ def main() -> int:
     # The two widths only a family runs: launches on their own paths.
     for arch, r in family_rows.items():
         r["launches_by_path"] = {"families": family_flash[arch]}
-        if f"sharded_serve:{arch}" in sharded_flash:
-            r["launches_by_path"]["sharded_serve"] = sharded_flash[f"sharded_serve:{arch}"]
+        r["launches_by_path"].update({k: v for k, v in sharded_flash.items()
+                                      if k.split(":")[1:2] == [arch]})
         r["launches"] = sum(r["launches_by_path"].values())
         flash_rows.append(r)
     for r in flash_rows:

@@ -1,33 +1,41 @@
-"""Tensor-parallel serving of the dense, MoE and VLM decoders over a mesh's 'model' axis.
+"""Tensor-parallel serving of the decoders over a mesh's 'model' axis.
 
 The reference gets this compute from GSPMD: on the "tp" profile
 (``src/repro/distributed/ctx.py:34-52``) it places wq/wk/wv and the MLP's
 wi_gate/wi_up by columns over 'model', wo by rows, tok_embed and lm_head by
 vocab, the MoE's experts by their expert dim, the VLM's image projection
-by columns, and its layer code pins the activations to those blocks
+by columns, a Mamba2 layer's ``in_z``/``in_x``/``in_dt`` by columns,
+``conv_x``, ``a_log``, ``d_skip``, ``dt_bias`` and ``gate_norm`` by channel
+or head and ``out`` by rows (``src/repro/models/ssm.py:28-47``), and its
+layer code pins the activations to those blocks
 (``src/repro/models/layers.py:87-97``, ``:181-196``, ``:280-296``,
 ``:407-417``; ``src/repro/models/moe.py:69-85``;
-``src/repro/models/model.py:123``). The port
+``src/repro/models/model.py:123``; the SSD's heads over 'tp',
+``src/repro/models/ssm.py:171-174``). The port
 is single-controller and eager, so it writes the schedule out: this module
 holds the blocks and the moves, ``models/model.py`` the layer loops
 (``prefill_placed_tp``, ``decode_placed_tp``).
 
 Which configs take it: ``serves_tensor_parallel(cfg, mesh)``, the one place
-that decides. The dense, MoE and VLM families with standard (GQA)
-attention on the "tp" profile, on a mesh with a 'model' axis whose size
+that decides. On the "tp" profile and a mesh with a 'model' axis: the
+dense, MoE and VLM families with standard (GQA) attention when its size
 divides the query heads and, for the MoE, the experts (deepseek-67b,
-qwen1.5-110b, moonshot-v1-16b-a3b, dbrx-132b, llama-3.2-vision-90b, a
-smoke config pinned ``parallelism="tp"``). Every other config (the hybrid,
-SSM, MLA and audio families, the "dp" profile) serves on the gathered
-path: every parameter gathered whole on each device.
+qwen1.5-110b, moonshot-v1-16b-a3b, dbrx-132b, llama-3.2-vision-90b); the
+SSM family when it divides the SSM heads (mamba2-780m); the hybrid when it
+divides the SSM heads and the shared block's query heads (zamba2-7b); a
+smoke config pinned ``parallelism="tp"`` likewise. Every other config (the
+MLA and audio families, the "dp" profile) serves on the gathered path:
+every parameter gathered whole on each device.
 
 What model shard ``j`` of ``m`` holds (``gather_model_blocks``): the ``j``-th
 'model' block of every leaf whose spec splits a dim over 'model', gathered
 over the other axes ('data': the ZeRO-3 gather), and every other leaf (the
-norms, the MoE router, the VLM's cross gates) whole. For the VLM that is
-the image projection's columns, and the self and cross layers' blocks as
-a decoder layer's (``layers`` stacked ``[G, per, ...]``, ``cross_layers``
-``[G, ...]``). What it computes, on its device:
+norms, the MoE router, the VLM's cross gates, a Mamba2 layer's
+``in_b``/``in_c``/``conv_b``/``conv_c``) whole. For the VLM that is the
+image projection's columns, and the self and cross layers' blocks as a
+decoder layer's (``layers`` stacked ``[G, per, ...]``, ``cross_layers``
+``[G, ...]``); for the hybrid, the shared block's as a decoder layer's.
+What it computes, on its device:
 
   * embedding: the tokens in its vocab range (zeros elsewhere);
   * attention: its ``H / m`` query heads (``head_range``) from its column
@@ -53,6 +61,24 @@ a decoder layer's (``layers`` stacked ``[G, per, ...]``, ``cross_layers``
     joined image K/V into the cache. At decode a shard reads its KV heads
     of the image K/V from the copy its own device holds (the cache's
     ``xk``/``xv`` are replicated over 'model'): nothing moves;
+  * a Mamba2 layer (``ssm_head_range``: its ``H / m`` SSM heads, their
+    columns of ``in_z``/``in_x``/``in_dt``, channels of ``conv_x`` and
+    ``a_log``/``dt_bias``/``d_skip``): its channel block
+    (``ssm_channel_range``) of B and C from its columns of the replicated
+    ``in_b``/``in_c``/``conv_b``/``conv_c`` and its block of their conv
+    states (the conv is depthwise), joined on the home and sent whole to
+    every shard; the SSD (prefill) or the recurrent step (decode) over its
+    heads; ``y · silu(z)`` rounded to the run's dtype, as one device's; its
+    float32 sum of squares ``[B, L, 1]`` to the home, which sums them in
+    shard order, divides by the whole ``d_inner`` and sends back the
+    ``rsqrt``; its channels scaled by it and its ``gate_norm`` block,
+    rounded as ``rmsnorm`` rounds, then its rows of ``out`` in float32. At
+    decode it reads and writes its own head block of the ``ssm`` state and
+    its channel blocks of the conv states in the copy its own mesh position
+    holds (the cache splits them over 'model' so): nothing of the state
+    moves;
+  * the hybrid's shared block: a decoder layer's attention and MLP as
+    above, its K/V in ``shared_k``/``shared_v``;
   * logits: its vocab columns of lm_head (``tok_embed``'s rows when tied).
 
 A row-parallel output (wo's rows, an expert block's share of the MoE's
@@ -93,6 +119,8 @@ __all__ = [
     "block_range",
     "head_range",
     "expert_range",
+    "ssm_head_range",
+    "ssm_channel_range",
     "kv_block",
     "model_block",
     "ModelBlocks",
@@ -115,15 +143,20 @@ def model_size(mesh) -> int:
 
 def serves_tensor_parallel(cfg, mesh) -> bool:
     """Whether ``cfg`` serves tensor-parallel on ``mesh`` (module
-    docstring): the dense, MoE or VLM family, GQA attention, the "tp"
-    profile, and a 'model' axis that divides the query heads (and the
-    MoE's experts). Every other config takes the gathered path."""
-    if (cfg.family not in ("dense", "moe", "vlm") or cfg.attention != "gqa"
-            or arch_profile(cfg) != "tp"):
-        return False
-    if MODEL not in mesh.axis_names:
+    docstring): the "tp" profile, a 'model' axis, and the dense, MoE or VLM
+    family with GQA attention whose query heads (and the MoE's experts) it
+    divides; the SSM family whose SSM heads it divides; the hybrid whose
+    SSM heads and (GQA) query heads it divides. Every other config takes
+    the gathered path."""
+    if arch_profile(cfg) != "tp" or MODEL not in mesh.axis_names:
         return False
     m = model_size(mesh)
+    if cfg.family == "ssm":
+        return cfg.ssm_heads % m == 0
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid") or cfg.attention != "gqa":
+        return False
+    if cfg.family == "hybrid":
+        return cfg.ssm_heads % m == 0 and cfg.n_heads % m == 0
     return cfg.n_heads % m == 0 and (cfg.family != "moe" or cfg.n_experts % m == 0)
 
 
@@ -158,6 +191,21 @@ def head_range(cfg, j: int, m: int) -> tuple[int, int]:
 def expert_range(cfg, j: int, m: int) -> tuple[int, int]:
     """Model shard ``j``'s experts: its block of w_gate/w_up/w_down."""
     return block_range(cfg.n_experts, j, m)
+
+
+def ssm_head_range(cfg, j: int, m: int) -> tuple[int, int]:
+    """Model shard ``j``'s SSM heads: ``ssm_head_dim`` columns each of
+    ``in_z``/``in_x`` and channels of ``conv_x``, one column of ``in_dt``."""
+    return block_range(cfg.ssm_heads, j, m)
+
+
+def ssm_channel_range(cfg, j: int, m: int) -> tuple[int, int]:
+    """Model shard ``j``'s channels of B and C (``ssm_groups · ssm_state``
+    of them): the block the cache's conv states place at its mesh position
+    when ``m`` divides them (else the states are whole there, and the
+    blocks differ by a channel at most)."""
+    n = cfg.ssm_groups * cfg.ssm_state
+    return j * n // m, (j + 1) * n // m
 
 
 def kv_block(cfg, j: int, m: int) -> tuple[int, int, list | None]:

@@ -16,9 +16,10 @@ port's specs equal the reference's, it records
     the tensor-parallel path the device's 'model' block);
   * ``analysis/hlo_cost.py::step_cost`` of the step a device runs. Two
     kinds of cells (``PER_DEVICE``, ``PER_DEVICE_TP``):
-      - the dense, MoE and VLM decoders' serving cells on the "tp"
-        profile (deepseek-67b, qwen1.5-110b, moonshot-v1-16b-a3b,
+      - the dense, MoE, VLM, SSM and hybrid decoders' serving cells on
+        the "tp" profile (deepseek-67b, qwen1.5-110b, moonshot-v1-16b-a3b,
         dbrx-132b and llama-3.2-vision-90b at prefill_32k and decode_32k,
+        mamba2-780m and zamba2-7b at those and long_500k,
         ``distributed/tensor_parallel.py::serves_tensor_parallel``) take the
         tensor-parallel step: one data-parallel shard's step (a row of the
         cache at decode) over its 16 model shards
@@ -26,11 +27,13 @@ port's specs equal the reference's, it records
         of which the home shard's part is counted (the other shards' work
         skipped, ``tensor_parallel.SHARD_SCOPE``): its 1/16 of the split
         products (heads, columns, experts, vocab, the VLM's image
-        projection), and the MoE's routing, the reductions of every
-        shard's partials, the joins, norms, cross gates and residual
+        projection, the SSM's heads and B/C channels), and the MoE's
+        routing, the reductions of every shard's partials, the joins,
+        norms, cross gates, the gated norm's statistic and residual
         stream, which it alone runs. It bounds the group's step; the other
         shards run the split products alone;
-      - every other cell (training, the other families, the "dp" profile)
+      - every other cell (training, the MLA and audio families, the "dp"
+        profile)
         the step of one distinct data-parallel shard, run on its first
         device with every parameter gathered there: the per-device FLOPs
         and bytes are that shard's, not divided by the model axis. Training

@@ -24,12 +24,13 @@ card (``make_host_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)``) or
 of the host (``torch.device("cpu")`` entries) run every placement on one
 device. ``generate`` gathers the parameters once and frees them after the
 call (the reference's GSPMD gathers ZeRO-3 blocks each step: the same
-results on another schedule): the dense and MoE decoders with GQA
-attention on the "tp" profile (deepseek-67b, qwen1.5-110b,
-moonshot-v1-16b-a3b, dbrx-132b) gather over 'data' only, each position its
-'model' block, and serve tensor-parallel (heads, columns, experts and vocab
-a shard, ``distributed/tensor_parallel.py``); every other config
-gathers every parameter whole on each distinct device.
+results on another schedule): the dense, MoE, VLM, SSM and hybrid decoders
+on the "tp" profile (deepseek-67b, qwen1.5-110b, moonshot-v1-16b-a3b,
+dbrx-132b, llama-3.2-vision-90b, mamba2-780m, zamba2-7b) gather over
+'data' only, each position its 'model' block, and serve tensor-parallel
+(heads, columns, experts, SSM heads and vocab a shard,
+``distributed/tensor_parallel.py``); every other config gathers every
+parameter whole on each distinct device.
 """
 from __future__ import annotations
 

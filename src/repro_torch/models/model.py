@@ -34,22 +34,33 @@ and a logsumexp combine, the SSM step one head block at a time. These
 layers' projections are not split: the gathered path, every parameter
 gathered whole on the device.
 
-The dense, MoE and VLM decoders with GQA attention on the "tp" profile
-serve tensor-parallel instead (``distributed/tensor_parallel.py`` decides
-which and holds the blocks and the moves): ``prefill_placed_tp`` and
+The dense, MoE, VLM, SSM and hybrid decoders on the "tp" profile serve
+tensor-parallel instead (``distributed/tensor_parallel.py`` decides which
+and holds the blocks and the moves): ``prefill_placed_tp`` and
 ``decode_placed_tp`` run each data-parallel shard (or cache row) over the
-'model' shards of its group, each on its head, column, expert and vocab
-blocks; the row-parallel partials are reduced in float32 on the group's
-home, where the residual stream, the norms, the MoE's routing (once a
-routing group: its slots and drops are one device's), the cross layers'
-gates and the cache writes live. The VLM's image tokens are projected by
-column blocks once a prefill and sent whole to every shard, whose cross
-layers take their K/V heads of them (not roped). Decode
+'model' shards of its group, each on its head, column, expert, SSM head
+and vocab blocks, in one pair of loops (``prefill_tp``, ``decode_row_tp``)
+over ``_tp_walk``'s layers of four kinds: a decoder (self) layer, the
+VLM's cross layer, a mamba layer and the hybrid's shared block. The
+row-parallel partials are reduced in float32 on the group's home, where
+the residual stream, the norms, the MoE's routing (once a routing group:
+its slots and drops are one device's), the cross layers' gates, the gated
+norm's statistic and the cache writes live. The VLM's image tokens are
+projected by column blocks once a prefill and sent whole to every shard,
+whose cross layers take their K/V heads of them (not roped). Decode
 keeps the flash-decoding layout above: the token's K/V heads are joined
 on the home and written into the sequence block holding ``pos``, the
 joined query runs one partial a sequence block, and the combined output is
 split by head blocks for the rows of ``wo``; a cross layer's shard attends
-to its KV heads of the image K/V in the copy its own device holds.
+to its KV heads of the image K/V in the copy its own device holds. A
+mamba layer's shard computes its channels of B and C and its heads
+(``_tp_mamba``). At the prefill each shard's final states (its heads'
+``ssm`` and ``conv_x``, its channels' ``conv_b``/``conv_c``) are collected
+into the home's dense cache of the data shard, counted as moves, and
+scattered from there into the placed cache's blocks with the attention
+caches; at decode each shard reads and writes its own blocks of the
+states in the copy its own mesh position holds (``_tp_state_views``), so
+nothing of the state moves.
 """
 from __future__ import annotations
 
@@ -907,16 +918,28 @@ def _tp_layers(group, cfg: ModelConfig) -> list:
 
 
 def _tp_walk(group, cfg: ModelConfig) -> list:
-    """The TP loops' layers in order: ``(lead, [shard] layer, cross)``,
-    ``lead`` the layer's index into the stacked cache (``(i,)``; the vlm's
-    self layers ``(gi, li)``, its cross layers ``(gi,)``)."""
-    if cfg.family != "vlm":
-        return [((i,), lps, False) for i, lps in enumerate(_tp_layers(group, cfg))]
-    out = []
-    for gi, (selfs, cps) in enumerate(_tp_layers(group, cfg)):
-        out += [((gi, li), lps, False) for li, lps in enumerate(selfs)]
-        out.append(((gi,), cps, True))
-    return out
+    """The TP loops' layers in order: ``(lead, [shard] layer, kind)``.
+    ``kind``: "self" (a decoder layer; its K/V at ``lead`` of ``k``/``v``,
+    ``(i,)`` or the vlm's ``(gi, li)``), "cross" (the vlm's cross layer,
+    ``xk``/``xv`` at ``(gi,)``), "mamba" (its states at ``(i,)`` of the
+    stacked ``ssm`` leaves) or "shared" (the hybrid's shared block after
+    every ``hybrid_attn_every`` mamba layers, as ``_hybrid_split`` orders
+    them; its K/V at ``(gi,)`` of ``shared_k``/``shared_v``)."""
+    if cfg.family == "vlm":
+        out = []
+        for gi, (selfs, cps) in enumerate(_tp_layers(group, cfg)):
+            out += [((gi, li), lps, "self") for li, lps in enumerate(selfs)]
+            out.append(((gi,), cps, "cross"))
+        return out
+    if cfg.family not in ("ssm", "hybrid"):
+        return [((i,), lps, "self") for i, lps in enumerate(_tp_layers(group, cfg))]
+    mamba = [((i,), lps, "mamba") for i, lps in enumerate(_tp_layers(group, cfg))]
+    if cfg.family == "ssm":
+        return mamba
+    groups, tail = _hybrid_split(cfg, mamba)
+    shared = [b["shared"] for b in group.blocks]
+    return [item for gi, grp in enumerate(groups)
+            for item in grp + [((gi,), shared, "shared")]] + tail
 
 
 def _tp_mlp(group, lps: list, h: torch.Tensor) -> torch.Tensor:
@@ -1043,11 +1066,100 @@ def _tp_attention(group, lps: list, h: torch.Tensor, positions: torch.Tensor, cf
     return (L.gated(lps[0][name], out) if cross else out), (k, v)
 
 
+# The cache leaves of an attention kind's K/V.
+_KV = {"self": ("k", "v"), "shared": ("shared_k", "shared_v")}
+
+
 def _tp_layer(group, lps: list, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """A decoder layer over the prompt (``_dense_layer``): (x, (k, v))."""
+    """A decoder layer (or the hybrid's shared block) over the prompt
+    (``_dense_layer``, ``_shared_block``): (x, (k, v))."""
     a, kv = _tp_attention(group, lps, L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps), positions, cfg)
     x = x + a
     return x + _tp_ffn(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps), cfg), kv
+
+
+# The dim of each SSM state that the shards split: the channels, the heads.
+_STATE_DIM = {"conv_x": -1, "conv_b": -1, "conv_c": -1, "ssm": 1}
+
+
+def _tp_mamba(group, lps: list, x: torch.Tensor, cfg: ModelConfig, own: list | None = None):
+    """A mamba layer on the home's ``x`` over the group (``_mamba_layer``):
+    each shard its channel block of B and C (joined on the home, sent whole
+    to every shard), its heads' SSD (``own`` None: the prefill, from zero
+    states) or recurrent step (``own``: each shard's states,
+    ``_tp_state_views``), its sum of squares of ``y · silu(z)`` (summed on
+    the home in shard order into the ``rsqrt`` of the whole ``d_inner``'s
+    mean square, sent back) and its rows of ``out`` in float32, reduced on
+    the home. Returns (x, [shard] new states on its device)."""
+    from repro_torch.distributed.tensor_parallel import ssm_channel_range, ssm_head_range
+
+    hs = group.broadcast(L.rmsnorm(x, lps[0]["ln"], cfg.norm_eps))
+    states = own or [{}] * group.m
+    bs, cs, new = [], [], []
+    for j, (lp, hj, st) in enumerate(zip(lps, hs, states)):
+        with group.on(j):
+            b, c, ncb, ncc = SSM.bc_block(lp["ssm"], hj, *ssm_channel_range(cfg, j, group.m),
+                                          st.get("conv_b"), st.get("conv_c"))
+        bs.append(b)
+        cs.append(c)
+        new.append({"conv_b": ncb, "conv_c": ncc})
+    bb, cc = group.broadcast(group.join(bs)), group.broadcast(group.join(cs))
+    heads = SSM.heads_step if own else SSM.heads_forward
+    gzs, sums = [], []
+    for j, (lp, hj, st) in enumerate(zip(lps, hs, states)):
+        with group.on(j):
+            gz, ncx, final = heads(lp["ssm"], hj, cfg, *ssm_head_range(cfg, j, group.m), bb[j],
+                                   cc[j], st.get("conv_x"), st.get("ssm"))
+            sums.append(SSM.gate_sumsq(gz))
+        gzs.append(gz)
+        new[j].update(conv_x=ncx, ssm=final)
+    total = group.reduce(sums, torch.float32)
+    rstds = group.broadcast(torch.rsqrt(total / cfg.d_inner + cfg.norm_eps))
+    parts = []
+    for j, (lp, gz, rstd) in enumerate(zip(lps, gzs, rstds)):
+        with group.on(j):
+            parts.append(SSM.gated_rows(lp["ssm"], gz, rstd))
+    return x + group.reduce(parts, x.dtype), new
+
+
+def _tp_state_index(cfg: ModelConfig, key: str, ndim: int, j: int, m: int, i: int, lo: int,
+                    hi: int) -> tuple:
+    """The region of model shard ``j``'s block of mamba layer ``i``'s state
+    ``key`` (a stacked ``ndim``-dim leaf), rows ``lo .. hi - 1``: its heads
+    of ``ssm`` and channels of ``conv_x`` (``ssm_head_range``), its channels
+    of ``conv_b``/``conv_c`` (``ssm_channel_range``)."""
+    from repro_torch.distributed.tensor_parallel import ssm_channel_range, ssm_head_range
+
+    h0, h1 = ssm_head_range(cfg, j, m)
+    span = {"conv_x": (h0 * cfg.ssm_head_dim, h1 * cfg.ssm_head_dim), "ssm": (h0, h1)}
+    index = [slice(i, i + 1), slice(lo, hi)] + [slice(None)] * (ndim - 2)
+    index[_STATE_DIM[key] % (ndim - 1) + 1] = slice(*span.get(key, ssm_channel_range(cfg, j, m)))
+    return tuple(index)
+
+
+def _tp_state_views(group, j: int, states: dict, i: int, lo: int, hi: int, cfg: ModelConfig):
+    """Shard ``j``'s blocks of mamba layer ``i``'s placed states for rows
+    ``lo .. hi - 1`` (``_tp_state_index``), each a view of the block its own
+    mesh position holds (``ShardedTensor.view_at``): nothing moves."""
+    return {k: leaf.view_at(group.positions[j],
+                            _tp_state_index(cfg, k, leaf.ndim, j, group.m, i, lo, hi))[0]
+            for k, leaf in states.items()}
+
+
+def _tp_mamba_decode(group, lps: list, x: torch.Tensor, cache: dict, i: int, lo: int, hi: int,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """One token of mamba layer ``i`` for cache rows ``lo .. hi - 1`` over
+    their model group (``_tp_mamba`` on ``_tp_state_views``): each shard's
+    new states written back into its own blocks (promoted as
+    ``_put_placed`` promotes)."""
+    states = cache["ssm"]
+    own = [_tp_state_views(group, j, states, i, lo, hi, cfg) for j in range(group.m)]
+    x, new = _tp_mamba(group, lps, x, cfg, own)
+    for j, st in enumerate(new):
+        for k, t in st.items():
+            index = _tp_state_index(cfg, k, states[k].ndim, j, group.m, i, lo, hi)
+            _put_placed(states, k, t[None], [sl.start or 0 for sl in index])
+    return x
 
 
 def _tp_cross(group, cps: list, x: torch.Tensor, positions: torch.Tensor, imgs: list,
@@ -1068,15 +1180,19 @@ def prefill_tp(group, batch: dict, cache: dict, cfg: ModelConfig, out):
     x = _tp_embed(group, batch["tokens"])
     positions = _positions(*x.shape[:2], group.home)
     imgs = _tp_image_tokens(group, batch["image_embeds"], x.dtype) if cfg.family == "vlm" else None
-    for lead, lps, cross in _tp_walk(group, cfg):
-        if cross:
+    for lead, lps, kind in _tp_walk(group, cfg):
+        if kind == "mamba":
+            x, new = _tp_mamba(group, lps, x, cfg)
+            _put_states(cache, lead[0], {k: group.join([st[k] for st in new], dim=d)
+                                         for k, d in _STATE_DIM.items()})
+        elif kind == "cross":
             x, (xk, xv) = _tp_cross(group, lps, x, positions, imgs, cfg)
             cache["xk"][lead] = xk
             cache["xv"][lead] = xv
         else:
-            x, (k, v) = _tp_layer(group, lps, x, positions, cfg)
-            _fill_rows(cache["k"][lead], k)
-            _fill_rows(cache["v"][lead], v)
+            x, kv = _tp_layer(group, lps, x, positions, cfg)
+            for name, new in zip(_KV[kind], kv):
+                _fill_rows(cache[name][lead], new)
     return _tp_logits(group, x[:, -1:], cfg, out)[:, 0]
 
 
@@ -1094,17 +1210,18 @@ def prefill_placed_tp(shards: list, cache: dict, cfg: ModelConfig, home):
     return torch.cat(logits), cache
 
 
-def _tp_attn_decode(group, lps: list, h: torch.Tensor, pos: int, cache: dict, lead: tuple,
-                    row: int, lo: int, cfg: ModelConfig) -> torch.Tensor:
+def _tp_attn_decode(group, lps: list, h: torch.Tensor, pos: int, cache: dict, names: tuple,
+                    lead: tuple, row: int, lo: int, cfg: ModelConfig) -> torch.Tensor:
     """One decode attention layer of a cache row over its model group: the
     projections by column blocks, the token's K/V written whole at the
-    layer ``lead`` of the stacked cache, the joined query's partials a
-    sequence block (on the shard holding it), and the combined output's
-    head blocks through each shard's rows of wo."""
+    layer ``lead`` of the stacked cache leaves ``names`` (``k``/``v``,
+    ``shared_k``/``shared_v``), the joined query's partials a sequence block
+    (on the shard holding it), and the combined output's head blocks
+    through each shard's rows of wo."""
     positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32, device=h.device)
     qs, k, v = _tp_qkv(group, lps, h, positions, cfg)
     q = group.join(qs, dim=2)
-    kl, vl = cache["k"], cache["v"]
+    kl, vl = cache[names[0]], cache[names[1]]
     _write_token(kl, lead, lo, pos, k)
     _write_token(vl, lead, lo, pos, v)
     o = _combine_blocks(lambda q_, kb, vb, s: L.attn_partial(q_, kb, vb, s, pos), group.home,
@@ -1146,12 +1263,16 @@ def decode_row_tp(group, cache: dict, token: torch.Tensor, pos: int, row: int, l
     the group's home) over its model group. Returns its logits [rows,
     vocab] f32 on ``out``."""
     x = _tp_embed(group, token)
-    for lead, lps, cross in _tp_walk(group, cfg):
+    hi = lo + x.shape[0]
+    for lead, lps, kind in _tp_walk(group, cfg):
+        if kind == "mamba":
+            x = _tp_mamba_decode(group, lps, x, cache, lead[0], lo, hi, cfg)
+            continue
         h = L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps)
-        if cross:
-            x = x + _tp_cross_decode(group, lps, h, pos, cache, lead[0], lo, lo + x.shape[0], cfg)
+        if kind == "cross":
+            x = x + _tp_cross_decode(group, lps, h, pos, cache, lead[0], lo, hi, cfg)
         else:
-            x = x + _tp_attn_decode(group, lps, h, pos, cache, lead, row, lo, cfg)
+            x = x + _tp_attn_decode(group, lps, h, pos, cache, _KV[kind], lead, row, lo, cfg)
         x = x + _tp_ffn(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps), cfg)
     return _tp_logits(group, x, cfg, out)[:, 0]
 

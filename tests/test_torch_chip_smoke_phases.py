@@ -25,16 +25,18 @@ and check) runs before a card does:
     ``build="auto"`` is handed the card's device, and ``gather_total``
     launches are counted through a fake over its plain version;
   * 21b, the families' bf16 serving on a mesh (the gathered path):
-    minicpm3, mamba2 and zamba2 at smoke widths and depths on a 2 x 2 mesh,
-    each held by its bound and the planted lost cache shard (the VLM now
-    serves tensor-parallel, in 21d);
+    minicpm3 at smoke widths and depth on a 2 x 2 mesh, held by its bound
+    and the planted lost cache shard (the VLM, mamba2 and zamba2 now serve
+    tensor-parallel, in 21d);
   * 21d, tensor-parallel serving: deepseek-67b's, qwen1.5-110b's,
-    moonshot-v1-16b-a3b's, dbrx-132b's and llama-3.2-vision-90b's smoke
-    widths pinned to the "tp" profile (the MoE at the production capacity
-    factor, so that tokens are dropped; the VLM at its full config's group
-    size, 4 self and 1 cross layer) at the phase's depth cuts and shapes, on
-    a 2 x 2 mesh of logical CPU shards, flash launches counted through a
-    fake over its plain version.
+    moonshot-v1-16b-a3b's, dbrx-132b's, llama-3.2-vision-90b's,
+    mamba2-780m's and zamba2-7b's smoke widths pinned to the "tp" profile
+    (the MoE at the production capacity factor, so that tokens are dropped;
+    the VLM at its full config's group size, 4 self and 1 cross layer;
+    zamba2 at its full config's, the shared block after every 6 mamba
+    layers) at the phase's depth cuts and shapes, on a 2 x 2 mesh of
+    logical CPU shards, flash launches counted through a fake over its
+    plain version.
 
 The shapes and step counts are cut (constants of the copy), and the loss's
 bar is what smoke widths reach in 12 steps. Nothing here compares with the
@@ -277,7 +279,7 @@ def test_tensor_parallel_serve_phase_runs_on_the_host(smoke, monkeypatch):
         full = real_config(arch)
         return pt_configs.get_smoke_config(arch).scaled(
             parallelism="tp", moe_capacity_factor=full.moe_capacity_factor,
-            cross_attn_every=full.cross_attn_every)
+            cross_attn_every=full.cross_attn_every, hybrid_attn_every=full.hybrid_attn_every)
 
     monkeypatch.setattr(pt_configs, "get_config", narrow)
     monkeypatch.setattr(pt_serve, "get_config", narrow)
@@ -304,18 +306,30 @@ def test_tensor_parallel_serve_phase_runs_on_the_host(smoke, monkeypatch):
     logged = []
     monkeypatch.setattr(smoke, "log", logged.append)
     flash = smoke.phase_tensor_parallel_serve()
-    # layers x 2 data shards x 2 model shards a prefill
-    assert flash == {f"tensor_parallel_serve:{a}:{d}": n * 4 for a, n, d in smoke.SERVE_TP_RUNS}
+    # attention layers x 2 data shards x 2 model shards a prefill: the
+    # hybrid's shared block once a group, the SSM's none
+    attention = {"ssm": lambda n: 0, "hybrid": lambda n: n // 6}
+    assert flash == {f"tensor_parallel_serve:{a}:{d}":
+                     attention.get(narrow(a).family, lambda n: n)(n) * 4
+                     for a, n, d in smoke.SERVE_TP_RUNS}
     runs = [m for m in logged if "teacher-forced on the one-device session's tokens" in m]
     assert len(runs) == len(smoke.SERVE_TP_RUNS)
     for (arch, depth, dtype), m in zip(smoke.SERVE_TP_RUNS, runs):
         cfg = narrow(arch)
-        heads = f"each on {cfg.n_heads // 2} query and {max(cfg.n_kv_heads // 2, 1)} KV heads"
-        assert "ratio 0.50" in m and heads in m, (arch, m)
+        ssm = cfg.family in ("ssm", "hybrid")
+        heads = (f"each on {cfg.n_heads // 2} query and {max(cfg.n_kv_heads // 2, 1)} KV heads"
+                 if cfg.n_heads else "no attention layer")
+        # at smoke widths the SSM's replicated B/C projections weigh more
+        ratio = float(m.split(", ratio ")[1].split(";")[0])
+        assert heads in m and (ratio < 0.55 if ssm else f"{ratio:.2f}" == "0.50"), (arch, m)
         assert ("from a copy of the one-device" in m) == (dtype == "float32")
         assert ("QKV biases drawn" in m) == cfg.qkv_bias
         assert "refused by the same rule: a reduction dropping the last shard's partial" in m
-        assert "self attention (B " in m and ", causal) max |err|" in m
+        assert ("self attention (B " in m and ", causal) max |err|" in m) == bool(cfg.n_heads)
+        assert ("a shard reading its neighbour's head block of the SSM state" in m) == ssm
+        assert (f"{cfg.ssm_heads // 2} a shard" in m and "conv taps passing" in m) == ssm
+        if cfg.family == "hybrid":  # two groups of 6 at 15 layers, one at 7
+            assert f"{depth // 6} groups of 6 mamba layers and the shared block" in m
         assert ("a shard taking its neighbour's KV heads of the image K/V" in m) == (
             cfg.family == "vlm")
         if cfg.family == "vlm":  # two groups of 4 self and 1 cross layer at 10 layers, one at 5
@@ -335,7 +349,8 @@ def test_sharded_families_serve_phase_runs_on_the_host(smoke, monkeypatch):
     """21b at the families' smoke widths and depths (each on its full
     config's profile) on a 2 x 2 mesh of logical CPU shards: each held by
     its bound, and a prefill whose last data shard's cache is lost refused
-    by the same rule."""
+    by the same rule. minicpm3 alone takes the gathered path there, and
+    attends by "xla": no flash launch."""
     import repro_torch.launch.serve as pt_serve
     from repro_torch.distributed.ctx import arch_profile
     from repro_torch.kernels import flash_attention as pt_flash
@@ -366,10 +381,10 @@ def test_sharded_families_serve_phase_runs_on_the_host(smoke, monkeypatch):
     logged = []
     monkeypatch.setattr(smoke, "log", logged.append)
     flash = smoke._sharded_families_serve(smoke._logical_mesh(smoke.SERVE_SHARD_MESH), "rehearsal")
-    assert flash == {arch: n * 2 for arch, n in layers.items()}  # 2 prefill (data) shards
+    assert flash == {}
     runs = [m for m in logged if "teacher-forced on the one-device session's tokens" in m]
-    assert len(runs) == len(smoke.SERVE_SHARD_FAMILIES)
-    assert all("moonshot" not in m and "vision" not in m for m in runs)
+    assert len(runs) == len(smoke.SERVE_SHARD_FAMILIES) == 1
+    assert all(a not in m for m in runs for a in ("moonshot", "vision", "mamba2", "zamba2"))
     for (arch, _, _), m in zip(smoke.SERVE_SHARD_FAMILIES, runs):
         assert f"(bound {smoke.SERVE_SHARD_BF16_TOL[arch]:.6f})" in m, arch
         assert "last data shard's cache is lost, refused by the same rule" in m, arch

@@ -1,5 +1,10 @@
 """Tensor-parallel serving of the dense and MoE decoders on logical CPU meshes.
 
+(The VLM's: ``tests/test_torch_tensor_parallel_vlm.py``; the SSM and hybrid
+decoders': ``tests/test_torch_tensor_parallel_ssm.py``. This file's last
+tests decide which configs take the path and hold the dry run's cells of
+all of them.)
+
 deepseek-67b's, qwen1.5-110b's, moonshot-v1-16b-a3b's and dbrx-132b's smoke
 configs pinned ``parallelism="tp"`` serve through ``ServeSession(mesh=)``
 on (1, 2), (2, 2) and (1, 4): each position gathers over 'data' only, into
@@ -73,8 +78,15 @@ MODEL_LEAVES = {"tok_embed", "lm_head", "layers/attn/wq", "layers/attn/wk", "lay
                 # the VLM's image projection and cross layers
                 "img_proj", "cross_layers/xattn/wq", "cross_layers/xattn/wk",
                 "cross_layers/xattn/wv", "cross_layers/xattn/wo", "cross_layers/mlp/wi_gate",
-                "cross_layers/mlp/wi_up", "cross_layers/mlp/wo"}
+                "cross_layers/mlp/wi_up", "cross_layers/mlp/wo",
+                # a mamba layer's heads and channels; the hybrid's shared block
+                "layers/ssm/in_z", "layers/ssm/in_x", "layers/ssm/in_dt", "layers/ssm/conv_x",
+                "layers/ssm/a_log", "layers/ssm/d_skip", "layers/ssm/dt_bias",
+                "layers/ssm/gate_norm", "layers/ssm/out", "shared/attn/wq", "shared/attn/wk",
+                "shared/attn/wv", "shared/attn/wo", "shared/mlp/wi_gate", "shared/mlp/wi_up",
+                "shared/mlp/wo"}
 VLM = "llama-3.2-vision-90b"  # test_torch_tensor_parallel_vlm.py serves it
+SSM = ("mamba2-780m", "zamba2-7b")  # test_torch_tensor_parallel_ssm.py serves them
 # A GQA layout whose query blocks straddle KV heads on 2 shards: 6 query
 # heads, 3 KV heads, shard 0 holds heads 0-2 (KV heads 0, 0, 1).
 STRADDLE = {"n_heads": 6, "n_kv_heads": 3}
@@ -380,12 +392,12 @@ def test_prefill_launches_flash_on_each_shard_heads(monkeypatch, arch):
 # ------------------------------------------------------------ the other configs
 
 
-@pytest.mark.parametrize("arch", ("moonshot-v1-16b-a3b", "mamba2-780m"))
+@pytest.mark.parametrize("arch", ("moonshot-v1-16b-a3b", "mamba2-780m", "minicpm3-4b"))
 def test_other_families_on_tp_keep_the_gathered_path(monkeypatch, arch):
-    """Pinned "tp" on 2 x 2: the SSM config gathers every parameter whole,
-    as before; the MoE config now takes the tensor-parallel path and gathers
-    its ``ModelBlocks`` (its experts split over 'model'). Both give the
-    one-device session's results."""
+    """Pinned "tp" on 2 x 2: the MLA config gathers every parameter whole,
+    as before; the MoE and SSM configs now take the tensor-parallel path
+    and gather their ``ModelBlocks`` (the experts, the SSM heads split over
+    'model'). All give the one-device session's results."""
     mesh = _mesh(2, 2)
     pinned = get_smoke_config(arch).scaled(parallelism="tp")
     monkeypatch.setattr(pt_serve, "get_smoke_config", lambda a: pinned)
@@ -393,7 +405,7 @@ def test_other_families_on_tp_keep_the_gathered_path(monkeypatch, arch):
     one = pt_serve.ServeSession(arch, device="cpu", **common)
     sess = pt_serve.ServeSession(arch, mesh=mesh, params=one.params, **common)
     pcfg = sess.cfg
-    takes_tp = pcfg.family == "moe"
+    takes_tp = pcfg.family in ("moe", "ssm")
     assert pcfg.parallelism == "tp" and tp.serves_tensor_parallel(pcfg, mesh) == takes_tp
     prompts = _prompts(pcfg)
     want_tokens, want = one.generate(prompts, GEN, keep_logits=True)
@@ -411,12 +423,14 @@ def test_other_families_on_tp_keep_the_gathered_path(monkeypatch, arch):
 
 
 def test_which_configs_serve_tensor_parallel():
-    """The one test that decides: the dense, MoE or VLM family, GQA
-    attention, the "tp" profile, and a 'model' axis dividing the query
-    heads (and the experts). The production meshes give moonshot 4 experts
-    a shard and dbrx 1; 2 x 2, 32 and 8. The VLM takes it on the production
-    meshes and on 2 x 2; the SSM, hybrid, MLA, audio and "dp" configs do
-    not."""
+    """The one test that decides: the "tp" profile, and a 'model' axis
+    dividing the query heads of the dense, MoE or VLM family with GQA
+    attention (and the experts), the SSM heads of the SSM family, both of
+    the hybrid. The production meshes give moonshot 4 experts a shard and
+    dbrx 1; 2 x 2, 32 and 8. The VLM, mamba2-780m (48 SSM heads: 3 a shard
+    on 16) and zamba2-7b (112 SSM heads and 32 query heads: 7 and 2) take it
+    on the production meshes and on 2 x 2; the MLA, audio and "dp" configs
+    do not."""
     from repro_torch.configs import get_config
 
     prod = DuckMesh((16, 16), ("data", "model"))
@@ -425,9 +439,23 @@ def test_which_configs_serve_tensor_parallel():
                         "moonshot-v1-16b-a3b", "dbrx-132b", "mamba2-780m", "zamba2-7b",
                         "llama-3.2-vision-90b", "hubert-xlarge")
             if tp.serves_tensor_parallel(get_config(a), prod)
-            and tp.serves_tensor_parallel(get_config(a), multi)} == set(ARCHS) | {VLM}
+            and tp.serves_tensor_parallel(get_config(a), multi)} == set(ARCHS) | {VLM} | set(SSM)
     two = DuckMesh((2, 2), ("data", "model"))
-    assert tp.serves_tensor_parallel(get_config(VLM), two)
+    assert all(tp.serves_tensor_parallel(get_config(a), two) for a in (VLM, *SSM))
+    assert not any(tp.serves_tensor_parallel(get_config(a), m) for a in ("minicpm3-4b",
+                                                                      "hubert-xlarge")
+                   for m in (prod, multi, two))
+    assert [tp.ssm_head_range(get_config(a), 15, 16) for a in SSM] == [(45, 48), (105, 112)]
+    assert [tp.ssm_channel_range(get_config(a), 1, 16) for a in SSM] == [(8, 16), (4, 8)]
+    for arch in SSM:  # "auto" puts the smoke configs' 8 SSM heads on "dp"
+        cfg = get_smoke_config(arch)
+        assert not tp.serves_tensor_parallel(cfg, two)
+        assert tp.serves_tensor_parallel(cfg.scaled(parallelism="tp"), DuckMesh((1, 4),
+                                                                                ("data", "model")))
+        assert not tp.serves_tensor_parallel(cfg.scaled(parallelism="tp"), DuckMesh(
+            (1, 16), ("data", "model")))  # 8 SSM heads
+    hybrid = get_smoke_config("zamba2-7b").scaled(parallelism="tp", n_heads=6, n_kv_heads=6)
+    assert not tp.serves_tensor_parallel(hybrid, DuckMesh((1, 4), ("data", "model")))
     assert [tp.kv_block(get_config(VLM), j, m) for m, j in ((16, 15), (2, 1))] == [
         (7, 8, None), (4, 8, None)]
     for arch, per in (("moonshot-v1-16b-a3b", (4, 32)), ("dbrx-132b", (1, 8))):
@@ -458,17 +486,19 @@ def test_which_configs_serve_tensor_parallel():
 # ------------------------------------------------------------ the dry run
 
 
-@pytest.mark.parametrize("arch", ARCHS + (VLM,))
+@pytest.mark.parametrize("arch", ARCHS + (VLM,) + SSM)
 def test_dryrun_serving_cells_take_the_tensor_parallel_step(monkeypatch, arch):
     """At 2 layers on the production mesh (the VLM: one self and one cross
-    layer): a device gathers its model blocks (1/16 of every 'model'
-    leaf), and its matmul FLOPs are the gathered path's count over the
-    model axis (the same products, split: the VLM's image projection and
-    cross K/V too), but for the MoE's router product, which the home runs
-    whole."""
+    layer; zamba2: two mamba layers and the shared block): a device gathers
+    its model blocks (1/16 of every 'model' leaf), and its matmul FLOPs are
+    the gathered path's count over the model axis (the same products,
+    split: the VLM's image projection and cross K/V, the SSM's B/C
+    channels and heads too), but for the MoE's router product, which the
+    home runs whole. The SSM and hybrid also at long_500k."""
     from repro_torch.launch.specs import CellSpec
 
-    for shape in ("prefill_32k", "decode_32k"):
+    shapes = ("prefill_32k", "decode_32k") + (("long_500k",) if arch in SSM else ())
+    for shape in shapes:
         r = dryrun.run_cell(arch, shape, "single", n_layers=2)
         spec = CellSpec(arch, shape)
         spec.cfg = dryrun.cut_depth(spec.cfg, 2)

@@ -7,12 +7,16 @@ Each ``--arch`` (default deepseek-67b:8; LAYERS cuts the depth, none: every
 layer) at full width, bf16, on logical shards of one card: 4 x 512 prompt
 tokens and 16 steps (chip_smoke's phase 21b / 21d shape) teacher-forced on
 the one-device session's tokens (the VLM's image embeddings as 21d draws
-them, ``chip_smoke._image_embeds``), under phase 21b's attention for the
-configs it serves (21d's "flash" for the others), for
+them, ``chip_smoke._image_embeds``; the SSM and hybrid configs' conv taps
+passing their input as 21d sets them, ``chip_smoke._passing_conv``), under
+phase 21b's attention for the configs it serves (21d's "flash" for the
+others), for
 
   * a config that serves tensor-parallel (``serves_tensor_parallel``: the
-    dense, MoE and VLM decoders): the tensor-parallel path on 2 x 2, 1 x 2 and
-    2 x 1 (on 2 x 1 the model axis splits nothing: only the data split and
+    dense, MoE, VLM, SSM and hybrid decoders on the "tp" profile, e.g.
+    ``--arch mamba2-780m:48 --arch zamba2-7b:15``): the tensor-parallel
+    path on 2 x 2, 1 x 2 and 2 x 1 (on 2 x 1 the model axis splits
+    nothing: only the data split and
     the path's float32 reductions differ from one device), and the gathered
     path on 2 x 2 (every parameter gathered whole; ``serves_tensor_parallel``
     patched off);
@@ -60,6 +64,7 @@ def drift(smoke, arch: str, layers: int | None) -> None:
     torch.cuda.empty_cache()
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
     smoke._open_gates(params)
+    smoke._passing_conv(params)
     rng = np.random.default_rng(23)
     prompts = rng.integers(0, cfg.vocab, (b, plen), dtype=np.int32)
     img = smoke._image_embeds(rng, b, cfg) if cfg.family == "vlm" else None
