@@ -326,28 +326,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               relative norm of phase 12's (3 x the first run's 0.012342 is
               looser); a combine planted to drop the last block must exceed
               it; prefill_s, ms a step, tokens/s, peak memory, a profiled
-              prefill and decode step. (b) minicpm3-4b (MLA), the config
-              that serves on the gathered path, at full width in bf16,
-              phase 19's 4 x 512 prompts and 16 steps, teacher-forced on
-              its one-device session's tokens
-              beside a float32 run of the same weights: within a config's
-              bound of one device (``SERVE_SHARD_BF16_TOL``, 1.5 x the
-              largest reading of ``tools/tp_drift.py``'s gathered path on 2
-              x 2), and never farther from float32 than one device plus
-              3e-2; a prefill whose last data shard's cache is lost must
-              fail the same rule. (c) float32 at full width, 2 layers (the
-              VLM 5, zamba2 7), every arch above, moonshot (2 x 1,024
+              prefill and decode step. (b) minicpm3-4b (MLA) pinned to the
+              "dp" profile, where it serves on the gathered path (each data
+              shard's prefill, the latent cache's sequence blocks combined
+              at decode), at full width and all 62 layers in bf16, phase
+              19's 4 x 512 prompts and 16 steps, its q_norm scaled as 21d's
+              (``_sharp_mla``), teacher-forced on its one-device session's
+              tokens beside a float32 run of the same weights: within its
+              bound of one device (``SERVE_SHARD_BF16_TOL``, 1.5 x
+              ``tools/tp_drift.py``'s reading of the path on 2 x 2), and
+              never farther from float32 than one device plus 3e-2; a
+              prefill whose last data shard's cache is lost must fail the
+              same rule. (c) float32 at
+              full width, 2 layers (the VLM 5, zamba2 7), minicpm3-4b (MLA,
+              pinned "dp" as in (b): the gathered path), moonshot (2 x 1,024
               tokens), the VLM, mamba2 and zamba2 (on their tensor-parallel
-              path: the VLM's 5 layers launch flash 20 times) against the port's CPU
+              path: the VLM's 5 layers launch flash 20 times) against the
+              port's CPU
               session on the same weights: the prefill logits within 1e-4;
               a decode step (which reads the bf16 attention caches) within
               1e-4 of the card's one-device session's distance from the CPU
- 21d. tensor-parallel serve  the dense, MoE, VLM, SSM and hybrid decoders on the 2 x 2
+ 21d. tensor-parallel serve  the dense, MLA, MoE, VLM, SSM and hybrid decoders on the 2 x 2
               mesh of logical shards tensor-parallel (``distributed/
               tensor_parallel.py``): each position gathers over 'data' only,
               into its 'model' block of every leaf whose spec has 'model',
-              and computes its query heads (flash on H/m of them), its
-              columns of wq/wk/wv and wi_gate/wi_up, its rows of both wo
+              and computes its query heads (flash on H/m of them; MLA's
+              head-aligned columns of wuq/wuk/wuv and rows of wo, its
+              heads attending by "xla" over the latents the home sends),
+              its columns of wq/wk/wv and wi_gate/wi_up, its rows of both wo
               (the partials reduced in float32), its E/m experts (routed
               once on the home; its share of the MoE's output reduced in
               float32), its columns of the VLM's image projection (once a
@@ -389,7 +395,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               heads of hd 112 a shard) in bf16 and 7 in float32, their conv
               taps passing their input so that the state counts, each bf16
               run within a bound set from a ``tools/tp_drift.py`` reading.
-              Each run: the bytes each
+              minicpm3-4b (MLA, 40 heads: 20 a shard) at all 62 layers in
+              bf16 within a bound set from a ``tools/tp_drift.py`` reading
+              and 2 in float32 within 1e-4 of one device, under "xla" (no
+              flash launch; at decode each latent cache block's partial
+              runs on the shard holding it). Each run: the bytes each
               position gathered on this path and on the gathered path
               (under 0.55 of it), the flash launches (layers x data shards x
               model shards, each on H/m query heads, the VLM's cross layers
@@ -400,7 +410,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               run's own rule must refuse: a reduction that drops the last
               shard's partial, (MoE) a shard that runs its neighbour's
               expert block, (VLM) a shard that takes its neighbour's
-              KV heads of the image K/V in the cross layers only, and (SSM,
+              KV heads of the image K/V in the cross layers only, (MLA) a
+              shard that receives its neighbour's heads of the combined
+              latent at decode, and (SSM,
               hybrid) a shard that reads its neighbour's head block of the
               SSM state at decode
 
@@ -636,27 +648,31 @@ SERVE_SHARD_MAX_SEQ = LM_PROMPT + LM_GEN
 # difference of the first card run (0.012342 at a decode step of smollm;
 # the prefill's 0) is 0.037, so LM_TOL, never looser, holds.
 SERVE_SHARD_TOL = LM_TOL
-SERVE_SHARD_FAMILIES = (("minicpm3-4b", None, "xla"),)
-# (arch, depth cut, impl) of 21b; 21c also runs moonshot, the VLM, mamba2
-# and zamba2, which serve tensor-parallel on 2 x 2 (phase 21d holds their
-# bf16 and float32 runs).
-SERVE_SHARD_IMPL = {LM_ARCH: "flash", **{a: impl for a, _, impl in SERVE_SHARD_FAMILIES},
-                    "mamba2-780m": "xla", "zamba2-7b": "flash",
-                    "moonshot-v1-16b-a3b": "flash", "llama-3.2-vision-90b": "flash"}
+# (arch, depth cut) of 21b: the decoders served on the gathered path at full
+# width in bf16, each on its profile there (SERVE_SHARD_PROFILE). minicpm3
+# is pinned "dp" (``_pinned_profile``): on its own "tp" profile it serves
+# tensor-parallel (21d), and the gathered MLA decode (``_mla_placed``)
+# serves the "dp" profile.
+SERVE_SHARD_FAMILIES = (("minicpm3-4b", None),)
+SERVE_SHARD_PROFILE = {"minicpm3-4b": "dp"}  # 21b's and 21c's; tp_drift reads it too
+# The attention of each decoder 21c runs (they serve tensor-parallel on 2 x
+# 2, phase 21d holds their bf16 and float32 runs, but smollm's and
+# minicpm3's pinned "dp"), and of 21b's, 21d's and tools/tp_drift.py's runs
+# ("flash" for a config not here): MLA's values are narrower than its
+# queries, which the flash kernel refuses.
+SERVE_SHARD_IMPL = {LM_ARCH: "flash", "minicpm3-4b": "xla", "mamba2-780m": "xla",
+                    "zamba2-7b": "flash", "moonshot-v1-16b-a3b": "flash",
+                    "llama-3.2-vision-90b": "flash"}
 SERVE_SHARD_F32_SHAPE = (4, 32, 4)  # batch, prompt, generated
 SERVE_SHARD_F32_MOE_SHAPE = (2, 1024, 4)  # one routing group of 1,024 a data shard
 # 21b's bf16 logits against the one-device session, a config (relative
-# norm, max over the steps): 1.5 x the largest reading of the gathered path
-# on 2 x 2, from tools/tp_drift.py (its prompts) and from this phase's runs
-# (NVIDIA H100 80GB HBM3, 700 W): minicpm3 0.072696 / 0.075101 (the VLM,
-# mamba2 and zamba2, which now serve tensor-parallel in 21d, read 0.031834 /
-# 0.031674, 0.0 / 0.016160 and 0.046105 / 0.045503 there).
-# Splitting the batch over 'data' changes the products' shapes, so their
-# bf16 roundings part, and the parted roundings grow over the decode steps
-# (one device reads 0.058-0.077 from float32). A run is also held no
-# farther from float32 than one device plus LM_TOL; 21c's float32 runs are
-# the tight check.
-SERVE_SHARD_BF16_TOL = {"minicpm3-4b": 1.5 * 0.075101}
+# norm, max over the steps): 1.5 x the largest reading of its path on 2 x 2
+# (tools/tp_drift.py, its weights as 21b's: q_norm scaled, _sharp_mla).
+# Splitting the batch over the data shards changes the products' shapes, so
+# their bf16 roundings part, and the parted roundings grow over the decode
+# steps. A run is also held no farther from float32 than one device plus
+# LM_TOL; 21c's float32 runs are the tight check.
+SERVE_SHARD_BF16_TOL = {"minicpm3-4b": 1.5 * 0.092576}
 # Phase 21d: the decoders served tensor-parallel on 2 x 2 logical
 # shards of cuda:0 (each position gathers its 'model' blocks over 'data'
 # and computes its heads, columns and vocab block). deepseek-67b at full
@@ -672,7 +688,8 @@ SERVE_TP_RUNS = (("deepseek-67b", 2, "float32"), ("deepseek-67b", 8, "bfloat16")
                  ("dbrx-132b", 2, "bfloat16"), ("llama-3.2-vision-90b", 5, "float32"),
                  ("llama-3.2-vision-90b", 10, "bfloat16"), ("mamba2-780m", 2, "float32"),
                  ("mamba2-780m", 48, "bfloat16"), ("zamba2-7b", 7, "float32"),
-                 ("zamba2-7b", 15, "bfloat16"))  # (arch, depth cut, dtype)
+                 ("zamba2-7b", 15, "bfloat16"), ("minicpm3-4b", 2, "float32"),
+                 ("minicpm3-4b", 62, "bfloat16"))  # (arch, depth cut, dtype)
 # The VLM's runs: 10 of 100 layers in bf16 (21b's cut: two groups of 4 self
 # and 1 cross layer, 10.67 B parameters, 21.3 GB; its float32 reference
 # copy, 42.7 GB, sits beside it), one whole group (5 layers, 6.39 B, 25.6 GB
@@ -695,7 +712,20 @@ SERVE_TP_RUNS = (("deepseek-67b", 2, "float32"), ("deepseek-67b", 8, "bfloat16")
 # 7 in float32 (one group and a trailing layer, FAMILY_F32_DEPTH). Their
 # depthwise conv taps pass their input (_passing_conv), so that the scan's
 # state counts in the logits.
+# The MLA runs: minicpm3-4b at all 62 layers in bf16 (4.26 B parameters,
+# 8.5 GB; 40 heads, 20 a shard on 2 x 2), 2 in float32, under "xla"
+# (SERVE_SHARD_IMPL: no flash launch).
+SERVE_TP_SEED = 23  # the runs' prompts and image embeddings, drawn run after run
 SERVE_TP_BIAS_STD = 0.5
+# A position's gathered bytes on the tensor-parallel path, the most of the
+# gathered path's (every parameter whole): the leaves without a 'model' dim
+# stay whole (MLA's latent projections, the SSM's B/C projections).
+SERVE_TP_BYTES_SHARE = 0.55
+# The MLA runs' query latent norms are scaled so that the scores' latent
+# part spreads about this much (_sharp_mla): at the init's 0.14 each head's
+# combined latent is nearly the prompt's mean, and a shard given its
+# neighbour's heads of it lands inside the bf16 drift.
+MLA_SCORE_STD = 1.0
 # The MoE runs' routing against one device's. Layer 0's MoE on one input:
 # the same choices and drops, the output within FAMILY_CARD_TOL (float32)
 # or MOE_LAYER_BF16_TOL (bf16: the experts' shares summed in float32 and
@@ -729,10 +759,16 @@ MOE_FLIP_TOL = 1e-3
 # roundings from one device's); zamba2's at 15: 0.028908 (2 x 2; 1 x 2
 # 0.028542, 2 x 1 0.027917, the gathered path 0.028309), both with their
 # conv taps passing their input (_passing_conv; one device 0.061821 and
-# 0.042172 from float32).
+# 0.042172 from float32). minicpm3's at 62 layers, its query latent norms
+# scaled (_sharp_mla): 0.093363 (2 x 2; 1 x 2 0.093355, 2 x 1 0.091493, the
+# gathered path 0.092576; prefill 0.066203 where 'model' splits wo, else 0.0);
+# the sharper attention parts the bf16 roundings more (one device 0.197627
+# from float32; at the init's weights the gathered path read 0.072696 and
+# one device 0.058-0.077).
 SERVE_TP_BF16_TOL = {"deepseek-67b": 1.5 * SERVE_SHARD_TOL, "moonshot-v1-16b-a3b": 1.5 * 0.050049,
                      "dbrx-132b": 1.5 * 0.337294, "llama-3.2-vision-90b": 1.5 * 0.033598,
-                     "mamba2-780m": 1.5 * 0.043560, "zamba2-7b": 1.5 * 0.028908}
+                     "mamba2-780m": 1.5 * 0.043560, "zamba2-7b": 1.5 * 0.028908,
+                     "minicpm3-4b": 1.5 * 0.093363}
 # A bf16 run lands no farther from float32 than one device plus LM_TOL; for
 # dbrx plus its bound: two runs that far apart may differ by that much in
 # their distance from float32 (the triangle inequality), and its readings
@@ -4512,6 +4548,24 @@ def _passing_conv(params) -> None:
             ssm[k][:, -1] += 1.0
 
 
+def _sharp_mla(params, cfg) -> None:
+    """An MLA config's query latent norm (``q_norm``) scaled in place so
+    that the latent part of the scores, ``(q_nope wuk^T)·ckv / sqrt(nope +
+    rope)``, spreads about ``MLA_SCORE_STD``. At the init's weights it
+    spreads about ``std(wuq) std(wuk) sqrt(q_rank nope kv_rank / (nope +
+    rope))`` (0.14 at minicpm3's widths, 6e-3 at its smoke config's): every
+    head attends nearly uniformly, each head's combined latent is nearly
+    the prompt's mean latent, and a fault that hands a shard its
+    neighbour's heads of it hides in the bf16 drift."""
+    attn = params.get("layers", {}).get("attn", {})
+    if "q_norm" not in attn:
+        return
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    spread = (float(attn["wuq"].float().std()) * float(attn["wuk"].float().std())
+              * (cfg.q_lora_rank * cfg.qk_nope_dim * cfg.kv_lora_rank / qk) ** 0.5)
+    attn["q_norm"].mul_(MLA_SCORE_STD / spread)
+
+
 def _on(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
@@ -5537,47 +5591,68 @@ def _sharded_smollm_serve(lm: dict, mesh, smi: str) -> int:
     return launches["flash_attention"]
 
 
+@contextlib.contextmanager
+def _pinned_profile(profile: str | None):
+    """The configs ``ServeSession`` reads pinned to ``profile`` inside
+    the block (None: as they are), as a deployment pins its config's."""
+    from repro_torch.launch import serve
+
+    if profile is None:
+        yield
+        return
+    with _patched(serve, "get_config",
+                  lambda real: lambda arch: real(arch).scaled(parallelism=profile)):
+        yield
+
+
 def _sharded_families_serve(mesh, smi: str) -> dict:
-    """21b: the other decoders at full width in bf16 (phase 19's shapes and
-    depth cuts), each sharded session teacher-forced on its one-device
-    session's tokens. Returns the flash launches of each prefill."""
+    """21b: the decoders of ``SERVE_SHARD_FAMILIES`` at full width in bf16
+    on the gathered path (phase 19's shapes), each on its pinned profile,
+    teacher-forced on its one-device session's tokens. Returns the flash
+    launches of each prefill."""
     from repro_torch.configs import get_config
-    from repro_torch.distributed.ctx import arch_profile
     from repro_torch.launch.serve import ServeSession
+    from repro_torch.launch.steps import serves_tensor_parallel
+    from repro_torch.models import model as model_mod
     from repro_torch.models.model import init_model
     from repro_torch.models.params import tree_map
 
     flash = {}
     rng = np.random.default_rng(21)
-    for arch, depth, impl in SERVE_SHARD_FAMILIES:
+    for arch, depth in SERVE_SHARD_FAMILIES:
         full = get_config(arch)
-        cfg = full.scaled(n_layers=depth) if depth else full
+        impl, profile = SERVE_SHARD_IMPL.get(arch, "flash"), SERVE_SHARD_PROFILE.get(arch)
+        cfg = full.scaled(**{k: v for k, v in (("n_layers", depth), ("parallelism", profile))
+                             if v is not None})
+        check(not serves_tensor_parallel(cfg, mesh),
+              f"[sharded serve] {arch} on profile {profile!r} does not take the gathered path")
         torch.cuda.empty_cache()
         params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
         _open_gates(params)
+        _sharp_mla(params, cfg)
         prompts = rng.integers(0, cfg.vocab, (FAMILY_BATCH, FAMILY_PROMPT), dtype=np.int32)
-        img = None
-        if cfg.family == "vlm":
-            img = rng.normal(size=(FAMILY_BATCH, cfg.n_image_tokens, cfg.d_frontend)).astype(np.float32)
         common = dict(batch=FAMILY_BATCH, max_seq=FAMILY_PROMPT + FAMILY_GEN, attention_impl=impl,
                       n_layers=depth)
         one = ServeSession(arch, params=params, **common)
-        tokens, stats = one.generate(prompts, FAMILY_GEN, image_embeds=img, keep_logits=True)
+        tokens, stats = one.generate(prompts, FAMILY_GEN, keep_logits=True)
         del one
         forced = tokens[:, FAMILY_PROMPT:]
         # The same weights in float32 (one device), fed the same tokens:
         # where each bf16 session's rounding takes it.
         f32 = ServeSession(arch, params=tree_map(lambda t: t.float(), params), dtype="float32",
                            **common)
-        exact = _forced(f32, prompts, img, forced)[0]
+        exact = _forced(f32, prompts, None, forced)[0]
         del f32
         torch.cuda.empty_cache()
-        sess = ServeSession(arch, mesh=mesh, params=params, **common)
-        del params  # the sharded session holds its own blocks ("tp": ZeRO-3 copies)
+        with _pinned_profile(profile):
+            sess = ServeSession(arch, mesh=mesh, params=params, **common)
+        check(sess.cfg.parallelism == cfg.parallelism, f"[sharded serve] {arch}: the session "
+              f"serves on profile {sess.cfg.parallelism!r}, not {cfg.parallelism!r}")
+        del params  # the sharded session holds its own copies
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         shards = _prefill_shards(cfg, mesh, FAMILY_BATCH, FAMILY_PROMPT)
-        got, pre, dec, prefill_s, decode_s, layout = _forced(sess, prompts, img, forced)
+        got, pre, dec, prefill_s, decode_s, layout = _forced(sess, prompts, None, forced)
         peak = torch.cuda.max_memory_allocated()
         rels = _step_rels(got, stats["logits"], cfg.vocab)
         want = FAMILY_FLASH_LAYERS[arch] * shards if impl == "flash" else 0
@@ -5592,7 +5667,7 @@ def _sharded_families_serve(mesh, smi: str) -> dict:
             session's distance from float32): finite logits within ``tol``
             of one device, and no farther from float32 than one device is,
             plus LM_TOL."""
-            logits = got if steps == FAMILY_GEN else _forced(sess, prompts, img,
+            logits = got if steps == FAMILY_GEN else _forced(sess, prompts, None,
                                                               forced[:, :steps])[0]
             near = _step_rels(logits, stats["logits"][:steps], cfg.vocab)
             one_f32 = max(_step_rels(torch.as_tensor(stats["logits"][:steps]), exact[:steps],
@@ -5607,28 +5682,29 @@ def _sharded_families_serve(mesh, smi: str) -> dict:
         # A planted fault the rule must refuse: the prefill's last data shard
         # never writes its cache rows into the placed cache (its rows decode
         # from zeros), held by the same verdict over two steps.
-        from repro_torch.models import model as model_mod
-
-        real = model_mod._scatter_rows
-        model_mod._scatter_rows = lambda cache, own, lo: real(cache, own, lo) if lo == 0 else None
-        try:
+        last = FAMILY_BATCH - FAMILY_BATCH // shards
+        with _patched(model_mod, "_scatter_rows",
+                      lambda real: lambda cache, own, lo: None if lo == last else real(cache, own,
+                                                                                       lo)):
             bad_ok, bad, _, _ = verdict(2)
-        finally:
-            model_mod._scatter_rows = real
         check(not bad_ok, f"[sharded serve] {arch}: a lost cache shard passes the rule: {bad}")
         cut = f"{depth} of {full.n_layers} layers" if depth else f"all {full.n_layers} layers"
-        log(f"[sharded serve] {arch} ({cfg.family}, profile {arch_profile(cfg)!r}) at full width, {cut}, bf16, attention {impl!r}, on {SERVE_SHARD_MESH}: "
-            f"{FAMILY_BATCH} x {FAMILY_PROMPT} prompt tokens in {shards} prefill shards, "
-            f"{FAMILY_GEN} steps teacher-forced on the one-device session's tokens: logits "
-            f"relative norm prefill {rels[0]:.6f}, decode max {max(rels[1:]):.6f} (bound "
-            f"{tol:.6f}); against a float32 run of the same weights, max over the steps: "
-            f"one device {one_f32:.6f}, sharded {sharded_f32:.6f}; a prefill whose last data "
-            f"shard's cache is lost, refused by the same rule: {[round(r, 6) for r in bad]}, "
-            f"{max(bad) / tol:.1f} x the bound; flash launches prefill {pre['flash_attention']}, decode "
-            f"{dec['flash_attention']}; prefill {prefill_s:.6f} s (one device "
-            f"{stats['prefill_s']:.6f}), decode {1e3 * decode_s / (FAMILY_GEN - 1):.3f} ms a step "
-            f"(one device {1e3 * stats['decode_s'] / (FAMILY_GEN - 1):.3f}); max_memory_allocated "
-            f"{peak} bytes; cache specs {layout}; {smi}")
+        log(f"[sharded serve] {arch} ({cfg.family}, profile {profile!r}, the gathered path) at "
+            f"full width, {cut}, bf16, attention {impl!r}"
+            + (f", q_norm scaled so that the latent scores spread about {MLA_SCORE_STD}"
+               if cfg.attention == "mla" else "")
+            + f", on {SERVE_SHARD_MESH}: {FAMILY_BATCH} x {FAMILY_PROMPT} prompt tokens in "
+            f"{shards} prefill shards, {FAMILY_GEN} steps teacher-forced on the one-device "
+            f"session's tokens: logits relative norm prefill {rels[0]:.6f}, decode max "
+            f"{max(rels[1:]):.6f} (bound {tol:.6f}); against a float32 run of the same weights, "
+            f"max over the steps: one device {one_f32:.6f}, sharded {sharded_f32:.6f}; a prefill "
+            f"whose last data shard's cache is lost, refused by the same rule: "
+            f"{[round(r, 6) for r in bad]}, {max(bad) / tol:.1f} x the bound; flash launches "
+            f"prefill {pre['flash_attention']}, decode {dec['flash_attention']}; prefill "
+            f"{prefill_s:.6f} s (one device {stats['prefill_s']:.6f}), decode "
+            f"{1e3 * decode_s / (FAMILY_GEN - 1):.3f} ms a step (one device "
+            f"{1e3 * stats['decode_s'] / (FAMILY_GEN - 1):.3f}); max_memory_allocated {peak} "
+            f"bytes; cache specs {layout}; {smi}")
         if impl == "flash":
             flash[arch] = pre["flash_attention"]
         del sess, got
@@ -5640,14 +5716,20 @@ def _sharded_serve_f32(mesh) -> None:
     the card teacher-forced on the port's CPU session's tokens, on the same
     weights."""
     from repro_torch.configs import get_config
+    from repro_torch.distributed.ctx import arch_profile
     from repro_torch.launch.serve import ServeSession
+    from repro_torch.launch.steps import serves_tensor_parallel
     from repro_torch.models.model import init_model
     from repro_torch.models.params import tree_map
 
     rng = np.random.default_rng(22)
     for arch in SERVE_SHARD_IMPL:
-        depth = FAMILY_F32_DEPTH.get(arch, 2)
-        cfg = get_config(arch).scaled(n_layers=depth, dtype="float32")
+        depth, profile = FAMILY_F32_DEPTH.get(arch, 2), SERVE_SHARD_PROFILE.get(arch)
+        cfg = get_config(arch).scaled(n_layers=depth, dtype="float32",
+                                      **({"parallelism": profile} if profile else {}))
+        path = "tensor-parallel" if serves_tensor_parallel(cfg, mesh) else "gathered"
+        check(path == "gathered" or profile is None,
+              f"[sharded serve] {arch} pinned {profile!r} takes the tensor-parallel path")
         b, plen, gen = SERVE_SHARD_F32_MOE_SHAPE if cfg.family == "moe" else SERVE_SHARD_F32_SHAPE
         torch.cuda.empty_cache()
         card = init_model(torch.Generator(device="cuda").manual_seed(1), cfg, "cuda")
@@ -5666,7 +5748,10 @@ def _sharded_serve_f32(mesh) -> None:
         del host
         forced = tokens[:, plen:]
         one = _forced(ServeSession(arch, params=card, **common), prompts, img, forced)[0]
-        sess = ServeSession(arch, mesh=mesh, params=card, **common)
+        with _pinned_profile(profile):
+            sess = ServeSession(arch, mesh=mesh, params=card, **common)
+        check(sess.cfg.parallelism == cfg.parallelism, f"[sharded serve] {arch}: the session "
+              f"serves on profile {sess.cfg.parallelism!r}, not {cfg.parallelism!r}")
         del card
         got, pre, _, _, _, _ = _forced(sess, prompts, img, forced)
         rels = _step_rels(got, stats["logits"], cfg.vocab)
@@ -5681,8 +5766,9 @@ def _sharded_serve_f32(mesh) -> None:
               f"[sharded serve] {arch} float32: sharded card vs CPU relative norms {rels}, the "
               f"card's one-device session's {one_rels}")
         log(f"[sharded serve] {arch} float32 at full width, {depth} layers, {b} x {plen} prompt "
-            f"tokens and {gen} steps on {SERVE_SHARD_MESH} (attention {SERVE_SHARD_IMPL[arch]!r}, "
-            f"flash launches {pre['flash_attention']}), teacher-forced on the port's CPU session's "
+            f"tokens and {gen} steps on {SERVE_SHARD_MESH} (profile {arch_profile(cfg)!r}, the "
+            f"{path} path, attention {SERVE_SHARD_IMPL[arch]!r}, flash launches "
+            f"{pre['flash_attention']}), teacher-forced on the port's CPU session's "
             f"tokens: logits relative norm against the CPU, sharded "
             f"{[float(f'{r:.3e}') for r in rels]}, the card's one-device session "
             f"{[float(f'{r:.3e}') for r in one_rels]} (prefill bound {FAMILY_CARD_TOL}; a decode "
@@ -5709,7 +5795,7 @@ def phase_sharded_serve(lm: dict) -> dict:
     _sharded_serve_f32(mesh)
     torch.cuda.empty_cache()
     log(f"[sharded serve] phase 21 took {time.perf_counter() - t_phase:.3f} s (smollm "
-        f"{t_smollm:.3f}, the other decoders {t_families:.3f})")
+        f"{t_smollm:.3f}, the gathered bf16 decoders {t_families:.3f})")
     return flash
 
 
@@ -5857,10 +5943,11 @@ def _tp_launches(cfg, m: int, plen: int, data_shards: int) -> list:
     """The flash launches of a tensor-parallel prefill, in order: (query
     heads, KV heads, keys, causal) a (data shard, attention layer, model
     shard), the VLM's cross layers non-causal over its image tokens; the
-    hybrid attends once a group (its shared block), the SSM never."""
+    hybrid attends once a group (its shared block), the SSM never, nor a
+    config that attends by "xla" (MLA)."""
     from repro_torch.models.model import hybrid_counts, vlm_counts
 
-    if cfg.family == "ssm":
+    if cfg.family == "ssm" or cfg.attention_impl != "flash":
         return []
     heads = (cfg.n_heads // m, max(cfg.n_kv_heads // m, 1))
     layers = [(plen, True)] * cfg.n_layers
@@ -5905,6 +5992,25 @@ def _neighbour_image_heads():
         yield
 
 
+def _neighbour_latent_heads():
+    """A planted fault: at decode each model shard receives its neighbour's
+    heads of an MLA layer's combined latent (``mla_head_range`` patched in
+    ``_tp_mla_decode`` only), which it takes through its own wuv columns and
+    rows of wo."""
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.models import model as model_mod
+
+    def crossing(fn):
+        def wrapped(*args, **kwargs):
+            with _patched(tensor_parallel, "mla_head_range",
+                          lambda real: lambda c, j, m: real(c, (j + 1) % m, m)):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+    return _patched(model_mod, "_tp_mla_decode", crossing)
+
+
 def _neighbour_state():
     """A planted fault: at decode each model shard reads its neighbour's
     head block of a mamba layer's ``ssm`` state (from the neighbour's mesh
@@ -5913,6 +6019,16 @@ def _neighbour_state():
 
     return _patched(model_mod, "_tp_state_views", lambda real: lambda group, j, *a: {
         **real(group, j, *a), "ssm": real(group, (j + 1) % group.m, *a)["ssm"]})
+
+
+def _tp_inputs(cfg, dtype: str, rng) -> tuple:
+    """A 21d run's (batch, prompt, generated) and its prompts and image
+    embeddings (the VLM's; else None), drawn from the phase's ``rng``."""
+    b, plen, gen = ((FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN) if dtype == "bfloat16"
+                    else SERVE_SHARD_F32_MOE_SHAPE if cfg.family == "moe"
+                    else SERVE_SHARD_F32_SHAPE)
+    prompts = rng.integers(0, cfg.vocab, (b, plen), dtype=np.int32)
+    return (b, plen, gen), prompts, _image_embeds(rng, b, cfg) if cfg.family == "vlm" else None
 
 
 def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng) -> int:
@@ -5927,23 +6043,22 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     from repro_torch.models.params import tree_leaves, tree_map
 
     full = get_config(arch)
-    cfg = full.scaled(n_layers=depth, dtype=dtype)
+    impl = SERVE_SHARD_IMPL.get(arch, "flash")
+    cfg = full.scaled(n_layers=depth, dtype=dtype, attention_impl=impl)
     check(serves_tensor_parallel(cfg, mesh), f"[tp serve] {arch} does not take the TP path")
-    moe, vlm = cfg.family == "moe", cfg.family == "vlm"
+    moe, vlm, mla = cfg.family == "moe", cfg.family == "vlm", cfg.attention == "mla"
     ssm = cfg.family in ("ssm", "hybrid")
-    b, plen, gen = ((FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN) if dtype == "bfloat16"
-                    else SERVE_SHARD_F32_MOE_SHAPE if moe else SERVE_SHARD_F32_SHAPE)
+    (b, plen, gen), prompts, img = _tp_inputs(cfg, dtype, rng)
     torch.cuda.empty_cache()
     gen_card = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(gen_card, cfg, "cuda")
     _open_gates(params)
     _passing_conv(params)
+    _sharp_mla(params, cfg)
     if cfg.qkv_bias:
         for name in ("bq", "bk", "bv"):
             params["layers"]["attn"][name].normal_(0.0, SERVE_TP_BIAS_STD, generator=gen_card)
-    prompts = rng.integers(0, cfg.vocab, (b, plen), dtype=np.int32)
-    img = _image_embeds(rng, b, cfg) if vlm else None
-    common = dict(batch=b, max_seq=plen + gen, attention_impl="flash", n_layers=depth)
+    common = dict(batch=b, max_seq=plen + gen, attention_impl=impl, n_layers=depth)
     one = ServeSession(arch, params=params, dtype=dtype, **common)
     tokens, stats = one.generate(prompts, gen, image_embeds=img, keep_logits=True)
     forced = tokens[:, plen:]
@@ -5981,7 +6096,7 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         tp_bytes = dict(sess._full.bytes_by_position)
     m = mesh.devices.shape[-1]
     shards = _prefill_shards(cfg, mesh, b, plen) * m
-    check(all(v < 0.55 * whole for v in tp_bytes.values()),
+    check(all(v < SERVE_TP_BYTES_SHARE * whole for v in tp_bytes.values()),
           f"[tp serve] {arch}: a position gathered {tp_bytes} of {whole}")
     torch.cuda.reset_peak_memory_stats()
     runs = []
@@ -6102,6 +6217,9 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         faults["a shard taking its neighbour's KV heads of the image K/V"] = _neighbour_image_heads
     if ssm:
         faults["a shard reading its neighbour's head block of the SSM state"] = _neighbour_state
+    if mla:
+        faults["a shard receiving its neighbour's heads of the combined latent"] = (
+            _neighbour_latent_heads)
     refused = {}
     for name, planted in faults.items():
         with planted():
@@ -6119,6 +6237,14 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
                    f"{FAMILY_GATE}")
     attn = (f"{cfg.n_heads} heads, KV {cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, d_ff "
             f"{cfg.d_ff}, " if cfg.n_heads else "")
+    if mla:
+        from repro_torch.distributed.tensor_parallel import mla_head_range
+
+        per = sorted({h1 - h0 for h0, h1 in (mla_head_range(cfg, j, m) for j in range(m))})
+        attn = (f"{cfg.n_heads} MLA heads ({' or '.join(map(str, per))} a shard; q/k "
+                f"{cfg.qk_nope_dim} + {cfg.qk_rope_dim}, v {cfg.v_head_dim}, latent ranks "
+                f"{cfg.q_lora_rank} and {cfg.kv_lora_rank}; q_norm scaled so that the latent "
+                f"scores spread about {MLA_SCORE_STD}), d_ff {cfg.d_ff}, ")
     if ssm:
         groups, trailing = hybrid_counts(cfg) if cfg.family == "hybrid" else (0, cfg.n_layers)
         experts = (f", {cfg.ssm_heads} SSM heads ({cfg.ssm_heads // m} a shard) of "
@@ -6126,7 +6252,10 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
                    f"chunk {cfg.ssm_chunk}, conv taps passing their input"
                    + (f", {groups} groups of {cfg.hybrid_attn_every} mamba layers and the shared "
                       f"block, {trailing} trailing" if groups else ""))
-    if heads:
+    if mla:
+        launched = (f"{pre['flash_attention']} (attention {impl!r}: MLA's values are narrower "
+                    f"than its queries; one device {one_pre['flash_attention']})")
+    elif heads:
         launched = (f"{pre['flash_attention']} ({len(want_heads) // (shards // m * m)} attention "
                     f"layers x {shards // m} data shards x {m} model shards, each on "
                     f"{heads[0][0]} query and {heads[0][1]} KV heads; one device "
@@ -6135,7 +6264,7 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         launched = (f"{pre['flash_attention']} (no attention layer; one device "
                     f"{one_pre['flash_attention']})")
     log(f"[tp serve] {arch} ({cfg.family}, profile 'tp') at full width (d_model {cfg.d_model}, "
-        f"{attn}vocab {cfg.vocab}{experts}), {cut}, {dtype}, attention 'flash', tensor-parallel on "
+        f"{attn}vocab {cfg.vocab}{experts}), {cut}, {dtype}, attention {impl!r}, tensor-parallel on "
         f"{SERVE_TP_MESH} logical shards of {SHARD_DEVICE}"
         + (f", QKV biases drawn at std {SERVE_TP_BIAS_STD}" if cfg.qkv_bias else "")
         + f": {b} x {plen} prompt tokens, {gen} steps teacher-forced on the one-device session's "
@@ -6164,15 +6293,15 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
 
 
 def phase_tensor_parallel_serve() -> dict:
-    """21d: the dense, MoE and VLM decoders served tensor-parallel on 2 x 2
-    logical shards of the card (the module docstring). Returns the flash launches of
-    each run's prefill."""
+    """21d: the decoders served tensor-parallel on 2 x 2 logical shards of
+    the card (the module docstring). Returns the flash launches of each
+    run's prefill."""
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     mesh = _logical_mesh(SERVE_TP_MESH)
-    rng = np.random.default_rng(23)
+    rng = np.random.default_rng(SERVE_TP_SEED)
     flash = {}
     for arch, depth, dtype in SERVE_TP_RUNS:
         t0 = time.perf_counter()

@@ -42,7 +42,9 @@ Conventions (the reference's where they carry over):
     it runs in. ``skip=name`` leaves out the ops (and custom calls) run
     inside a scope whose path contains ``name``: the tensor-parallel path
     runs its other model shards' work in such a scope, so that one call
-    counts its home shard's step alone.
+    counts its home shard's step alone. ``only=name`` leaves out every op
+    run outside a scope named ``name`` (one of the path's names): one
+    model shard's own work alone.
   - collective bytes are not seen by the dispatch mode: they are what the
     port's sharded paths move between distinct devices, computed from the
     placed specs by the caller (``split_bytes``: a leaf of S bytes split k
@@ -226,10 +228,12 @@ class CostCounter(TorchDispatchMode):
     """Counts the ops dispatched while it is entered (``with CostCounter()
     as c: ...; c.result()``); see the module docstring."""
 
-    def __init__(self, tags: dict | None = None, skip: str | None = None):
+    def __init__(self, tags: dict | None = None, skip: str | None = None,
+                 only: str | None = None):
         super().__init__()
         self.tags = dict(tags or {})
         self.skip = skip
+        self.only = only
         self.flops = 0.0
         self.matmul_flops = 0.0
         self.bytes = 0.0
@@ -280,7 +284,11 @@ class CostCounter(TorchDispatchMode):
                         break
 
     def _skipped(self) -> bool:
-        return self.skip is not None and self.skip in self._path()
+        if self.skip is None and self.only is None:
+            return False
+        path = self._path()
+        return ((self.skip is not None and self.skip in path)
+                or (self.only is not None and self.only not in path.split("/")))
 
     def _custom_call(self, flops: float, nbytes: float, matmul: bool) -> None:
         if self._skipped():
@@ -348,12 +356,13 @@ class CostCounter(TorchDispatchMode):
 
 
 def step_cost(fn, *args, tags: dict | None = None, skip: str | None = None,
-              **kwargs) -> StepCost:
+              only: str | None = None, **kwargs) -> StepCost:
     """The cost of ``fn(*args, **kwargs)`` (run once, under ``CostCounter``);
     ``tags``: {tag: scope substring}, the reference's ``{"attn": "attn_core"}``;
-    ``skip``: a scope substring whose ops are left out.
+    ``skip``: a scope substring whose ops are left out; ``only``: the scope
+    name outside which every op is left out.
     Its collective bytes are 0: a caller on a mesh adds ``collectives``."""
-    with CostCounter(tags, skip) as counter:
+    with CostCounter(tags, skip, only) as counter:
         fn(*args, **kwargs)
     return counter.result()
 

@@ -9,7 +9,9 @@ by columns, a Mamba2 layer's ``in_z``/``in_x``/``in_dt`` by columns,
 or head and ``out`` by rows (``src/repro/models/ssm.py:28-47``), and its
 layer code pins the activations to those blocks
 (``src/repro/models/layers.py:87-97``, ``:181-196``, ``:280-296``,
-``:407-417``; ``src/repro/models/moe.py:69-85``;
+``:407-417``; ``src/repro/models/moe.py:69-85``; MLA's wuq/wuk/wuv by
+columns and wo by rows, ``:309-322``, its latent cache by sequence,
+``src/repro/models/model.py:716-717``, ``layers.py:380-381``;
 ``src/repro/models/model.py:123``; the SSD's heads over 'tp',
 ``src/repro/models/ssm.py:171-174``). The port
 is single-controller and eager, so it writes the schedule out: this module
@@ -23,13 +25,20 @@ divides the query heads and, for the MoE, the experts (deepseek-67b,
 qwen1.5-110b, moonshot-v1-16b-a3b, dbrx-132b, llama-3.2-vision-90b); the
 SSM family when it divides the SSM heads (mamba2-780m); the hybrid when it
 divides the SSM heads and the shared block's query heads (zamba2-7b); a
-smoke config pinned ``parallelism="tp"`` likewise. Every other config (the
-MLA and audio families, the "dp" profile) serves on the gathered path:
-every parameter gathered whole on each device.
+MLA decoder when it is no larger than the heads and divides the
+columns of wuq/wuk/wuv, the rows of wo and the MLP's columns, whether or not
+it divides the heads (minicpm3-4b: 40 heads on 16 shards); a smoke config
+pinned ``parallelism="tp"`` likewise. Every other config (the audio
+family, the "dp" profile, a 'model' axis the heads or blocks refuse) serves
+on the gathered path: every parameter gathered whole on each device.
 
 What model shard ``j`` of ``m`` holds (``gather_model_blocks``): the ``j``-th
 'model' block of every leaf whose spec splits a dim over 'model', gathered
-over the other axes ('data': the ZeRO-3 gather), and every other leaf (the
+over the other axes ('data': the ZeRO-3 gather), but MLA's wuq/wuk/wuv
+columns and wo rows, which it reads head-aligned (``mla_head_range``'s
+heads; where ``m`` does not divide the heads that region crosses into a
+neighbouring 'model' block, one ``ShardedTensor.read`` still), and every
+other leaf (MLA's wdq/wdkv and its norms whole, the
 norms, the MoE router, the VLM's cross gates, a Mamba2 layer's
 ``in_b``/``in_c``/``conv_b``/``conv_c``) whole. For the VLM that is the
 image projection's columns, and the self and cross layers' blocks as a
@@ -44,6 +53,19 @@ What it computes, on its device:
     query heads use (``kv_block``: ``q // (H / K)``; a shard's query heads
     may share one KV head with another shard's when K does not divide m);
     then its rows of wo;
+  * MLA (``mla_head_range``: heads ``j H // m .. (j + 1) H // m``, 2 or 3
+    of minicpm3's 40 on 16 shards): the home computes the latents every
+    head shares (``cq``, ``ckv``, the roped ``k_rope``) and sends them to
+    each shard, which attends with its heads (q from its wuq columns, the
+    rope part roped; k and v from its wuk/wuv columns of ``ckv``, the
+    shared ``k_rope`` appended to each k) and multiplies by its rows of wo;
+    the home writes the latents into the cache. At decode the home sends
+    ``cq``; each shard returns its heads' absorbed queries (``q_nope`` through
+    its wuk columns) and roped ``q_rope``, joined on the home; each latent
+    cache block's partial runs on the shard whose mesh position holds it
+    (the latent cache splits its sequence over 'model': no part of it
+    moves); the combined latent's heads go back to their shards, through
+    their wuv columns and wo rows;
   * MLP: its columns of wi_gate/wi_up and its rows of wo;
   * MoE: its ``E / m`` experts (``expert_range``). The home routes the
     group's tokens once (router, top-k, slots and drops over the whole
@@ -92,10 +114,12 @@ home (shard 0's device). Every move between the group's shards goes through
 ``runtime/staging.stage`` and adds its bytes to ``ModelGroup.moved`` (bytes
 into each shard): what the dry run records as the step's activation
 collectives. A shard's own work runs in ``ModelGroup.on(j)``: for shards
-other than the home a ``cost_scope(SHARD_SCOPE)``, which the dry run's
-counter skips, so that it counts the home shard's step, the one that
-bounds the group's (it alone routes, reduces, joins and runs the residual
-stream).
+other than the home a ``cost_scope(shard_scope(j))``, whose name holds
+``SHARD_SCOPE``. The dry run's counter skips those, so that it counts the
+home shard's step, the one that bounds the group's where every shard
+computes as much (it alone routes, reduces, joins and runs the residual
+stream); where a shard computes more heads than the home (MLA), it also
+counts that shard's own work alone (``step_cost(only=shard_scope(j))``).
 """
 from __future__ import annotations
 
@@ -107,22 +131,26 @@ import torch
 from repro_torch.analysis.hlo_cost import cost_scope
 from repro_torch.distributed.ctx import arch_profile
 from repro_torch.distributed.sharding import ShardedTensor, _entry_axes
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import tree_leaves
 from repro_torch.runtime.staging import stage
 
 __all__ = [
     "MODEL",
     "SHARD_SCOPE",
+    "shard_scope",
     "serves_tensor_parallel",
     "model_size",
     "model_dim",
     "block_range",
+    "block_spans",
     "head_range",
+    "mla_head_range",
     "expert_range",
     "ssm_head_range",
     "ssm_channel_range",
     "kv_block",
     "model_block",
+    "map_named",
     "ModelBlocks",
     "gather_model_blocks",
     "first_positions",
@@ -136,6 +164,11 @@ MODEL = "model"
 SHARD_SCOPE = "tp_other_shard"  # the cost scope of a shard's own work, the home's excepted
 
 
+def shard_scope(j: int) -> str:
+    """The cost scope of model shard ``j``'s own work (``j`` > 0)."""
+    return f"{SHARD_SCOPE}_{j}"
+
+
 def model_size(mesh) -> int:
     """The size of the mesh's 'model' axis (1 without one)."""
     return dict(zip(mesh.axis_names, mesh.devices.shape)).get(MODEL, 1)
@@ -145,14 +178,18 @@ def serves_tensor_parallel(cfg, mesh) -> bool:
     """Whether ``cfg`` serves tensor-parallel on ``mesh`` (module
     docstring): the "tp" profile, a 'model' axis, and the dense, MoE or VLM
     family with GQA attention whose query heads (and the MoE's experts) it
-    divides; the SSM family whose SSM heads it divides; the hybrid whose
-    SSM heads and (GQA) query heads it divides. Every other config takes
-    the gathered path."""
+    divides; the dense family with MLA when it is at most the heads and
+    divides the columns of wuq/wuk/wuv, the rows of wo and ``d_ff``; the SSM
+    family whose SSM heads it divides; the hybrid whose SSM heads and (GQA)
+    query heads it divides. Every other config takes the gathered path."""
     if arch_profile(cfg) != "tp" or MODEL not in mesh.axis_names:
         return False
     m = model_size(mesh)
     if cfg.family == "ssm":
         return cfg.ssm_heads % m == 0
+    if cfg.family == "dense" and cfg.attention == "mla":
+        sizes = [cfg.n_heads * w for w in _mla_widths(cfg).values()] + [cfg.d_ff]
+        return m <= cfg.n_heads and all(n % m == 0 for n in sizes)
     if cfg.family not in ("dense", "moe", "vlm", "hybrid") or cfg.attention != "gqa":
         return False
     if cfg.family == "hybrid":
@@ -186,6 +223,30 @@ def block_range(size: int, j: int, m: int) -> tuple[int, int]:
 def head_range(cfg, j: int, m: int) -> tuple[int, int]:
     """Model shard ``j``'s query heads: its columns of wq, ``hd`` each."""
     return block_range(cfg.n_heads, j, m)
+
+
+def mla_head_range(cfg, j: int, m: int) -> tuple[int, int]:
+    """Model shard ``j``'s MLA heads, ``j H // m .. (j + 1) H // m``: its
+    head-aligned columns of wuq/wuk/wuv and rows of wo (``block_spans``).
+    Where ``m`` does not divide the heads they differ by one at most."""
+    return j * cfg.n_heads // m, (j + 1) * cfg.n_heads // m
+
+
+def _mla_widths(cfg) -> dict:
+    """The width of one MLA head along each per-head leaf's 'model' dim."""
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {"wuq": qk, "wuk": cfg.qk_nope_dim, "wuv": cfg.v_head_dim, "wo": cfg.v_head_dim}
+
+
+def block_spans(cfg, j: int, m: int) -> dict:
+    """Leaf name -> model shard ``j``'s ``[lo, hi)`` along the leaf's
+    'model' dim where that is not its ``j``-th block: MLA's per-head leaves
+    (``layers/attn/wuq`` ..), head-aligned by ``mla_head_range``. Empty for
+    every other config."""
+    if cfg.attention != "mla":
+        return {}
+    h0, h1 = mla_head_range(cfg, j, m)
+    return {f"layers/attn/{k}": (h0 * w, h1 * w) for k, w in _mla_widths(cfg).items()}
 
 
 def expert_range(cfg, j: int, m: int) -> tuple[int, int]:
@@ -226,17 +287,27 @@ def kv_block(cfg, j: int, m: int) -> tuple[int, int, list | None]:
     return k0, k1, local
 
 
-def model_block(leaf: ShardedTensor, j: int, device) -> torch.Tensor:
-    """Model block ``j`` of a placed leaf on ``device``, gathered over its
-    other axes (a view of the block held there when one block holds it);
-    a leaf with no 'model' dim whole."""
+def model_block(leaf: ShardedTensor, j: int, device, span: tuple | None = None) -> torch.Tensor:
+    """Model block ``j`` of a placed leaf on ``device`` (or the region
+    ``span`` of its 'model' dim), gathered over its other axes (a view of
+    the block held there when one block holds it); a leaf with no 'model'
+    dim whole."""
     d = model_dim(leaf.sharding.spec, leaf.ndim)
     if d is None:
         return leaf.full(device)
     m = leaf.sharding.blocks_per_dim(leaf.ndim)[d]
     index = [slice(None)] * leaf.ndim
-    index[d] = slice(*block_range(leaf.shape[d], j, m))
+    index[d] = slice(*(span or block_range(leaf.shape[d], j, m)))
     return leaf.read(tuple(index), device)
+
+
+def map_named(fn, tree, *rest, prefix: str = ""):
+    """``fn(name, leaf, *rest_leaves)`` over nested dicts in sorted-key
+    order, ``name`` the leaf's path (``layers/attn/wq``)."""
+    if isinstance(tree, dict):
+        return {k: map_named(fn, tree[k], *(r[k] for r in rest), prefix=f"{prefix}{k}/")
+                for k in sorted(tree)}
+    return fn(prefix.rstrip("/"), tree, *rest)
 
 
 def _tree_bytes(tree) -> int:
@@ -257,13 +328,17 @@ def _positions(mesh):
     return [(pos, dev, pos[ax]) for pos, dev in np.ndenumerate(mesh.devices)]
 
 
-def gather_model_blocks(params, mesh) -> ModelBlocks:
+def gather_model_blocks(params, mesh, cfg) -> ModelBlocks:
     """``params`` (placed by ``train_state_specs``) gathered over 'data'
-    only: one tree a distinct (device, model block)."""
+    only: one tree a distinct (device, model block), ``cfg``'s per-head MLA
+    leaves head-aligned (``block_spans``)."""
     out = ModelBlocks()
+    m = model_size(mesh)
     for _, dev, j in _positions(mesh):
         if (dev, j) not in out:
-            out[(dev, j)] = tree_map(lambda leaf, j=j, dev=dev: model_block(leaf, j, dev), params)
+            spans = block_spans(cfg, j, m)
+            out[(dev, j)] = map_named(
+                lambda name, leaf: model_block(leaf, j, dev, spans.get(name)), params)
     out.bytes_by_position = {pos: _tree_bytes(out[(dev, j)]) for pos, dev, j in _positions(mesh)}
     return out
 
@@ -303,9 +378,9 @@ class ModelGroup:
         self.moved = [0] * self.m
 
     def on(self, j: int):
-        """The context of shard ``j``'s own work: ``cost_scope(SHARD_SCOPE)``
+        """The context of shard ``j``'s own work: ``cost_scope(shard_scope(j))``
         for a shard other than the home."""
-        return cost_scope(SHARD_SCOPE) if j else contextlib.nullcontext()
+        return cost_scope(shard_scope(j)) if j else contextlib.nullcontext()
 
     def note(self, t: torch.Tensor, src: int, dst: int) -> None:
         """Count ``t`` as moved from shard ``src`` into shard ``dst``."""

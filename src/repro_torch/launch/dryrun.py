@@ -13,13 +13,16 @@ port's specs equal the reference's, it records
     place them, against 80 GB (``fits_80GB``). Activations are not counted,
     and neither is the parameter copy the port's sharded steps gather on
     each device (``gathered_params_bytes``, beside it: the whole tree, or on
-    the tensor-parallel path the device's 'model' block);
+    the tensor-parallel path the home's 'model' blocks, with
+    ``gathered_params_bytes_max_shard`` the most any shard's hold: MLA's
+    head-aligned blocks differ by a head);
   * ``analysis/hlo_cost.py::step_cost`` of the step a device runs. Two
     kinds of cells (``PER_DEVICE``, ``PER_DEVICE_TP``):
-      - the dense, MoE, VLM, SSM and hybrid decoders' serving cells on
-        the "tp" profile (deepseek-67b, qwen1.5-110b, moonshot-v1-16b-a3b,
-        dbrx-132b and llama-3.2-vision-90b at prefill_32k and decode_32k,
-        mamba2-780m and zamba2-7b at those and long_500k,
+      - the dense, MLA, MoE, VLM, SSM and hybrid decoders' serving cells
+        on the "tp" profile (deepseek-67b, qwen1.5-110b, minicpm3-4b,
+        moonshot-v1-16b-a3b, dbrx-132b and llama-3.2-vision-90b at
+        prefill_32k and decode_32k, mamba2-780m and zamba2-7b at those and
+        long_500k,
         ``distributed/tensor_parallel.py::serves_tensor_parallel``) take the
         tensor-parallel step: one data-parallel shard's step (a row of the
         cache at decode) over its 16 model shards
@@ -27,13 +30,19 @@ port's specs equal the reference's, it records
         of which the home shard's part is counted (the other shards' work
         skipped, ``tensor_parallel.SHARD_SCOPE``): its 1/16 of the split
         products (heads, columns, experts, vocab, the VLM's image
-        projection, the SSM's heads and B/C channels), and the MoE's
-        routing, the reductions of every shard's partials, the joins,
-        norms, cross gates, the gated norm's statistic and residual
-        stream, which it alone runs. It bounds the group's step; the other
-        shards run the split products alone;
-      - every other cell (training, the MLA and audio families, the "dp"
-        profile)
+        projection, the SSM's heads and B/C channels; MLA's heads
+        head-aligned, 2 of minicpm3's 40 on the home, 3 on the shards that
+        hold the most, ``max_shard_heads``, and its latent cache's
+        sequence block at decode), and the MoE's routing, MLA's latent
+        projections wdq/wdkv, the reductions of every shard's partials, the
+        joins, norms, cross gates, the gated norm's statistic and residual
+        stream, which it alone runs; the other shards run the split products
+        alone. Where a shard computes more heads than the home (MLA), that
+        shard's own work is counted too (``max_shard_step``: its products,
+        its gather and the activations moved into it).
+        ``group_step_lower_bound_s`` is the larger of the counted steps'
+        roofline bounds, the group's;
+      - every other cell (training, the audio family, the "dp" profile)
         the step of one distinct data-parallel shard, run on its first
         device with every parameter gathered there: the per-device FLOPs
         and bytes are that shard's, not divided by the model axis. Training
@@ -91,10 +100,14 @@ from repro_torch.distributed.sharding import zeros
 from repro_torch.distributed.tensor_parallel import (
     SHARD_SCOPE,
     ModelGroup,
+    block_spans,
     group_positions,
+    map_named,
+    mla_head_range,
     model_dim,
     model_size,
     serves_tensor_parallel,
+    shard_scope,
 )
 from repro_torch.launch.specs import META, CellSpec, batch_struct
 from repro_torch.launch.steps import MOE_GROUP, loss_and_grads, make_prefill_step, make_serve_step
@@ -111,10 +124,12 @@ TAGS = {"attn": "attn_core"}
 PER_DEVICE = ("the step of one distinct data-parallel shard, run on its first device with "
               "every parameter gathered there (this cell takes the gathered path, so the "
               "model axis does not divide it)")
-PER_DEVICE_TP = ("the home model shard's step of the tensor-parallel path, which bounds its "
-                 "group's: its share of the data-parallel shard's products (divided by the "
-                 "model axis), and the MoE's routing, the reductions, joins, norms and "
-                 "residual stream that it alone runs for the group")
+PER_DEVICE_TP = ("the home model shard's step of the tensor-parallel path: its share of the "
+                 "data-parallel shard's products (divided by the model axis; MLA's by its "
+                 "heads), and the MoE's routing, MLA's latent projections, the reductions, "
+                 "joins, norms and residual stream that it alone runs for the group; "
+                 "max_shard_step: a shard that computes more heads (MLA), its own work alone; "
+                 "group_step_lower_bound_s: the larger bound")
 
 
 class DuckMesh:
@@ -274,12 +289,13 @@ def _serve(spec: CellSpec, mesh) -> tuple[StepCost, dict]:
     return cost + collectives(coll), {"held": held, "dp_shards": n, "rows": rows}
 
 
-def _block_struct(t, sh) -> torch.Tensor:
-    """A meta leaf's model block (its 'model' dim divided)."""
+def _block_struct(t, sh, span: tuple | None = None) -> torch.Tensor:
+    """A meta leaf's model block (its 'model' dim divided, or ``span`` of
+    it)."""
     shape = list(t.shape)
     d = model_dim(sh.spec, t.ndim)
     if d is not None:
-        shape[d] //= sh.blocks_per_dim(t.ndim)[d]
+        shape[d] = span[1] - span[0] if span else shape[d] // sh.blocks_per_dim(t.ndim)[d]
     return torch.empty(shape, dtype=t.dtype, device=META)
 
 
@@ -295,8 +311,13 @@ def _serve_tp(spec: CellSpec, mesh, kind: str) -> tuple[StepCost, dict]:
     psh = named_tree(mesh, train_state_specs(cfg)[0])
     csh = named_tree(mesh, cache_spec_tree(cfg, mesh, cache))
     m = model_size(mesh)
-    blocks = tree_map(_block_struct, params, psh)
-    group = ModelGroup([META] * m, [blocks] * m, group_positions(mesh, (0,) * mesh.devices.ndim))
+    shard_blocks = []
+    for j in range(m):  # each shard's own: MLA's head-aligned blocks differ by a head
+        spans = block_spans(cfg, j, m)
+        shard_blocks.append(map_named(lambda name, t, sh: _block_struct(t, sh, spans.get(name)),
+                                      params, psh))
+    blocks = shard_blocks[0]
+    group = ModelGroup([META] * m, shard_blocks, group_positions(mesh, (0,) * mesh.devices.ndim))
     if shape.kind == "prefill":
         batch = batch_struct(cfg, shape, with_labels=False)
         bsh = named_tree(mesh, batch_spec_tree(cfg, mesh, batch))
@@ -323,16 +344,33 @@ def _serve_tp(spec: CellSpec, mesh, kind: str) -> tuple[StepCost, dict]:
         held_batch = shape.global_batch // n * 4
     with torch.inference_mode():
         cost = step_cost(step, tags=TAGS, skip=SHARD_SCOPE)
-    block_leaves = tree_leaves(blocks)
+    moved = list(group.moved)
     # A model block is split over the other axes ('data') into the rest of the leaf's blocks.
     others = [_blocks(sh, t.ndim) // (1 if model_dim(sh.spec, t.ndim) is None else m)
               for t, sh in zip(tree_leaves(params), tree_leaves(psh))]
-    coll = {"all-gather": sum(_nbytes(b) * (k - 1) / k for b, k in zip(block_leaves, others)),
-            "activations": max(group.moved)}
+
+    def gather(j: int) -> float:
+        """The 'data' gather of shard ``j``'s model blocks into it."""
+        return sum(_nbytes(b) * (k - 1) / k for b, k in zip(tree_leaves(shard_blocks[j]), others))
+
     held = {"params": _held(params, psh), "cache": _held(cache, csh), "batch": held_batch}
     info = {"held": held, "dp_shards": n, "model_shards": m, "rows": rows,
-            "gathered": sum(_nbytes(b) for b in block_leaves)}
-    return cost + collectives(coll), info
+            "gathered": sum(_nbytes(b) for b in tree_leaves(blocks)),
+            "gathered_max": max(sum(_nbytes(b) for b in tree_leaves(t)) for t in shard_blocks)}
+    if cfg.attention == "mla":  # minicpm3 on 16 shards: the home 2 of its 40 heads, others 3
+        heads = [h1 - h0 for h0, h1 in (mla_head_range(cfg, j, m) for j in range(m))]
+        info["max_shard_heads"] = max(heads)
+        k = heads.index(max(heads))
+        if k:  # that shard's own work alone, its gather and the activations moved into it
+            with torch.inference_mode():
+                own = step_cost(step, tags=TAGS, only=shard_scope(k))
+            own = own + collectives({"all-gather": gather(k), "activations": moved[k]})
+            info["max_shard_step"] = {
+                "shard": k, "heads": heads[k], "flops": own.flops,
+                "matmul_flops": own.matmul_flops, "bytes": own.bytes,
+                "collective_bytes": own.collective_bytes,
+                "roofline": roofline_terms(own.flops, own.bytes, own.collective_bytes)}
+    return cost + collectives({"all-gather": gather(0), "activations": max(moved)}), info
 
 
 def cut_depth(cfg, n_layers: int):
@@ -366,6 +404,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, n_layers: int | None = 
     gathered = info.pop("gathered", None)
     if gathered is None:
         gathered = sum(_nbytes(t) for t in tree_leaves(spec.params_struct()))
+    gathered_max = info.pop("gathered_max", gathered)
     info.setdefault("model_shards", 1)
     tokens = spec.shape.global_batch * (spec.shape.seq if spec.shape.kind != "decode" else 1)
     n_active = cfg.active_param_count()
@@ -378,6 +417,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, n_layers: int | None = 
         "memory": {**{f"{k}_bytes": v for k, v in held.items()},
                    "placed_bytes": sum(held.values()),
                    "gathered_params_bytes": gathered,
+                   "gathered_params_bytes_max_shard": gathered_max,
                    "note": "placed state a device; activations and the step's gathered "
                            "parameter copy (the whole tree, or a tensor-parallel step's model "
                            "blocks) are not in placed_bytes"},
@@ -400,6 +440,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, n_layers: int | None = 
     })
     if cost.flops > 0:
         record["useful_flops_ratio"] = per_device / cost.flops
+    if tensor_parallel:  # the group's step is the longest of its shards'
+        steps = [record["roofline"], record.get("max_shard_step", {}).get("roofline", {})]
+        record["group_step_lower_bound_s"] = max(r.get("step_lower_bound_s", 0.0) for r in steps)
     return record
 
 

@@ -37,11 +37,11 @@ the prompt batch by ``batch_spec_tree``, and return the logits ``[B, V]``
 gathered on the mesh's first device with the placed cache. Two paths,
 chosen by ``distributed/tensor_parallel.py::serves_tensor_parallel``:
 
-  * tensor-parallel (the dense, MoE and VLM decoders with GQA attention
-    on the "tp" profile): each position gathers over 'data' only, into its
-    'model' block of every leaf whose spec has 'model' (the norms, the
-    MoE's router and the VLM's cross gates whole; ``gather_params``
-    returns ``ModelBlocks``). The prefill runs each distinct data-parallel
+  * tensor-parallel (the dense, MoE, VLM, SSM and hybrid decoders on the
+    "tp" profile, MLA's too): each position gathers over 'data' only, into
+    its 'model' block of every leaf whose spec has 'model' (MLA's per-head
+    leaves by its heads; the norms, the MoE's router and the VLM's cross
+    gates whole; ``gather_params`` returns ``ModelBlocks``). The prefill runs each distinct data-parallel
     shard of the batch over its model group
     (``models/model.py::prefill_placed_tp``), the decode step each
     data-parallel row of the cache (``decode_placed_tp``): heads, columns,
@@ -375,7 +375,7 @@ def gather_params(params, mesh, cfg: ModelConfig | None = None):
     devices) gathered whole once on each distinct device of ``mesh``; a
     replicated leaf held there is not copied."""
     if cfg is not None and serves_tensor_parallel(cfg, mesh):
-        return gather_model_blocks(params, mesh)
+        return gather_model_blocks(params, mesh, cfg)
     out = GatheredParams({dev: gather_tree(params, dev) for dev in mesh.unique_devices})
     nbytes = _full_bytes(params)
     out.bytes_by_position = {pos: nbytes for pos, _ in np.ndenumerate(mesh.devices)}

@@ -28,7 +28,7 @@ Attention supports:
     ``attn_decode`` / ``mla_decode`` up to the order of float32 sums.
 
 The reference's sharding constraints have no counterpart here: on a mesh
-the tensor-parallel schedule of the dense, MoE and VLM decoders is written
+the tensor-parallel schedule of the decoders is written
 out in ``models/model.py`` (``prefill_placed_tp``, ``decode_placed_tp``)
 over ``distributed/tensor_parallel.py``, and runs these functions on a
 model shard's blocks. ``attn_qkv_block`` projects a shard's query heads and
@@ -39,7 +39,12 @@ float32 (``bmm_f32`` an expert block's combine,
 ``models/moe.py::expert_block``), ``combined_heads`` lays a combined decode
 output out by heads for the row blocks of wo, ``cross_decode_heads`` is a
 shard's cross attention at decode before its rows of wo, and ``gated``
-scales a cross layer's reduced output once. The
+scales a cross layer's reduced output once. MLA splits into the latent part
+every head shares (``mla_latents``: ``cq``, ``ckv``, the roped ``k_rope``)
+and the part of a shard's heads on its head-aligned columns of
+wuq/wuk/wuv: ``mla_attend`` over the prompt, ``mla_decode_query`` (the
+absorbed query) and ``mla_latent_out`` (a combined latent through wuv) at
+decode, each before the shard's rows of wo. The
 reference's ``jax.named_scope("attn_core")``
 regions are ``cost_scope("attn_core")`` (``analysis/hlo_cost.py``),
 which only names ops for an active cost counter.
@@ -71,10 +76,15 @@ __all__ = [
     "cross_decode_heads",
     "gated",
     "mla_schema",
+    "mla_latents",
+    "mla_query",
+    "mla_attend",
     "mla_forward",
     "mla_decode",
     "mla_decode_qkv",
+    "mla_decode_query",
     "mla_partial",
+    "mla_latent_out",
     "mla_decode_out",
     "mlp_schema",
     "mlp_forward",
@@ -390,30 +400,41 @@ def mla_schema(cfg: ModelConfig) -> dict:
     }
 
 
-def _mla_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """Returns q_nope, q_rope (per head), the latent ckv and the shared roped
-    k_rope ``[B, S, rope_d]``."""
-    b, s, _ = x.shape
-    nope, kvr = cfg.qk_nope_dim, cfg.kv_lora_rank
+def mla_latents(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """The part every head shares: the normalised query latent ``cq [B, S,
+    q_rank]``, the latent ``ckv [B, S, kv_rank]`` and the roped ``k_rope
+    [B, S, rope_d]``."""
+    kvr = cfg.kv_lora_rank
     cq = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wuq"]).reshape(b, s, cfg.n_heads, nope + cfg.qk_rope_dim)
-    q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
     dkv = x @ p["wdkv"]
     ckv = rmsnorm(dkv[..., :kvr], p["kv_norm"], cfg.norm_eps)
     k_rope = rope(dkv[..., kvr:][:, :, None, :], positions, cfg.rope_theta)
-    return q_nope, q_rope, ckv, k_rope[:, :, 0, :]
+    return cq, ckv, k_rope[:, :, 0, :]
 
 
-def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """Direct-form MLA for train/prefill. Returns (out, (ckv, k_rope)).
+def mla_query(p: dict, cq: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """``q_nope`` and the roped ``q_rope`` of as many heads as ``wuq`` has
+    columns of ``nope + rope`` (all of them, or a model shard's heads)."""
+    b, s, _ = cq.shape
+    nope = cfg.qk_nope_dim
+    q = (cq @ p["wuq"]).reshape(b, s, -1, nope + cfg.qk_rope_dim)
+    return q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def mla_attend(p: dict, cq: torch.Tensor, ckv: torch.Tensor, k_rope: torch.Tensor,
+               positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Direct-form attention of the heads of ``p``'s wuq/wuk/wuv columns
+    (all of them, or a model shard's) over the latents, before ``wo``:
+    ``[B, S, heads vd]``.
 
     Queries and keys are ``nope + rope`` wide, values ``v_head_dim``: the
     flash kernel takes equal widths only, so ``attention_impl="flash"``
     raises here (the reference's flash path would fail too, on its output
     reshape)."""
-    b, s, _ = x.shape
-    h, nope, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
-    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, positions, cfg)
+    b, s, _ = cq.shape
+    nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_rope = mla_query(p, cq, positions, cfg)
+    h = q_nope.shape[2]
     k_nope = (ckv @ p["wuk"]).reshape(b, s, h, nope)
     v = (ckv @ p["wuv"]).reshape(b, s, h, vd)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -423,7 +444,14 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
         chunk_threshold=cfg.long_context_threshold, chunk=cfg.attn_chunk,
         impl=cfg.attention_impl,
     )
-    return out.reshape(b, s, -1) @ p["wo"], (ckv, k_rope)
+    return out.reshape(b, s, -1)
+
+
+def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """Direct-form MLA for train/prefill (``mla_attend`` of every head).
+    Returns (out, (ckv, k_rope))."""
+    cq, ckv, k_rope = mla_latents(p, x, positions, cfg)
+    return mla_attend(p, cq, ckv, k_rope, positions, cfg) @ p["wo"], (ckv, k_rope)
 
 
 def mla_decode(p: dict, x: torch.Tensor, pos: int, ckv_cache: torch.Tensor,
@@ -455,11 +483,20 @@ def mla_decode_qkv(p: dict, x: torch.Tensor, pos: int, cfg: ModelConfig):
     """The token's absorbed query ``q_lat [B, 1, H, kv_rank]`` and roped
     ``q_rope [B, 1, H, rope_d]``, and its cache entries ``ckv [B, 1,
     kv_rank]`` and ``k_rope [B, 1, rope_d]``."""
-    h, nope, kvr = cfg.n_heads, cfg.qk_nope_dim, cfg.kv_lora_rank
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, positions, cfg)
-    q_lat = torch.einsum("bqhn,khn->bqhk", q_nope, p["wuk"].reshape(kvr, h, nope))
-    return q_lat, q_rope, ckv, k_rope
+    cq, ckv, k_rope = mla_latents(p, x, positions, cfg)
+    return (*mla_decode_query(p, cq, pos, cfg), ckv, k_rope)
+
+
+def mla_decode_query(p: dict, cq: torch.Tensor, pos: int, cfg: ModelConfig):
+    """The token's absorbed query ``q_lat [B, 1, heads, kv_rank]`` (``wuk``
+    folded into ``q_nope``) and roped ``q_rope [B, 1, heads, rope_d]`` of
+    the heads of ``p``'s wuq/wuk columns (all, or a model shard's)."""
+    nope, kvr = cfg.qk_nope_dim, cfg.kv_lora_rank
+    positions = torch.full((cq.shape[0], 1), pos, dtype=torch.int32, device=cq.device)
+    q_nope, q_rope = mla_query(p, cq, positions, cfg)
+    wuk = p["wuk"].reshape(kvr, q_nope.shape[2], nope)
+    return torch.einsum("bqhn,khn->bqhk", q_nope, wuk), q_rope
 
 
 def mla_partial(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv_blk: torch.Tensor,
@@ -473,14 +510,21 @@ def mla_partial(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv_blk: torch.Tensor
     return m, l, torch.einsum("bhqs,bsk->bhqk", w, ckv_blk.float())
 
 
+def mla_latent_out(p: dict, lat: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
+    """``combine_partials``' latent ``[B, heads, 1, kv_rank]`` of the heads
+    of ``p``'s wuv columns (all, or a model shard's) through ``wuv``, in
+    ``dtype``, before ``wo``: ``[B, 1, heads vd]``."""
+    b, h = lat.shape[:2]
+    vd, kvr = cfg.v_head_dim, cfg.kv_lora_rank
+    out = torch.einsum("bqhk,khv->bqhv", lat.permute(0, 2, 1, 3).to(dtype),
+                       p["wuv"].reshape(kvr, h, vd))
+    return out.reshape(b, 1, -1)
+
+
 def mla_decode_out(p: dict, lat: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
     """``combine_partials``' latent ``[B, H, 1, kv_rank]`` through ``wuv``
     and ``wo``: ``[B, 1, D]``."""
-    b = lat.shape[0]
-    h, vd, kvr = cfg.n_heads, cfg.v_head_dim, cfg.kv_lora_rank
-    out = torch.einsum("bqhk,khv->bqhv", lat.permute(0, 2, 1, 3).to(dtype),
-                       p["wuv"].reshape(kvr, h, vd))
-    return out.reshape(b, 1, -1) @ p["wo"]
+    return mla_latent_out(p, lat, cfg, dtype) @ p["wo"]
 
 
 # -------------------------------------------------------------------- SwiGLU

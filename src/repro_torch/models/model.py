@@ -40,8 +40,9 @@ and holds the blocks and the moves): ``prefill_placed_tp`` and
 ``decode_placed_tp`` run each data-parallel shard (or cache row) over the
 'model' shards of its group, each on its head, column, expert, SSM head
 and vocab blocks, in one pair of loops (``prefill_tp``, ``decode_row_tp``)
-over ``_tp_walk``'s layers of four kinds: a decoder (self) layer, the
-VLM's cross layer, a mamba layer and the hybrid's shared block. The
+over ``_tp_walk``'s layers of five kinds: a decoder (self) layer, an MLA
+decoder layer, the VLM's cross layer, a mamba layer and the hybrid's
+shared block. The
 row-parallel partials are reduced in float32 on the group's home, where
 the residual stream, the norms, the MoE's routing (once a routing group:
 its slots and drops are one device's), the cross layers' gates, the gated
@@ -51,7 +52,12 @@ whose cross layers take their K/V heads of them (not roped). Decode
 keeps the flash-decoding layout above: the token's K/V heads are joined
 on the home and written into the sequence block holding ``pos``, the
 joined query runs one partial a sequence block, and the combined output is
-split by head blocks for the rows of ``wo``; a cross layer's shard attends
+split by head blocks for the rows of ``wo``. An MLA layer's latents are
+computed on the home and sent to every shard, which attends with its
+heads at the prefill; at decode the shards' absorbed queries are joined on
+the home, each latent cache block's partial runs on the shard holding it,
+and the combined latent's heads go back to their shards for wuv and wo
+(``_tp_mla``, ``_tp_mla_decode``). A cross layer's shard attends
 to its KV heads of the image K/V in the copy its own device holds. A
 mamba layer's shard computes its channels of B and C and its heads
 (``_tp_mamba``). At the prefill each shard's final states (its heads'
@@ -920,7 +926,8 @@ def _tp_layers(group, cfg: ModelConfig) -> list:
 def _tp_walk(group, cfg: ModelConfig) -> list:
     """The TP loops' layers in order: ``(lead, [shard] layer, kind)``.
     ``kind``: "self" (a decoder layer; its K/V at ``lead`` of ``k``/``v``,
-    ``(i,)`` or the vlm's ``(gi, li)``), "cross" (the vlm's cross layer,
+    ``(i,)`` or the vlm's ``(gi, li)``), "mla" (an MLA decoder layer; its
+    latents at ``(i,)`` of ``ckv``/``krope``), "cross" (the vlm's cross layer,
     ``xk``/``xv`` at ``(gi,)``), "mamba" (its states at ``(i,)`` of the
     stacked ``ssm`` leaves) or "shared" (the hybrid's shared block after
     every ``hybrid_attn_every`` mamba layers, as ``_hybrid_split`` orders
@@ -932,7 +939,8 @@ def _tp_walk(group, cfg: ModelConfig) -> list:
             out.append(((gi,), cps, "cross"))
         return out
     if cfg.family not in ("ssm", "hybrid"):
-        return [((i,), lps, "self") for i, lps in enumerate(_tp_layers(group, cfg))]
+        kind = "mla" if cfg.attention == "mla" else "self"
+        return [((i,), lps, kind) for i, lps in enumerate(_tp_layers(group, cfg))]
     mamba = [((i,), lps, "mamba") for i, lps in enumerate(_tp_layers(group, cfg))]
     if cfg.family == "ssm":
         return mamba
@@ -1066,14 +1074,34 @@ def _tp_attention(group, lps: list, h: torch.Tensor, positions: torch.Tensor, cf
     return (L.gated(lps[0][name], out) if cross else out), (k, v)
 
 
-# The cache leaves of an attention kind's K/V.
-_KV = {"self": ("k", "v"), "shared": ("shared_k", "shared_v")}
+def _tp_mla(group, lps: list, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """One MLA layer over the prompt: the latents every head shares (``cq``,
+    ``ckv``, the roped ``k_rope``) computed on the home and sent to each
+    shard, which attends with its heads (``mla_attend`` on its head-aligned
+    wuq/wuk/wuv columns) and multiplies by its rows of wo in float32; the
+    partials reduced on the home. Returns (out [B, S, d], (ckv, k_rope) on
+    the home, for the cache)."""
+    cq, ckv, k_rope = L.mla_latents(lps[0]["attn"], h, positions, cfg)
+    outs = []
+    for j, lp in enumerate(lps):
+        cqj, ckvj, krj = (group.send(t, j) for t in (cq, ckv, k_rope))
+        with group.on(j):
+            o = L.mla_attend(lp["attn"], cqj, ckvj, krj, stage(positions, cqj.device), cfg)
+            outs.append(L.matmul_f32(o, lp["attn"]["wo"]))
+    return group.reduce(outs, h.dtype), (ckv, k_rope)
 
 
-def _tp_layer(group, lps: list, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+# The cache leaves of an attention kind's K/V (MLA's latents).
+_KV = {"self": ("k", "v"), "shared": ("shared_k", "shared_v"), "mla": ("ckv", "krope")}
+
+
+def _tp_layer(group, lps: list, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+              kind: str = "self"):
     """A decoder layer (or the hybrid's shared block) over the prompt
-    (``_dense_layer``, ``_shared_block``): (x, (k, v))."""
-    a, kv = _tp_attention(group, lps, L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps), positions, cfg)
+    (``_dense_layer``, ``_shared_block``): (x, (k, v)), MLA's (x, (ckv,
+    k_rope)) for ``kind`` "mla"."""
+    attend = _tp_mla if kind == "mla" else _tp_attention
+    a, kv = attend(group, lps, L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps), positions, cfg)
     x = x + a
     return x + _tp_ffn(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps), cfg), kv
 
@@ -1190,7 +1218,7 @@ def prefill_tp(group, batch: dict, cache: dict, cfg: ModelConfig, out):
             cache["xk"][lead] = xk
             cache["xv"][lead] = xv
         else:
-            x, kv = _tp_layer(group, lps, x, positions, cfg)
+            x, kv = _tp_layer(group, lps, x, positions, cfg, kind)
             for name, new in zip(_KV[kind], kv):
                 _fill_rows(cache[name][lead], new)
     return _tp_logits(group, x[:, -1:], cfg, out)[:, 0]
@@ -1236,6 +1264,41 @@ def _tp_attn_decode(group, lps: list, h: torch.Tensor, pos: int, cache: dict, na
     return group.reduce(outs, h.dtype)
 
 
+def _tp_mla_decode(group, lps: list, h: torch.Tensor, pos: int, cache: dict, lead: tuple,
+                   row: int, lo: int, cfg: ModelConfig) -> torch.Tensor:
+    """One decode MLA layer of a cache row over its model group: the
+    token's latents on the home, written at ``pos`` into ``ckv``/``krope``;
+    ``cq`` sent to each shard, which returns the absorbed ``q_lat`` and
+    roped ``q_rope`` of its heads (joined on the home); each latent cache
+    block's partial on the shard holding it (``_combine_blocks``: the cache
+    does not move); the combined latent's heads (``mla_head_range``) sent
+    to their shard, through its wuv columns and rows of wo in float32,
+    reduced on the home."""
+    from repro_torch.distributed.tensor_parallel import mla_head_range
+
+    positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32, device=h.device)
+    cq, ckv, k_rope = L.mla_latents(lps[0]["attn"], h, positions, cfg)
+    _write_token(cache["ckv"], lead, lo, pos, ckv)
+    _write_token(cache["krope"], lead, lo, pos, k_rope)
+    q_lats, q_ropes = [], []
+    for j, (lp, cqj) in enumerate(zip(lps, group.broadcast(cq))):
+        with group.on(j):
+            q_lat, q_rope = L.mla_decode_query(lp["attn"], cqj, pos, cfg)
+        q_lats.append(q_lat)
+        q_ropes.append(q_rope)
+    lat = _combine_blocks(
+        lambda ql, qr, cb, kb, s: L.mla_partial(ql, qr, cb, kb, s, pos, cfg), group.home,
+        (group.join(q_lats, dim=2), group.join(q_ropes, dim=2)), (cache["ckv"], cache["krope"]),
+        lead, row, group).to(h.dtype)
+    outs = []
+    for j, lp in enumerate(lps):
+        lj = group.send(lat[:, slice(*mla_head_range(cfg, j, group.m))], j)
+        with group.on(j):
+            outs.append(L.matmul_f32(L.mla_latent_out(lp["attn"], lj, cfg, h.dtype),
+                                     lp["attn"]["wo"]))
+    return group.reduce(outs, h.dtype)
+
+
 def _tp_cross_decode(group, cps: list, h: torch.Tensor, pos: int, cache: dict, gi: int, lo: int,
                      hi: int, cfg: ModelConfig) -> torch.Tensor:
     """One token's gated cross attention of cache rows ``lo .. hi - 1``
@@ -1271,6 +1334,8 @@ def decode_row_tp(group, cache: dict, token: torch.Tensor, pos: int, row: int, l
         h = L.rmsnorm(x, lps[0]["ln1"], cfg.norm_eps)
         if kind == "cross":
             x = x + _tp_cross_decode(group, lps, h, pos, cache, lead[0], lo, hi, cfg)
+        elif kind == "mla":
+            x = x + _tp_mla_decode(group, lps, h, pos, cache, lead, row, lo, cfg)
         else:
             x = x + _tp_attn_decode(group, lps, h, pos, cache, _KV[kind], lead, row, lo, cfg)
         x = x + _tp_ffn(group, lps, L.rmsnorm(x, lps[0]["ln2"], cfg.norm_eps), cfg)

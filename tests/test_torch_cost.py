@@ -204,9 +204,9 @@ def test_dryrun_records_every_cell_on_meta(mesh):
     n_chips = 256 if mesh == "single" else 512
     for r in runnable:
         name = (r["arch"], r["shape"])
-        # The dense, MoE, VLM, SSM and hybrid decoders' serving cells take the
-        # tensor-parallel step.
-        tp = r["arch"] in ("deepseek-67b", "qwen1.5-110b", "moonshot-v1-16b-a3b",
+        # The dense (MLA too), MoE, VLM, SSM and hybrid decoders' serving
+        # cells take the tensor-parallel step.
+        tp = r["arch"] in ("deepseek-67b", "qwen1.5-110b", "minicpm3-4b", "moonshot-v1-16b-a3b",
                            "dbrx-132b", "llama-3.2-vision-90b", "mamba2-780m",
                            "zamba2-7b") and r["kind"] != "train"
         assert r["n_chips"] == n_chips and r["n_layers"] == 2, name

@@ -1,7 +1,8 @@
 """Tensor-parallel serving of the dense and MoE decoders on logical CPU meshes.
 
 (The VLM's: ``tests/test_torch_tensor_parallel_vlm.py``; the SSM and hybrid
-decoders': ``tests/test_torch_tensor_parallel_ssm.py``. This file's last
+decoders': ``tests/test_torch_tensor_parallel_ssm.py``; the MLA decoder's:
+``tests/test_torch_tensor_parallel_mla.py``. This file's last
 tests decide which configs take the path and hold the dry run's cells of
 all of them.)
 
@@ -84,8 +85,11 @@ MODEL_LEAVES = {"tok_embed", "lm_head", "layers/attn/wq", "layers/attn/wk", "lay
                 "layers/ssm/a_log", "layers/ssm/d_skip", "layers/ssm/dt_bias",
                 "layers/ssm/gate_norm", "layers/ssm/out", "shared/attn/wq", "shared/attn/wk",
                 "shared/attn/wv", "shared/attn/wo", "shared/mlp/wi_gate", "shared/mlp/wi_up",
-                "shared/mlp/wo"}
+                "shared/mlp/wo",
+                # MLA's up-projections (by heads)
+                "layers/attn/wuq", "layers/attn/wuk", "layers/attn/wuv"}
 VLM = "llama-3.2-vision-90b"  # test_torch_tensor_parallel_vlm.py serves it
+MLA = "minicpm3-4b"  # test_torch_tensor_parallel_mla.py serves it
 SSM = ("mamba2-780m", "zamba2-7b")  # test_torch_tensor_parallel_ssm.py serves them
 # A GQA layout whose query blocks straddle KV heads on 2 shards: 6 query
 # heads, 3 KV heads, shard 0 holds heads 0-2 (KV heads 0, 0, 1).
@@ -392,45 +396,54 @@ def test_prefill_launches_flash_on_each_shard_heads(monkeypatch, arch):
 # ------------------------------------------------------------ the other configs
 
 
+# A mesh whose 'model' axis divides every leaf's blocks but not the heads
+# (mamba2 has none: its placement splits the SSM heads' own leaves)
+REFUSED = {"moonshot-v1-16b-a3b": (1, 8), "minicpm3-4b": (1, 8)}
+
+
 @pytest.mark.parametrize("arch", ("moonshot-v1-16b-a3b", "mamba2-780m", "minicpm3-4b"))
 def test_other_families_on_tp_keep_the_gathered_path(monkeypatch, arch):
-    """Pinned "tp" on 2 x 2: the MLA config gathers every parameter whole,
-    as before; the MoE and SSM configs now take the tensor-parallel path
-    and gather their ``ModelBlocks`` (the experts, the SSM heads split over
-    'model'). All give the one-device session's results."""
-    mesh = _mesh(2, 2)
+    """Pinned "tp": the MoE, SSM and MLA configs, which once gathered every
+    parameter whole on 2 x 2, take the tensor-parallel path there and
+    gather their ``ModelBlocks`` (the experts, the SSM heads, MLA's heads
+    split over 'model'); on a 'model' axis that their heads refuse
+    (``REFUSED``) they keep the gathered path and gather every parameter
+    whole. All give the one-device session's results."""
     pinned = get_smoke_config(arch).scaled(parallelism="tp")
     monkeypatch.setattr(pt_serve, "get_smoke_config", lambda a: pinned)
     common = dict(smoke=True, dtype="float32", batch=B, max_seq=MAX_SEQ)
     one = pt_serve.ServeSession(arch, device="cpu", **common)
-    sess = pt_serve.ServeSession(arch, mesh=mesh, params=one.params, **common)
-    pcfg = sess.cfg
-    takes_tp = pcfg.family in ("moe", "ssm")
-    assert pcfg.parallelism == "tp" and tp.serves_tensor_parallel(pcfg, mesh) == takes_tp
-    prompts = _prompts(pcfg)
+    prompts = _prompts(pinned)
     want_tokens, want = one.generate(prompts, GEN, keep_logits=True)
-    with sess.gathered():
-        total = sum(t.numel() * t.element_size() for t in tree_leaves(one.params))
-        if takes_tp:
-            assert isinstance(sess._full, tp.ModelBlocks)
-            assert all(v < 0.55 * total for v in sess._full.bytes_by_position.values())
-        else:
-            assert isinstance(sess._full, pt_steps.GatheredParams)
-            assert set(sess._full.bytes_by_position.values()) == {total}
-    tokens, got = sess.generate(prompts, GEN, keep_logits=True)
-    np.testing.assert_array_equal(tokens, want_tokens)
-    _close(got["logits"], want["logits"], LOGIT_TOL["float32"])
+    total = sum(t.numel() * t.element_size() for t in tree_leaves(one.params))
+    meshes = [(_mesh(2, 2), True)] + ([(_mesh(*REFUSED[arch]), False)] if arch in REFUSED else [])
+    for mesh, takes_tp in meshes:
+        sess = pt_serve.ServeSession(arch, mesh=mesh, params=one.params, **common)
+        pcfg = sess.cfg
+        assert pcfg.parallelism == "tp" and tp.serves_tensor_parallel(pcfg, mesh) == takes_tp
+        with sess.gathered():
+            if takes_tp:
+                assert isinstance(sess._full, tp.ModelBlocks)
+                assert all(v < 0.55 * total for v in sess._full.bytes_by_position.values())
+            else:
+                assert isinstance(sess._full, pt_steps.GatheredParams)
+                assert set(sess._full.bytes_by_position.values()) == {total}
+        tokens, got = sess.generate(prompts, GEN, keep_logits=True)
+        np.testing.assert_array_equal(tokens, want_tokens)
+        _close(got["logits"], want["logits"], LOGIT_TOL["float32"])
 
 
 def test_which_configs_serve_tensor_parallel():
     """The one test that decides: the "tp" profile, and a 'model' axis
     dividing the query heads of the dense, MoE or VLM family with GQA
     attention (and the experts), the SSM heads of the SSM family, both of
-    the hybrid. The production meshes give moonshot 4 experts a shard and
-    dbrx 1; 2 x 2, 32 and 8. The VLM, mamba2-780m (48 SSM heads: 3 a shard
-    on 16) and zamba2-7b (112 SSM heads and 32 query heads: 7 and 2) take it
-    on the production meshes and on 2 x 2; the MLA, audio and "dp" configs
-    do not."""
+    the hybrid; for the MLA decoder no larger than the heads and dividing
+    the columns of wuq/wuk/wuv, the rows of wo and ``d_ff``. The production
+    meshes give moonshot 4 experts a shard and dbrx 1; 2 x 2, 32 and 8. The
+    VLM, mamba2-780m (48 SSM heads: 3 a shard on 16), zamba2-7b (112 SSM
+    heads and 32 query heads: 7 and 2) and minicpm3-4b (40 heads: 2 or 3 a
+    shard on 16, 20 on 2) take it on the production meshes and on 2 x 2;
+    the audio and "dp" configs do not."""
     from repro_torch.configs import get_config
 
     prod = DuckMesh((16, 16), ("data", "model"))
@@ -439,12 +452,27 @@ def test_which_configs_serve_tensor_parallel():
                         "moonshot-v1-16b-a3b", "dbrx-132b", "mamba2-780m", "zamba2-7b",
                         "llama-3.2-vision-90b", "hubert-xlarge")
             if tp.serves_tensor_parallel(get_config(a), prod)
-            and tp.serves_tensor_parallel(get_config(a), multi)} == set(ARCHS) | {VLM} | set(SSM)
+            and tp.serves_tensor_parallel(get_config(a), multi)} == (set(ARCHS) | {VLM, MLA}
+                                                                      | set(SSM))
     two = DuckMesh((2, 2), ("data", "model"))
-    assert all(tp.serves_tensor_parallel(get_config(a), two) for a in (VLM, *SSM))
-    assert not any(tp.serves_tensor_parallel(get_config(a), m) for a in ("minicpm3-4b",
-                                                                      "hubert-xlarge")
+    assert all(tp.serves_tensor_parallel(get_config(a), two) for a in (VLM, MLA, *SSM))
+    assert not any(tp.serves_tensor_parallel(get_config("hubert-xlarge"), m)
                    for m in (prod, multi, two))
+    mla = get_config(MLA)
+    heads = [tp.mla_head_range(mla, j, 16) for j in range(16)]
+    assert heads[0] == (0, 2) and heads[-1] == (37, 40)
+    assert [h1 - h0 for h0, h1 in heads] == [2, 3, 2, 3, 2, 3, 2, 3] * 2
+    assert [tp.mla_head_range(mla, j, 2) for j in range(2)] == [(0, 20), (20, 40)]
+    assert tp.block_spans(mla, 1, 16) == {"layers/attn/wuq": (192, 480),
+                                          "layers/attn/wuk": (128, 320),
+                                          "layers/attn/wuv": (128, 320),
+                                          "layers/attn/wo": (128, 320)}
+    assert tp.block_spans(get_config("deepseek-67b"), 1, 16) == {}
+    assert not tp.serves_tensor_parallel(mla.scaled(parallelism="dp"), prod)
+    small = get_smoke_config(MLA)  # 4 heads, pinned "tp" as the full config
+    assert tp.serves_tensor_parallel(small, DuckMesh((1, 4), ("data", "model")))
+    assert not tp.serves_tensor_parallel(small, DuckMesh((1, 8), ("data", "model")))
+    assert not tp.serves_tensor_parallel(small.scaled(d_ff=129), two)
     assert [tp.ssm_head_range(get_config(a), 15, 16) for a in SSM] == [(45, 48), (105, 112)]
     assert [tp.ssm_channel_range(get_config(a), 1, 16) for a in SSM] == [(8, 16), (4, 8)]
     for arch in SSM:  # "auto" puts the smoke configs' 8 SSM heads on "dp"
@@ -486,7 +514,7 @@ def test_which_configs_serve_tensor_parallel():
 # ------------------------------------------------------------ the dry run
 
 
-@pytest.mark.parametrize("arch", ARCHS + (VLM,) + SSM)
+@pytest.mark.parametrize("arch", ARCHS + (VLM,) + SSM + (MLA,))
 def test_dryrun_serving_cells_take_the_tensor_parallel_step(monkeypatch, arch):
     """At 2 layers on the production mesh (the VLM: one self and one cross
     layer; zamba2: two mamba layers and the shared block): a device gathers
@@ -494,7 +522,12 @@ def test_dryrun_serving_cells_take_the_tensor_parallel_step(monkeypatch, arch):
     the gathered path's count over the model axis (the same products,
     split: the VLM's image projection and cross K/V, the SSM's B/C
     channels and heads too), but for the MoE's router product, which the
-    home runs whole. The SSM and hybrid also at long_500k."""
+    home runs whole. MLA's home holds and computes its 2 heads of 40
+    (head-aligned, where 1/16 would be 2.5; 3 on the shards that hold the
+    most) and runs the latent projections wdq/wdkv whole; at decode the
+    latent cache's sequence block it holds, for every head. A 3-head
+    shard's own step is counted too, and the group's bound is the larger.
+    The SSM and hybrid also at long_500k."""
     from repro_torch.launch.specs import CellSpec
 
     shapes = ("prefill_32k", "decode_32k") + (("long_500k",) if arch in SSM else ())
@@ -507,7 +540,14 @@ def test_dryrun_serving_cells_take_the_tensor_parallel_step(monkeypatch, arch):
         whole = sum(t.numel() * t.element_size() for t in leaves)
         model = sum(t.numel() * t.element_size() for n, t in zip(names, leaves)
                     if n in MODEL_LEAVES)
-        assert r["memory"]["gathered_params_bytes"] == whole - model + model // 16
+        mla = spec.cfg.attention == "mla"
+        heads = sum(t.numel() * t.element_size() for n, t in zip(names, leaves)
+                    if mla and n in {f"layers/attn/{w}" for w in ("wuq", "wuk", "wuv", "wo")})
+        per_head = heads // spec.cfg.n_heads if mla else 0
+        home = whole - model + (model - heads) // 16
+        assert r["memory"]["gathered_params_bytes"] == home + 2 * per_head * mla
+        assert r["memory"]["gathered_params_bytes_max_shard"] == home + 3 * per_head * mla
+        assert r.get("max_shard_heads") == (3 if mla else None)
         assert r["model_shards"] == 16 and r["collectives"]["by_op"]["activations"] > 0
         monkeypatch.setattr(dryrun, "serves_tensor_parallel", lambda cfg, mesh: False)
         g = dryrun.run_cell(arch, shape, "single", n_layers=2)
@@ -517,8 +557,29 @@ def test_dryrun_serving_cells_take_the_tensor_parallel_step(monkeypatch, arch):
         if cfg.family == "moe":
             tokens = r["rows"] * (spec.shape.seq if spec.shape.kind == "prefill" else 1)
             router = 2 * tokens * cfg.d_model * cfg.n_experts * cfg.n_layers
+        home = 0  # what the home's MLA heads and latent projections add to its 1/16
+        if mla:
+            d, qr, kvr, rope = cfg.d_model, cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_rope_dim
+            nope, vd, seq = cfg.qk_nope_dim, cfg.v_head_dim, spec.shape.seq
+            tokens = r["rows"] * (seq if spec.shape.kind == "prefill" else 1)
+            if spec.shape.kind == "prefill":  # wuq, wuk, wuv, wo and the attention core a head
+                head = (2 * tokens * (qr * (nope + rope) + 2 * kvr * nope + vd * d)
+                        + 2 * r["rows"] * seq * seq * (nope + rope + vd))
+            else:  # wuq, the absorbed query, the latent through wuv, wo a head
+                head = 2 * tokens * (qr * (nope + rope) + nope * kvr + kvr * vd + vd * d)
+            whole_mm = 2 * tokens * d * (qr + kvr + rope)
+            home = cfg.n_layers * (15 / 16 * whole_mm + head * (2 - cfg.n_heads / 16))
         assert r["matmul_flops_per_device"] == pytest.approx(
-            (g["matmul_flops_per_device"] - router) / 16 + router, rel=1e-9)
+            (g["matmul_flops_per_device"] - router) / 16 + router + home, rel=1e-9)
+        bound = r["roofline"]["step_lower_bound_s"]
+        if mla:  # a 3-head shard's own step: a head more than the home, no latent projections
+            own = r["max_shard_step"]
+            assert own["heads"] == 3 and own["matmul_flops"] == pytest.approx(
+                r["matmul_flops_per_device"] + cfg.n_layers * (head - whole_mm), rel=1e-9)
+            bound = max(bound, own["roofline"]["step_lower_bound_s"])
+        else:
+            assert "max_shard_step" not in r
+        assert r["group_step_lower_bound_s"] == bound
         # The home shard, counted, also runs the group's reductions: more
         # than a sixteenth of the step's bytes.
         assert r["bytes_per_device"] > g["bytes_per_device"] / 16

@@ -5,29 +5,31 @@
 
 Each ``--arch`` (default deepseek-67b:8; LAYERS cuts the depth, none: every
 layer) at full width, bf16, on logical shards of one card: 4 x 512 prompt
-tokens and 16 steps (chip_smoke's phase 21b / 21d shape) teacher-forced on
+tokens and 16 steps (chip_smoke's phase 21d shape) teacher-forced on
 the one-device session's tokens (the VLM's image embeddings as 21d draws
 them, ``chip_smoke._image_embeds``; the SSM and hybrid configs' conv taps
-passing their input as 21d sets them, ``chip_smoke._passing_conv``), under
-phase 21b's attention for the configs it serves (21d's "flash" for the
-others), for
+passing their input and the MLA config's query latent norms scaled as 21d
+sets them, ``chip_smoke._passing_conv`` and ``_sharp_mla``), under
+``chip_smoke.SERVE_SHARD_IMPL``'s attention ("xla" for minicpm3-4b, whose
+MLA values the flash kernel refuses; "flash" for a config not there), for
 
   * a config that serves tensor-parallel (``serves_tensor_parallel``: the
-    dense, MoE, VLM, SSM and hybrid decoders on the "tp" profile, e.g.
-    ``--arch mamba2-780m:48 --arch zamba2-7b:15``): the tensor-parallel
+    dense, MLA, MoE, VLM, SSM and hybrid decoders on the "tp" profile, e.g.
+    ``--arch mamba2-780m:48 --arch minicpm3-4b``): the tensor-parallel
     path on 2 x 2, 1 x 2 and 2 x 1 (on 2 x 1 the model axis splits
     nothing: only the data split and
     the path's float32 reductions differ from one device), and the gathered
     path on 2 x 2 (every parameter gathered whole; ``serves_tensor_parallel``
-    patched off);
+    patched off), and, for a config that phase 21b serves pinned to another
+    profile (``chip_smoke.SERVE_SHARD_PROFILE``: minicpm3-4b on "dp"), the
+    gathered path on that profile on 2 x 2;
   * any other config: the gathered path on 2 x 2, 2 x 1 and 1 x 2.
 
 Each prints the logits' relative norm against the one-device session and
 against a float32 run of the same weights (the max over the steps), the
 prefill's and the largest decode step's. The bf16 runs' distance from
 float32 sets the scale: two bf16 runs whose roundings part anywhere land
-about that far apart. Phases 21b and 21d set their bf16 bounds from these
-readings. Needs one NVIDIA card; exits non-zero without one.
+about that far apart. Phase 21d sets its bf16 bounds from these readings. Needs one NVIDIA card; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ def drift(smoke, arch: str, layers: int | None) -> None:
     params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
     smoke._open_gates(params)
     smoke._passing_conv(params)
+    smoke._sharp_mla(params, cfg)
     rng = np.random.default_rng(23)
     prompts = rng.integers(0, cfg.vocab, (b, plen), dtype=np.int32)
     img = smoke._image_embeds(rng, b, cfg) if cfg.family == "vlm" else None
@@ -84,11 +87,17 @@ def drift(smoke, arch: str, layers: int | None) -> None:
           f"{smoke.nvidia_smi_line()}", flush=True)
     real = steps.serves_tensor_parallel
     tp = real(cfg, smoke._logical_mesh((2, 2)))
-    for path, shape in TP_PATHS if tp else GATHERED_PATHS:
+    profile = smoke.SERVE_SHARD_PROFILE.get(arch)
+    paths = [(p, s, None) for p, s in (TP_PATHS if tp else GATHERED_PATHS)]
+    if profile:
+        paths.append((f"gathered (profile {profile!r})", (2, 2), profile))
+    for path, shape, pinned in paths:
         if path == "gathered":
             steps.serves_tensor_parallel = lambda cfg, mesh: False
         try:
-            sess = ServeSession(arch, mesh=smoke._logical_mesh(shape), params=params, **common)
+            with smoke._pinned_profile(pinned):
+                sess = ServeSession(arch, mesh=smoke._logical_mesh(shape), params=params,
+                                    **common)
             got = smoke._forced(sess, prompts, img, forced)[0]
         finally:
             steps.serves_tensor_parallel = real
