@@ -304,8 +304,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               width, 16 of 48 layers, bf16, 4 x 2,048, on 2 x 2 (profile "tp":
               ZeRO-3 blocks) against its one-device run (3 steps, losses
               within 3e-3), the bytes each position's blocks hold; float32
-              gradients at 2 layers of both archs, the sharded step's reduced
-              blocks within 1e-5 relative L2 a leaf of one device's;
+              gradients at 2 layers of both archs and of hubert-xlarge, the
+              sharded step's reduced blocks within 1e-5 relative L2 a leaf of
+              one device's (hubert's on the tensor-parallel train step, each
+              position its 'model' blocks' share of the forward and
+              backward; a shard's gradient reduced into its neighbour's
+              model block refused); hubert-xlarge at 12 of 48 layers, bf16,
+              4 x 512 frames, on that step against its one-device loop (6
+              steps at a peak lr of 3e-4, losses within 3e-3);
               ``compressed_psum_mean`` over 8 logical 'pod' shards of
               [8, 64] and of eight single-row gradients of smollm's embedding,
               bit-equal to a NumPy emulation and within 0.02 of the exact mean;
@@ -399,7 +405,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               bf16 within a bound set from a ``tools/tp_drift.py`` reading
               and 2 in float32 within 1e-4 of one device, under "xla" (no
               flash launch; at decode each latent cache block's partial
-              runs on the shard holding it). Each run: the bytes each
+              runs on the shard holding it). hubert-xlarge (the audio
+              encoder, 16 heads: 8 a shard, hd 80, not causal) at all 48
+              layers in bf16 within a bound of 1.5 x a card reading and 2 in
+              float32 within 1e-4, under "flash": ``ServeSession`` refuses
+              the encoder, so its prefill step on the mesh against one
+              device's and ``forward_tp``'s full-frame logits against
+              ``forward_train``, on 4 x 512 frames around a shared
+              direction. Each run: the bytes each
               position gathered on this path and on the gathered path
               (under 0.55 of it), the flash launches (layers x data shards x
               model shards, each on H/m query heads, the VLM's cross layers
@@ -412,9 +425,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               expert block, (VLM) a shard that takes its neighbour's
               KV heads of the image K/V in the cross layers only, (MLA) a
               shard that receives its neighbour's heads of the combined
-              latent at decode, and (SSM,
+              latent at decode, (SSM,
               hybrid) a shard that reads its neighbour's head block of the
-              SSM state at decode
+              SSM state at decode, and (audio) a shard that attends to its
+              neighbour's K/V heads
 
  22. livejournal  com-livejournal, the paper's largest graph, at full size
               (|V| 3,997,962, |E| 34,681,189, rmat from its config's seed).
@@ -631,6 +645,19 @@ SHARD_MAMBA = "mamba2-780m"
 SHARD_MAMBA_BATCH, SHARD_MAMBA_SEQ, SHARD_MAMBA_STEPS = 4, 2048, 3
 SHARD_MAMBA_LAYERS = 16  # of 48, cut for the time limit (phase 18c trains all 48 on one device)
 SHARD_GRAD_LAYERS, SHARD_GRAD_SHAPE, SHARD_GRAD_TOL = 2, (4, 256), 1e-5  # float32, relative L2
+# The audio encoder trains tensor-parallel on 2 x 2 ("tp": each position
+# computes its 'model' blocks' share of the forward and backward): its
+# float32 gradients at SHARD_GRAD_LAYERS against one device, and a bf16
+# TrainLoop at 18c's cut (12 of 48 layers) on 4 x 512 frames against its
+# one-device loop, at a peak lr of SHARD_AUDIO_LR. At the other loops' 1e-3
+# the one-device loop itself diverges from step 5 on an NVIDIA H100 80GB
+# HBM3 at 700 W (losses 6.640, 6.512, 6.055, 4.889, 7.145, 8.892: past ln
+# 504 = 6.22), and every 2 x 2 path parts from it there by more than the
+# steps before (tools/train_drift.py, PERF.md's PR 35 entry); at 3e-4 the
+# loss falls every step (6.640 to 4.802) and the paths stay within
+# SHARD_LOSS_TOL.
+SHARD_AUDIO = "hubert-xlarge"
+SHARD_AUDIO_LAYERS, SHARD_AUDIO_SHAPE, SHARD_AUDIO_LR = 12, (4, 512), 3e-4
 SHARD_PODS, SHARD_COMP_TOL = 8, 0.02  # compressed_psum_mean; tests/test_distributed.py:374's bound
 SHARD_COMP_SHAPE = (8, 128)  # eight single-row gradients of the full-width embedding
 SHARD_RESUME_FLAG = "--sharded-resume-child"
@@ -689,7 +716,8 @@ SERVE_TP_RUNS = (("deepseek-67b", 2, "float32"), ("deepseek-67b", 8, "bfloat16")
                  ("llama-3.2-vision-90b", 10, "bfloat16"), ("mamba2-780m", 2, "float32"),
                  ("mamba2-780m", 48, "bfloat16"), ("zamba2-7b", 7, "float32"),
                  ("zamba2-7b", 15, "bfloat16"), ("minicpm3-4b", 2, "float32"),
-                 ("minicpm3-4b", 62, "bfloat16"))  # (arch, depth cut, dtype)
+                 ("minicpm3-4b", 62, "bfloat16"), ("hubert-xlarge", 2, "float32"),
+                 ("hubert-xlarge", 48, "bfloat16"))  # (arch, depth cut, dtype)
 # The VLM's runs: 10 of 100 layers in bf16 (21b's cut: two groups of 4 self
 # and 1 cross layer, 10.67 B parameters, 21.3 GB; its float32 reference
 # copy, 42.7 GB, sits beside it), one whole group (5 layers, 6.39 B, 25.6 GB
@@ -715,7 +743,15 @@ SERVE_TP_RUNS = (("deepseek-67b", 2, "float32"), ("deepseek-67b", 8, "bfloat16")
 # The MLA runs: minicpm3-4b at all 62 layers in bf16 (4.26 B parameters,
 # 8.5 GB; 40 heads, 20 a shard on 2 x 2), 2 in float32, under "xla"
 # (SERVE_SHARD_IMPL: no flash launch).
-SERVE_TP_SEED = 23  # the runs' prompts and image embeddings, drawn run after run
+# The audio encoder's runs: hubert-xlarge at all 48 layers in bf16 (1.26 B
+# parameters, 2.52 GB; 16 heads of 80, 8 a shard on 2 x 2, non-causal), 2 in
+# float32, under "flash". ServeSession refuses the encoder (no decode step),
+# so they call the prefill step on the mesh and on one device
+# (make_prefill_step(cfg, mesh), make_prefill_step(cfg)) on AUDIO_TP_SHAPE
+# frames (_audio_frames), and hold forward_tp's full-frame logits against
+# one device's forward_train as well.
+AUDIO_TP_SHAPE = (4, 512)  # batch, frames
+SERVE_TP_SEED = 23  # the runs' prompts, image embeddings and frames, drawn run after run
 SERVE_TP_BIAS_STD = 0.5
 # A position's gathered bytes on the tensor-parallel path, the most of the
 # gathered path's (every parameter whole): the leaves without a 'model' dim
@@ -764,11 +800,15 @@ MOE_FLIP_TOL = 1e-3
 # gathered path 0.092576; prefill 0.066203 where 'model' splits wo, else 0.0);
 # the sharper attention parts the bf16 roundings more (one device 0.197627
 # from float32; at the init's weights the gathered path read 0.072696 and
-# one device 0.058-0.077).
+# one device 0.058-0.077). hubert's at 48 layers (its last and full-frame
+# logits, _audio_frames): 1.5 x tools/tp_drift.py's largest reading,
+# 0.019530 (the full-frame logits on 2 x 2 and 1 x 2; the last 0.019453;
+# on 2 x 1 and the gathered path pinned "dp" 0.0, their arithmetic one
+# device's; one device 0.017432 / 0.018088 from float32).
 SERVE_TP_BF16_TOL = {"deepseek-67b": 1.5 * SERVE_SHARD_TOL, "moonshot-v1-16b-a3b": 1.5 * 0.050049,
                      "dbrx-132b": 1.5 * 0.337294, "llama-3.2-vision-90b": 1.5 * 0.033598,
                      "mamba2-780m": 1.5 * 0.043560, "zamba2-7b": 1.5 * 0.028908,
-                     "minicpm3-4b": 1.5 * 0.093363}
+                     "minicpm3-4b": 1.5 * 0.093363, "hubert-xlarge": 1.5 * 0.019530}
 # A bf16 run lands no farther from float32 than one device plus LM_TOL; for
 # dbrx plus its bound: two runs that far apart may differ by that much in
 # their distance from float32 (the triangle inequality), and its readings
@@ -5257,8 +5297,67 @@ def _sharded_mamba(smi: str) -> None:
         f"vs {1e3 * float(np.median(runs['one device'][1][1:])):.3f}")
 
 
+def _sharded_audio(smi: str) -> None:
+    """hubert-xlarge at full width, 18c's cut, bf16, on 2 x 2 logical
+    shards (the tensor-parallel train step) against its one-device loop:
+    each step's loss, the ms a step of both, the bytes a position holds and
+    computes with."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.tensor_parallel import gather_model_blocks, trains_tensor_parallel
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig
+
+    runs = {}
+    b, s = SHARD_AUDIO_SHAPE
+    cut = get_config(SHARD_AUDIO).scaled(n_layers=SHARD_AUDIO_LAYERS)
+    mesh = _logical_mesh(SHARD_TRAIN_MESH)
+    check(trains_tensor_parallel(cut, mesh), f"[sharded train] {SHARD_AUDIO} trains gathered")
+    for label, on in (("one device", None), ("2 x 2", mesh)):
+        loop = TrainLoop(SHARD_AUDIO, global_batch=b, seq=s, schedule=TRAIN_SCHEDULE, mesh=on,
+                         cfg_override=cut, device=SHARD_DEVICE if on is None else None,
+                         opt=AdamWConfig(lr=SHARD_AUDIO_LR, weight_decay=0.0))
+        times, losses = _timed_steps(loop)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt, _ = loop.run(SHARD_TRAIN_STEPS, log_every=SHARD_TRAIN_STEPS)
+        wall = time.perf_counter() - t0
+        runs[label] = (losses, times, torch.cuda.max_memory_allocated())
+        held = ""
+        if on is not None:
+            state = {"params": params, "opt": opt}
+            dense = sum(math.prod(t.shape) * t.dtype.itemsize for t in tree_leaves(state))
+            whole = sum(math.prod(t.shape) * t.dtype.itemsize for t in tree_leaves(params))
+            computes = gather_model_blocks(params, mesh, cut).bytes_by_position
+            check(max(computes.values()) < SERVE_TP_BYTES_SHARE * whole,
+                  f"[sharded train] {SHARD_AUDIO}: a position computes with {computes} of {whole}")
+            held = (f"; bytes held by each position's blocks {_held_bytes(state, mesh)} (params + "
+                    f"moments + step, of the leaves' {dense}); bytes of the 'model' blocks each "
+                    f"position gathers and computes with {sorted(set(computes.values()))} of the "
+                    f"params' {whole} (ratio {max(computes.values()) / whole:.4f})")
+        log(f"[sharded train] {SHARD_AUDIO} at full width ({cut.n_layers} of 48 layers, bf16, "
+            f"remat {cut.remat!r}, attention {cut.attention_impl!r}, {b} x {s} frames, schedule "
+            f"{TRAIN_SCHEDULE} at lr {SHARD_AUDIO_LR}) on {label}"
+            f"{' (tensor-parallel train step)' if on is not None else ''}: {SHARD_TRAIN_STEPS} "
+            f"steps in {wall:.3f} s, ms a step {[round(1e3 * t, 3) for t in times]}, losses "
+            f"{[round(x, 6) for x in losses]}, max_memory_allocated {runs[label][2]} bytes{held}; "
+            f"{smi}")
+        del loop, params, opt
+        torch.cuda.empty_cache()
+    one, sharded = runs["one device"][0], runs["2 x 2"][0]
+    diffs = [abs(a - b_) for a, b_ in zip(sharded, one)]
+    check(len(sharded) == SHARD_TRAIN_STEPS and all(np.isfinite(sharded))
+          and max(diffs) <= SHARD_LOSS_TOL,
+          f"[sharded train] {SHARD_AUDIO} losses {sharded} vs {one}")
+    log(f"[sharded train] {SHARD_AUDIO} 2 x 2 tensor-parallel vs one device: |loss difference| "
+        f"{[float(f'{d:.3e}') for d in diffs]} (<= {SHARD_LOSS_TOL}); median ms a step "
+        f"{1e3 * float(np.median(runs['2 x 2'][1][1:])):.3f} vs "
+        f"{1e3 * float(np.median(runs['one device'][1][1:])):.3f}")
+
+
 def _sharded_grads_f32() -> dict:
-    """Float32 gradients at 2 layers, full width, both archs: the sharded
+    """Float32 gradients at 2 layers, full width, the three archs: the sharded
     step's reduced blocks against ``loss_and_grads`` on one device."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMDataset
@@ -5268,33 +5367,57 @@ def _sharded_grads_f32() -> dict:
     from repro_torch.models.model import init_model
     from repro_torch.models.params import tree_leaves
 
+    from repro_torch.distributed.tensor_parallel import trains_tensor_parallel
+    from repro_torch.launch import steps
+
     mesh = _logical_mesh(SHARD_TRAIN_MESH)
     b, s = SHARD_GRAD_SHAPE
     out = {}
-    for arch in (TRAIN_ARCH, SHARD_MAMBA):
+    for arch in (TRAIN_ARCH, SHARD_MAMBA, SHARD_AUDIO):
         cfg = get_config(arch).scaled(n_layers=SHARD_GRAD_LAYERS, dtype="float32")
         params = init_model(0, cfg, SHARD_DEVICE)
         batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMDataset(
-            vocab=cfg.vocab, seq_len=s, global_batch=b, seed=3).batch(0).items()}
+            vocab=cfg.vocab, seq_len=s, global_batch=b, seed=3, family=cfg.family,
+            d_frontend=cfg.d_frontend).batch(0).items()}
         loss, _, grads = loss_and_grads(params, batch, cfg)
         pspecs, _, gspecs = train_state_specs(cfg)
         placed = place_tree(params, named_tree(mesh, pspecs))
         bp = place_tree(batch, named_tree(mesh, batch_spec_tree(cfg, mesh, batch)))
-        s_loss, _, s_grads = sharded_loss_and_grads(placed, bp, cfg, named_tree(mesh, gspecs))
-        errs = [_rel(g.full(), w) for g, w in zip(tree_leaves(s_grads), tree_leaves(grads))]
+        tp_step = trains_tensor_parallel(cfg, mesh)
+        check(tp_step == (arch == SHARD_AUDIO), f"[sharded train] {arch}: tensor-parallel "
+                                                f"train step {tp_step}")
+
+        def errors() -> tuple:
+            s_loss, _, s_grads = sharded_loss_and_grads(placed, bp, cfg, named_tree(mesh, gspecs))
+            errs = [_rel(g.full(), w) for g, w in zip(tree_leaves(s_grads), tree_leaves(grads))]
+            return s_loss, errs, abs(float(s_loss) - float(loss)) / abs(float(loss))
+
+        s_loss, errs, loss_err = errors()
         worst = _leaf_names(grads)[int(np.argmax(errs))]
-        loss_err = abs(float(s_loss) - float(loss)) / abs(float(loss))
         check(max(errs) <= SHARD_GRAD_TOL and loss_err <= SHARD_GRAD_TOL,
               f"[sharded train] {arch} float32 gradients {max(errs):.3e} ({worst}), "
               f"loss {loss_err:.3e}")
+        planted = ""
+        if tp_step:  # each shard's gradient reduced into its neighbour's model block
+            with _patched(steps, "_model_block_grad", lambda real: lambda g, leaf, region: real(
+                    g[1:] + g[:1], leaf, region)):
+                bad = errors()[1]
+            check(max(bad) > SHARD_GRAD_TOL, f"[sharded train] {arch}: a shard's gradient "
+                                             f"reduced into its neighbour's block passes: {bad}")
+            planted = (f"; each shard's gradient reduced into its neighbour's model block, "
+                       f"refused: worst leaf {max(bad):.3e}, {max(bad) / SHARD_GRAD_TOL:.1f} x "
+                       f"the bound")
+        path = ("tensor-parallel: each position's 'model' blocks, its share of the forward and "
+                "backward" if tp_step else "gathered")
         log(f"[sharded train] {arch} at full width, {SHARD_GRAD_LAYERS} layers, float32 (TF32 "
             f"off), {b} x {s} on 2 x 2 logical shards (profile "
-            f"{'dp' if arch == TRAIN_ARCH else 'tp'}): loss {float(s_loss):.7f} vs one device "
-            f"{float(loss):.7f} ({loss_err:.3e}); {len(errs)} gradient leaves, worst {worst} "
-            f"{max(errs):.3e} relative L2 (<= {SHARD_GRAD_TOL}), median {float(np.median(errs)):.3e}")
+            f"{'dp' if arch == TRAIN_ARCH else 'tp'}, {path}): loss {float(s_loss):.7f} vs one "
+            f"device {float(loss):.7f} ({loss_err:.3e}); {len(errs)} gradient leaves, worst "
+            f"{worst} {max(errs):.3e} relative L2 (<= {SHARD_GRAD_TOL}), median "
+            f"{float(np.median(errs)):.3e}{planted}")
         if arch == TRAIN_ARCH:
             out = {"params": params, "cfg": cfg}
-        del placed, s_grads, grads
+        del placed, grads
     return out
 
 
@@ -5430,12 +5553,14 @@ def phase_sharded_train(one_device: dict) -> None:
     t_smollm = time.perf_counter() - t_phase
     _sharded_mamba(smi)
     t_mamba = time.perf_counter() - t_phase - t_smollm
+    _sharded_audio(smi)
+    t_audio = time.perf_counter() - t_phase - t_smollm - t_mamba
     f32 = _sharded_grads_f32()
     _compressed_mean(f32)  # the deterministic child ran in phase 18c
     del f32
     torch.cuda.empty_cache()
     log(f"[sharded train] phase 20 took {time.perf_counter() - t_phase:.3f} s (smollm and its "
-        f"restores {t_smollm:.3f}, mamba2 {t_mamba:.3f})")
+        f"restores {t_smollm:.3f}, mamba2 {t_mamba:.3f}, hubert {t_audio:.3f})")
 
 
 # ---------------------------------------------------------------- phase 21
@@ -6021,6 +6146,245 @@ def _neighbour_state():
         **real(group, j, *a), "ssm": real(group, (j + 1) % group.m, *a)["ssm"]})
 
 
+@contextlib.contextmanager
+def _neighbour_heads():
+    """A planted fault: in ``_tp_attention`` each model shard takes its
+    neighbour's K/V heads for its own queries (``head_range`` shifted for
+    ``kv_block``), its projections and rows of wo its own."""
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.models import model as model_mod
+
+    def crossing(fn):
+        def wrapped(*args, **kwargs):
+            with _patched(tensor_parallel, "head_range",
+                          lambda real: lambda c, j, m: real(c, (j + 1) % m, m)):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+    with _patched(model_mod, "_tp_attention", crossing):
+        yield
+
+
+def _audio_frames(rng, cfg) -> np.ndarray:
+    """The audio runs' frames ``[B, S, d_frontend]`` (21d and
+    ``tools/tp_drift.py``): normal frames around one shared direction of
+    twice their scale, as a recording's frames share its channel's
+    component. At random weights each head attends over the 512 frames
+    nearly evenly, so independent frames' values average to about 1/20 of
+    a frame's; the shared part keeps the attention's output, and a fault in
+    it, of a frame's size."""
+    b, s = AUDIO_TP_SHAPE
+    shared = 2.0 * rng.normal(size=cfg.d_frontend)
+    return (rng.normal(size=(b, s, cfg.d_frontend)) + shared).astype(np.float32)
+
+
+def _audio_one_device(cfg, params, frames: torch.Tensor) -> tuple:
+    """One device's (last logits, full-frame logits, prefill s) of the audio
+    encoder: ``make_prefill_step(cfg)``, timed on its second call, and
+    ``forward_train``."""
+    from repro_torch.launch.steps import make_forward_step, make_prefill_step
+
+    step = make_prefill_step(cfg)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, _ = step(params, {}, {"frames": frames})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return last, make_forward_step(cfg)(params, {"frames": frames}), secs
+
+
+def _tp_bytes_text(arch: str, tp_bytes: dict, whole: int) -> str:
+    """21d's bytes rule, no position gathering ``SERVE_TP_BYTES_SHARE`` of
+    the tree (``whole`` bytes), checked; the log's text of it."""
+    check(all(v < SERVE_TP_BYTES_SHARE * whole for v in tp_bytes.values()),
+          f"[tp serve] {arch}: a position gathered {tp_bytes} of {whole}")
+    return (f"bytes each position gathered for a step: tensor-parallel "
+            f"{sorted(set(tp_bytes.values()))} (its 'model' blocks), the gathered path {whole} "
+            f"(every parameter), ratio {max(tp_bytes.values()) / whole:.4f}")
+
+
+def _check_tp_heads(arch: str, pre: dict, heads: list, want_heads: list, also: bool = True,
+                    more: str = "") -> None:
+    """A 21d prefill launched flash ``want_heads`` in order (``_flash_heads``'
+    readings) and no other kernel; ``also`` is the caller's own condition,
+    ``more`` its text."""
+    check(also and pre["flash_attention"] == len(want_heads) and heads == want_heads
+          and not any(v for k, v in pre.items() if k != "flash_attention"),
+          f"[tp serve] {arch}: launches prefill {pre}{more}, (heads, KV heads, keys, causal) "
+          f"{sorted(set(heads))}; expected {len(want_heads)} flash, {sorted(set(want_heads))}")
+
+
+def _tp_kernel_cases(arch: str, cfg, rows: int, sq: int, heads: list, dtype: str) -> dict:
+    """The flash kernel at each of a 21d prefill's shapes (a data shard's
+    rows, the model shard's query and KV heads), held to its plain version:
+    label -> (Sk, causal, max |err|, max row error, tiles scored). A
+    non-causal launch of a causal model is the VLM's cross attention
+    (queries at 0 .., key positions zero), of the encoder its self
+    attention."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bshd_cuda,
+        flash_attention_bshd_reference,
+    )
+
+    kernel = {}
+    for hq, hk, sk, causal in sorted(set(heads), key=lambda t: not t[3]):
+        cross = cfg.causal and not causal
+        ops = _gqa_inputs(rows, sq, sk, hq, hk, cfg.resolved_head_dim, getattr(torch, dtype),
+                          seed=31 if causal else 32 if cross else 33)
+        if cross:  # attn_forward's cross branch: queries at 0 .., keys at 0
+            ops = (*ops[:3], torch.arange(sq, dtype=torch.int32, device="cuda").repeat(rows, 1),
+                   torch.zeros_like(ops[4]))
+        label = "cross" if cross else "self"
+        kernel[label] = (sk, causal, *_flash_case(
+            flash_attention_bshd_cuda, flash_attention_bshd_reference, ops, causal, hq,
+            f"{arch} tensor-parallel prefill shard, {label} attention"))
+        del ops
+    return kernel
+
+
+def _kernel_text(kernel: dict, rows: int, sq: int) -> str:
+    return "; ".join(f"{label} attention (B {rows}, Sq {sq}, Sk {sk}, "
+                     f"{'causal' if causal else 'not causal'}) max |err| {err:.3e}, max row "
+                     f"error {row:.3e}, {tiles} tiles scored"
+                     for label, (sk, causal, err, row, tiles) in kernel.items()) or "none run"
+
+
+def _dropped_partial():
+    """A planted fault of every 21d run: a reduction that loses the last
+    model shard's partial."""
+    from repro_torch.distributed import tensor_parallel
+
+    return _patched(tensor_parallel, "reduce_f32",
+                    lambda real: lambda parts, dev, dt: real(parts[:-1], dev, dt))
+
+
+def _faults_refused(arch: str, faults: dict, verdict) -> dict:
+    """Each planted fault (name -> context) under ``verdict()`` (passes,
+    readings, text), which must refuse it: name -> its readings."""
+    refused = {}
+    for name, planted in faults.items():
+        with planted():
+            bad_ok, bad, _ = verdict()
+        check(not bad_ok, f"[tp serve] {arch}: {name} passes the rule: {bad}")
+        refused[name] = bad
+    return refused
+
+
+def _refused_text(refused: dict, tol: float) -> str:
+    return "; ".join(f"{name} {[round(r, 6) for r in bad]}, {max(bad) / tol:.1f} x the bound"
+                     for name, bad in refused.items())
+
+
+def _tensor_parallel_audio_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng) -> int:
+    """One audio config of 21d: ``ServeSession`` refuses the encoder, so its
+    prefill step on the mesh (``make_prefill_step(cfg, mesh)``) against one
+    device's (``make_prefill_step(cfg)``), and its full-frame logits
+    (``make_forward_step(cfg, mesh)``: ``forward_tp``) against one device's
+    ``forward_train``. Returns the flash launches of its prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.tensor_parallel import ModelBlocks, serves_tensor_parallel
+    from repro_torch.launch.steps import (
+        gather_params,
+        make_forward_step,
+        make_prefill_step,
+        place_params,
+    )
+    from repro_torch.models.model import init_model
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    full_cfg = get_config(arch)
+    impl = SERVE_SHARD_IMPL.get(arch, "flash")
+    cfg = full_cfg.scaled(n_layers=depth, dtype=dtype, attention_impl=impl)
+    check(serves_tensor_parallel(cfg, mesh), f"[tp serve] {arch} does not take the TP path")
+    frames = torch.from_numpy(_audio_frames(rng, cfg)).cuda()
+    b, s = AUDIO_TP_SHAPE
+    vocab = cfg.vocab
+    torch.cuda.empty_cache()
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    one_last, one_full, one_s = _audio_one_device(cfg, params, frames)
+    exact = None
+    if dtype == "bfloat16":  # the same weights in float32
+        f32 = tree_map(lambda t: t.float(), params)
+        exact = _audio_one_device(cfg.scaled(dtype="float32"), f32, frames)[:2]
+        del f32
+    whole = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    placed = place_params(cfg, mesh, params)
+    del params
+    torch.cuda.empty_cache()
+    blocks = gather_params(placed, mesh, cfg)
+    check(isinstance(blocks, ModelBlocks), f"[tp serve] {arch}: gathered {type(blocks)}")
+    bytes_text = _tp_bytes_text(arch, dict(blocks.bytes_by_position), whole)
+    m = mesh.devices.shape[-1]
+    data_shards = _prefill_shards(cfg, mesh, b, s)
+    step, forward = make_prefill_step(cfg, mesh), make_forward_step(cfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):  # the first run meets the column blocks' shapes first
+        with _flash_heads() as heads:
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            last, cache = step(blocks, {}, {"frames": frames})
+            torch.cuda.synchronize()
+            runs.append((last, _launches(), time.perf_counter() - t0, list(heads)))
+    peak = torch.cuda.max_memory_allocated()
+    last, pre, prefill_s, heads = runs[-1]
+    full = forward(blocks, {"frames": frames})
+    want_heads = [(cfg.n_heads // m, cfg.n_kv_heads // m, s, cfg.causal)] * (
+        data_shards * depth * m)
+    _check_tp_heads(arch, pre, heads, want_heads, also=cache == {}, more=f", cache {cache}")
+    rows = b // data_shards
+    hq, hk, sk, _ = want_heads[0]
+    kernel = _tp_kernel_cases(arch, cfg, rows, s, heads, dtype)
+    tol = SERVE_TP_BF16_TOL.get(arch, SERVE_SHARD_TOL) if exact is not None else FAMILY_CARD_TOL
+
+    def verdict(got_last, got_full) -> tuple:
+        """The run's rule: (passes, relative norms of the last and the
+        full-frame logits against one device, the text of the float32
+        comparison). In bf16 also finite and no farther from the float32 run
+        than one device is, plus LM_TOL."""
+        rels = [_rel(got_last[:, :vocab], one_last[:, :vocab]),
+                _rel(got_full[..., :vocab], one_full[..., :vocab])]
+        if exact is None:
+            return max(rels) <= tol, rels, ""
+        one_f32 = max(_rel(o[..., :vocab], e[..., :vocab])
+                      for o, e in zip((one_last, one_full), exact))
+        tp_f32 = max(_rel(o[..., :vocab], e[..., :vocab])
+                     for o, e in zip((got_last, got_full), exact))
+        finite = bool(torch.isfinite(got_last[:, :vocab]).all()
+                      and torch.isfinite(got_full[..., :vocab]).all())
+        return (finite and max(rels) <= tol and tp_f32 <= one_f32 + LM_TOL, rels,
+                f"; against a float32 run of the same weights, max of the two: one device "
+                f"{one_f32:.6f}, tensor-parallel {tp_f32:.6f} (bound one device + {LM_TOL})")
+
+    ok, rels, against_f32 = verdict(last, full)
+    check(ok, f"[tp serve] {arch} {dtype}: tensor-parallel vs one device relative norms (last, "
+              f"full-frame) {rels} (bound {tol}){against_f32}")
+    refused = _faults_refused(arch, {"a reduction dropping the last shard's partial": _dropped_partial,
+                              "a shard attending to its neighbour's K/V heads": _neighbour_heads},
+                       lambda: verdict(step(blocks, {}, {"frames": frames})[0],
+                                       forward(blocks, {"frames": frames})))
+    log(f"[tp serve] {arch} ({cfg.family}, profile 'tp') at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, KV {cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"frames of {cfg.d_frontend}, vocab {vocab}, not causal), {depth} of {full_cfg.n_layers} "
+        f"layers, {dtype}, attention {impl!r}, tensor-parallel on {SERVE_TP_MESH} logical shards "
+        f"of {SHARD_DEVICE}: the prefill step on {b} x {s} frames (seeded, around a shared "
+        f"direction) against one device's: last logits relative norm {rels[0]:.3e}, "
+        f"forward_tp's full-frame logits against forward_train {rels[1]:.3e} (bound "
+        f"{tol}){against_f32}; {bytes_text}; flash launches prefill "
+        f"{pre['flash_attention']} ({depth} attention layers x {data_shards} data shards x {m} "
+        f"model shards, each on {hq} query and {hk} KV heads, Sk {sk}, not causal; one device "
+        f"{depth} on {cfg.n_heads}); the kernel at the path's shape against its plain version: "
+        f"{_kernel_text(kernel, rows, s)}; prefill {prefill_s:.6f} s (first run "
+        f"{runs[0][2]:.6f}; one device {one_s:.6f}); max_memory_allocated {peak} bytes (the "
+        f"placed and the gathered blocks on one card: logical shards share its memory); refused "
+        f"by the same rule: {_refused_text(refused, tol)}; {smi}")
+    del blocks, placed, runs, last, full
+    return pre["flash_attention"]
+
+
 def _tp_inputs(cfg, dtype: str, rng) -> tuple:
     """A 21d run's (batch, prompt, generated) and its prompts and image
     embeddings (the VLM's; else None), drawn from the phase's ``rng``."""
@@ -6096,8 +6460,7 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         tp_bytes = dict(sess._full.bytes_by_position)
     m = mesh.devices.shape[-1]
     shards = _prefill_shards(cfg, mesh, b, plen) * m
-    check(all(v < SERVE_TP_BYTES_SHARE * whole for v in tp_bytes.values()),
-          f"[tp serve] {arch}: a position gathered {tp_bytes} of {whole}")
+    bytes_text = _tp_bytes_text(arch, tp_bytes, whole)
     torch.cuda.reset_peak_memory_stats()
     runs = []
     for _ in range(2):  # the first run's steps meet the column blocks' shapes first
@@ -6106,33 +6469,10 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     peak = torch.cuda.max_memory_allocated()
     got, pre, dec, prefill_s, decode_s, layout, heads = runs[-1]
     want_heads = _tp_launches(cfg, m, plen, shards // m)
-    check(pre["flash_attention"] == len(want_heads) and dec["flash_attention"] == 0
-          and not any(v for k, v in {**pre, **dec}.items() if k != "flash_attention")
-          and heads == want_heads,
-          f"[tp serve] {arch}: launches prefill {pre}, decode {dec}, (heads, KV heads, keys, "
-          f"causal) {sorted(set(heads))}; expected {len(want_heads)} flash, "
-          f"{sorted(set(want_heads))}")
-    # The kernel at each of the path's shapes (a data shard's rows, the
-    # model shard's query and KV heads; the VLM's cross layers non-causal at
-    # its image tokens, key positions zero), held to its plain version.
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_bshd_cuda,
-        flash_attention_bshd_reference,
-    )
-
+    _check_tp_heads(arch, pre, heads, want_heads, also=not any(dec.values()),
+                    more=f", decode {dec}")
     rows = b // (shards // m)
-    kernel = {}
-    for hq, hk, sk, causal in sorted(set(heads), key=lambda t: not t[3]):
-        ops = _gqa_inputs(rows, plen, sk, hq, hk, cfg.resolved_head_dim, getattr(torch, dtype),
-                          seed=31 if causal else 32)
-        if not causal:  # attn_forward's cross branch: queries at 0 .., keys at 0
-            ops = (*ops[:3], torch.arange(plen, dtype=torch.int32, device="cuda").repeat(rows, 1),
-                   torch.zeros_like(ops[4]))
-        label = "self" if causal else "cross"
-        kernel[label] = (sk, causal, *_flash_case(
-            flash_attention_bshd_cuda, flash_attention_bshd_reference, ops, causal, hq,
-            f"{arch} tensor-parallel prefill shard, {label} attention"))
-        del ops
+    kernel = _tp_kernel_cases(arch, cfg, rows, plen, heads, dtype)
     rels = _step_rels(got, stats["logits"], cfg.vocab)
     tol = SERVE_TP_BF16_TOL.get(arch, SERVE_SHARD_TOL) if exact is not None else FAMILY_CARD_TOL
     drops, held = "", None
@@ -6206,9 +6546,7 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     # block's one-hots and runs them on its own weights; for the VLM, a
     # shard that takes its neighbour's KV heads of the image K/V in the
     # cross layers only.
-    faults = {"a reduction dropping the last shard's partial": lambda: _patched(
-        tensor_parallel, "reduce_f32", lambda real: lambda parts, dev, dt: real(parts[:-1], dev,
-                                                                                dt))}
+    faults = {"a reduction dropping the last shard's partial": _dropped_partial}
     if moe:
         faults["a shard running its neighbour's expert block"] = lambda: _patched(
             tensor_parallel, "expert_range", lambda real: lambda c, j, m_: real(c, (j + 1) % m_,
@@ -6220,12 +6558,7 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
     if mla:
         faults["a shard receiving its neighbour's heads of the combined latent"] = (
             _neighbour_latent_heads)
-    refused = {}
-    for name, planted in faults.items():
-        with planted():
-            bad_ok, bad, _ = verdict(2)
-        check(not bad_ok, f"[tp serve] {arch}: {name} passes the rule: {bad}")
-        refused[name] = bad
+    refused = _faults_refused(arch, faults, lambda: verdict(2))
     cut = f"{depth} of {full.n_layers} layers"
     first = runs[0]
     experts = (f", {cfg.n_experts} experts top-{cfg.experts_per_token} ({cfg.n_experts // m} a "
@@ -6269,25 +6602,15 @@ def _tensor_parallel_run(arch: str, depth: int, dtype: str, mesh, smi: str, rng)
         + (f", QKV biases drawn at std {SERVE_TP_BIAS_STD}" if cfg.qkv_bias else "")
         + f": {b} x {plen} prompt tokens, {gen} steps teacher-forced on the one-device session's "
         f"tokens: logits relative norm prefill {rels[0]:.3e}, decode max {max(rels[1:]):.3e} "
-        f"(each {[float(f'{r:.3e}') for r in rels]}; bound {tol}){against_f32}{drops}; bytes each "
-        f"position gathered "
-        f"for a step: tensor-parallel {sorted(set(tp_bytes.values()))} (its 'model' blocks), the "
-        f"gathered path {whole} (every parameter), ratio "
-        f"{max(tp_bytes.values()) / whole:.4f}; flash launches prefill {launched}, decode "
-        f"{dec['flash_attention']}; the kernel at the path's shapes against its plain version: "
-        + ("; ".join(f"{label} attention (B {rows}, Sq {plen}, Sk {sk}, "
-                     f"{'causal' if causal else 'not causal'}) max |err| {err:.3e}, max row "
-                     f"error {row:.3e}, {tiles} tiles scored"
-                     for label, (sk, causal, err, row, tiles) in kernel.items()) or "none run")
-        + "; prefill "
-        f"{prefill_s:.6f} s (first run {first[3]:.6f}; one device {one_prefill_s:.6f}), decode "
+        f"(each {[float(f'{r:.3e}') for r in rels]}; bound {tol}){against_f32}{drops}; "
+        f"{bytes_text}; flash launches prefill {launched}, decode {dec['flash_attention']}; the "
+        f"kernel at the path's shapes against its plain version: "
+        f"{_kernel_text(kernel, rows, plen)}; prefill {prefill_s:.6f} s (first run {first[3]:.6f}; one device {one_prefill_s:.6f}), decode "
         f"{1e3 * decode_s / (gen - 1):.3f} ms a step (first run "
         f"{1e3 * first[4] / (gen - 1):.3f}; one device {1e3 * one_decode_s / (gen - 1):.3f}); "
         f"max_memory_allocated {peak} bytes (the placed and the gathered blocks on one card: "
         f"logical shards share its memory); refused by the same rule: "
-        + "; ".join(f"{name} {[round(r, 6) for r in bad]}, {max(bad) / tol:.1f} x the bound"
-                    for name, bad in refused.items())
-        + f"; cache specs {layout}; {smi}")
+        f"{_refused_text(refused, tol)}; cache specs {layout}; {smi}")
     del sess, got, runs
     return pre["flash_attention"]
 
@@ -6303,10 +6626,13 @@ def phase_tensor_parallel_serve() -> dict:
     mesh = _logical_mesh(SERVE_TP_MESH)
     rng = np.random.default_rng(SERVE_TP_SEED)
     flash = {}
+    from repro_torch.configs import get_config
+
     for arch, depth, dtype in SERVE_TP_RUNS:
         t0 = time.perf_counter()
-        flash[f"tensor_parallel_serve:{arch}:{dtype}"] = _tensor_parallel_run(
-            arch, depth, dtype, mesh, smi, rng)
+        run = _tensor_parallel_audio_run if get_config(arch).family == "audio" else (
+            _tensor_parallel_run)
+        flash[f"tensor_parallel_serve:{arch}:{dtype}"] = run(arch, depth, dtype, mesh, smi, rng)
         log(f"[tp serve] {arch} {dtype} took {time.perf_counter() - t0:.3f} s")
     torch.cuda.empty_cache()
     log(f"[tp serve] phase 21d took {time.perf_counter() - t_phase:.3f} s")

@@ -39,7 +39,8 @@ Conventions (the reference's where they carry over):
     a scope whose path contains ``attn_core`` add up in
     ``bytes_by_tag["attn"]``, backward included: a backward op is charged to
     the scope that created its autograd node, a recomputed one to the scope
-    it runs in. ``skip=name`` leaves out the ops (and custom calls) run
+    it runs in (``forward_ops`` marks remat's recomputation, whose custom
+    Functions' forwards run with autograd off inside a backward node). ``skip=name`` leaves out the ops (and custom calls) run
     inside a scope whose path contains ``name``: the tensor-parallel path
     runs its other model shards' work in such a scope, so that one call
     counts its home shard's step alone. ``only=name`` leaves out every op
@@ -64,7 +65,8 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels.common import COST_SINKS
 
-__all__ = ["StepCost", "CostCounter", "step_cost", "cost_scope", "collectives", "split_bytes"]
+__all__ = ["StepCost", "CostCounter", "step_cost", "cost_scope", "forward_ops", "collectives",
+           "split_bytes"]
 
 _COMPOSITE_KEY = torch._C.DispatchKey.CompositeImplicitAutograd
 # Alias and metadata ops: no memory traffic (besides every op whose schema
@@ -206,6 +208,28 @@ class cost_scope:
         return False
 
 
+class forward_ops:
+    """``with forward_ops():`` marks the ops inside as a forward's: each is
+    charged to the scope it runs in, also where autograd is off inside a
+    backward node (remat's recomputation runs a layer's forward, and its
+    custom Functions' forwards, within the backward node that needs it).
+    Thread-local; with no counter running it does nothing but one list
+    test."""
+
+    __slots__ = ("_on",)
+
+    def __enter__(self):
+        self._on = bool(_ACTIVE)
+        if self._on:
+            _TLS.forward = getattr(_TLS, "forward", 0) + 1
+        return self
+
+    def __exit__(self, *exc):
+        if self._on:
+            _TLS.forward -= 1
+        return False
+
+
 # ------------------------------------------------------------------ counting
 
 
@@ -262,7 +286,7 @@ class CostCounter(TorchDispatchMode):
     # -- attribution
 
     def _path(self) -> str:
-        if not torch.is_grad_enabled():
+        if not torch.is_grad_enabled() and not getattr(_TLS, "forward", 0):
             node = torch._C._current_autograd_node()
             if node is not None:  # a backward op: the scope that made its node
                 seq = node._sequence_nr()

@@ -25,8 +25,10 @@ Where the reference's constraints make GSPMD compute a layer split over
 'model', the port writes that schedule out: serving the dense and MoE decoders
 on the "tp" profile runs each model shard on its head, column, expert and
 vocab blocks (``distributed/tensor_parallel.py``, ``models/model.py``'s
-``prefill_placed_tp`` / ``decode_placed_tp``); the other families and the
-training step run on gathered parameters (``launch/steps.py``).
+``prefill_placed_tp`` / ``decode_placed_tp``), and so do the other
+decoders' serving and the audio encoder's prefill and train step; the
+other families' training steps run on gathered parameters
+(``launch/steps.py``).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Tensor-parallel serving of the decoders over a mesh's 'model' axis.
+"""Tensor-parallel compute over a mesh's 'model' axis: serving the decoders
+and the audio encoder, and the audio encoder's training step.
 
 The reference gets this compute from GSPMD: on the "tp" profile
 (``src/repro/distributed/ctx.py:34-52``) it places wq/wk/wv and the MLP's
@@ -13,10 +14,13 @@ layer code pins the activations to those blocks
 columns and wo by rows, ``:309-322``, its latent cache by sequence,
 ``src/repro/models/model.py:716-717``, ``layers.py:380-381``;
 ``src/repro/models/model.py:123``; the SSD's heads over 'tp',
-``src/repro/models/ssm.py:171-174``). The port
-is single-controller and eager, so it writes the schedule out: this module
-holds the blocks and the moves, ``models/model.py`` the layer loops
-(``prefill_placed_tp``, ``decode_placed_tp``).
+``src/repro/models/ssm.py:171-174``; the audio encoder's frame projection
+by columns, ``src/repro/models/model.py:118-119``, its layers as a dense
+decoder's, in its train step too, ``src/repro/launch/steps.py:28``). The
+port is single-controller and eager, so it writes the schedule out: this
+module holds the blocks and the moves, ``models/model.py`` the layer loops
+(``prefill_placed_tp``, ``decode_placed_tp``, ``forward_tp``) and
+``launch/steps.py`` the train step's gradients.
 
 Which configs take it: ``serves_tensor_parallel(cfg, mesh)``, the one place
 that decides. On the "tp" profile and a mesh with a 'model' axis: the
@@ -27,10 +31,14 @@ SSM family when it divides the SSM heads (mamba2-780m); the hybrid when it
 divides the SSM heads and the shared block's query heads (zamba2-7b); a
 MLA decoder when it is no larger than the heads and divides the
 columns of wuq/wuk/wuv, the rows of wo and the MLP's columns, whether or not
-it divides the heads (minicpm3-4b: 40 heads on 16 shards); a smoke config
-pinned ``parallelism="tp"`` likewise. Every other config (the audio
-family, the "dp" profile, a 'model' axis the heads or blocks refuse) serves
-on the gathered path: every parameter gathered whole on each device.
+it divides the heads (minicpm3-4b: 40 heads on 16 shards); the audio
+encoder when it divides the heads (hubert-xlarge: 16 heads); a smoke config
+pinned ``parallelism="tp"`` likewise. Every other config (the "dp"
+profile, a 'model' axis the heads or blocks refuse) serves on the gathered
+path: every parameter gathered whole on each device.
+``trains_tensor_parallel(cfg, mesh)`` decides for the train step: the
+audio encoder where it serves tensor-parallel. Every other family trains
+on gathered parameters.
 
 What model shard ``j`` of ``m`` holds (``gather_model_blocks``): the ``j``-th
 'model' block of every leaf whose spec splits a dim over 'model', gathered
@@ -46,13 +54,15 @@ decoder layer's (``layers`` stacked ``[G, per, ...]``, ``cross_layers``
 ``[G, ...]``); for the hybrid, the shared block's as a decoder layer's.
 What it computes, on its device:
 
-  * embedding: the tokens in its vocab range (zeros elsewhere);
+  * embedding: the tokens in its vocab range (zeros elsewhere); the
+    audio encoder's frame projection: its columns of ``frames @
+    frontend``, joined on the home into the residual stream;
   * attention: its ``H / m`` query heads (``head_range``) from its column
     blocks of wq (and bq); its column blocks of wk/wv (bk/bv) are joined on
     the group's home, roped there, and each shard takes the KV heads its
     query heads use (``kv_block``: ``q // (H / K)``; a shard's query heads
     may share one KV head with another shard's when K does not divide m);
-    then its rows of wo;
+    then its rows of wo; causal but for the audio encoder's;
   * MLA (``mla_head_range``: heads ``j H // m .. (j + 1) H // m``, 2 or 3
     of minicpm3's 40 on 16 shards): the home computes the latents every
     head shares (``cq``, ``ckv``, the roped ``k_rope``) and sends them to
@@ -113,7 +123,15 @@ residual stream, the norms, the routing and the cache writes live on the
 home (shard 0's device). Every move between the group's shards goes through
 ``runtime/staging.stage`` and adds its bytes to ``ModelGroup.moved`` (bytes
 into each shard): what the dry run records as the step's activation
-collectives. A shard's own work runs in ``ModelGroup.on(j)``: for shards
+collectives; under autograd ``ModelGroup.sent`` counts the bytes a shard
+sent that take a gradient, which the backward brings back into it.
+
+The train step (``launch/steps.py::sharded_loss_and_grads``) runs the same
+forward under autograd (``models/model.py::forward_tp``) on each model
+shard's blocks as leaves, and reduces each shard's gradient of its model
+block into the gradient spec's blocks that lie inside that block; a leaf
+every shard holds whole (a norm) takes the sum
+of the shards' gradients of it, which only the home computes with. A shard's own work runs in ``ModelGroup.on(j)``: for shards
 other than the home a ``cost_scope(shard_scope(j))``, whose name holds
 ``SHARD_SCOPE``. The dry run's counter skips those, so that it counts the
 home shard's step, the one that bounds the group's where every shard
@@ -139,6 +157,7 @@ __all__ = [
     "SHARD_SCOPE",
     "shard_scope",
     "serves_tensor_parallel",
+    "trains_tensor_parallel",
     "model_size",
     "model_dim",
     "block_range",
@@ -181,7 +200,8 @@ def serves_tensor_parallel(cfg, mesh) -> bool:
     divides; the dense family with MLA when it is at most the heads and
     divides the columns of wuq/wuk/wuv, the rows of wo and ``d_ff``; the SSM
     family whose SSM heads it divides; the hybrid whose SSM heads and (GQA)
-    query heads it divides. Every other config takes the gathered path."""
+    query heads it divides; the audio encoder whose heads it divides. Every
+    other config takes the gathered path."""
     if arch_profile(cfg) != "tp" or MODEL not in mesh.axis_names:
         return False
     m = model_size(mesh)
@@ -190,11 +210,20 @@ def serves_tensor_parallel(cfg, mesh) -> bool:
     if cfg.family == "dense" and cfg.attention == "mla":
         sizes = [cfg.n_heads * w for w in _mla_widths(cfg).values()] + [cfg.d_ff]
         return m <= cfg.n_heads and all(n % m == 0 for n in sizes)
-    if cfg.family not in ("dense", "moe", "vlm", "hybrid") or cfg.attention != "gqa":
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "audio") or cfg.attention != "gqa":
         return False
     if cfg.family == "hybrid":
         return cfg.ssm_heads % m == 0 and cfg.n_heads % m == 0
     return cfg.n_heads % m == 0 and (cfg.family != "moe" or cfg.n_experts % m == 0)
+
+
+def trains_tensor_parallel(cfg, mesh) -> bool:
+    """Whether ``make_train_step(mesh=)`` computes ``cfg``'s forward and
+    backward tensor-parallel on ``mesh`` (each model shard on its blocks):
+    the audio encoder where it serves so. Every other config trains on
+    parameters gathered whole on each device."""
+    return cfg.family == "audio" and serves_tensor_parallel(cfg, mesh)
+
 
 
 def model_dim(spec, ndim: int) -> int | None:
@@ -367,7 +396,9 @@ class ModelGroup:
     parameter blocks and mesh position (where its copies of the placed
     cache's blocks are read); ``home`` is shard 0's device, where the
     residual stream lives. ``moved[j]`` counts the activation bytes moved
-    into shard ``j`` from another shard of the group."""
+    into shard ``j`` from another shard of the group; ``sent[j]`` the bytes
+    shard ``j`` sent to another that take a gradient (the backward brings as
+    many back into it)."""
 
     def __init__(self, devices: list, blocks: list, positions: list):
         self.devices = list(devices)
@@ -376,6 +407,7 @@ class ModelGroup:
         self.m = len(self.devices)
         self.home = self.devices[0]
         self.moved = [0] * self.m
+        self.sent = [0] * self.m
 
     def on(self, j: int):
         """The context of shard ``j``'s own work: ``cost_scope(shard_scope(j))``
@@ -386,6 +418,8 @@ class ModelGroup:
         """Count ``t`` as moved from shard ``src`` into shard ``dst``."""
         if src != dst:
             self.moved[dst] += t.numel() * t.element_size()
+            if t.requires_grad:
+                self.sent[src] += t.numel() * t.element_size()
 
     def send(self, t: torch.Tensor, j: int, src: int = 0) -> torch.Tensor:
         """``t`` (on shard ``src``'s device) on shard ``j``'s device."""

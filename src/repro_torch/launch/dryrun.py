@@ -41,8 +41,17 @@ port's specs equal the reference's, it records
         shard's own work is counted too (``max_shard_step``: its products,
         its gather and the activations moved into it).
         ``group_step_lower_bound_s`` is the larger of the counted steps'
-        roofline bounds, the group's;
-      - every other cell (training, the audio family, the "dp" profile)
+        roofline bounds, the group's. The audio encoder's prefill_32k
+        (hubert-xlarge, no cache) takes the same step;
+      - the audio encoder's train_4k (``trains_tensor_parallel``) takes the
+        tensor-parallel train step: one microbatch's ``loss_tp`` and its
+        backward over 16 model shards on meta, remat's recomputation
+        included, of which the home shard's part is counted (a backward op
+        by the scope of its autograd node), with the float32 accumulation of
+        the home's gradient into its blocks, times the reference's
+        microbatches, and AdamW once over the device's blocks
+        (``_train_tp``);
+      - every other cell (the other families' training, the "dp" profile)
         the step of one distinct data-parallel shard, run on its first
         device with every parameter gathered there: the per-device FLOPs
         and bytes are that shard's, not divided by the model axis. Training
@@ -55,8 +64,11 @@ port's specs equal the reference's, it records
     the tensor-parallel path the 'data' gather of the device's model
     blocks), the activations a tensor-parallel step moves between its model
     shards (``activations``: the most ``ModelGroup.moved`` brings into one
-    shard, the home's) and, in training, each microbatch's gradient reduction
-    into the gradient spec's blocks (``reduce-scatter``);
+    shard, the home's; in the tensor-parallel train step also the gradients
+    its backward brings back into the home, ``ModelGroup.sent``) and, in
+    training, each microbatch's gradient reduction into the gradient spec's
+    blocks (``reduce-scatter``; on the tensor-parallel path each model
+    block's float32 gradient over 'data');
   * ``model_flops`` (global, and the shard's share) and ``roofline_terms``
     over the H100's constants, and the useful-FLOPs ratio.
 
@@ -108,10 +120,11 @@ from repro_torch.distributed.tensor_parallel import (
     model_size,
     serves_tensor_parallel,
     shard_scope,
+    trains_tensor_parallel,
 )
 from repro_torch.launch.specs import META, CellSpec, batch_struct
 from repro_torch.launch.steps import MOE_GROUP, loss_and_grads, make_prefill_step, make_serve_step
-from repro_torch.models.model import cache_zeros, decode_row_tp, prefill_tp
+from repro_torch.models.model import cache_zeros, decode_row_tp, loss_tp, prefill_tp
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_warmup
 
@@ -124,10 +137,12 @@ TAGS = {"attn": "attn_core"}
 PER_DEVICE = ("the step of one distinct data-parallel shard, run on its first device with "
               "every parameter gathered there (this cell takes the gathered path, so the "
               "model axis does not divide it)")
-PER_DEVICE_TP = ("the home model shard's step of the tensor-parallel path: its share of the "
-                 "data-parallel shard's products (divided by the model axis; MLA's by its "
-                 "heads), and the MoE's routing, MLA's latent projections, the reductions, "
-                 "joins, norms and residual stream that it alone runs for the group; "
+PER_DEVICE_TP = ("the home model shard's step of the tensor-parallel path (training: a "
+                 "microbatch's forward, recomputation and backward, times the microbatches, "
+                 "and AdamW over its blocks): its share of the data-parallel shard's products "
+                 "(divided by the model axis; MLA's by its heads), and the MoE's routing, "
+                 "MLA's latent projections, the reductions, joins, norms and residual stream "
+                 "that it alone runs for the group; "
                  "max_shard_step: a shard that computes more heads (MLA), its own work alone; "
                  "group_step_lower_bound_s: the larger bound")
 
@@ -299,6 +314,96 @@ def _block_struct(t, sh, span: tuple | None = None) -> torch.Tensor:
     return torch.empty(shape, dtype=t.dtype, device=META)
 
 
+def _shard_blocks(cfg, params, psh, m: int) -> list:
+    """Each model shard's meta blocks of ``params`` (its own: MLA's
+    head-aligned blocks differ by a head)."""
+    out = []
+    for j in range(m):
+        spans = block_spans(cfg, j, m)
+        out.append(map_named(lambda name, t, sh: _block_struct(t, sh, spans.get(name)),
+                             params, psh))
+    return out
+
+
+def _data_blocks(params, psh, m: int) -> list:
+    """Each leaf's blocks within a model block: what a device's model block
+    is split into over the other axes ('data')."""
+    return [_blocks(sh, t.ndim) // (1 if model_dim(sh.spec, t.ndim) is None else m)
+            for t, sh in zip(tree_leaves(params), tree_leaves(psh))]
+
+
+def _gathered(blocks, others: list, itemsize: int | None = None) -> float:
+    """The bytes a 'data' gather of a device's model ``blocks`` brings into
+    it (each ``others`` ways split), or a reduction of their gradients
+    (``itemsize`` bytes an element) takes out of it."""
+    return sum((b.numel() * itemsize if itemsize else _nbytes(b)) * (k - 1) / k
+               for b, k in zip(tree_leaves(blocks), others))
+
+
+def _train_tp(spec: CellSpec, mesh) -> tuple[StepCost, dict]:
+    """``train_cost`` on the tensor-parallel path
+    (``launch/steps.py::_tp_shard_grads``): one microbatch's
+    ``loss_tp`` and backward over a group of the mesh's model shards on
+    meta (remat's recomputation included), of which the home shard's part
+    is counted (backward ops by their autograd node's scope), with the
+    float32 accumulation of the home's gradient into its blocks, times the
+    microbatches; AdamW once over the device's blocks. The collectives: the
+    'data' gather of the device's model blocks (once a step), each
+    microbatch's reduction of their float32 gradients into the device's
+    blocks, and the activations moved into the home: the forward's and the
+    recomputation's (``ModelGroup.moved``) and the gradients the backward
+    brings back of what it sent (``ModelGroup.sent``, read after the
+    forward)."""
+    cfg, shape = spec.cfg, spec.shape
+    params, opt, batch = spec.args()
+    psh, osh, gsh = (named_tree(mesh, s) for s in train_state_specs(cfg))
+    bsh = named_tree(mesh, batch_spec_tree(cfg, mesh, batch))
+    mb = _microbatches(cfg, shape, mesh)
+    n = _dp_blocks(bsh, batch)
+    if shape.global_batch % (mb * n):
+        raise ValueError(f"{shape.global_batch} rows do not split into {mb} microbatches "
+                         f"of {n} data-parallel shards")
+    rows = shape.global_batch // mb // n
+    m = model_size(mesh)
+    shard_blocks = [tree_map(lambda t: t.requires_grad_(), b)
+                    for b in _shard_blocks(cfg, params, psh, m)]
+    group = ModelGroup([META] * m, shard_blocks, group_positions(mesh, (0,) * mesh.devices.ndim))
+    leaves = tree_leaves(params)
+    others = _data_blocks(params, psh, m)
+    home_grad_blocks = [tuple(k // (m if d == model_dim(sh.spec, t.ndim) else 1)
+                              for d, k in enumerate(sh.blocks_per_dim(t.ndim)))
+                        for t, sh in zip(leaves, tree_leaves(gsh))]
+    part = _part(batch, rows)
+    sent = []
+
+    def microbatch():
+        loss, _ = loss_tp(group, part, cfg)
+        sent.append(group.sent[0])
+        home = tree_leaves(group.blocks[0])
+        grads = torch.autograd.grad(loss, [t for b in group.blocks for t in tree_leaves(b)],
+                                    allow_unused=True)
+        for g, blocks in zip(grads[:len(home)], home_grad_blocks):
+            if g is not None:
+                block = g[_block_slices(g.shape, blocks)].float()
+                block.add_(block)  # the running sum's add
+
+    cost = mb * step_cost(microbatch, tags=TAGS, skip=SHARD_SCOPE)
+    cost = cost + _optimizer_cost(params, _blocks_of(tree_leaves(osh["m"]), leaves),
+                                  _blocks_of(tree_leaves(gsh), leaves))
+    coll = {"all-gather": _gathered(shard_blocks[0], others),
+            "reduce-scatter": mb * _gathered(shard_blocks[0], others, itemsize=4),
+            "activations": mb * (group.moved[0] + sent[0])}
+    held = {"params": _held(params, psh), "opt_state": _held(opt, osh),
+            "grads": sum(t.numel() * 4 // _blocks(sh, t.ndim)
+                         for t, sh in zip(leaves, tree_leaves(gsh))),
+            "batch": _held(batch, bsh)}
+    info = {"held": held, "microbatches": mb, "dp_shards": n, "model_shards": m,
+            "rows_per_microbatch": rows,
+            "gathered": sum(_nbytes(b) for b in tree_leaves(shard_blocks[0])),
+            "gathered_max": max(sum(_nbytes(b) for b in tree_leaves(t)) for t in shard_blocks)}
+    return cost + collectives(coll), info
+
+
 def _serve_tp(spec: CellSpec, mesh, kind: str) -> tuple[StepCost, dict]:
     """``_serve`` on the tensor-parallel path: one data-parallel shard's
     step (a cache row's at decode) over a group of the mesh's model shards
@@ -311,11 +416,7 @@ def _serve_tp(spec: CellSpec, mesh, kind: str) -> tuple[StepCost, dict]:
     psh = named_tree(mesh, train_state_specs(cfg)[0])
     csh = named_tree(mesh, cache_spec_tree(cfg, mesh, cache))
     m = model_size(mesh)
-    shard_blocks = []
-    for j in range(m):  # each shard's own: MLA's head-aligned blocks differ by a head
-        spans = block_spans(cfg, j, m)
-        shard_blocks.append(map_named(lambda name, t, sh: _block_struct(t, sh, spans.get(name)),
-                                      params, psh))
+    shard_blocks = _shard_blocks(cfg, params, psh, m)
     blocks = shard_blocks[0]
     group = ModelGroup([META] * m, shard_blocks, group_positions(mesh, (0,) * mesh.devices.ndim))
     if shape.kind == "prefill":
@@ -345,13 +446,11 @@ def _serve_tp(spec: CellSpec, mesh, kind: str) -> tuple[StepCost, dict]:
     with torch.inference_mode():
         cost = step_cost(step, tags=TAGS, skip=SHARD_SCOPE)
     moved = list(group.moved)
-    # A model block is split over the other axes ('data') into the rest of the leaf's blocks.
-    others = [_blocks(sh, t.ndim) // (1 if model_dim(sh.spec, t.ndim) is None else m)
-              for t, sh in zip(tree_leaves(params), tree_leaves(psh))]
+    others = _data_blocks(params, psh, m)
 
     def gather(j: int) -> float:
         """The 'data' gather of shard ``j``'s model blocks into it."""
-        return sum(_nbytes(b) * (k - 1) / k for b, k in zip(tree_leaves(shard_blocks[j]), others))
+        return _gathered(shard_blocks[j], others)
 
     held = {"params": _held(params, psh), "cache": _held(cache, csh), "batch": held_batch}
     info = {"held": held, "dp_shards": n, "model_shards": m, "rows": rows,
@@ -393,10 +492,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, n_layers: int | None = 
     cfg = spec.cfg
     mesh = production_mesh(mesh_kind)
     n_chips = int(np.prod(mesh.devices.shape))
-    tensor_parallel = spec.shape.kind != "train" and serves_tensor_parallel(cfg, mesh)
+    train = spec.shape.kind == "train"
+    tensor_parallel = (trains_tensor_parallel if train else serves_tensor_parallel)(cfg, mesh)
     t0 = time.perf_counter()
     if tensor_parallel:
-        cost, info = _serve_tp(spec, mesh, mesh_kind)
+        cost, info = _train_tp(spec, mesh) if train else _serve_tp(spec, mesh, mesh_kind)
     else:
         cost, info = (train_cost if spec.shape.kind == "train" else _serve)(spec, mesh)
     count_s = time.perf_counter() - t0

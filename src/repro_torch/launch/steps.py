@@ -16,9 +16,8 @@ computes, up to reduction order (``sharded_loss_and_grads``):
      reference's scan over ``with_sharding_constraint``-ed slices does);
   2. each leaf's params are gathered once a device;
   3. ``loss_and_grads`` runs once a distinct dp shard, on its device, in a
-     fixed order (on the "tp" profile the 'model' axis only holds blocks:
-     the training step's tensor-parallel forward and backward are not
-     ported; serving's are, below);
+     fixed order (on the "tp" profile the 'model' axis only holds blocks,
+     but for the audio encoder, below);
   4. the shards' losses and gradients combine into the global loss's
      gradient (next-token CE: ``1/n`` each; the audio family's masked loss:
      each shard's mask count over the global count), reduced in float32
@@ -29,6 +28,19 @@ computes, up to reduction order (``sharded_loss_and_grads``):
   5. the global norm is taken over distinct blocks (a replicated leaf
      counts once, not once a logical shard), and AdamW runs block by block.
 
+Where ``distributed/tensor_parallel.py::trains_tensor_parallel`` says so
+(the audio encoder on the "tp" profile, its heads divided by 'model') steps
+2-4 are tensor-parallel (``_tp_shard_grads``): each position gathers its
+'model' blocks over 'data' only (``gather_model_blocks``), taken as leaves
+of their own; each distinct dp shard of step 1 runs
+``models/model.py::loss_tp`` over the model group of the position holding
+its rows (the frame projection's, wq/wk/wv's and the MLP's columns, wo's
+rows and the vocab a shard, each layer under the config's remat) and its
+backward; each shard's gradient of its model block is reduced in float32,
+with the shard's weight, into the gradient spec's blocks inside that
+block, on the device holding each; a leaf held whole (a norm) takes the sum
+of the shards' gradients of it, the home's alone (the others do not use it).
+
 The serving steps on a mesh (``make_prefill_step(cfg, mesh)``,
 ``make_serve_step(cfg, mesh)``) take the params placed by
 ``train_state_specs`` (or ``gather_params``' gathered copies), the cache
@@ -38,7 +50,8 @@ gathered on the mesh's first device with the placed cache. Two paths,
 chosen by ``distributed/tensor_parallel.py::serves_tensor_parallel``:
 
   * tensor-parallel (the dense, MoE, VLM, SSM and hybrid decoders on the
-    "tp" profile, MLA's too): each position gathers over 'data' only, into
+    "tp" profile, MLA's too, and the audio encoder's prefill, which has no
+    cache and no decode step): each position gathers over 'data' only, into
     its 'model' block of every leaf whose spec has 'model' (MLA's per-head
     leaves by its heads; the norms, the MoE's router and the VLM's cross
     gates whole; ``gather_params`` returns ``ModelBlocks``). The prefill runs each distinct data-parallel
@@ -54,11 +67,15 @@ chosen by ``distributed/tensor_parallel.py::serves_tensor_parallel``:
   * gathered (every other config): every parameter gathered whole once a
     distinct device (``GatheredParams``); the prefill runs
     ``forward_prefill`` once a distinct data-parallel shard
-    (``prefill_placed``), the decode step once a data-parallel row of the
+    (``prefill_placed``; the audio encoder's with no cache, each shard
+    weighing ``1 / n`` as a decoder's), the decode step once a data-parallel row of the
     cache, its attention one partial a sequence block (``decode_placed``).
 
 Both record the bytes each mesh position computes with
-(``bytes_by_position``). The reference's logits are vocab-sharded;
+(``bytes_by_position``). ``make_forward_step(cfg, mesh)`` runs the
+prefill's shards through the whole forward on either path (the audio
+encoder's full-frame logits: ``forward_tp``, or ``forward_train`` on the
+gathered params). The reference's logits are vocab-sharded;
 sampling reads them whole.
 """
 from __future__ import annotations
@@ -79,16 +96,22 @@ from repro_torch.distributed.tensor_parallel import (
     ModelBlocks,
     first_positions,
     gather_model_blocks,
+    model_dim,
     model_group,
     serves_tensor_parallel,
+    trains_tensor_parallel,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
+    _first_leaf,
     decode_placed,
     decode_placed_tp,
     decode_step,
     forward_prefill,
+    forward_tp,
+    forward_train,
     loss_fn,
+    loss_tp,
     prefill_placed,
     prefill_placed_tp,
 )
@@ -102,6 +125,7 @@ __all__ = [
     "sharded_loss_and_grads",
     "make_train_step",
     "make_prefill_step",
+    "make_forward_step",
     "make_serve_step",
     "GatheredParams",
     "gather_params",
@@ -213,11 +237,11 @@ def _dp_shards(cfg: ModelConfig, batch: dict, microbatches: int) -> list:
     """[(weight, device, rows of each batch leaf, first row)] for every
     (microbatch, distinct dp shard), microbatches first. A weight is what
     the shard's loss counts in the global loss: a float, or a 0-d tensor on
-    the first shard's device (the audio family's mask counts, read from the
-    batch on the device: nothing is read back to the host). An MoE
-    microbatch whose dp shards would cut a routing group is one shard on
-    the first device, weight ``1 / microbatches``."""
-    first = batch["tokens" if "tokens" in batch else "frames"]
+    the first shard's device (the audio family's mask counts, where the
+    batch has a mask, read from it on the device: nothing is read back to
+    the host). An MoE microbatch whose dp shards would cut a routing group
+    is one shard on the first device, weight ``1 / microbatches``."""
+    first = _first_leaf(batch)
     rows, seq = first.shape[0], first.shape[1]
     layout = first.sharding.layout(first.ndim)
     n = first.sharding.blocks_per_dim(first.ndim)[0]
@@ -240,7 +264,7 @@ def _dp_shards(cfg: ModelConfig, batch: dict, microbatches: int) -> list:
             dev = dev_of[i]
             part = {k: leaf.read((slice(lo, lo + shard_rows),), dev) for k, leaf in batch.items()}
             shards.append((dev, part, lo))
-        if cfg.family == "audio":
+        if cfg.family == "audio" and "mask" in batch:
             counts = [stage(p["mask"].sum(dtype=torch.float32), home) for _, p, _ in shards]
             total = torch.clamp(sum(counts), min=1.0)
             weights = [c / total / microbatches for c in counts]
@@ -256,37 +280,103 @@ def sharded_loss_and_grads(params, batch: dict, cfg: ModelConfig, grad_shardings
     ``batch``: the global loss and its float32 gradient, reduced into
     ``ShardedTensor``s placed by ``grad_shardings`` (a tree of
     ``NamedSharding``). Metrics are 0-d tensors on the first shard's
-    device."""
+    device. Each distinct dp shard's loss, metrics and gradient come from
+    ``_gathered_shard_grads``, or ``_tp_shard_grads`` where
+    ``trains_tensor_parallel`` says so; they are weighed and reduced here."""
+    mesh = tree_leaves(grad_shardings)[0].mesh
     shards = _dp_shards(cfg, batch, microbatches)
     home = shards[0][1]
-    full = {}
-    for _, dev, _, _ in shards:
-        if dev not in full:
-            full[dev] = gather_tree(params, dev)
-    gsh = tree_leaves(grad_shardings)
-    shapes = [p.shape for p in tree_leaves(params)]
-    # Each distinct gradient block is reduced on the first device holding it.
-    homes = [{idx: dev for dev, idx in reversed(list(sh.layout(len(shape)).values()))}
-             for sh, shape in zip(gsh, shapes)]
+    p_leaves, gsh = tree_leaves(params), tree_leaves(grad_shardings)
+    shapes = [p.shape for p in p_leaves]
+    homes = _block_homes(gsh, shapes)
     acc: list[dict] = [{} for _ in gsh]
     loss, metrics = None, {}
-    for w, dev, part, _ in shards:
-        s_loss, s_metrics, s_grads = loss_and_grads(full[dev], part, cfg)
+    run = _tp_shard_grads if trains_tensor_parallel(cfg, mesh) else _gathered_shard_grads
+    for w, s_loss, s_metrics, region_grad in run(params, batch, cfg, shards, microbatches,
+                                                 mesh):
         w_home = w if isinstance(w, float) else stage(w, home)
         term = stage(s_loss, home) * w_home
         loss = term if loss is None else loss + term
         for k, v in s_metrics.items():
             t = stage(v, home) * w_home
             metrics[k] = t if k not in metrics else metrics[k] + t
-        for g, sh, where, a in zip(tree_leaves(s_grads), gsh, homes, acc):
+        for i, (shape, sh, where, a) in enumerate(zip(shapes, gsh, homes, acc)):
             for idx, bdev in where.items():
                 wb = w if isinstance(w, float) else stage(w, bdev)
-                piece = stage(g[sh.block_slices(g.shape, idx)], bdev).float() * wb
+                piece = stage(region_grad(i, sh.block_slices(shape, idx)), bdev).float() * wb
                 a[idx] = piece if idx not in a else a[idx] + piece
-        del s_grads
     placed = iter([from_parts(shape, torch.float32, sh, a)
                    for a, shape, sh in zip(acc, shapes, gsh)])
     return loss, metrics, tree_map(lambda _: next(placed), grad_shardings)
+
+
+def _gathered_shard_grads(params, batch: dict, cfg: ModelConfig, shards: list,
+                          microbatches: int, mesh):
+    """Each distinct dp shard's (weight, loss, metrics, region_grad): its
+    ``loss_and_grads`` on the params gathered whole on its device;
+    ``region_grad(i, region)`` is ``region`` of its gradient of leaf ``i``."""
+    full = {}
+    for _, dev, _, _ in shards:
+        if dev not in full:
+            full[dev] = gather_tree(params, dev)
+    for w, dev, part, _ in shards:
+        s_loss, s_metrics, s_grads = loss_and_grads(full[dev], part, cfg)
+        g = tree_leaves(s_grads)
+        yield w, s_loss, s_metrics, lambda i, region: g[i][region]
+        del s_grads, g
+
+
+def _block_homes(gsh: list, shapes: list) -> list:
+    """Each gradient leaf's distinct blocks -> the first device holding
+    each, where it is reduced."""
+    return [{idx: dev for dev, idx in reversed(list(sh.layout(len(shape)).values()))}
+            for sh, shape in zip(gsh, shapes)]
+
+
+def _model_block_grad(grads: list, leaf: ShardedTensor, region: tuple) -> torch.Tensor:
+    """The float32 gradient of ``region`` of a placed leaf from one data
+    shard's model group, ``grads`` its shards' gradients of their blocks of
+    the leaf (None where a shard does not use it): the one model shard's
+    whose block holds the region, or for a leaf held
+    whole the sum of the shards' gradients (the home's alone where only it
+    uses the leaf)."""
+    d = model_dim(leaf.sharding.spec, leaf.ndim)
+    if d is None:
+        used = [g for g in grads if g is not None]
+        total = used[0].float()
+        for g in used[1:]:
+            total = total + stage(g, total.device).float()
+        return total[region]
+    per = leaf.shape[d] // leaf.sharding.blocks_per_dim(leaf.ndim)[d]
+    j = region[d].start // per
+    local = list(region)
+    local[d] = slice(region[d].start - j * per, region[d].stop - j * per)
+    if not 0 <= local[d].start < local[d].stop <= per:
+        raise ValueError(f"gradient block {region} is not inside model block {j} of {per}")
+    return grads[j][tuple(local)].float()
+
+
+def _tp_shard_grads(params, batch: dict, cfg: ModelConfig, shards: list, microbatches: int,
+                    mesh):
+    """``_gathered_shard_grads`` on the tensor-parallel path (the module
+    docstring): each distinct dp shard's ``loss_tp`` and backward over its
+    model group, on each position's 'model' blocks gathered over 'data';
+    ``region_grad`` is ``_model_block_grad``'s."""
+    leaves = {key: tree_map(lambda t: t.detach().requires_grad_(), tree)
+              for key, tree in gather_model_blocks(params, mesh, cfg).items()}
+    p_leaves = tree_leaves(params)
+    for (w, _, _, _), (_, group, part) in zip(
+            shards, _tp_shards(leaves, mesh, batch, shards, microbatches)):
+        own = [tree_leaves(b) for b in group.blocks]
+        with torch.enable_grad():
+            s_loss, s_metrics = loss_tp(group, part, cfg)
+            flat = torch.autograd.grad(s_loss, [t for ls in own for t in ls], allow_unused=True)
+        n = len(own[0])
+        by_leaf = list(zip(*(flat[j * n:(j + 1) * n] for j in range(group.m))))
+        del flat
+        yield (w, s_loss.detach(), {k: v.detach() for k, v in s_metrics.items()},
+               lambda i, region: _model_block_grad(by_leaf[i], p_leaves[i], region))
+        del by_leaf
 
 
 def _sharded_adamw(grads, params, opt_state, opt_cfg: AdamWConfig, lr, home):
@@ -424,14 +514,31 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
     return serve_step
 
 
-def _tp_shards(blocks: ModelBlocks, mesh, batch: dict, shards: list) -> list:
+def _tp_shards(blocks: ModelBlocks, mesh, batch: dict, shards: list,
+               microbatches: int = 1) -> list:
     """[(row offset, model group, batch part)]: each data-parallel shard of
-    ``_dp_shards`` with the model group of the first position holding its
-    block of the batch."""
-    tokens = batch["tokens"]
-    at = first_positions(tokens, 0)
-    per = tokens.shape[0] // tokens.sharding.blocks_per_dim(tokens.ndim)[0]
-    return [(lo, model_group(blocks, mesh, at[lo // per]), part) for _, _, part, lo in shards]
+    ``_dp_shards`` with the model group of the first position holding the
+    block of the batch whose device ``_dp_shards`` read it onto (the
+    ``i``-th shard of a microbatch: the ``i``-th block's)."""
+    first = _first_leaf(batch)
+    at = first_positions(first, 0)
+    n = len(shards) // microbatches
+    rows = first.shape[0] // len(shards)
+    return [(lo, model_group(blocks, mesh, at[lo // rows % n]), part)
+            for _, _, part, lo in shards]
+
+
+def _prefill_shards(cfg: ModelConfig, mesh, params, cache, batch: dict) -> tuple:
+    """(gathered params, placed cache, shards) of a sharded prefill: the
+    distinct data-parallel shards of ``_dp_shards``, as ``_tp_shards``'
+    (row offset, model group, batch part) from ``ModelBlocks``, else as
+    (row offset, device, batch part)."""
+    full, cache = _serve_inputs(cfg, mesh, params, cache)
+    batch = _placed_tree(batch, _batch_shardings(cfg, mesh, batch), "batch")
+    shards = _dp_shards(cfg, batch, 1)
+    if isinstance(full, ModelBlocks):
+        return full, cache, _tp_shards(full, mesh, batch, shards)
+    return full, cache, [(lo, dev, part) for _, dev, part, lo in shards]
 
 
 def _sharded_prefill_step(cfg: ModelConfig, mesh):
@@ -439,15 +546,33 @@ def _sharded_prefill_step(cfg: ModelConfig, mesh):
 
     @torch.inference_mode()
     def prefill_step(params, cache, batch):
-        full, cache = _serve_inputs(cfg, mesh, params, cache)
-        batch = _placed_tree(batch, _batch_shardings(cfg, mesh, batch), "batch")
-        shards = _dp_shards(cfg, batch, 1)
+        full, cache, shards = _prefill_shards(cfg, mesh, params, cache, batch)
         if isinstance(full, ModelBlocks):
-            return prefill_placed_tp(_tp_shards(full, mesh, batch, shards), cache, cfg, home)
-        return prefill_placed(full, [(lo, dev, part) for _, dev, part, lo in shards], cache,
-                              cfg, home)
+            return prefill_placed_tp(shards, cache, cfg, home)
+        return prefill_placed(full, shards, cache, cfg, home)
 
     return prefill_step
+
+
+def make_forward_step(cfg: ModelConfig, mesh=None):
+    """``forward_step(params, batch) -> logits [B, S, V]``: ``forward_train``'s
+    logits of every position, without a gradient. With ``mesh`` (the audio
+    encoder's full-frame logits) each distinct data-parallel shard of the
+    prefill step's runs over its model group (``forward_tp``) from
+    ``ModelBlocks``, else ``forward_train`` on the params gathered on its
+    device; the logits are joined on the mesh's first device."""
+    @torch.inference_mode()
+    def forward_step(params, batch):
+        if mesh is None:
+            return forward_train(params, batch, cfg)[0]
+        home = mesh.devices.flat[0]
+        full, _, shards = _prefill_shards(cfg, mesh, params, {}, batch)
+        if isinstance(full, ModelBlocks):
+            return torch.cat([forward_tp(group, part, cfg, home) for _, group, part in shards])
+        return torch.cat([stage(forward_train(full[dev], part, cfg)[0], home)
+                          for _, dev, part in shards])
+
+    return forward_step
 
 
 def _sharded_serve_step(cfg: ModelConfig, mesh):

@@ -552,19 +552,46 @@ def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
     return mlp_hidden(p, x) @ p["wo"]
 
 
+def _mm_f32(flat: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if flat.device.type == "cpu":
+        return flat.float() @ w.float()
+    return torch.mm(flat, w, out_dtype=torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``_mm_f32`` with a derivative (the card's ``out_dtype`` product has
+    none): the backward takes the products one device's ``x @ w`` takes, in
+    the operands' dtype. The float32 gradient it receives is a row-parallel
+    partial's, the widened gradient of the reduction's single rounding, so
+    it holds the operands' dtype's values exactly."""
+
+    @staticmethod
+    def forward(ctx, flat, w):
+        ctx.save_for_backward(flat, w)
+        return _mm_f32(flat, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        flat, w = ctx.saved_tensors
+        grad = grad.to(flat.dtype)
+        return (grad @ w.t() if ctx.needs_input_grad[0] else None,
+                flat.t() @ grad if ctx.needs_input_grad[1] else None)
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` as a float32 result, never rounded to ``x``'s dtype: a
     row-parallel partial, which a reduction sums in float32 and rounds once.
     A bf16 product accumulates in float32 on the card and on meta tensors
     (``torch.mm``'s ``out_dtype``); on the CPU, which lacks that kernel, its
-    operands are widened first."""
+    operands are widened first. Under autograd (the tensor-parallel train
+    step) the same product, differentiable (``_MatmulF32``)."""
     if x.dtype == torch.float32:
         return x @ w
     flat = x.reshape(-1, x.shape[-1])
-    if flat.device.type == "cpu":
-        out = flat.float() @ w.float()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        out = _MatmulF32.apply(flat, w)
     else:
-        out = torch.mm(flat, w, out_dtype=torch.float32)
+        out = _mm_f32(flat, w)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 

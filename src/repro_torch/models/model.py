@@ -34,9 +34,9 @@ and a logsumexp combine, the SSM step one head block at a time. These
 layers' projections are not split: the gathered path, every parameter
 gathered whole on the device.
 
-The dense, MoE, VLM, SSM and hybrid decoders on the "tp" profile serve
-tensor-parallel instead (``distributed/tensor_parallel.py`` decides which
-and holds the blocks and the moves): ``prefill_placed_tp`` and
+The dense, MoE, VLM, SSM and hybrid decoders and the audio encoder on the
+"tp" profile serve tensor-parallel instead (``distributed/tensor_parallel.py``
+decides which and holds the blocks and the moves): ``prefill_placed_tp`` and
 ``decode_placed_tp`` run each data-parallel shard (or cache row) over the
 'model' shards of its group, each on its head, column, expert, SSM head
 and vocab blocks, in one pair of loops (``prefill_tp``, ``decode_row_tp``)
@@ -66,7 +66,11 @@ into the home's dense cache of the data shard, counted as moves, and
 scattered from there into the placed cache's blocks with the attention
 caches; at decode each shard reads and writes its own blocks of the
 states in the copy its own mesh position holds (``_tp_state_views``), so
-nothing of the state moves.
+nothing of the state moves. The audio encoder has no cache: its
+tensor-parallel forward (``forward_tp``) projects the frames by column
+blocks (``_tp_frontend``) and walks its non-causal "self" layers; the
+prefill takes its last frame's logits, and the train step runs it under
+autograd (``loss_tp``), each layer under ``_remat``.
 """
 from __future__ import annotations
 
@@ -77,6 +81,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch.analysis.hlo_cost import forward_ops
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.models import layers as L
@@ -104,6 +109,8 @@ __all__ = [
     "decode_placed_tp",
     "prefill_placed",
     "prefill_placed_tp",
+    "forward_tp",
+    "loss_tp",
     "init_cache",
     "cache_zeros",
     "model_param_specs",
@@ -342,14 +349,20 @@ def _remat(fn, cfg: ModelConfig):
     """``fn`` under ``cfg.remat``: ``"none"`` saves every activation,
     ``"full"`` only the layer's inputs (everything inside is recomputed in the
     backward), ``"dots"`` the inputs and the 2-D weight products. The layer
-    draws no random numbers, so no RNG state is stashed."""
+    draws no random numbers, so no RNG state is stashed. Its ops count as a
+    forward's where the backward recomputes them (``forward_ops``)."""
     if cfg.remat == "none":
         return fn
     kwargs = {}
     if cfg.remat != "full":
         kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_mm)
-    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
-                             **kwargs)
+    return functools.partial(checkpoint, functools.partial(_forward, fn), use_reentrant=False,
+                             preserve_rng_state=False, **kwargs)
+
+
+def _forward(fn, *args, **kwargs):
+    with forward_ops():
+        return fn(*args, **kwargs)
 
 
 def _mask_pad_logits(logits, cfg: ModelConfig):
@@ -430,6 +443,19 @@ def forward_train(params, batch: dict, cfg: ModelConfig):
     return _logits(params, x, cfg), aux
 
 
+def _cross_entropy(logits: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """``loss_fn``'s cross entropy of ``logits`` against ``batch["labels"]``
+    (the audio encoder's over ``batch["mask"]``'s frames)."""
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ce = logz - gold
+    if cfg.family == "audio":
+        mask = batch["mask"].float()
+        return (ce * mask).sum() / mask.sum().clamp_min(1.0)
+    return ce.mean()
+
+
 def loss_fn(params, batch: dict, cfg: ModelConfig):
     """Cross entropy (``logsumexp`` of the logits minus the gold logit) as a
     float32 0-d tensor, with its metrics: decoders average it over batch and
@@ -438,15 +464,7 @@ def loss_fn(params, batch: dict, cfg: ModelConfig):
     balance loss and 1e-4 times the z-loss. Returns ``(loss, {"ce_loss": ...,
     **aux})``."""
     logits, aux = forward_train(params, batch, cfg)
-    labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    ce = logz - gold
-    if cfg.family == "audio":
-        mask = batch["mask"].float()
-        loss = (ce * mask).sum() / mask.sum().clamp_min(1.0)
-    else:
-        loss = ce.mean()
+    loss = _cross_entropy(logits, batch, cfg)
     metrics = {"ce_loss": loss, **aux}
     if cfg.family == "moe":
         loss = loss + cfg.router_aux_coef * aux["moe_balance_loss"]
@@ -681,18 +699,26 @@ def prefill_placed(full: dict, shards: list, cache: dict, cfg: ModelConfig, home
     Each shard fills a cache of its own rows on its device, which is then
     written into every block of ``cache`` it overlaps (a shard's rows may
     span several of the cache's batch and sequence blocks). Returns (last
-    logits [B, vocab] f32 on ``home``, cache)."""
+    logits [B, vocab] f32 on ``home``, cache). The audio encoder has no
+    cache: each shard's ``forward_prefill`` runs with none."""
     if cfg.family == "audio":
-        raise ValueError("encoder-only arch has no decode cache")
+        return torch.cat([stage(forward_prefill(full[dev], part, {}, cfg)[0], home)
+                          for _, dev, part in shards]), cache
     seq = _cache_seq(cache)
     logits = []
     for lo, dev, part in shards:
-        own = cache_zeros(cfg, part["tokens"].shape[0], seq, dev)
+        own = cache_zeros(cfg, _first_leaf(part).shape[0], seq, dev)
         last, own = forward_prefill(full[dev], part, own, cfg)
         _scatter_rows(cache, own, lo)
         del own
         logits.append(stage(last, home))
     return torch.cat(logits), cache
+
+
+def _first_leaf(batch: dict):
+    """The leaf a batch's rows are read from: ``tokens``, or the audio's
+    ``frames``."""
+    return batch["tokens" if "tokens" in batch else "frames"]
 
 
 def _cache_seq(cache: dict) -> int:
@@ -894,6 +920,17 @@ def _tp_embed(group, tokens: torch.Tensor) -> torch.Tensor:
             parts.append(torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                                         device=rows.device)))
     return group.reduce(parts, group.blocks[0]["tok_embed"].dtype)
+
+
+def _tp_frontend(group, frames: torch.Tensor) -> torch.Tensor:
+    """The audio encoder's frame projection of the home's ``frames``: each
+    shard its columns of ``frames @ frontend``, joined on the home into the
+    residual stream (which lives there: nothing is sent back)."""
+    parts = []
+    for j, fj in enumerate(group.broadcast(frames.to(group.blocks[0]["frontend"].dtype))):
+        with group.on(j):
+            parts.append(fj @ group.blocks[j]["frontend"])
+    return group.join(parts)
 
 
 def _tp_logits(group, x: torch.Tensor, cfg: ModelConfig, out) -> torch.Tensor:
@@ -1200,11 +1237,51 @@ def _tp_cross(group, cps: list, x: torch.Tensor, positions: torch.Tensor, imgs: 
     return x + _tp_mlp(group, cps, L.rmsnorm(x, cps[0]["ln2"], cfg.norm_eps)), xkv
 
 
+def _tp_self_layer(group, lps: list, x: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    return _tp_layer(group, lps, x, positions, cfg)[0]
+
+
+def _tp_encode(group, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The audio encoder's residual stream after its layers, on the group's
+    home: the frame projection by column blocks, then ``_tp_walk``'s "self"
+    layers (non-causal attention, ``_tp_mlp``), nothing written to a cache.
+    Under autograd each layer runs under ``_remat``'s policy."""
+    x = _tp_frontend(group, batch["frames"])
+    positions = _positions(*x.shape[:2], group.home)
+    layer = _remat(_tp_self_layer, cfg) if torch.is_grad_enabled() else _tp_self_layer
+    for _, lps, _ in _tp_walk(group, cfg):
+        x = layer(group, lps, x, positions, cfg)
+    return x
+
+
+def forward_tp(group, batch: dict, cfg: ModelConfig, out) -> torch.Tensor:
+    """``forward_train``'s logits [B, S, vocab] f32 on ``out``, computed by
+    the model group (the module docstring): the audio encoder, whose
+    tensor-parallel forward is its prefill and, under autograd, its train
+    step's. The other families' tensor-parallel forwards fill a cache
+    (``prefill_tp``) and train on gathered parameters."""
+    if cfg.family != "audio":
+        raise ValueError(f"forward_tp runs the audio encoder, not the {cfg.family} family")
+    return _tp_logits(group, _tp_encode(group, batch, cfg), cfg, out)
+
+
+def loss_tp(group, batch: dict, cfg: ModelConfig):
+    """``loss_fn`` over a model group: ``forward_tp``'s logits on the
+    group's home and the masked cross entropy there. Returns ``(loss,
+    {"ce_loss": loss})``."""
+    loss = _cross_entropy(forward_tp(group, batch, cfg, group.home), batch, cfg)
+    return loss, {"ce_loss": loss}
+
+
 def prefill_tp(group, batch: dict, cache: dict, cfg: ModelConfig, out):
     """``forward_prefill`` of one data-parallel shard over its model group
     (the module docstring): ``cache`` is the shard's dense cache on the
-    group's home, filled in place. Returns the last logits [B, vocab] f32 on
-    ``out``."""
+    group's home, filled in place (the audio encoder has none: its layers
+    are ``forward_tp``'s, the logits taken at the last position alone).
+    Returns the last logits [B, vocab] f32 on ``out``."""
+    if cfg.family == "audio":
+        return _tp_logits(group, _tp_encode(group, batch, cfg)[:, -1:], cfg, out)[:, 0]
     x = _tp_embed(group, batch["tokens"])
     positions = _positions(*x.shape[:2], group.home)
     imgs = _tp_image_tokens(group, batch["image_embeds"], x.dtype) if cfg.family == "vlm" else None
@@ -1231,7 +1308,7 @@ def prefill_placed_tp(shards: list, cache: dict, cfg: ModelConfig, home):
     seq = _cache_seq(cache)
     logits = []
     for lo, group, part in shards:
-        own = cache_zeros(cfg, part["tokens"].shape[0], seq, group.home)
+        own = cache_zeros(cfg, _first_leaf(part).shape[0], seq, group.home)
         logits.append(prefill_tp(group, part, own, cfg, home))
         _scatter_rows(cache, own, lo)
         del own

@@ -28,7 +28,9 @@ def stage(x, device: str | torch.device, *, non_blocking: bool = True,
     waits for the stream. On the CPU a host value comes back as it lies (a
     NumPy array as a view), or as a private copy with ``copy=True``. A
     tensor on another device is copied there; read back to the CPU, that is
-    a host sync, and ``no_host_sync`` trips on it.
+    a host sync, and ``no_host_sync`` trips on it. A tensor that takes a
+    gradient is copied by ``Tensor.to`` alone, which keeps its graph (the
+    pinned copy does not).
     """
     note_transfer()
     device = torch.device(device)
@@ -38,6 +40,6 @@ def stage(x, device: str | torch.device, *, non_blocking: bool = True,
     on_host = t.device.type == "cpu"
     if device.type == "cpu" and on_host:
         return t.clone() if copy else t
-    if on_host and non_blocking:
+    if on_host and non_blocking and not (t.requires_grad and torch.is_grad_enabled()):
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)

@@ -1,4 +1,4 @@
-"""A rehearsal on the CPU of chip_smoke.py's phases 18c, 21b, 21d and 22.
+"""A rehearsal on the CPU of chip_smoke.py's phases 18c, 20 (hubert's runs), 21b, 21d and 22.
 
 ``chip_smoke.py`` drives the port on one card. Here a copy of it runs on the
 host (``"cuda"`` read as ``"cpu"``, ``.cuda()`` as ``.cpu()``, the
@@ -34,9 +34,13 @@ and check) runs before a card does:
     (the MoE at the production capacity factor, so that tokens are dropped;
     the VLM at its full config's group size, 4 self and 1 cross layer;
     zamba2 at its full config's, the shared block after every 6 mamba
-    layers) at the phase's depth cuts and shapes, on a 2 x 2 mesh of
+    layers) at the phase's depth cuts and shapes, and hubert-xlarge's
+    prefill step and full-frame logits (4 x 64 frames), on a 2 x 2 mesh of
     logical CPU shards, flash launches counted through a fake over its
-    plain version.
+    plain version;
+  * 20, hubert-xlarge's tensor-parallel train step: its smoke widths
+    pinned "tp", the float32 gradients beside smollm's and mamba2's and
+    the bf16 ``TrainLoop`` against its one-device loop.
 
 The shapes and step counts are cut (constants of the copy), and the loss's
 bar is what smoke widths reach in 12 steps. Nothing here compares with the
@@ -330,6 +334,7 @@ def test_tensor_parallel_serve_phase_runs_on_the_host(smoke, monkeypatch):
         return pt_flash.flash_attention_bshd_reference(q, k, v, qp, kp, causal=causal)
 
     monkeypatch.setattr(pt_flash, "flash_attention_bshd_cuda", kernel)
+    monkeypatch.setattr(smoke, "AUDIO_TP_SHAPE", (4, 64))
     logged = []
     monkeypatch.setattr(smoke, "log", logged.append)
     flash = smoke.phase_tensor_parallel_serve()
@@ -340,10 +345,24 @@ def test_tensor_parallel_serve_phase_runs_on_the_host(smoke, monkeypatch):
                      0 if narrow(a).attention == "mla"
                      else attention.get(narrow(a).family, lambda n: n)(n) * 4
                      for a, n, d in smoke.SERVE_TP_RUNS}
-    assert {a for a, _, _ in smoke.SERVE_TP_RUNS} >= {"minicpm3-4b"}
+    assert {a for a, _, _ in smoke.SERVE_TP_RUNS} >= {"minicpm3-4b", "hubert-xlarge"}
+    audio = [r for r in smoke.SERVE_TP_RUNS if narrow(r[0]).family == "audio"]
+    decoders = [r for r in smoke.SERVE_TP_RUNS if r not in audio]
+    # the audio encoder's runs: its prefill step and full-frame logits
+    heard = [m for m in logged if "the prefill step on 4 x 64 frames" in m]
+    assert len(heard) == len(audio) == 2
+    for (arch, depth, dtype), m in zip(audio, heard):
+        ratio = float(m.split(", ratio ")[1].split(";")[0])
+        assert ratio == pytest.approx(shares[arch, depth], abs=1e-4) and ratio < 0.55, m
+        assert f"flash launches prefill {depth * 4} ({depth} attention layers x 2 data shards " \
+               f"x 2 model shards, each on 2 query and 2 KV heads, Sk 64, not causal" in m
+        assert "self attention (B 2, Sq 64, Sk 64, not causal) max |err|" in m
+        assert ("against a float32 run of the same weights" in m) == (dtype == "bfloat16")
+        assert "refused by the same rule: a reduction dropping the last shard's partial" in m
+        assert "a shard attending to its neighbour's K/V heads" in m
     runs = [m for m in logged if "teacher-forced on the one-device session's tokens" in m]
-    assert len(runs) == len(smoke.SERVE_TP_RUNS)
-    for (arch, depth, dtype), m in zip(smoke.SERVE_TP_RUNS, runs):
+    assert len(runs) == len(decoders)
+    for (arch, depth, dtype), m in zip(decoders, runs):
         cfg = narrow(arch)
         ssm, mla = cfg.family in ("ssm", "hybrid"), cfg.attention == "mla"
         heads = (f"each on {cfg.n_heads // 2} query and {max(cfg.n_kv_heads // 2, 1)} KV heads"
@@ -380,6 +399,39 @@ def test_tensor_parallel_serve_phase_runs_on_the_host(smoke, monkeypatch):
             assert "layer 0's MoE on one" in m and "0 choices routed elsewhere" in m
             # moonshot's 8 smoke experts drop at 1.25 (dbrx's 4 need not)
             assert arch != "moonshot-v1-16b-a3b" or "dropped fraction 0.000000" not in m
+
+
+def test_sharded_train_audio_runs_on_the_host(smoke, monkeypatch):
+    """Phase 20's hubert runs at smoke widths pinned "tp" on a 2 x 2 mesh of
+    logical CPU shards: the float32 gradients of the three archs at 2
+    layers (hubert's on the tensor-parallel train step, held by 1e-5 and a
+    planted neighbour's gradient refused), and the bf16 ``TrainLoop`` at
+    12 layers against its one-device loop."""
+    real_config = pt_configs.get_config
+
+    def narrow(arch):
+        cfg = pt_configs.get_smoke_config(arch)
+        return cfg.scaled(parallelism="tp") if cfg.family == "audio" else cfg
+
+    monkeypatch.setattr(pt_configs, "get_config", narrow)
+    monkeypatch.setattr(pt_train, "get_config", narrow)
+    monkeypatch.setattr(smoke, "SHARD_DEVICE", "cpu")
+    monkeypatch.setattr(smoke, "SHARD_GRAD_SHAPE", (4, 32))
+    monkeypatch.setattr(smoke, "SHARD_AUDIO_SHAPE", (4, 64))
+    logged = []
+    monkeypatch.setattr(smoke, "log", logged.append)
+    smoke._sharded_audio("rehearsal")
+    out = smoke._sharded_grads_f32()
+    assert out["cfg"].name == "smollm-135m" and real_config("hubert-xlarge").n_heads == 16
+    grads = [m for m in logged if "float32 (TF32 off)" in m]
+    assert len(grads) == 3
+    assert all(("tensor-parallel: each position's 'model' blocks" in m)
+               == ("hubert-xlarge" in m) for m in grads)
+    assert sum("reduced into its neighbour's model block, refused" in m for m in grads) == 1
+    loops = [m for m in logged if "hubert-xlarge at full width (12 of 48 layers, bf16" in m]
+    assert len(loops) == 2 and "(tensor-parallel train step)" in loops[1]
+    assert "bytes of the 'model' blocks each position gathers and computes with" in loops[1]
+    assert any("2 x 2 tensor-parallel vs one device: |loss difference|" in m for m in logged)
 
 
 def test_sharded_families_serve_phase_runs_on_the_host(smoke, monkeypatch):

@@ -205,16 +205,18 @@ def test_dryrun_records_every_cell_on_meta(mesh):
     for r in runnable:
         name = (r["arch"], r["shape"])
         # The dense (MLA too), MoE, VLM, SSM and hybrid decoders' serving
-        # cells take the tensor-parallel step.
-        tp = r["arch"] in ("deepseek-67b", "qwen1.5-110b", "minicpm3-4b", "moonshot-v1-16b-a3b",
-                           "dbrx-132b", "llama-3.2-vision-90b", "mamba2-780m",
-                           "zamba2-7b") and r["kind"] != "train"
+        # cells take the tensor-parallel step; the audio encoder's prefill
+        # and train cells too.
+        tp = (r["arch"] in ("deepseek-67b", "qwen1.5-110b", "minicpm3-4b", "moonshot-v1-16b-a3b",
+                            "dbrx-132b", "llama-3.2-vision-90b", "mamba2-780m",
+                            "zamba2-7b") and r["kind"] != "train") or r["arch"] == "hubert-xlarge"
         assert r["n_chips"] == n_chips and r["n_layers"] == 2, name
         assert r["flops_per_device"] > 0 and r["bytes_per_device"] > 0, name
         assert 0 < r["matmul_flops_per_device"] <= r["flops_per_device"], name
         assert r["memory"]["placed_bytes"] > 0 and isinstance(r["fits_80GB"], bool), name
         ops = set(r["collectives"]["by_op"])
-        assert ops == ({"all-gather", "reduce-scatter"} if r["kind"] == "train"
+        assert ops == ({"all-gather", "reduce-scatter"} if r["kind"] == "train" and not tp
+                       else {"all-gather", "reduce-scatter", "activations"} if r["kind"] == "train"
                        else {"all-gather", "activations"} if tp else {"all-gather"}), name
         assert r["collectives"]["unknown_trip_whiles"] == 0, name
         assert r["roofline"]["dominant"] in ("compute", "memory", "collective"), name
@@ -242,6 +244,63 @@ def test_dryrun_full_depth_smollm_train():
     assert r["matmul_flops_per_device"] == pytest.approx(products, rel=1e-9)
     assert r["roofline"]["dominant"] == "memory"
     assert 0.3 < r["useful_flops_ratio"] < 1.0
+
+
+def test_dryrun_audio_cells_take_the_tensor_parallel_steps(monkeypatch):
+    """hubert-xlarge at 2 layers on the production mesh: prefill_32k and
+    train_4k count the home shard's part of the tensor-parallel step. Its
+    model blocks are 1/16 of the frame projection's, wq/wk/wv's, wo's, the
+    MLP's and lm_head's leaves, the norms whole; its products are the
+    gathered path's over 16, but the prefill's logits (the last frame's
+    alone, where the gathered prefill takes every frame's and keeps the
+    last) and, in training, remat's recomputation of the home's MLP output
+    partial a layer (a row-parallel product's derivative is a custom
+    Function, whose saved inputs are packed after its forward: the
+    one-device recomputation stops before its MLP output product). Backward
+    ops are charged to their shard's scope: the home's products add up to
+    1/16 of the whole group's."""
+    from repro_torch.distributed.tensor_parallel import model_dim
+
+    model = {"frontend", "lm_head", "layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
+             "layers/attn/wo", "layers/mlp/wi_gate", "layers/mlp/wi_up", "layers/mlp/wo"}
+    for shape in ("prefill_32k", "train_4k"):
+        r = dryrun.run_cell("hubert-xlarge", shape, "single", n_layers=2)
+        spec = CellSpec("hubert-xlarge", shape)
+        spec.cfg = cfg = dryrun.cut_depth(spec.cfg, 2)
+        params = spec.params_struct()
+        psh = dryrun.named_tree(dryrun.production_mesh("single"),
+                                dryrun.train_state_specs(cfg)[0])
+        names = []
+        dryrun.map_named(lambda n, t: names.append(n), params)
+        leaves = [t for t in dryrun.tree_leaves(params)]
+        assert {n for n, t, sh in zip(names, leaves, dryrun.tree_leaves(psh))
+                if model_dim(sh.spec, t.ndim) is not None} == model
+        whole = sum(t.numel() * t.element_size() for t in leaves)
+        split = sum(t.numel() * t.element_size() for n, t in zip(names, leaves) if n in model)
+        assert r["memory"]["gathered_params_bytes"] == whole - split + split // 16
+        assert r["model_shards"] == 16 and r["collectives"]["by_op"]["activations"] > 0
+        assert "divided by the model axis" in r["per_device"]
+        monkeypatch.setattr(dryrun, "serves_tensor_parallel", lambda cfg, mesh: False)
+        monkeypatch.setattr(dryrun, "trains_tensor_parallel", lambda cfg, mesh: False)
+        g = dryrun.run_cell("hubert-xlarge", shape, "single", n_layers=2)
+        monkeypatch.undo()
+        assert g["memory"]["gathered_params_bytes"] == whole
+        d, v, seq = cfg.d_model, cfg.padded_vocab, spec.shape.seq
+        if shape == "prefill_32k":
+            rows = r["rows"]
+            assert rows == g["rows"] == 2
+            extra = (2 * rows * d * v - 2 * rows * seq * d * v) / 16
+        else:
+            rows, mb = r["rows_per_microbatch"], r["microbatches"]
+            assert (rows, mb) == (g["rows_per_microbatch"], g["microbatches"]) == (1, 16)
+            extra = mb * cfg.n_layers * 2 * rows * seq * cfg.d_ff // 16 * d
+            assert set(r["collectives"]["by_op"]) == {"all-gather", "reduce-scatter",
+                                                      "activations"}
+            assert r["collectives"]["by_op"]["reduce-scatter"] == pytest.approx(
+                2 * mb * r["collectives"]["by_op"]["all-gather"])  # float32, each microbatch
+        assert r["matmul_flops_per_device"] == pytest.approx(
+            g["matmul_flops_per_device"] / 16 + extra, rel=1e-9)
+        assert r["group_step_lower_bound_s"] == r["roofline"]["step_lower_bound_s"]
 
 
 def test_run_tcim_matches_the_sharded_plan():

@@ -441,9 +441,10 @@ def test_which_configs_serve_tensor_parallel():
     the columns of wuq/wuk/wuv, the rows of wo and ``d_ff``. The production
     meshes give moonshot 4 experts a shard and dbrx 1; 2 x 2, 32 and 8. The
     VLM, mamba2-780m (48 SSM heads: 3 a shard on 16), zamba2-7b (112 SSM
-    heads and 32 query heads: 7 and 2) and minicpm3-4b (40 heads: 2 or 3 a
-    shard on 16, 20 on 2) take it on the production meshes and on 2 x 2;
-    the audio and "dp" configs do not."""
+    heads and 32 query heads: 7 and 2), minicpm3-4b (40 heads: 2 or 3 a
+    shard on 16, 20 on 2) and the audio encoder hubert-xlarge (16 heads: 1
+    a shard on 16, 8 on 2) take it on the production meshes and on 2 x 2;
+    the "dp" configs do not."""
     from repro_torch.configs import get_config
 
     prod = DuckMesh((16, 16), ("data", "model"))
@@ -453,11 +454,12 @@ def test_which_configs_serve_tensor_parallel():
                         "llama-3.2-vision-90b", "hubert-xlarge")
             if tp.serves_tensor_parallel(get_config(a), prod)
             and tp.serves_tensor_parallel(get_config(a), multi)} == (set(ARCHS) | {VLM, MLA}
-                                                                      | set(SSM))
+                                                                      | set(SSM)
+                                                                      | {"hubert-xlarge"})
     two = DuckMesh((2, 2), ("data", "model"))
     assert all(tp.serves_tensor_parallel(get_config(a), two) for a in (VLM, MLA, *SSM))
-    assert not any(tp.serves_tensor_parallel(get_config("hubert-xlarge"), m)
-                   for m in (prod, multi, two))
+    assert all(tp.serves_tensor_parallel(get_config("hubert-xlarge"), m)
+               for m in (prod, multi, two))
     mla = get_config(MLA)
     heads = [tp.mla_head_range(mla, j, 16) for j in range(16)]
     assert heads[0] == (0, 2) and heads[-1] == (37, 40)

@@ -25,6 +25,15 @@ MLA values the flash kernel refuses; "flash" for a config not there), for
     gathered path on that profile on 2 x 2;
   * any other config: the gathered path on 2 x 2, 2 x 1 and 1 x 2.
 
+The audio encoder (``--arch hubert-xlarge:48``) has no decode step: on 4 x
+512 frames (``chip_smoke._audio_frames``, 21d's shape) under "flash" it
+reads the prefill step's last logits and the full-frame logits
+(``launch/steps.py::make_forward_step``: ``forward_tp`` on the tensor-parallel path,
+``forward_train`` on the gathered one) on the tensor-parallel path on 2 x
+2, 1 x 2 and 2 x 1 and on the gathered path pinned "dp" on 2 x 2, each
+against one device's (``make_prefill_step(cfg)``, ``forward_train``) and a
+float32 run's of the same weights.
+
 Each prints the logits' relative norm against the one-device session and
 against a float32 run of the same weights (the max over the steps), the
 prefill's and the largest decode step's. The bf16 runs' distance from
@@ -111,6 +120,55 @@ def drift(smoke, arch: str, layers: int | None) -> None:
     del params
 
 
+def drift_audio(smoke, arch: str, layers: int | None) -> None:
+    """Print the audio encoder's readings (module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (
+        gather_params,
+        make_forward_step,
+        make_prefill_step,
+        place_params,
+    )
+    from repro_torch.models.model import init_model
+    from repro_torch.models.params import tree_map
+
+    full = get_config(arch)
+    cfg = (full.scaled(n_layers=layers) if layers else full).scaled(
+        attention_impl=smoke.SERVE_SHARD_IMPL.get(arch, "flash"))
+    torch.cuda.empty_cache()
+    params = init_model(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    frames = torch.from_numpy(smoke._audio_frames(np.random.default_rng(23), cfg)).cuda()
+    vocab = cfg.vocab
+    one = smoke._audio_one_device(cfg, params, frames)[:2]
+    exact = smoke._audio_one_device(cfg.scaled(dtype="float32"),
+                                    tree_map(lambda t: t.float(), params), frames)[:2]
+    torch.cuda.empty_cache()
+
+    def rels(got, want):
+        return [smoke._rel(g[..., :vocab], w[..., :vocab]) for g, w in zip(got, want)]
+
+    one_f32 = rels(one, exact)
+    cut = f"{layers} layers" if layers else f"all {full.n_layers} layers"
+    b, s = smoke.AUDIO_TP_SHAPE
+    print(f"[tp drift] {arch}, {cut}, bf16, attention {cfg.attention_impl!r}, {b} x {s} frames; "
+          f"one device against float32: last {one_f32[0]:.6f}, full-frame {one_f32[1]:.6f}; "
+          f"{smoke.nvidia_smi_line()}", flush=True)
+    paths = [(p, s, None) for p, s in TP_PATHS if p == "tensor-parallel"]
+    for path, shape, profile in paths + [("gathered (profile 'dp')", (2, 2), "dp")]:
+        c = cfg.scaled(parallelism=profile) if profile else cfg
+        mesh = smoke._logical_mesh(shape)
+        blocks = gather_params(place_params(c, mesh, params), mesh, c)
+        got = (make_prefill_step(c, mesh)(blocks, {}, {"frames": frames})[0],
+               make_forward_step(c, mesh)(blocks, {"frames": frames}))
+        del blocks
+        torch.cuda.empty_cache()
+        near, to_f32 = rels(got, one), rels(got, exact)
+        print(f"[tp drift] {arch} {path} on {shape}: against one device last {near[0]:.6f}, "
+              f"full-frame {near[1]:.6f}; against float32 last {to_f32[0]:.6f}, full-frame "
+              f"{to_f32[1]:.6f}", flush=True)
+    del params
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", type=_spec, action="append",
@@ -125,8 +183,10 @@ def main(argv=None) -> int:
     smoke.phase_device()
     smoke.phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+
     for arch, layers in args.arch or [("deepseek-67b", 8)]:
-        drift(smoke, arch, layers)
+        (drift_audio if get_config(arch).family == "audio" else drift)(smoke, arch, layers)
     return 0
 
 
